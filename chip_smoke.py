@@ -7,29 +7,43 @@ Phases, each printing its own lines (any failure exits non-zero):
 
 1. card: name and power limit (``nvidia-smi``), torch device name/count;
    no CUDA device is a failure, never a fallback;
-2. build: ``nvcc`` builds ``ocrd_keraslm_torch/csrc/decode_lattice.cu``
-   for sm_90a; prints seconds, ``-Xptxas -v`` registers and spills, and
-   the block's dynamic shared memory;
-3. parity: the decode kernel against its plain PyTorch version at full
-   width (``pretrained/model_german.h5``, K=16, A=4, L in {1, 8}), a
-   seeded lattice of E=1024 edges and a chained tail block with
-   n_real < E; beside it, both versions' state error against the plain
-   version run in float64;
-4. main path: a seeded synthetic METS/PAGE workspace (4 pages of ~1800
+2. build: ``nvcc`` builds the three kernels of ``ocrd_keraslm_torch/csrc/``
+   (``decode_lattice.cu``, ``score_scan.cu``, ``lstm_scan.cu``) for
+   sm_90a, all at once; prints seconds, ``-Xptxas -v`` registers and
+   spills, and each block's dynamic shared memory;
+3. parity at full width (``pretrained/model_german.h5``), each kernel
+   against its plain PyTorch version, and both versions' error against
+   the plain version run in float64:
+   the decode kernel (K=16, A=4, L in {1, 8}) over a seeded lattice of
+   E=1024 edges and a chained tail block with n_real < E; the scoring
+   kernel over 4096-step chunks at B in {1, 4} and at D=1, from a seeded
+   nonzero carry with a partial mask; the LSTM-scan kernel at B=4,
+   T=4096, with and without ``c_all``;
+4. decode path: a seeded synthetic METS/PAGE workspace (4 pages of ~1800
    glyphs, 2-4 alternatives on ~15% of them) through
    ``ocrd_keraslm_torch.wrapper.cli`` at glyph level, beam_width 10;
    every glyph must end with one TextEquiv, every page must be written,
    the kernel must have launched once per page block, and a small
    workspace must decode the same on the card and on the CPU;
-5. numbers: wall per page, edges/s, the device's busy and idle share of
-   the main path (``torch.profiler``), kernel and plain-version times at
-   the main path's shapes (CUDA events), and the kernel's bound.
+5. scoring path: the same 4 pages with ``-P alternative_decoding
+   false`` (one ``score_scan`` launch per 4096-char chunk of the one
+   ``rate_batch``), a small workspace scored on the card and on the
+   CPU; the same pages once more with ``fused_score`` off through the
+   ``Rater`` API (``lstm_scan`` once per layer and chunk); then
+   ``keraslm-rate test`` and ``apply``
+   (``python -m ocrd_keraslm_torch.scripts.run``), card against CPU;
+6. numbers: wall per page, edges/s and scored chars/s, the device's busy
+   and idle share of both paths (``torch.profiler``), and per kernel at
+   the main path's shapes: its time and the plain version's (CUDA
+   events), its bound, and a library yardstick where there is one.
 
-The last two lines are the kernel table and
+Every kernel count is set to 0 just before a path runs and read just
+after.  The last two lines are the kernel table and
 ``{"ok": true, "device": {...}}`` as JSON.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -375,19 +389,27 @@ def output_glyphs(directory, grp='OCR-D-LM'):
     return out, files
 
 
-def run_cli(directory, platform, beam_width=10):
-    """The processor through its CLI entry point, in this process."""
+def run_cli(directory, platform, beam_width=10, scoring=False):
+    """The processor through its CLI entry point, in this process: beam
+    decoding, or with ``scoring`` ``-P alternative_decoding false``."""
     from ocrd_keraslm_torch.wrapper.cli import ocrd_keraslm_rate
+    args = ['-m', os.path.join(directory, 'mets.xml'),
+            '-I', 'OCR-D-OCR', '-O', 'OCR-D-LM', '-l', 'WARNING',
+            '-P', 'model_file', MODEL, '-P', 'textequiv_level', 'glyph',
+            '-P', 'beam_width', str(beam_width)]
+    if scoring:
+        args += ['-P', 'alternative_decoding', 'false']
+    with platform_env(platform):
+        ocrd_keraslm_rate.main(args=args, standalone_mode=False)
+
+
+@contextlib.contextmanager
+def platform_env(platform):
+    """``KERASLM_PLATFORM`` set to ``platform`` inside the block."""
     old = os.environ.get('KERASLM_PLATFORM')
     os.environ['KERASLM_PLATFORM'] = platform
     try:
-        ocrd_keraslm_rate.main(
-            args=['-m', os.path.join(directory, 'mets.xml'),
-                  '-I', 'OCR-D-OCR', '-O', 'OCR-D-LM', '-l', 'WARNING',
-                  '-P', 'model_file', MODEL,
-                  '-P', 'textequiv_level', 'glyph',
-                  '-P', 'beam_width', str(beam_width)],
-            standalone_mode=False)
+        yield
     finally:
         if old is None:
             del os.environ['KERASLM_PLATFORM']
@@ -395,29 +417,43 @@ def run_cli(directory, platform, beam_width=10):
             os.environ['KERASLM_PLATFORM'] = old
 
 
-def profile_main_path(directory, platform='cuda'):
-    """The processor over ``directory`` under ``torch.profiler``;
-    returns ``(host wall s, {'decode_lattice': device ms, 'other':
-    device ms})`` from the device activities the profiler saw (an
-    empty dict where it saw none)."""
+KERNELS = ('decode_lattice', 'score_scan', 'lstm_scan')
+
+
+def profile_main_path(directory, scoring=False):
+    """The processor over ``directory`` on the card under
+    ``torch.profiler``; returns ``(host wall s, {kernel name: device
+    ms, 'other': device ms})`` from the device activities the profiler
+    saw (an empty dict where it saw none)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        run_cli(directory, platform)
-        if platform == 'cuda':
-            torch.cuda.synchronize()
+        run_cli(directory, 'cuda', scoring=scoring)
+        torch.cuda.synchronize()
         wall = time.time() - t0
     busy = {}
     for evt in prof.events():
         if evt.device_type == DeviceType.CUDA:
-            key = 'decode_lattice' if 'decode_lattice' in evt.name \
-                else 'other'
+            key = next((k for k in KERNELS if k in evt.name), 'other')
             busy[key] = busy.get(key, 0.0) + \
                 evt.time_range.elapsed_us() / 1e3
     return wall, busy
+
+
+def print_profile(what, wall, busy, card):
+    if busy:
+        device_ms = sum(busy.values())
+        print('%s traced (torch.profiler, same 4 pages): wall %.3f s; '
+              'device busy %s; device idle %.1f%% of the wall [%s]'
+              % (what, wall, ', '.join('%.1f ms in %s' % (ms, k) for k, ms
+                                       in sorted(busy.items())),
+                 100 * (1 - device_ms / 1e3 / wall), card))
+    else:
+        print('%s traced: device time not measured (the profiler saw no '
+              'device activity); wall %.3f s [%s]' % (what, wall, card))
 
 
 def page_blocks(directory, rater):
@@ -438,100 +474,327 @@ def page_blocks(directory, rater):
     return launches, edges
 
 
-def decode_bound(mask, steps, n_real, K, D, W, Vp, nbytes):
+def decode_bound(mask, steps, n_real, K, D, W, v_real, nbytes):
     """Least time the card needs for one launch: the larger of its f32
     FLOPs over the f32 peak and its bytes over the memory rate.  FLOPs
-    per char step are 2*rows*(D*2W*4W + W*Vp) with rows = K at step 0
-    (the parents) and, at later steps, the candidates whose alternative
-    still has a char there — the work these inputs need."""
-    A = mask.shape[1]
-    per_row = 2 * (D * 2 * W * 4 * W + W * Vp)
+    per char step are 2*rows*(D*2W*4W + W*v_real) with rows = K at step
+    0 (the parents) and, at later steps, the candidates whose
+    alternative still has a char there — the work these inputs need
+    (the logits of the vocabulary's padding are masked, not needed)."""
+    per_row = 2 * (D * 2 * W * 4 * W + W * v_real)
     flops = 0
     for t in range(n_real):
         if steps[t] >= 1:
             flops += K * per_row
         for s in range(1, int(steps[t])):
             flops += K * int((mask[t, :, s] > 0).sum()) * per_row
+    return bound(flops, nbytes)
+
+
+def bound(flops, nbytes):
+    """(least ms, 'operations' or 'bytes', flops): the larger of the
+    f32 FLOPs over the f32 peak and the bytes over the memory rate."""
     t_ops = flops / PEAK_F32_FLOPS
     t_bytes = nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             'operations' if t_ops >= t_bytes else 'bytes', flops)
 
 
+def tensor_bytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+# ---------------------------------------------------------------------
+# scoring and LSTM-scan kernels
+# ---------------------------------------------------------------------
+
+def german_rater(device):
+    from ocrd_keraslm_torch.rater import Rater
+    rater = Rater(device=device)
+    rater.load_config(MODEL)
+    rater.configure()
+    rater.load_weights(MODEL)
+    return rater
+
+
+def score_inputs(rng, case, device, rater=None):
+    """``score_scan``'s arguments for a named case: ``d1w32``,
+    ``d2w32b9``, ``d3w32`` (seeded weights of depth 1-3, W=32, V=40
+    padded to 128, B=5 or 9, T=100) or ``german_b1``, ``german_b4``,
+    ``german_d1`` (``model_german.h5``'s weights, its layer 0 alone for
+    ``d1``, B=1 or 4, one 4096-step chunk, the layer-0 projection of
+    seeded chars under context 179); a seeded nonzero carry, targets
+    below ``v_real`` and a mask that ends stream 0 at 2/3 of the chunk."""
+    import torch
+    from ocrd_keraslm_torch.models.lstm_lm import embed_inputs
+    from ocrd_keraslm_torch.ops.score_kernel import pack_score_weights
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    if case.startswith('german'):
+        rater = rater or german_rater(device)
+        D = 1 if case == 'german_d1' else rater.depth
+        B, T, W = (1 if case == 'german_b1' else 4), 4096, rater.width
+        params = dict(rater.params, lstm=rater.params['lstm'][:D])
+        packed = pack_score_weights(params, rater.cfg.replace(depth=D))
+        v_real = packed[-1]
+        x = t(rng.integers(1, v_real, (B, T)))
+        lp0 = params['lstm'][0]
+        xp1 = (embed_inputs(params, x, [t(np.full((B,), 179))])
+               @ lp0['kernel'] + lp0['bias']).contiguous()
+    else:
+        D, W, v_real = int(case[1]), 32, 40
+        B, T = (9 if case.endswith('b9') else 5), 100
+        Dw = max(D - 1, 1)
+        embT = np.zeros((W, 128), np.float32)
+        embT[:, :v_real] = rng.normal(0, 1, (W, v_real))
+        packed = [t(rng.normal(0, 1 / np.sqrt(W), (W, 4 * W))),
+                  t(rng.normal(0, 1 / np.sqrt(W), (Dw, W, 4 * W))),
+                  t(rng.normal(0, 1 / np.sqrt(W), (Dw, W, 4 * W))),
+                  t(rng.normal(0, 0.1, (Dw, 1, 4 * W))), t(embT), v_real]
+        packed[:4] = [a.float() for a in packed[:4]]
+        xp1 = t(rng.normal(0, 1, (B, T, 4 * W)).astype(np.float32))
+    mask = np.ones((B, T), np.float32)
+    mask[0, 2 * T // 3:] = 0.0
+    return (xp1, t(rng.integers(0, v_real, (B, T)).astype(np.int32)),
+            t(mask), t(rng.normal(0, 0.5, (D, B, W)).astype(np.float32)),
+            t(rng.normal(0, 0.5, (D, B, W)).astype(np.float32))) \
+        + tuple(packed)
+
+
+# the cell state c of model_german.h5 grows to ~3.6e3 over a 4096-step
+# chunk, where one f32 ulp is 2.4e-4: both f32 runs drift from a float64
+# run by ~1.3e-5*|c| (the plain version, measured on the CPU), so c is
+# held relative to its size, the bounded outputs (probs, h) absolutely
+C_RTOL = 5e-5
+
+
+def compare_score(got, want, atol=1e-5, nll_rtol=1e-5):
+    """Hold one ``score_scan`` output ``(probs, nll, (h, c))`` against
+    another: probs and h within ``atol``, c within ``atol + C_RTOL*|c|``,
+    NLL sums within ``nll_rtol`` (the kernel sums in double, the plain
+    version in f32).  Returns ``(max abs error of probs and h, max
+    relative error of c, probs whose float16 rounding differs)``."""
+    import torch
+    (p, n, (h, c)), (wp, wn, (wh, wc)) = got, want
+    torch.testing.assert_close(p, wp, rtol=0, atol=atol)
+    torch.testing.assert_close(n, wn, rtol=nll_rtol, atol=atol)
+    torch.testing.assert_close(h, wh, rtol=0, atol=atol)
+    torch.testing.assert_close(c, wc, rtol=C_RTOL, atol=atol)
+    return (max(float((p - wp).abs().max()), float((h - wh).abs().max())),
+            rel_error(c, wc), int((p.half() != wp.half()).sum()))
+
+
+def compare_lstm(got, want, atol=1e-5):
+    """Hold one ``lstm_scan`` output ``(h_all, c_all or None, hT, cT)``
+    against another: h within ``atol``, c within ``atol + C_RTOL*|c|``.
+    Returns ``(max abs error of h, max relative error of c)``."""
+    import torch
+    h_err = c_err = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert (g is None) == (w is None)
+        if w is None:
+            continue
+        if i % 2:   # c_all, cT
+            torch.testing.assert_close(g, w, rtol=C_RTOL, atol=atol)
+            c_err = max(c_err, rel_error(g, w))
+        else:
+            torch.testing.assert_close(g, w, rtol=0, atol=atol)
+            h_err = max(h_err, float((g - w).abs().max()))
+    return h_err, c_err
+
+
+def rel_error(got, want):
+    """max |got - want| / max(1, |want|): the absolute error for values
+    of size <= 1, the relative one above."""
+    return float(((got.double() - want.double()).abs()
+                  / want.double().abs().clamp(min=1.0)).max())
+
+
+def f64_errors(kernel, plain, args, outputs):
+    """:func:`rel_error` of the kernel's and the plain version's outputs
+    (``outputs`` picks the float tensors to compare) against the plain
+    version run in float64 on the same inputs."""
+    import torch
+    args64 = [a.double() if torch.is_tensor(a) and a.is_floating_point()
+              else a for a in args]
+    want = outputs(plain(*args64))
+    return tuple(max(rel_error(g, w) for g, w in zip(outputs(fn(*args)),
+                                                      want))
+                 for fn in (kernel, plain))
+
+
+def page_texts(directory):
+    """The text each input page is scored as in scoring mode: the first
+    alternative of every glyph, with the space and newline edges."""
+    from ocrd_keraslm_torch.wrapper.mets import Workspace
+    from ocrd_keraslm_torch.wrapper.page_fast import parse_page_fast
+    from ocrd_keraslm_torch.wrapper.rate import page_get_linear_lattice_at
+    ws = Workspace(directory)
+    return [''.join(e['alternatives'][0].Unicode for e in
+                    page_get_linear_lattice_at('glyph', parse_page_fast(
+                        os.path.join(directory, f.local_filename))))
+            for f in ws.mets.find_files(fileGrp='OCR-D-OCR')]
+
+
+def score_chunks(texts):
+    """Chunks of the one ``rate_batch`` of ``texts``: launches of
+    ``score_scan`` (and, per layer, of ``lstm_scan``)."""
+    from ocrd_keraslm_torch.rater import (CHUNK_COUNT_BUCKETS,
+                                          SCORE_CHUNK)
+    from ocrd_keraslm_torch.utils.buckets import bucket
+    n_max = max(max(len(t) - 1 for t in texts), 1)
+    return bucket(-(-n_max // SCORE_CHUNK), CHUNK_COUNT_BUCKETS)
+
+
+def score_main_inputs(rater, texts, context):
+    """The main path's first chunk of ``texts`` as ``Rater._score_batch``
+    lays it out (streams padded to the batch bucket, T = SCORE_CHUNK,
+    zero carry): ``(score_scan's arguments, the embedded input
+    (B, T, W + context dims))``."""
+    import torch
+    from ocrd_keraslm_torch.models.lstm_lm import embed_inputs, zero_carry
+    from ocrd_keraslm_torch.ops.score_kernel import pack_score_weights
+    from ocrd_keraslm_torch.rater import SCORE_CHUNK, STEP_BUCKETS
+    from ocrd_keraslm_torch.utils.buckets import bucket_unbounded
+    T = SCORE_CHUNK
+    B = bucket_unbounded(len(texts), STEP_BUCKETS)
+    x = np.zeros((B, T), np.int64)
+    y = np.zeros((B, T), np.int32)
+    mask = np.zeros((B, T), np.float32)
+    for i, text in enumerate(texts):
+        ids = rater.vocab.encode(text)[:T + 1]
+        n = len(ids) - 1
+        x[i, :n], y[i, :n], mask[i, :n] = ids[:-1], ids[1:], 1.0
+    dev = rater.device
+    params = rater.params
+    inp = embed_inputs(params, torch.from_numpy(x).to(dev),
+                       [torch.full((B,), context[0], device=dev)])
+    lp0 = params['lstm'][0]
+    xp1 = (inp @ lp0['kernel'] + lp0['bias']).contiguous()
+    h0, c0 = zero_carry(rater.cfg, B, dev)
+    return ((xp1, torch.from_numpy(y).to(dev),
+             torch.from_numpy(mask).to(dev), h0, c0)
+            + tuple(pack_score_weights(params, rater.cfg)), inp)
+
+
+def cudnn_lstm(rater, depth, inp):
+    """A ``torch.nn.LSTM`` (cuDNN) of the model's first ``depth``
+    layers, weights mapped (transposed, ``bias_hh`` zero), as a
+    function of nothing over the embedded input ``inp``: the library
+    yardstick, never called by the port."""
+    import torch
+    lstm = torch.nn.LSTM(inp.shape[-1], rater.width, num_layers=depth,
+                         batch_first=True).to(rater.device)
+    state = {}
+    for d in range(depth):
+        lp = rater.params['lstm'][d]
+        state['weight_ih_l%d' % d] = lp['kernel'].T
+        state['weight_hh_l%d' % d] = lp['recurrent'].T
+        state['bias_ih_l%d' % d] = lp['bias']
+        state['bias_hh_l%d' % d] = torch.zeros_like(lp['bias'])
+    lstm.load_state_dict(state)
+
+    def run():
+        with torch.no_grad():
+            return lstm(inp)
+    return run
+
+
+def cuda_ms(fn, reps):
+    """Mean ms of ``reps`` launches of ``fn()`` after one warm-up (CUDA
+    events)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def score_bound(args):
+    """Bound of one ``score_scan`` launch: FLOPs 2*B*T*(W*4W
+    + (D-1)*2W*4W + W*v_real) (every step of the chunk runs, as the carry
+    runs on through the padding steps; only the v_real real logits enter
+    the logsumexp); bytes of the inputs the function needs read once
+    (embT's v_real real columns, no layer->=1 weights at D=1) and every
+    output (probs, NLL sums, carry) written once."""
+    xp1, y, mask, h0, c0, rec1, kcat, ucat, bias, embT, v_real = args
+    B, T, G = xp1.shape
+    D, _, W = h0.shape
+    flops = 2 * B * T * (W * G + (D - 1) * 2 * W * G + W * v_real)
+    ins = tensor_bytes(xp1, y, mask, h0, c0, rec1) + W * v_real * 4
+    if D > 1:
+        ins += tensor_bytes(kcat, ucat, bias)
+    out = (B * T + B + 2 * D * B * W) * 4
+    return bound(flops, ins + out)
+
+
+def lstm_bound(args, want_c_all):
+    """Bound of one ``lstm_scan`` launch: FLOPs 2*B*T*W*4W; bytes of
+    x_proj, the carry and U read once, h_all (and c_all) and the final
+    carry written once."""
+    x_proj = args[0]
+    B, T, G = x_proj.shape
+    W = G // 4
+    out = (B * T * W * (2 if want_c_all else 1) + 2 * B * W) * 4
+    return bound(2 * B * T * W * G, tensor_bytes(*args) + out)
+
+
 # ---------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------
 
-def main() -> int:
-    sys.path.insert(0, HERE)
-    import torch
-    if not torch.cuda.is_available():
-        print('chip_smoke: no CUDA device; this script runs only on a '
-              'GPU', file=sys.stderr)
-        return 1
-    from ocrd_keraslm_torch.ops import decode_kernel as dk
-    from ocrd_keraslm_torch.rater import (E_BUCKETS, L_BUCKETS, Rater,
-                                          _alt_steps)
-    from ocrd_keraslm_torch.utils.buckets import bucket
-    from ocrd_keraslm_torch.wrapper.page_fast import parse_page_fast
-    from ocrd_keraslm_torch.wrapper.rate import page_get_linear_lattice_at
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device('cuda')
+def build_kernels():
+    """Build the three kernels at once (one ``nvcc`` each, in threads);
+    print seconds and ``ptxas`` lines."""
+    from concurrent.futures import ThreadPoolExecutor
+    from ocrd_keraslm_torch.ops import _build
+    from ocrd_keraslm_torch.ops import decode_kernel, lstm_cell, score_kernel
+    sources = [m.SOURCE for m in (decode_kernel, score_kernel, lstm_cell)]
 
-    # ---- 1. card ----
-    smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
-                          '--format=csv,noheader'], capture_output=True,
-                         text=True, check=True).stdout.strip()
-    card = smi.splitlines()[0]
-    kind = torch.cuda.get_device_name(0)
-    count = torch.cuda.device_count()
-    print(smi)
-    print('card: %s | torch %s, CUDA %s, %d device(s): %s'
-          % (card, torch.__version__, torch.version.cuda, count, kind))
-    print('tf32: matmul %s, cudnn %s (both off: f32 reference)'
-          % (torch.backends.cuda.matmul.allow_tf32,
-             torch.backends.cudnn.allow_tf32))
-
-    # ---- 2. build ----
+    def one(src):
+        t0 = time.time()
+        path, log = _build.build(src)
+        return path, log, time.time() - t0
     t0 = time.time()
-    path, log = dk.build()
-    print('build: nvcc %s -> %s in %.2f s'
-          % (' '.join(dk.NVCC_FLAGS), os.path.relpath(path, HERE),
-             time.time() - t0))
-    for line in log.splitlines():
-        if any(w in line for w in ('registers', 'spill', 'smem',
-                                   'Compiling entry')):
-            print('ptxas:', line.strip())
+    with ThreadPoolExecutor(len(sources)) as pool:
+        built = list(pool.map(one, sources))
+    for name, (path, log, secs) in zip(KERNELS, built):
+        print('build %s: nvcc %s -> %s in %.2f s'
+              % (name, ' '.join(_build.NVCC_FLAGS),
+                 os.path.relpath(path, HERE), secs))
+        for line in log.splitlines():
+            if any(w in line for w in ('registers', 'spill', 'smem',
+                                       'Compiling entry')):
+                print('ptxas:', line.strip())
+    print('build: %d kernels in %.2f s (parallel nvcc)'
+          % (len(sources), time.time() - t0))
 
-    rater = Rater(device=dev)
-    rater.load_config(MODEL)
-    rater.configure()
-    rater.load_weights(MODEL)
+
+def decode_parity(rater, dev):
+    """Phase 3, decode kernel; returns its max abs error."""
+    from ocrd_keraslm_torch.ops import decode_kernel as dk
     wts = rater._decode_weights(None)
-    D, W, K, A = rater.depth, rater.width, 16, 4
-    Vp, v_real = wts['v_pad'], wts['v_real']
-    S = (2 * D + 1) * W
+    W, K, A = rater.width, 16, 4
     weights = (wts['emb'], wts['embT'], wts['wcat'], wts['bias'])
-    print('model: %s  D=%d W=%d V=%d (padded %d) S=%d, wcat %s'
-          % (os.path.relpath(MODEL, HERE), D, W, v_real, Vp, S,
-             tuple(wts['wcat'].shape)))
-    for L in (1, 8):
-        print('shared memory: %d bytes dynamic per block at K=%d, A=%d, '
-              'L=%d (one block of 512 threads per document)'
-              % (dk._library().decode_lattice_smem_bytes(A, L, K, D, W, Vp),
-                 K, A, L))
 
     def run(fn, arrays, n_real, state, cost, walk):
+        import torch
         chars, mask, conf, valid, steps = (torch.from_numpy(a).to(dev)
                                            for a in arrays)
         out = fn(*weights, chars, mask, conf, valid, state, cost,
-                 lm_weight=0.5, v_real=v_real, device_walk=walk,
+                 lm_weight=0.5, v_real=wts['v_real'], device_walk=walk,
                  alt_steps=steps, n_real=n_real)
         torch.cuda.synchronize()
         return out
 
-    # ---- 3. parity at full width ----
     # two chained blocks per L: the carry from the first block's kernel
     # run feeds both versions in the second
     rng = np.random.default_rng(20261016)
@@ -539,7 +802,7 @@ def main() -> int:
     for L in (1, 8):
         state, cost = rater._fused_traceback(None, K, wts['emb'])
         for b, (E, n) in enumerate(((1024, 1024), (256, 200))):
-            arr = random_lattice(rng, E, n, A, L, v_real)
+            arr = random_lattice(rng, E, n, A, L, wts['v_real'])
             t0 = time.time()
             if b == 0:
                 print('accuracy L=%d: max |h - h_float64| of the beam '
@@ -560,124 +823,430 @@ def main() -> int:
                   'atol 1e-5, c also rtol 2e-5) in %.1f s'
                   % (L, b, E, n, K, A, err, ties or 'none',
                      time.time() - t0))
-    print('kernels held against their plain versions: ["decode_lattice"]')
+    return max_err
 
-    with tempfile.TemporaryDirectory(prefix='chip_smoke_') as work:
-        # ---- 4. main path end to end ----
-        big = os.path.join(work, 'ws')
-        n_glyphs = build_workspace(big, np.random.default_rng(7), 4, 40,
-                                   rater.vocab)
-        expect_launches, n_edges = page_blocks(big, rater)
-        dk.decode_lattice.launches = 0
+
+def score_parity(rater, dev):
+    """Phase 3, scoring and LSTM-scan kernels at full width; returns
+    their max abs errors."""
+    import torch
+    from ocrd_keraslm_torch.ops import lstm_cell as lc
+    from ocrd_keraslm_torch.ops import score_kernel as sk
+    rng = np.random.default_rng(20261017)
+    score_err = 0.0
+    for case in ('german_b1', 'german_b4', 'german_d1'):
+        args = score_inputs(rng, case, dev, rater)
         t0 = time.time()
-        run_cli(big, 'cuda')
-        wall = time.time() - t0
-        launches = dk.decode_lattice.launches
-        glyphs, files = output_glyphs(big)
-        assert len(files) == 4, 'pages written: %d of 4' % len(files)
-        assert len(glyphs) == n_glyphs, (len(glyphs), n_glyphs)
-        bad = [g for g, tes in glyphs.items() if len(tes) != 1]
-        assert not bad, 'glyphs without one TextEquiv: %s' % bad[:5]
-        assert launches == expect_launches, (launches, expect_launches)
-        print('main path: 4 pages, %d glyphs, %d decode edges written; '
-              'decode_lattice launches %d (expected %d, one per page '
-              'block)' % (n_glyphs, n_edges, launches, expect_launches))
-        outs = {}
-        for platform in ('cuda', 'cpu'):
-            small = os.path.join(work, 'small_' + platform)
-            build_workspace(small, np.random.default_rng(8), 2, 3,
-                            rater.vocab, alt_share=0.3)
-            run_cli(small, platform)
-            outs[platform] = output_glyphs(small)[0]
-        assert outs['cuda'].keys() == outs['cpu'].keys()
-        conf_err = 0.0
-        for gid, ((u_g, c_g),) in outs['cuda'].items():
-            ((u_c, c_c),) = outs['cpu'][gid]
-            assert u_g == u_c, (gid, u_g, u_c)
-            conf_err = max(conf_err, abs(c_g - c_c))
-        assert conf_err <= 1e-4, conf_err
-        print('main path small workspace: %d glyphs, same choices on the '
-              'card and on the CPU, max conf diff %.3g (tolerance 1e-4)'
-              % (len(outs['cuda']), conf_err))
-        first = os.path.join(big, 'OCR-D-OCR', 'OCR-D-OCR_phys_0001.xml')
-        prep = rater._prepare_decode_edges(
-            page_get_linear_lattice_at('glyph', parse_page_fast(first)))
-        # where the time goes: the same four pages (a fresh copy) once
-        # more, under torch.profiler
-        traced = os.path.join(work, 'ws_traced')
-        build_workspace(traced, np.random.default_rng(7), 4, 40,
-                        rater.vocab)
-        traced_wall, busy = profile_main_path(traced)
+        got = sk.score_scan(*args)
+        torch.cuda.synchronize()
+        err, c_err, flips = compare_score(got, sk.score_scan_ref(*args))
+        score_err = max(score_err, err)
+        print('parity score_scan %s (B=%d, T=%d, D=%d, W=%d, Vp=%d, '
+              'v_real=%d, nonzero carry, stream 0 masked from step %d): '
+              'max |kernel - plain| %.3g over probs and h, relative %.3g '
+              'over c (max |c| %.4g), %d of %d probs round to another '
+              'float16 (tolerances: probs and h atol 1e-5, c atol 1e-5 + '
+              'rtol %g, NLL sums rtol 1e-5) in %.1f s'
+              % (case, args[0].shape[0], args[0].shape[1],
+                 args[3].shape[0], args[3].shape[2], args[9].shape[1],
+                 args[10], 2 * args[0].shape[1] // 3, err, c_err,
+                 float(got[2][1].abs().max()), flips,
+                 args[0].shape[0] * args[0].shape[1], C_RTOL,
+                 time.time() - t0))
+        if case == 'german_b4':
+            print('accuracy score_scan %s: max |x - x_float64| / max(1, '
+                  '|x_float64|) over probs, h and c: kernel %.3g, plain '
+                  'version %.3g' % ((case,) + f64_errors(
+                      sk.score_scan, sk.score_scan_ref, args,
+                      lambda out: (out[0], out[2][0], out[2][1]))))
+    W = rater.width
+    x_proj = score_inputs(rng, 'german_b4', dev, rater)[0]
+    lstm_args = (x_proj,
+                 torch.from_numpy(rng.normal(0, 0.5, (4, W)).astype(
+                     np.float32)).to(dev),
+                 torch.from_numpy(rng.normal(0, 0.5, (4, W)).astype(
+                     np.float32)).to(dev),
+                 rater.params['lstm'][0]['recurrent'])
+    lstm_err = 0.0
+    for want_c_all in (False, True):
+        got = lc.lstm_scan(*lstm_args, want_c_all=want_c_all)
+        torch.cuda.synchronize()
+        err, c_err = compare_lstm(got, lc.lstm_scan_ref(
+            *lstm_args, want_c_all=want_c_all))
+        lstm_err = max(lstm_err, err)
+        print('parity lstm_scan (B=4, T=4096, W=%d, german layer 0, '
+              'nonzero carry, c_all %s): max |kernel - plain| %.3g over '
+              'h_all and hT, relative %.3g over %scT (tolerances: h atol '
+              '1e-5, c atol 1e-5 + rtol %g)'
+              % (W, 'on' if want_c_all else 'off', err, c_err,
+                 'c_all and ' if want_c_all else '', C_RTOL))
+    print('accuracy lstm_scan: max |x - x_float64| / max(1, |x_float64|) '
+          'over h_all, hT and cT: kernel %.3g, plain version %.3g'
+          % f64_errors(lc.lstm_scan, lc.lstm_scan_ref, lstm_args,
+                       lambda out: (out[0], out[2], out[3])))
+    return score_err, lstm_err
 
-    # ---- 5. numbers ----
-    print('main path wall: %.3f s for 4 pages = %.3f s/page, %.0f decode '
-          'edges/s (host clock, CLI call incl. model load) [%s]'
-          % (wall, wall / 4, n_edges / wall, card))
-    if busy:
-        device_ms = sum(busy.values())
-        print('main path traced (torch.profiler, same 4 pages): wall %.3f '
-              's; device busy %.1f ms in decode_lattice, %.1f ms in other '
-              'device work (copies); device idle %.1f%% of the wall [%s]'
-              % (traced_wall, busy.get('decode_lattice', 0.0),
-                 busy.get('other', 0.0),
-                 100 * (1 - device_ms / 1e3 / traced_wall), card))
-    else:
-        print('main path traced: device time not measured (the profiler '
-              'saw no device activity); wall %.3f s [%s]'
-              % (traced_wall, card))
+
+def zero_counts():
+    from ocrd_keraslm_torch.ops import decode_kernel, lstm_cell, score_kernel
+    decode_kernel.decode_lattice.launches = 0
+    score_kernel.score_scan.launches = 0
+    lstm_cell.lstm_scan.launches = 0
+
+
+def read_counts():
+    from ocrd_keraslm_torch.ops import decode_kernel, lstm_cell, score_kernel
+    return {'decode_lattice': decode_kernel.decode_lattice.launches,
+            'score_scan': score_kernel.score_scan.launches,
+            'lstm_scan': lstm_cell.lstm_scan.launches}
+
+
+def check_glyphs(directory, n_glyphs):
+    glyphs, files = output_glyphs(directory)
+    assert len(files) == 4, 'pages written: %d of 4' % len(files)
+    assert len(glyphs) == n_glyphs, (len(glyphs), n_glyphs)
+    bad = [g for g, tes in glyphs.items() if len(tes) != 1]
+    assert not bad, 'glyphs without one TextEquiv: %s' % bad[:5]
+
+
+def small_card_vs_cpu(work, rater, scoring, tol):
+    """A small workspace through the CLI on the card and on the CPU:
+    same Unicode per glyph, confs within ``tol``; returns the max conf
+    difference and the glyphs."""
+    outs = {}
+    for platform in ('cuda', 'cpu'):
+        small = os.path.join(work, 'small_%s_%d' % (platform, scoring))
+        build_workspace(small, np.random.default_rng(8), 2, 3,
+                        rater.vocab, alt_share=0.3)
+        run_cli(small, platform, scoring=scoring)
+        outs[platform] = output_glyphs(small)[0]
+    assert outs['cuda'].keys() == outs['cpu'].keys()
+    conf_err = 0.0
+    for gid, ((u_g, c_g),) in outs['cuda'].items():
+        ((u_c, c_c),) = outs['cpu'][gid]
+        assert u_g == u_c, (gid, u_g, u_c)
+        conf_err = max(conf_err, abs(c_g - c_c))
+    assert conf_err <= tol, conf_err
+    return conf_err, len(outs['cuda'])
+
+
+def decode_path(rater, work):
+    """Phase 4; returns the path's numbers."""
+    from ocrd_keraslm_torch.rater import E_BUCKETS
+    big = os.path.join(work, 'ws')
+    n_glyphs = build_workspace(big, np.random.default_rng(7), 4, 40,
+                               rater.vocab)
+    expect, n_edges = page_blocks(big, rater)
+    zero_counts()
+    t0 = time.time()
+    run_cli(big, 'cuda')
+    wall = time.time() - t0
+    counts = read_counts()
+    check_glyphs(big, n_glyphs)
+    assert counts['decode_lattice'] == expect, (counts, expect)
+    print('decode path: 4 pages, %d glyphs, %d decode edges written; '
+          'launches %s (expected %d decode_lattice, one per page block of '
+          '<= %d edges)' % (n_glyphs, n_edges, counts, expect,
+                            E_BUCKETS[-1]))
+    conf_err, n_small = small_card_vs_cpu(work, rater, False, 1e-4)
+    print('decode path small workspace: %d glyphs, same choices on the '
+          'card and on the CPU, max conf diff %.3g (tolerance 1e-4)'
+          % (n_small, conf_err))
+    # where the time goes: the same four pages (a fresh copy) once
+    # more, under torch.profiler
+    traced = os.path.join(work, 'ws_traced')
+    build_workspace(traced, np.random.default_rng(7), 4, 40, rater.vocab)
+    traced_wall, busy = profile_main_path(traced)
+    return dict(wall=wall, n_edges=n_edges, launches=counts,
+                traced_wall=traced_wall, busy=busy, workspace=big)
+
+
+def scoring_path(rater, work):
+    """Phase 5; returns the path's numbers."""
+    from click.testing import CliRunner
+    from ocrd_keraslm_torch.scripts.run import cli as keraslm_rate
+    ws = os.path.join(work, 'ws_score')
+    n_glyphs = build_workspace(ws, np.random.default_rng(7), 4, 40,
+                               rater.vocab)
+    texts = page_texts(ws)
+    chunks = score_chunks(texts)
+    zero_counts()
+    t0 = time.time()
+    run_cli(ws, 'cuda', scoring=True)
+    wall = time.time() - t0
+    counts = read_counts()
+    check_glyphs(ws, n_glyphs)
+    assert counts == {'decode_lattice': 0, 'score_scan': chunks,
+                      'lstm_scan': 0}, (counts, chunks)
+    n_chars = sum(len(t) for t in texts)
+    print('scoring path: 4 pages, %d glyphs, %d chars scored in one '
+          'rate_batch; launches %s (expected %d score_scan, one per '
+          '4096-char chunk)' % (n_glyphs, n_chars, counts, chunks))
+    # the CPU scores through the layered path: per-char probs agree to
+    # f32 rounding, but may round to neighbouring float16 values (one
+    # step is at most 4.9e-4 below 1), which moves a glyph's blended
+    # conf by lm_weight (0.5) times that
+    tol = 1e-4 + 0.5 * 2.0 ** -11
+    conf_err, n_small = small_card_vs_cpu(work, rater, True, tol)
+    print('scoring path small workspace: %d glyphs, the same on the card '
+          'and on the CPU, max conf diff %.3g (tolerance 1e-4 plus one '
+          'float16 step of a prob times lm_weight: %.3g)'
+          % (n_small, conf_err, tol))
+    # the layered path through the Rater API
+    import torch
+    context = [179]
+    fused = rater.rate_batch(texts, [context] * 4)
+    rater.fused_score = False
+    zero_counts()
+    layered = rater.rate_batch(texts, [context] * 4)
+    torch.cuda.synchronize()
+    layered_counts = read_counts()
+    rater.fused_score = True
+    assert layered_counts == {'decode_lattice': 0, 'score_scan': 0,
+                              'lstm_scan': rater.depth * chunks}, \
+        layered_counts
+    diff = max(float(np.abs(np.subtract(a, b)).max())
+               for a, b in zip(fused, layered))
+    assert diff <= 2.0 ** -11, diff
+    print('layered path (Rater.rate_batch, fused_score off, same 4 '
+          'pages): launches %s (expected %d lstm_scan, one per layer and '
+          'chunk); max |rating - fused rating| %.3g (tolerance: one '
+          'float16 step, 4.9e-4)' % (layered_counts,
+                                     rater.depth * chunks, diff))
+    # keraslm-rate test and apply, card against CPU
+    rng = np.random.default_rng(9)
+    words = [w for w in GERMAN_WORDS if set(w) <= _charset(rater.vocab)]
+    corpus = os.path.join(work, 'corpus')
+    os.makedirs(corpus)
+    for name, n in (('kant_smoke_1784.txt', 1200), ('lessing_smoke_1779'
+                                                    '.txt', 300)):
+        with open(os.path.join(corpus, name), 'w', encoding='utf-8') as fh:
+            fh.write(' '.join(words[i] for i in
+                              rng.integers(len(words), size=n)))
+    sentence = ' '.join(words[i] for i in rng.integers(len(words), size=40))
+    outs = {}
+    for platform in ('cuda', 'cpu'):
+        runner = CliRunner()
+        env = {'KERASLM_PLATFORM': platform}
+        zero_counts()
+        res_t = runner.invoke(keraslm_rate, ['-l', 'WARNING', 'test', '-m',
+                                             MODEL, corpus], env=env)
+        res_a = runner.invoke(keraslm_rate, ['-l', 'WARNING', 'apply',
+                                             '-m', MODEL, '-c', '1784',
+                                             sentence], env=env)
+        for res in (res_t, res_a):
+            assert res.exit_code == 0, (res.output, res.exception)
+        ppl_a, ratings = res_a.output.strip().splitlines()[-2:]
+        outs[platform] = (float(res_t.output.strip().splitlines()[-1]),
+                          float(ppl_a), json.loads(ratings), read_counts())
+    (t_g, a_g, r_g, c_g), (t_c, a_c, r_c, _) = outs['cuda'], outs['cpu']
+    assert c_g['score_scan'] >= 2, c_g
+    assert abs(t_g - t_c) <= 1e-4 * t_c and abs(a_g - a_c) <= 1e-4 * a_c
+    r_diff = max(abs(p - q) for (_, p), (_, q) in zip(r_g, r_c))
+    assert [c for c, _ in r_g] == [c for c, _ in r_c] and r_diff <= 1e-3
+    print('keraslm-rate test (2 files, %d chars): ppl %.6f on the card, '
+          '%.6f on the CPU; apply (%d chars, context 1784): ppl %.6f and '
+          '%.6f, max rating diff %.3g; card launches %s (tolerances: ppl '
+          'rtol 1e-4, ratings atol 1e-3)'
+          % (sum(os.path.getsize(os.path.join(corpus, f))
+                 for f in os.listdir(corpus)), t_g, t_c, len(sentence),
+             a_g, a_c, r_diff, c_g))
+    traced = os.path.join(work, 'ws_score_traced')
+    build_workspace(traced, np.random.default_rng(7), 4, 40, rater.vocab)
+    traced_wall, busy = profile_main_path(traced, scoring=True)
+    return dict(wall=wall, n_chars=n_chars, texts=texts,
+                launches=counts['score_scan'],
+                lstm_launches=layered_counts['lstm_scan'],
+                traced_wall=traced_wall, busy=busy)
+
+
+def decode_numbers(rater, decode, card):
+    """Phase 6, decode kernel at the main path's shape (page 1)."""
+    import torch
+    from ocrd_keraslm_torch.ops import decode_kernel as dk
+    from ocrd_keraslm_torch.rater import E_BUCKETS, L_BUCKETS, _alt_steps
+    from ocrd_keraslm_torch.utils.buckets import bucket
+    from ocrd_keraslm_torch.wrapper.page_fast import parse_page_fast
+    from ocrd_keraslm_torch.wrapper.rate import page_get_linear_lattice_at
+    first = os.path.join(decode['workspace'], 'OCR-D-OCR',
+                         'OCR-D-OCR_phys_0001.xml')
+    prep = rater._prepare_decode_edges(
+        page_get_linear_lattice_at('glyph', parse_page_fast(first)))
+    wts = rater._decode_weights(None)
+    D, W, K, A = rater.depth, rater.width, 16, 4
+    S = (2 * D + 1) * W
     n = len(prep)
     L = bucket(max(len(ids) for pe in prep for ids in pe['alt_ids']),
                L_BUCKETS)
     E = bucket(n, E_BUCKETS)
     chars, mask, conf, valid = rater._fill_decode_arrays(prep, E, A, L)
     steps = _alt_steps(mask)[:, 0]
-    arrays = (chars, mask, conf, valid, steps)
+    ins = [torch.from_numpy(a).to(rater.device)
+           for a in (chars, mask, conf, valid, steps)]
     state0, cost0 = rater._fused_traceback(None, K, wts['emb'])
-    ins = [torch.from_numpy(a).to(dev) for a in arrays]
-    args = weights + (ins[0], ins[1], ins[2], ins[3], state0, cost0)
-    kw = dict(lm_weight=0.5, v_real=v_real, device_walk=True,
+    args = (wts['emb'], wts['embT'], wts['wcat'], wts['bias'],
+            ins[0], ins[1], ins[2], ins[3], state0, cost0)
+    kw = dict(lm_weight=0.5, v_real=wts['v_real'], device_walk=True,
               alt_steps=ins[4], n_real=n)
-    launches_before = dk.decode_lattice.launches
-
-    def timed(fn, reps):
-        fn(*args, **kw)
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn(*args, **kw)
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / reps
-
-    ms = timed(dk.decode_lattice, 3)
-    plain_ms = timed(dk.decode_lattice_ref, 1)
-    ms2 = timed(dk.decode_lattice, 3)
-    dk.decode_lattice.launches = launches_before
-    in_bytes = sum(t.numel() * t.element_size() for t in args) + \
-        ins[4].numel() * 4
+    ms = cuda_ms(lambda: dk.decode_lattice(*args, **kw), 3)
+    plain_ms = cuda_ms(lambda: dk.decode_lattice_ref(*args, **kw), 1)
+    ms2 = cuda_ms(lambda: dk.decode_lattice(*args, **kw), 3)
     out_bytes = ((E + 1) * 2 + K * S + 128) * 4
-    bound_ms, bound_by, flops = decode_bound(mask, steps, n, K, D, W, Vp,
-                                             in_bytes + out_bytes)
-    print('kernel at the main path shape (page 1: E=%d, n_real=%d, L=%d, '
-          'K=%d, A=%d): %.3f ms/launch then %.3f ms/launch (CUDA events, '
-          'mean of 3 warm launches), %.2f us/edge [%s]'
+    # emb and embT are read at their v_real real rows/columns only
+    nbytes = (tensor_bytes(*args, ins[4]) + out_bytes
+              - 2 * W * (wts['v_pad'] - wts['v_real']) * 4)
+    bound_ms, bound_by, flops = decode_bound(
+        mask, steps, n, K, D, W, wts['v_real'], nbytes)
+    print('decode_lattice at the main path shape (page 1: E=%d, n_real=%d, '
+          'L=%d, K=%d, A=%d): %.3f ms/launch then %.3f ms/launch (CUDA '
+          'events, mean of 3 warm launches), %.2f us/edge [%s]'
           % (E, n, L, K, A, ms, ms2, 1e3 * ms2 / n, card))
-    print('plain version at the same shape: %.3f ms (CUDA events, one '
-          'warm run) [%s]' % (plain_ms, card))
-    print('bound: %.3f ms by %s (%.3g f32 FLOP at 67 TFLOP/s, %d bytes at '
-          '3.35 TB/s); kernel at %.2f%% of it; library call: none - no '
-          'single PyTorch call computes lattice decoding'
-          % (bound_ms, bound_by, flops, in_bytes + out_bytes,
-             100 * bound_ms / ms2))
-    print(json.dumps({'kernels': [{
-        'name': 'decode_lattice', 'route': 'cuda',
-        'source': 'ocrd_keraslm_torch/csrc/decode_lattice.cu',
-        'replaces': 'ocrd_keraslm_tpu/ops/decode_kernel.py:318',
-        'launches': launches, 'max_abs_err': max_err, 'ms': ms2,
-        'plain_ms': plain_ms, 'bound_ms': bound_ms, 'bound_by': bound_by,
-        'library_ms': None}]}))
+    print('decode_lattice plain version at the same shape: %.3f ms (CUDA '
+          'events, one warm run) [%s]' % (plain_ms, card))
+    print('decode_lattice bound: %.3f ms by %s (%.3g f32 FLOP at 67 '
+          'TFLOP/s, %d bytes at 3.35 TB/s); kernel at %.2f%% of it; '
+          'library call: none - no single PyTorch call computes lattice '
+          'decoding' % (bound_ms, bound_by, flops,
+                        nbytes, 100 * bound_ms / ms2))
+    return dict(ms=ms2, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None)
+
+
+def scoring_numbers(rater, scoring, card):
+    """Phase 6, scoring and LSTM-scan kernels at the main path's shape:
+    the first chunk of the 4 pages' one rate_batch."""
+    from ocrd_keraslm_torch.ops import lstm_cell as lc
+    from ocrd_keraslm_torch.ops import score_kernel as sk
+    args, inp = score_main_inputs(rater, scoring['texts'], [179])
+    B, T, _ = args[0].shape
+    D, W = rater.depth, rater.width
+    lstm_args = (args[0], args[3][0], args[4][0],
+                 rater.params['lstm'][0]['recurrent'])
+    out = {}
+    for name, kernel, plain, bnd, depth, reps in (
+            ('score_scan', lambda: sk.score_scan(*args),
+             lambda: sk.score_scan_ref(*args), score_bound(args), D, 5),
+            ('lstm_scan', lambda: lc.lstm_scan(*lstm_args),
+             lambda: lc.lstm_scan_ref(*lstm_args),
+             lstm_bound(lstm_args, False), 1, 5)):
+        library = cudnn_lstm(rater, depth, inp)
+        ms = cuda_ms(kernel, reps)
+        plain_ms = cuda_ms(plain, 1)
+        library_ms = cuda_ms(library, reps)
+        ms2 = cuda_ms(kernel, reps)
+        bound_ms, bound_by, flops = bnd
+        print('%s at the main path shape (B=%d streams, T=%d, D=%d, W=%d): '
+              '%.3f ms/launch then %.3f ms/launch (CUDA events, mean of %d '
+              'warm launches), %.2f us/step [%s]'
+              % (name, B, T, D if name == 'score_scan' else 1, W, ms, ms2,
+                 reps, 1e3 * ms2 / T, card))
+        print('%s plain version at the same shape: %.3f ms (CUDA events, '
+              'one warm run) [%s]' % (name, plain_ms, card))
+        print('%s bound: %.4f ms by %s (%.3g f32 FLOP at 67 TFLOP/s); '
+              'kernel at %.3f%% of it [%s]'
+              % (name, bound_ms, bound_by, flops, 100 * bound_ms / ms2,
+                 card))
+        print('%s library yardstick: torch.nn.LSTM (cuDNN) of %d layer(s) '
+              'over the same %d streams x %d steps: %.3f ms (mean of %d); '
+              '%s [%s]' % (
+                  name, depth, B, T, library_ms, reps,
+                  'it covers the LSTM stack but not the tied softmax, '
+                  'probs and NLL' if name == 'score_scan' else
+                  'it also computes the input projection that the kernel '
+                  'receives precomputed', card))
+        out[name] = dict(ms=ms2, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=library_ms)
+    return out
+
+
+def main() -> int:
+    sys.path.insert(0, HERE)
+    import torch
+    if not torch.cuda.is_available():
+        print('chip_smoke: no CUDA device; this script runs only on a '
+              'GPU', file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device('cuda')
+
+    # ---- 1. card ----
+    smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                          '--format=csv,noheader'], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    card = smi.splitlines()[0]
+    kind = torch.cuda.get_device_name(0)
+    count = torch.cuda.device_count()
+    print(smi)
+    print('card: %s | torch %s, CUDA %s, %d device(s): %s'
+          % (card, torch.__version__, torch.version.cuda, count, kind))
+    print('tf32: matmul %s, cudnn %s (both off: f32 reference)'
+          % (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32))
+
+    # ---- 2. build ----
+    build_kernels()
+    from ocrd_keraslm_torch.ops import decode_kernel as dk
+    from ocrd_keraslm_torch.ops import lstm_cell as lc
+    from ocrd_keraslm_torch.ops import score_kernel as sk
+    rater = german_rater(dev)
+    D, W = rater.depth, rater.width
+    wts = rater._decode_weights(None)
+    print('model: %s  D=%d W=%d V=%d (padded %d), wcat %s'
+          % (os.path.relpath(MODEL, HERE), D, W, wts['v_real'],
+             wts['v_pad'], tuple(wts['wcat'].shape)))
+    for L in (1, 8):
+        print('shared memory decode_lattice: %d bytes dynamic per block at '
+              'K=16, A=4, L=%d (one block of 512 threads per document)'
+              % (dk._library().decode_lattice_smem_bytes(
+                  4, L, 16, D, W, wts['v_pad']), L))
+    print('shared memory score_scan: %d bytes dynamic per block at B=4, '
+          'D=%d, W=%d, Vp=%d; lstm_scan: %d bytes at B=4, W=%d (one block '
+          'of 512 threads per <= 8 streams)'
+          % (sk._library().score_scan_smem_bytes(4, D, W, wts['v_pad']), D,
+             W, wts['v_pad'], lc._library().lstm_scan_smem_bytes(4, W), W))
+
+    # ---- 3. parity at full width ----
+    decode_err = decode_parity(rater, dev)
+    score_err, lstm_err = score_parity(rater, dev)
+    print('kernels held against their plain versions: %s'
+          % json.dumps(list(KERNELS)))
+
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_') as work:
+        # ---- 4. decode path, 5. scoring path ----
+        decode = decode_path(rater, work)
+        scoring = scoring_path(rater, work)
+
+        # ---- 6. numbers ----
+        print('decode path wall: %.3f s for 4 pages = %.3f s/page, %.0f '
+              'decode edges/s (host clock, CLI call incl. model load) [%s]'
+              % (decode['wall'], decode['wall'] / 4,
+                 decode['n_edges'] / decode['wall'], card))
+        print_profile('decode path', decode['traced_wall'], decode['busy'],
+                      card)
+        print('scoring path wall: %.3f s for 4 pages = %.3f s/page, %.0f '
+              'scored chars/s (host clock, CLI call incl. model load) [%s]'
+              % (scoring['wall'], scoring['wall'] / 4,
+                 scoring['n_chars'] / scoring['wall'], card))
+        print_profile('scoring path', scoring['traced_wall'],
+                      scoring['busy'], card)
+        numbers = dict(decode_lattice=decode_numbers(rater, decode, card),
+                       **scoring_numbers(rater, scoring, card))
+    rows = []
+    for name, launches, err in (
+            ('decode_lattice', decode['launches']['decode_lattice'],
+             decode_err),
+            ('score_scan', scoring['launches'], score_err),
+            ('lstm_scan', scoring['lstm_launches'], lstm_err)):
+        module = {'decode_lattice': 'decode_kernel.py:318',
+                  'score_scan': 'score_kernel.py:132',
+                  'lstm_scan': 'lstm_cell.py:111'}[name]
+        rows.append(dict(name=name, route='cuda',
+                         source='ocrd_keraslm_torch/csrc/%s.cu' % name,
+                         replaces='ocrd_keraslm_tpu/ops/%s' % module,
+                         launches=launches, max_abs_err=err,
+                         **numbers[name]))
+    print(json.dumps({'kernels': rows}))
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',
                                              'kind': kind,
                                              'count': count}}))

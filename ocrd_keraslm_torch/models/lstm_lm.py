@@ -5,6 +5,10 @@ Counterpart of ``ocrd_keraslm_tpu/models/lstm_lm.py``: char embedding
 ``depth`` LSTM layers and a weight-tied softmax (softmax(h @ E^T), no
 extra projection or bias).
 
+``forward_seq`` runs each layer's recurrence through
+:func:`ocrd_keraslm_torch.ops.lstm_cell.lstm_scan` (the CUDA kernel on
+the card), after one large product for the layer's input projection.
+
 Parameters keep the JAX package's tree layout, which is also the
 Keras 2.3 layout of the h5 checkpoints: ``kernel`` (in, 4W),
 ``recurrent`` (W, 4W), ONE ``bias`` (4W,), gate order i, f, g (c~), o.
@@ -15,10 +19,12 @@ arrays.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from ..ops.lstm_cell import lstm_gates, lstm_scan
 
 DEFAULT_CONTEXTS: Tuple[Tuple[int, int], ...] = ((200, 10),)
 
@@ -76,31 +82,17 @@ def zero_carry(cfg: LMConfig, batch: int, device) -> Carry:
     return h, torch.zeros_like(h)
 
 
-def lstm_gates(x_proj: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
-               recurrent: torch.Tensor) -> Carry:
-    """One LSTM step given the precomputed input projection.
-
-    x_proj: (B, 4W) = x @ kernel + bias;  h, c: (B, W);
-    recurrent: (W, 4W).  Gate order i, f, g, o.  Returns (h', c')."""
-    W = h.shape[-1]
-    z = x_proj + h @ recurrent
-    i = torch.sigmoid(z[..., 0 * W:1 * W])
-    f = torch.sigmoid(z[..., 1 * W:2 * W])
-    g = torch.tanh(z[..., 2 * W:3 * W])
-    o = torch.sigmoid(z[..., 3 * W:4 * W])
-    c_new = f * c + i * g
-    return o * torch.tanh(c_new), c_new
-
-
 def embed_inputs(params: Params, x: torch.Tensor,
                  zs: Sequence[torch.Tensor]) -> torch.Tensor:
     """Embed char indices x (B, T) and context indices zs[i] (B, T) or
-    (B,) broadcast; concatenate along features -> (B, T, input_dim)."""
+    (B,) broadcast; concatenate along features -> (B, T, input_dim).
+    A context index beyond its table reads the table's last row, as the
+    JAX package's gather does (a year past the table's range)."""
     feats = [params['char_embedding'][x]]
     for z, table in zip(zs, params['context_embeddings']):
         if z.dim() == 1:                        # time-constant context
             z = z[:, None].expand(x.shape)
-        feats.append(table[z])
+        feats.append(table[z.clamp(max=table.shape[0] - 1)])
     return torch.cat(feats, dim=-1)
 
 
@@ -124,3 +116,46 @@ def forward_step(params: Params, cfg: LMConfig, x: torch.Tensor,
     logits = inp @ params['char_embedding'].T
     return torch.softmax(logits, dim=-1), (torch.stack(hs),
                                            torch.stack(cs))
+
+
+def forward_seq(params: Params, cfg: LMConfig, x: torch.Tensor,
+                zs: Sequence[torch.Tensor], carry: Optional[Carry] = None,
+                *, train: bool = False, rng=None,
+                x_mask: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Carry]:
+    """Full-sequence forward for inference.
+
+    x: (B, T) int64 char indices; zs: context indices (B,) or (B, T);
+    carry: explicit (h, c) or None for zeros.  Each layer's input
+    projection over all T steps is one product; its recurrence is one
+    :func:`lstm_scan`.  Returns (logits (B, T, V), final carry).
+
+    Training mode (dropout), the masked scan of variable-length windows
+    and the bfloat16 compute dtype are not ported yet and raise."""
+    if train:
+        raise NotImplementedError(
+            'forward_seq(train=True) with dropout is not ported yet '
+            '(ROADMAP.md Queue 1, "Training")')
+    if x_mask is not None or cfg.compute_dtype != 'float32':
+        raise NotImplementedError(
+            'forward_seq with %s is not ported yet (ROADMAP.md Queue 1, '
+            '"h5 writing and the rest of the model core")'
+            % ('x_mask' if x_mask is not None
+               else "compute_dtype=%r" % cfg.compute_dtype))
+    B = x.shape[0]
+    if carry is None:
+        carry = zero_carry(cfg, B, x.device)
+    h0, c0 = carry
+    inp = embed_inputs(params, x, zs)
+    hs, cs = [], []
+    for layer in range(cfg.depth):
+        lp = params['lstm'][layer]
+        x_proj = (inp @ lp['kernel'] + lp['bias']).contiguous()
+        h_all, _, hT, cT = lstm_scan(x_proj, h0[layer].contiguous(),
+                                     c0[layer].contiguous(),
+                                     lp['recurrent'])
+        hs.append(hT)
+        cs.append(cT)
+        inp = h_all.transpose(0, 1)
+    logits = inp @ params['char_embedding'].T
+    return logits, (torch.stack(hs), torch.stack(cs))

@@ -15,98 +15,36 @@ either the device-walked ``(E+1, 2)`` path (header ``[cost0[k_fin], 0]``)
 or the ``(E+1, 3K)`` records ``[backptr | alt | cost]`` whose header
 carries ``min(cost0)`` and the initial-beam costs.
 
-The kernel is compiled at first use with ``nvcc`` for ``sm_90a`` into
-``_build/`` beside this package, keyed by a hash of the source, and
-loaded with ``ctypes``.
+The kernel is compiled at first use by :mod:`._build` (``nvcc`` for
+``sm_90a``, loaded with ``ctypes``).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 from typing import Optional
 
 import torch
+
+from . import _build
+from ._build import check as _check
 
 BIG = 1.0e30
 LANE = 128
 INV_LN2 = 1.4426950408889634
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG_DIR, 'csrc', 'decode_lattice.cu')
-BUILD_DIR = os.path.join(_PKG_DIR, '_build')
-NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
-
-
-def _nvcc() -> str:
-    for var in ('CUDA_HOME', 'CUDA_PATH'):
-        root = os.environ.get(var)
-        if root and os.path.isfile(os.path.join(root, 'bin', 'nvcc')):
-            return os.path.join(root, 'bin', 'nvcc')
-    found = shutil.which('nvcc')
-    if found:
-        return found
-    default = '/usr/local/cuda/bin/nvcc'  # the toolkit's standard place
-    if os.path.isfile(default):
-        return default
-    raise RuntimeError('nvcc not found (set CUDA_HOME): the decode kernel '
-                       'is built from %s at first use' % SOURCE)
-
-
-def build() -> tuple:
-    """Compile the kernel if its library is missing; returns
-    ``(library path, compiler log)``.  The log holds ``-Xptxas -v``'s
-    registers, shared memory and spills (empty when already built)."""
-    with open(SOURCE, 'rb') as fh:
-        digest = hashlib.sha256(fh.read() + ' '.join(NVCC_FLAGS).encode())
-    path = os.path.join(BUILD_DIR,
-                        'decode_lattice-%s.so' % digest.hexdigest()[:16])
-    if os.path.isfile(path):
-        return path, ''
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run([_nvcc()] + NVCC_FLAGS + ['-o', tmp, SOURCE],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError('nvcc failed to build %s:\n%s%s'
-                               % (SOURCE, proc.stdout, proc.stderr))
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return path, proc.stdout + proc.stderr
+SOURCE = _build.source('decode_lattice.cu')
 
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(build()[0])
+    lib = _build.load(SOURCE)
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.decode_lattice_launch.argtypes = [P] * 16 + [I] * 9 + [F, F, P]
     lib.decode_lattice_launch.restype = ctypes.c_int
     lib.decode_lattice_smem_bytes.argtypes = [I] * 6
     lib.decode_lattice_smem_bytes.restype = ctypes.c_size_t
     return lib
-
-
-def _check(name, t, shape, dtype, device):
-    if t.device != device:
-        raise ValueError('%s is on %s, expected %s' % (name, t.device,
-                                                       device))
-    if t.dtype != dtype:
-        raise ValueError('%s has dtype %s, expected %s' % (name, t.dtype,
-                                                           dtype))
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError('%s has shape %s, expected %s'
-                         % (name, tuple(t.shape), tuple(shape)))
-    if not t.is_contiguous():
-        raise ValueError('%s must be contiguous' % name)
 
 
 def _shapes(emb, wcat, alt_chars, state0):
@@ -138,13 +76,8 @@ def decode_lattice(emb, embT, wcat, bias, alt_chars, alt_mask, alt_conf,
     Returns (packed output, stateF (K, S), costF (1, 128))."""
     tensors = (emb, embT, wcat, bias, alt_chars, alt_mask, alt_conf,
                alt_valid, state0, cost0)
-    devices = {t.device for t in tensors}
-    if alt_steps is not None:
-        devices.add(alt_steps.device)
-    if len(devices) != 1:
-        raise ValueError('decode_lattice inputs span devices %s'
-                         % sorted(map(str, devices)))
-    device = devices.pop()
+    device = _build.one_device('decode_lattice', tensors + (
+        () if alt_steps is None else (alt_steps,)))
     if device.type == 'cpu':
         return decode_lattice_ref(
             emb, embT, wcat, bias, alt_chars, alt_mask, alt_conf,

@@ -1,16 +1,27 @@
-"""The LM engine of the port: model loading and lattice decoding.
+"""The LM engine of the port: model loading, scoring and lattice
+decoding.
 
-Counterpart of the decode part of ``ocrd_keraslm_tpu/rater.py``.  A
-``Rater`` loads an h5 model onto one device and beam-decodes linear
-lattices of OCR alternatives with the fused single-document kernel
-(:func:`ocrd_keraslm_torch.ops.decode_kernel.decode_lattice`): the host
-merges runs of single-alternative edges, fills fixed-size edge arrays,
-launches one kernel per block of at most 1024 edges, and walks the
-returned backpointers.  The beam carries from page to page as device
-tensors ``(packed state (K, S), cost (1, 128))``.
+Counterpart of the scoring and decode parts of
+``ocrd_keraslm_tpu/rater.py``.  A ``Rater`` loads an h5 model onto one
+device and
+
+* scores whole texts (``rate``, ``rate2``, ``rate_batch``, ``test``):
+  each text is one stream of a batch, cut into chunks of
+  ``SCORE_CHUNK`` steps with the ``(h, c)`` carry threaded from chunk
+  to chunk; on CUDA each chunk is one launch of the fused scoring
+  kernel (:func:`ocrd_keraslm_torch.ops.score_kernel.score_scan`), or,
+  with ``fused_score`` off, one LSTM-scan launch per layer
+  (:func:`ocrd_keraslm_torch.models.lstm_lm.forward_seq`);
+* beam-decodes linear lattices of OCR alternatives with the fused
+  single-document kernel
+  (:func:`ocrd_keraslm_torch.ops.decode_kernel.decode_lattice`): the
+  host merges runs of single-alternative edges, fills fixed-size edge
+  arrays, launches one kernel per block of at most 1024 edges, and
+  walks the returned backpointers.  The beam carries from page to page
+  as device tensors ``(packed state (K, S), cost (1, 128))``.
 
 The device follows ``KERASLM_PLATFORM`` unless the caller names one:
-``cpu`` runs on the CPU (the kernel's plain PyTorch version), unset,
+``cpu`` runs on the CPU (the kernels' plain PyTorch versions), unset,
 ``gpu`` or ``cuda`` runs on CUDA and raises when there is none.
 """
 from __future__ import annotations
@@ -19,19 +30,33 @@ import gc
 import logging
 import os
 from functools import wraps
-from math import log
+from math import exp, log
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from .models.lstm_lm import DEFAULT_CONTEXTS, LMConfig, params_from_numpy
+from .models.lstm_lm import (DEFAULT_CONTEXTS, LMConfig, embed_inputs,
+                             forward_seq, params_from_numpy, zero_carry)
 from .ops.decode_kernel import BIG, LANE, decode_lattice
+from .ops.score_kernel import pack_score_weights, score_scan
 from .utils import h5io
 from .utils.buckets import bucket as _bucket
-from .utils.vocab import Vocab
+from .utils.buckets import bucket_unbounded as _bucket_unbounded
+from .utils.vocab import Vocab, nfc, read_normalized
 
 LOG = logging.getLogger(__name__)
+
+# chunk length of whole-text scoring: a text becomes (n_chunks, CHUNK)
+# steps, scored chunk by chunk with the carry threaded between chunks
+SCORE_CHUNK = 4096
+# chunk-count buckets: texts up to CHUNK * the largest bucket chars go in
+# one call, longer ones chain super-blocks through the carry
+CHUNK_COUNT_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256)
+# batch-size buckets of scoring streams and of rolling windows
+STEP_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512)
+# scoring batches above this many padded elements split in half
+SCORE_SPLIT_LIMIT = 1 << 26
 
 # max chars per merged single-alternative decode run: keeps the shared
 # L bucket small
@@ -131,8 +156,78 @@ def _alt_steps(alt_mask):
     return alt_mask.sum(axis=2).max(axis=1).astype(np.int32)[:, None]
 
 
+# ----------------------------------------------------------------------
+# whole-text scoring on the device
+# ----------------------------------------------------------------------
+
+def _score_stream(params, cfg: LMConfig, xflat, zs, lens, last, carry,
+                  n_chunks: int, packed):
+    """Score B streams given in the compact layout: char ids
+    ``xflat`` (B, C*T), per-stream lengths ``lens`` (B,) and final
+    targets ``last`` (B,), all on the device; the shifted
+    teacher-forcing targets and the validity mask are derived here.
+    ``zs``: context ids (B,) each; ``packed``: the fused kernel's
+    weights (:func:`pack_score_weights`), None for the layered path.
+    Returns (probs (C, B, T) float16, NLL sums (B,) float32 in nats,
+    final carry)."""
+    B, N = xflat.shape
+    T = N // n_chunks
+    x = xflat.long()
+    lens = lens.long()
+    y = torch.cat([x[:, 1:], torch.zeros((B, 1), dtype=torch.long,
+                                         device=x.device)], dim=1)
+    y[torch.arange(B, device=x.device), (lens - 1).clamp(min=0)] = \
+        torch.where(lens > 0, last.long(), y[:, 0])
+    mask = (torch.arange(N, device=x.device)[None, :] < lens[:, None]) \
+        .float()
+    return _score_chunks_scan(params, cfg, x.reshape(B, n_chunks, T), zs,
+                              y.reshape(B, n_chunks, T),
+                              mask.reshape(B, n_chunks, T), carry, packed)
+
+
+def _score_chunks_scan(params, cfg: LMConfig, xc, zs, yc, maskc, carry,
+                       packed):
+    """Teacher-forced scoring of C sequential chunks of B streams
+    (``xc``, ``yc``, ``maskc``: (B, C, T)), the carry threaded from
+    chunk to chunk.  Fused (``packed`` given): one :func:`score_scan`
+    launch per chunk after the layer-0 input projection; layered
+    (``packed`` None): :func:`forward_seq` (one LSTM scan per layer) and
+    a log-softmax.  Per-char probs leave as float16, as in the JAX
+    package; NLL sums stay float32."""
+    probs, nlls = [], []
+    if packed is not None:
+        rec1, kcat, ucat, bias, embT, v_real = packed
+        lp0 = params['lstm'][0]
+        for c in range(xc.shape[1]):
+            xp1 = embed_inputs(params, xc[:, c], zs) @ lp0['kernel'] \
+                + lp0['bias']
+            p, nll, carry = score_scan(
+                xp1.contiguous(), yc[:, c].int().contiguous(),
+                maskc[:, c].contiguous(), carry[0].contiguous(),
+                carry[1].contiguous(), rec1, kcat, ucat, bias, embT,
+                v_real)
+            probs.append(p.half())
+            nlls.append(nll)
+    else:
+        for c in range(xc.shape[1]):
+            logits, carry = forward_seq(params, cfg, xc[:, c], zs, carry)
+            tgt = torch.log_softmax(logits, dim=-1).gather(
+                -1, yc[:, c, :, None])[..., 0]
+            m = maskc[:, c]
+            nlls.append(-(tgt * m).sum(dim=-1))
+            probs.append(tgt.exp().half() * m.half())
+    return torch.stack(probs), torch.stack(nlls).sum(dim=0), carry
+
+
+def _window_probs(params, cfg: LMConfig, x, zs):
+    """Stateless windowed next-char distribution: x (B, L) -> (B, V)."""
+    logits, _ = forward_seq(params, cfg, x, zs, None)
+    return torch.softmax(logits[:, -1, :], dim=-1)
+
+
 class Rater:
-    """A character-level LSTM language model for decoding OCR lattices."""
+    """A character-level LSTM language model for rating text and
+    decoding OCR lattices."""
 
     def __init__(self, logger=None, device=None):
         self.device = resolve_device(device)
@@ -146,6 +241,11 @@ class Rater:
         self.vocab = Vocab()
         self.voc_size = 0
         self.history: Dict[str, Any] = {}
+        self.batch_size = 128
+        # fused scoring kernel (all layers + tied softmax per chunk) on
+        # CUDA, as the JAX package's default on its accelerator; the
+        # layered path otherwise (and always above width 384)
+        self.fused_score = self.device.type == 'cuda'
         self.merge_runs = True     # merge single-alternative edge runs
         self.decode_bf16 = False   # the JAX package's opt-in bf16 mode
         self.logger = logger or LOG
@@ -153,6 +253,8 @@ class Rater:
         self.params = None
         self.status = 0
         self._decode_cache: Dict[Any, Any] = {}
+        # (params, their packed score_scan weights)
+        self._score_pack: Optional[Tuple[Any, tuple]] = None
 
     # -- configuration and persistence ---------------------------------
 
@@ -201,6 +303,273 @@ class Rater:
         self.cfg = self.cfg.replace(voc_size=self.voc_size)
         self.status = 2
 
+    # -- whole-text scoring --------------------------------------------
+
+    def _score_batch(self, ids_list: List[np.ndarray],
+                     contexts: List[Any], *, carry=None,
+                     want_probs: bool = True
+                     ) -> Tuple[List[np.ndarray], List[float], Any]:
+        """Score a batch of encoded texts as parallel streams, chunk by
+        chunk with the carry threaded between chunks.
+
+        Returns (per-text probs (N_i-1,), per-text NLL sums, carry)."""
+        B = len(ids_list)
+        Bp = _bucket_unbounded(B, STEP_BUCKETS)
+        lens = [max(len(ids) - 1, 0) for ids in ids_list]
+        Nmax = max(lens + [1])
+        BLOCK = SCORE_CHUNK * CHUNK_COUNT_BUCKETS[-1]
+        if Nmax > BLOCK:
+            # book-length texts: chain fixed-size super-blocks through
+            # the carry (each block slice overlaps one char so targets
+            # line up across the boundary)
+            parts: List[List[np.ndarray]] = [[] for _ in range(B)]
+            nll_tot = [0.0] * B
+            cur = carry
+            for o in range(0, Nmax, BLOCK):
+                sub = [ids[o:o + BLOCK + 1] for ids in ids_list]
+                p, n_, cur = self._score_batch(
+                    sub, contexts, carry=cur, want_probs=want_probs)
+                for i in range(B):
+                    nll_tot[i] += n_[i]
+                    if want_probs:
+                        parts[i].append(p[i])
+            return ([np.concatenate(parts[i]) if want_probs else None
+                     for i in range(B)], nll_tot, cur)
+        C = _bucket((Nmax + SCORE_CHUNK - 1) // SCORE_CHUNK,
+                    CHUNK_COUNT_BUCKETS)
+        if B > 1 and C * Bp * SCORE_CHUNK > SCORE_SPLIT_LIMIT:
+            # bound activation and fetch memory: halve the batch (each
+            # half gets its carry rows and hands its final rows back;
+            # the carry is reassembled even when the caller passed
+            # none, since super-block chaining threads it on)
+            mid = B // 2
+
+            def _rows(lo, hi):
+                if carry is None:
+                    return None
+                return carry[0][:, lo:hi], carry[1][:, lo:hi]
+
+            p1, n1, c1 = self._score_batch(
+                ids_list[:mid], contexts[:mid], carry=_rows(0, mid),
+                want_probs=want_probs)
+            p2, n2, c2 = self._score_batch(
+                ids_list[mid:], contexts[mid:], carry=_rows(mid, B),
+                want_probs=want_probs)
+            return p1 + p2, n1 + n2, tuple(
+                torch.cat([a[:, :mid], b[:, :B - mid]], dim=1)
+                for a, b in zip(c1, c2))
+        T = SCORE_CHUNK
+        x = np.zeros((Bp, C * T), np.int32)
+        lens_a = np.zeros((Bp,), np.int32)
+        last = np.zeros((Bp,), np.int32)
+        for i, ids in enumerate(ids_list):
+            n = lens[i]
+            if n <= 0:
+                continue
+            x[i, :n] = ids[:-1]
+            lens_a[i] = n
+            last[i] = ids[n]
+        zs = []
+        under = None
+        for k in range(len(self.contexts)):
+            zrow = np.zeros((Bp,), np.int32)
+            for i, ctx in enumerate(contexts):
+                if not ctx:
+                    if under is None:  # one log line, one list
+                        under = self.underspecify_contexts()
+                    ctx = under
+                zrow[i] = ctx[k] if k < len(ctx) else 0
+            zs.append(zrow)
+        dev = self.device
+        if carry is None:
+            carry = zero_carry(self.cfg, Bp, dev)
+        elif carry[0].shape[1] != Bp:
+            # batch-row normalization (splitting and chaining callers)
+            if carry[0].shape[1] > Bp:
+                carry = (carry[0][:, :Bp], carry[1][:, :Bp])
+            else:
+                pad = torch.zeros((self.depth, Bp - carry[0].shape[1],
+                                   self.width), dtype=torch.float32,
+                                  device=dev)
+                carry = (torch.cat([carry[0], pad], 1),
+                         torch.cat([carry[1], pad], 1))
+        # the fused kernel is f32-only; at large widths the layered path
+        # (hoisted whole-chunk products per layer) is the JAX package's
+        # choice too
+        fused = (self.fused_score and self.cfg.compute_dtype == 'float32'
+                 and self.cfg.width <= 384)
+        probs_d, nll_d, carry = _score_stream(
+            self.params, self.cfg, torch.from_numpy(x).to(dev),
+            [torch.from_numpy(z).to(dev) for z in zs],
+            torch.from_numpy(lens_a).to(dev),
+            torch.from_numpy(last).to(dev), carry, C,
+            self._packed_score_weights() if fused else None)
+        nlls = nll_d.cpu().numpy()
+        out_probs: List[Any] = [None] * B
+        if want_probs:
+            probs = probs_d.cpu().numpy().astype(np.float32)  # (C, Bp, T)
+            for i in range(B):
+                out_probs[i] = probs[:, i, :].reshape(-1)[:lens[i]]
+        return out_probs, [float(nlls[i]) for i in range(B)], carry
+
+    def _packed_score_weights(self) -> tuple:
+        """The fused scoring kernel's weights, packed once per params
+        object (a new ``load_weights`` or a replaced ``params`` packs
+        again)."""
+        if self._score_pack is None or self._score_pack[0] is not self.params:
+            self._score_pack = (self.params,
+                                tuple(pack_score_weights(self.params,
+                                                         self.cfg)))
+        return self._score_pack[1]
+
+    def _score_text(self, ids: np.ndarray, context, *,
+                    carry=None) -> Tuple[np.ndarray, float, Any]:
+        """Score one encoded text: per-position probability of the true
+        next char and total NLL (nats)."""
+        if len(ids) < 2:
+            return np.zeros((0,), np.float32), 0.0, carry
+        probs, nlls, carry = self._score_batch([ids], [context],
+                                               carry=carry)
+        return probs[0], nlls[0], carry
+
+    def test(self, test_data) -> float:
+        """Perplexity = exp(mean NLL) over text files, each file one
+        stream with its own carry (reset per file), its context from the
+        ``author_title_year`` file name."""
+        if self.status < 2:
+            raise RuntimeError('test needs loaded weights')
+        from .data import context_from_filename
+        ids_list, contexts = [], []
+        for file in test_data:
+            text = read_normalized(file)
+            name = getattr(file, 'name', file if isinstance(file, str)
+                           else '')
+            ids_list.append(self.vocab.encode(text))
+            contexts.append(context_from_filename(name or ''))
+        if not ids_list:
+            return 1.0
+        if not self.stateful and not self.variable_length:
+            # stateless fixed-window semantics: every char (position 0
+            # too, from an all-padding window) is a window target
+            nll = 0.0
+            count = 0
+            for ids, ctx in zip(ids_list, contexts):
+                if not len(ids):
+                    continue
+                probs = self._rolling_window_probs(
+                    ids, ctx, include_first=True)
+                nll -= float(np.sum(np.log(np.maximum(probs, 1e-30))))
+                count += len(probs)
+            return exp(nll / max(count, 1))
+        nll = 0.0
+        count = 0
+        for s in range(0, len(ids_list), self.batch_size):
+            chunk = ids_list[s:s + self.batch_size]
+            _, nlls, _ = self._score_batch(
+                chunk, contexts[s:s + self.batch_size], want_probs=False)
+            nll += sum(nlls)
+            count += sum(max(len(i) - 1, 0) for i in chunk)
+        return exp(nll / max(count, 1))
+
+    def rate_batch(self, texts: List[str], contexts=None
+                   ) -> List[List[float]]:
+        """Per-character probabilities of several texts, scored as the
+        parallel streams of one batch; an empty text rates to []."""
+        if self.status < 2:
+            raise RuntimeError('rate_batch needs loaded weights')
+        if contexts is None:
+            contexts = [None] * len(texts)
+        ids_list = [self.vocab.encode(nfc(t), log_unmapped=True)
+                    for t in texts]
+        if not self.stateful and not self.variable_length:
+            return [([1.0] + [float(p) for p in
+                              self._rolling_window_probs(ids, ctx)])
+                    if len(ids) else []
+                    for ids, ctx in zip(ids_list, contexts)]
+        probs, _, _ = self._score_batch(ids_list, list(contexts))
+        return [([1.0] + [float(p) for p in pr]) if len(ids) else []
+                for pr, ids in zip(probs, ids_list)]
+
+    def rate(self, text: str, context=None) -> List[float]:
+        """Probability of each character given its predecessors (the
+        first is 1.0).  Stateless fixed-length models score each char
+        from its (at most) ``length``-char zero-padded window; stateful
+        and variable-length models scan the whole text."""
+        if self.status < 2:
+            raise RuntimeError('rate needs loaded weights')
+        text = nfc(text)
+        if not text:
+            return []
+        ids = self.vocab.encode(text, log_unmapped=True)
+        if not self.stateful and not self.variable_length:
+            probs = self._rolling_window_probs(ids, context)
+        else:
+            probs, _, _ = self._score_text(ids, context)
+        return [1.0] + [float(p) for p in probs]
+
+    def rate2(self, text: str, context=None
+              ) -> Tuple[List[Tuple[str, float]], float]:
+        """Per-character probabilities and the base-2 perplexity; for
+        stateful and variable-length models the entropy comes from the
+        f32 NLL sum (the float16 probs only feed the per-char values)."""
+        if self.status < 2:
+            raise RuntimeError('rate2 needs loaded weights')
+        text = nfc(text)
+        if not text:
+            return [], 1.0
+        ids = self.vocab.encode(text, log_unmapped=True)
+        result = [(text[0], 1.0)]
+        if self.stateful or self.variable_length:
+            probs, nll, _ = self._score_text(ids, context)
+            entropy = nll * 1.4426950408889634
+            for i in range(1, len(text)):
+                result.append((text[i], float(probs[i - 1])))
+            return result, pow(2.0, entropy / len(text))
+        probs = self._rolling_window_probs(ids, context)
+        entropy = 0.0
+        for i in range(1, len(text)):
+            p = float(probs[i - 1])
+            entropy -= log(max(p, 1e-99), 2)
+            result.append((text[i], p))
+        return result, pow(2.0, entropy / len(text))
+
+    def _rolling_window_probs(self, ids: np.ndarray, context, *,
+                              include_first: bool = False) -> np.ndarray:
+        """Next-char probs of a stateless fixed-length model from
+        zero-left-padded rolling windows of ``length`` chars, with the
+        context ids zero at the padded positions.  ``include_first``
+        also scores position 0 from an all-padding window."""
+        N = len(ids)
+        L = self.length
+        first = 0 if include_first else 1
+        M = N - first
+        windows = np.zeros((M, L), np.int32)
+        valid = np.zeros((M, L), np.int32)
+        for i in range(first, N):
+            lo = max(0, i - L)
+            windows[i - first, L - (i - lo):] = ids[lo:i]
+            valid[i - first, L - (i - lo):] = 1
+        if not context:
+            context = self.underspecify_contexts()
+        out = np.zeros((M,), np.float32)
+        B = self.batch_size
+        dev = self.device
+        for s in range(0, M, B):
+            n = min(B, M - s)
+            nb = _bucket(n, STEP_BUCKETS)
+            x = np.zeros((nb, L), np.int64)
+            x[:n] = windows[s:s + n]
+            v = np.zeros((nb, L), np.int64)
+            v[:n] = valid[s:s + n]
+            zs = [torch.from_numpy(
+                v * (int(context[k]) if k < len(context) else 0)).to(dev)
+                for k in range(len(self.contexts))]
+            probs = _window_probs(self.params, self.cfg,
+                                  torch.from_numpy(x).to(dev), zs)
+            out[s:s + n] = probs.cpu().numpy()[
+                np.arange(n), ids[first + s:first + s + n]]
+        return out
+
     # -- decode weights and beam carry ---------------------------------
 
     def _decode_weights(self, context):
@@ -218,8 +587,12 @@ class Rater:
         emb = torch.zeros((V_pad, W), dtype=torch.float32,
                           device=self.device)
         emb[:V] = params['char_embedding']
+        # an index beyond a context table reads its last row, as the
+        # JAX package's gather does
+        tables = params['context_embeddings']
         ctx_vec = torch.cat(
-            [params['context_embeddings'][i][ctx[i] if i < len(ctx) else 0]
+            [tables[i][min(ctx[i] if i < len(ctx) else 0,
+                           len(tables[i]) - 1)]
              for i in range(len(self.contexts))]) if self.contexts \
             else torch.zeros((0,), device=self.device)
         wcats, biases = [], []

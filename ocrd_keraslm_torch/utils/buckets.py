@@ -1,6 +1,7 @@
 """Shape bucketing: dynamic sizes round up to a small set of buckets
-(the decode kernel's beam K, alternative length L and edge-block E), so
-the packed formats and the kernel's shared-memory plan take few shapes.
+(the decode kernel's beam K, alternative length L and edge-block E;
+scoring's chunk count and batch), so the packed formats and the
+kernels' shared-memory plans take few shapes.
 """
 from __future__ import annotations
 
@@ -15,3 +16,11 @@ def bucket(n: int, buckets: Sequence[int]) -> int:
             return b
     return buckets[-1]
 
+
+def bucket_unbounded(n: int, buckets: Sequence[int]) -> int:
+    """Like :func:`bucket` but never truncates: above the largest
+    bucket, round up to the next power of two."""
+    for b in buckets:
+        if n <= b:
+            return b
+    return 1 << max(n - 1, 1).bit_length()

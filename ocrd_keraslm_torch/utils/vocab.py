@@ -3,7 +3,8 @@
 Bidirectional char<->index mapping with index 0 reserved for
 unknown/padding ("underspecification"), as read from the h5
 ``config/mapping`` codepoint array.  Counterpart of the lookup half of
-``ocrd_keraslm_tpu/utils/vocab.py`` (numpy only).
+``ocrd_keraslm_tpu/utils/vocab.py`` (numpy only), with
+``read_normalized`` for scoring text files.
 """
 from __future__ import annotations
 
@@ -19,6 +20,14 @@ LOG = logging.getLogger(__name__)
 def nfc(text: str) -> str:
     """NFC-normalize a string (all model I/O goes through this)."""
     return unicodedata.normalize('NFC', text)
+
+
+def read_normalized(file) -> str:
+    """Read a text file handle (or path) and NFC-normalize its content."""
+    if isinstance(file, str):
+        with open(file, 'r', encoding='utf-8') as fh:
+            return nfc(fh.read())
+    return nfc(file.read())
 
 
 class Vocab:

@@ -1,20 +1,27 @@
-"""OCR-D-style processor: decode text alternatives in PAGE-XML workspaces.
+"""OCR-D-style processor: rate or decode text in PAGE-XML workspaces.
 
-Counterpart of the decode path of ``ocrd_keraslm_tpu/wrapper/rate.py``
-(the reference ``KerasRate``, wrapper/rate.py of ocrd_keraslm): PAGE-XML
-parsing down to the configured ``textequiv_level``, linear lattice
-construction with artificial whitespace/newline edges and
-tokenisation repair, best-path beam decoding over all TextEquiv
-alternatives with the beam carried across pages, result write-back, and
-recomputation of all higher hierarchy levels honoring ReadingOrder,
-``textLineOrder`` (bottom-to-top), ``readingDirection`` (right-to-left)
-and ``Relation type=join``.
+Counterpart of the scoring and decode paths of
+``ocrd_keraslm_tpu/wrapper/rate.py`` (the reference ``KerasRate``,
+wrapper/rate.py of ocrd_keraslm): PAGE-XML parsing down to the
+configured ``textequiv_level`` and linear lattice construction with
+artificial whitespace/newline edges and tokenisation repair, then
 
-Every page of a document is launched on the device first (the beam
-carry chains there), then each is fetched, walked and written in page
-order.  Parameters of the JAX processor that select paths this package
-does not have yet raise ``NotImplementedError`` naming the ROADMAP.md
-item that ports them.
+* with ``alternative_decoding=false`` (scoring): the first TextEquiv of
+  every element is rated, all pages of the document as the parallel
+  streams of one ``Rater.rate_batch`` call, and its conf blended with
+  the LM's char probabilities;
+* with ``alternative_decoding=true`` (the default): best-path beam
+  decoding over all TextEquiv alternatives with the beam carried across
+  pages.  Every page is launched on the device first (the beam carry
+  chains there), then each is fetched, walked and written in page
+  order.
+
+Both write the result back and recompute all higher hierarchy levels
+honoring ReadingOrder, ``textLineOrder`` (bottom-to-top),
+``readingDirection`` (right-to-left) and ``Relation type=join``.
+Parameters of the JAX processor that select paths this package does not
+have yet raise ``NotImplementedError`` naming the ROADMAP.md item that
+ports them.
 """
 from __future__ import annotations
 
@@ -23,7 +30,7 @@ import os
 import threading
 from collections import defaultdict
 from dataclasses import dataclass
-from math import ceil
+from math import ceil, log
 from typing import Any, Dict, List, Optional
 
 from ..rater import Rater, _gc_paused
@@ -69,7 +76,6 @@ OCRD_TOOL = {
 
 # parameter values this package cannot serve yet -> ROADMAP.md item
 _NOT_PORTED = (
-    ('alternative_decoding', False, 'Scoring'),
     ('device_decoding', False, 'Host decode engine'),
     ('lookahead_writeback', True, 'Lookahead write-back'),
 )
@@ -86,8 +92,8 @@ def _config_env(name, default):
 
 
 class KerasRate:
-    """The ``ocrd-keraslm-rate`` processor (beam decoding of TextEquiv
-    alternatives on the device)."""
+    """The ``ocrd-keraslm-rate`` processor (scoring, or beam decoding of
+    TextEquiv alternatives, on the device)."""
 
     def __init__(self, workspace: Optional[Workspace] = None,
                  input_file_grp: str = 'OCR-D-OCR',
@@ -159,8 +165,11 @@ class KerasRate:
         model = self.resolve_resource(self.parameter['model_file'])
         self.rater = Rater(logger=self.logger, device=self.device)
         self.rater.load_config(model)
-        self.rater.stateful = False   # no implicit state transfer
-        self.rater.incremental = True  # explicit state transfer
+        if self.parameter['alternative_decoding']:
+            self.rater.stateful = False   # no implicit state transfer
+            self.rater.incremental = True  # explicit state transfer
+        elif self.rater.stateful:
+            self.rater.batch_size = 1
         self.rater.configure()
         self.rater.load_weights(model)
         self.logger.debug("Loaded model_file '%s'", model)
@@ -182,7 +191,8 @@ class KerasRate:
 
     @_gc_paused
     def process_workspace(self, workspace: Workspace) -> None:
-        """Beam-decode all pages of the workspace.
+        """Score (``alternative_decoding=false``) or beam-decode
+        (``=true``) all pages of the workspace.
 
         The METS is saved at the end of the run (and every
         ``KERASLM_METS_FLUSH_PAGES`` pages), not per page; an abort
@@ -194,7 +204,10 @@ class KerasRate:
         self._mets_dirty = False
         self._mets_unsaved = 0
         try:
-            self.process_workspace_stateful(workspace)
+            if self.parameter['alternative_decoding']:
+                self.process_workspace_stateful(workspace)
+            else:
+                self.process_workspace_stateless(workspace)
         except BaseException:
             # persist what was registered so far, but never mask the
             # in-flight error with a failing save
@@ -212,6 +225,81 @@ class KerasRate:
         if self._mets_dirty:
             with self._ws_lock:
                 self.workspace.save_mets()
+
+    def process_workspace_stateless(self, workspace: Workspace) -> None:
+        """Plain scoring: pages are independent.  All pages of the
+        document are rated as the parallel streams of ONE
+        ``Rater.rate_batch`` call; the host work around it (PAGE parse,
+        lattice build, write-back) runs in ``OCRD_MAX_PARALLEL_PAGES``
+        threads.  A page that fails follows ``OCRD_MISSING_OUTPUT``."""
+        self.workspace = workspace
+        self.verify()
+        n_par = int(os.environ.get('OCRD_MAX_PARALLEL_PAGES', '1') or 1)
+        level = self.parameter['textequiv_level']
+        context = self._page_context()
+
+        def prep(input_file):
+            page_id = input_file.pageId
+            try:
+                pcgts = self._load_page(input_file, page_id)
+                if pcgts is None:
+                    return None
+                file_id = self._make_file_id(input_file)
+                if self._output_exists(file_id):
+                    return None
+                edges = _require_edge_list(
+                    page_get_linear_lattice_at(level, pcgts,
+                                               logger=self.logger),
+                    'stateless scoring')
+                text = [(edge['element'], edge['alternatives'])
+                        for edge in edges]
+                return (pcgts, file_id, page_id, text,
+                        ''.join(tes[0].Unicode for _, tes in text),
+                        input_file)
+            except KeyboardInterrupt:
+                raise
+            except Exception as err:
+                self._handle_page_error(err, page_id, input_file)
+                return 'failed'
+
+        def in_threads(fn, items):
+            if n_par > 1 and len(items) > 1:
+                from concurrent.futures import ThreadPoolExecutor
+                with ThreadPoolExecutor(max_workers=n_par) as pool:
+                    return list(pool.map(fn, items))
+            return [fn(item) for item in items]
+
+        prepped = in_threads(prep, self.input_files)
+        nr_failed = sum(1 for p in prepped if p == 'failed')
+        pages = [p for p in prepped
+                 if p is not None and not isinstance(p, str)]
+        self._check_missing_ratio(nr_failed, nr_failed + len(pages))
+        if not pages:
+            return
+        all_confidences = self.rater.rate_batch(
+            [p[4] for p in pages], [context] * len(pages))
+
+        def finish(args):
+            (pcgts, file_id, page_id, text, _,
+             input_file), confidences = args
+            try:
+                self._apply_confidences(pcgts, text, confidences, level)
+                self._write_page(pcgts, file_id, page_id)
+                return True
+            except KeyboardInterrupt:
+                raise
+            except Exception as err:
+                self._handle_page_error(err, page_id, input_file)
+                return False
+
+        done = in_threads(finish, list(zip(pages, all_confidences)))
+        nr_failed += sum(1 for ok in done if not ok)
+        self._check_missing_ratio(nr_failed, nr_failed +
+                                  sum(1 for ok in done if ok))
+
+    def _apply_confidences(self, pcgts, text, confidences, level):
+        apply_confidences(text, confidences, level,
+                          self.parameter['lm_weight'], self.logger)
 
     def process_workspace_stateful(self, workspace: Workspace) -> None:
         """Sequential page loop with the beam carried across pages and
@@ -429,6 +517,31 @@ class KerasRate:
                 mimetype=MIMETYPE_PAGE, content=content, force=True)
             self._mets_changed_locked()
 
+    def _handle_page_error(self, err, page_id, input_file=None):
+        """Apply OCRD_MISSING_OUTPUT to one page failure: ABORT
+        re-raises, COPY falls back to the input file (when given),
+        anything else skips with a log."""
+        policy = _config_env('OCRD_MISSING_OUTPUT', 'SKIP')
+        if policy == 'ABORT':
+            self.logger.error('Failure on page %s: %s', page_id, err)
+            raise err
+        self.logger.exception('Failure on page %s', page_id)
+        if policy == 'COPY' and input_file is not None:
+            try:
+                self._copy_page_file(input_file)
+            except Exception:  # noqa: BLE001 — fallback of a fallback
+                self.logger.exception('COPY fallback failed for page %s',
+                                      page_id)
+
+    def _check_missing_ratio(self, nr_failed: int, total: int) -> None:
+        """Raise once the failed-page share exceeds
+        OCRD_MAX_MISSING_OUTPUTS (disabled at <= 0)."""
+        max_missing = self._max_missing_ratio()
+        if nr_failed and 0 < max_missing < nr_failed / max(total, 1):
+            raise RuntimeError(
+                'too many failures with missing output (%d of %d)'
+                % (nr_failed, total))
+
     @staticmethod
     def _max_missing_ratio() -> float:
         """OCRD_MAX_MISSING_OUTPUTS as a float; empty/invalid values
@@ -459,6 +572,71 @@ def mets_get_context(mets: Mets, limit: int = 200) -> List[int]:
             bucket = ceil(int(year) / 10)
             context = [bucket] if bucket < limit else [0]
     return context
+
+
+# ---------------------------------------------------------------------
+# page scoring
+# ---------------------------------------------------------------------
+
+def apply_confidences(text, confidences, level, lm_weight,
+                      logger=None) -> None:
+    """Blend LM char probabilities into the first TextEquiv of every
+    element (conf = lm*w + ocr*(1-w)), delete other alternatives, and
+    log the avg/char-ppl/segment-ppl line (the line format is API —
+    tests parse it; reference wrapper/rate.py:309-325)."""
+    logger = logger or LOG
+    if not confidences:
+        logger.warning('page has no text to rate')
+        return
+    i = 0
+    for element, textequivs in text:
+        textequiv = textequivs[0]
+        if element:
+            element.set_TextEquiv([textequiv])
+        n = len(textequiv.Unicode)
+        conf = sum(confidences[i:i + n]) / max(n, 1)
+        conf2 = textequiv.conf if textequiv.conf is not None else 1.0
+        textequiv.set_conf(conf * lm_weight + conf2 * (1. - lm_weight))
+        i += n
+    if i != len(confidences):
+        logger.critical('Input text length and output scores length are '
+                        'off by %d characters', i - len(confidences))
+    avg = sum(confidences) / len(confidences)
+    ent = sum(-log(max(p, 1e-99), 2)
+              for p in confidences) / len(confidences)
+    ppl = pow(2.0, ent)
+    ppll = pow(2.0, ent * len(confidences) / max(len(text), 1))
+    logger.info('avg: %.3f, char ppl: %.3f, %s ppl: %.3f',
+                avg, ppl, level, ppll)
+
+
+def score_page_pcgts(rater, pcgts, level, context, lm_weight,
+                     logger=None) -> None:
+    """Plain scoring of one page (no alternatives): the whole page text
+    in one ``rater.rate`` call, confidences blended by ``lm_weight``."""
+    logger = logger or LOG
+    edges = _require_edge_list(
+        page_get_linear_lattice_at(level, pcgts, logger=logger),
+        'plain page scoring')
+    text = [(edge['element'], edge['alternatives']) for edge in edges]
+    textstring = ''.join(tes[0].Unicode for _, tes in text)
+    logger.info('Rating %d elements with a total of %d characters',
+                len(text), len(textstring))
+    confidences = rater.rate(textstring, context)
+    apply_confidences(text, confidences, level, lm_weight, logger)
+
+
+def _require_edge_list(edges, where: str) -> list:
+    """Reject a customized lattice builder's DiGraph on the chain-only
+    scoring paths with an actionable message."""
+    if hasattr(edges, 'add_edge'):
+        raise ValueError(
+            'a customized lattice builder returned a DAG, but %s scores '
+            'the single best chain; DAG lattices need '
+            'alternative_decoding=true and the host decode engine, which '
+            'is not ported yet (ROADMAP.md Queue 1, "Host decode engine")'
+            % where)
+    return edges
 
 
 # ---------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""The CUDA decode kernel against its plain PyTorch version on the card.
+"""The CUDA kernels against their plain PyTorch versions on the card.
 
 Marked ``gpu``: without a CUDA device every test here skips.  On the
 card (no JAX there, so without the repository's conftest)::
@@ -6,19 +6,25 @@ card (no JAX there, so without the repository's conftest)::
     python -m pytest --noconftest -p no:cacheprovider -m gpu \\
         tests/test_torch_gpu.py
 
-Tolerances are those of ``chip_smoke.compare_decode``: costs rtol
-1e-5 / atol 1e-4, stateF atol 1e-5 (cell states also rtol 2e-5),
+Decode tolerances are those of ``chip_smoke.compare_decode``: costs
+rtol 1e-5 / atol 1e-4, stateF atol 1e-5 (cell states also rtol 2e-5),
 backpointers and alternatives equal up to the order of ranks whose
 costs lie within 1e-3; where a near-tie at the K-th rank sends the two
 f32 runs down different hypotheses, ``chip_smoke.parity_block``
-resumes both from the kernel's state after that edge."""
+resumes both from the kernel's state after that edge.  Scoring and
+LSTM-scan tolerances are those of ``chip_smoke.compare_score`` and
+``compare_lstm``: probs and h atol 1e-5, cell states c atol 1e-5 plus
+rtol ``chip_smoke.C_RTOL`` (|c| reaches ~3.6e3 over a 4096-step chunk),
+NLL sums rtol 1e-5; ratings through the ``Rater`` (float16 probs) atol
+1e-3."""
 import os
 
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import MODEL, parity_block, random_lattice
+from chip_smoke import (MODEL, compare_lstm, compare_score, parity_block,
+                        random_lattice, score_inputs)
 
 pytestmark = pytest.mark.gpu
 
@@ -116,6 +122,7 @@ def test_kernel_matches_plain_long_alternatives(cuda):
 
 
 def test_cuda_tensors_never_take_the_plain_version(cuda, monkeypatch):
+    from ocrd_keraslm_torch.ops import _build
     from ocrd_keraslm_torch.ops import decode_kernel as dk
     monkeypatch.setattr(dk, 'decode_lattice_ref', None)
     rng = np.random.default_rng(3)
@@ -128,4 +135,95 @@ def test_cuda_tensors_never_take_the_plain_version(cuda, monkeypatch):
                                random_lattice(rng, 16, 12, 4, 2, 30), 12,
                                state, cost, True)
     assert dk.decode_lattice.launches == before + 1
-    assert os.path.isdir(dk.BUILD_DIR)
+    assert os.path.isdir(_build.BUILD_DIR)
+
+
+@pytest.mark.parametrize('want_c_all', [False, True])
+@pytest.mark.parametrize('B, T, W', [(3, 50, 32), (9, 64, 32),
+                                     (4, 4096, 128)])
+def test_lstm_scan_matches_plain(cuda, B, T, W, want_c_all):
+    """Small widths, a grid of several blocks (B=9) and the main path's
+    full width (W=128, a 4096-step chunk)."""
+    from ocrd_keraslm_torch.ops import lstm_cell
+    rng = np.random.default_rng([B, T, W])
+    args = [torch.from_numpy(a).to(cuda) for a in (
+        rng.normal(0, 1, (B, T, 4 * W)).astype(np.float32),
+        rng.normal(0, 0.5, (B, W)).astype(np.float32),
+        rng.normal(0, 0.5, (B, W)).astype(np.float32),
+        rng.normal(0, 1 / np.sqrt(W), (W, 4 * W)).astype(np.float32))]
+    before = lstm_cell.lstm_scan.launches
+    got = lstm_cell.lstm_scan(*args, want_c_all=want_c_all)
+    torch.cuda.synchronize()
+    assert lstm_cell.lstm_scan.launches == before + 1
+    assert (got[1] is None) == (not want_c_all)
+    compare_lstm(got, lstm_cell.lstm_scan_ref(*args, want_c_all=want_c_all))
+
+
+@pytest.mark.parametrize('case', ['d1w32', 'd2w32b9', 'd3w32',
+                                  'german_b1', 'german_b4', 'german_d1'])
+def test_score_scan_matches_plain(cuda, case):
+    """Small widths at depth 1-3 (B=9: two blocks, one partly empty),
+    and the german model's full width (D=2, W=128, V=70 padded to 128)
+    over a 4096-step chunk, from a seeded nonzero carry with a partial
+    mask; ``german_d1`` keeps its layer 0 only (the dummy layer
+    operands of D=1)."""
+    from ocrd_keraslm_torch.ops import score_kernel as sk
+    rng = np.random.default_rng(len(case))
+    args = score_inputs(rng, case, cuda)
+    before = sk.score_scan.launches
+    got = sk.score_scan(*args)
+    torch.cuda.synchronize()
+    assert sk.score_scan.launches == before + 1
+    compare_score(got, sk.score_scan_ref(*args))
+
+
+@pytest.mark.parametrize('fused', [True, False])
+def test_rater_scoring_launches_and_matches_cpu(cuda, fused):
+    """The german model rates on the card through the fused kernel (one
+    score_scan launch per 4096-char chunk) or the layered path (one
+    lstm_scan launch per layer and chunk), and agrees with the CPU."""
+    from ocrd_keraslm_torch.ops import lstm_cell
+    from ocrd_keraslm_torch.ops import score_kernel as sk
+    from ocrd_keraslm_torch.rater import Rater
+    raters = {}
+    for device in (cuda, 'cpu'):
+        r = Rater(device=device)
+        r.load_config(MODEL)
+        r.configure()
+        r.load_weights(MODEL)
+        r.fused_score = fused
+        raters[str(device)] = r
+    rng = np.random.default_rng(5)
+    chars = sorted(raters['cuda'].vocab.c2i)
+    texts = [''.join(chars[i] for i in rng.integers(0, len(chars), n))
+             for n in (5000, 300, 1)]
+    s0, l0 = sk.score_scan.launches, lstm_cell.lstm_scan.launches
+    got = raters['cuda'].rate_batch(texts, [[179], None, [2]])
+    torch.cuda.synchronize()
+    chunks = 2   # the 5000-char text takes 2 chunks of 4096
+    if fused:
+        assert sk.score_scan.launches - s0 == chunks
+        assert lstm_cell.lstm_scan.launches == l0
+    else:
+        assert sk.score_scan.launches == s0
+        assert lstm_cell.lstm_scan.launches - l0 == 2 * chunks
+    want = raters['cpu'].rate_batch(texts, [[179], None, [2]])
+    for g, w in zip(got, want):
+        assert len(g) == len(w)
+        np.testing.assert_allclose(g, w, rtol=0, atol=1e-3)
+
+
+def test_cuda_scoring_never_takes_the_plain_versions(cuda, monkeypatch):
+    from ocrd_keraslm_torch.ops import lstm_cell
+    from ocrd_keraslm_torch.ops import score_kernel as sk
+    from ocrd_keraslm_torch.rater import Rater
+    monkeypatch.setattr(sk, 'score_scan_ref', None)
+    monkeypatch.setattr(lstm_cell, 'lstm_scan_ref', None)
+    r = Rater(device=cuda)
+    r.load_config(MODEL)
+    r.configure()
+    r.load_weights(MODEL)
+    for fused in (True, False):
+        r.fused_score = fused
+        _, ppl = r.rate2('Was ist Aufklärung?', [179])
+        assert np.isfinite(ppl) and ppl > 1

@@ -132,13 +132,44 @@ def test_cli_module_runs_on_cpu(tmp_path):
                 key=lambda g: int(g.rsplit('_g', 1)[1])))
 
 
+def test_cli_module_scores_on_cpu(tmp_path):
+    """``-P alternative_decoding false`` reaches the processor: scoring
+    mode keeps the first alternative of every glyph and writes every
+    page."""
+    build_workspace(str(tmp_path), PAGES, glyph_alternatives=ALTERNATIVES)
+    env = dict(os.environ, KERASLM_PLATFORM='cpu')
+    proc = subprocess.run(
+        [sys.executable, '-m', 'ocrd_keraslm_torch.wrapper.cli',
+         '-m', str(tmp_path / 'mets.xml'), '-I', 'OCR-D-OCR',
+         '-O', 'OCR-D-LM', '-P', 'model_file', GERMAN,
+         '-P', 'alternative_decoding', 'false'],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert 'char ppl' in proc.stderr
+    files, glyphs, _ = _outputs(str(tmp_path))
+    assert len(files) == len(PAGES)
+    assert glyphs and all(len(tes) == 1 for tes in glyphs.values())
+    assert {tes[0][0] for gid, tes in glyphs.items()
+            if gid.endswith('_g0')} >= {'X'}   # first alternatives kept
+
+
 @pytest.mark.parametrize('param, value', [
     ('alternative_decoding', False), ('device_decoding', False),
     ('lookahead_writeback', True)])
 def test_unported_parameters_raise(param, value):
+    """Parameters that select paths not ported yet raise, naming their
+    ROADMAP.md item.  Scoring (``alternative_decoding=false``) is
+    ported: the processor is built in scoring mode, a stateful model
+    with batch size 1, as in the JAX processor."""
+    kwargs = dict(parameter={'model_file': GERMAN, param: value},
+                  device='cpu')
+    if param == 'alternative_decoding':
+        proc = TKerasRate(**kwargs)
+        proc.setup()
+        assert proc.rater.stateful and proc.rater.batch_size == 1
+        return
     with pytest.raises(NotImplementedError, match='ROADMAP.md'):
-        TKerasRate(parameter={'model_file': GERMAN, param: value},
-                   device='cpu')
+        TKerasRate(**kwargs)
 
 
 @pytest.mark.parametrize('var', ['KERASLM_NATIVE_PAGE',
