@@ -7,10 +7,11 @@ Phases, each printing its own lines (any failure exits non-zero):
 
 1. card: name and power limit (``nvidia-smi``), torch device name/count;
    no CUDA device is a failure, never a fallback;
-2. build: ``nvcc`` builds the three kernels of ``ocrd_keraslm_torch/csrc/``
-   (``decode_lattice.cu``, ``score_scan.cu``, ``lstm_scan.cu``) for
-   sm_90a, all at once; prints seconds, ``-Xptxas -v`` registers and
-   spills, and each block's dynamic shared memory;
+2. build: ``nvcc`` builds the four kernel sources of
+   ``ocrd_keraslm_torch/csrc/`` (``decode_lattice.cu``, ``score_scan.cu``,
+   ``lstm_scan.cu``, ``lstm_bwd.cu``) for sm_90a, all at once; prints
+   seconds, ``-Xptxas -v`` registers and spills, and each block's dynamic
+   shared memory;
 3. parity at full width (``pretrained/model_german.h5``), each kernel
    against its plain PyTorch version, and both versions' error against
    the plain version run in float64:
@@ -18,7 +19,9 @@ Phases, each printing its own lines (any failure exits non-zero):
    E=1024 edges and a chained tail block with n_real < E; the scoring
    kernel over 4096-step chunks at B in {1, 4} and at D=1, from a seeded
    nonzero carry with a partial mask; the LSTM-scan kernel at B=4,
-   T=4096, with and without ``c_all``;
+   T=4096, with and without ``c_all``; at the training shape (B=128,
+   T=256, W=128) the LSTM-scan kernel with f32 and bf16 U and the
+   LSTM backward kernel with both, ``dU`` equal from launch to launch;
 4. decode path: a seeded synthetic METS/PAGE workspace (4 pages of ~1800
    glyphs, 2-4 alternatives on ~15% of them) through
    ``ocrd_keraslm_torch.wrapper.cli`` at glyph level, beam_width 10;
@@ -32,10 +35,23 @@ Phases, each printing its own lines (any failure exits non-zero):
    ``Rater`` API (``lstm_scan`` once per layer and chunk); then
    ``keraslm-rate test`` and ``apply``
    (``python -m ocrd_keraslm_torch.scripts.run``), card against CPU;
-6. numbers: wall per page, edges/s and scored chars/s, the device's busy
-   and idle share of both paths (``torch.profiler``), and per kernel at
-   the main path's shapes: its time and the plain version's (CUDA
-   events), its bound, and a library yardstick where there is one.
+6. training path: a seeded synthetic German corpus of three
+   ``author_title_year.txt`` files (each fills 128 streams of six
+   256-char windows) through ``keraslm-rate train -w 128 -d 2 -l 256
+   -b 128 -e 2`` (``python -m ocrd_keraslm_torch.scripts.run``, in this
+   process): ``lstm_bwd`` must launch once per layer and step,
+   ``lstm_scan`` once per layer and training or validation step, the
+   loss must start near ln(V) and fall, a checkpoint and the model must
+   be written, and the model must load and rate (``keraslm-rate test``,
+   card against CPU); the same with ``--bf16`` for one epoch of a
+   smaller corpus; then five ``train_step``s at full width from one
+   initialisation, the same batches and dropout seed on the card and on
+   the CPU;
+7. numbers: wall per page, edges/s and scored chars/s, the device's busy
+   and idle share of the paths (``torch.profiler``), wall per training
+   step and chars/s, and per kernel at the main path's shapes: its time
+   and the plain version's (CUDA events), its bound, and a library
+   yardstick where there is one.
 
 Every kernel count is set to 0 just before a path runs and read just
 after.  The last two lines are the kernel table and
@@ -57,9 +73,12 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 MODEL = os.path.join(HERE, 'pretrained', 'model_german.h5')
 BIG = 1.0e30
 # card peaks for the bound (NVIDIA H100 SXM data sheet): f32 on CUDA
-# cores and HBM3 bandwidth
+# cores, bf16 on tensor cores (dense) and HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
+# the training main path: keraslm-rate train's defaults
+TRAIN_W, TRAIN_D, TRAIN_T, TRAIN_B = 128, 2, 256, 128
 GERMAN_WORDS = (
     'der die und in den von zu das mit sich des auf für ist im dem nicht '
     'ein Die eine als auch es an werden aus er hat daß sie nach wird bei '
@@ -417,7 +436,10 @@ def platform_env(platform):
             os.environ['KERASLM_PLATFORM'] = old
 
 
-KERNELS = ('decode_lattice', 'score_scan', 'lstm_scan')
+KERNELS = ('decode_lattice', 'score_scan', 'lstm_scan', 'lstm_bwd')
+# device kernels by name, for the profiler's sums (lstm_bwd launches
+# three: the recurrence, the dU partial products and their sum)
+DEVICE_KERNELS = KERNELS + ('lstm_du',)
 
 
 def profile_main_path(directory, scoring=False):
@@ -425,31 +447,53 @@ def profile_main_path(directory, scoring=False):
     ``torch.profiler``; returns ``(host wall s, {kernel name: device
     ms, 'other': device ms})`` from the device activities the profiler
     saw (an empty dict where it saw none)."""
+    return profiled(lambda: run_cli(directory, 'cuda', scoring=scoring))
+
+
+def profiled(fn):
+    """``fn()`` on the card under ``torch.profiler``; returns ``(host
+    wall s, {kernel name: device ms, 'other': device ms})``; the device
+    activities that are none of the port's kernels are also summed by
+    name into ``profiled.others`` (for :func:`print_others`)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        run_cli(directory, 'cuda', scoring=scoring)
+        fn()
         torch.cuda.synchronize()
         wall = time.time() - t0
-    busy = {}
+    busy, others = {}, {}
     for evt in prof.events():
         if evt.device_type == DeviceType.CUDA:
-            key = next((k for k in KERNELS if k in evt.name), 'other')
-            busy[key] = busy.get(key, 0.0) + \
-                evt.time_range.elapsed_us() / 1e3
+            key = next((k for k in DEVICE_KERNELS if k in evt.name),
+                       'other')
+            ms = evt.time_range.elapsed_us() / 1e3
+            busy[key] = busy.get(key, 0.0) + ms
+            if key == 'other':
+                others[evt.name] = others.get(evt.name, 0.0) + ms
+    profiled.others = others
     return wall, busy
 
 
-def print_profile(what, wall, busy, card):
+def print_others(what, top=8):
+    """The largest of the last trace's device activities outside the
+    port's kernels (PyTorch's own kernels and copies), by name."""
+    rows = sorted(profiled.others.items(), key=lambda kv: -kv[1])[:top]
+    print('%s traced, device time outside the port\'s kernels, largest '
+          'first: %s' % (what, '; '.join(
+              '%.2f ms %s' % (ms, name[:70]) for name, ms in rows)))
+
+
+def print_profile(what, wall, busy, card, over='same 4 pages'):
     if busy:
         device_ms = sum(busy.values())
-        print('%s traced (torch.profiler, same 4 pages): wall %.3f s; '
+        print('%s traced (torch.profiler, %s): wall %.3f s; '
               'device busy %s; device idle %.1f%% of the wall [%s]'
-              % (what, wall, ', '.join('%.1f ms in %s' % (ms, k) for k, ms
-                                       in sorted(busy.items())),
+              % (what, over, wall,
+                 ', '.join('%.1f ms in %s' % (ms, k)
+                           for k, ms in sorted(busy.items())),
                  100 * (1 - device_ms / 1e3 / wall), card))
     else:
         print('%s traced: device time not measured (the profiler saw no '
@@ -491,10 +535,13 @@ def decode_bound(mask, steps, n_real, K, D, W, v_real, nbytes):
     return bound(flops, nbytes)
 
 
-def bound(flops, nbytes):
+def bound(flops, nbytes, bf16_flops=0):
     """(least ms, 'operations' or 'bytes', flops): the larger of the
-    f32 FLOPs over the f32 peak and the bytes over the memory rate."""
-    t_ops = flops / PEAK_F32_FLOPS
+    operations over their peak (``bf16_flops`` of the ``flops`` have bf16
+    operands and are held to the tensor cores' bf16 peak, the rest to
+    the f32 peak) and the bytes over the memory rate."""
+    t_ops = (flops - bf16_flops) / PEAK_F32_FLOPS \
+        + bf16_flops / PEAK_BF16_FLOPS
     t_bytes = nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             'operations' if t_ops >= t_bytes else 'bytes', flops)
@@ -615,9 +662,10 @@ def rel_error(got, want):
 def f64_errors(kernel, plain, args, outputs):
     """:func:`rel_error` of the kernel's and the plain version's outputs
     (``outputs`` picks the float tensors to compare) against the plain
-    version run in float64 on the same inputs."""
+    version run in float64 on the same inputs (a bfloat16 weight stays
+    bfloat16: it says where the function rounds)."""
     import torch
-    args64 = [a.double() if torch.is_tensor(a) and a.is_floating_point()
+    args64 = [a.double() if torch.is_tensor(a) and a.dtype == torch.float32
               else a for a in args]
     want = outputs(plain(*args64))
     return tuple(max(rel_error(g, w) for g, w in zip(outputs(fn(*args)),
@@ -752,12 +800,13 @@ def lstm_bound(args, want_c_all):
 # ---------------------------------------------------------------------
 
 def build_kernels():
-    """Build the three kernels at once (one ``nvcc`` each, in threads);
-    print seconds and ``ptxas`` lines."""
+    """Build the four kernel sources at once (one ``nvcc`` each, in
+    threads); print seconds and ``ptxas`` lines."""
     from concurrent.futures import ThreadPoolExecutor
     from ocrd_keraslm_torch.ops import _build
     from ocrd_keraslm_torch.ops import decode_kernel, lstm_cell, score_kernel
-    sources = [m.SOURCE for m in (decode_kernel, score_kernel, lstm_cell)]
+    sources = [m.SOURCE for m in (decode_kernel, score_kernel, lstm_cell)] \
+        + [lstm_cell.BWD_SOURCE]
 
     def one(src):
         t0 = time.time()
@@ -774,7 +823,7 @@ def build_kernels():
             if any(w in line for w in ('registers', 'spill', 'smem',
                                        'Compiling entry')):
                 print('ptxas:', line.strip())
-    print('build: %d kernels in %.2f s (parallel nvcc)'
+    print('build: %d kernel sources in %.2f s (parallel nvcc)'
           % (len(sources), time.time() - t0))
 
 
@@ -892,13 +941,15 @@ def zero_counts():
     decode_kernel.decode_lattice.launches = 0
     score_kernel.score_scan.launches = 0
     lstm_cell.lstm_scan.launches = 0
+    lstm_cell.lstm_bwd.launches = 0
 
 
 def read_counts():
     from ocrd_keraslm_torch.ops import decode_kernel, lstm_cell, score_kernel
     return {'decode_lattice': decode_kernel.decode_lattice.launches,
             'score_scan': score_kernel.score_scan.launches,
-            'lstm_scan': lstm_cell.lstm_scan.launches}
+            'lstm_scan': lstm_cell.lstm_scan.launches,
+            'lstm_bwd': lstm_cell.lstm_bwd.launches}
 
 
 def check_glyphs(directory, n_glyphs):
@@ -977,7 +1028,7 @@ def scoring_path(rater, work):
     counts = read_counts()
     check_glyphs(ws, n_glyphs)
     assert counts == {'decode_lattice': 0, 'score_scan': chunks,
-                      'lstm_scan': 0}, (counts, chunks)
+                      'lstm_scan': 0, 'lstm_bwd': 0}, (counts, chunks)
     n_chars = sum(len(t) for t in texts)
     print('scoring path: 4 pages, %d glyphs, %d chars scored in one '
           'rate_batch; launches %s (expected %d score_scan, one per '
@@ -1003,8 +1054,8 @@ def scoring_path(rater, work):
     layered_counts = read_counts()
     rater.fused_score = True
     assert layered_counts == {'decode_lattice': 0, 'score_scan': 0,
-                              'lstm_scan': rater.depth * chunks}, \
-        layered_counts
+                              'lstm_scan': rater.depth * chunks,
+                              'lstm_bwd': 0}, layered_counts
     diff = max(float(np.abs(np.subtract(a, b)).max())
                for a, b in zip(fused, layered))
     assert diff <= 2.0 ** -11, diff
@@ -1159,6 +1210,505 @@ def scoring_numbers(rater, scoring, card):
     return out
 
 
+# ---------------------------------------------------------------------
+# training: the LSTM scan with c_all and the LSTM backward
+# ---------------------------------------------------------------------
+
+# Under a bf16 U the forward rounds h to bf16 at every step, so two f32
+# runs that differ in the last bit round some h to neighbouring bf16
+# values: a step of 2^-8 relative, which the next products carry on.
+# Kernel and plain version are then as far from each other as each is
+# from a float64 run; h and c are held to 4e-3 there (one bf16 step at
+# |h| <= 1).  The backward gets one forward's saved states, rounds the
+# same h in both versions, and is held like the f32 one.
+BF16_FWD_ATOL = 4e-3
+# dU sums T*B = 32,768 products per element; kernel (blocks of 32, then
+# 32 splits) and plain version (one product per step, added over T) sum
+# in other orders: held to 5e-6 of max |dU| (both err ~1e-6 of it
+# against a float64 run); dx_proj, dh0, dc0 to atol 1e-5 + rtol 1e-4
+DU_RTOL_OF_MAX = 5e-6
+
+
+def lstm_train_inputs(rng, device, bf16, B=TRAIN_B, T=TRAIN_T, W=TRAIN_W):
+    """Seeded arguments of ``lstm_scan`` at the training shape (x_proj,
+    h0, c0, U with orthonormal rows as ``init_params`` makes it) and the
+    cotangents of h_all, hT and cT."""
+    import torch
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(
+            a.astype(np.float32))).to(device)
+    q, _ = np.linalg.qr(rng.normal(0, 1, (4 * W, 4 * W)))
+    U = t(q[:W])
+    if bf16:
+        U = U.to(torch.bfloat16)
+    return ((t(rng.normal(0, 1, (B, T, 4 * W))), t(rng.normal(0, 0.5, (B, W))),
+             t(rng.normal(0, 0.5, (B, W))), U),
+            (t(rng.normal(0, 1, (T, B, W))), t(rng.normal(0, 1, (B, W))),
+             t(rng.normal(0, 1, (B, W)))))
+
+
+def lstm_bwd_args(fwd_args, cotangents, saved):
+    """``lstm_bwd``'s arguments from a forward's arguments, its saved
+    ``(h_all, c_all)`` and the cotangents, as ``LSTMScan`` builds them."""
+    import torch
+    x_proj, h0, c0, U = fwd_args
+    h_all, c_all = saved
+    dh_all, dhT, dcT = cotangents
+    return (x_proj.transpose(0, 1).contiguous(),
+            torch.cat([h0[None], h_all[:-1]]),
+            torch.cat([c0[None], c_all[:-1]]), c_all, dh_all, U, dhT, dcT)
+
+
+def compare_bwd(got, want):
+    """Hold one ``lstm_bwd`` output ``(dxp, dU, dh0, dc0)`` against
+    another; returns ``(max abs error of dxp, dh0, dc0; max abs error of
+    dU over max |dU|)``."""
+    import torch
+    err = 0.0
+    for i in (0, 2, 3):
+        torch.testing.assert_close(got[i], want[i], rtol=1e-4, atol=1e-5)
+        err = max(err, float((got[i] - want[i]).abs().max()))
+    scale = float(want[1].abs().max())
+    du_err = float((got[1] - want[1]).abs().max()) / max(scale, 1e-30)
+    assert du_err <= DU_RTOL_OF_MAX, ('dU', du_err, scale)
+    return err, du_err
+
+
+def train_parity(dev):
+    """Phase 3 at the training shape: ``lstm_scan`` with ``c_all`` and
+    ``lstm_bwd``, f32 and bf16 U, against their plain versions and a
+    float64 run of those.  Returns {row name: max abs error}."""
+    import torch
+    from ocrd_keraslm_torch.ops import lstm_cell as lc
+    rng = np.random.default_rng(20261018)
+    errs = {}
+    for bf16 in (False, True):
+        kind = 'bf16' if bf16 else 'f32'
+        fwd, cot = lstm_train_inputs(rng, dev, bf16)
+        B, T, _ = fwd[0].shape
+        got = lc.lstm_scan(*fwd, want_c_all=True)
+        torch.cuda.synchronize()
+        want = lc.lstm_scan_ref(*fwd, want_c_all=True)
+        atol = BF16_FWD_ATOL if bf16 else 1e-5
+        h_err, c_err = compare_lstm(got, want, atol=atol)
+        errs['lstm_scan_' + ('bf16' if bf16 else 'train')] = h_err
+        print('parity lstm_scan %s U at the training shape (B=%d, T=%d, '
+              'W=%d, nonzero carry, c_all on): max |kernel - plain| %.3g '
+              'over h_all and hT, relative %.3g over c_all and cT '
+              '(tolerances: h atol %g, c atol %g + rtol %g)'
+              % (kind, B, T, TRAIN_W, h_err, c_err, atol, atol, C_RTOL))
+        print('accuracy lstm_scan %s U: max |x - x_float64| / max(1, '
+              '|x_float64|) over h_all, c_all, hT and cT: kernel %.3g, '
+              'plain version %.3g'
+              % ((kind,) + f64_errors(
+                  lambda *a: lc.lstm_scan(*a, want_c_all=True),
+                  lambda *a: lc.lstm_scan_ref(*a, want_c_all=True), fwd,
+                  lambda out: out)))
+        args = lstm_bwd_args(fwd, cot, got[:2])
+        outs = [lc.lstm_bwd(*args) for _ in range(2)]
+        torch.cuda.synchronize()
+        assert torch.equal(outs[0][1], outs[1][1]), \
+            'dU differs between two launches'
+        err, du_err = compare_bwd(outs[0], lc.lstm_bwd_ref(*args))
+        errs['lstm_bwd' + ('_bf16' if bf16 else '')] = max(
+            err, du_err * float(outs[0][1].abs().max()))
+        print('parity lstm_bwd %s U at the training shape (the states '
+              'the kernel forward saved): max |kernel - plain| %.3g over '
+              'dx_proj, dh0 and dc0, %.3g of max |dU| = %.4g over dU; dU '
+              'bit-equal over two launches (tolerances: atol 1e-5 + rtol '
+              '1e-4; dU %g of its max)'
+              % (kind, err, du_err, float(outs[0][1].abs().max()),
+                 DU_RTOL_OF_MAX))
+        k64, p64 = f64_errors(lc.lstm_bwd, lc.lstm_bwd_ref, args,
+                              lambda out: (out[0], out[2], out[3]))
+        du64 = f64_errors(
+            lc.lstm_bwd, lc.lstm_bwd_ref, args,
+            lambda out: (out[1] / float(outs[0][1].abs().max()),))
+        print('accuracy lstm_bwd %s U: max |x - x_float64| / max(1, '
+              '|x_float64|) over dx_proj, dh0, dc0: kernel %.3g, plain '
+              'version %.3g; over dU / max |dU|: kernel %.3g, plain '
+              'version %.3g' % (kind, k64, p64, du64[0], du64[1]))
+    return errs
+
+
+def write_corpus(directory, rng, sizes):
+    """Seeded German-like text files ``{name: chars}`` (lines of about
+    ten words); returns their paths."""
+    os.makedirs(directory, exist_ok=True)
+    paths = []
+    for name, n_chars in sizes.items():
+        lines, total = [], 0
+        while total < n_chars:
+            line = ' '.join(GERMAN_WORDS[i] for i in rng.integers(
+                len(GERMAN_WORDS), size=int(rng.integers(8, 13))))
+            lines.append(line)
+            total += len(line) + 1
+        path = os.path.join(directory, name)
+        with open(path, 'w', encoding='utf-8') as fh:
+            fh.write('\n'.join(lines)[:n_chars])
+        paths.append(path)
+    return paths
+
+
+def split_plan(files, seed):
+    """The split ``keraslm-rate train`` makes of ``files`` after
+    :func:`seed_host`, and the vocabulary it assigns."""
+    from ocrd_keraslm_torch import data as pdata
+    from ocrd_keraslm_torch.utils.vocab import Vocab
+    seed_host(seed)
+    plan = pdata.split_data(files, stateful=True, length=TRAIN_T)
+    vocab = Vocab()
+    vocab.assign(plan.charset)
+    return plan, vocab
+
+
+def seed_host(seed):
+    """Seed the two host generators the trainer draws its split, its
+    dropout seed and its data seed from."""
+    import random
+    random.seed(seed)
+    np.random.seed(seed)
+
+
+def stream_batches(files, vocab, train=False, rng=None):
+    from ocrd_keraslm_torch import data as pdata
+    return pdata.gen_stateful_streams(
+        files, vocab, length=TRAIN_T, batch_size=TRAIN_B, n_contexts=1,
+        train=train, rng=rng)
+
+
+def run_train_cli(work, model, files, epochs, seed, extra=()):
+    """``keraslm-rate train`` at the main path's width on the card, in
+    this process, counts zeroed before; returns (wall s, counts, the
+    chars/s the trainer logged per epoch)."""
+    import logging
+
+    import torch
+    from click.testing import CliRunner
+    from ocrd_keraslm_torch.scripts.run import cli as keraslm_rate
+    rates = []
+
+    class Epochs(logging.Handler):
+        def emit(self, record):
+            if str(record.msg).startswith('epoch %d:'):
+                rates.append(float(record.args[-1]))
+    logger = logging.getLogger('ocrd_keraslm_torch.rater')
+    handler, level = Epochs(), logger.level
+    logger.addHandler(handler)
+    logger.setLevel(logging.INFO)
+    seed_host(seed)
+    zero_counts()
+    t0 = time.time()
+    try:
+        res = CliRunner().invoke(keraslm_rate, [
+            '-l', 'WARNING', 'train', '-m', model, '-C',
+            os.path.join(work, 'no_ckpt.h5'), '-w', str(TRAIN_W), '-d',
+            str(TRAIN_D), '-l', str(TRAIN_T), '-b', str(TRAIN_B), '-e',
+            str(epochs)] + list(extra) + list(files),
+            env={'KERASLM_PLATFORM': 'cuda',
+                 'KERASLM_CKPT_DIR': os.path.join(work, 'ckpt')})
+        torch.cuda.synchronize()
+    finally:
+        logger.removeHandler(handler)
+        logger.setLevel(level)
+    wall = time.time() - t0
+    assert res.exit_code == 0, (res.output, res.exception)
+    return wall, read_counts(), rates
+
+
+def training_path(work, card):
+    """Phase 6; returns the path's numbers."""
+    import glob
+
+    from click.testing import CliRunner
+    from ocrd_keraslm_torch.scripts.run import cli as keraslm_rate
+    from ocrd_keraslm_torch.utils import h5io
+    rng = np.random.default_rng(11)
+    per_file = TRAIN_B * (6 * TRAIN_T + 1)
+    files = write_corpus(os.path.join(work, 'train_corpus'), rng, {
+        'kant_kritik_1781.txt': per_file, 'goethe_faust_1808.txt': per_file,
+        'lessing_nathan_1779.txt': per_file})
+    seed, epochs = 31, 2
+    plan, vocab = split_plan(files, seed)
+    n_val = sum(1 for _ in stream_batches(plan.validation_files, vocab))
+    n_clean = sum(1 for _ in stream_batches(plan.training_files, vocab))
+    model = os.path.join(work, 'trained.h5')
+    wall, counts, rates = run_train_cli(work, model, files, epochs, seed)
+    steps = counts['lstm_bwd'] // TRAIN_D
+    assert counts['lstm_bwd'] == steps * TRAIN_D and \
+        epochs * n_clean <= steps <= 2 * epochs * n_clean, (counts, n_clean)
+    assert counts == {
+        'decode_lattice': 0, 'score_scan': 0, 'lstm_bwd': steps * TRAIN_D,
+        'lstm_scan': (steps + epochs * n_val) * TRAIN_D}, (counts, n_val)
+    _, saved_vocab, history = h5io.load_config(model)
+    assert saved_vocab.c2i == vocab.c2i
+    loss, val_loss = history['loss'], history['val_loss']
+    assert len(loss) == epochs and np.isfinite(loss + val_loss).all()
+    ln_v = float(np.log(vocab.size))
+    assert abs(loss[0] - ln_v) < 0.5 and loss[-1] < loss[0], (loss, ln_v)
+    ckpts = sorted(glob.glob(os.path.join(work, 'ckpt', 'ckpt.*.h5')))
+    assert ckpts, 'no checkpoint written'
+    n_chars = sum(os.path.getsize(f) for f in files)
+    print('training path: keraslm-rate train -w %d -d %d -l %d -b %d -e %d '
+          'on 3 files, %d chars, V=%d (2 files train, 1 validates): %d '
+          'steps (%d windows of all streams an epoch, the rest degraded '
+          'duplicates) and %d validation steps; launches %s (expected '
+          'lstm_bwd = steps x depth, lstm_scan = (steps + validation '
+          'steps) x depth)' % (TRAIN_W, TRAIN_D, TRAIN_T, TRAIN_B, epochs,
+                               n_chars, vocab.size, steps, n_clean,
+                               epochs * n_val, counts))
+    print('training path: loss per epoch %s (ln V = %.4f), val_loss %s; '
+          'checkpoints %s; model %s (%d bytes)'
+          % (['%.4f' % v for v in loss], ln_v,
+             ['%.4f' % v for v in val_loss],
+             [os.path.basename(c) for c in ckpts],
+             os.path.basename(model), os.path.getsize(model)))
+    # the saved model and the last checkpoint load and rate, card and CPU
+    excerpt = os.path.join(work, 'excerpt_smoke_1790.txt')
+    with open(plan.validation_files[0], encoding='utf-8') as fh:
+        text = fh.read(3000)
+    with open(excerpt, 'w', encoding='utf-8') as fh:
+        fh.write(text)
+    ppl = {}
+    for platform in ('cuda', 'cpu'):
+        res = CliRunner().invoke(
+            keraslm_rate, ['-l', 'WARNING', 'test', '-m', model, excerpt],
+            env={'KERASLM_PLATFORM': platform})
+        assert res.exit_code == 0, (res.output, res.exception)
+        ppl[platform] = float(res.output.strip().splitlines()[-1])
+    assert np.isfinite(ppl['cuda']) and 1 < ppl['cuda'] < vocab.size
+    assert abs(ppl['cuda'] - ppl['cpu']) <= 1e-4 * ppl['cpu'], ppl
+    params, cfg, _, _ = h5io.load_model(model)
+    assert params['char_embedding'].shape == (vocab.size, TRAIN_W)
+    assert h5io.load_weights(ckpts[-1], cfg)['lstm'][1]['recurrent'].shape \
+        == (TRAIN_W, 4 * TRAIN_W)
+    print('training path: keraslm-rate test of the saved model on a '
+          '3000-char excerpt of the validation file: ppl %.6f on the card, '
+          '%.6f on the CPU (tolerance rtol 1e-4; exp(val_loss) = %.4f)'
+          % (ppl['cuda'], ppl['cpu'], float(np.exp(val_loss[-1]))))
+    # --bf16, one epoch of a smaller corpus
+    small = write_corpus(os.path.join(work, 'train_corpus_bf16'), rng, {
+        'kant_kritik_1781.txt': TRAIN_B * (2 * TRAIN_T + 1),
+        'goethe_faust_1808.txt': TRAIN_B * (2 * TRAIN_T + 1)})
+    plan16, vocab16 = split_plan(small, seed)
+    n_val16 = sum(1 for _ in stream_batches(plan16.validation_files,
+                                            vocab16))
+    model16 = os.path.join(work, 'trained_bf16.h5')
+    wall16, counts16, _ = run_train_cli(work, model16, small, 1, seed,
+                                        extra=('--bf16',))
+    steps16 = counts16['lstm_bwd'] // TRAIN_D
+    assert steps16 >= 2 and counts16['lstm_scan'] == \
+        (steps16 + n_val16) * TRAIN_D, (counts16, n_val16)
+    hist16 = h5io.load_config(model16)[2]
+    assert np.isfinite(hist16['loss'] + hist16['val_loss']).all()
+    assert abs(hist16['loss'][0] - float(np.log(vocab16.size))) < 0.5
+    print('training path --bf16: 1 epoch on 2 files, %d steps and %d '
+          'validation steps; launches %s; loss %.4f (ln V = %.4f), '
+          'val_loss %.4f; model %s written'
+          % (steps16, n_val16, counts16, hist16['loss'][0],
+             float(np.log(vocab16.size)), hist16['val_loss'][0],
+             os.path.basename(model16)))
+    return dict(wall=wall, steps=steps, val_steps=epochs * n_val,
+                epochs=epochs, rates=rates, launches=counts,
+                launches_bf16=counts16, plan=plan, vocab=vocab,
+                n_chars=n_chars)
+
+
+def trainer(device, vocab, compute_dtype='float32'):
+    """A configured ``Rater`` at the main path's width with fresh
+    parameters (``configure`` seeds them), trainable copies of them and
+    their optimizer."""
+    from ocrd_keraslm_torch import training
+    from ocrd_keraslm_torch.rater import Rater
+    rater = Rater(device=device)
+    rater.width, rater.depth, rater.length = TRAIN_W, TRAIN_D, TRAIN_T
+    rater.compute_dtype = compute_dtype
+    rater.vocab, rater.voc_size = vocab, vocab.size
+    rater.configure()
+    params = training.copy_params(rater.params, requires_grad=True)
+    return rater.cfg, params, training.make_optimizer(params)
+
+
+def run_steps(device, vocab, batches, compute_dtype='float32', sync=None):
+    """``train_step`` over ``batches`` from a fresh initialisation and
+    dropout seed 5; returns ([loss per step], final carry, [wall s per
+    step] when ``sync`` is given)."""
+    import torch
+    from ocrd_keraslm_torch import training
+    from ocrd_keraslm_torch.models.lstm_lm import zero_carry
+    cfg, params, optimizer = trainer(device, vocab, compute_dtype)
+    rng = torch.Generator().manual_seed(5)
+    carry = zero_carry(cfg, TRAIN_B, device)
+    losses, walls = [], []
+    for batch in batches:
+        x, zs, y, mask, x_mask = training.batch_tensors(batch, device)
+        t0 = time.time()
+        carry, loss, _, _ = training.train_step(
+            params, optimizer, cfg, x, zs, y, mask, carry, rng, x_mask)
+        if sync:
+            sync()
+            walls.append(time.time() - t0)
+        losses.append(loss)
+    return [float(v) for v in losses], carry, walls
+
+
+def training_steps(train, dev, card):
+    """Card against CPU over five steps, then the wall per step and the
+    device's busy share over a window of steps."""
+    import itertools
+
+    import torch
+    batches = list(itertools.islice(
+        stream_batches(train['plan'].training_files, train['vocab']), 12))
+    vocab = train['vocab']
+    zero_counts()
+    got, carry_g, _ = run_steps(dev, vocab, batches[:5])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    assert counts['lstm_scan'] == counts['lstm_bwd'] == 5 * TRAIN_D, counts
+    want, carry_c, _ = run_steps('cpu', vocab, batches[:5])
+    loss_err = max(abs(g - w) / abs(w) for g, w in zip(got, want))
+    carry_err = max(float((g.cpu() - c).abs().max())
+                    for g, c in zip(carry_g, carry_c))
+    assert loss_err <= 1e-5 and carry_err <= 1e-5, (got, want, carry_err)
+    print('train_step card against CPU (5 steps at -w %d -d %d -l %d -b %d, '
+          'same initialisation, batches and dropout seed): losses %s on '
+          'the card, %s on the CPU, max relative diff %.3g; final carry '
+          'max abs diff %.3g (tolerances: losses rtol 1e-5, carry atol '
+          '1e-5)' % (TRAIN_W, TRAIN_D, TRAIN_T, TRAIN_B,
+                     ['%.6f' % v for v in got], ['%.6f' % v for v in want],
+                     loss_err, carry_err))
+    out = {}
+    for dtype in ('float32', 'bfloat16'):
+        _, _, walls = run_steps(dev, vocab, batches, dtype,
+                                sync=torch.cuda.synchronize)
+        steady = walls[2:]
+        step_s = sum(steady) / len(steady)
+        print('train_step wall %s (host clock, synchronised each step, '
+              'mean of %d steps after 2 warm-ups; min %.2f, max %.2f ms): '
+              '%.2f ms/step = %.0f chars/s inside a run of steps [%s]'
+              % (dtype, len(steady), 1e3 * min(steady), 1e3 * max(steady),
+                 1e3 * step_s, TRAIN_B * TRAIN_T / step_s, card))
+        out[dtype] = step_s
+    traced_wall, busy = profiled(
+        lambda: run_steps(dev, vocab, batches[:10]))
+    print_profile('training steps', traced_wall, busy, card,
+                  over='10 train_steps from a fresh initialisation')
+    print_others('training steps')
+    out.update(traced_wall=traced_wall, busy=busy)
+    return out
+
+
+def lstm_train_bound(args, bf16):
+    """Bound of one ``lstm_scan`` launch with ``c_all``: 2*T*B*W*4W
+    FLOP, held to the bf16 tensor-core peak under a bf16 U (its operands
+    are bf16 values) and to the f32 peak otherwise; x_proj, the carry
+    and U read once, h_all, c_all and the final carry written once."""
+    x_proj = args[0]
+    B, T, G = x_proj.shape
+    W = G // 4
+    flops = 2 * B * T * W * G
+    out = (2 * B * T * W + 2 * B * W) * 4
+    return bound(flops, tensor_bytes(*args) + out, flops if bf16 else 0)
+
+
+def lstm_bwd_bound(args, bf16):
+    """Bound of one ``lstm_bwd`` launch: 6*T*B*W*4W FLOP (the z
+    recompute, dz @ U^T and h_prev^T @ dz).  Under a bf16 U the z
+    recompute has bf16 operands (tensor-core peak); dz is f32, so the
+    other two products are held to the f32 peak.  Every input read once
+    (U once: its transpose is made from it), dx_proj, dU, dh0 and dc0
+    written once."""
+    xp = args[0]
+    T, B, G = xp.shape
+    W = G // 4
+    flops = 6 * T * B * W * G
+    out = (T * B * G + W * G + 2 * B * W) * 4
+    return bound(flops, tensor_bytes(*args) + out,
+                 flops // 3 if bf16 else 0)
+
+
+def cudnn_layer(inp, W):
+    """``torch.nn.LSTM`` (cuDNN, f32, one layer, seeded default
+    weights) over ``inp`` (B, T, in): (forward alone, forward and
+    backward) as functions of nothing; the library yardstick, never
+    called by the port."""
+    import torch
+    torch.manual_seed(0)
+    lstm = torch.nn.LSTM(inp.shape[-1], W, batch_first=True).to(inp.device)
+    grad = torch.ones((inp.shape[0], inp.shape[1], W), device=inp.device)
+    inp_g = inp.clone().requires_grad_()
+
+    def forward():
+        with torch.no_grad():
+            return lstm(inp)
+
+    def forward_backward():
+        lstm.zero_grad(set_to_none=True)
+        inp_g.grad = None
+        out, _ = lstm(inp_g)
+        out.backward(grad)
+    return forward, forward_backward
+
+
+def training_numbers(dev, card):
+    """Phase 7, the two training kernels at the main path's shape with
+    f32 and bf16 U; returns {row name: numbers}."""
+    import torch
+    from ocrd_keraslm_torch.ops import lstm_cell as lc
+    rng = np.random.default_rng(20261019)
+    B, T, W = TRAIN_B, TRAIN_T, TRAIN_W
+    inp = torch.from_numpy(rng.normal(0, 1, (B, T, W + 10)).astype(
+        np.float32)).to(dev)
+    cudnn_fwd, cudnn_fwd_bwd = cudnn_layer(inp, W)
+    out = {}
+    for bf16 in (False, True):
+        kind = 'bf16' if bf16 else 'f32'
+        fwd, cot = lstm_train_inputs(rng, dev, bf16)
+        saved = lc.lstm_scan(*fwd, want_c_all=True)[:2]
+        bwd = lstm_bwd_args(fwd, cot, saved)
+        for name, kernel, plain, library, bnd, what in (
+                ('lstm_scan_' + ('bf16' if bf16 else 'train'),
+                 lambda: lc.lstm_scan(*fwd, want_c_all=True),
+                 lambda: lc.lstm_scan_ref(*fwd, want_c_all=True),
+                 cudnn_fwd, lstm_train_bound(fwd, bf16), 'forward'),
+                ('lstm_bwd' + ('_bf16' if bf16 else ''),
+                 lambda: lc.lstm_bwd(*bwd), lambda: lc.lstm_bwd_ref(*bwd),
+                 cudnn_fwd_bwd, lstm_bwd_bound(bwd, bf16),
+                 'forward and backward')):
+            ms = cuda_ms(kernel, 5)
+            plain_ms = cuda_ms(plain, 1)
+            library_ms = cuda_ms(library, 5)
+            ms2 = cuda_ms(kernel, 5)
+            bound_ms, bound_by, flops = bnd
+            print('%s (%s U) at the training shape (B=%d streams, T=%d, '
+                  'W=%d, c_all on): %.3f ms/launch then %.3f ms/launch '
+                  '(CUDA events, mean of 5 warm launches), %.2f us/step '
+                  '[%s]' % (name, kind, B, T, W, ms, ms2, 1e3 * ms2 / T,
+                            card))
+            print('%s plain version at the same shape: %.3f ms (CUDA '
+                  'events, one warm run) [%s]' % (name, plain_ms, card))
+            print('%s bound: %.4f ms by %s (%.3g FLOP%s); kernel at %.2f%% '
+                  'of it [%s]'
+                  % (name, bound_ms, bound_by, flops,
+                     ', the products with bf16 operands at the tensor '
+                     'cores\' 989 TFLOP/s although the kernel runs them on '
+                     'CUDA cores (the bound is the card\'s, not the '
+                     'kernel\'s), the rest at 67 TFLOP/s' if bf16
+                     else ' at 67 TFLOP/s f32', 100 * bound_ms / ms2, card))
+            print('%s library yardstick: torch.nn.LSTM (cuDNN, f32), 1 '
+                  'layer, %s over the same %d streams x %d steps: %.3f ms '
+                  '(mean of 5); it also computes the input projection '
+                  'that the kernel receives precomputed%s [%s]'
+                  % (name, what, B, T, library_ms,
+                     ', and its forward (the kernel is the backward alone)'
+                     if 'bwd' in name else '', card))
+            out[name] = dict(ms=ms2, plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=bound_by, library_ms=library_ms)
+    return out
+
+
 def main() -> int:
     sys.path.insert(0, HERE)
     import torch
@@ -1204,20 +1754,33 @@ def main() -> int:
           'D=%d, W=%d, Vp=%d; lstm_scan: %d bytes at B=4, W=%d (one block '
           'of 512 threads per <= 8 streams)'
           % (sk._library().score_scan_smem_bytes(4, D, W, wts['v_pad']), D,
-             W, wts['v_pad'], lc._library().lstm_scan_smem_bytes(4, W), W))
+             W, wts['v_pad'], lc._library().lstm_scan_smem_bytes(4, W, 0), W))
+    print('shared memory at the training shape (B=%d, W=%d, 8 streams a '
+          'block): lstm_scan %d bytes with an f32 U, %d with a bf16 U (the '
+          'rounded h beside h, c and z); lstm_bwd %d bytes; its dU product '
+          'splits the %d rows %d ways'
+          % (TRAIN_B, TRAIN_W,
+             lc._library().lstm_scan_smem_bytes(TRAIN_B, TRAIN_W, 0),
+             lc._library().lstm_scan_smem_bytes(TRAIN_B, TRAIN_W, 1),
+             lc._bwd_library().lstm_bwd_smem_bytes(TRAIN_B, TRAIN_W),
+             TRAIN_B * TRAIN_T,
+             lc._bwd_library().lstm_bwd_splits(TRAIN_B, TRAIN_T)))
 
     # ---- 3. parity at full width ----
     decode_err = decode_parity(rater, dev)
     score_err, lstm_err = score_parity(rater, dev)
+    train_errs = train_parity(dev)
     print('kernels held against their plain versions: %s'
           % json.dumps(list(KERNELS)))
 
     with tempfile.TemporaryDirectory(prefix='chip_smoke_') as work:
-        # ---- 4. decode path, 5. scoring path ----
+        # ---- 4. decode path, 5. scoring path, 6. training path ----
         decode = decode_path(rater, work)
         scoring = scoring_path(rater, work)
+        train = training_path(work, card)
+        training_steps(train, dev, card)
 
-        # ---- 6. numbers ----
+        # ---- 7. numbers ----
         print('decode path wall: %.3f s for 4 pages = %.3f s/page, %.0f '
               'decode edges/s (host clock, CLI call incl. model load) [%s]'
               % (decode['wall'], decode['wall'] / 4,
@@ -1230,19 +1793,43 @@ def main() -> int:
                  scoring['n_chars'] / scoring['wall'], card))
         print_profile('scoring path', scoring['traced_wall'],
                       scoring['busy'], card)
+        print('training path wall: %.3f s for the CLI call (2 epochs: %d '
+              'steps, %d validation steps, split, vocabulary, checkpoints '
+              'and model write included); the trainer\'s own chars/s per '
+              'epoch (training chars over the epoch\'s training and '
+              'validation time): %s [%s]'
+              % (train['wall'], train['steps'], train['val_steps'],
+                 ['%.0f' % r for r in train['rates']], card))
         numbers = dict(decode_lattice=decode_numbers(rater, decode, card),
-                       **scoring_numbers(rater, scoring, card))
+                       **scoring_numbers(rater, scoring, card),
+                       **training_numbers(dev, card))
     rows = []
-    for name, launches, err in (
-            ('decode_lattice', decode['launches']['decode_lattice'],
-             decode_err),
-            ('score_scan', scoring['launches'], score_err),
-            ('lstm_scan', scoring['lstm_launches'], lstm_err)):
+    # lstm_scan is on two paths: 'lstm_scan' is the layered scoring
+    # path's row (B=4, T=4096), 'lstm_scan_train' and 'lstm_scan_bf16'
+    # the training path's (B=128, T=256, c_all on); a wrapper counts all
+    # of its launches, so the bf16 rows read the --bf16 run's counts
+    for name, source, launches, err in (
+            ('decode_lattice', 'decode_lattice',
+             decode['launches']['decode_lattice'], decode_err),
+            ('score_scan', 'score_scan', scoring['launches'], score_err),
+            ('lstm_scan', 'lstm_scan', scoring['lstm_launches'], lstm_err),
+            ('lstm_scan_train', 'lstm_scan',
+             train['launches']['lstm_scan'], train_errs['lstm_scan_train']),
+            ('lstm_scan_bf16', 'lstm_scan',
+             train['launches_bf16']['lstm_scan'],
+             train_errs['lstm_scan_bf16']),
+            ('lstm_bwd', 'lstm_bwd', train['launches']['lstm_bwd'],
+             train_errs['lstm_bwd']),
+            ('lstm_bwd_bf16', 'lstm_bwd',
+             train['launches_bf16']['lstm_bwd'],
+             train_errs['lstm_bwd_bf16'])):
+        assert launches > 0, (name, 'was not launched on its path')
         module = {'decode_lattice': 'decode_kernel.py:318',
                   'score_scan': 'score_kernel.py:132',
-                  'lstm_scan': 'lstm_cell.py:111'}[name]
+                  'lstm_scan': 'lstm_cell.py:111',
+                  'lstm_bwd': 'lstm_cell.py:252'}[source]
         rows.append(dict(name=name, route='cuda',
-                         source='ocrd_keraslm_torch/csrc/%s.cu' % name,
+                         source='ocrd_keraslm_torch/csrc/%s.cu' % source,
                          replaces='ocrd_keraslm_tpu/ops/%s' % module,
                          launches=launches, max_abs_err=err,
                          **numbers[name]))

@@ -1,9 +1,10 @@
-"""The LM engine of the port: model loading, scoring and lattice
-decoding.
+"""The LM engine of the port: model loading and saving, training,
+scoring and lattice decoding.
 
-Counterpart of the scoring and decode parts of
+Counterpart of the training, scoring and decode parts of
 ``ocrd_keraslm_tpu/rater.py``.  A ``Rater`` loads an h5 model onto one
-device and
+device, or trains one there (:meth:`Rater.train`, ``training.py``) and
+saves it (:meth:`Rater.save`), and
 
 * scores whole texts (``rate``, ``rate2``, ``rate_batch``, ``test``):
   each text is one stream of a batch, cut into chunks of
@@ -37,7 +38,8 @@ import numpy as np
 import torch
 
 from .models.lstm_lm import (DEFAULT_CONTEXTS, LMConfig, embed_inputs,
-                             forward_seq, params_from_numpy, zero_carry)
+                             forward_seq, init_params, params_from_numpy,
+                             zero_carry)
 from .ops.decode_kernel import BIG, LANE, decode_lattice
 from .ops.score_kernel import pack_score_weights, score_scan
 from .utils import h5io
@@ -235,6 +237,9 @@ class Rater:
         self.depth = 0
         self.length = 0
         self.variable_length = True
+        self.first_window = 0.1
+        self.char_degradation = 0.01
+        self.context_degradation = 0.1
         self.stateful = True
         self.incremental = False
         self.contexts: Tuple[Tuple[int, int], ...] = DEFAULT_CONTEXTS
@@ -242,6 +247,15 @@ class Rater:
         self.voc_size = 0
         self.history: Dict[str, Any] = {}
         self.batch_size = 128
+        self.validation_split = 0.2
+        self.train_streams = True  # parallel-streams stateful training
+        self.compute_dtype = 'float32'  # or 'bfloat16' (training)
+        # where training writes its best-only checkpoints (also
+        # KERASLM_CKPT_DIR; default: the working directory)
+        self.ckpt_dir = None
+        # not ported yet: training raises when either is set
+        self.mesh = None
+        self.resume_dir = None
         # fused scoring kernel (all layers + tied softmax per chunk) on
         # CUDA, as the JAX package's default on its accelerator; the
         # layered path otherwise (and always above width 384)
@@ -258,20 +272,63 @@ class Rater:
 
     # -- configuration and persistence ---------------------------------
 
+    @property
+    def mapping(self):
+        return (self.vocab.c2i, self.vocab.i2c)
+
+    @mapping.setter
+    def mapping(self, value):
+        self.vocab.c2i, self.vocab.i2c = dict(value[0]), dict(value[1])
+        self.vocab._mapping_changed()
+
     def configure(self):
-        """Pin the model configuration (weights come from
-        :meth:`load_weights`)."""
+        """Pin the model configuration, and initialise the parameters
+        when there are none and the vocabulary is known (weights
+        otherwise come from :meth:`load_weights`)."""
         if self.stateful:
             self.variable_length = False
+            self.first_window = 0
         self.logger.info('configuring model of depth %d width %d size %d '
                          '(device %s)', self.depth, self.width,
                          self.voc_size, self.device)
         self.cfg = LMConfig(
             width=self.width, depth=self.depth, length=self.length,
             voc_size=max(self.voc_size, 1), contexts=self.contexts,
-            stateful=self.stateful, variable_length=self.variable_length)
+            stateful=self.stateful, variable_length=self.variable_length,
+            compute_dtype=self.compute_dtype)
+        if self.params is None and self.voc_size > 0:
+            self.params = init_params(
+                self.cfg, torch.Generator().manual_seed(42), self.device)
         if self.status < 1:
             self.status = 1
+
+    def reconfigure_for_mapping(self):
+        """Rebuild the parameters after the vocabulary grew, keeping the
+        old embedding rows and all other weights of a loaded model."""
+        if self.status < 1:
+            raise RuntimeError('reconfigure_for_mapping needs configure() '
+                               'first')
+        old_params = self.params
+        old_voc = (old_params['char_embedding'].shape[0]
+                   if old_params is not None else 0)
+        if old_voc >= self.voc_size:
+            return
+        self.params = None
+        self.configure()
+        if self.status >= 2 and old_voc > 0:
+            self.logger.warning(
+                'transferring weights from previous model with only '
+                '%d character types', old_voc)
+            emb = self.params['char_embedding'].clone()
+            emb[:old_voc] = old_params['char_embedding']
+            self.params = dict(old_params, char_embedding=emb)
+        self._params_changed()
+
+    def _params_changed(self):
+        """Drop the device-resident weight sets derived from
+        ``self.params`` (after a load, vocabulary growth or training)."""
+        self._decode_cache.clear()
+        self._score_pack = None
 
     def underspecify_contexts(self) -> List[int]:
         """Default (zero = underspecified) context variable input."""
@@ -299,9 +356,31 @@ class Rater:
         self.params = params_from_numpy(
             h5io.load_weights(filename, self.cfg), self.device)
         self.voc_size = self.params['char_embedding'].shape[0]
-        self._decode_cache.clear()
+        self._params_changed()
         self.cfg = self.cfg.replace(voc_size=self.voc_size)
         self.status = 2
+
+    def save(self, filename):
+        """Save weights and config as one h5 file."""
+        if self.status < 2:
+            raise RuntimeError('save needs trained or loaded weights')
+        if str(filename).endswith(('.orbax', '/')) or \
+                os.path.isdir(filename):
+            raise NotImplementedError(
+                'the Orbax directory format is not ported yet (ROADMAP.md '
+                'Queue 1 #12, "Resume snapshots"): save to an .h5 file')
+        h5io.save_model(filename, self.params, self.cfg, self.vocab,
+                        self.history)
+
+    def train(self, data, val_data=None):
+        """Train on text files (paths or handles); see
+        :func:`ocrd_keraslm_torch.training.train_rater`."""
+        from .training import train_rater
+        train_rater(self, data, val_data)
+
+    def print_history(self):
+        for k, v in self.history.items():
+            print(f"{k}: {v}")
 
     # -- whole-text scoring --------------------------------------------
 

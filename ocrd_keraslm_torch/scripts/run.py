@@ -6,10 +6,14 @@ commands and group options, run as::
     python -m ocrd_keraslm_torch.scripts.run apply -m MODEL.h5 "text"
     python -m ocrd_keraslm_torch.scripts.run test -m MODEL.h5 FILES...
 
-``apply`` (per-character probabilities and base-2 perplexity) and
-``test`` (corpus perplexity) run on CUDA, or on the CPU with
+    python -m ocrd_keraslm_torch.scripts.run train -m MODEL.h5 FILES...
+
+``train`` (with continuation from a model or checkpoint), ``apply``
+(per-character probabilities and base-2 perplexity), ``test`` (corpus
+perplexity) and ``print-history`` run on CUDA, or on the CPU with
 ``KERASLM_PLATFORM=cpu``.  The other commands are registered and raise
-``NotImplementedError`` naming the ROADMAP.md item that ports them.
+``NotImplementedError`` naming the ROADMAP.md item that ports them, as
+do ``train``'s ``--mesh`` and ``--resume-dir``.
 """
 from __future__ import annotations
 
@@ -17,6 +21,7 @@ import json
 import logging
 import os
 import sys
+from functools import partial
 from math import ceil
 
 import click
@@ -99,6 +104,93 @@ def _load_rater(model):
     return rater
 
 
+@cli.command(short_help='train a language model')
+@click.option('-m', '--model', default='model.h5', show_default=True,
+              help='model file', type=click.Path(dir_okay=False,
+                                                 writable=True))
+@click.option('-C', '--ckpt', default='ckpt.h5', show_default=True,
+              help='checkpoint file', type=click.Path(dir_okay=False))
+@click.option('-w', '--width', default=128, show_default=True,
+              help='number of nodes per hidden layer',
+              type=click.IntRange(min=1, max=9128))
+@click.option('-d', '--depth', default=2, show_default=True,
+              help='number of hidden layers',
+              type=click.IntRange(min=1, max=10))
+@click.option('-l', '--length', default=256, show_default=True,
+              help='number of previous characters seen (window size)',
+              type=click.IntRange(min=1, max=1024))
+@click.option('-v', '--val-data', default=None, show_default=True,
+              help='validation data file or directory '
+                   '(instead of automatic split)',
+              type=click.Path(exists=True, dir_okay=True, file_okay=True))
+@click.option('-e', '--epochs', default=100, show_default=True,
+              help='maximum number of epochs (early-stopped)',
+              type=click.IntRange(min=1, max=10000))
+@click.option('-b', '--batch-size', default=128, show_default=True,
+              help='parallel training streams',
+              type=click.IntRange(min=1, max=65536))
+@click.option('--bf16', is_flag=True,
+              help='bfloat16 matmul operands in the recurrent core '
+                   '(float32 cell state/softmax)')
+@click.option('--resume-dir', default=None,
+              type=click.Path(file_okay=False),
+              help='directory for full train-state snapshots '
+                   '(not ported yet)')
+@click.option('--mesh', 'mesh_spec', default=None, metavar='DPxMP',
+              help='shard the train step over a device mesh '
+                   '(not ported yet)')
+@click.argument('data', nargs=-1,
+                type=click.Path(exists=True, dir_okay=True,
+                                file_okay=True))
+def train(model, ckpt, width, depth, length, val_data, epochs,
+          batch_size, bf16, resume_dir, mesh_spec, data):
+    """Fit a char-LM of the given WIDTH/DEPTH/LENGTH on the DATA
+    text files.
+
+    Without VAL_DATA, a random train/validation split is made.
+    """
+    if mesh_spec:
+        raise NotImplementedError(
+            '--mesh is not ported yet (ROADMAP.md Queue 1 #16, '
+            '"Distributed")')
+    if resume_dir:
+        raise NotImplementedError(
+            '--resume-dir is not ported yet (ROADMAP.md Queue 1 #12, '
+            '"Resume snapshots")')
+    from .. import training
+    training.EPOCHS = epochs
+
+    rater = Rater()
+    continuation = None
+    if os.path.isfile(model):
+        rater.load_config(model)
+        if rater.width == width and rater.depth == depth:
+            continuation = partial(rater.load_weights, model)
+            print('continuing training from saved model %s' % model)
+        else:
+            rater.status = 0
+            print('warning: saved model %s has different topology '
+                  '(width=%d, depth=%d) - starting fresh'
+                  % (model, rater.width, rater.depth), file=sys.stderr)
+    elif os.path.isfile(ckpt):
+        continuation = partial(rater.load_weights, ckpt)
+        print('continuing training from checkpoint %s' % ckpt)
+    rater.width = width
+    rater.depth = depth
+    rater.length = length
+    rater.batch_size = batch_size
+    if bf16:
+        rater.compute_dtype = 'bfloat16'
+    rater.configure()
+    if continuation:
+        continuation()
+    val_files = _expand_paths([val_data]) if val_data else None
+    rater.train(_expand_paths(data), val_data=val_files)
+    if rater.status != 2:
+        raise click.ClickException('training failed: no model saved')
+    rater.save(model)
+
+
 @cli.command(short_help='get individual probabilities from language model')
 @click.option('-m', '--model', required=True, help='model file',
               type=click.Path(dir_okay=False, exists=True))
@@ -132,6 +224,15 @@ def test(model, data):
     click.echo(rater.test(_expand_paths(data)))
 
 
+@cli.command(short_help='Print the training history')
+@click.option('-m', '--model', required=True, help='model file',
+              type=click.Path(dir_okay=False, exists=True))
+def print_history(model):
+    rater = Rater()
+    rater.load_config(model)
+    rater.print_history()
+
+
 def _not_ported(name, item):
     @cli.command(name=name, context_settings=dict(
         ignore_unknown_options=True, allow_extra_args=True),
@@ -144,8 +245,7 @@ def _not_ported(name, item):
 
 
 for _name, _item in (
-        ('train', 'Training'), ('generate', 'Generation'),
-        ('print-history', '`keraslm-rate` CLI and tooling'),
+        ('generate', 'Generation'),
         ('print-charset', '`keraslm-rate` CLI and tooling'),
         ('prune-charset', '`keraslm-rate` CLI and tooling'),
         ('plot-char-embeddings-similarity',

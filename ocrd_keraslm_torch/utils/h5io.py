@@ -1,7 +1,7 @@
-"""HDF5 checkpoint reading, bit-compatible with the reference format.
+"""HDF5 checkpoint I/O, bit-compatible with the reference format.
 
-Counterpart of ``ocrd_keraslm_tpu/utils/h5io.py`` (the reading half).
-Two things live in one ``.h5`` file:
+Counterpart of ``ocrd_keraslm_tpu/utils/h5io.py``.  Two things live in
+one ``.h5`` file:
 
 1. **weights** in the Keras 2.3 ``save_weights`` HDF5 layout:
    top-level attr ``layer_names``; per-layer group with attr
@@ -17,20 +17,129 @@ Two things live in one ``.h5`` file:
    ``config/{history,width,depth,length,stateful,variable_length,mapping}``
    where ``mapping`` is a positional uint32 codepoint array (0 = gap).
 
-The file is read by the port's own HDF5 reader (``utils/hdf5.py``), so
-loading a model needs no h5py.  Weights load as numpy arrays;
-``models.lstm_lm.params_from_numpy`` carries them onto a device.
+The file is read and written by the port's own HDF5 code
+(``utils/hdf5.py``), so neither needs h5py, and files go both ways
+between the two packages.  Weights load as numpy arrays;
+``models.lstm_lm.params_from_numpy`` carries them onto a device, and
+``save_weights`` takes tensors (on any device) or numpy arrays.
 """
 from __future__ import annotations
 
 import json
+import os
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
+import torch
 
-from ..models.lstm_lm import LMConfig, Params
+from ..models.lstm_lm import LMConfig, Params, params_to_numpy
 from . import hdf5
 from .vocab import Vocab
+
+
+class NumpyJSONEncoder(json.JSONEncoder):
+    def default(self, obj):
+        if isinstance(obj, np.integer):
+            return int(obj)
+        if isinstance(obj, np.floating):
+            return float(obj)
+        if isinstance(obj, np.ndarray):
+            return obj.tolist()
+        return super().default(obj)
+
+
+# ----------------------------------------------------------------------
+# writing
+# ----------------------------------------------------------------------
+
+def _config_group(cfg: LMConfig, vocab: Vocab,
+                  history: Optional[Dict[str, Any]]) -> dict:
+    """The reference-schema ``config/`` group (``contexts`` is this
+    tool's extension, which the reference ignores)."""
+    return {'items': {
+        'history': json.dumps(history or {}, cls=NumpyJSONEncoder),
+        'width': np.array(cfg.width),
+        'depth': np.array(cfg.depth),
+        'length': np.array(cfg.length),
+        'stateful': np.array(bool(cfg.stateful)),
+        'variable_length': np.array(bool(cfg.variable_length)),
+        'mapping': vocab.to_codepoints(),
+        'contexts': np.array(cfg.contexts, dtype=np.int64).reshape(-1, 2),
+    }}
+
+
+def _weights_tree(params: Params, cfg: LMConfig) -> dict:
+    """The Keras 2.3 ``save_weights`` layout: every layer of the
+    reference model a group (weightless ones empty), a weight at
+    ``<layer>/<layer>/<name>:0``."""
+    if torch.is_tensor(params['char_embedding']):
+        params = params_to_numpy(params)
+    n_ctx = cfg.n_contexts
+    layer_names = ['char_input']
+    layer_names += ['context%d_input' % (i + 1) for i in range(n_ctx)]
+    layer_names.append('char_embedding')
+    layer_names += ['context%d_embedding' % (i + 1) for i in range(n_ctx)]
+    layer_names.append('concat_hidden_input')
+    for i in range(cfg.depth):
+        layer_names.append('lstm_%d' % (i + 1))
+        if i > 0:
+            layer_names.append('dropout_%d' % i)
+    layer_names.append('char_output')
+    weights = {'char_embedding': {
+        'embeddings:0': params['char_embedding']}}
+    for i, emb in enumerate(params['context_embeddings']):
+        weights['context%d_embedding' % (i + 1)] = {'embeddings:0': emb}
+    for i, lp in enumerate(params['lstm']):
+        weights['lstm_%d' % (i + 1)] = {
+            'kernel:0': lp['kernel'],
+            'recurrent_kernel:0': lp['recurrent'], 'bias:0': lp['bias']}
+    items = {}
+    for name in layer_names:
+        own = weights.get(name, {})
+        items[name] = {
+            'attrs': {'weight_names': ['%s/%s' % (name, w) for w in own]},
+            'items': {name: {'items': {
+                w: np.asarray(a, np.float32) for w, a in own.items()}}}
+            if own else {}}
+    return {'attrs': {'layer_names': layer_names, 'backend': b'pytorch',
+                      'keras_version': b'2.3.1'},
+            'items': items}
+
+
+def save_weights(filename: str, params: Params, cfg: LMConfig) -> None:
+    """Write weights in the Keras 2.3 ``save_weights`` HDF5 layout."""
+    hdf5.write_file(filename, _weights_tree(params, cfg))
+
+
+def save_config(filename: str, cfg: LMConfig, vocab: Vocab,
+                history: Optional[Dict[str, Any]] = None) -> None:
+    """Add the reference-schema ``config/`` group to an h5 file (in
+    place of one it has): the file is read whole and written anew."""
+    tree = hdf5.read_tree(filename) if os.path.exists(filename) \
+        else {'items': {}}
+    tree['items']['config'] = _config_group(cfg, vocab, history)
+    hdf5.write_file(filename, tree)
+
+
+def save_model(filename: str, params: Params, cfg: LMConfig, vocab: Vocab,
+               history: Optional[Dict[str, Any]] = None) -> None:
+    """Weights and config in one file, written in one pass."""
+    tree = _weights_tree(params, cfg)
+    tree['items']['config'] = _config_group(cfg, vocab, history)
+    hdf5.write_file(filename, tree)
+
+
+def load_model(filename: str
+               ) -> Tuple[Params, LMConfig, Vocab, Dict[str, Any]]:
+    cfg, vocab, history = load_config(filename)
+    params = load_weights(filename, cfg)
+    cfg = cfg.replace(voc_size=params['char_embedding'].shape[0])
+    return params, cfg, vocab, history
+
+
+# ----------------------------------------------------------------------
+# reading
+# ----------------------------------------------------------------------
 
 
 def _open_h5(filename: str) -> hdf5.File:

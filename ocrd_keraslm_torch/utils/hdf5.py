@@ -1,8 +1,9 @@
-"""A small read-only HDF5 reader for Keras-2.3-layout checkpoints.
+"""A small HDF5 reader and writer for Keras-2.3-layout checkpoints.
 
-The port reads its h5 models without h5py.  This module covers the
-subset of the HDF5 file format (version 0/1 superblocks) that h5py and
-Keras 2.3 write for ``save_weights``/``model.save`` files:
+The port reads and writes its h5 models without h5py.  The reader
+(:class:`File`) covers the subset of the HDF5 file format (version 0/1
+superblocks) that h5py and Keras 2.3 write for
+``save_weights``/``model.save`` files:
 
 * groups: symbol tables (v1 B-tree + local heap) and compact link
   messages;
@@ -14,6 +15,15 @@ Keras 2.3 write for ``save_weights``/``model.save`` files:
 
 Anything else (v2 object headers, chunked or compressed datasets, dense
 link storage) raises ``ValueError`` naming the unsupported feature.
+
+The writer (:func:`write_file`) writes a tree of groups, datasets and
+attributes in the oldest layout, which every HDF5 library reads: a
+version-0 superblock, version-1 object headers, symbol-table groups
+(B-tree, local heap, symbol nodes with the entries sorted by name),
+contiguous datasets, and the datatypes integer, float, fixed-length
+string and h5py's bool enum.  Strings are fixed-length, so no global
+heap is needed.  :func:`read_tree` reads a file back into the tree
+that :func:`write_file` takes.
 Reference: the HDF5 File Format Specification, version 3.0.
 """
 from __future__ import annotations
@@ -190,8 +200,13 @@ class File:
             return _Type('num', size, np.dtype('%sf%d' % (order, size)))
         if cls == 3:   # fixed-length string
             return _Type('fixed_str', size)
-        if cls == 8:   # enumeration: read as its base integer type
-            return self._datatype(data, pos + 8)
+        if cls == 8:   # enumeration: its base integer type; h5py's bool
+            base = self._datatype(data, pos + 8)
+            names = data[pos + 8 + 12:pos + 8 + 12 + 16]
+            if (bits & 0xFFFF) == 2 and base.size == 1 and \
+                    names[:6] == b'FALSE\0' and names[8:13] == b'TRUE\0':
+                return _Type('num', 1, np.dtype(bool))
+            return base
         if cls == 9 and (bits & 0x0F) == 1:  # variable-length string
             return _Type('vlen_str', size)
         raise ValueError('HDF5 datatype class %d is not supported' % cls)
@@ -358,3 +373,207 @@ class Dataset(_Object):
     def __array__(self, dtype=None, copy=None):
         arr = np.asarray(self[()])
         return arr if dtype is None else arr.astype(dtype)
+
+
+# ----------------------------------------------------------------------
+# writer
+# ----------------------------------------------------------------------
+
+LEAF_K = 4        # a symbol node holds up to 2 * LEAF_K entries
+INTERNAL_K = 16   # a group B-tree node holds up to 2 * INTERNAL_K children
+MSG_FILL_VALUE = 0x0005
+
+
+def _pad8(data: bytes) -> bytes:
+    return data + b'\0' * (-len(data) % 8)
+
+
+def _encode_value(value):
+    """(datatype message, dataspace message, raw element bytes) of a
+    dataset or attribute value: a numpy number array or scalar (bool as
+    h5py's enum), ``bytes``/``str`` (a scalar fixed-length string), or a
+    list or object array of those (a fixed-length string array)."""
+    if isinstance(value, str):
+        value = value.encode('utf-8')
+    if isinstance(value, bytes):
+        shape, items = (), [value]
+    elif isinstance(value, (list, tuple)) or (
+            isinstance(value, np.ndarray) and value.dtype.kind in 'OSU'):
+        arr = np.asarray(value, dtype=object)
+        shape = arr.shape
+        items = [v.encode('utf-8') if isinstance(v, str) else bytes(v)
+                 for v in arr.reshape(-1)]
+    else:
+        arr = np.asarray(value)
+        shape, items = arr.shape, None
+    if items is not None:
+        size = max([len(v) for v in items] + [1])
+        # class 3 (string), null-padded, ASCII
+        dtype = struct.pack('<BBBBI', 0x13, 0x01, 0, 0, size)
+        raw = b''.join(v.ljust(size, b'\0') for v in items)
+    elif arr.dtype == bool:
+        base = struct.pack('<BBBBIHH', 0x10, 0x08, 0, 0, 1, 0, 8)
+        dtype = (struct.pack('<BBBBI', 0x18, 2, 0, 0, 1) + base
+                 + b'FALSE\0\0\0TRUE\0\0\0\0' + b'\0\1')
+        raw = arr.astype(np.uint8).tobytes()
+    elif arr.dtype.kind in 'iu':
+        n = arr.dtype.itemsize
+        dtype = struct.pack('<BBBBIHH', 0x10,
+                            0x08 if arr.dtype.kind == 'i' else 0, 0, 0, n,
+                            0, 8 * n)
+        raw = arr.astype(arr.dtype.newbyteorder('<')).tobytes()
+    elif arr.dtype.kind == 'f' and arr.dtype.itemsize in (4, 8):
+        n = arr.dtype.itemsize
+        exp_bits, man_bits, bias = (8, 23, 127) if n == 4 else \
+            (11, 52, 1023)
+        dtype = struct.pack('<BBBBIHHBBBBI', 0x11, 0x20, 8 * n - 1, 0, n,
+                            0, 8 * n, man_bits, exp_bits, 0, man_bits, bias)
+        raw = arr.astype(arr.dtype.newbyteorder('<')).tobytes()
+    else:
+        raise ValueError('cannot write dtype %s to HDF5' % arr.dtype)
+    space = struct.pack('<BBBB4x', 1, len(shape), 0, 0) + b''.join(
+        struct.pack('<Q', d) for d in shape)
+    return dtype, space, raw
+
+
+class _Writer:
+    """Lays a tree out in one buffer, children before parents (a header
+    holds its children's addresses); every block starts at a multiple
+    of 8."""
+
+    def __init__(self):
+        self.buf = bytearray(96)   # the superblock, filled in at the end
+
+    def _alloc(self, data: bytes) -> int:
+        addr = len(self.buf)
+        self.buf += _pad8(data)
+        return addr
+
+    def _header(self, messages) -> int:
+        """An object header (version 1) of ``[(type, data)]``."""
+        body = b''.join(
+            struct.pack('<HHB3x', mtype, len(_pad8(data)), 0) + _pad8(data)
+            for mtype, data in messages)
+        return self._alloc(struct.pack('<BBHII4x', 1, 0, len(messages), 1,
+                                       len(body)) + body)
+
+    @staticmethod
+    def _attributes(attrs) -> list:
+        out = []
+        for name, value in attrs.items():
+            dtype, space, raw = _encode_value(value)
+            nm = name.encode('utf-8') + b'\0'
+            out.append((MSG_ATTRIBUTE, struct.pack(
+                '<BBHHH', 1, 0, len(nm), len(dtype), len(space))
+                + _pad8(nm) + _pad8(dtype) + _pad8(space) + raw))
+        return out
+
+    def dataset(self, value, attrs) -> int:
+        dtype, space, raw = _encode_value(value)
+        addr = self._alloc(raw) if raw else UNDEFINED
+        return self._header([
+            (MSG_DATASPACE, space), (MSG_DATATYPE, dtype),
+            # fill value: version 2, allocate late, never written,
+            # undefined
+            (MSG_FILL_VALUE, struct.pack('<BBBB', 2, 2, 2, 0)),
+            (MSG_LAYOUT, struct.pack('<BBQQ', 3, 1, addr, len(raw))),
+        ] + self._attributes(attrs))
+
+    def group(self, items, attrs) -> tuple:
+        """Write a group; returns (header, B-tree, heap) addresses."""
+        entries = []
+        for name in items:
+            node = items[name]
+            if isinstance(node, dict):
+                header = self.group(node.get('items', {}),
+                                    node.get('attrs', {}))[0]
+            elif isinstance(node, Leaf):
+                header = self.dataset(node.value, node.attrs)
+            else:
+                header = self.dataset(node, {})
+            entries.append((name.encode('utf-8'), header))
+        entries.sort()           # the library searches by strcmp order
+        if len(entries) > 4 * LEAF_K * INTERNAL_K:
+            raise ValueError('a group of %d entries needs a deeper B-tree '
+                             'than this writer lays out' % len(entries))
+        # local heap: the empty name at offset 0, the names, and one free
+        # block at the end (the library wants a free list or none)
+        heap = bytearray(8)
+        offsets = []
+        for name, _ in entries:
+            offsets.append(len(heap))
+            heap += _pad8(name + b'\0')
+        free = len(heap)
+        heap += struct.pack('<QQ', 1, 16)   # next: none (1); this block: 16
+        heap_data = self._alloc(bytes(heap))
+        heap_addr = self._alloc(b'HEAP' + struct.pack(
+            '<B3xQQQ', 0, len(heap), free, heap_data))
+        # symbol nodes of up to 2 * LEAF_K entries, in name order
+        per = 2 * LEAF_K
+        children, keys = [], [0]
+        for lo in range(0, max(len(entries), 1), per):
+            chunk = list(zip(offsets, entries))[lo:lo + per]
+            body = b''.join(struct.pack('<QQII16x', off, header, 0, 0)
+                            for off, (_, header) in chunk)
+            children.append(self._alloc(
+                b'SNOD' + struct.pack('<BBH', 1, 0, len(chunk))
+                + body.ljust(per * 40, b'\0')))
+            keys.append(chunk[-1][0] if chunk else 0)
+        tree = b'TREE' + struct.pack('<BBHQQ', 0, 0, len(children),
+                                     UNDEFINED, UNDEFINED)
+        for key, child in zip(keys, children):
+            tree += struct.pack('<QQ', key, child)
+        tree += struct.pack('<Q', keys[-1])
+        btree_addr = self._alloc(tree.ljust(
+            24 + (4 * INTERNAL_K + 1) * 8, b'\0'))
+        header = self._header(
+            [(MSG_SYMBOL_TABLE, struct.pack('<QQ', btree_addr, heap_addr))]
+            + self._attributes(attrs))
+        return header, btree_addr, heap_addr
+
+    def finish(self, root) -> bytes:
+        header, btree_addr, heap_addr = root
+        self.buf[:96] = (
+            SIGNATURE + struct.pack('<BBBBBBBB', 0, 0, 0, 0, 0, 8, 8, 0)
+            + struct.pack('<HHI', LEAF_K, INTERNAL_K, 0)
+            + struct.pack('<QQQQ', 0, UNDEFINED, len(self.buf), UNDEFINED)
+            # the root group's symbol table entry, B-tree and heap cached
+            + struct.pack('<QQII', 0, header, 1, 0)
+            + struct.pack('<QQ', btree_addr, heap_addr))
+        return bytes(self.buf)
+
+
+class Leaf:
+    """A dataset ``value`` with attributes, as an item of a tree."""
+
+    def __init__(self, value, attrs=None):
+        self.value, self.attrs = value, dict(attrs or {})
+
+
+def write_file(path: str, tree: dict) -> None:
+    """Write ``tree`` as an HDF5 file.  A group is ``{'attrs': {name:
+    value}, 'items': {name: group, value or Leaf}}``; a value is a numpy
+    array or scalar, ``bytes``/``str``, or a list of those (see
+    :func:`_encode_value`)."""
+    writer = _Writer()
+    data = writer.finish(writer.group(tree.get('items', {}),
+                                      tree.get('attrs', {})))
+    with open(path, 'wb') as fh:
+        fh.write(data)
+
+
+def read_tree(path: str) -> dict:
+    """The whole of an HDF5 file as the tree :func:`write_file` takes
+    (string values as ``bytes`` or object arrays of ``bytes``)."""
+    def group(g):
+        items = {}
+        for name in g.keys():
+            node = g[name]
+            if isinstance(node, Group):
+                items[name] = group(node)
+            else:
+                attrs = node.attrs
+                items[name] = Leaf(node[()], attrs) if attrs else node[()]
+        return {'attrs': g.attrs, 'items': items}
+    with File(path) as f:
+        return group(f._root)

@@ -2,15 +2,15 @@
 
 Bidirectional char<->index mapping with index 0 reserved for
 unknown/padding ("underspecification"), as read from the h5
-``config/mapping`` codepoint array.  Counterpart of the lookup half of
-``ocrd_keraslm_tpu/utils/vocab.py`` (numpy only), with
-``read_normalized`` for scoring text files.
+``config/mapping`` codepoint array or assigned and grown by training.
+Counterpart of ``ocrd_keraslm_tpu/utils/vocab.py`` (numpy only; pruning
+is not ported yet), with ``read_normalized`` for reading text files.
 """
 from __future__ import annotations
 
 import logging
 import unicodedata
-from typing import Dict, Sequence
+from typing import Dict, Iterable, List, Sequence
 
 import numpy as np
 
@@ -39,6 +39,29 @@ class Vocab:
         self._encode_cache: Dict[str, np.ndarray] = {}
         self._table_cache = None
 
+    def assign(self, chars: Iterable[str]) -> None:
+        """Assign a fresh sorted mapping (1-based; 0 stays reserved)."""
+        chars = sorted(set(chars))
+        self.c2i = {c: i for i, c in enumerate(chars, 1)}
+        self.i2c = {i: c for i, c in enumerate(chars, 1)}
+        self._mapping_changed()
+
+    def grow(self, chars: Iterable[str]) -> List[str]:
+        """Add new characters at the end of the mapping; returns the
+        added ones."""
+        added = sorted(set(c for c in chars if c not in self.c2i))
+        base = self.size if self.i2c else 1
+        for k, c in enumerate(added):
+            self.c2i[c] = base + k
+            self.i2c[base + k] = c
+        self._mapping_changed()
+        return added
+
+    def _mapping_changed(self) -> None:
+        """Drop the caches that were built from the old mapping."""
+        self._encode_cache = {}
+        self._table_cache = None
+
     @classmethod
     def from_codepoints(cls, codepoints: Sequence[int]) -> 'Vocab':
         """Build from a positional uint32 codepoint array (h5 schema).
@@ -63,6 +86,12 @@ class Vocab:
         if not self.i2c:
             return 0
         return max(self.i2c.keys()) + 1
+
+    def __len__(self) -> int:
+        return self.size
+
+    def __contains__(self, char: str) -> bool:
+        return char in self.c2i
 
     def get(self, char: str, on_unmapped=None) -> int:
         """Index of char; 0 if unmapped (optionally calling

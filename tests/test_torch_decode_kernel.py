@@ -18,6 +18,10 @@ from chip_smoke import compare_decode, random_lattice
 from ocrd_keraslm_tpu.ops.decode_kernel import decode_lattice_pallas
 from ocrd_keraslm_torch.ops import decode_kernel as dk
 
+# Small shapes: one intra-op thread, so that test workers running side
+# by side do not oversubscribe the cores.
+torch.set_num_threads(1)
+
 D, W, VP, V_REAL, A, E = 2, 16, 128, 30, 4, 16
 
 

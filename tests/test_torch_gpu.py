@@ -16,15 +16,21 @@ LSTM-scan tolerances are those of ``chip_smoke.compare_score`` and
 ``compare_lstm``: probs and h atol 1e-5, cell states c atol 1e-5 plus
 rtol ``chip_smoke.C_RTOL`` (|c| reaches ~3.6e3 over a 4096-step chunk),
 NLL sums rtol 1e-5; ratings through the ``Rater`` (float16 probs) atol
-1e-3."""
+1e-3.  The LSTM backward is held as ``chip_smoke.compare_bwd`` holds it
+(dx_proj, dh0, dc0 atol 1e-5 + rtol 1e-4; dU 5e-6 of its max: other
+summation orders over T*B terms); the forward under a bf16 U to
+``chip_smoke.BF16_FWD_ATOL`` (an h may round to the neighbouring bf16
+value); gradients of ``forward_seq`` card against CPU rtol 1e-3 / atol
+1e-5 of each tensor's max."""
 import os
 
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (MODEL, compare_lstm, compare_score, parity_block,
-                        random_lattice, score_inputs)
+from chip_smoke import (BF16_FWD_ATOL, MODEL, compare_bwd, compare_lstm,
+                        compare_score, lstm_bwd_args, lstm_train_inputs,
+                        parity_block, random_lattice, score_inputs)
 
 pytestmark = pytest.mark.gpu
 
@@ -227,3 +233,84 @@ def test_cuda_scoring_never_takes_the_plain_versions(cuda, monkeypatch):
         r.fused_score = fused
         _, ppl = r.rate2('Was ist Aufklärung?', [179])
         assert np.isfinite(ppl) and ppl > 1
+
+
+@pytest.mark.parametrize('bf16', [False, True], ids=['f32', 'bf16'])
+@pytest.mark.parametrize('B, T, W', [(3, 7, 32), (13, 33, 32), (11, 1, 128),
+                                     (128, 256, 128)])
+def test_lstm_bwd_and_bf16_scan_match_plain(cuda, B, T, W, bf16):
+    """The training kernels against their plain versions: small widths,
+    ragged B (13 = 8 + 5: two blocks, one partly empty), one step, and
+    the main path's full shape; ``dU`` bit-equal over two launches."""
+    from ocrd_keraslm_torch.ops import lstm_cell
+    rng = np.random.default_rng([B, T, W, int(bf16)])
+    fwd, cot = lstm_train_inputs(rng, cuda, bf16, B=B, T=T, W=W)
+    s0, b0 = lstm_cell.lstm_scan.launches, lstm_cell.lstm_bwd.launches
+    got = lstm_cell.lstm_scan(*fwd, want_c_all=True)
+    torch.cuda.synchronize()
+    compare_lstm(got, lstm_cell.lstm_scan_ref(*fwd, want_c_all=True),
+                 atol=BF16_FWD_ATOL if bf16 else 1e-5)
+    args = lstm_bwd_args(fwd, cot, got[:2])
+    outs = [lstm_cell.lstm_bwd(*args) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert lstm_cell.lstm_scan.launches == s0 + 1
+    assert lstm_cell.lstm_bwd.launches == b0 + 2
+    assert torch.equal(outs[0][1], outs[1][1])
+    assert outs[0][1].dtype == torch.float32
+    compare_bwd(outs[0], lstm_cell.lstm_bwd_ref(*args))
+
+
+def test_cuda_training_never_takes_the_plain_versions(cuda, monkeypatch):
+    from ocrd_keraslm_torch.ops import lstm_cell
+    monkeypatch.setattr(lstm_cell, 'lstm_scan_ref', None)
+    monkeypatch.setattr(lstm_cell, 'lstm_bwd_ref', None)
+    rng = np.random.default_rng(4)
+    fwd, cot = lstm_train_inputs(rng, cuda, False, B=5, T=6, W=32)
+    leaves = [t.clone().requires_grad_() for t in fwd]
+    h_all, hT, cT = lstm_cell.LSTMScan.apply(*leaves)
+    b0 = lstm_cell.lstm_bwd.launches
+    ((h_all * cot[0]).sum() + (hT * cot[1]).sum()
+     + (cT * cot[2]).sum()).backward()
+    assert lstm_cell.lstm_bwd.launches == b0 + 1
+    assert all(t.grad is not None and torch.isfinite(t.grad).all()
+               for t in leaves)
+    with pytest.raises(ValueError, match='dtype'):
+        lstm_cell.lstm_scan(*fwd[:3], fwd[3].half())
+
+
+@pytest.mark.parametrize('compute_dtype', ['float32', 'bfloat16'])
+def test_forward_seq_gradients_match_cpu(cuda, compute_dtype):
+    """Loss and parameter gradients of one training forward and
+    backward (dropout on, same seed) on the card and on the CPU."""
+    from ocrd_keraslm_torch.models import lstm_lm as tlm
+    from ocrd_keraslm_torch.ops import lstm_cell
+    cfg = tlm.LMConfig(width=64, depth=2, length=40, voc_size=50,
+                       contexts=((200, 10),), dropout=0.1,
+                       compute_dtype=compute_dtype)
+    base = tlm.init_params(cfg, torch.Generator().manual_seed(2))
+    base['char_embedding'] = base['char_embedding'] * 300
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.integers(1, 50, (13, 40)))
+    y = torch.from_numpy(rng.integers(1, 50, (13, 40)))
+    z = torch.from_numpy(rng.integers(0, 200, (13,)))
+    grads, losses = {}, {}
+    for device in (cuda, torch.device('cpu')):
+        params = tlm.params_from_numpy(tlm.params_to_numpy(base), device)
+        for t in tlm.param_leaves(params):
+            t.requires_grad_()
+        b0 = lstm_cell.lstm_bwd.launches
+        logits, _ = tlm.forward_seq(
+            params, cfg, x.to(device), [z.to(device)], train=True,
+            rng=torch.Generator().manual_seed(9))
+        loss = tlm.sequence_xent(logits, y.to(device))[0] \
+            + tlm.regularization_loss(params)
+        loss.backward()
+        assert lstm_cell.lstm_bwd.launches - b0 == \
+            (2 if device.type == 'cuda' else 0)
+        losses[device.type] = loss.item()
+        grads[device.type] = [t.grad.cpu() for t in tlm.param_leaves(params)]
+    tol = 1e-3 if compute_dtype == 'float32' else 3e-2
+    assert abs(losses['cuda'] - losses['cpu']) <= 1e-5 * abs(losses['cpu'])
+    for g, w in zip(grads['cuda'], grads['cpu']):
+        torch.testing.assert_close(g, w, rtol=tol,
+                                   atol=tol * 1e-2 * float(w.abs().max()))

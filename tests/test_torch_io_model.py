@@ -13,6 +13,10 @@ from ocrd_keraslm_tpu.utils import h5io as jh5
 from ocrd_keraslm_torch.models import lstm_lm as tlm
 from ocrd_keraslm_torch.utils import h5io as th5
 
+# Small shapes: one intra-op thread, so that test workers running side
+# by side do not oversubscribe the cores.
+torch.set_num_threads(1)
+
 PRETRAINED = os.path.join(os.path.dirname(__file__), '..', 'pretrained')
 MODELS = ['model_german.h5', 'model_synthetic.h5']
 

@@ -11,9 +11,10 @@ import pytest
 REPO = os.path.join(os.path.dirname(os.path.abspath(__file__)), '..')
 PKG = os.path.join(REPO, 'ocrd_keraslm_torch')
 FORBIDDEN = ('jax', 'jaxlib', 'ocrd_keraslm_tpu')
-# not installed beside PyTorch on the GPU machine: the port reads h5
-# and XML with its own code and the standard library
-NOT_ON_CARD = ('h5py', 'lxml')
+# not installed beside PyTorch on the GPU machine: the port reads and
+# writes h5 and XML with its own code and the standard library, and
+# trains with torch.optim
+NOT_ON_CARD = ('h5py', 'lxml', 'optax', 'orbax')
 
 
 def _sources():
@@ -30,7 +31,14 @@ def _modules():
 
 
 def _forbidden(name):
-    return name.split('.')[0] in FORBIDDEN
+    return name.split('.')[0] in FORBIDDEN + NOT_ON_CARD
+
+
+def test_the_training_slice_is_among_the_checked_modules():
+    modules = set(_modules())
+    assert {'ocrd_keraslm_torch.training', 'ocrd_keraslm_torch.data',
+            'ocrd_keraslm_torch.utils.hdf5', 'ocrd_keraslm_torch.utils.h5io',
+            'ocrd_keraslm_torch.ops.lstm_cell'} <= modules
 
 
 def test_importing_every_module_loads_no_jax_h5py_or_lxml():

@@ -11,12 +11,17 @@ import subprocess
 import sys
 
 import pytest
+import torch
 
 from helpers import build_workspace, make_tiny_model
 from ocrd_keraslm_tpu.wrapper import KerasRate as JKerasRate
 from ocrd_keraslm_tpu.wrapper.mets import Workspace
 from ocrd_keraslm_tpu.wrapper.page import parse_page
 from ocrd_keraslm_torch.wrapper import KerasRate as TKerasRate
+
+# Small shapes: one intra-op thread, so that test workers running side
+# by side do not oversubscribe the cores.
+torch.set_num_threads(1)
 
 REPO = os.path.join(os.path.dirname(os.path.abspath(__file__)), '..')
 GERMAN = os.path.join(REPO, 'pretrained', 'model_german.h5')

@@ -19,6 +19,10 @@ from test_decode_exhaustive import (brute_force, make_rater,
                                     random_multichar_lattice)
 from test_decode_kernel import _toy_graph
 
+# Small shapes: one intra-op thread, so that test workers running side
+# by side do not oversubscribe the cores.
+torch.set_num_threads(1)
+
 
 def port_of(jr):
     """The port's Rater on the CPU holding ``jr``'s model."""

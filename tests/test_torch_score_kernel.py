@@ -23,6 +23,10 @@ from ocrd_keraslm_torch.ops import score_kernel as tsk
 
 from test_torch_lstm_scan import _params
 
+# Small shapes: one intra-op thread, so that test workers running side
+# by side do not oversubscribe the cores.
+torch.set_num_threads(1)
+
 B, T, W, V = 2, 16, 32, 13
 
 

@@ -23,6 +23,7 @@ import re
 
 import numpy as np
 import pytest
+import torch
 from click.testing import CliRunner
 
 import jax.numpy as jnp
@@ -44,6 +45,10 @@ from ocrd_keraslm_torch.wrapper.page import parse_page as tparse_page
 from helpers import build_workspace
 from test_quality import _corpus_pages
 from test_torch_lstm_scan import _params
+
+# Small shapes: one intra-op thread, so that test workers running side
+# by side do not oversubscribe the cores.
+torch.set_num_threads(1)
 
 REPO = os.path.join(os.path.dirname(os.path.abspath(__file__)), '..')
 GERMAN = os.path.join(REPO, 'pretrained', 'model_german.h5')
@@ -325,7 +330,8 @@ def test_keraslm_rate_apply_and_test_match_jax(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize('args, item', [
-    (['train', 'x.txt'], 'Training'), (['generate', 'ab'], 'Generation'),
+    (['train', '--mesh', '2'], 'Distributed'),
+    (['generate', 'ab'], 'Generation'),
     (['print-charset', '-m', GERMAN], 'CLI and tooling'),
     (['--jax-trace', 'd', 'test', '-m', GERMAN], 'Device trace')])
 def test_keraslm_rate_unported_commands_raise(args, item):
