@@ -7,9 +7,10 @@ Phases, each printing its own lines (any failure exits non-zero):
 
 1. card: name and power limit (``nvidia-smi``), torch device name/count;
    no CUDA device is a failure, never a fallback;
-2. build: ``nvcc`` builds the four kernel sources of
+2. build: ``nvcc`` builds the six kernel sources of
    ``ocrd_keraslm_torch/csrc/`` (``decode_lattice.cu``, ``score_scan.cu``,
-   ``lstm_scan.cu``, ``lstm_bwd.cu``) for sm_90a, all at once; prints
+   ``lstm_scan.cu``, ``lstm_bwd.cu``, ``gen_beam.cu``,
+   ``gen_traceback.cu``) for sm_90a, all at once; prints
    seconds, ``-Xptxas -v`` registers and spills, and each block's dynamic
    shared memory;
 3. parity at full width (``pretrained/model_german.h5``), each kernel
@@ -22,6 +23,9 @@ Phases, each printing its own lines (any failure exits non-zero):
    T=4096, with and without ``c_all``; at the training shape (B=128,
    T=256, W=128) the LSTM-scan kernel with f32 and bf16 U and the
    LSTM backward kernel with both, ``dU`` equal from launch to launch;
+   the generation beam-step kernel over 64 steps from a seeded prompt
+   (K=256, TOPK=10), every step against the plain version (near-ties
+   resumed from the kernel's fringe), and the traceback kernel;
 4. decode path: a seeded synthetic METS/PAGE workspace (4 pages of ~1800
    glyphs, 2-4 alternatives on ~15% of them) through
    ``ocrd_keraslm_torch.wrapper.cli`` at glyph level, beam_width 10;
@@ -46,12 +50,17 @@ Phases, each printing its own lines (any failure exits non-zero):
    card against CPU); the same with ``--bf16`` for one epoch of a
    smaller corpus; then five ``train_step``s at full width from one
    initialisation, the same batches and dropout seed on the card and on
-   the CPU;
+   the CPU; generation path: ``keraslm-rate generate -n 1000 -v 3 "Die
+   Vernunft "`` (one ``gen_beam`` and one ``gen_traceback`` launch), the
+   same at ``-n 64`` on the card and on the CPU with equal lines, and
+   ``Rater.generate_batch`` of 16 seeded prompts at ``-n 256`` in one
+   launch of each kernel, equal to 16 single calls;
 7. numbers: wall per page, edges/s and scored chars/s, the device's busy
    and idle share of the paths (``torch.profiler``), wall per training
-   step and chars/s, and per kernel at the main path's shapes: its time
-   and the plain version's (CUDA events), its bound, and a library
-   yardstick where there is one.
+   step and chars/s, wall per generation and generated chars/s, and per
+   kernel at the main path's shapes: its time and the plain version's
+   (CUDA events), its bound, and a library yardstick where there is
+   one.
 
 Every kernel count is set to 0 just before a path runs and read just
 after.  The last two lines are the kernel table and
@@ -268,6 +277,65 @@ def parity_block(run, kernel, plain, arrays, n_real, state, cost, K,
     return err, ties, state, cost
 
 
+def compare_gen(got, want, cost_rtol=1e-5, cost_atol=1e-6):
+    """Hold the generation records ``got`` (T, 3, K) of one stream
+    (numpy) against ``want``; returns ``(max abs error of the live costs,
+    step where the two runs parted at a near-tie or None)``.
+
+    At every step chars and backpointers are equal and live costs (<
+    1e38) agree within ``cost_rtol``/``cost_atol``.  Two f32 runs may
+    select another candidate where two candidates' costs (or two logits
+    of a row) lie within rounding of each other; there the records
+    differ, but the sorted costs of the two selections still agree within
+    the tolerance, which this checks before it stops at that step
+    (:func:`gen_parity` resumes both runs after it)."""
+    err = 0.0
+    for t in range(len(want)):
+        g, w = got[t], want[t]
+        live = w[2] < 1e38
+        if (np.array_equal(g[:2], w[:2])
+                and np.array_equal(g[2] < 1e38, live)):
+            np.testing.assert_allclose(g[2][live], w[2][live],
+                                       rtol=cost_rtol, atol=cost_atol,
+                                       err_msg='step %d costs' % t)
+            if live.any():
+                err = max(err, float(np.abs(g[2] - w[2])[live].max()))
+            continue
+        np.testing.assert_allclose(
+            np.sort(g[2]), np.sort(w[2]), rtol=cost_rtol, atol=cost_atol,
+            err_msg='step %d: the selections differ by more than a '
+                    'near-tie' % t)
+        return err, t
+    return err, None
+
+
+def gen_parity(kernel, plain, weights, state, cost, length, v_real,
+               **kw):
+    """Hold ``kernel`` against ``plain`` (``gen_beam`` signatures) over
+    ``length`` steps of one stream from ``state`` (1, K, S) and ``cost``
+    (1, K) with :func:`compare_gen`; where the two part at a near-tie
+    (step t), the kernel runs t + 1 steps once more for its fringe after
+    step t, and both go on from it, so every step is compared.  Returns
+    ``(max abs cost error, near-tie steps)``."""
+    import torch
+    start, err, ties = 0, 0.0, []
+    while start < length:
+        outs = [fn(*weights, state, cost, length=length - start,
+                   v_real=v_real, **kw)[0].cpu().numpy()
+                for fn in (kernel, plain)]
+        torch.cuda.synchronize()
+        e, div = compare_gen(*outs)
+        err = max(err, e)
+        if div is None:
+            break
+        ties.append(start + div)
+        rec, state = kernel(*weights, state, cost, length=div + 1,
+                            v_real=v_real, final_state=True, **kw)
+        state, cost = state.contiguous(), rec[:, -1, 2].contiguous()
+        start += div + 1
+    return err, ties
+
+
 def as_float64(fn):
     """``fn`` (a decode function) run in float64 on the same inputs,
     outputs back in float32.  The cost carry's dead lanes map to BIG
@@ -436,7 +504,9 @@ def platform_env(platform):
             os.environ['KERASLM_PLATFORM'] = old
 
 
-KERNELS = ('decode_lattice', 'score_scan', 'lstm_scan', 'lstm_bwd')
+KERNELS = ('decode_lattice', 'score_scan', 'lstm_scan', 'lstm_bwd',
+           'gen_beam', 'gen_traceback')
+NO_LAUNCHES = {name: 0 for name in KERNELS}
 # device kernels by name, for the profiler's sums (lstm_bwd launches
 # three: the recurrence, the dU partial products and their sum)
 DEVICE_KERNELS = KERNELS + ('lstm_du',)
@@ -800,13 +870,14 @@ def lstm_bound(args, want_c_all):
 # ---------------------------------------------------------------------
 
 def build_kernels():
-    """Build the four kernel sources at once (one ``nvcc`` each, in
+    """Build the six kernel sources at once (one ``nvcc`` each, in
     threads); print seconds and ``ptxas`` lines."""
     from concurrent.futures import ThreadPoolExecutor
     from ocrd_keraslm_torch.ops import _build
-    from ocrd_keraslm_torch.ops import decode_kernel, lstm_cell, score_kernel
+    from ocrd_keraslm_torch.ops import (decode_kernel, gen_kernel, lstm_cell,
+                                        score_kernel)
     sources = [m.SOURCE for m in (decode_kernel, score_kernel, lstm_cell)] \
-        + [lstm_cell.BWD_SOURCE]
+        + [lstm_cell.BWD_SOURCE, gen_kernel.SOURCE, gen_kernel.TB_SOURCE]
 
     def one(src):
         t0 = time.time()
@@ -936,20 +1007,24 @@ def score_parity(rater, dev):
     return score_err, lstm_err
 
 
+def _wrappers():
+    from ocrd_keraslm_torch.ops import (decode_kernel, gen_kernel, lstm_cell,
+                                        score_kernel)
+    return {'decode_lattice': decode_kernel.decode_lattice,
+            'score_scan': score_kernel.score_scan,
+            'lstm_scan': lstm_cell.lstm_scan,
+            'lstm_bwd': lstm_cell.lstm_bwd,
+            'gen_beam': gen_kernel.gen_beam,
+            'gen_traceback': gen_kernel.traceback}
+
+
 def zero_counts():
-    from ocrd_keraslm_torch.ops import decode_kernel, lstm_cell, score_kernel
-    decode_kernel.decode_lattice.launches = 0
-    score_kernel.score_scan.launches = 0
-    lstm_cell.lstm_scan.launches = 0
-    lstm_cell.lstm_bwd.launches = 0
+    for fn in _wrappers().values():
+        fn.launches = 0
 
 
 def read_counts():
-    from ocrd_keraslm_torch.ops import decode_kernel, lstm_cell, score_kernel
-    return {'decode_lattice': decode_kernel.decode_lattice.launches,
-            'score_scan': score_kernel.score_scan.launches,
-            'lstm_scan': lstm_cell.lstm_scan.launches,
-            'lstm_bwd': lstm_cell.lstm_bwd.launches}
+    return {name: fn.launches for name, fn in _wrappers().items()}
 
 
 def check_glyphs(directory, n_glyphs):
@@ -1027,8 +1102,7 @@ def scoring_path(rater, work):
     wall = time.time() - t0
     counts = read_counts()
     check_glyphs(ws, n_glyphs)
-    assert counts == {'decode_lattice': 0, 'score_scan': chunks,
-                      'lstm_scan': 0, 'lstm_bwd': 0}, (counts, chunks)
+    assert counts == dict(NO_LAUNCHES, score_scan=chunks), (counts, chunks)
     n_chars = sum(len(t) for t in texts)
     print('scoring path: 4 pages, %d glyphs, %d chars scored in one '
           'rate_batch; launches %s (expected %d score_scan, one per '
@@ -1053,9 +1127,9 @@ def scoring_path(rater, work):
     torch.cuda.synchronize()
     layered_counts = read_counts()
     rater.fused_score = True
-    assert layered_counts == {'decode_lattice': 0, 'score_scan': 0,
-                              'lstm_scan': rater.depth * chunks,
-                              'lstm_bwd': 0}, layered_counts
+    assert layered_counts == dict(NO_LAUNCHES,
+                                  lstm_scan=rater.depth * chunks), \
+        layered_counts
     diff = max(float(np.abs(np.subtract(a, b)).max())
                for a, b in zip(fused, layered))
     assert diff <= 2.0 ** -11, diff
@@ -1438,9 +1512,9 @@ def training_path(work, card):
     steps = counts['lstm_bwd'] // TRAIN_D
     assert counts['lstm_bwd'] == steps * TRAIN_D and \
         epochs * n_clean <= steps <= 2 * epochs * n_clean, (counts, n_clean)
-    assert counts == {
-        'decode_lattice': 0, 'score_scan': 0, 'lstm_bwd': steps * TRAIN_D,
-        'lstm_scan': (steps + epochs * n_val) * TRAIN_D}, (counts, n_val)
+    assert counts == dict(
+        NO_LAUNCHES, lstm_bwd=steps * TRAIN_D,
+        lstm_scan=(steps + epochs * n_val) * TRAIN_D), (counts, n_val)
     _, saved_vocab, history = h5io.load_config(model)
     assert saved_vocab.c2i == vocab.c2i
     loss, val_loss = history['loss'], history['val_loss']
@@ -1709,6 +1783,235 @@ def training_numbers(dev, card):
     return out
 
 
+# ---------------------------------------------------------------------
+# generation: the beam-step and traceback kernels
+# ---------------------------------------------------------------------
+
+GEN_PROMPT = 'Die Vernunft '
+GEN_N, GEN_VARIANTS = 1000, 3           # keraslm-rate generate -n -v
+GEN_BATCH, GEN_BATCH_N = 16, 256        # generate_batch: prompts, chars
+
+
+def gen_inputs(rater, prompts):
+    """``gen_beam``'s weights, v_real and the prefix-conditioned fringes
+    (N, 256, S), (N, 256) of ``prompts``, as ``beam_device`` makes them."""
+    from ocrd_keraslm_torch.ops import gen_kernel as gk
+    from ocrd_keraslm_torch.ops.beam_device import FRINGE, _prefix_arrays
+    w = rater._decode_weights(None)
+    weights = (w['emb'], w['embT'], w['wcat'], w['bias'])
+    ids, mask = _prefix_arrays([rater.vocab.encode(p) for p in prompts])
+    state0, cost0 = gk._prefix_fringe(*weights, ids, mask, w['v_real'],
+                                      FRINGE)
+    return weights, w['v_real'], state0, cost0
+
+
+def gen_prompts(rater, rng, n):
+    """``n`` seeded German-like prompts of 1-4 words and a space."""
+    words = [w for w in GERMAN_WORDS if set(w) <= _charset(rater.vocab)]
+    return [' '.join(words[i] for i in rng.integers(
+        len(words), size=int(rng.integers(1, 5)))) + ' ' for _ in range(n)]
+
+
+def gen_bound(weights, v_real, state0, cost0, rec):
+    """Bound of one ``gen_beam`` launch: 2*(D*2W*4W + W*v_real) FLOP per
+    live fringe row and step (the gate products over ``[x | h]`` and the
+    tied logits over the real columns; rows dead before the step need
+    none: the fringe fills in the first three steps); bytes of the
+    weights (``emb``/``embT`` at their v_real real rows and columns),
+    ``state0`` and ``cost0`` read once and the records written once."""
+    import torch
+    emb, embT, wcat, bias = weights
+    D, W = wcat.shape[0], emb.shape[1]
+    parents = torch.cat([cost0[:, None], rec[:, :-1, 2]], 1)
+    rows = int((parents < 1e38).sum())
+    flops = rows * 2 * (D * 2 * W * 4 * W + W * v_real)
+    nbytes = (2 * v_real * W * 4 + tensor_bytes(wcat, bias, state0, cost0)
+              + tensor_bytes(rec))
+    return bound(flops, nbytes)
+
+
+@contextlib.contextmanager
+def cluster_size(blocks):
+    """``gen_beam`` launches clusters of ``blocks`` blocks a stream
+    inside the block, whatever the card's occupancy would choose."""
+    from ocrd_keraslm_torch.ops import gen_kernel as gk
+    choose = gk.cluster_blocks
+    gk.cluster_blocks = lambda *args: blocks
+    try:
+        yield
+    finally:
+        gk.cluster_blocks = choose
+
+
+def gen_parity_phase(rater):
+    """Phase 3, the two generation kernels at full width; returns the
+    beam step's max abs cost error."""
+    import torch
+    from ocrd_keraslm_torch.ops import gen_kernel as gk
+    rng = np.random.default_rng(20261020)
+    prompts = gen_prompts(rater, rng, 2)
+    weights, v_real, state0, cost0 = gen_inputs(rater, prompts)
+    err = 0.0
+    for blocks in (gk.CLUSTER_WIDE, gk.CLUSTER):
+        t0 = time.time()
+        with cluster_size(blocks):
+            e, ties = gen_parity(gk.gen_beam, gk.gen_beam_ref, weights,
+                                 state0[:1].contiguous(),
+                                 cost0[:1].contiguous(), 64, v_real)
+        err = max(err, e)
+        print('parity gen_beam (%d blocks a stream, prompt %r, K=256, '
+              'TOPK=10, 64 steps, D=%d, W=%d, v_real=%d): chars and '
+              'backpointers equal at every step, max |kernel - plain| %.3g '
+              'over live costs, near-ties resumed from the kernel\'s fringe '
+              'at steps %s (tolerance: costs rtol 1e-5 atol 1e-6) in %.1f s'
+              % (blocks, prompts[0], rater.depth, rater.width, v_real, e,
+                 ties or 'none', time.time() - t0))
+    rec = gk.gen_beam(*weights, state0, cost0, length=64, v_real=v_real)
+    for out_length in (64, 41):
+        best = torch.argsort(rec[:, out_length - 1, 2], dim=1,
+                             stable=True)[:, :GEN_VARIANTS].int().contiguous()
+        got = gk.traceback(rec, best, out_length)
+        torch.cuda.synchronize()
+        assert torch.equal(got, gk.traceback_ref(rec, best, out_length))
+    print('parity gen_traceback (2 streams, %d cursors each, T=64, '
+          'out_length 64 and 41): equal to the plain version'
+          % GEN_VARIANTS)
+    return err
+
+
+def run_generate(number, variants, platform):
+    """``keraslm-rate generate`` of ``GEN_PROMPT`` in this process, the
+    counts zeroed before; returns (its result lines, wall s, counts)."""
+    import torch
+    from click.testing import CliRunner
+    from ocrd_keraslm_torch.scripts.run import cli as keraslm_rate
+    zero_counts()
+    t0 = time.time()
+    res = CliRunner().invoke(keraslm_rate, [
+        '-l', 'WARNING', 'generate', '-m', MODEL, '-n', str(number), '-v',
+        str(variants), GEN_PROMPT], env={'KERASLM_PLATFORM': platform})
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    assert res.exit_code == 0, (res.output, res.exception)
+    # a line may end with a space: cut the newline alone
+    lines = res.output.rstrip('\n').split('\n')[-variants:]
+    assert len(lines) == variants and all(
+        ln.startswith(GEN_PROMPT) and len(ln) == len(GEN_PROMPT) + number
+        for ln in lines), lines
+    return lines, wall, read_counts()
+
+
+def generation_path(rater, card):
+    """Phase 6, generation; returns the path's numbers."""
+    import torch
+    lines, wall_cli, counts = run_generate(GEN_N, GEN_VARIANTS, 'cuda')
+    assert counts == dict(NO_LAUNCHES, gen_beam=1, gen_traceback=1), counts
+    print('generation path: keraslm-rate generate -n %d -v %d %r: %d '
+          'lines of %d chars; launches %s (expected one gen_beam and one '
+          'gen_traceback); first line ends %r'
+          % (GEN_N, GEN_VARIANTS, GEN_PROMPT, len(lines), len(lines[0]),
+             counts, lines[0][-60:]))
+    small = {p: run_generate(64, GEN_VARIANTS, p)[0] for p in ('cuda', 'cpu')}
+    assert small['cuda'] == small['cpu'], small
+    print('generation path -n 64 -v %d: the same %d lines on the card and '
+          'on the CPU: %r' % (GEN_VARIANTS, GEN_VARIANTS, small['cuda']))
+    prompts = gen_prompts(rater, np.random.default_rng(21), GEN_BATCH)
+    zero_counts()
+    t0 = time.time()
+    batch = rater.generate_batch(prompts, GEN_BATCH_N)
+    wall_batch = time.time() - t0
+    batch_counts = read_counts()
+    assert batch_counts == dict(NO_LAUNCHES, gen_beam=1, gen_traceback=1), \
+        batch_counts
+    singles = [rater.generate(p, GEN_BATCH_N)[0] for p in prompts]
+    assert batch == singles
+    print('generation path: Rater.generate_batch of %d prompts at -n %d: '
+          'launches %s (one of each for all prompts); every string equals '
+          'its single generate call' % (GEN_BATCH, GEN_BATCH_N,
+                                        batch_counts))
+    walls = []
+    for _ in range(3):
+        t0 = time.time()
+        rater.generate(GEN_PROMPT, GEN_N, variants=GEN_VARIANTS)
+        walls.append(time.time() - t0)
+    traced_wall, busy = profiled(
+        lambda: rater.generate(GEN_PROMPT, GEN_N, variants=GEN_VARIANTS))
+    return dict(wall_cli=wall_cli, walls=walls, launches=counts,
+                batch_launches=batch_counts, wall_batch=wall_batch,
+                prompts=prompts, traced_wall=traced_wall, busy=busy)
+
+
+def generation_numbers(rater, gen, card):
+    """Phase 7, the generation kernels at the main path's shapes: one
+    stream of the 1024-step bucket (``-n 1000``) and the batch of
+    ``GEN_BATCH`` streams of ``GEN_BATCH_N`` steps; the traceback of
+    ``GEN_VARIANTS`` cursors over the first's records."""
+    import torch
+    from ocrd_keraslm_torch.ops import gen_kernel as gk
+    from ocrd_keraslm_torch.ops.beam_device import LENGTH_BUCKETS
+    from ocrd_keraslm_torch.utils.buckets import bucket_unbounded
+    out = {}
+    for name, prompts, number in (
+            ('gen_beam', [GEN_PROMPT], GEN_N),
+            ('gen_beam_batch', gen['prompts'], GEN_BATCH_N)):
+        weights, v_real, state0, cost0 = gen_inputs(rater, prompts)
+        T = bucket_unbounded(number, LENGTH_BUCKETS)
+        N = len(prompts)
+
+        def kernel():
+            return gk.gen_beam(*weights, state0, cost0, length=T,
+                               v_real=v_real)
+
+        ms = cuda_ms(kernel, 3)
+        plain_ms = cuda_ms(lambda: gk.gen_beam_ref(
+            *weights, state0, cost0, length=T, v_real=v_real), 1)
+        ms2 = cuda_ms(kernel, 3)
+        rec = kernel()
+        bound_ms, bound_by, flops = gen_bound(weights, v_real, state0, cost0,
+                                              rec)
+        print('%s at the main path shape (N=%d streams, T=%d steps, K=256, '
+              'TOPK=10, D=%d, W=%d): %.3f ms/launch then %.3f ms/launch '
+              '(CUDA events, mean of 3 warm launches), %.2f us/step, %.0f '
+              'generated chars/s over the streams [%s]'
+              % (name, N, T, rater.depth, rater.width, ms, ms2,
+                 1e3 * ms2 / T, N * T / (ms2 / 1e3), card))
+        print('%s plain version at the same shape: %.3f ms (CUDA events, '
+              'one warm run) [%s]' % (name, plain_ms, card))
+        print('%s bound: %.4f ms by %s (%.4g f32 FLOP at 67 TFLOP/s, %.4g '
+              'a step and stream); kernel at %.3f%% of it; library call: '
+              'none - no single PyTorch call runs a beam step [%s]'
+              % (name, bound_ms, bound_by, flops, flops / N / T,
+                 100 * bound_ms / ms2, card))
+        out[name] = dict(ms=ms2, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=None)
+        if name == 'gen_beam':
+            walk = (rec, torch.argsort(rec[:, GEN_N - 1, 2], dim=1,
+                                       stable=True)[:, :GEN_VARIANTS]
+                    .int().contiguous(), GEN_N)
+    ms = cuda_ms(lambda: gk.traceback(*walk), 20)
+    plain_ms = cuda_ms(lambda: gk.traceback_ref(*walk), 1)
+    ms2 = cuda_ms(lambda: gk.traceback(*walk), 20)
+    # the walk needs two floats of the records a cursor and step, the
+    # cursors' start slots, and writes the (VARS, T) chars
+    nbytes = GEN_VARIANTS * (GEN_N * 2 * 4 + 4 + walk[0].shape[1] * 4)
+    bound_ms, bound_by, _ = bound(0, nbytes)
+    print('gen_traceback at the main path shape (%d cursors, T=%d, '
+          'out_length %d): %.4f ms/launch then %.4f ms/launch (CUDA events, '
+          'mean of 20), %.1f ns/step [%s]'
+          % (GEN_VARIANTS, walk[0].shape[1], GEN_N, ms, ms2,
+             1e6 * ms2 / GEN_N, card))
+    print('gen_traceback plain version: %.3f ms; bound %.3g ms by %s (%d '
+          'bytes at 3.35 TB/s; the walk is a chain of %d dependent loads); '
+          'kernel at %.3g%% of it; library call: none - no single PyTorch '
+          'call walks backpointers [%s]'
+          % (plain_ms, bound_ms, bound_by, nbytes, GEN_N,
+             100 * bound_ms / ms2, card))
+    out['gen_traceback'] = dict(ms=ms2, plain_ms=plain_ms,
+                                bound_ms=bound_ms, bound_by=bound_by,
+                                library_ms=None)
+    return out
+
+
 def main() -> int:
     sys.path.insert(0, HERE)
     import torch
@@ -1765,11 +2068,23 @@ def main() -> int:
              lc._bwd_library().lstm_bwd_smem_bytes(TRAIN_B, TRAIN_W),
              TRAIN_B * TRAIN_T,
              lc._bwd_library().lstm_bwd_splits(TRAIN_B, TRAIN_T)))
+    from ocrd_keraslm_torch.ops import gen_kernel as gk
+    for blocks in (gk.CLUSTER_WIDE, gk.CLUSTER):
+        print('shared memory gen_beam: %d bytes dynamic per block at K=256 '
+              'in clusters of %d blocks of 512 threads a stream (%d fringe '
+              'rows a block), TOPK=10, D=%d, W=%d, Vp=%d; %d such clusters '
+              'fit the card at once'
+              % (gk._library().gen_beam_smem_bytes(256, blocks, D, W,
+                                                   wts['v_pad'], 10),
+                 blocks, 256 // blocks, D, W, wts['v_pad'],
+                 gk._library().gen_beam_max_clusters(blocks, 256, D, W,
+                                                     wts['v_pad'], 10)))
 
     # ---- 3. parity at full width ----
     decode_err = decode_parity(rater, dev)
     score_err, lstm_err = score_parity(rater, dev)
     train_errs = train_parity(dev)
+    gen_err = gen_parity_phase(rater)
     print('kernels held against their plain versions: %s'
           % json.dumps(list(KERNELS)))
 
@@ -1779,6 +2094,7 @@ def main() -> int:
         scoring = scoring_path(rater, work)
         train = training_path(work, card)
         training_steps(train, dev, card)
+        gen = generation_path(rater, card)
 
         # ---- 7. numbers ----
         print('decode path wall: %.3f s for 4 pages = %.3f s/page, %.0f '
@@ -1800,9 +2116,23 @@ def main() -> int:
               'validation time): %s [%s]'
               % (train['wall'], train['steps'], train['val_steps'],
                  ['%.0f' % r for r in train['rates']], card))
+        print('generation path wall: %.3f s for keraslm-rate generate -n '
+              '%d -v %d (CLI call incl. model load); Rater.generate of the '
+              'same: %s s = %s generated chars/s (host clock, each call '
+              'synchronised by its fetch); Rater.generate_batch of %d '
+              'prompts at -n %d: %.3f s = %.0f generated chars/s [%s]'
+              % (gen['wall_cli'], GEN_N, GEN_VARIANTS,
+                 ', '.join('%.4f' % w for w in gen['walls']),
+                 ', '.join('%.0f' % (GEN_N / w) for w in gen['walls']),
+                 GEN_BATCH, GEN_BATCH_N, gen['wall_batch'],
+                 GEN_BATCH * GEN_BATCH_N / gen['wall_batch'], card))
+        print_profile('generation path', gen['traced_wall'], gen['busy'],
+                      card, over='one Rater.generate -n %d -v %d'
+                      % (GEN_N, GEN_VARIANTS))
         numbers = dict(decode_lattice=decode_numbers(rater, decode, card),
                        **scoring_numbers(rater, scoring, card),
-                       **training_numbers(dev, card))
+                       **training_numbers(dev, card),
+                       **generation_numbers(rater, gen, card))
     rows = []
     # lstm_scan is on two paths: 'lstm_scan' is the layered scoring
     # path's row (B=4, T=4096), 'lstm_scan_train' and 'lstm_scan_bf16'
@@ -1822,12 +2152,20 @@ def main() -> int:
              train_errs['lstm_bwd']),
             ('lstm_bwd_bf16', 'lstm_bwd',
              train['launches_bf16']['lstm_bwd'],
-             train_errs['lstm_bwd_bf16'])):
+             train_errs['lstm_bwd_bf16']),
+            ('gen_beam', 'gen_beam', gen['launches']['gen_beam'], gen_err),
+            ('gen_beam_batch', 'gen_beam',
+             gen['batch_launches']['gen_beam'], gen_err),
+            # the traceback equals its plain version exactly
+            ('gen_traceback', 'gen_traceback',
+             gen['launches']['gen_traceback'], 0.0)):
         assert launches > 0, (name, 'was not launched on its path')
         module = {'decode_lattice': 'decode_kernel.py:318',
                   'score_scan': 'score_kernel.py:132',
                   'lstm_scan': 'lstm_cell.py:111',
-                  'lstm_bwd': 'lstm_cell.py:252'}[source]
+                  'lstm_bwd': 'lstm_cell.py:252',
+                  'gen_beam': 'gen_kernel.py:241',
+                  'gen_traceback': 'gen_kernel.py:346'}[source]
         rows.append(dict(name=name, route='cuda',
                          source='ocrd_keraslm_torch/csrc/%s.cu' % source,
                          replaces='ocrd_keraslm_tpu/ops/%s' % module,

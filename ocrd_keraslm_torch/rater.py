@@ -1,5 +1,5 @@
 """The LM engine of the port: model loading and saving, training,
-scoring and lattice decoding.
+scoring, generation and lattice decoding.
 
 Counterpart of the training, scoring and decode parts of
 ``ocrd_keraslm_tpu/rater.py``.  A ``Rater`` loads an h5 model onto one
@@ -13,6 +13,11 @@ saves it (:meth:`Rater.save`), and
   kernel (:func:`ocrd_keraslm_torch.ops.score_kernel.score_scan`), or,
   with ``fused_score`` off, one LSTM-scan launch per layer
   (:func:`ocrd_keraslm_torch.models.lstm_lm.forward_seq`);
+* generates continuations of prompts by beam search (``generate*``):
+  one launch of the beam-step kernel and one of the traceback kernel
+  per call (:mod:`ocrd_keraslm_torch.ops.beam_device`), for one prompt
+  or a batch; an empty prompt, ``device_beam`` off or a dead fringe take
+  the host engine (:mod:`ocrd_keraslm_torch.host_beam`);
 * beam-decodes linear lattices of OCR alternatives with the fused
   single-document kernel
   (:func:`ocrd_keraslm_torch.ops.decode_kernel.decode_lattice`): the
@@ -38,8 +43,8 @@ import numpy as np
 import torch
 
 from .models.lstm_lm import (DEFAULT_CONTEXTS, LMConfig, embed_inputs,
-                             forward_seq, init_params, params_from_numpy,
-                             zero_carry)
+                             forward_seq, forward_step, init_params,
+                             params_from_numpy, zero_carry)
 from .ops.decode_kernel import BIG, LANE, decode_lattice
 from .ops.score_kernel import pack_score_weights, score_scan
 from .utils import h5io
@@ -221,6 +226,21 @@ def _score_chunks_scan(params, cfg: LMConfig, xc, zs, yc, maskc, carry,
     return torch.stack(probs), torch.stack(nlls).sum(dim=0), carry
 
 
+def _predict_step(params, cfg: LMConfig, x, zs, h, c):
+    """One step of the LSTM stack for a batch of hypotheses on the
+    params' device: x (B,) ids, zs context ids (B,) each, h and c
+    (D, B, W), all numpy.  Returns numpy (probs (B, V), h2, c2)."""
+    dev = params['char_embedding'].device
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    with torch.no_grad():
+        probs, (h2, c2) = forward_step(
+            params, cfg, t(x).long(), [t(z).long() for z in zs],
+            (t(h), t(c)))
+    return probs.cpu().numpy(), h2.cpu().numpy(), c2.cpu().numpy()
+
+
 def _window_probs(params, cfg: LMConfig, x, zs):
     """Stateless windowed next-char distribution: x (B, L) -> (B, V)."""
     logits, _ = forward_seq(params, cfg, x, zs, None)
@@ -261,6 +281,7 @@ class Rater:
         # layered path otherwise (and always above width 384)
         self.fused_score = self.device.type == 'cuda'
         self.merge_runs = True     # merge single-alternative edge runs
+        self.device_beam = True    # generation on the device (1 launch)
         self.decode_bf16 = False   # the JAX package's opt-in bf16 mode
         self.logger = logger or LOG
         self.cfg: Optional[LMConfig] = None
@@ -383,6 +404,15 @@ class Rater:
             print(f"{k}: {v}")
 
     # -- whole-text scoring --------------------------------------------
+
+    def _context_arrays(self, context, batch: int) -> Tuple[np.ndarray, ...]:
+        """Per-variable context ids (batch,) each; zero (underspecified)
+        for variables the context does not give."""
+        if not context:
+            context = self.underspecify_contexts()
+        return tuple(np.full((batch,), context[i] if i < len(context)
+                             else 0, np.int32)
+                     for i in range(len(self.contexts)))
 
     def _score_batch(self, ids_list: List[np.ndarray],
                      contexts: List[Any], *, carry=None,
@@ -648,6 +678,99 @@ class Rater:
             out[s:s + n] = probs.cpu().numpy()[
                 np.arange(n), ids[first + s:first + s + n]]
         return out
+
+    # -- generation -----------------------------------------------------
+
+    def generate(self, prefix: str, length: int, context=None,
+                 variants: int = 1) -> List[str]:
+        """The ``variants`` most probable continuations of ``prefix`` by
+        ``length`` chars, each with prefix[-1] in front (reference
+        rating.py:642-709): beam search with per-step top-10 candidates,
+        absolute probability threshold 0.004, fringe capped at 256.  On
+        the device in one launch unless ``device_beam`` is off or the
+        prefix is empty; a dead device fringe retries on the host."""
+        if self.status < 2:
+            raise RuntimeError('generate needs loaded weights')
+        if self.device_beam and prefix:
+            from .ops.beam_device import generate_beam
+            result = generate_beam(self, prefix, length, context, variants)
+            if result:
+                return result
+        return self._generate_host(prefix, length, context, variants)
+
+    def generate_begin(self, prefix: str, length: int, context=None,
+                       variants: int = 1):
+        """Queue a generation; :meth:`generate_finish` later waits for
+        it and builds the strings, so a serving loop can queue the next
+        prompt first.  begin + finish = :meth:`generate`."""
+        if self.status < 2:
+            raise RuntimeError('generate needs loaded weights')
+        if self.device_beam and prefix:
+            from .ops.beam_device import generate_beam_begin
+            return generate_beam_begin(self, prefix, length, context,
+                                       variants)
+        return ('gen-host', (self, prefix, length, context, variants))
+
+    def generate_finish(self, pending) -> List[str]:
+        """The strings of a :meth:`generate_begin` request."""
+        if pending[0] != 'gen-host':
+            from .ops.beam_device import generate_beam_finish
+            result = generate_beam_finish(pending)
+            if result:
+                return result
+            _, prefix, length, variants, ctx = pending[-1]
+            return self._generate_host(prefix, length, ctx, variants)
+        _, (_, prefix, length, context, variants) = pending
+        return self._generate_host(prefix, length, context, variants)
+
+    def generate_batch(self, prefixes: List[str], length: int,
+                       context=None) -> List[str]:
+        """The best continuation of each prefix, all streams in ONE
+        launch of the beam-step kernel; each equals ``generate(prefix,
+        length)[0]``.  A stream whose device fringe died retries on the
+        host ('' when it dies there too)."""
+        return self.generate_batch_finish(
+            self.generate_batch_begin(prefixes, length, context))
+
+    def generate_batch_begin(self, prefixes: List[str], length: int,
+                             context=None):
+        """Queue a prompt batch; :meth:`generate_batch_finish` later
+        waits for it and builds the strings."""
+        if self.status < 2:
+            raise RuntimeError('generate needs loaded weights')
+        if self.device_beam and all(prefixes):
+            from .ops.beam_device import generate_streams_begin
+            return generate_streams_begin(self, prefixes, length, context)
+        return ('gen-host-batch', (prefixes, length, context))
+
+    def generate_batch_finish(self, pending) -> List[str]:
+        """The strings of a :meth:`generate_batch_begin` request; the
+        streams that came back empty take the host engine."""
+        if pending[0] == 'gen-host-batch':
+            _, (prefixes, length, context) = pending
+            result = None
+        else:
+            from .ops.beam_device import generate_streams_finish
+            result = generate_streams_finish(pending)
+            _rater, prefixes, length, context = pending[-1]
+            if result and all(result):
+                return result
+        out = []
+        for s, p in enumerate(prefixes):
+            if result and result[s]:
+                out.append(result[s])
+                continue
+            r = self._generate_host(p, length, context, 1)
+            out.append(r[0] if r else '')
+        return out
+
+    def _generate_host(self, prefix: str, length: int, context=None,
+                       variants: int = 1) -> List[str]:
+        """Generation on the host (:func:`host_beam.generate_host`)."""
+        if self.status < 2:
+            raise RuntimeError('generate needs loaded weights')
+        from .host_beam import generate_host
+        return generate_host(self, prefix, length, context, variants)
 
     # -- decode weights and beam carry ---------------------------------
 

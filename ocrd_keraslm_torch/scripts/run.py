@@ -7,10 +7,13 @@ commands and group options, run as::
     python -m ocrd_keraslm_torch.scripts.run test -m MODEL.h5 FILES...
 
     python -m ocrd_keraslm_torch.scripts.run train -m MODEL.h5 FILES...
+    python -m ocrd_keraslm_torch.scripts.run generate -m MODEL.h5 \
+        -n 1000 -v 3 "Die Vernunft "
 
 ``train`` (with continuation from a model or checkpoint), ``apply``
 (per-character probabilities and base-2 perplexity), ``test`` (corpus
-perplexity) and ``print-history`` run on CUDA, or on the CPU with
+perplexity), ``generate`` (beam-search continuations of a prefix) and
+``print-history`` run on CUDA, or on the CPU with
 ``KERASLM_PLATFORM=cpu``.  The other commands are registered and raise
 ``NotImplementedError`` naming the ROADMAP.md item that ports them, as
 do ``train``'s ``--mesh`` and ``--resume-dir``.
@@ -96,9 +99,12 @@ def _parse_context(context):
     return [ceil(int(x) / 10) for x in context.split(' ')]
 
 
-def _load_rater(model):
+def _load_rater(model, incremental=False):
     rater = Rater()
     rater.load_config(model)
+    if incremental:
+        rater.stateful = False
+        rater.incremental = True
     rater.configure()
     rater.load_weights(model)
     return rater
@@ -224,6 +230,27 @@ def test(model, data):
     click.echo(rater.test(_expand_paths(data)))
 
 
+@cli.command(short_help='sample characters from language model')
+@click.option('-m', '--model', required=True, help='model file',
+              type=click.Path(dir_okay=False, exists=True))
+@click.option('-n', '--number', default=1,
+              help='number of characters to sample',
+              type=click.IntRange(min=1, max=10000))
+@click.option('-v', '--variants', default=1,
+              help='number of character sequences to sample',
+              type=click.IntRange(min=1, max=10000))
+@click.option('-c', '--context', default=None,
+              help='constant meta-data input')
+@click.argument('prefix', type=click.STRING)
+def generate(model, number, variants, context, prefix):
+    """Sample the most probable continuations of PREFIX from the
+    model (beam search)."""
+    rater = _load_rater(model, incremental=True)
+    context = _parse_context(context) or rater.underspecify_contexts()
+    for res in rater.generate(prefix, number, context, variants):
+        click.echo(prefix[:-1] + res)
+
+
 @cli.command(short_help='Print the training history')
 @click.option('-m', '--model', required=True, help='model file',
               type=click.Path(dir_okay=False, exists=True))
@@ -245,7 +272,6 @@ def _not_ported(name, item):
 
 
 for _name, _item in (
-        ('generate', 'Generation'),
         ('print-charset', '`keraslm-rate` CLI and tooling'),
         ('prune-charset', '`keraslm-rate` CLI and tooling'),
         ('plot-char-embeddings-similarity',

@@ -21,7 +21,12 @@ NLL sums rtol 1e-5; ratings through the ``Rater`` (float16 probs) atol
 summation orders over T*B terms); the forward under a bf16 U to
 ``chip_smoke.BF16_FWD_ATOL`` (an h may round to the neighbouring bf16
 value); gradients of ``forward_seq`` card against CPU rtol 1e-3 / atol
-1e-5 of each tensor's max."""
+1e-5 of each tensor's max.  Generation records are held as
+``chip_smoke.compare_gen`` holds them (chars and backpointers equal,
+live costs rtol 1e-5; at a near-tie of the K-th candidate
+``chip_smoke.gen_parity`` resumes both runs from the kernel's fringe);
+strings are compared exactly, card against CPU and batch against single
+calls."""
 import os
 
 import numpy as np
@@ -29,8 +34,9 @@ import pytest
 import torch
 
 from chip_smoke import (BF16_FWD_ATOL, MODEL, compare_bwd, compare_lstm,
-                        compare_score, lstm_bwd_args, lstm_train_inputs,
-                        parity_block, random_lattice, score_inputs)
+                        compare_score, gen_parity, lstm_bwd_args,
+                        lstm_train_inputs, parity_block, random_lattice,
+                        score_inputs)
 
 pytestmark = pytest.mark.gpu
 
@@ -314,3 +320,110 @@ def test_forward_seq_gradients_match_cpu(cuda, compute_dtype):
     for g, w in zip(grads['cuda'], grads['cpu']):
         torch.testing.assert_close(g, w, rtol=tol,
                                    atol=tol * 1e-2 * float(w.abs().max()))
+
+
+def _gen_inputs(device, prompts, fringe=256):
+    """The german rater on ``device``, its generation weights, v_real and
+    the prefix-conditioned fringes (N, K, S), (N, K) of ``prompts``."""
+    from ocrd_keraslm_torch.ops import gen_kernel as gk
+    from ocrd_keraslm_torch.ops.beam_device import _prefix_arrays
+    from ocrd_keraslm_torch.rater import Rater
+    rater = Rater(device=device)
+    rater.load_config(MODEL)
+    rater.configure()
+    rater.load_weights(MODEL)
+    w = rater._decode_weights(None)
+    weights = [w['emb'], w['embT'], w['wcat'], w['bias']]
+    ids, mask = _prefix_arrays([rater.vocab.encode(p) for p in prompts])
+    state0, cost0 = gk._prefix_fringe(*weights, ids, mask, w['v_real'],
+                                      fringe)
+    return rater, weights, w['v_real'], state0, cost0
+
+
+@pytest.mark.parametrize('fringe, topk', [(256, 10), (128, 10), (32, 4)])
+def test_gen_beam_matches_plain(cuda, fringe, topk):
+    """48 steps from a prompt, every step held against the plain version
+    on the same card (16, 8 and 4 fringe rows a block)."""
+    from ocrd_keraslm_torch.ops import gen_kernel as gk
+    _, weights, v_real, state0, cost0 = _gen_inputs(
+        cuda, ['Die Vernunft '], fringe)
+    gen_parity(gk.gen_beam, gk.gen_beam_ref, weights, state0, cost0, 48,
+               v_real, topk=topk)
+
+
+def test_gen_beam_streams_are_independent(cuda):
+    """Three streams in one launch give each stream's records of its own
+    launch, bit for bit (one block cluster per stream)."""
+    from ocrd_keraslm_torch.ops import gen_kernel as gk
+    _, weights, v_real, state0, cost0 = _gen_inputs(
+        cuda, ['Die Vernunft ', 'Was ist ', 'Der Mensch '])
+    together = gk.gen_beam(*weights, state0, cost0, length=20,
+                           v_real=v_real)
+    for s in range(3):
+        alone = gk.gen_beam(*weights, state0[s:s + 1].contiguous(),
+                            cost0[s:s + 1].contiguous(), length=20,
+                            v_real=v_real)
+        assert torch.equal(together[s], alone[0])
+
+
+def test_gen_beam_cluster_sizes_agree(cuda):
+    """Clusters of 16 and of 8 blocks a stream give the same records, bit
+    for bit: the rows a block holds change, not the arithmetic."""
+    from chip_smoke import cluster_size
+    from ocrd_keraslm_torch.ops import gen_kernel as gk
+    _, weights, v_real, state0, cost0 = _gen_inputs(
+        cuda, ['Die Vernunft ', 'Was ist '])
+    recs = []
+    for blocks in (gk.CLUSTER_WIDE, gk.CLUSTER):
+        with cluster_size(blocks):
+            recs.append(gk.gen_beam(*weights, state0, cost0, length=24,
+                                    v_real=v_real))
+    assert torch.equal(recs[0], recs[1])
+    assert gk.cluster_blocks(torch.cuda.current_device(), 1, 256, 2, 128,
+                             128, 10) in (gk.CLUSTER_WIDE, gk.CLUSTER)
+
+
+@pytest.mark.parametrize('variants', [1, 5, 256])
+def test_traceback_matches_plain(cuda, variants):
+    from ocrd_keraslm_torch.ops import gen_kernel as gk
+    _, weights, v_real, state0, cost0 = _gen_inputs(
+        cuda, ['Die Vernunft ', 'Was ist '])
+    rec = gk.gen_beam(*weights, state0, cost0, length=64, v_real=v_real)
+    for out_length in (64, 37, 1):
+        best = torch.argsort(rec[:, out_length - 1, 2], dim=1,
+                             stable=True)[:, :variants].int().contiguous()
+        got = gk.traceback(rec, best, out_length)
+        torch.cuda.synchronize()
+        assert torch.equal(got, gk.traceback_ref(rec, best, out_length))
+
+
+def test_generate_batch_launches_and_matches_single_calls(cuda):
+    """``generate_batch`` launches each kernel once for all prompts and
+    returns what single ``generate`` calls return, on the card as on the
+    CPU; ``generate`` with 3 variants launches each kernel once."""
+    from ocrd_keraslm_torch.ops import gen_kernel as gk
+    prompts = ['Die Vernunft ', 'Was ist ', 'Der Mensch ', 'Natur ', 'x']
+    rater = _gen_inputs(cuda, prompts[:1])[0]
+    cpu = _gen_inputs(torch.device('cpu'), prompts[:1])[0]
+    b0, t0 = gk.gen_beam.launches, gk.traceback.launches
+    batch = rater.generate_batch(prompts, 40)
+    assert (gk.gen_beam.launches - b0, gk.traceback.launches - t0) == (1, 1)
+    assert batch == [rater.generate(p, 40)[0] for p in prompts]
+    assert batch == cpu.generate_batch(prompts, 40)
+    b0, t0 = gk.gen_beam.launches, gk.traceback.launches
+    three = rater.generate('Die Vernunft ', 64, variants=3)
+    assert (gk.gen_beam.launches - b0, gk.traceback.launches - t0) == (1, 1)
+    assert three == cpu.generate('Die Vernunft ', 64, variants=3)
+
+
+def test_cuda_generation_never_takes_the_plain_versions(cuda, monkeypatch):
+    from ocrd_keraslm_torch.ops import gen_kernel as gk
+    monkeypatch.setattr(gk, 'gen_beam_ref', None)
+    monkeypatch.setattr(gk, 'traceback_ref', None)
+    rater, weights, v_real, state0, cost0 = _gen_inputs(cuda, ['Die '], 16)
+    b0 = gk.gen_beam.launches
+    assert len(rater.generate('Die ', 9, variants=2)) == 2
+    assert gk.gen_beam.launches == b0 + 1
+    with pytest.raises(ValueError, match='multiple of 8'):
+        gk.gen_beam(*weights, state0[:, :12].contiguous(),
+                    cost0[:, :12].contiguous(), length=4, v_real=v_real)

@@ -41,6 +41,12 @@ def test_the_training_slice_is_among_the_checked_modules():
             'ocrd_keraslm_torch.ops.lstm_cell'} <= modules
 
 
+def test_the_generation_slice_is_among_the_checked_modules():
+    assert {'ocrd_keraslm_torch.ops.gen_kernel',
+            'ocrd_keraslm_torch.ops.beam_device',
+            'ocrd_keraslm_torch.host_beam'} <= set(_modules())
+
+
 def test_importing_every_module_loads_no_jax_h5py_or_lxml():
     code = ('import importlib, sys\n'
             'for m in %r: importlib.import_module(m)\n'

@@ -560,9 +560,12 @@ def test_cli_train_unported_options_raise(tmp_path, corpus, cpu_platform,
 
 
 def test_cli_lists_train_and_print_history_as_ported():
+    """train and print-history, and since the generation slice also
+    generate, are listed without the "not ported" mark."""
     res = CliRunner().invoke(cli, ['--help'])
     lines = {ln.split()[0]: ln for ln in res.output.splitlines()
              if ln.startswith('  ') and ln.split()}
     assert 'not ported' not in lines['train']
     assert 'not ported' not in lines['print-history']
-    assert 'not ported' in lines['generate']
+    assert 'not ported' not in lines['generate']
+    assert 'not ported' in lines['prune-charset']
