@@ -7,17 +7,23 @@ Phases, each printing its own lines (any failure exits non-zero):
 
 1. card: name and power limit (``nvidia-smi``), torch device name/count;
    no CUDA device is a failure, never a fallback;
-2. build: ``nvcc`` builds the six kernel sources of
+2. build: ``nvcc`` builds the seven kernel sources of
    ``ocrd_keraslm_torch/csrc/`` (``decode_lattice.cu``, ``score_scan.cu``,
    ``lstm_scan.cu``, ``lstm_bwd.cu``, ``gen_beam.cu``,
-   ``gen_traceback.cu``) for sm_90a, all at once; prints
-   seconds, ``-Xptxas -v`` registers and spills, and each block's dynamic
-   shared memory;
+   ``gen_traceback.cu``, ``decode_lattice_batch.cu``) for sm_90a, all at
+   once; prints seconds, ``-Xptxas -v`` registers and spills, and each
+   block's dynamic shared memory;
 3. parity at full width (``pretrained/model_german.h5``), each kernel
    against its plain PyTorch version, and both versions' error against
    the plain version run in float64:
+   ``decode_lattice``'s outputs over seeded 1024-edge blocks, by sha256,
+   equal to those of the kernel before its device code moved into
+   ``csrc/decode_common.cuh``;
    the decode kernel (K=16, A=4, L in {1, 8}) over a seeded lattice of
-   E=1024 edges and a chained tail block with n_real < E; the scoring
+   E=1024 edges and a chained tail block with n_real < E; the batched
+   decode kernel over a 64-edge block of 8 documents of different
+   lengths (L in {1, 8}), each document's records and final beam equal
+   bit for bit to a single-document launch, and its walk kernel; the scoring
    kernel over 4096-step chunks at B in {1, 4} and at D=1, from a seeded
    nonzero carry with a partial mask; the LSTM-scan kernel at B=4,
    T=4096, with and without ``c_all``; at the training shape (B=128,
@@ -54,13 +60,23 @@ Phases, each printing its own lines (any failure exits non-zero):
    Vernunft "`` (one ``gen_beam`` and one ``gen_traceback`` launch), the
    same at ``-n 64`` on the card and on the CPU with equal lines, and
    ``Rater.generate_batch`` of 16 seeded prompts at ``-n 256`` in one
-   launch of each kernel, equal to 16 single calls;
+   launch of each kernel, equal to 16 single calls; batched serving path:
+   ``Rater.rate_best_batch`` of 32 one-page documents of a seeded
+   workspace and of 8 documents of 4 pages joined with
+   ``Rater.concat_graphs`` (one ``decode_lattice_batch`` and one
+   ``walk_records_batch`` launch per block of <= 1024 edges for the whole
+   batch), every document's path equal to its own ``rate_best_device``
+   decode on the card, a double-buffered pair (begin B before finish A)
+   equal to the batch, 4 documents card against CPU;
 7. numbers: wall per page, edges/s and scored chars/s, the device's busy
    and idle share of the paths (``torch.profiler``), wall per training
-   step and chars/s, wall per generation and generated chars/s, and per
-   kernel at the main path's shapes: its time and the plain version's
-   (CUDA events), its bound, and a library yardstick where there is
-   one.
+   step and chars/s, wall per generation and generated chars/s, wall of
+   a 32-document batch, documents/s and edges/s against 32 sequential
+   ``rate_best_device`` calls, and per kernel at the main path's
+   shapes: its time and the plain version's (CUDA events; the batched
+   decode's plain version on the parity block only), its bound, and a
+   library yardstick where there is one (for the batched decode: one
+   ``decode_lattice`` launch per document, one after another).
 
 Every kernel count is set to 0 just before a path runs and read just
 after.  The last two lines are the kernel table and
@@ -275,6 +291,85 @@ def parity_block(run, kernel, plain, arrays, n_real, state, cost, K,
         _, state, cost = run(kernel, part, div + 1, state, cost, False)
         start += div + 1
     return err, ties, state, cost
+
+
+def batch_lattice(rng, N, n_reals, E, A, L, v_real):
+    """Document-major edge arrays of N documents like
+    :func:`random_lattice`'s, document ``n`` real up to ``n_reals[n]``
+    and free pad edges after it: chars, mask, conf (E, N*A, L), valid
+    (E, N*A, 1), steps (E, 1) the maximum over the documents."""
+    docs = [random_lattice(rng, E, n, A, L, v_real) for n in n_reals]
+    out = [np.stack([d[i] for d in docs], axis=1).reshape(
+        (E, N * A) + docs[0][i].shape[2:]) for i in range(4)]
+    out[3] = out[3][..., None]
+    steps = np.max([d[4] for d in docs], axis=0).astype(np.int32)
+    return out + [steps[:, None]]
+
+
+def batch_doc(records, stateF, costF, n, K):
+    """Document ``n``'s part of a batched decode output (numpy) in the
+    single-document packed layout ``(E+1, 3K)`` (header row zero), for
+    :func:`compare_decode`."""
+    rec = records[:, :, n * K:(n + 1) * K].reshape(len(records), 3 * K)
+    packed = np.concatenate([np.zeros((1, 3 * K), np.float32), rec])
+    return packed, stateF[n * K:(n + 1) * K], costF[n * K:(n + 1) * K]
+
+
+# final-state tolerances of the batched decode against its plain version
+# on the card: each f32 version lies up to ~1e-5 from the exact state
+# (the plain version 9.3e-6 from float64 on the 64-edge parity block of
+# 8 documents, the kernel 5.8e-6; NVIDIA H100), so the two may lie twice
+# that apart; records and costs keep compare_decode's tolerances
+BATCH_STATE_ATOL, BATCH_C_RTOL = 2e-5, 4e-5
+
+
+def parity_batch(run, kernel, plain, arrays, n_real, state, cost, N, K,
+                 width):
+    """:func:`parity_block` for the batched decode: every document of
+    ``kernel``'s output held against ``plain``'s with
+    :func:`compare_decode` (final states within ``BATCH_STATE_ATOL``,
+    cell states also ``BATCH_C_RTOL``); ``run(fn, arrays, n_real, state,
+    cost)`` returns a batched output as tensors.  Where a document's runs
+    part at a near-tie at the K-th rank (edge t, the first over the
+    documents), the kernel decodes the block once more with ``n_real = t
+    + 1``, and both versions go on from its state over the edges after
+    t.  Returns ``(max abs error, near-tie edges, the kernel's state and
+    cost after the block)``."""
+    E = len(arrays[0])
+    start, err, ties = 0, 0.0, []
+    while start < E:
+        part = tuple(a[start:] for a in arrays)
+        n = max(0, n_real - start)
+        res = run(kernel, part, n, state, cost)
+        got = [x.cpu().numpy() for x in res]
+        want = [x.cpu().numpy() for x in run(plain, part, n, state, cost)]
+        divs = []
+        for d in range(N):
+            e, _, div = compare_decode(
+                batch_doc(*got, d, K), batch_doc(*want, d, K), K, width,
+                state_atol=BATCH_STATE_ATOL, c_rtol=BATCH_C_RTOL)
+            err = max(err, e)
+            if div is not None:
+                divs.append(div)
+        if not divs:
+            return err, ties, res[1], res[2]
+        div = min(divs)
+        ties.append(start + div)
+        _, state, cost = run(kernel, part, div + 1, state, cost)
+        start += div + 1
+    return err, ties, state, cost
+
+
+def chain_graph(edges):
+    """The networkx chain of a linear lattice's edge list (edge ``i``
+    spans nodes ``i`` and ``i + 1``), as ``Rater.rate_best_batch``
+    takes it."""
+    import networkx as nx
+    graph = nx.DiGraph()
+    graph.add_node(0)
+    for i, edge in enumerate(edges):
+        graph.add_edge(i, i + 1, **edge)
+    return graph
 
 
 def compare_gen(got, want, cost_rtol=1e-5, cost_atol=1e-6):
@@ -505,11 +600,14 @@ def platform_env(platform):
 
 
 KERNELS = ('decode_lattice', 'score_scan', 'lstm_scan', 'lstm_bwd',
-           'gen_beam', 'gen_traceback')
+           'gen_beam', 'gen_traceback', 'decode_lattice_batch',
+           'walk_records_batch')
 NO_LAUNCHES = {name: 0 for name in KERNELS}
-# device kernels by name, for the profiler's sums (lstm_bwd launches
-# three: the recurrence, the dU partial products and their sum)
-DEVICE_KERNELS = KERNELS + ('lstm_du',)
+# device kernels by name, for the profiler's sums: an activity counts for
+# the first name it contains, so the batched decode comes before
+# decode_lattice (lstm_bwd launches three: the recurrence, the dU partial
+# products and their sum)
+DEVICE_KERNELS = KERNELS[6:] + KERNELS[:6] + ('lstm_du',)
 
 
 def profile_main_path(directory, scoring=False):
@@ -870,14 +968,15 @@ def lstm_bound(args, want_c_all):
 # ---------------------------------------------------------------------
 
 def build_kernels():
-    """Build the six kernel sources at once (one ``nvcc`` each, in
+    """Build the seven kernel sources at once (one ``nvcc`` each, in
     threads); print seconds and ``ptxas`` lines."""
     from concurrent.futures import ThreadPoolExecutor
     from ocrd_keraslm_torch.ops import _build
     from ocrd_keraslm_torch.ops import (decode_kernel, gen_kernel, lstm_cell,
                                         score_kernel)
     sources = [m.SOURCE for m in (decode_kernel, score_kernel, lstm_cell)] \
-        + [lstm_cell.BWD_SOURCE, gen_kernel.SOURCE, gen_kernel.TB_SOURCE]
+        + [lstm_cell.BWD_SOURCE, gen_kernel.SOURCE, gen_kernel.TB_SOURCE,
+           decode_kernel.BATCH_SOURCE]
 
     def one(src):
         t0 = time.time()
@@ -886,7 +985,8 @@ def build_kernels():
     t0 = time.time()
     with ThreadPoolExecutor(len(sources)) as pool:
         built = list(pool.map(one, sources))
-    for name, (path, log, secs) in zip(KERNELS, built):
+    for src, (path, log, secs) in zip(sources, built):
+        name = os.path.splitext(os.path.basename(src))[0]
         print('build %s: nvcc %s -> %s in %.2f s'
               % (name, ' '.join(_build.NVCC_FLAGS),
                  os.path.relpath(path, HERE), secs))
@@ -944,6 +1044,151 @@ def decode_parity(rater, dev):
                   % (L, b, E, n, K, A, err, ties or 'none',
                      time.time() - t0))
     return max_err
+
+
+# sha256 of decode_lattice's outputs in decode_digests, as the kernel
+# gave them before its device code moved into csrc/decode_common.cuh
+# (commit db47096, NVIDIA H100 80GB HBM3): the move must keep them bit
+# for bit
+DECODE_DIGESTS = {
+    1: 'c1063acb6fb354605e8d0af26495f4564b278c430952fa74e3527b225925a151',
+    8: 'bce90cb8e310cd156fdf66ac599e81f291945e8f555904581d883363d1d274d7'}
+
+
+def decode_digests(rater, dev):
+    """{L: sha256 of ``decode_lattice``'s records, stateF and costF and
+    of its device walk} over a seeded 1024-edge block of the german model
+    at K=16, A=4, from a fresh beam."""
+    import hashlib
+    import torch
+    from ocrd_keraslm_torch.ops import decode_kernel as dk
+    wts = rater._decode_weights(None)
+    out = {}
+    for L in (1, 8):
+        arrays = random_lattice(np.random.default_rng(20261018 + L), 1024,
+                                1024, 4, L, wts['v_real'])
+        ins = [torch.from_numpy(a).to(dev) for a in arrays]
+        state, cost = rater._fused_traceback(None, 16, wts['emb'])
+        digest = hashlib.sha256()
+        for walk in (False, True):
+            res = dk.decode_lattice(
+                wts['emb'], wts['embT'], wts['wcat'], wts['bias'], *ins[:4],
+                state, cost, lm_weight=0.5, v_real=wts['v_real'],
+                device_walk=walk, alt_steps=ins[4], n_real=1024)
+            for x in res:
+                digest.update(x.cpu().numpy().tobytes())
+        out[L] = digest.hexdigest()
+    return out
+
+
+BATCH_PARITY_N, BATCH_PARITY_E = 8, 64
+
+
+def batch_error_vs_f64(run, kernel, plain, arrays, n_real, state, cost, N,
+                       K, width):
+    """:func:`state_error_vs_f64` for the batched decode: max |h| error
+    of the final beams, kernel and plain version each against the plain
+    version in float64, over the documents whose three runs made the same
+    choices on every edge.  Returns ``(documents compared, documents,
+    kernel error, plain error)``."""
+    outs = [[x.cpu().numpy() for x in run(fn, arrays, n_real, state, cost)]
+            for fn in (kernel, plain, as_float64(plain))]
+    D = (outs[0][1].shape[1] // width - 1) // 2
+    hs = slice(width, (1 + D) * width)
+    alike = [n for n in range(N) if all(np.array_equal(
+        out[0][:, :2, n * K:(n + 1) * K], outs[2][0][:, :2, n * K:(n + 1) * K])
+        for out in outs[:2])]
+    rows = np.concatenate([np.arange(n * K, (n + 1) * K) for n in alike]) \
+        if alike else np.zeros(0, int)
+    return (len(alike), N) + tuple(
+        float(np.abs(out[1][rows] - outs[2][1][rows])[:, hs].max(initial=0))
+        for out in outs[:2])
+
+
+def batch_parity(rater, dev):
+    """Phase 3, the batched decode kernel and its walk at full width:
+    kernel against plain version over a 64-edge block of 8 documents
+    (L in {1, 8}), every document's records and final beam equal to a
+    single-document ``decode_lattice`` launch bit for bit, the walk
+    kernel equal to its plain version.  Returns (max abs error, the
+    kernel's and the plain version's ms on the L=8 block)."""
+    import torch
+    from ocrd_keraslm_torch.ops import decode_kernel as dk
+    wts = rater._decode_weights(None)
+    W, K, A = rater.width, 16, 4
+    N, E = BATCH_PARITY_N, BATCH_PARITY_E
+    weights = (wts['emb'], wts['embT'], wts['wcat'], wts['bias'])
+
+    def run(fn, arrays, n_real, state, cost):
+        chars, mask, conf, valid, steps = (torch.from_numpy(
+            np.ascontiguousarray(a)).to(dev) for a in arrays)
+        out = fn(*weights, chars, mask, conf, valid, state, cost, n_docs=N,
+                 lm_weight=0.5, v_real=wts['v_real'], alt_steps=steps,
+                 n_real=n_real)
+        torch.cuda.synchronize()
+        return out
+
+    rng = np.random.default_rng(20261019)
+    max_err, times = 0.0, None
+    for L in (1, 8):
+        n_reals = [E] + [int(rng.integers(8, E + 1)) for _ in range(N - 1)]
+        arrays = batch_lattice(rng, N, n_reals, E, A, L, wts['v_real'])
+        state, cost = rater._batch_beam_init(wts['emb'], N, K)
+        t0 = time.time()
+        print('accuracy decode_lattice_batch L=%d: max |h - h_float64| of '
+              'the final beams of the %d of %d documents whose three runs '
+              'chose alike: kernel %.3g, plain version %.3g'
+              % ((L,) + batch_error_vs_f64(
+                  run, dk.decode_lattice_batch, dk.decode_lattice_batch_ref,
+                  arrays, E, state, cost, N, K, W)))
+        err, ties, _, _ = parity_batch(
+            run, dk.decode_lattice_batch, dk.decode_lattice_batch_ref,
+            arrays, E, state, cost, N, K, W)
+        max_err = max(max_err, err)
+        rec, stateF, costF = run(dk.decode_lattice_batch, arrays, E, state,
+                                 cost)
+        for n in range(N):
+            one = [np.ascontiguousarray(a[:, n * A:(n + 1) * A])
+                   for a in arrays[:4]]
+            one[3] = one[3][..., 0]
+            cost_n = torch.full((1, 128), BIG, device=dev)
+            cost_n[0, :K] = cost[n * K:(n + 1) * K, 0]
+            single = dk.decode_lattice(
+                *weights, *(torch.from_numpy(a).to(dev) for a in one),
+                state[n * K:(n + 1) * K].contiguous(), cost_n,
+                lm_weight=0.5, v_real=wts['v_real'],
+                alt_steps=torch.from_numpy(arrays[4][:, 0].copy()).to(dev),
+                n_real=E)
+            assert torch.equal(single[0][1:].reshape(E, 3, K),
+                               rec[:, :, n * K:(n + 1) * K]), n
+            assert torch.equal(single[1], stateF[n * K:(n + 1) * K]), n
+            assert torch.equal(single[2][0, :K], costF[n * K:(n + 1) * K, 0])
+        k_in = torch.from_numpy(rng.integers(0, K, N).astype(np.int32)) \
+            .to(dev)
+        walk = dk.walk_records_batch(rec, k_in, n_docs=N, beam=K)
+        walk_ref = dk.walk_records_batch_ref(rec, k_in, n_docs=N, beam=K)
+        assert all(torch.equal(a, b) for a, b in zip(walk, walk_ref))
+        print('parity decode_lattice_batch L=%d (%d documents, E=%d, '
+              'n_real per document %s, K=%d, A=%d): every edge of every '
+              'document compared, max |kernel - plain| %.3g, near-ties at '
+              'the K-th rank resumed from the kernel\'s state at edges %s '
+              '(tolerances: costs rtol 1e-5 atol 1e-4, stateF atol %g, c '
+              'also rtol %g); every document\'s records and final beam '
+              'equal to a single-document decode_lattice launch bit for '
+              'bit; walk_records_batch equal to its plain version in %.1f s'
+              % (L, N, E, n_reals, K, A, err, ties or 'none',
+                 BATCH_STATE_ATOL, BATCH_C_RTOL, time.time() - t0))
+        if L == 8:
+            ins = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                   for a in arrays]
+
+            def call(fn):
+                return fn(*weights, *ins[:4], state, cost, n_docs=N,
+                          lm_weight=0.5, v_real=wts['v_real'],
+                          alt_steps=ins[4], n_real=E)
+            times = (cuda_ms(lambda: call(dk.decode_lattice_batch), 3),
+                     cuda_ms(lambda: call(dk.decode_lattice_batch_ref), 1))
+    return max_err, times
 
 
 def score_parity(rater, dev):
@@ -1015,7 +1260,9 @@ def _wrappers():
             'lstm_scan': lstm_cell.lstm_scan,
             'lstm_bwd': lstm_cell.lstm_bwd,
             'gen_beam': gen_kernel.gen_beam,
-            'gen_traceback': gen_kernel.traceback}
+            'gen_traceback': gen_kernel.traceback,
+            'decode_lattice_batch': decode_kernel.decode_lattice_batch,
+            'walk_records_batch': decode_kernel.walk_records_batch}
 
 
 def zero_counts():
@@ -1183,6 +1430,257 @@ def scoring_path(rater, work):
                 launches=counts['score_scan'],
                 lstm_launches=layered_counts['lstm_scan'],
                 traced_wall=traced_wall, busy=busy)
+
+
+BATCH_DOCS, BATCH_MULTI, BATCH_PAGES = 32, 8, 4
+
+
+def workspace_graphs(directory):
+    """The glyph-level linear lattice of every page of a workspace's
+    OCR-D-OCR group, each as a networkx chain."""
+    from ocrd_keraslm_torch.wrapper.mets import Workspace
+    from ocrd_keraslm_torch.wrapper.page_fast import parse_page_fast
+    from ocrd_keraslm_torch.wrapper.rate import page_get_linear_lattice_at
+    ws = Workspace(directory)
+    return [chain_graph(page_get_linear_lattice_at('glyph', parse_page_fast(
+        os.path.join(directory, f.local_filename))))
+        for f in ws.mets.find_files(fileGrp='OCR-D-OCR')]
+
+
+def same_results(got, want, tol=1e-4, cost_ulps=0):
+    """Decode results ``[(path, entropy)]`` against others: paths equal
+    element for element (element and TextEquiv), scores and entropies
+    within ``tol`` plus ``cost_ulps`` ulps of the document's cumulative
+    f32 cost (its entropy).  A score is 2^-(c_t - c_{t-1}) of cumulative
+    costs c, so two f32 runs (card and CPU) that round a c of thousands
+    of bits one ulp apart (2.4e-4 from 2048 bits up) move the entropy by
+    that and a score by up to ln 2 times two such ulps: card against CPU
+    takes ``cost_ulps=2``, the card against itself none.  Returns the
+    largest difference."""
+    assert len(got) == len(want)
+    diff = 0.0
+    for (p_g, e_g), (p_w, e_w) in zip(got, want):
+        assert [(el, te) for el, te, _ in p_g] == \
+            [(el, te) for el, te, _ in p_w]
+        d = max([abs(a - b) for (_, _, a), (_, _, b) in zip(p_g, p_w)]
+                + [abs(e_g - e_w)])
+        assert d <= tol + cost_ulps * float(np.spacing(np.float32(
+            abs(e_w)))), (d, e_w)
+        diff = max(diff, d)
+    return diff
+
+
+def batch_prep(rater, graphs):
+    """(merge flag the batch takes, prepared edges per document, kernel
+    blocks per document)."""
+    from ocrd_keraslm_torch.rater import E_BUCKETS, _linear_edges
+    merge, scans = rater._batch_scans([_linear_edges(g) for g in graphs],
+                                      10)
+    sizes = [n for n, _ in scans]
+    return merge, sizes, [-(-n // E_BUCKETS[-1]) for n in sizes]
+
+
+def batch_path(rater, work, card):
+    """The batched serving path (``Rater.rate_best_batch``): 32 one-page
+    documents, 8 documents of 4 pages joined with ``concat_graphs``, a
+    double-buffered pair, each document against its own single-document
+    decode on the card, 4 documents card against CPU; returns the path's
+    numbers."""
+    import torch
+    ws = os.path.join(work, 'ws_batch')
+    build_workspace(ws, np.random.default_rng(11), BATCH_DOCS, 40,
+                    rater.vocab)
+    docs = workspace_graphs(ws)
+    ws4 = os.path.join(work, 'ws_batch_multi')
+    build_workspace(ws4, np.random.default_rng(12), BATCH_MULTI * BATCH_PAGES,
+                    40, rater.vocab)
+    pages = workspace_graphs(ws4)
+    multi = [rater.concat_graphs(pages[i:i + BATCH_PAGES])
+             for i in range(0, len(pages), BATCH_PAGES)]
+    out = {}
+    for name, graphs in (('one-page', docs), ('4-page', multi)):
+        merge, sizes, blocks = batch_prep(rater, graphs)
+        zero_counts()
+        t0 = time.time()
+        got = rater.rate_best_batch(graphs)
+        wall = time.time() - t0
+        counts = read_counts()
+        n_blk = max(blocks)
+        assert counts == dict(NO_LAUNCHES, decode_lattice_batch=n_blk,
+                              walk_records_batch=n_blk), (counts, n_blk)
+        print('batched serving path, %d %s documents (beam_width 10, K=16, '
+              'lm_weight 0.5): %s prep (%s), decode edges per document '
+              '%d-%d, kernel blocks per document %d-%d; launches %s '
+              '(expected one decode_lattice_batch and one walk_records_batch '
+              'per block of <= 1024 edges for the whole batch)'
+              % (len(graphs), name, 'merged' if merge else 'unmerged L=1',
+                 'every alternative a single char' if not merge else
+                 'run merging', min(sizes), max(sizes), min(blocks),
+                 max(blocks), counts))
+        # every document against its own single-document decode, with
+        # the batch's merge choice
+        keep = rater.merge_runs
+        rater.merge_runs = merge
+        try:
+            torch.cuda.synchronize()
+            t0 = time.time()
+            seq = [rater.rate_best_device(g, 0, 0)[:2] for g in graphs]
+            wall_seq = time.time() - t0
+        finally:
+            rater.merge_runs = keep
+        diff = same_results(got, seq)
+        print('batched serving path, %d %s documents: every path equals the '
+              'document\'s own rate_best_device decode on the card (elements '
+              'and choices; max score or entropy difference %.3g, tolerance '
+              '1e-4)' % (len(graphs), name, diff))
+        out[name] = dict(wall=wall, wall_seq=wall_seq, sizes=sizes,
+                         launches=counts, merge=merge, results=got)
+    # where the wall goes: begin (host prep, uploads, launches; it does
+    # not wait) and finish (the wait for the device, path emission)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    pending = rater.rate_best_batch_begin(docs)
+    t1 = time.time()
+    again = rater.rate_best_batch_finish(pending)
+    t2 = time.time()
+    assert again == out['one-page']['results']
+    print('batched serving path, %d one-page documents split: begin %.3f s '
+          '(host prep, uploads, launches), finish %.3f s (the wait for the '
+          'device, path emission); same results [%s]'
+          % (BATCH_DOCS, t1 - t0, t2 - t1, card))
+    # double buffering: batch B launched before batch A finishes
+    half = BATCH_DOCS // 2
+    zero_counts()
+    pending_a = rater.rate_best_batch_begin(docs[:half])
+    pending_b = rater.rate_best_batch_begin(docs[half:])
+    got_b = rater.rate_best_batch_finish(pending_b)
+    got_a = rater.rate_best_batch_finish(pending_a)
+    pair_counts = read_counts()
+    assert got_a + got_b == out['one-page']['results']
+    print('batched serving path, double-buffered pair: the second half '
+          'launched before the first finished, finished first; both equal '
+          'the %d-document batch exactly; launches %s'
+          % (BATCH_DOCS, pair_counts))
+    # 4 smaller documents, card against CPU
+    small = os.path.join(work, 'ws_batch_small')
+    build_workspace(small, np.random.default_rng(13), 4, 10, rater.vocab,
+                    alt_share=0.3)
+    graphs = workspace_graphs(small)
+    card_res = rater.rate_best_batch(graphs)
+    diff = same_results(card_res, german_rater('cpu').rate_best_batch(graphs),
+                        cost_ulps=2)
+    sizes = batch_prep(rater, graphs)[1]
+    print('batched serving path, 4 documents of %d-%d edges (entropies '
+          '%.1f-%.1f bits): the same paths on the card and on the CPU, max '
+          'score or entropy difference %.3g (tolerance 1e-4 plus two ulps '
+          'of the document\'s f32 cumulative cost, %.3g at the largest)'
+          % (min(sizes), max(sizes), min(e for _, e in card_res),
+             max(e for _, e in card_res), diff,
+             2 * float(np.spacing(np.float32(max(e for _, e in card_res))))))
+    # the first launch's inputs at the main path's shape, for the numbers
+    import ocrd_keraslm_torch.rater as rater_module
+    first = []
+    real = rater_module.decode_lattice_batch
+    rater_module.decode_lattice_batch = \
+        lambda *a, **k: first.append((a, k)) or real(*a, **k)
+    try:
+        rater.rate_best_batch(docs)
+    finally:
+        rater_module.decode_lattice_batch = real
+    traced_wall, busy = profiled(lambda: rater.rate_best_batch(docs))
+    out.update(traced_wall=traced_wall, busy=busy, first=first[0],
+               launches=out['one-page']['launches'])
+    return out
+
+
+def batch_numbers(rater, batch, parity_times, card):
+    """Phase 7, the batched decode kernel and its walk at the main path's
+    shape (the first block of the 32-document batch): times (CUDA
+    events), bounds, and the yardstick, one ``decode_lattice`` launch
+    per document on the same edges, one after another."""
+    import torch
+    from ocrd_keraslm_torch.ops import decode_kernel as dk
+    args, kw = batch['first']
+    emb, embT, wcat, bias, chars, mask, conf, valid, state0, cost0 = args
+    N, n_real = kw['n_docs'], kw['n_real']
+    E, NA, L = chars.shape
+    A, K = NA // N, state0.shape[0] // N
+    D, W = rater.depth, rater.width
+    v_real, v_pad = kw['v_real'], emb.shape[0]
+    def run():
+        return dk.decode_lattice_batch(*args, **kw)
+    ms = cuda_ms(run, 3)
+    rec, stateF, costF = run()
+    # bound: the work each document's own edges need, summed
+    mask_np = mask.cpu().numpy().reshape(E, N, A, L)
+    flops = 0
+    for n in range(N):
+        steps_n = mask_np[:, n].sum(axis=2).max(axis=1).astype(int)
+        flops += decode_bound(mask_np[:, n], steps_n, n_real, K, D, W,
+                              v_real, 0)[2]
+    steps = kw['alt_steps']
+    nbytes = (tensor_bytes(*args, steps) + tensor_bytes(rec, stateF, costF)
+              - 2 * W * (v_pad - v_real) * 4)
+    bound_ms, bound_by, _ = bound(flops, nbytes)
+    ms2 = cuda_ms(run, 3)
+    print('decode_lattice_batch at the main path shape (block 1 of the '
+          '%d-document batch: E=%d, n_real=%d, L=%d, K=%d, A=%d): %.3f '
+          'ms/launch then %.3f ms/launch (CUDA events, mean of 3 warm '
+          'launches), %.2f us per edge of the longest document [%s]'
+          % (N, E, n_real, L, K, A, ms, ms2, 1e3 * ms2 / n_real, card))
+    # the yardstick: one single-document launch per document, in turn
+    singles = []
+    for n in range(N):
+        cost_n = torch.full((1, 128), BIG, device=chars.device)
+        cost_n[0, :K] = cost0[n * K:(n + 1) * K, 0]
+        singles.append(
+            (emb, embT, wcat, bias,
+             *(t[:, n * A:(n + 1) * A].contiguous() for t in
+               (chars, mask, conf)),
+             valid[:, n * A:(n + 1) * A, 0].contiguous(),
+             state0[n * K:(n + 1) * K].contiguous(), cost_n))
+    single_kw = dict(lm_weight=kw['lm_weight'], v_real=v_real,
+                     alt_steps=None if steps is None else steps[:, 0]
+                     .contiguous(), n_real=n_real)
+    seq_ms = cuda_ms(lambda: [dk.decode_lattice(*a, **single_kw)
+                              for a in singles], 1)
+    print('decode_lattice_batch yardstick: the same %d documents\' edges '
+          'through %d decode_lattice launches one after another: %.3f ms '
+          '(CUDA events), %.1fx the batched launch [%s]'
+          % (N, N, seq_ms, seq_ms / ms2, card))
+    kernel_ms, plain_ms = parity_times
+    print('decode_lattice_batch plain version on the parity block (%d '
+          'documents x %d edges, L=8): %.3f ms, the kernel %.3f ms there '
+          '(CUDA events) [%s]' % (BATCH_PARITY_N, BATCH_PARITY_E, plain_ms,
+                                   kernel_ms, card))
+    print('decode_lattice_batch bound: %.3f ms by %s (%.3g f32 FLOP at 67 '
+          'TFLOP/s: the documents\' own edges, %d bytes at 3.35 TB/s); '
+          'kernel at %.2f%% of it; library call: none - no single PyTorch '
+          'call computes lattice decoding' % (bound_ms, bound_by, flops,
+                                               nbytes, 100 * bound_ms / ms2))
+    k_in = torch.zeros((N,), dtype=torch.int32, device=chars.device)
+    def walk():
+        return dk.walk_records_batch(rec, k_in, n_docs=N, beam=K)
+    walk_ms = cuda_ms(walk, 20)
+    walk_plain_ms = cuda_ms(lambda: dk.walk_records_batch_ref(
+        rec, k_in, n_docs=N, beam=K), 1)
+    walk_ms2 = cuda_ms(walk, 20)
+    # the walk reads one [bp | alt | cost] triple per edge and document
+    # and the start slots, writes (N, E, 2) and the end slots
+    walk_bytes = N * E * 3 * 4 + N * 4 + N * E * 2 * 4 + N * 4
+    walk_bound = bound(0, walk_bytes)
+    print('walk_records_batch at the same block (%d documents x %d edges): '
+          '%.4f then %.4f ms/launch (CUDA events, mean of 20); plain '
+          'version %.3f ms; bound %.3g ms by %s (%d bytes at 3.35 TB/s; a '
+          'chain of %d dependent loads per document); library call: none '
+          '[%s]' % (N, E, walk_ms, walk_ms2, walk_plain_ms, walk_bound[0],
+                    walk_bound[1], walk_bytes, E, card))
+    return {'decode_lattice_batch': dict(
+        ms=ms2, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=None),
+        'walk_records_batch': dict(
+        ms=walk_ms2, plain_ms=walk_plain_ms, bound_ms=walk_bound[0],
+        bound_by=walk_bound[1], library_ms=None)}
 
 
 def decode_numbers(rater, decode, card):
@@ -2050,9 +2548,13 @@ def main() -> int:
              wts['v_pad'], tuple(wts['wcat'].shape)))
     for L in (1, 8):
         print('shared memory decode_lattice: %d bytes dynamic per block at '
-              'K=16, A=4, L=%d (one block of 512 threads per document)'
+              'K=16, A=4, L=%d (one block of 512 threads per document); '
+              'decode_lattice_batch: %d bytes (the same plan, one block per '
+              'document of the batch)'
               % (dk._library().decode_lattice_smem_bytes(
-                  4, L, 16, D, W, wts['v_pad']), L))
+                  4, L, 16, D, W, wts['v_pad']), L,
+                 dk._batch_library().decode_lattice_batch_smem_bytes(
+                     4, L, 16, D, W, wts['v_pad'])))
     print('shared memory score_scan: %d bytes dynamic per block at B=4, '
           'D=%d, W=%d, Vp=%d; lstm_scan: %d bytes at B=4, W=%d (one block '
           'of 512 threads per <= 8 streams)'
@@ -2081,7 +2583,14 @@ def main() -> int:
                                                      wts['v_pad'], 10)))
 
     # ---- 3. parity at full width ----
+    digests = decode_digests(rater, dev)
+    print('decode_lattice output digests (sha256 of records, stateF, costF '
+          'and the device walk over a seeded 1024-edge block, K=16): %s; '
+          'before the device code moved into decode_common.cuh: %s'
+          % (digests, DECODE_DIGESTS))
+    assert digests == DECODE_DIGESTS, 'decode_lattice outputs changed'
     decode_err = decode_parity(rater, dev)
+    batch_err, batch_times = batch_parity(rater, dev)
     score_err, lstm_err = score_parity(rater, dev)
     train_errs = train_parity(dev)
     gen_err = gen_parity_phase(rater)
@@ -2095,6 +2604,7 @@ def main() -> int:
         train = training_path(work, card)
         training_steps(train, dev, card)
         gen = generation_path(rater, card)
+        batch = batch_path(rater, work, card)
 
         # ---- 7. numbers ----
         print('decode path wall: %.3f s for 4 pages = %.3f s/page, %.0f '
@@ -2129,10 +2639,26 @@ def main() -> int:
         print_profile('generation path', gen['traced_wall'], gen['busy'],
                       card, over='one Rater.generate -n %d -v %d'
                       % (GEN_N, GEN_VARIANTS))
+        one = batch['one-page']
+        n_edges = sum(one['sizes'])
+        print('batched serving path wall: %.3f s for Rater.rate_best_batch '
+              'of %d one-page documents (%d decode edges) = %.1f documents/s, '
+              '%.0f decode edges/s (host clock, ended by the fetch); the same '
+              'documents through %d sequential rate_best_device calls: %.3f '
+              's (%.1fx); %d documents of %d pages: %.3f s, sequentially '
+              '%.3f s [%s]'
+              % (one['wall'], BATCH_DOCS, n_edges, BATCH_DOCS / one['wall'],
+                 n_edges / one['wall'], BATCH_DOCS, one['wall_seq'],
+                 one['wall_seq'] / one['wall'], BATCH_MULTI, BATCH_PAGES,
+                 batch['4-page']['wall'], batch['4-page']['wall_seq'], card))
+        print_profile('batched serving path', batch['traced_wall'],
+                      batch['busy'], card, over='one rate_best_batch of %d '
+                      'one-page documents' % BATCH_DOCS)
         numbers = dict(decode_lattice=decode_numbers(rater, decode, card),
                        **scoring_numbers(rater, scoring, card),
                        **training_numbers(dev, card),
-                       **generation_numbers(rater, gen, card))
+                       **generation_numbers(rater, gen, card),
+                       **batch_numbers(rater, batch, batch_times, card))
     rows = []
     # lstm_scan is on two paths: 'lstm_scan' is the layered scoring
     # path's row (B=4, T=4096), 'lstm_scan_train' and 'lstm_scan_bf16'
@@ -2158,14 +2684,23 @@ def main() -> int:
              gen['batch_launches']['gen_beam'], gen_err),
             # the traceback equals its plain version exactly
             ('gen_traceback', 'gen_traceback',
-             gen['launches']['gen_traceback'], 0.0)):
+             gen['launches']['gen_traceback'], 0.0),
+            ('decode_lattice_batch', 'decode_lattice_batch',
+             batch['launches']['decode_lattice_batch'], batch_err),
+            # the walk equals its plain version exactly
+            ('walk_records_batch', 'decode_lattice_batch',
+             batch['launches']['walk_records_batch'], 0.0)):
         assert launches > 0, (name, 'was not launched on its path')
         module = {'decode_lattice': 'decode_kernel.py:318',
                   'score_scan': 'score_kernel.py:132',
                   'lstm_scan': 'lstm_cell.py:111',
                   'lstm_bwd': 'lstm_cell.py:252',
                   'gen_beam': 'gen_kernel.py:241',
-                  'gen_traceback': 'gen_kernel.py:346'}[source]
+                  'gen_traceback': 'gen_kernel.py:346',
+                  'decode_lattice_batch': 'decode_kernel.py:756',
+                  # the jitted walk beside the batched kernel
+                  'walk_records_batch': 'decode_kernel.py:830'}[
+                      name if name.startswith('walk') else source]
         rows.append(dict(name=name, route='cuda',
                          source='ocrd_keraslm_torch/csrc/%s.cu' % source,
                          replaces='ocrd_keraslm_tpu/ops/%s' % module,

@@ -18,45 +18,21 @@
 // f32 FMA rate (1/132 of the card's 67 TFLOP/s), not by memory: the
 // weights (1 MiB at W=128) stay L2-resident and are re-read per step.
 //
-// What the design does about it:
-//  * one block of 512 threads loops over the edges; the beam (K x S f32)
-//    lives in shared memory across edges, the K*A candidate rows in a
-//    global scratch buffer (L2-resident) that the wrapper allocates;
-//  * rows are processed in chunks of RB <= 32 held in shared memory; each
-//    thread owns one gate column and keeps RB accumulators in registers,
-//    so every weight read from L2 feeds RB FMAs; the dot products are
-//    summed in blocks of 32 terms, so the kernel's rounding error stays
-//    at the plain version's and the state carried over ~10^3 edges
-//    meets the plain version within the f32 tolerances;
-//  * char step 0 of every edge runs on the K parent rows only: all A
-//    candidates of a parent share the parent's state there, only the
-//    picked logit differs (4x less work, identical arithmetic per row);
-//  * later steps run only on candidate rows whose mask is set at that
-//    step (a masked row keeps its state and adds nothing to its cost);
-//  * the one-hot "gathers" of the TPU kernel are index loads; top-K is
-//    one thread per candidate counting its predecessors in the exact
-//    (cost, index) order.
+// What the design does about it: one block of 512 threads loops over the
+// edges with the device code of decode_common.cuh (beam in shared memory,
+// candidate rows in a global scratch buffer that the wrapper allocates,
+// step 0 on the parent rows, blocked 32-term sums, rank-count top K);
+// decode_lattice_batch.cu runs the same code one block per document.
 // All arithmetic is f32 on CUDA cores: no TF32, no bf16.
 
-#include <cuda_runtime.h>
-#include <math.h>
-
-#define NT 512        // threads per block
-#define RBMAX 32      // rows per chunk
-#define LANE 128      // width of the cost carry vector
-#define BIGF 1.0e30f
-#define INV_LN2F 1.4426950408889634f
+#include "decode_common.cuh"
 
 struct Params {
-  const float* emb;    // (Vp, W)
-  const float* embT;   // (W, Vp)
-  const float* wcat;   // (D, 2W, 4W)
-  const float* bias;   // (D, 4W)
+  Decode p;
   const int* chars;    // (E, A, L)
   const float* mask;   // (E, A, L)
   const float* conf;   // (E, A, L)
   const float* valid;  // (E, A)
-  const int* steps;    // (E,)
   const float* state0; // (K, S)
   const float* cost0;  // (LANE,)
   float* records;      // (E+1, 3K)
@@ -64,317 +40,58 @@ struct Params {
   float* stateF;       // (K, S)
   float* costF;        // (LANE,)
   float* stateE;       // (K*A, S) scratch
-  int E, n_real, A, L, K, D, W, Vp, v_real;
-  int rb;              // rows per chunk: 8, 16 or RBMAX
-  float lw, lw1;
 };
 
-__device__ __forceinline__ float sigm(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
-
-// xs[r*S + (d*W .. d*W + 2W)] is [input | h_d] for layer d when layers
-// < d have already written their new h in place.  One thread per
-// output column, RB row accumulators in registers.  The dot product is
-// summed in blocks of KCH terms whose partial sums collect in `out`:
-// one chain of 2W = 256 FMAs into a register loses more precision than
-// the plain version's product, and the beam state carries that error
-// from edge to edge.
-#define KCH 32
-template <int RB>
-__device__ void matmul_rows(const float* __restrict__ x, int S,
-                            int kdim, const float* __restrict__ w,
-                            int ncols, const float* __restrict__ b,
-                            float* out) {
-  for (int j = threadIdx.x; j < ncols; j += NT) {
-    for (int i0 = 0; i0 < kdim; i0 += KCH) {
-      float acc[RB];
-#pragma unroll
-      for (int r = 0; r < RB; ++r) acc[r] = 0.0f;
-      const int i1 = min(i0 + KCH, kdim);
-      for (int i = i0; i < i1; i += 4) {
-        const float w0 = __ldg(w + (size_t)(i + 0) * ncols + j);
-        const float w1 = __ldg(w + (size_t)(i + 1) * ncols + j);
-        const float w2 = __ldg(w + (size_t)(i + 2) * ncols + j);
-        const float w3 = __ldg(w + (size_t)(i + 3) * ncols + j);
-#pragma unroll
-        for (int r = 0; r < RB; ++r) {
-          const float4 xv =
-              *reinterpret_cast<const float4*>(x + r * S + i);
-          float a = acc[r];
-          a = fmaf(xv.x, w0, a);
-          a = fmaf(xv.y, w1, a);
-          a = fmaf(xv.z, w2, a);
-          a = fmaf(xv.w, w3, a);
-          acc[r] = a;
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < RB; ++r)
-        out[r * ncols + j] = i0 == 0 ? acc[r] : out[r * ncols + j] + acc[r];
-    }
-    const float bj = b ? __ldg(b + j) : 0.0f;
-#pragma unroll
-    for (int r = 0; r < RB; ++r) out[r * ncols + j] += bj;
-  }
-}
-
-// One char step of the LSTM stack and the tied softmax over the RB rows
-// in xs (in place: xs keeps xemb, gets the new h and c).  Leaves the
-// logits in zb (row stride Vp) and the per-row logsumexp in lse.
-template <int RB>
-__device__ void chunk_step(const Params& p, float* xs, float* zb,
-                           float* lse) {
-  const int W = p.W, D = p.D, S = (2 * D + 1) * W, G = 4 * W;
-  for (int d = 0; d < D; ++d) {
-    matmul_rows<RB>(xs + d * W, S, 2 * W, p.wcat + (size_t)d * 2 * W * G,
-                    G, p.bias + d * G, zb);
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < RB * W; idx += NT) {
-      const int r = idx / W, u = idx - (idx / W) * W;
-      const float* z = zb + r * G;
-      const float ig = sigm(z[u]);
-      const float fg = sigm(z[W + u]);
-      const float gg = tanhf(z[2 * W + u]);
-      const float og = sigm(z[3 * W + u]);
-      float* row = xs + r * S;
-      const float c2 = fg * row[(1 + D + d) * W + u] + ig * gg;
-      row[(1 + D + d) * W + u] = c2;
-      row[(1 + d) * W + u] = og * tanhf(c2);
-    }
-    __syncthreads();
-  }
-  matmul_rows<RB>(xs + D * W, S, W, p.embT, p.Vp, nullptr, zb);
-  __syncthreads();
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int r = warp; r < RB; r += NT / 32) {
-    const float* lg = zb + r * p.Vp;
-    float mx = -INFINITY;
-    for (int v = lane; v < p.v_real; v += 32) mx = fmaxf(mx, lg[v]);
-    for (int o = 16; o > 0; o >>= 1)
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-    float sum = 0.0f;
-    for (int v = lane; v < p.v_real; v += 32) sum += expf(lg[v] - mx);
-    for (int o = 16; o > 0; o >>= 1)
-      sum += __shfl_xor_sync(0xffffffffu, sum, o);
-    if (lane == 0) lse[r] = mx + logf(sum);
-  }
-  __syncthreads();
-}
-
-__device__ void run_chunk(const Params& p, int nrows, float* xs, float* zb,
-                          float* lse) {
-  if (nrows <= 8)
-    chunk_step<8>(p, xs, zb, lse);
-  else if (nrows <= 16)
-    chunk_step<16>(p, xs, zb, lse);
-  else
-    chunk_step<32>(p, xs, zb, lse);
-}
-
-static size_t smem_floats(int A, int L, int K, int D, int W, int Vp,
-                          int rb) {
-  const int S = (2 * D + 1) * W;
-  const int ZW = 4 * W > Vp ? 4 * W : Vp;
-  const int KA = K * A;
-  // beam, chunk rows, gates/logits, then the small per-edge arrays
-  return (size_t)K * S + (size_t)rb * S + (size_t)rb * ZW +
-         K + 2 * KA + rb + 2 * A * L + A +  // floats
-         K + KA + A * L + 4;                   // ints
-}
-
-__global__ void __launch_bounds__(NT, 1) decode_lattice_kernel(Params p) {
+__global__ void __launch_bounds__(NT, 1) decode_lattice_kernel(Params q) {
   extern __shared__ float4 smem4[];
+  const Decode& p = q.p;
   const int tid = threadIdx.x;
-  const int A = p.A, L = p.L, K = p.K, KA = K * p.A, W = p.W;
-  const int S = (2 * p.D + 1) * W;
-  const int ZW = 4 * W > p.Vp ? 4 * W : p.Vp;
-  float* beam = reinterpret_cast<float*>(smem4);
-  float* xs = beam + K * S;
-  const int rb = p.rb;
-  float* zb = xs + rb * S;
-  float* costf = zb + rb * ZW;
-  float* acc = costf + K;
-  float* total = acc + KA;
-  float* lse = total + KA;
-  float* emask = lse + rb;
-  float* econf = emask + A * L;
-  float* evalid = econf + A * L;
-  int* sel = reinterpret_cast<int*>(evalid + A);
-  int* live = sel + K;
-  int* echar = live + KA;
-  int* nlive = echar + A * L;
+  const int A = p.A, L = p.L, K = p.K;
+  const int S = (2 * p.D + 1) * p.W;
+  const Smem sm = carve_smem(p, reinterpret_cast<float*>(smem4));
+  Doc d;
+  d.chars = q.chars;
+  d.mask = q.mask;
+  d.conf = q.conf;
+  d.alt_stride = (size_t)A * L;
+  d.valid = q.valid;
+  d.valid_stride = A;
+  d.state0 = q.state0;
+  d.cost0 = q.cost0;
+  d.rec = q.records + 3 * K;  // after the header row
+  d.rec_stride = 3 * K;
+  d.rec_field = K;
+  d.stateE = q.stateE;
+  decode_edges(p, d, sm);
 
-  for (int i = tid; i < K * S; i += NT) beam[i] = p.state0[i];
-  for (int i = tid; i < rb * S; i += NT) xs[i] = 0.0f;
-  for (int k = tid; k < K; k += NT) costf[k] = p.cost0[k];
-  __syncthreads();
-
-  for (int t = 0; t < p.E; ++t) {
-    float* rec = p.records + (size_t)(t + 1) * 3 * K;
-    if (t >= p.n_real) {
-      for (int k = tid; k < K; k += NT) {
-        rec[k] = (float)k;
-        rec[K + k] = 0.0f;
-        rec[2 * K + k] = costf[k];
-      }
-      continue;
-    }
-    const size_t eo = (size_t)t * A * L;
-    for (int i = tid; i < A * L; i += NT) {
-      echar[i] = p.chars[eo + i];
-      emask[i] = p.mask[eo + i];
-      econf[i] = p.conf[eo + i];
-    }
-    for (int a = tid; a < A; a += NT) evalid[a] = p.valid[(size_t)t * A + a];
-    for (int r = tid; r < KA; r += NT) acc[r] = 0.0f;
-    for (int k = tid; k < K; k += NT) sel[k] = k;
-    const int nsteps = p.steps[t];
-    __syncthreads();
-
-    // ---- char step 0 on the K parent rows ----
-    if (nsteps >= 1) {
-      for (int k0 = 0; k0 < K; k0 += rb) {
-        const int nrows = min(K - k0, rb);
-        for (int i = tid; i < nrows * S; i += NT) xs[i] = beam[k0 * S + i];
-        __syncthreads();
-        run_chunk(p, nrows, xs, zb, lse);
-        for (int i = tid; i < nrows * A; i += NT) {
-          const int r = k0 * A + i, a = r % A, row = i / A;
-          const float m = emask[a * L];
-          if (m > 0.0f) {
-            const float nll2 =
-                (lse[row] - zb[row * p.Vp + echar[a * L]]) * INV_LN2F;
-            acc[r] += m * (p.lw * nll2 + p.lw1 * econf[a * L]);
-          }
-        }
-        for (int i = tid; i < nrows * A * S; i += NT) {
-          const int rr = i / S, e = i - rr * S;
-          const int r = k0 * A + rr, a = r % A, row = rr / A;
-          float v;
-          if (emask[a * L] > 0.0f)
-            v = e < W ? __ldg(p.emb + (size_t)echar[a * L] * W + e)
-                      : xs[row * S + e];
-          else
-            v = beam[(k0 + row) * S + e];
-          p.stateE[(size_t)r * S + e] = v;
-        }
-        __syncthreads();
-      }
-    } else {
-      for (int i = tid; i < KA * S; i += NT) {
-        const int r = i / S;
-        p.stateE[i] = beam[(r / A) * S + (i - r * S)];
-      }
-      __syncthreads();
-    }
-
-    // ---- char steps 1.. on the candidate rows that still have chars ----
-    for (int s = 1; s < nsteps; ++s) {
-      if (tid == 0) {
-        int n = 0;
-        for (int r = 0; r < KA; ++r)
-          if (emask[(r % A) * L + s] > 0.0f) live[n++] = r;
-        nlive[0] = n;
-      }
-      __syncthreads();
-      const int n = nlive[0];
-      for (int c0 = 0; c0 < n; c0 += rb) {
-        const int nrows = min(n - c0, rb);
-        for (int i = tid; i < nrows * S; i += NT) {
-          const int row = i / S;
-          xs[i] = p.stateE[(size_t)live[c0 + row] * S + (i - row * S)];
-        }
-        __syncthreads();
-        run_chunk(p, nrows, xs, zb, lse);
-        for (int row = tid; row < nrows; row += NT) {
-          const int r = live[c0 + row], a = r % A;
-          const float m = emask[a * L + s];
-          const float nll2 =
-              (lse[row] - zb[row * p.Vp + echar[a * L + s]]) * INV_LN2F;
-          acc[r] += m * (p.lw * nll2 + p.lw1 * econf[a * L + s]);
-        }
-        for (int i = tid; i < nrows * S; i += NT) {
-          const int row = i / S, e = i - row * S;
-          const int r = live[c0 + row], a = r % A;
-          p.stateE[(size_t)r * S + e] =
-              e < W ? __ldg(p.emb + (size_t)echar[a * L + s] * W + e)
-                    : xs[row * S + e];
-        }
-        __syncthreads();
-      }
-      __syncthreads();  // every thread has read nlive before it changes
-    }
-
-    // ---- exact top-K by (total, candidate index) ----
-    for (int r = tid; r < KA; r += NT)
-      total[r] = evalid[r % A] > 0.5f ? costf[r / A] + acc[r] : BIGF;
-    __syncthreads();
-    for (int r = tid; r < KA; r += NT) {
-      const float tr = total[r];
-      int rank = 0;
-      for (int j = 0; j < KA; ++j) {
-        const float tj = total[j];
-        rank += (tj < tr) || (tj == tr && j < r);
-      }
-      if (rank < K) sel[rank] = r;
-    }
-    __syncthreads();
-    for (int k = tid; k < K; k += NT) {
-      const int r = sel[k];
-      rec[k] = (float)(r / A);
-      rec[K + k] = (float)(r % A);
-      rec[2 * K + k] = total[r];
-      costf[k] = total[r];
-    }
-    for (int i = tid; i < K * S; i += NT) {
-      const int k = i / S;
-      beam[i] = p.stateE[(size_t)sel[k] * S + (i - k * S)];
-    }
-    __syncthreads();
-  }
-
-  __syncthreads();
-  for (int i = tid; i < K * S; i += NT) p.stateF[i] = beam[i];
+  for (int i = tid; i < K * S; i += NT) q.stateF[i] = sm.beam[i];
   for (int l = tid; l < LANE; l += NT)
-    p.costF[l] = l < K ? costf[l] : (p.n_real > 0 ? BIGF : p.cost0[l]);
+    q.costF[l] = l < K ? sm.costf[l] : (p.n_real > 0 ? BIGF : q.cost0[l]);
   for (int i = tid; i < 3 * K; i += NT) {
-    float v = i >= 2 * K ? p.cost0[i - 2 * K] : 0.0f;
+    float v = i >= 2 * K ? q.cost0[i - 2 * K] : 0.0f;
     if (i == 0) {
       v = BIGF;
-      for (int k = 0; k < K; ++k) v = fminf(v, p.cost0[k]);
+      for (int k = 0; k < K; ++k) v = fminf(v, q.cost0[k]);
     }
-    p.records[i] = v;
+    q.records[i] = v;
   }
-  if (p.walk != nullptr && tid == 0) {
+  if (q.walk != nullptr && tid == 0) {
     int k = 0;
     for (int t = p.E - 1; t >= 0; --t) {
-      const float* rec = p.records + (size_t)(t + 1) * 3 * K;
-      p.walk[(t + 1) * 2] = rec[K + k];
-      p.walk[(t + 1) * 2 + 1] = rec[2 * K + k];
+      const float* rec = q.records + (size_t)(t + 1) * 3 * K;
+      q.walk[(t + 1) * 2] = rec[K + k];
+      q.walk[(t + 1) * 2 + 1] = rec[2 * K + k];
       k = (int)rec[k];
     }
-    p.walk[0] = p.cost0[k];
-    p.walk[1] = 0.0f;
+    q.walk[0] = q.cost0[k];
+    q.walk[1] = 0.0f;
   }
-}
-
-// Rows per chunk: the largest of RBMAX, 16, 8 whose shared memory fits
-// the block's opt-in limit (K=32 with L=64 needs the smaller chunks).
-static int chunk_rows(int A, int L, int K, int D, int W, int Vp) {
-  int dev = 0, limit = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                         dev);
-  int rb = RBMAX;
-  while (rb > 8 && smem_floats(A, L, K, D, W, Vp, rb) * 4 > (size_t)limit)
-    rb /= 2;
-  return rb;
 }
 
 extern "C" size_t decode_lattice_smem_bytes(int A, int L, int K, int D,
                                             int W, int Vp) {
-  return smem_floats(A, L, K, D, W, Vp, chunk_rows(A, L, K, D, W, Vp)) * 4;
+  return decode_smem_floats(A, L, K, D, W, Vp,
+                            decode_chunk_rows(A, L, K, D, W, Vp)) * 4;
 }
 
 extern "C" int decode_lattice_launch(
@@ -385,16 +102,16 @@ extern "C" int decode_lattice_launch(
     float* stateF, float* costF, float* stateE, int E, int n_real, int A,
     int L, int K, int D, int W, int Vp, int v_real, float lw, float lw1,
     void* stream) {
-  Params p{emb,  embT,   wcat,  bias,   chars, mask,   conf,
-           valid, steps, state0, cost0, records, walk, stateF,
-           costF, stateE, E,    n_real, A,     L,      K,
-           D,    W,      Vp,    v_real, 0,     lw,  lw1};
-  p.rb = chunk_rows(A, L, K, D, W, Vp);
-  const size_t smem = smem_floats(A, L, K, D, W, Vp, p.rb) * 4;
+  const int rb = decode_chunk_rows(A, L, K, D, W, Vp);
+  Params q{{emb, embT, wcat, bias, steps, E, n_real, A, L, K, D, W, Vp,
+            v_real, rb, lw, lw1},
+           chars, mask, conf, valid, state0, cost0, records, walk, stateF,
+           costF, stateE};
+  const size_t smem = decode_smem_floats(A, L, K, D, W, Vp, rb) * 4;
   cudaError_t err = cudaFuncSetAttribute(
       decode_lattice_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  decode_lattice_kernel<<<1, NT, smem, (cudaStream_t)stream>>>(p);
+  decode_lattice_kernel<<<1, NT, smem, (cudaStream_t)stream>>>(q);
   return (int)cudaGetLastError();
 }

@@ -1,0 +1,133 @@
+// Document-batched lattice beam decode for Hopper (sm_90a), and the
+// backpointer walk of its records.
+//
+// Replaces the TPU kernel ocrd_keraslm_tpu/ops/decode_kernel.py::
+// decode_lattice_pallas_batch (and, on the card, the jitted
+// walk_records_batch beside it).  N independent documents decode in one
+// launch with the per-document semantics of decode_lattice.cu: the same
+// cost model, the same exact top K by (total cost, candidate index)
+// within each document, identity records for pad edges t >= n_real.
+//
+// What bounds it on this card: the recurrence, one SM per document.
+// Inside a document edge t+1 waits for edge t's top K and char step s+1
+// for step s, so a document keeps one SM busy at the f32 FMA rate of one
+// SM (see decode_lattice.cu).  The TPU kernel stacks N documents in the
+// rows of one matrix unit; here documents need no rows in common: they
+// need more SMs.
+//
+// What the design does about it: one thread block of 512 threads per
+// document, grid = N, each block running decode_edges of
+// decode_common.cuh on its own slice (beam in shared memory, candidate
+// rows in the document's slice of a global scratch (N, K*A, S), step 0
+// on the parent rows, rank-count top K).  Nothing is shared between
+// documents, so nothing needs a grid barrier; ~189 KB of shared memory
+// at K=16 keeps one block on an SM, up to 132 documents run at once and
+// a larger batch runs in waves.  Because every document runs the same
+// device code with the same A, L, K and per-edge steps as
+// decode_lattice.cu, its records and final beam equal those of a
+// single-document launch bit for bit.  A batch's wall is close to that
+// of its longest document.
+//
+// walk_records_batch_kernel: one thread per document walks a block's
+// records in reverse from its start slot k_in[n] and writes the chosen
+// alternative and the cumulative cost per edge, (N, E, 2), and the slot
+// it reached, k_out[n], which starts the walk of the block before.
+// All arithmetic is f32 on CUDA cores: no TF32, no bf16.
+
+#include "decode_common.cuh"
+
+struct BatchIO {
+  const int* chars;    // (E, N*A, L)
+  const float* mask;   // (E, N*A, L)
+  const float* conf;   // (E, N*A, L)
+  const float* valid;  // (E, N*A)
+  const float* state0; // (N*K, S)
+  const float* cost0;  // (N*K,)
+  float* records;      // (E, 3, N*K)
+  float* stateF;       // (N*K, S)
+  float* costF;        // (N*K,)
+  float* stateE;       // (N, K*A, S) scratch
+};
+
+__global__ void __launch_bounds__(NT, 1)
+    decode_lattice_batch_kernel(Decode p, BatchIO io) {
+  extern __shared__ float4 smem4[];
+  const int n = blockIdx.x, N = gridDim.x, tid = threadIdx.x;
+  const int A = p.A, L = p.L, K = p.K;
+  const int S = (2 * p.D + 1) * p.W;
+  const Smem sm = carve_smem(p, reinterpret_cast<float*>(smem4));
+  Doc d;
+  d.chars = io.chars + (size_t)n * A * L;
+  d.mask = io.mask + (size_t)n * A * L;
+  d.conf = io.conf + (size_t)n * A * L;
+  d.alt_stride = (size_t)N * A * L;
+  d.valid = io.valid + (size_t)n * A;
+  d.valid_stride = (size_t)N * A;
+  d.state0 = io.state0 + (size_t)n * K * S;
+  d.cost0 = io.cost0 + (size_t)n * K;
+  d.rec = io.records + (size_t)n * K;
+  d.rec_stride = (size_t)3 * N * K;
+  d.rec_field = (size_t)N * K;
+  d.stateE = io.stateE + (size_t)n * K * A * S;
+  decode_edges(p, d, sm);
+
+  for (int i = tid; i < K * S; i += NT)
+    io.stateF[(size_t)n * K * S + i] = sm.beam[i];
+  for (int k = tid; k < K; k += NT) io.costF[(size_t)n * K + k] = sm.costf[k];
+}
+
+__global__ void walk_records_batch_kernel(const float* records,
+                                          const int* k_in, int* k_out,
+                                          float* walks, int N, int E,
+                                          int K) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= N) return;
+  const size_t NK = (size_t)N * K;
+  int k = k_in[n];
+  for (int t = E - 1; t >= 0; --t) {
+    const float* rec = records + (size_t)t * 3 * NK + (size_t)n * K;
+    walks[((size_t)n * E + t) * 2] = rec[NK + k];
+    walks[((size_t)n * E + t) * 2 + 1] = rec[2 * NK + k];
+    k = (int)rec[k];
+  }
+  k_out[n] = k;
+}
+
+extern "C" size_t decode_lattice_batch_smem_bytes(int A, int L, int K, int D,
+                                                  int W, int Vp) {
+  return decode_smem_floats(A, L, K, D, W, Vp,
+                            decode_chunk_rows(A, L, K, D, W, Vp)) * 4;
+}
+
+extern "C" int decode_lattice_batch_launch(
+    const float* emb, const float* embT, const float* wcat,
+    const float* bias, const int* chars, const float* mask,
+    const float* conf, const float* valid, const int* steps,
+    const float* state0, const float* cost0, float* records, float* stateF,
+    float* costF, float* stateE, int N, int E, int n_real, int A, int L,
+    int K, int D, int W, int Vp, int v_real, float lw, float lw1,
+    void* stream) {
+  const int rb = decode_chunk_rows(A, L, K, D, W, Vp);
+  const Decode p{emb, embT, wcat, bias, steps, E, n_real, A, L, K, D, W,
+                 Vp, v_real, rb, lw, lw1};
+  const BatchIO io{chars, mask, conf, valid, state0, cost0, records,
+                   stateF, costF, stateE};
+  const size_t smem = decode_smem_floats(A, L, K, D, W, Vp, rb) * 4;
+  cudaError_t err = cudaFuncSetAttribute(
+      decode_lattice_batch_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  decode_lattice_batch_kernel<<<N, NT, smem, (cudaStream_t)stream>>>(p, io);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int walk_records_batch_launch(const float* records,
+                                         const int* k_in, int* k_out,
+                                         float* walks, int N, int E, int K,
+                                         void* stream) {
+  const int threads = 128;
+  walk_records_batch_kernel<<<(N + threads - 1) / threads, threads, 0,
+                              (cudaStream_t)stream>>>(records, k_in, k_out,
+                                                      walks, N, E, K);
+  return (int)cudaGetLastError();
+}

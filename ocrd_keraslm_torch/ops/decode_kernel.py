@@ -1,12 +1,17 @@
-"""Single-document lattice beam decode: the CUDA kernel and its plain
-PyTorch version.
+"""Lattice beam decode, one document or a batch: the CUDA kernels and
+their plain PyTorch versions.
 
 Counterpart of ``ocrd_keraslm_tpu/ops/decode_kernel.py::
-decode_lattice_pallas``.  :func:`decode_lattice` launches the
+decode_lattice_pallas`` and ``decode_lattice_pallas_batch`` (with
+``walk_records_batch``).  :func:`decode_lattice` launches the
 hand-written kernel ``csrc/decode_lattice.cu`` for CUDA tensors and runs
 :func:`decode_lattice_ref`, the same function in plain PyTorch, for CPU
-tensors.  Nothing falls back: a CUDA tensor either goes through the
-kernel or the call raises.
+tensors; :func:`decode_lattice_batch` and :func:`walk_records_batch`
+do the same with ``csrc/decode_lattice_batch.cu`` (one block per
+document, the device code of ``csrc/decode_common.cuh``) and
+:func:`decode_lattice_batch_ref`/:func:`walk_records_batch_ref`.
+Nothing falls back: a CUDA tensor either goes through the kernel or the
+call raises.
 
 Layouts are the JAX package's: the packed beam state is (K, S) with
 S = (2D+1)W and rows ``[xemb | h_0..h_{D-1} | c_0..c_{D-1}]``; the cost
@@ -15,7 +20,7 @@ either the device-walked ``(E+1, 2)`` path (header ``[cost0[k_fin], 0]``)
 or the ``(E+1, 3K)`` records ``[backptr | alt | cost]`` whose header
 carries ``min(cost0)`` and the initial-beam costs.
 
-The kernel is compiled at first use by :mod:`._build` (``nvcc`` for
+The kernels are compiled at first use by :mod:`._build` (``nvcc`` for
 ``sm_90a``, loaded with ``ctypes``).
 """
 from __future__ import annotations
@@ -137,9 +142,10 @@ def decode_lattice(emb, embT, wcat, bias, alt_chars, alt_mask, alt_conf,
 decode_lattice.launches = 0
 
 
-def _char_step(stateE, chars, emb, embT, wcat, bias, D, W, v_real):
-    """The D-layer LSTM stack over packed rows plus the tied-softmax
-    -log2 p of ``chars``; returns (new packed rows, nll2)."""
+def _lstm_logits(stateE, embT, wcat, bias, D, W, v_real):
+    """The D-layer LSTM stack over packed rows and the tied softmax:
+    returns (new h per layer, new c per layer, logits (rows, v_real),
+    their logsumexp (rows,))."""
     inp = stateE[:, :W]
     hs, cs = [], []
     for d in range(D):
@@ -155,7 +161,15 @@ def _char_step(stateE, chars, emb, embT, wcat, bias, D, W, v_real):
         cs.append(c2)
         inp = h2
     logits = (inp @ embT)[:, :v_real]
-    lse = torch.logsumexp(logits, dim=1)
+    return hs, cs, logits, torch.logsumexp(logits, dim=1)
+
+
+def _char_step(stateE, chars, emb, embT, wcat, bias, D, W, v_real):
+    """One char step of the LSTM stack over packed rows plus the
+    tied-softmax -log2 p of ``chars``; returns (new packed rows,
+    nll2)."""
+    hs, cs, logits, lse = _lstm_logits(stateE, embT, wcat, bias, D, W,
+                                       v_real)
     nll2 = (lse - logits.gather(1, chars[:, None])[:, 0]) * INV_LN2
     return torch.cat([emb[chars]] + hs + cs, 1), nll2
 
@@ -224,3 +238,229 @@ def decode_lattice_ref(emb, embT, wcat, bias, alt_chars, alt_mask,
     header[0, 0] = cost0_k.min()
     header[0, 2 * K:] = cost0_k
     return torch.cat([header, records]), state.clone(), costF
+
+
+# ----------------------------------------------------------------------
+# document-batched decode
+# ----------------------------------------------------------------------
+
+BATCH_SOURCE = _build.source('decode_lattice_batch.cu')
+
+
+@functools.lru_cache(maxsize=None)
+def _batch_library() -> ctypes.CDLL:
+    lib = _build.load(BATCH_SOURCE)
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.decode_lattice_batch_launch.argtypes = \
+        [P] * 15 + [I] * 10 + [F, F, P]
+    lib.decode_lattice_batch_launch.restype = ctypes.c_int
+    lib.decode_lattice_batch_smem_bytes.argtypes = [I] * 6
+    lib.decode_lattice_batch_smem_bytes.restype = ctypes.c_size_t
+    lib.walk_records_batch_launch.argtypes = [P] * 4 + [I] * 3 + [P]
+    lib.walk_records_batch_launch.restype = ctypes.c_int
+    return lib
+
+
+def _batch_shapes(emb, wcat, alt_chars, state0, n_docs):
+    E, NA, L = alt_chars.shape
+    NK, S = state0.shape
+    N = int(n_docs)
+    if N < 1 or NA % N or NK % N:
+        raise ValueError('%d documents do not divide %d alternative rows '
+                         'and %d beam rows' % (N, NA, NK))
+    Vp, W = emb.shape
+    D = wcat.shape[0]
+    if S != (2 * D + 1) * W:
+        raise ValueError('state0 width %d != (2D+1)W = %d'
+                         % (S, (2 * D + 1) * W))
+    return E, N, NA // N, L, NK // N, S, Vp, W, D
+
+
+def decode_lattice_batch(emb, embT, wcat, bias, alt_chars, alt_mask,
+                         alt_conf, alt_valid, state0, cost0, *,
+                         n_docs: int, lm_weight: float, v_real: int,
+                         alt_steps: Optional[torch.Tensor] = None,
+                         n_real: Optional[int] = None):
+    """One-launch decode of E edges of N independent documents.
+
+    Layouts are the JAX package's (document-major): alt_chars (E, N*A,
+    L) int32; alt_mask, alt_conf (E, N*A, L) float32; alt_valid (E, N*A,
+    1); state0 (N*K, S) packed beams; cost0 (N*K, 1) (``BIG`` = dead
+    slot); alt_steps (E, 1) int32 char steps per edge (default L), the
+    same for every document; n_real: edges < n_real are real, the rest
+    pad (default E).  Weights as :func:`decode_lattice`'s.
+
+    Returns (records (E, 3, N*K) rows ``[bp | alt | cost]`` over the
+    documents' K slots, stateF (N*K, S), costF (N*K, 1)); each
+    document's part equals a single-document decode of its edges."""
+    tensors = (emb, embT, wcat, bias, alt_chars, alt_mask, alt_conf,
+               alt_valid, state0, cost0)
+    device = _build.one_device('decode_lattice_batch', tensors + (
+        () if alt_steps is None else (alt_steps,)))
+    if device.type == 'cpu':
+        return decode_lattice_batch_ref(
+            emb, embT, wcat, bias, alt_chars, alt_mask, alt_conf,
+            alt_valid, state0, cost0, n_docs=n_docs, lm_weight=lm_weight,
+            v_real=v_real, alt_steps=alt_steps, n_real=n_real)
+    if device.type != 'cuda':
+        raise ValueError('decode_lattice_batch runs on cpu or cuda, not %s'
+                         % device)
+    E, N, A, L, K, S, Vp, W, D = _batch_shapes(emb, wcat, alt_chars, state0,
+                                               n_docs)
+    if W % 4 or K > 32 or E < 1:
+        raise ValueError('decode kernel needs W % 4 == 0, K <= 32 and '
+                         'E >= 1 (got W=%d, K=%d, E=%d)' % (W, K, E))
+    if alt_steps is None:
+        alt_steps = torch.full((E, 1), L, dtype=torch.int32, device=device)
+    f32 = torch.float32
+    for name, t, shape, dtype in (
+            ('emb', emb, (Vp, W), f32), ('embT', embT, (W, Vp), f32),
+            ('wcat', wcat, (D, 2 * W, 4 * W), f32),
+            ('bias', bias, (D, 1, 4 * W), f32),
+            ('alt_chars', alt_chars, (E, N * A, L), torch.int32),
+            ('alt_mask', alt_mask, (E, N * A, L), f32),
+            ('alt_conf', alt_conf, (E, N * A, L), f32),
+            ('alt_valid', alt_valid, (E, N * A, 1), f32),
+            ('alt_steps', alt_steps, (E, 1), torch.int32),
+            ('state0', state0, (N * K, S), f32),
+            ('cost0', cost0, (N * K, 1), f32)):
+        _check(name, t, shape, dtype, device)
+    n_real = E if n_real is None else int(n_real)
+    records = torch.empty((E, 3, N * K), dtype=f32, device=device)
+    stateF = torch.empty((N * K, S), dtype=f32, device=device)
+    costF = torch.empty((N * K, 1), dtype=f32, device=device)
+    stateE = torch.empty((N, K * A, S), dtype=f32, device=device)
+    lib = _batch_library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        status = lib.decode_lattice_batch_launch(
+            emb.data_ptr(), embT.data_ptr(), wcat.data_ptr(),
+            bias.data_ptr(), alt_chars.data_ptr(), alt_mask.data_ptr(),
+            alt_conf.data_ptr(), alt_valid.data_ptr(),
+            alt_steps.data_ptr(), state0.data_ptr(), cost0.data_ptr(),
+            records.data_ptr(), stateF.data_ptr(), costF.data_ptr(),
+            stateE.data_ptr(), N, E, n_real, A, L, K, D, W, Vp,
+            int(v_real), float(lm_weight), float(1.0 - lm_weight), stream)
+    if status != 0:
+        raise RuntimeError('decode_lattice_batch kernel launch failed: '
+                           'CUDA error %d (%d bytes of shared memory '
+                           'asked)' % (status,
+                                       lib.decode_lattice_batch_smem_bytes(
+                                           A, L, K, D, W, Vp)))
+    decode_lattice_batch.launches += 1
+    return records, stateF, costF
+
+
+decode_lattice_batch.launches = 0
+
+
+def decode_lattice_batch_ref(emb, embT, wcat, bias, alt_chars, alt_mask,
+                             alt_conf, alt_valid, state0, cost0, *,
+                             n_docs: int, lm_weight: float, v_real: int,
+                             alt_steps: Optional[torch.Tensor] = None,
+                             n_real: Optional[int] = None):
+    """Plain PyTorch version of :func:`decode_lattice_batch` (same
+    arguments, same outputs), all documents at once: char step 0 of an
+    edge runs on the parent rows (all candidates of a parent share its
+    state there, as in the kernel), later steps on every candidate row
+    (masked rows keep their state), and each document's top K is a
+    stable sort of its candidates by cost, so ties go to the lower
+    candidate index."""
+    E, N, A, L, K, S, Vp, W, D = _batch_shapes(emb, wcat, alt_chars,
+                                               state0, n_docs)
+    device = state0.device
+    n_real = E if n_real is None else int(n_real)
+    steps = ([L] * E if alt_steps is None
+             else alt_steps.reshape(E).tolist())
+    KA = K * A
+    cand = torch.arange(N * KA, device=device)
+    doc, local = cand // KA, cand % KA
+    parent = doc * K + local // A        # beam row of each candidate
+    alt = doc * A + local % A            # alternative row of each
+    first = (torch.arange(N, device=device) * KA)[:, None]
+    chars_l = alt_chars.long()
+    lw, lw1 = float(lm_weight), float(1.0 - lm_weight)
+    state = state0
+    cost = cost0[:, 0]
+    slots = torch.arange(K, device=device).float().repeat(N)
+    rows = []
+    for t in range(E):
+        if t >= n_real:
+            rows.append(torch.stack([slots, torch.zeros_like(slots), cost]))
+            continue
+        stateE = state[parent]
+        acc = torch.zeros(N * KA, device=device)
+        for s in range(int(steps[t])):
+            m = alt_mask[t, alt, s]
+            ch = chars_l[t, alt, s]
+            if s == 0:
+                hs, cs, logits, lse = _lstm_logits(state, embT, wcat, bias,
+                                                   D, W, v_real)
+                nll2 = (lse[parent] - logits[parent, ch]) * INV_LN2
+                new = torch.cat([emb[ch], torch.cat(hs + cs, 1)[parent]], 1)
+            else:
+                new, nll2 = _char_step(stateE, ch, emb, embT, wcat, bias, D,
+                                       W, v_real)
+            acc = acc + m * (lw * nll2 + lw1 * alt_conf[t, alt, s])
+            stateE = torch.where((m > 0)[:, None], new, stateE)
+        total = torch.where(alt_valid[t, alt, 0] > 0.5, cost[parent] + acc,
+                            torch.full_like(acc, BIG))
+        sel = torch.sort(total.view(N, KA), dim=1, stable=True).indices[:, :K]
+        pick = (first + sel).reshape(-1)
+        cost = total[pick]
+        rows.append(torch.stack([(sel // A).reshape(-1).float(),
+                                 (sel % A).reshape(-1).float(), cost]))
+        state = stateE[pick]
+    records = torch.stack(rows) if rows else \
+        torch.zeros((0, 3, N * K), device=device)
+    return records, state.clone(), cost[:, None].clone()
+
+
+def walk_records_batch(records, k_in, *, n_docs: int, beam: int):
+    """Reverse backpointer walk of a block of batched records, one walk
+    per document: records (E, 3, N*K), k_in (N,) int32 the start slot of
+    each document (0, the best final hypothesis, for the last block; a
+    block's ``k_out`` for the block before it).  Returns (k_out (N,)
+    int32, walks (N, E, 2) ``[alt | cost]`` per edge).  One launch of the
+    walk kernel on CUDA; :func:`walk_records_batch_ref` on the CPU."""
+    device = _build.one_device('walk_records_batch', (records, k_in))
+    if device.type == 'cpu':
+        return walk_records_batch_ref(records, k_in, n_docs=n_docs,
+                                      beam=beam)
+    if device.type != 'cuda':
+        raise ValueError('walk_records_batch runs on cpu or cuda, not %s'
+                         % device)
+    E, N, K = records.shape[0], int(n_docs), int(beam)
+    _check('records', records, (E, 3, N * K), torch.float32, device)
+    _check('k_in', k_in, (N,), torch.int32, device)
+    k_out = torch.empty((N,), dtype=torch.int32, device=device)
+    walks = torch.empty((N, E, 2), dtype=torch.float32, device=device)
+    lib = _batch_library()
+    with torch.cuda.device(device):
+        status = lib.walk_records_batch_launch(
+            records.data_ptr(), k_in.data_ptr(), k_out.data_ptr(),
+            walks.data_ptr(), N, E, K,
+            torch.cuda.current_stream(device).cuda_stream)
+    if status != 0:
+        raise RuntimeError('walk_records_batch kernel launch failed: CUDA '
+                           'error %d' % status)
+    walk_records_batch.launches += 1
+    return k_out, walks
+
+
+walk_records_batch.launches = 0
+
+
+def walk_records_batch_ref(records, k_in, *, n_docs: int, beam: int):
+    """Plain PyTorch version of :func:`walk_records_batch`."""
+    E, N, K = records.shape[0], int(n_docs), int(beam)
+    rec = records.reshape(E, 3, N, K)
+    docs = torch.arange(N, device=records.device)
+    k = k_in.long()
+    walks = torch.zeros((N, E, 2), dtype=torch.float32,
+                        device=records.device)
+    for t in range(E - 1, -1, -1):
+        walks[:, t, 0] = rec[t, 1, docs, k]
+        walks[:, t, 1] = rec[t, 2, docs, k]
+        k = rec[t, 0, docs, k].long()
+    return k.int(), walks

@@ -43,9 +43,11 @@ import numpy as np
 import torch
 
 from .models.lstm_lm import (DEFAULT_CONTEXTS, LMConfig, embed_inputs,
-                             forward_seq, forward_step, init_params,
-                             params_from_numpy, zero_carry)
-from .ops.decode_kernel import BIG, LANE, decode_lattice
+                             forward_seq, forward_step, host_to_device,
+                             init_params, params_from_numpy, zero_carry)
+from .ops.beam_device import _copy_to_host, _fetch
+from .ops.decode_kernel import (BIG, LANE, decode_lattice,
+                                decode_lattice_batch, walk_records_batch)
 from .ops.score_kernel import pack_score_weights, score_scan
 from .utils import h5io
 from .utils.buckets import bucket as _bucket
@@ -154,6 +156,31 @@ def _linear_edges(graph):
         node, d = succ[node]
         out.append(d)
     return out
+
+
+def _decode_scan(edges, merge: bool, merge_max: int):
+    """(prepared edges, longest alternative in chars, at least 1) of a
+    chain of lattice edges after run merging, without building the
+    prepared edges: the count :meth:`Rater._prepare_decode_edges` would
+    give, over the first 4 alternatives of each edge (those the decode
+    arrays keep).  The JAX package's native ``decode_scan``."""
+    n_prep, maxlen, run = 0, 1, -1   # run: chars of the open run, -1 none
+    for edge in edges:
+        alts = edge['alternatives']
+        if merge and len(alts) == 1:
+            n = len(alts[0].Unicode or '')
+            if run >= 0 and run + n <= merge_max:
+                run += n
+            else:
+                n_prep += run >= 0
+                run = n
+            maxlen = max(maxlen, run)
+        else:
+            n_prep += (run >= 0) + 1
+            run = -1
+            for te in alts[:4]:
+                maxlen = max(maxlen, len(te.Unicode or ''))
+    return n_prep + (run >= 0), maxlen
 
 
 def _alt_steps(alt_mask):
@@ -1142,3 +1169,217 @@ class Rater:
             prev = cum
         entropy = costs[-1] - start_cost
         return path, entropy
+
+    # -- batched serving decode ----------------------------------------
+
+    @staticmethod
+    def concat_graphs(graphs):
+        """Concatenate linear lattice graphs (e.g. one per page of a
+        document) into ONE lattice whose decode chains the beam across
+        the former boundaries, the batched analogue of the per-page
+        ``device_traceback`` carry.  Use with :meth:`rate_best_batch` to
+        decode independent multi-page documents together; path entries
+        keep their ``element``, so callers split results back into pages
+        by element."""
+        import networkx as nx
+        out = nx.DiGraph()
+        out.add_node(0)
+        node = 0
+        for g in graphs:
+            for data in _linear_edges(g):
+                out.add_edge(node, node + 1, **data)
+                node += 1
+        return out
+
+    @_gc_paused
+    def rate_best_batch(self, graphs, context=None, lm_weight=0.5,
+                        beam_width=10):
+        """Beam-decode N independent linear lattices (documents) in one
+        launch of the batched decode kernel per block of at most 1024
+        edges.  Every document starts from a fresh beam (concatenate a
+        document's pages with :meth:`concat_graphs`).  Returns a list of
+        (path, entropy) like :meth:`rate_best_device_finish`."""
+        return self.rate_best_batch_finish(self.rate_best_batch_begin(
+            graphs, context=context, lm_weight=lm_weight,
+            beam_width=beam_width))
+
+    @_gc_paused
+    def rate_best_batch_finish(self, pending):
+        """Wait for a :meth:`rate_best_batch_begin` batch and emit its
+        paths; returns the results list."""
+        if pending[0] == 'done':
+            return pending[1]
+        _, gpending, prepared, results = pending
+        self._rate_best_batch_fused_finish(gpending, prepared, results)
+        return results
+
+    @_gc_paused
+    def rate_best_batch_begin(self, graphs, context=None, lm_weight=0.5,
+                              beam_width=10):
+        """Launch the decode of a document batch; fetch and path emission
+        happen in :meth:`rate_best_batch_finish`, so a serving loop can
+        launch batch B before it finishes batch A (results equal the
+        synchronous :meth:`rate_best_batch`).  Empty batches, all-empty
+        documents and a single live document resolve inside begin.
+        Branching lattices raise :class:`NonLinearLatticeError`."""
+        if self.status < 2:
+            raise RuntimeError('rate_best_batch needs loaded weights')
+        raw_list = [_linear_edges(g) for g in graphs]
+        merge, scans = self._batch_scans(raw_list, beam_width)
+        sizes = [n for n, _ in scans]
+        live = [i for i, n in enumerate(sizes) if n]
+        results: List[Any] = [([], 0.0)] * len(graphs)
+        if not live:
+            return ('done', results)
+        maxlen = max(scans[i][1] for i in live)
+        if beam_width > FUSED_MAX_BEAM or maxlen > FUSED_MAX_ALT_LEN:
+            raise NotImplementedError(
+                'beam_width %d (at most %d) or an alternative of %d chars '
+                '(at most %d) needs the unbounded decode engine, which is '
+                'not ported yet (ROADMAP.md Queue 1, "Wide-beam decode '
+                'engine")' % (beam_width, FUSED_MAX_BEAM, maxlen,
+                              FUSED_MAX_ALT_LEN))
+        if len(live) == 1:
+            # a single live document takes the single-document kernel
+            # (merged prep), as in the JAX package
+            i = live[0]
+            path, ent, _ = self.rate_best_device(
+                raw_list[i], 0, 0, context=context, lm_weight=lm_weight,
+                beam_width=beam_width)
+            results[i] = (path, ent)
+            return ('done', results)
+        if self.mesh is not None:
+            raise NotImplementedError(
+                'a batch decode sharded over a mesh is not ported yet '
+                '(ROADMAP.md Queue 1, "Distributed")')
+        if self.decode_bf16:
+            raise NotImplementedError(
+                'decode_bf16 is not ported yet (ROADMAP.md Queue 1, '
+                '"bf16 decode")')
+        prepared: List[Any] = [
+            self._prepare_decode_edges(raw, merge=merge) if sizes[i]
+            else None for i, raw in enumerate(raw_list)]
+        gpending = self._rate_best_batch_fused_begin(
+            prepared, live, maxlen, context, lm_weight, beam_width)
+        return ('fusedb', gpending, prepared, results)
+
+    def _batch_scans(self, raw_list, beam_width):
+        """The prep of a batch of edge chains: (merge flag, per document
+        (prepared edges, longest alternative; (0, 0) when empty)).
+        Unmerged-L1 preference: when every real alternative of every
+        document is a single char (glyph lattices: run merging is the
+        only source of L > 1), the batch preps without merging, so that
+        every edge takes one char step (on the parent rows) instead of an
+        L=8 bucket; paths equal the merged decode's, per-char scores are
+        exact (a merged run's are uniform)."""
+        scans = [_decode_scan(raw, self.merge_runs, DECODE_MERGE_MAX)
+                 if raw else (0, 0) for raw in raw_list]
+        if self.merge_runs and beam_width <= FUSED_MAX_BEAM and \
+                max((m for _, m in scans), default=1) > 1:
+            scans_u = [_decode_scan(raw, False, 1) if raw else (0, 0)
+                       for raw in raw_list]
+            if max((m for n, m in scans_u if n), default=1) <= 1:
+                return False, [(n, min(m, 1)) for n, m in scans_u]
+        return self.merge_runs, scans
+
+    def _batch_beam_init(self, emb, N, K):
+        """N fresh beams on the device, (N*K, S) and (N*K, 1): every row
+        at the newline embedding, slot 0 of each document at cost 0, the
+        other slots dead (``BIG``)."""
+        D, W = self.depth, self.width
+        state = torch.zeros((N * K, (2 * D + 1) * W), dtype=torch.float32,
+                            device=emb.device)
+        state[:, :W] = emb[self.vocab.get('\n')]
+        cost = torch.full((N * K, 1), BIG, dtype=torch.float32,
+                          device=emb.device)
+        cost[::K] = 0.0
+        return state, cost
+
+    def _rate_best_batch_fused_begin(self, prepared, live, maxlen, context,
+                                     lm_weight, beam_width):
+        """Launch the batched decode of the ``live`` documents (one group:
+        one block of the kernel per document) in blocks of
+        ``E_BUCKETS[-1]`` edges (``fused_batch_E_blk`` overrides), the
+        beams chained on the device from block to block, then the
+        backpointer walk kernel once per block, last block first; starts
+        one copy of all walks into pinned host memory and returns
+        ``(live, E_blk, per-block walk sizes, (host walks, event))``
+        without waiting."""
+        K = _bucket(min(beam_width, FUSED_MAX_BEAM), K_BUCKETS)
+        A = 4
+        N = len(live)
+        L = _bucket(max(maxlen, 1), L_BUCKETS)
+        dev = self.device
+        wts = self._decode_weights(context)
+        E_blk = getattr(self, 'fused_batch_E_blk', None) or E_BUCKETS[-1]
+        sizes = [len(prepared[i]) for i in live]
+        nE = max(sizes)
+        # whole-document arrays filled once, sliced per block
+        full = [self._fill_decode_arrays(
+            prepared[i], _bucket_unbounded(n, E_BUCKETS), A, L)
+            for i, n in zip(live, sizes)]
+        state, cost = self._batch_beam_init(wts['emb'], N, K)
+        recs = []
+        for lo in range(0, nE, E_blk):
+            n_real = max(min(max(n - lo, 0), E_blk) for n in sizes)
+            E = _bucket(n_real, E_BUCKETS)
+            per = []
+            for fa in full:
+                blk = []
+                for ai, a in enumerate(fa):
+                    # a block covers at most E_blk real edges, padded to
+                    # its E bucket with free edges
+                    part = a[lo:lo + min(E, E_blk)]
+                    if len(part) < E:
+                        pad = np.zeros((E - len(part),) + a.shape[1:],
+                                       a.dtype)
+                        if ai == 3:   # valid: free alternative 0
+                            pad[:, 0] = 1.0
+                        part = np.concatenate([part, pad])
+                    blk.append(part)
+                per.append(blk)
+            chars, mask, conf = (
+                np.stack([p[j] for p in per], axis=1).reshape(E, N * A, L)
+                for j in range(3))
+            valid = np.stack([p[3] for p in per], axis=1) \
+                .reshape(E, N * A, 1)
+            steps = _alt_steps(mask) if L > 1 else None
+            rec, state, cost = decode_lattice_batch(
+                wts['emb'], wts['embT'], wts['wcat'], wts['bias'],
+                *(host_to_device(torch.from_numpy(a), dev)
+                  for a in (chars, mask, conf, valid)),
+                state, cost, n_docs=N, lm_weight=float(lm_weight),
+                v_real=wts['v_real'],
+                alt_steps=(None if steps is None else
+                           host_to_device(torch.from_numpy(steps), dev)),
+                n_real=n_real)
+            recs.append(rec)
+        k = torch.zeros((N,), dtype=torch.int32, device=dev)
+        walks = []
+        for rec in reversed(recs):
+            k, walk = walk_records_batch(rec, k, n_docs=N, beam=K)
+            walks.append(walk)
+        walks.reverse()
+        flat = torch.cat([w.reshape(-1) for w in walks])
+        return (live, E_blk, [w.shape[1] for w in walks],
+                _copy_to_host(flat))
+
+    def _rate_best_batch_fused_finish(self, pending, prepared, results):
+        """Wait for the walks' copy and fill ``results[i] = (path,
+        entropy)`` for each live document."""
+        live, E_blk, block_edges, fetch = pending
+        flat = _fetch(*fetch)
+        N = len(live)
+        walks, off = [], 0
+        for E in block_edges:
+            walks.append(flat[off:off + N * E * 2].reshape(N, E, 2))
+            off += N * E * 2
+        for di, i in enumerate(live):
+            edges = prepared[i]
+            choices: List[int] = []
+            costs: List[float] = []
+            for bi, walk in enumerate(walks):
+                real = min(max(len(edges) - bi * E_blk, 0), E_blk)
+                choices.extend(walk[di, :real, 0].astype(np.int64))
+                costs.extend(walk[di, :real, 1])
+            results[i] = self._emit_path(edges, choices, costs, 0.0)

@@ -26,17 +26,25 @@ value); gradients of ``forward_seq`` card against CPU rtol 1e-3 / atol
 live costs rtol 1e-5; at a near-tie of the K-th candidate
 ``chip_smoke.gen_parity`` resumes both runs from the kernel's fringe);
 strings are compared exactly, card against CPU and batch against single
-calls."""
+calls.  The batched decode kernel is held against its plain version per
+document as ``chip_smoke.parity_batch`` holds it (the decode tolerances
+above), against single-document launches bit for bit, and its walk
+exactly; batched paths equal single-document and CPU paths, scores and
+entropies within 1e-4 (card against CPU also two ulps of the document's
+f32 cumulative cost, ``chip_smoke.same_results``).  The batched final
+states are held within ``chip_smoke.BATCH_STATE_ATOL`` (two f32
+versions, each up to ~1e-5 from the exact state)."""
 import os
 
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (BF16_FWD_ATOL, MODEL, compare_bwd, compare_lstm,
-                        compare_score, gen_parity, lstm_bwd_args,
-                        lstm_train_inputs, parity_block, random_lattice,
-                        score_inputs)
+from chip_smoke import (BF16_FWD_ATOL, MODEL, batch_lattice, build_workspace,
+                        compare_bwd, compare_lstm, compare_score, gen_parity,
+                        german_rater, lstm_bwd_args, lstm_train_inputs,
+                        parity_batch, parity_block, random_lattice,
+                        same_results, score_inputs, workspace_graphs)
 
 pytestmark = pytest.mark.gpu
 
@@ -427,3 +435,146 @@ def test_cuda_generation_never_takes_the_plain_versions(cuda, monkeypatch):
     with pytest.raises(ValueError, match='multiple of 8'):
         gk.gen_beam(*weights, state0[:, :12].contiguous(),
                     cost0[:, :12].contiguous(), length=4, v_real=v_real)
+
+
+def _batch_runner(weights, v_real, device, N):
+    def run(fn, arrays, n_real, state, cost):
+        chars, mask, conf, valid, steps = (
+            torch.from_numpy(np.ascontiguousarray(a)).to(device)
+            for a in arrays)
+        out = fn(*weights, chars, mask, conf, valid, state, cost, n_docs=N,
+                 lm_weight=0.5, v_real=v_real, alt_steps=steps,
+                 n_real=n_real)
+        torch.cuda.synchronize()
+        return out
+    return run
+
+
+def _fresh_beams(weights, N, K):
+    D, W = weights[2].shape[0], weights[0].shape[1]
+    state = torch.zeros((N * K, (2 * D + 1) * W), device=weights[0].device)
+    state[:, :W] = weights[0][1]
+    cost = torch.full((N * K, 1), 1e30, device=weights[0].device)
+    cost[::K] = 0.0
+    return state, cost
+
+
+@pytest.mark.parametrize('K', [8, 16])
+@pytest.mark.parametrize('L', [1, 8])
+@pytest.mark.parametrize('model', ['german', 'd3w32'])
+def test_batch_kernel_matches_plain(cuda, model, L, K):
+    """Three documents of different lengths over two chained blocks,
+    every document's every edge held against the plain version by
+    ``chip_smoke.parity_batch``."""
+    from ocrd_keraslm_torch.ops import decode_kernel as dk
+    rng = np.random.default_rng([('german', 'd3w32').index(model), L, K])
+    if model == 'german':
+        weights, v_real = _german(cuda)
+    else:
+        v_real = 40
+        weights = [t.to(cuda) for t in _random_weights(rng, 3, 32, v_real)]
+    N, W = 3, weights[0].shape[1]
+    run = _batch_runner(weights, v_real, cuda, N)
+    state, cost = _fresh_beams(weights, N, K)
+    for E, n_real in ((64, 64), (64, 41)):
+        arrays = batch_lattice(rng, N, [n_real, n_real // 2, 5], E, 4, L,
+                               v_real)
+        before = dk.decode_lattice_batch.launches
+        _, ties, state, cost = parity_batch(
+            run, dk.decode_lattice_batch, dk.decode_lattice_batch_ref,
+            arrays, n_real, state, cost, N, K, W)
+        assert dk.decode_lattice_batch.launches == before + 1 + 2 * len(ties)
+
+
+@pytest.mark.parametrize('L', [1, 8])
+def test_batch_equals_single_document_launches(cuda, L):
+    """Every document of a batched launch gets, bit for bit, the records,
+    final beam and costs of a single-document ``decode_lattice`` launch
+    over its edges (the kernels share their device code)."""
+    from ocrd_keraslm_torch.ops import decode_kernel as dk
+    rng = np.random.default_rng([7, L])
+    weights, v_real = _german(cuda)
+    N, K, A, E = 5, 16, 4, 64
+    arrays = batch_lattice(rng, N, [64, 30, 64, 9, 50], E, A, L, v_real)
+    state, cost = _fresh_beams(weights, N, K)
+    rec, stateF, costF = _batch_runner(weights, v_real, cuda, N)(
+        dk.decode_lattice_batch, arrays, E, state, cost)
+    for n in range(N):
+        one = [np.ascontiguousarray(a[:, n * A:(n + 1) * A])
+               for a in arrays[:4]]
+        cost_n = torch.full((1, 128), 1e30, device=cuda)
+        cost_n[0, :K] = cost[n * K:(n + 1) * K, 0]
+        single = dk.decode_lattice(
+            *weights, *(torch.from_numpy(a).to(cuda)
+                        for a in one[:3] + [one[3][..., 0].copy()]),
+            state[n * K:(n + 1) * K].contiguous(), cost_n, lm_weight=0.5,
+            v_real=v_real, n_real=E,
+            alt_steps=torch.from_numpy(arrays[4][:, 0].copy()).to(cuda))
+        assert torch.equal(single[0][1:].reshape(E, 3, K),
+                           rec[:, :, n * K:(n + 1) * K])
+        assert torch.equal(single[1], stateF[n * K:(n + 1) * K])
+        assert torch.equal(single[2][0, :K], costF[n * K:(n + 1) * K, 0])
+
+
+@pytest.mark.parametrize('N, K', [(1, 8), (33, 16), (200, 32)])
+def test_walk_kernel_matches_plain(cuda, N, K):
+    """The walk kernel over two chained blocks of random records (more
+    documents than one block of threads at N=200) equals its plain
+    version exactly."""
+    from ocrd_keraslm_torch.ops import decode_kernel as dk
+    rng = np.random.default_rng([N, K])
+    k = k_ref = torch.from_numpy(rng.integers(0, K, N).astype(np.int32)) \
+        .to(cuda)
+    for E in (40, 17):
+        rec = np.zeros((E, 3, N * K), np.float32)
+        rec[:, 0] = rng.integers(0, K, (E, N * K))
+        rec[:, 1] = rng.integers(0, 4, (E, N * K))
+        rec[:, 2] = rng.normal(0, 10, (E, N * K))
+        rec = torch.from_numpy(rec).to(cuda)
+        before = dk.walk_records_batch.launches
+        k, walk = dk.walk_records_batch(rec, k, n_docs=N, beam=K)
+        k_ref, walk_ref = dk.walk_records_batch_ref(rec, k_ref, n_docs=N,
+                                                    beam=K)
+        torch.cuda.synchronize()
+        assert dk.walk_records_batch.launches == before + 1
+        assert torch.equal(k, k_ref) and torch.equal(walk, walk_ref)
+
+
+def test_rate_best_batch_launches_and_matches_single_and_cpu(cuda, tmp_path):
+    """``Rater.rate_best_batch`` of seeded glyph pages (one alone, three
+    joined with ``concat_graphs``) on the card: one batched launch and
+    one walk launch per block of edges (16-edge blocks forced), paths
+    equal to each document's own ``rate_best_device`` decode (same merge
+    choice) and to the CPU's batch."""
+    from ocrd_keraslm_torch.ops import decode_kernel as dk
+    rater = german_rater(cuda)
+    build_workspace(str(tmp_path), np.random.default_rng(3), 4, 2,
+                    rater.vocab, alt_share=0.3)
+    pages = workspace_graphs(str(tmp_path))
+    docs = [pages[0], rater.concat_graphs(pages[1:])]
+    rater.fused_batch_E_blk = 16
+    b0, w0 = dk.decode_lattice_batch.launches, dk.walk_records_batch.launches
+    got = rater.rate_best_batch(docs)
+    rater.fused_batch_E_blk = None
+    n_blocks = -(-max(len(p) for p, _ in got) // 16)
+    assert dk.decode_lattice_batch.launches - b0 == n_blocks
+    assert dk.walk_records_batch.launches - w0 == n_blocks
+    rater.merge_runs = False   # glyph pages: the batch's unmerged prep
+    same_results(got, [rater.rate_best_device(g, 0, 0)[:2] for g in docs])
+    rater.merge_runs = True
+    same_results(got, german_rater('cpu').rate_best_batch(docs),
+                 cost_ulps=2)
+
+
+def test_cuda_batch_never_takes_the_plain_versions(cuda, tmp_path,
+                                                   monkeypatch):
+    from ocrd_keraslm_torch.ops import decode_kernel as dk
+    monkeypatch.setattr(dk, 'decode_lattice_batch_ref', None)
+    monkeypatch.setattr(dk, 'walk_records_batch_ref', None)
+    rater = german_rater(cuda)
+    build_workspace(str(tmp_path), np.random.default_rng(4), 2, 1,
+                    rater.vocab)
+    b0 = dk.decode_lattice_batch.launches
+    assert all(path for path, _ in
+               rater.rate_best_batch(workspace_graphs(str(tmp_path))))
+    assert dk.decode_lattice_batch.launches == b0 + 1

@@ -47,6 +47,15 @@ def test_the_generation_slice_is_among_the_checked_modules():
             'ocrd_keraslm_torch.host_beam'} <= set(_modules())
 
 
+def test_the_decode_slices_are_among_the_checked_modules():
+    """The single-document and the batched decode (``decode_lattice``,
+    ``decode_lattice_batch``, ``walk_records_batch`` and
+    ``Rater.rate_best_batch``) live in checked modules."""
+    assert {'ocrd_keraslm_torch.ops.decode_kernel',
+            'ocrd_keraslm_torch.ops._build',
+            'ocrd_keraslm_torch.rater'} <= set(_modules())
+
+
 def test_importing_every_module_loads_no_jax_h5py_or_lxml():
     code = ('import importlib, sys\n'
             'for m in %r: importlib.import_module(m)\n'
