@@ -87,6 +87,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -606,8 +607,10 @@ NO_LAUNCHES = {name: 0 for name in KERNELS}
 # device kernels by name, for the profiler's sums: an activity counts for
 # the first name it contains, so the batched decode comes before
 # decode_lattice (lstm_bwd launches three: the recurrence, the dU partial
-# products and their sum)
-DEVICE_KERNELS = KERNELS[6:] + KERNELS[:6] + ('lstm_du',)
+# products and their sum; score_scan three: the recurrence, the tied
+# softmax and the NLL sums)
+DEVICE_KERNELS = KERNELS[6:] + KERNELS[:6] + ('lstm_du', 'score_softmax',
+                                              'score_nll')
 
 
 def profile_main_path(directory, scoring=False):
@@ -734,9 +737,9 @@ def german_rater(device):
 
 
 def score_inputs(rng, case, device, rater=None):
-    """``score_scan``'s arguments for a named case: ``d1w32``,
-    ``d2w32b9``, ``d3w32`` (seeded weights of depth 1-3, W=32, V=40
-    padded to 128, B=5 or 9, T=100) or ``german_b1``, ``german_b4``,
+    """``score_scan``'s arguments for a named case: ``d<D>w<W>[b<B>][t<T>]``
+    (seeded weights of depth D, width W, V=40 padded to 128, B streams
+    (default 5), T steps (default 100); e.g. ``d2w32b9``) or ``german_b1``, ``german_b4``,
     ``german_d1`` (``model_german.h5``'s weights, its layer 0 alone for
     ``d1``, B=1 or 4, one 4096-step chunk, the layer-0 projection of
     seeded chars under context 179); a seeded nonzero carry, targets
@@ -759,8 +762,9 @@ def score_inputs(rng, case, device, rater=None):
         xp1 = (embed_inputs(params, x, [t(np.full((B,), 179))])
                @ lp0['kernel'] + lp0['bias']).contiguous()
     else:
-        D, W, v_real = int(case[1]), 32, 40
-        B, T = (9 if case.endswith('b9') else 5), 100
+        D, W, B, T = re.fullmatch(r'd(\d+)w(\d+)(?:b(\d+))?(?:t(\d+))?',
+                                  case).groups()
+        D, W, B, T, v_real = int(D), int(W), int(B or 5), int(T or 100), 40
         Dw = max(D - 1, 1)
         embT = np.zeros((W, 128), np.float32)
         embT[:, :v_real] = rng.normal(0, 1, (W, v_real))
@@ -1081,6 +1085,88 @@ def decode_digests(rater, dev):
     return out
 
 
+# sha256 of the LSTM recurrences' outputs in score_digests and
+# lstm_digests, as the kernels of commit cdb1b2b gave them (one block of
+# <= 8 streams, weights read from L2 at every step; NVIDIA H100 80GB
+# HBM3): the cluster layouts that replaced them keep every bit
+SCORE_DIGESTS = {
+    'german_b1':
+        '9cbc5fab9f8b3b3d87318becb29d1380f863176f6a8abc3c012574d4934155d7',
+    'german_b4':
+        '7594335507890e684692e9678c20a70f1e213063af7f0bb0b6edb10db794c91e',
+    'german_d1':
+        '41b5a2f9f4cef39abf2b214c8a27da385aa76a8ee055b8fc8e3c654a1f8411f8'}
+LSTM_DIGESTS = {
+    'lstm_scan b4t4096 f32 c_all off':
+        '20d0d6ff185e0cf72c516b406d8e772e3f46772436a3c65f2fc142cf2b6250ba',
+    'lstm_scan b4t4096 f32 c_all on':
+        '13b2fb7768665f079af33fd75c0d5cf365f9fc5afdb4795ac6e7177f56a54d72',
+    'lstm_scan b4t4096 bf16 c_all off':
+        '04b46b66c297777f672e0e75da81765ea23e8b60b00dcba85369de46ddeeb6a1',
+    'lstm_scan b4t4096 bf16 c_all on':
+        'a704c4622f2caf2dd51bc5ce6e24543c7fa5501fe39c4f6d13770a1d7dcd762c',
+    'lstm_scan train f32 c_all off':
+        '8b0f61f4f89120c820572eb7c064b486deeab30c021bc853f4ce4f7cf14a3a0e',
+    'lstm_scan train f32 c_all on':
+        'f5515055227a98781d67568840b0bfa5b73c916c381e25f47cafcc29c29da1f7',
+    'lstm_bwd f32':
+        'a9ed409b4b25669808a4904680443fd5dcd8e4638208e7258f7e4a89d7de65b1',
+    'lstm_scan train bf16 c_all off':
+        '2692185cfa2898d5228d957ec024a0766c4ed4cb69d1397ad86ede6dc24dc4b2',
+    'lstm_scan train bf16 c_all on':
+        '158e2799ae494e042173a14df6d3e03eb05aecd4487093596677c4ec9b906014',
+    'lstm_bwd bf16':
+        '905b90bc23bd5e00c9dd6f1946408969ba3e3f3b99b727de2cd2f773049f61d8'}
+
+
+def _digest(tensors):
+    import hashlib
+    digest = hashlib.sha256()
+    for x in tensors:
+        if x is not None:
+            digest.update(x.contiguous().cpu().numpy().tobytes())
+    return digest.hexdigest()
+
+
+def score_digests(rater, dev):
+    """{case: sha256 of ``score_scan``'s probs, NLL sums and carry} for
+    the three full-width cases of :func:`score_inputs`, each from its
+    own seed."""
+    from ocrd_keraslm_torch.ops import score_kernel as sk
+    out = {}
+    for i, case in enumerate(('german_b1', 'german_b4', 'german_d1')):
+        args = score_inputs(np.random.default_rng(20261101 + i), case, dev,
+                            rater)
+        probs, nll, (hT, cT) = sk.score_scan(*args)
+        out[case] = _digest((probs, nll, hT, cT))
+    return out
+
+
+def lstm_digests(dev):
+    """{name: sha256} of ``lstm_scan``'s outputs (f32 and bf16 U,
+    ``c_all`` on and off, at B=4/T=4096 and at the training shape) and of
+    ``lstm_bwd``'s (f32 and bf16 U, training shape, from the forward's
+    saved states), each from its own seed."""
+    from ocrd_keraslm_torch.ops import lstm_cell as lc
+    out = {}
+    for shape, (B, T) in (('b4t4096', (4, 4096)),
+                          ('train', (TRAIN_B, TRAIN_T))):
+        for bf16 in (False, True):
+            kind = 'bf16' if bf16 else 'f32'
+            rng = np.random.default_rng([20261102, B, T, int(bf16)])
+            fwd, cot = lstm_train_inputs(rng, dev, bf16, B=B, T=T,
+                                         W=TRAIN_W)
+            for want_c_all in (False, True):
+                got = lc.lstm_scan(*fwd, want_c_all=want_c_all)
+                out['lstm_scan %s %s c_all %s' % (
+                    shape, kind, 'on' if want_c_all else 'off')] = \
+                    _digest(got)
+            if shape == 'train':
+                out['lstm_bwd %s' % kind] = _digest(lc.lstm_bwd(
+                    *lstm_bwd_args(fwd, cot, got[:2])))
+    return out
+
+
 BATCH_PARITY_N, BATCH_PARITY_E = 8, 64
 
 
@@ -1334,6 +1420,79 @@ def decode_path(rater, work):
                 traced_wall=traced_wall, busy=busy, workspace=big)
 
 
+@contextlib.contextmanager
+def scoring_split():
+    """Host seconds of the scoring processor's parts, summed into the
+    yielded dict while the block runs (host clocks around the port's own
+    calls, which stay as they are): ``model load`` (``KerasRate.setup``),
+    ``PAGE parse and lattice`` (``parse_page_fast``/``parse_page`` and
+    ``page_get_linear_lattice_at``), ``prep and upload`` (the outermost
+    ``Rater._score_batch`` up to its ``_score_stream`` call: ids,
+    contexts, padding, host-to-device copies), ``kernel`` (``_score_stream``
+    between two synchronisations: the layer-0 projection and the
+    ``score_scan`` launches), ``fetch`` (the rest of ``_score_batch``:
+    device-to-host copies, per-text slices) and ``write-back``
+    (``_apply_confidences`` and ``_write_page``)."""
+    import torch
+    from ocrd_keraslm_torch import rater as rmod
+    from ocrd_keraslm_torch.wrapper import rate as wmod
+    secs = dict.fromkeys(('model load', 'PAGE parse and lattice',
+                          'prep and upload', 'kernel', 'fetch',
+                          'write-back'), 0.0)
+    marks = {'depth': 0}
+    saved = []
+
+    def wrap(obj, name, key, sync=False):
+        fn = getattr(obj, name)
+
+        def timed(*args, **kwargs):
+            if sync:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                if sync:
+                    torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                secs[key] += t1 - t0
+                if sync:
+                    marks.setdefault('stream', t0)
+                    marks['stream_end'] = t1
+        saved.append((obj, name, fn))
+        setattr(obj, name, timed)
+
+    def score_batch(fn):
+        def timed(*args, **kwargs):
+            marks['depth'] += 1
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                marks['depth'] -= 1
+                if not marks['depth']:
+                    t1 = time.perf_counter()
+                    start = marks.pop('stream', t1)
+                    secs['prep and upload'] += start - t0
+                    secs['fetch'] += t1 - marks.pop('stream_end', t1)
+        return timed
+
+    wrap(wmod.KerasRate, 'setup', 'model load')
+    for name in ('parse_page_fast', 'parse_page',
+                 'page_get_linear_lattice_at'):
+        wrap(wmod, name, 'PAGE parse and lattice')
+    wrap(wmod.KerasRate, '_apply_confidences', 'write-back')
+    wrap(wmod.KerasRate, '_write_page', 'write-back')
+    wrap(rmod, '_score_stream', 'kernel', sync=True)
+    saved.append((rmod.Rater, '_score_batch', rmod.Rater._score_batch))
+    rmod.Rater._score_batch = score_batch(rmod.Rater._score_batch)
+    try:
+        yield secs
+    finally:
+        for obj, name, fn in reversed(saved):
+            setattr(obj, name, fn)
+
+
 def scoring_path(rater, work):
     """Phase 5; returns the path's numbers."""
     from click.testing import CliRunner
@@ -1423,10 +1582,19 @@ def scoring_path(rater, work):
           % (sum(os.path.getsize(os.path.join(corpus, f))
                  for f in os.listdir(corpus)), t_g, t_c, len(sentence),
              a_g, a_c, r_diff, c_g))
+    split_ws = os.path.join(work, 'ws_score_split')
+    build_workspace(split_ws, np.random.default_rng(7), 4, 40, rater.vocab)
+    with scoring_split() as split:
+        t0 = time.time()
+        run_cli(split_ws, 'cuda', scoring=True)
+        split_wall = time.time() - t0
+    split['other (CLI, METS, setup outside the model)'] = \
+        split_wall - sum(split.values())
     traced = os.path.join(work, 'ws_score_traced')
     build_workspace(traced, np.random.default_rng(7), 4, 40, rater.vocab)
     traced_wall, busy = profile_main_path(traced, scoring=True)
-    return dict(wall=wall, n_chars=n_chars, texts=texts,
+    return dict(wall=wall, n_chars=n_chars, texts=texts, split=split,
+                split_wall=split_wall,
                 launches=counts['score_scan'],
                 lstm_launches=layered_counts['lstm_scan'],
                 traced_wall=traced_wall, busy=busy)
@@ -1733,6 +1901,22 @@ def decode_numbers(rater, decode, card):
                         nbytes, 100 * bound_ms / ms2))
     return dict(ms=ms2, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=None)
+
+
+def scan_layouts(kind, B, W, D):
+    """Every layout the chooser could return for the shape, as
+    ``(rb, cl, reg)``: the one-block layout, and the register layout on
+    clusters of 1-16 blocks of rows_per_block(B) streams down to one
+    where it fits."""
+    from ocrd_keraslm_torch.ops import scan_layout as sl
+    out = [(sl.rows_per_block(B), 1, False)]
+    for cl in sl.CLUSTERS:
+        rb = sl.rows_per_block(B)
+        while rb >= 1:
+            if sl.reg_layout_for(kind, W, D, rb, cl) is not None:
+                out.append((rb, cl, True))
+            rb //= 2
+    return out
 
 
 def scoring_numbers(rater, scoring, card):
@@ -2341,6 +2525,38 @@ def cluster_size(blocks):
         gk.cluster_blocks = choose
 
 
+@contextlib.contextmanager
+def scan_layout(rb=None, cl=1, reg=True):
+    """``lstm_scan`` and ``score_scan`` launch the register layout on
+    clusters of ``cl`` blocks of ``rb`` streams (default: as many as the
+    chooser would put in one cluster), or with ``reg`` false the
+    one-block layout, inside the block, whatever the card's occupancy
+    would choose.  The wrappers' cached layouts are dropped on entry and
+    on exit."""
+    from ocrd_keraslm_torch.ops import lstm_cell as lc
+    from ocrd_keraslm_torch.ops import scan_layout as sl
+    from ocrd_keraslm_torch.ops import score_kernel as sk
+    choose = sl.choose
+
+    def forced(kind, B, W, D, fits, n_sm, bf16=False, Vp=0):
+        if not reg:
+            return sl.one_block_layout(kind, B, W, D, bf16, Vp)
+        lay = sl.reg_layout_for(kind, W, D, rb or sl.rows_per_block(B), cl)
+        assert lay is not None, (kind, B, W, D, rb, cl)
+        return lay
+
+    def clear():
+        lc._layout.cache_clear()
+        sk._layout.cache_clear()
+    sl.choose = forced
+    clear()
+    try:
+        yield
+    finally:
+        sl.choose = choose
+        clear()
+
+
 def gen_parity_phase(rater):
     """Phase 3, the two generation kernels at full width; returns the
     beam step's max abs cost error."""
@@ -2555,18 +2771,25 @@ def main() -> int:
                   4, L, 16, D, W, wts['v_pad']), L,
                  dk._batch_library().decode_lattice_batch_smem_bytes(
                      4, L, 16, D, W, wts['v_pad'])))
-    print('shared memory score_scan: %d bytes dynamic per block at B=4, '
-          'D=%d, W=%d, Vp=%d; lstm_scan: %d bytes at B=4, W=%d (one block '
-          'of 512 threads per <= 8 streams)'
-          % (sk._library().score_scan_smem_bytes(4, D, W, wts['v_pad']), D,
-             W, wts['v_pad'], lc._library().lstm_scan_smem_bytes(4, W, 0), W))
-    print('shared memory at the training shape (B=%d, W=%d, 8 streams a '
-          'block): lstm_scan %d bytes with an f32 U, %d with a bf16 U (the '
-          'rounded h beside h, c and z); lstm_bwd %d bytes; its dU product '
-          'splits the %d rows %d ways'
+    for what, lay in (
+            ('score_scan at B=4 (the scoring chunk)',
+             sk.scan_layout_on(dev, 4, W, D, wts['v_pad'])),
+            ('lstm_scan at B=4 (the layered scoring chunk)',
+             lc.scan_layout_on(dev, 4, W, False)),
+            ('lstm_scan at the training shape, f32 U',
+             lc.scan_layout_on(dev, TRAIN_B, TRAIN_W, False)),
+            ('lstm_scan at the training shape, bf16 U',
+             lc.scan_layout_on(dev, TRAIN_B, TRAIN_W, True))):
+        print('layout %s: %s; %d bytes of shared memory a block'
+              % (what, 'the register layout on clusters of %d blocks of '
+                 '512 threads, %d streams a cluster, %d a thread chain'
+                 % (lay.cl, lay.rb, lay.rt) if lay.reg else
+                 'the one-block layout, %d streams a block' % lay.rb,
+                 lay.smem))
+    print('shared memory lstm_bwd at the training shape (B=%d, W=%d, 8 '
+          'streams a block): %d bytes; its dU product splits the %d rows '
+          '%d ways'
           % (TRAIN_B, TRAIN_W,
-             lc._library().lstm_scan_smem_bytes(TRAIN_B, TRAIN_W, 0),
-             lc._library().lstm_scan_smem_bytes(TRAIN_B, TRAIN_W, 1),
              lc._bwd_library().lstm_bwd_smem_bytes(TRAIN_B, TRAIN_W),
              TRAIN_B * TRAIN_T,
              lc._bwd_library().lstm_bwd_splits(TRAIN_B, TRAIN_T)))
@@ -2589,6 +2812,20 @@ def main() -> int:
           'before the device code moved into decode_common.cuh: %s'
           % (digests, DECODE_DIGESTS))
     assert digests == DECODE_DIGESTS, 'decode_lattice outputs changed'
+    t0 = time.time()
+    score_dig, lstm_dig = score_digests(rater, dev), lstm_digests(dev)
+    for name, got, want in (('score_scan', score_dig, SCORE_DIGESTS),
+                            ('lstm_scan and lstm_bwd', lstm_dig,
+                             LSTM_DIGESTS)):
+        bad = sorted(k for k in set(got) | set(want)
+                     if got.get(k) != want.get(k))
+        print('%s output digests (sha256 of every output, %d seeded '
+              'full-width cases): %s equal to those of the kernels of '
+              'commit cdb1b2b%s' % (name, len(want),
+                                    'all' if not bad else 'NOT all',
+                                    ': differ in %s' % bad if bad else ''))
+        assert not bad, (name, 'outputs changed', bad)
+    print('digests in %.1f s' % (time.time() - t0))
     decode_err = decode_parity(rater, dev)
     batch_err, batch_times = batch_parity(rater, dev)
     score_err, lstm_err = score_parity(rater, dev)
@@ -2619,6 +2856,13 @@ def main() -> int:
                  scoring['n_chars'] / scoring['wall'], card))
         print_profile('scoring path', scoring['traced_wall'],
                       scoring['busy'], card)
+        print('scoring path wall split (host clocks around the port\'s '
+              'calls, one more processor run over the same 4 pages): %.3f '
+              's = %s [%s]'
+              % (scoring['split_wall'], ', '.join(
+                  '%s %.4f s (%.1f%%)' % (k, v, 100 * v / scoring[
+                      'split_wall']) for k, v in scoring['split'].items()),
+                 card))
         print('training path wall: %.3f s for the CLI call (2 epochs: %d '
               'steps, %d validation steps, split, vocabulary, checkpoints '
               'and model write included); the trainer\'s own chars/s per '

@@ -1,7 +1,8 @@
 // Arithmetic shared by the LSTM recurrences of score_scan.cu,
 // lstm_scan.cu and lstm_bwd.cu: the blocked dot product of one gate
-// column (f32 or bf16 weights), one unit's gate update, and how many
-// streams a block takes.
+// column (f32 or bf16 weights; the register layout of scan_common.cuh
+// splits it over lanes, in the same order), one unit's gate update, and
+// how many streams a block takes.
 //
 // Accuracy rule: each dot product is summed in blocks of KCH terms (as
 // in decode_lattice.cu).  One chain of W FMAs drifts from the plain
@@ -81,20 +82,26 @@ __device__ __forceinline__ void dot_col(const float* __restrict__ x, int W,
   dot_cols<RB, float>(x, W, W, w, ncols, j, tot);
 }
 
-// Unit u's new (h, c) from its row's gate pre-activations zr (blocks i,
-// f, g, o of W each: sigmoid, sigmoid, tanh, sigmoid) and its old c.
+// A unit's new (h, c) from its gate pre-activations zi, zf, zg, zo
+// (sigmoid, sigmoid, tanh, sigmoid) and its old c; lstm_unit reads them
+// from a row zr of blocks i, f, g, o of W each.
 // c = f*c + i*g rounds each product and the sum, as the plain version
 // does: left to the compiler, the contraction into an FMA depends on
 // the surrounding code, and over a 4096-step chunk, where |c| reaches
 // ~3.6e3, the choice moves c's drift from a float64 run by a factor 2-3.
-__device__ __forceinline__ float2 lstm_unit(const float* zr, int W, int u,
-                                            float c) {
-  const float ig = sigm(zr[u]);
-  const float fg = sigm(zr[W + u]);
-  const float gg = tanhf(zr[2 * W + u]);
-  const float og = sigm(zr[3 * W + u]);
+__device__ __forceinline__ float2 lstm_gate(float zi, float zf, float zg,
+                                            float zo, float c) {
+  const float ig = sigm(zi);
+  const float fg = sigm(zf);
+  const float gg = tanhf(zg);
+  const float og = sigm(zo);
   const float c2 = __fadd_rn(__fmul_rn(fg, c), __fmul_rn(ig, gg));
   return make_float2(__fmul_rn(og, tanhf(c2)), c2);
+}
+
+__device__ __forceinline__ float2 lstm_unit(const float* zr, int W, int u,
+                                            float c) {
+  return lstm_gate(zr[u], zr[W + u], zr[2 * W + u], zr[3 * W + u], c);
 }
 
 // streams per block: the power of two >= B, at most RBMAX

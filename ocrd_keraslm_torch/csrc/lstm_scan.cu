@@ -10,41 +10,60 @@
 // are f32 either way.  Writes h_all and (when asked) c_all time-major
 // (T, B, W), and the final (hT, cT).
 //
-// What bounds it on this card: the recurrence and the weight stream.
-// Step t+1 needs step t's h, so a stream's T steps run in order; the
-// only parallelism in a step is across the 4W gate columns and the
-// streams.  An f32 U is W x 4W x 4 bytes (256 KiB at W=128), more than
-// a block's 227 KiB of shared memory, so it is read again from L2 at
-// every step: at a few streams a block spends most of a step waiting on
-// those reads, at 8 streams on each column's chain of W FMAs, not on
-// its 2*W*4W FLOPs per stream.  The bound of the
-// whole call (each input read once, each output written once, or the
-// FLOPs at the card's f32 peak) is far below what one block per few
-// streams can reach; the kernel is latency-bound by design in this
-// first version.
+// What bounds it on this card: the recurrence.  Step t+1 needs step t's
+// h, so a stream's T steps run in order, and a step's 2*W*4W FLOPs per
+// stream are far too few for the card: the time of a step is the
+// latency of its dependent chain (weights to the FMAs, the gate update,
+// h to every column's next product), not bytes or operations.  The
+// one-block layout (lstm_scan_kernel, one block per <= 8 streams) reads
+// U (256 KiB in f32 at W=128, more than a block's shared memory) from L2
+// at every step and runs each column's W FMAs on one thread, on one SM
+// per group.
 //
-// What the design does about it:
-//  * a loop over T inside the block replaces the TPU's sequential grid;
-//    streams are independent, so each block takes RB <= 8 of them and
-//    the grid covers B;
-//  * each thread owns one gate column of U and keeps RB accumulators in
-//    registers, so one weight read feeds RB FMAs; h and c live in
-//    shared memory, read as broadcast float4s;
-//  * a bf16 U takes the same path as an f32 one, read from L2 at every
-//    step at half the bytes; the product stays on the CUDA cores (bf16
-//    values promoted to f32: exact products, f32 sums) and reads h
-//    rounded to bf16, kept in a fourth shared row beside h, c and z;
-//  * each dot product is summed in blocks of 32 terms (lstm_common.cuh,
-//    shared with score_scan.cu and lstm_bwd.cu): one chain of W FMAs
-//    drifts from the plain version over thousands of steps.
-// All arithmetic is f32 on CUDA cores: no TF32, no tensor cores.
+// What the design does about it (scan_common.cuh; layout chosen by
+// ops/scan_layout.py from the shape and the card's cluster occupancy):
+//  * the register layout (lstm_scan_reg_kernel, where a column has 2, 4
+//    or 8 blocks of 32 terms): a thread-block cluster of CL blocks per
+//    group of RB streams splits the gate columns (block k owns W/CL
+//    units and their four gate columns, so the gate update stays in the
+//    block); each lane keeps the 32 weights of one 32-term block of two
+//    gate columns in registers for the whole scan, so no weight is read
+//    again and one load of h feeds two FMAs; the blocks' partial sums
+//    are added in block order by warp shuffles; lane j of a unit's group
+//    runs row j's gate update with c, h and x_proj in its registers; the
+//    new h goes into every block of the cluster by st.async, each store
+//    completing on the receiving block's mbarrier, and a block waits
+//    only for the step's rows to arrive: no block or cluster barrier in
+//    the T loop;
+//  * every other width, and a launch whose clusters the card cannot
+//    hold at once, runs the one-block kernel of the first port,
+//    unchanged;
+//  * h_all and c_all are written by the lane that owns each unit; under
+//    a bf16 U the rows exchanged hold h rounded to bf16.
+// Both layouts give dot_cols' sums in its order, so every output keeps
+// the first port's bits.  All arithmetic is f32 on CUDA cores: no TF32,
+// no tensor cores.
 
-#include "lstm_common.cuh"
+#include "scan_common.cuh"
 
-#define NT 512  // threads per block
+struct LstmArgs {
+  const float* xp;  // (B, T, 4W)
+  const float* h0;  // (B, W)
+  const float* c0;  // (B, W)
+  const void* U;    // (W, 4W) f32 or bf16
+  float* h_all;     // (T, B, W)
+  float* c_all;     // (T, B, W) or null
+  float* hT;        // (B, W)
+  float* cT;        // (B, W)
+  int B, T, W, rb;
+};
 
+// The one-block layout: each thread owns one gate column of U and keeps
+// RB accumulators in registers, so one weight read (from L2) feeds RB
+// FMAs; h and c (and, under a bf16 U, h rounded to bf16) live in shared
+// memory, read as broadcast float4s.
 template <int RB, typename WT>
-__global__ void __launch_bounds__(NT, 1)
+__global__ void __launch_bounds__(SCAN_NT, 1)
     lstm_scan_kernel(const float* __restrict__ xp, const float* h0,
                      const float* c0, const WT* __restrict__ U, float* h_all,
                      float* c_all, float* hT, float* cT, int B, int T,
@@ -58,7 +77,7 @@ __global__ void __launch_bounds__(NT, 1)
   float* hq = is_bf16<WT>::value ? z + RB * G : h;
   const int s0 = blockIdx.x * RB;
   const int nr = min(RB, B - s0);
-  for (int i = tid; i < RB * W; i += NT) {
+  for (int i = tid; i < RB * W; i += SCAN_NT) {
     const int r = i / W;
     const float hv = r < nr ? h0[(size_t)s0 * W + i] : 0.0f;
     h[i] = hv;
@@ -68,7 +87,7 @@ __global__ void __launch_bounds__(NT, 1)
   }
   __syncthreads();
   for (int t = 0; t < T; ++t) {
-    for (int j = tid; j < G; j += NT) {
+    for (int j = tid; j < G; j += SCAN_NT) {
       float tot[RB];
 #pragma unroll
       for (int r = 0; r < RB; ++r) tot[r] = 0.0f;
@@ -79,7 +98,7 @@ __global__ void __launch_bounds__(NT, 1)
           z[r * G + j] = xp[((size_t)(s0 + r) * T + t) * G + j] + tot[r];
     }
     __syncthreads();
-    for (int i = tid; i < nr * W; i += NT) {
+    for (int i = tid; i < nr * W; i += SCAN_NT) {
       const int r = i / W, u = i - r * W;
       const float2 hc = lstm_unit(z + r * G, W, u, c[i]);
       h[i] = hc.x;
@@ -92,47 +111,170 @@ __global__ void __launch_bounds__(NT, 1)
     }
     __syncthreads();
   }
-  for (int i = tid; i < nr * W; i += NT) {
+  for (int i = tid; i < nr * W; i += SCAN_NT) {
     hT[(size_t)s0 * W + i] = h[i];
     cT[(size_t)s0 * W + i] = c[i];
   }
 }
 
-// bytes of the rows (h, c, z and, under a bf16 U, the rounded h)
-extern "C" size_t lstm_scan_smem_bytes(int B, int W, int u_bf16) {
-  return (size_t)rows_per_block(B) * (2 * W + 4 * W + (u_bf16 ? W : 0)) *
-         sizeof(float);
+// gate columns a lane of the register layout holds: two, so that one
+// load of h feeds two FMAs (64 weights in registers)
+#define GPL 2
+
+// The register layout (scan_common.cuh): U's 32 weights of a column
+// block, of two gate columns of a unit, in each thread's registers; rows
+// (2, rb, WP) padded in shared memory and their two mbarriers are all the
+// block holds.  Lane j < RT
+// of a unit's group runs the gate update of row j (c, h and the row's
+// x_proj in its registers); the group's lanes send the new h into every
+// block (st.async), and each block waits for the step's rows on its own
+// mbarrier: no cluster barrier in the T loop.
+template <int NKB, int RT, typename WT>
+__global__ void __launch_bounds__(SCAN_NT, 1)
+    lstm_scan_reg_kernel(LstmArgs p) {
+  extern __shared__ float4 smem4[];
+  float* hb = reinterpret_cast<float*>(smem4);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int CL = (int)cluster.num_blocks();
+  const Geo g = make_geo(p.W, CL, (int)cluster.block_rank());
+  const int W = p.W, B = p.B, T = p.T, RB = p.rb, WP = padded_width(W);
+  const int s0 = (int)(blockIdx.x / CL) * RB, nr = min(RB, B - s0);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(hb + 2 * RB * WP);
+  const RegRole ro = reg_role<NKB, GPL>(
+      g, RB / RT, reg_group_threads(W, RB, CL, RT, GPL));
+  const bool q = is_bf16<WT>::value;
+  // this lane's row in the gate update, and whether it has one
+  const int row = ro.rg * RT + ro.q;
+  const bool mine = ro.lg == 0 && ro.valid && ro.q < RT && row < nr;
+  const size_t xrow = (size_t)(s0 + row) * T * g.G + ro.u;
+  PHASE_INIT
+
+  float wr[GPL * KCH], c = 0.0f, hf = 0.0f, xc[4], xn[4];
+  if (ro.lg == 0)
+    load_wreg<GPL, WT>(wr, static_cast<const WT*>(p.U), g, ro);
+  if (mine) {
+    c = p.c0[(size_t)(s0 + row) * W + ro.u];
+    hf = p.h0[(size_t)(s0 + row) * W + ro.u];
+  }
+#pragma unroll
+  for (int gate = 0; gate < 4; ++gate) {  // x_proj of steps 0 and 1
+    xc[gate] = mine && T > 0 ? p.xp[xrow + gate * W] : 0.0f;
+    xn[gate] = mine && T > 1 ? p.xp[xrow + g.G + gate * W] : 0.0f;
+  }
+  reg_fill_rows(hb, p.h0, s0, nr, RB, W, WP, q);
+  if (threadIdx.x == 0) {
+    mbar_init(bar);
+    mbar_init(bar + 1);
+    mbar_init_fence();
+  }
+  cluster.sync();  // every block of the cluster runs and holds its rows
+
+  if (ro.lg == 0)
+    for (int t = 0; t < T; ++t) {
+      const int nxt = (t + 1) & 1;
+      if (threadIdx.x == 0) mbar_expect(bar + nxt, 4u * nr * W);
+      float acc[GPL * RT];
+      reg_chain<RT, GPL>(hb + ((t & 1) * RB + ro.rg * RT) * WP, WP, ro.kb,
+                         W, wr, acc);
+      PHASE(1)
+      kb_sum<NKB, GPL * RT, 4 / GPL * NKB>(acc);
+      const float h = reg_gate<NKB, RT, GPL>(acc, xc, c, hf, q, ro.q);
+      PHASE(2)
+      reg_send<NKB, RT, GPL>(h, hb + nxt * RB * WP, bar + nxt, WP, ro, nr,
+                             CL);
+      if (mine) {
+        const size_t o = ((size_t)t * B + s0 + row) * W + ro.u;
+        p.h_all[o] = hf;
+        if (p.c_all != nullptr) p.c_all[o] = c;
+#pragma unroll
+        for (int gate = 0; gate < 4; ++gate) {  // x_proj of step t+2
+          xc[gate] = xn[gate];
+          xn[gate] = t + 2 < T ? __ldg(p.xp + xrow + (size_t)(t + 2) * g.G +
+                                       gate * W)
+                               : 0.0f;
+        }
+      }
+      PHASE(3)
+      mbar_wait(bar + nxt, (t >> 1) & 1);  // every block's h of step t
+      PHASE(4)
+    }
+  if (mine) {
+    p.hT[(size_t)(s0 + row) * W + ro.u] = hf;
+    p.cT[(size_t)(s0 + row) * W + ro.u] = c;
+  }
+  PHASE_FLUSH
+  cluster.sync();  // no block leaves while another may still write to it
 }
 
-template <int RB, typename WT>
-static int launch(const float* xp, const float* h0, const float* c0,
-                  const WT* U, float* h_all, float* c_all, float* hT,
-                  float* cT, int B, int T, int W, cudaStream_t stream) {
-  const size_t smem = lstm_scan_smem_bytes(B, W, is_bf16<WT>::value);
-  cudaError_t err = cudaFuncSetAttribute(
-      lstm_scan_kernel<RB, WT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int grid = (B + RB - 1) / RB;
-  lstm_scan_kernel<RB, WT><<<grid, NT, smem, stream>>>(
-      xp, h0, c0, U, h_all, c_all, hT, cT, B, T, W);
-  return (int)cudaGetLastError();
+// bytes of dynamic shared memory a block of the layout asks: the
+// register layout's padded rows (2, rb, WP) and two mbarriers, or the
+// one-block layout's rows (h, c, z and, under a bf16 U, the rounded h)
+static size_t lstm_scan_smem_bytes(int W, int u_bf16, int rb, int reg) {
+  if (reg) return (size_t)2 * rb * padded_width(W) * 4 + 2 * 8;
+  return (size_t)rb * (2 * W + 4 * W + (u_bf16 ? W : 0)) * sizeof(float);
 }
 
-// U points to W*4W floats, or to W*4W bf16 values when u_bf16 is set
+template <typename WT>
+static int run(const LstmArgs& a, int cl, int rt, int reg, size_t smem,
+               cudaStream_t stream, int* fits) {
+  if (!reg) {
+    return dispatch_rows(a.B, [&](auto rbc) {
+      constexpr int RB = decltype(rbc)::value;
+      cudaError_t err = cudaFuncSetAttribute(
+          lstm_scan_kernel<RB, WT>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return (int)err;
+      lstm_scan_kernel<RB, WT><<<(a.B + RB - 1) / RB, SCAN_NT, smem,
+                                 stream>>>(
+          a.xp, a.h0, a.c0, static_cast<const WT*>(a.U), a.h_all, a.c_all,
+          a.hT, a.cT, a.B, a.T, a.W);
+      return (int)cudaGetLastError();
+    });
+  }
+  const int clusters = fits ? 1 : (a.B + a.rb - 1) / a.rb;
+  return dispatch_nkb_rt((a.W + KCH - 1) / KCH, rt, [&](auto nkbc, auto rtc) {
+    constexpr int NKB = decltype(nkbc)::value, RT = decltype(rtc)::value;
+    return cluster_launch(lstm_scan_reg_kernel<NKB, RT, WT>, a, cl, clusters,
+                          smem, stream, fits);
+  });
+}
+
+// Refuses (invalid value) a layout that is not the register layout of
+// ops/scan_layout.py or the one-block layout (rows_per_block(B) streams,
+// cl 1, rt rb), or whose smem differs from lstm_scan_smem_bytes.
+static int checked_run(const LstmArgs& a, int u_bf16, int cl, int rt,
+                       int reg, size_t smem, cudaStream_t stream,
+                       int* fits) {
+  const bool ok =
+      a.B >= 1 && a.W >= 4 && a.W % 4 == 0 &&
+      (reg ? reg_layout_ok(a.W, 1, a.rb, cl, rt, GPL)
+           : !fits && a.rb == rows_per_block(a.B) && cl == 1 && rt == a.rb) &&
+      smem == lstm_scan_smem_bytes(a.W, u_bf16, a.rb, reg);
+  if (!ok) return (int)cudaErrorInvalidValue;
+  return u_bf16 ? run<__nv_bfloat16>(a, cl, rt, reg, smem, stream, fits)
+                : run<float>(a, cl, rt, reg, smem, stream, fits);
+}
+
+// How many clusters of the register layout the card holds at once (0 if
+// none).
+extern "C" int lstm_scan_max_clusters(int W, int u_bf16, int rb, int cl,
+                                      int rt, size_t smem) {
+  LstmArgs a{};
+  a.B = rb, a.W = W, a.rb = rb;
+  int fits = 0;
+  return checked_run(a, u_bf16, cl, rt, 1, smem, 0, &fits) == 0 ? fits : 0;
+}
+
+// U points to W*4W floats, or to W*4W bf16 values when u_bf16 is set;
+// (rb, cl, rt, reg) is the layout and smem its shared memory
+// (ops/scan_layout.py), which must equal lstm_scan_smem_bytes
 extern "C" int lstm_scan_launch(const float* xp, const float* h0,
                                 const float* c0, const void* U,
                                 float* h_all, float* c_all, float* hT,
                                 float* cT, int B, int T, int W, int u_bf16,
+                                int rb, int cl, int rt, int reg, size_t smem,
                                 void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  return dispatch_rows(B, [&](auto rb) {
-    constexpr int RB = decltype(rb)::value;
-    if (u_bf16)
-      return launch<RB, __nv_bfloat16>(
-          xp, h0, c0, static_cast<const __nv_bfloat16*>(U), h_all, c_all, hT,
-          cT, B, T, W, s);
-    return launch<RB, float>(xp, h0, c0, static_cast<const float*>(U), h_all,
-                             c_all, hT, cT, B, T, W, s);
-  });
+  LstmArgs a{xp, h0, c0, U, h_all, c_all, hT, cT, B, T, W, rb};
+  return checked_run(a, u_bf16, cl, rt, reg, smem, (cudaStream_t)stream,
+                     nullptr);
 }

@@ -4,7 +4,8 @@ and their plain PyTorch versions.
 Counterpart of ``ocrd_keraslm_tpu/ops/lstm_cell.py``:
 
 * :func:`lstm_scan` (``_lstm_scan_pallas_raw``) launches the
-  hand-written kernel ``csrc/lstm_scan.cu`` for CUDA tensors and runs
+  hand-written kernel ``csrc/lstm_scan.cu`` for CUDA tensors (on
+  thread-block clusters laid out by :mod:`.scan_layout`) and runs
   :func:`lstm_scan_ref`, a Python loop over :func:`lstm_gates`, for CPU
   tensors;
 * :func:`lstm_bwd` (``_lstm_bwd_pallas``) launches ``csrc/lstm_bwd.cu``
@@ -31,7 +32,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import _build
+from . import _build, scan_layout
 
 SOURCE = _build.source('lstm_scan.cu')
 BWD_SOURCE = _build.source('lstm_bwd.cu')
@@ -75,12 +76,41 @@ def recurrent_product(h: torch.Tensor, recurrent: torch.Tensor
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
-    P, I = ctypes.c_void_p, ctypes.c_int
-    lib.lstm_scan_launch.argtypes = [P] * 8 + [I] * 4 + [P]
+    P, I, S = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
+    lib.lstm_scan_launch.argtypes = [P] * 8 + [I] * 8 + [S, P]
     lib.lstm_scan_launch.restype = ctypes.c_int
-    lib.lstm_scan_smem_bytes.argtypes = [I, I, I]
-    lib.lstm_scan_smem_bytes.restype = ctypes.c_size_t
+    lib.lstm_scan_max_clusters.argtypes = [I] * 5 + [S]
+    lib.lstm_scan_max_clusters.restype = ctypes.c_int
     return lib
+
+
+def clusters_that_fit(index: int, W: int, bf16: bool,
+                      layout: scan_layout.Layout) -> int:
+    """How many clusters of the register ``layout`` card ``index`` holds
+    at once."""
+    with torch.cuda.device(index):
+        return _library().lstm_scan_max_clusters(
+            W, int(bf16), layout.rb, layout.cl, layout.rt, layout.smem)
+
+
+@functools.lru_cache(maxsize=None)
+def _layout(index: int, B: int, W: int, bf16: bool) -> scan_layout.Layout:
+    lay = scan_layout.choose(
+        'lstm', B, W, 1, lambda lay: clusters_that_fit(index, W, bf16, lay),
+        torch.cuda.get_device_properties(index).multi_processor_count,
+        bf16=bf16)
+    scan_layout.check('lstm', B, W, 1, lay, bf16=bf16)
+    return lay
+
+
+def scan_layout_on(device: torch.device, B: int, W: int,
+                   bf16: bool) -> scan_layout.Layout:
+    """The layout :func:`lstm_scan` launches B streams of width W with on
+    the CUDA ``device`` (:func:`scan_layout.choose` with the card's SMs
+    and cluster occupancy; chosen once per device and shape)."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    return _layout(index, B, W, bool(bf16))
 
 
 @functools.lru_cache(maxsize=None)
@@ -137,18 +167,18 @@ def lstm_scan(x_proj: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor,
     hT = torch.empty((B, W), dtype=f32, device=device)
     cT = torch.empty((B, W), dtype=f32, device=device)
     lib = _library()
+    lay = scan_layout_on(device, B, W, bf16)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         status = lib.lstm_scan_launch(
             x_proj.data_ptr(), h0.data_ptr(), c0.data_ptr(),
             recurrent.data_ptr(), h_all.data_ptr(),
             c_all.data_ptr() if want_c_all else None, hT.data_ptr(),
-            cT.data_ptr(), B, T, W, int(bf16), stream)
+            cT.data_ptr(), B, T, W, int(bf16), lay.rb, lay.cl, lay.rt,
+            int(lay.reg), lay.smem, stream)
     if status != 0:
         raise RuntimeError('lstm_scan kernel launch failed: CUDA error %d '
-                           '(%d bytes of shared memory asked)'
-                           % (status, lib.lstm_scan_smem_bytes(B, W,
-                                                               int(bf16))))
+                           '(layout %s)' % (status, lay))
     lstm_scan.launches += 1
     return h_all, c_all, hT, cT
 

@@ -1,0 +1,244 @@
+"""How the two LSTM forward-recurrence kernels lay a launch out on the
+card.
+
+Pure host arithmetic, shared by :mod:`.lstm_cell` (``csrc/lstm_scan.cu``)
+and :mod:`.score_kernel` (``csrc/score_scan.cu``); the sources refuse a
+launch whose layout or shared-memory size differs from what this module
+computes (``reg_layout_ok`` in ``scan_common.cuh``).
+
+Two layouts:
+
+* the register layout (``reg``), where a block's columns times 32-term
+  blocks fit its threads (2, 4 or 8 blocks of 32 terms a column: W in
+  (32, 64], (96, 128] or (224, 256]): a group of ``rb`` streams runs on a
+  thread-block cluster of ``cl`` blocks; block k owns the units
+  ``[k*upb, (k+1)*upb)`` (``upb = ceil(W/cl)``; the last block may own
+  fewer) and the four gate columns of each; each thread keeps the 32
+  weights of one column's 32-term block in registers for the whole scan
+  (of both matrices of a layer above 0 in ``score``) and runs ``rt``
+  streams in its chain; a block holds only the padded h rows of every
+  layer in shared memory;
+* the one-block layout of the first port everywhere else, and where
+  its cost model rates it faster (a large B, whose clusters would run in
+  many waves one after another): one block of ``rows_per_block(B)``
+  streams, each thread running whole columns from weights read from L2
+  at every step.
+
+Both give the same bits: each column's dot product is summed in blocks
+of 32 terms, the blocks added to 0 in order.
+"""
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional
+
+NT = 512             # threads per block
+KCH = 32             # terms per partial sum
+RBMAX = 8            # streams per block or cluster
+SMEM_MAX = 232448    # dynamic shared memory a block may ask (Hopper)
+CLUSTERS = (1, 2, 4, 8, 16)   # blocks per cluster of the register layout
+MIN_UNITS = 8        # units a block owns at least (else fewer blocks)
+# the cost model of a step, in microseconds, fitted to the times of
+# gen_beam_phases.py scan on an H100 (its layout sweep at rows 3, 4s, 4t
+# and 4b of PERF.md, and its widths): a register-layout step costs
+# REG_STEP, REG_PER_ROW per stream of a thread's chain and REG_PER_BLOCK
+# per NT threads a layer; a one-block step ONE_PER_FMA per FMA of one
+# thread's serial work (streams x W terms x the columns it runs, for
+# each weight matrix of the step and, in score, the logits)
+REG_STEP, REG_PER_ROW, REG_PER_BLOCK = 0.656, 0.498, 0.254
+ONE_PER_FMA = 0.0098
+# streams one thread's chain takes at most (its registers hold them
+# beside 64 weights; more spill), and the gate columns a lane holds
+# (lstm: two, so one load of h feeds two FMAs; score: one of each of a
+# layer's two matrices)
+REG_RT_MAX = 2
+REG_GATES = {'lstm': 2, 'score': 1}
+
+
+class Layout(NamedTuple):
+    rb: int      # streams per block or cluster
+    cl: int      # blocks per cluster
+    rt: int      # streams per thread chain
+    smem: int    # dynamic shared memory per block, bytes
+    reg: bool    # the register layout (else the one-block layout)
+
+
+def rows_per_block(B: int) -> int:
+    """The power of two >= B, at most RBMAX (the one-block layout's
+    streams per block)."""
+    rb = 1
+    while rb < B and rb < RBMAX:
+        rb *= 2
+    return rb
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _kind(kind: str) -> str:
+    if kind not in ('lstm', 'score'):
+        raise ValueError('kind is lstm or score, not %r' % kind)
+    return kind
+
+
+def units_per_block(W: int, cl: int) -> int:
+    return _ceil(W, cl)
+
+
+def padded_width(W: int) -> int:
+    """A padded h row of the register layout: 4 floats after each
+    32-term block (``scan_common.cuh`` ``hpad``)."""
+    return W + 4 * _ceil(W, KCH)
+
+
+def layer_groups(kind: str, D: int) -> int:
+    return 1 if _kind(kind) == 'lstm' else D
+
+
+def reg_lanes(kind: str, W: int) -> int:
+    """Lanes of one unit's group in the register layout: one per gate
+    pair (``lstm``) or gate (``score``) and 32-term block."""
+    return 4 // REG_GATES[_kind(kind)] * _ceil(W, KCH)
+
+
+def reg_group_threads(kind: str, W: int, rb: int, cl: int, rt: int) -> int:
+    """Threads one layer group of the register layout takes: a group of
+    :func:`reg_lanes` per stream group and unit, rounded up to whole
+    warps."""
+    n = (rb // rt) * units_per_block(W, cl) * reg_lanes(kind, W)
+    return (n + 31) & ~31
+
+
+def plan_bytes(kind: str, W: int, D: int, rb: int, reg: bool,
+               bf16: bool = False, Vp: int = 0) -> int:
+    """Dynamic shared memory of one block, in bytes.  The register
+    layout: the padded h rows of every layer, double-buffered
+    (``layer_groups`` x 2 x rb x ``padded_width``), and two mbarriers a
+    layer.  The one-block layout: ``lstm`` h, c and z rows (rb x (W + W
+    + 4W)) and, under a bf16 U (``bf16``), h rounded to bf16 (rb x W);
+    ``score`` the carry (2 x D x rb x W) and z rows (rb x max(4W,
+    Vp))."""
+    if reg:
+        return layer_groups(kind, D) * (4 * 2 * rb * padded_width(W) + 16)
+    if _kind(kind) == 'lstm':
+        return 4 * rb * (6 * W + (W if bf16 else 0))
+    return 4 * (2 * D * rb * W + rb * max(4 * W, Vp))
+
+
+def one_block_layout(kind: str, B: int, W: int, D: int, bf16: bool = False,
+                     Vp: int = 0) -> Layout:
+    """The first port's layout: one block of ``rows_per_block(B)``
+    streams, each thread running every stream of its columns."""
+    rb = rows_per_block(B)
+    return Layout(rb, 1, rb, plan_bytes(kind, W, D, rb, False, bf16, Vp),
+                  False)
+
+
+def reg_layout_for(kind: str, W: int, D: int, rb: int,
+                   cl: int) -> Optional[Layout]:
+    """The register layout of ``rb`` streams on ``cl`` blocks, or None
+    where it does not fit: 2, 4 or 8 blocks of 32 terms a column, every
+    block owning a unit, and ``layer_groups`` groups of threads of at
+    most REG_RT_MAX streams a chain in a block's NT threads; the most
+    row groups that fit win."""
+    nkb = _ceil(W, KCH)
+    if nkb not in (2, 4, 8) or W % 4 or rb not in (1, 2, 4, RBMAX) or \
+            cl not in CLUSTERS or (cl - 1) * units_per_block(W, cl) >= W:
+        return None
+    rt = max(1, rb // RBMAX)
+    while rt <= min(rb, REG_RT_MAX, reg_lanes(kind, W)):
+        if layer_groups(kind, D) * reg_group_threads(kind, W, rb, cl,
+                                                     rt) <= NT:
+            return Layout(rb, cl, rt, plan_bytes(kind, W, D, rb, True),
+                          True)
+        rt *= 2
+    return None
+
+
+def step_cost(kind: str, W: int, D: int, layout: Layout,
+              Vp: int = 0) -> float:
+    """The cost model of one step of ``layout`` in microseconds (the
+    constants above), for one wave of blocks."""
+    if layout.reg:
+        return REG_STEP + layer_groups(kind, D) * (
+            REG_PER_ROW * layout.rt + REG_PER_BLOCK * reg_group_threads(
+                kind, W, layout.rb, layout.cl, layout.rt) / NT)
+    fmas = layout.rb * W * _ceil(4 * W, NT) * (
+        1 if kind == 'lstm' else 2 * D - 1)
+    if kind == 'score':
+        fmas += layout.rb * W * _ceil(Vp, NT)
+    return ONE_PER_FMA * fmas
+
+
+def waves(B: int, layout: Layout, fits: Callable[[Layout], int],
+          n_sm: int) -> int:
+    """Waves of clusters (or blocks) the card runs one after another:
+    ``fits(layout)`` clusters of the register layout at once, ``n_sm``
+    blocks of the one-block layout; 0 where none fits."""
+    at_once = fits(layout) if layout.reg else n_sm
+    return _ceil(_ceil(B, layout.rb), at_once) if at_once > 0 else 0
+
+
+def choose(kind: str, B: int, W: int, D: int,
+           fits: Callable[[Layout], int], n_sm: int, bf16: bool = False,
+           Vp: int = 0) -> Layout:
+    """The layout of ``B`` streams: of the register layouts of ``cl`` in
+    CLUSTERS blocks of ``rb`` <= ``rows_per_block(B)`` streams, where
+    each block owns at least MIN_UNITS units and the card holds a
+    cluster (``fits(layout)``: how many clusters of that layout the card
+    holds at once), the lowest :func:`step_cost` times :func:`waves`
+    wins, ties to fewer blocks a cluster (at three tied shapes the
+    smaller cluster took 10-13% less time), then to more streams a
+    cluster; where
+    none does or :func:`one_block_layout` costs no more (on ``n_sm``
+    SMs), the one-block layout."""
+    one = one_block_layout(kind, B, W, D, bf16, Vp)
+    best = (step_cost(kind, W, D, one, Vp) * waves(B, one, fits, n_sm),
+            0, 0), one
+    for cl in CLUSTERS:
+        if W < MIN_UNITS * cl:
+            continue
+        rb = rows_per_block(B)
+        while rb >= 1:
+            lay = reg_layout_for(kind, W, D, rb, cl)
+            n = waves(B, lay, fits, n_sm) if lay is not None else 0
+            if n:
+                key = (step_cost(kind, W, D, lay) * n, cl, -rb)
+                if key < best[0]:
+                    best = (key, lay)
+            rb //= 2
+    return best[1]
+
+
+def check(kind: str, B: int, W: int, D: int, layout: Layout,
+          bf16: bool = False, Vp: int = 0) -> None:
+    """Raise ValueError unless the kernels take ``layout`` for B streams
+    of width W (what the sources refuse with an invalid-value error),
+    or its shared memory exceeds a block's."""
+    problems = []
+    if B < 1 or W < 4 or W % 4:
+        problems.append('B >= 1 and W a positive multiple of 4')
+    elif layout.reg:
+        if reg_layout_for(kind, W, D, layout.rb, layout.cl) is None or \
+                layout.rt not in (1, 2) or layout.rt > layout.rb or \
+                layer_groups(kind, D) * reg_group_threads(
+                    kind, W, layout.rb, layout.cl, layout.rt) > NT:
+            problems.append('a register layout that fits (2, 4 or 8 '
+                            'blocks of 32 terms, rb in 1, 2, 4, %d, cl in '
+                            '%s, every block owning a unit, rt <= %d '
+                            'dividing rb, the threads of a block)'
+                            % (RBMAX, ', '.join(map(str, CLUSTERS)),
+                               REG_RT_MAX))
+    elif (layout.rb, layout.cl, layout.rt) != (rows_per_block(B), 1,
+                                               rows_per_block(B)):
+        problems.append('the one-block layout (rb = rt = %d, cl 1)'
+                        % rows_per_block(B))
+    if not problems and layout.smem != plan_bytes(
+            kind, W, D, layout.rb, layout.reg, bf16, Vp):
+        problems.append('smem equal to plan_bytes')
+    if not problems and layout.smem > SMEM_MAX:
+        problems.append('smem <= %d' % SMEM_MAX)
+    if problems:
+        raise ValueError('%s scan layout %s for B=%d, W=%d, D=%d needs %s'
+                         % (kind, tuple(layout), B, W, D,
+                            '; '.join(problems)))

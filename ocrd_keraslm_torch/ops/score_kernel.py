@@ -3,10 +3,12 @@ version.
 
 Counterpart of ``ocrd_keraslm_tpu/ops/score_kernel.py::
 score_scan_pallas`` and ``pack_score_weights``.  :func:`score_scan`
-launches the hand-written kernel ``csrc/score_scan.cu`` for CUDA tensors
-and runs :func:`score_scan_ref`, the same function in plain PyTorch, for
-CPU tensors.  Nothing falls back: a CUDA tensor either goes through the
-kernel or the call raises.
+launches the hand-written kernels of ``csrc/score_scan.cu`` for CUDA
+tensors (in the layout :mod:`.scan_layout` chooses: the recurrence on
+thread-block clusters, then the tied softmax and the NLL sums over all
+steps at once; or one block of streams running all of a step) and runs :func:`score_scan_ref`, the same function in
+plain PyTorch, for CPU tensors.  Nothing falls back: a CUDA tensor
+either goes through the kernels or the call raises.
 
 One call scores one chunk of T steps of B independent streams: all D
 LSTM layers (layer 0's input projection comes in precomputed), the
@@ -22,7 +24,7 @@ from typing import Tuple
 
 import torch
 
-from . import _build
+from . import _build, scan_layout
 from .lstm_cell import gate_math
 
 BIG = 1.0e30
@@ -34,12 +36,42 @@ SOURCE = _build.source('score_scan.cu')
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
-    P, I = ctypes.c_void_p, ctypes.c_int
-    lib.score_scan_launch.argtypes = [P] * 14 + [I] * 6 + [P]
+    P, I, S = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
+    lib.score_scan_launch.argtypes = [P] * 16 + [I] * 10 + [S, P]
     lib.score_scan_launch.restype = ctypes.c_int
-    lib.score_scan_smem_bytes.argtypes = [I] * 4
-    lib.score_scan_smem_bytes.restype = ctypes.c_size_t
+    lib.score_scan_max_clusters.argtypes = [I] * 5 + [S]
+    lib.score_scan_max_clusters.restype = ctypes.c_int
     return lib
+
+
+def clusters_that_fit(index: int, D: int, W: int,
+                      layout: scan_layout.Layout) -> int:
+    """How many clusters of the register ``layout`` card ``index`` holds
+    at once."""
+    with torch.cuda.device(index):
+        return _library().score_scan_max_clusters(
+            D, W, layout.rb, layout.cl, layout.rt, layout.smem)
+
+
+@functools.lru_cache(maxsize=None)
+def _layout(index: int, B: int, W: int, D: int,
+            Vp: int) -> scan_layout.Layout:
+    lay = scan_layout.choose(
+        'score', B, W, D, lambda lay: clusters_that_fit(index, D, W, lay),
+        torch.cuda.get_device_properties(index).multi_processor_count, Vp=Vp)
+    scan_layout.check('score', B, W, D, lay, Vp=Vp)
+    return lay
+
+
+def scan_layout_on(device: torch.device, B: int, W: int, D: int,
+                   Vp: int) -> scan_layout.Layout:
+    """The layout :func:`score_scan` launches B streams of a D-layer
+    model of width W (``embT`` of Vp columns) with on the CUDA
+    ``device`` (:func:`scan_layout.choose` with the card's SMs and
+    cluster occupancy; chosen once per device and shape)."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    return _layout(index, B, W, D, Vp)
 
 
 def pack_score_weights(params, cfg):
@@ -120,6 +152,12 @@ def score_scan(xp1: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
     hT = torch.empty((D, B, W), dtype=f32, device=device)
     cT = torch.empty((D, B, W), dtype=f32, device=device)
     lib = _library()
+    lay = scan_layout_on(device, B, W, D, Vp)
+    # the register layout's scratch: the top layer's h of every step and
+    # each step's NLL
+    htop = torch.empty((B, T, W) if lay.reg else (0,), dtype=f32,
+                       device=device)
+    nl = torch.empty((B, T) if lay.reg else (0,), dtype=f32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         status = lib.score_scan_launch(
@@ -127,12 +165,12 @@ def score_scan(xp1: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
             c0.data_ptr(), rec1.data_ptr(), kcat.data_ptr(),
             ucat.data_ptr(), bias.data_ptr(), embT.data_ptr(),
             probs.data_ptr(), nll.data_ptr(), hT.data_ptr(), cT.data_ptr(),
-            B, T, D, W, Vp, int(v_real), stream)
+            htop.data_ptr() if lay.reg else None,
+            nl.data_ptr() if lay.reg else None, B, T, D, W, Vp, int(v_real),
+            lay.rb, lay.cl, lay.rt, int(lay.reg), lay.smem, stream)
     if status != 0:
         raise RuntimeError('score_scan kernel launch failed: CUDA error %d '
-                           '(%d bytes of shared memory asked)'
-                           % (status, lib.score_scan_smem_bytes(B, D, W,
-                                                                Vp)))
+                           '(layout %s)' % (status, lay))
     score_scan.launches += 1
     return probs, nll, (hT, cT)
 

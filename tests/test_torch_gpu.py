@@ -160,10 +160,15 @@ def test_cuda_tensors_never_take_the_plain_version(cuda, monkeypatch):
 
 @pytest.mark.parametrize('want_c_all', [False, True])
 @pytest.mark.parametrize('B, T, W', [(3, 50, 32), (9, 64, 32),
-                                     (4, 4096, 128)])
+                                     (4, 4096, 128), (1, 64, 128),
+                                     (33, 40, 128), (128, 32, 128),
+                                     (9, 24, 100), (3, 16, 384),
+                                     (5, 8, 1024), (300, 12, 128)])
 def test_lstm_scan_matches_plain(cuda, B, T, W, want_c_all):
-    """Small widths, a grid of several blocks (B=9) and the main path's
-    full width (W=128, a 4096-step chunk)."""
+    """Small widths, a grid of several blocks or clusters (B=9, 33,
+    128; B=300: clusters in waves, the last partly empty), the main path's full width (W=128, a 4096-step chunk), a width
+    that the cluster does not divide (W=100), and widths that take the
+    one-block layout (W=384, 1024)."""
     from ocrd_keraslm_torch.ops import lstm_cell
     rng = np.random.default_rng([B, T, W])
     args = [torch.from_numpy(a).to(cuda) for a in (
@@ -180,13 +185,18 @@ def test_lstm_scan_matches_plain(cuda, B, T, W, want_c_all):
 
 
 @pytest.mark.parametrize('case', ['d1w32', 'd2w32b9', 'd3w32',
-                                  'german_b1', 'german_b4', 'german_d1'])
+                                  'german_b1', 'german_b4', 'german_d1',
+                                  'd1w128b1', 'd2w128b3', 'd3w64b33',
+                                  'd2w128b128', 'd2w100b9', 'd2w384b3',
+                                  'd3w384b1'])
 def test_score_scan_matches_plain(cuda, case):
-    """Small widths at depth 1-3 (B=9: two blocks, one partly empty),
-    and the german model's full width (D=2, W=128, V=70 padded to 128)
-    over a 4096-step chunk, from a seeded nonzero carry with a partial
-    mask; ``german_d1`` keeps its layer 0 only (the dummy layer
-    operands of D=1)."""
+    """Small widths at depth 1-3 (B=9: two groups of streams, one partly
+    empty), and the german model's full width (D=2, W=128, V=70 padded
+    to 128) over a 4096-step chunk, from a seeded nonzero carry with a
+    partial mask; ``german_d1`` keeps its layer 0 only (the dummy layer
+    operands of D=1); B in {1, 3, 33, 128} at depth 1-3; a width that
+    the cluster does not divide (W=100) and a width that takes the
+    one-block layout (W=384, the widest the fused path takes)."""
     from ocrd_keraslm_torch.ops import score_kernel as sk
     rng = np.random.default_rng(len(case))
     args = score_inputs(rng, case, cuda)
@@ -251,11 +261,15 @@ def test_cuda_scoring_never_takes_the_plain_versions(cuda, monkeypatch):
 
 @pytest.mark.parametrize('bf16', [False, True], ids=['f32', 'bf16'])
 @pytest.mark.parametrize('B, T, W', [(3, 7, 32), (13, 33, 32), (11, 1, 128),
-                                     (128, 256, 128)])
+                                     (128, 256, 128), (1, 16, 128),
+                                     (33, 12, 128), (9, 10, 100),
+                                     (9, 6, 384)])
 def test_lstm_bwd_and_bf16_scan_match_plain(cuda, B, T, W, bf16):
     """The training kernels against their plain versions: small widths,
-    ragged B (13 = 8 + 5: two blocks, one partly empty), one step, and
-    the main path's full shape; ``dU`` bit-equal over two launches."""
+    ragged B (13 = 8 + 5: two blocks, one partly empty), one step, the
+    main path's full shape, B in {1, 33}, a width that the cluster does
+    not divide (W=100) and one whose forward takes the one-block layout
+    (W=384); ``dU`` bit-equal over two launches."""
     from ocrd_keraslm_torch.ops import lstm_cell
     rng = np.random.default_rng([B, T, W, int(bf16)])
     fwd, cot = lstm_train_inputs(rng, cuda, bf16, B=B, T=T, W=W)
@@ -389,6 +403,52 @@ def test_gen_beam_cluster_sizes_agree(cuda):
     assert torch.equal(recs[0], recs[1])
     assert gk.cluster_blocks(torch.cuda.current_device(), 1, 256, 2, 128,
                              128, 10) in (gk.CLUSTER_WIDE, gk.CLUSTER)
+
+
+@pytest.mark.parametrize('B, T, W', [(4, 300, 128), (33, 40, 128),
+                                     (9, 30, 100), (3, 40, 64),
+                                     (2, 30, 256)])
+def test_lstm_cluster_sizes_agree(cuda, B, T, W):
+    """Every layout the chooser can return (the register layout on
+    clusters of 1-16 blocks of 1-8 streams, and the one-block layout)
+    gives ``lstm_scan`` (f32 and bf16 U, ``c_all`` on) and ``score_scan``
+    the same bits as the one-block layout of the first port: the
+    blocked sums keep their order."""
+    from chip_smoke import scan_layout, scan_layouts
+    from ocrd_keraslm_torch.ops import lstm_cell
+    from ocrd_keraslm_torch.ops import score_kernel as sk
+    from ocrd_keraslm_torch.ops import scan_layout as sl
+    rng = np.random.default_rng([B, T, W])
+    one_block = (sl.rows_per_block(B), 1, False)
+    for bf16 in (False, True):
+        fwd, _ = lstm_train_inputs(rng, cuda, bf16, B=B, T=T, W=W)
+        outs = {}
+        for rb, cl, reg in scan_layouts('lstm', B, W, 1):
+            with scan_layout(rb, cl, reg):
+                outs[rb, cl, reg] = lstm_cell.lstm_scan(*fwd,
+                                                        want_c_all=True)
+        want = outs[one_block]
+        assert len(outs) > 3
+        for key, got in outs.items():
+            assert all(torch.equal(g, w) for g, w in zip(got, want)), key
+    D = 1 if W > 128 else 2
+    args = score_inputs(rng, 'd%dw%db%d' % (D, W, B), cuda)
+    outs = {}
+    for rb, cl, reg in scan_layouts('score', B, W, D):
+        with scan_layout(rb, cl, reg):
+            p, n, (h, c) = sk.score_scan(*args)
+        outs[rb, cl, reg] = (p, n, h, c)
+    want = outs[one_block]
+    assert len(outs) > 1
+    for key, got in outs.items():
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), key
+    for bf16 in (False, True):
+        lay = lstm_cell.scan_layout_on(cuda, B, W, bf16)
+        assert lay.reg and (lay.rb, lay.cl, True) in scan_layouts(
+            'lstm', B, W, 1)
+    lay = sk.scan_layout_on(cuda, B, W, D, args[-2].shape[1])
+    assert lay.reg and (lay.rb, lay.cl, True) in scan_layouts('score', B,
+                                                              W, D)
 
 
 @pytest.mark.parametrize('variants', [1, 5, 256])

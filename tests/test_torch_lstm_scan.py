@@ -172,3 +172,184 @@ def test_forward_seq_unported_modes_raise(case, item):
     atol = 2e-3 if case == 'bfloat16' else ATOL
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=atol)
     np.testing.assert_allclose(gh.numpy(), np.asarray(wh), atol=atol)
+
+
+# ---- the layout of the recurrence kernels (host arithmetic) ----
+
+# cluster occupancy of an H100 for the chooser tests: how many clusters
+# of each size the card holds at once
+H100_FITS = {16: 7, 8: 15, 4: 30, 2: 66, 1: 132}
+
+
+@pytest.mark.parametrize('B, W, bf16, want', [
+    # one group of 4 streams: one stream a cluster of 16 blocks, U's
+    # weights in registers (8 units a block, a lane two gate columns of
+    # one 32-term block)
+    (4, 128, False, (1, 16, 1, True)),
+    (4, 128, True, (1, 16, 1, True)),
+    # the training shape: 64 two-block clusters of 2 streams fill 128
+    # SMs in one wave, a thread's chain 2 streams long
+    (128, 128, False, (2, 2, 2, True)),
+    (128, 128, True, (2, 2, 2, True)),
+    (33, 128, False, (1, 2, 1, True)),
+    (4, 64, False, (1, 8, 1, True)),
+    # more clusters than the card holds at once: they run in waves, 4
+    # waves of 66 still faster than one wave of 64 one-block blocks...
+    (512, 128, False, (2, 2, 2, True)),
+    (128, 256, False, (2, 8, 2, True)),
+    # ... 8 waves not: the one-block layout
+    (1024, 128, False, (8, 1, 8, False)),
+    (4096, 128, True, (8, 1, 8, False)),
+    # twelve or more 32-term blocks a column: the one-block layout
+    (4, 384, False, (4, 1, 4, False)),
+    (4, 512, True, (4, 1, 4, False)),
+])
+def test_scan_layout_chooser(B, W, bf16, want):
+    from ocrd_keraslm_torch.ops import scan_layout as sl
+    lay = sl.choose('lstm', B, W, 1, lambda lay: H100_FITS[lay.cl], 132,
+                    bf16=bf16)
+    assert (lay.rb, lay.cl, lay.rt, lay.reg) == want
+    assert lay.smem == sl.plan_bytes('lstm', W, 1, lay.rb, lay.reg,
+                                     bf16=bf16)
+    sl.check('lstm', B, W, 1, lay, bf16=bf16)
+
+
+@pytest.mark.parametrize('B', [1, 3, 4, 9, 33, 128, 4096])
+def test_scan_layout_without_clusters_is_the_one_block_layout(B):
+    """A card (or a shape) where no cluster fits gets one
+    block of rows_per_block(B) streams, each thread running whole
+    columns: the first port's layout, its shared memory the rows h, c
+    and z (and h rounded to bf16 under a bf16 U)."""
+    from ocrd_keraslm_torch.ops import scan_layout as sl
+    rb = sl.rows_per_block(B)
+    for bf16 in (False, True):
+        lay = sl.choose('lstm', B, 128, 1, lambda lay: 0, 132, bf16=bf16)
+        assert lay == sl.one_block_layout('lstm', B, 128, 1, bf16)
+        assert (lay.rb, lay.cl, lay.rt, lay.reg) == (rb, 1, rb, False)
+        assert lay.smem == 4 * rb * 128 * (7 if bf16 else 6)
+
+
+@pytest.mark.parametrize('W, reg', [
+    (32, False), (36, True), (64, True), (68, False), (96, False),
+    (100, True), (128, True), (160, False), (224, False), (228, True),
+    (256, True), (288, False), (384, False), (1024, False)])
+def test_scan_layout_holds_the_weights_in_registers_where_they_fit(W, reg):
+    """The register layout takes a width whose columns have 2, 4 or 8
+    blocks of 32 terms (W in (32, 64], (96, 128], (224, 256]); every
+    other width runs the one-block layout, its weights read from L2."""
+    from ocrd_keraslm_torch.ops import scan_layout as sl
+    lay = sl.choose('lstm', 4, W, 1, lambda lay: 1 << 20, 132)
+    assert lay.reg == reg
+    if reg:
+        assert lay.smem == 2 * lay.rb * sl.padded_width(W) * 4 + 16
+    else:
+        assert lay == sl.one_block_layout('lstm', 4, W, 1)
+
+
+def test_scan_layout_plan_bytes():
+    """The shared memory of each layout, array by array: the register
+    layout's padded rows (2, rb, W + 4 a 32-term block) and two 8-byte
+    mbarriers a layer group; the one-block layout's rows."""
+    from ocrd_keraslm_torch.ops import scan_layout as sl
+    assert sl.padded_width(128) == 144 and sl.padded_width(100) == 116
+    assert sl.plan_bytes('lstm', 128, 1, 2, True) == 4 * 2 * 2 * 144 + 16
+    assert sl.plan_bytes('score', 128, 3, 1, True) == \
+        3 * (4 * 2 * 1 * 144 + 16)
+    assert sl.plan_bytes('lstm', 128, 1, 8, False) == 4 * 8 * 6 * 128
+    assert sl.plan_bytes('lstm', 128, 1, 8, False, bf16=True) == \
+        4 * 8 * 7 * 128
+    # score: the carry (2, D, rb, W) and z rows (rb, max(4W, Vp))
+    assert sl.plan_bytes('score', 128, 2, 4, False, Vp=128) == \
+        4 * (2 * 2 * 4 * 128 + 4 * 512)
+    assert sl.plan_bytes('score', 32, 1, 2, False, Vp=256) == \
+        4 * (2 * 1 * 2 * 32 + 2 * 256)
+    # a W that 16 does not divide: 7 units a block, the last owns 2
+    assert sl.units_per_block(100, 16) == 7
+    assert sl.reg_layout_for('lstm', 100, 1, 4, 16) is None  # 15*7 > 100
+    assert sl.reg_layout_for('lstm', 100, 1, 4, 8).cl == 8    # 7*13 < 100
+    with pytest.raises(ValueError, match='kind is lstm or score'):
+        sl.plan_bytes('decode', 128, 1, 1, True)
+
+
+@pytest.mark.parametrize('B, W', [(1, 4), (3, 36), (9, 100), (33, 128),
+                                  (200, 256), (5, 1024)])
+def test_scan_layout_every_choice_is_valid(B, W):
+    """Whatever the occupancy, the chosen layout passes the kernels'
+    checks, and forced register layouts of every cluster size do too."""
+    from ocrd_keraslm_torch.ops import scan_layout as sl
+    for bf16 in (False, True):
+        for fits in (lambda lay: 0, lambda lay: H100_FITS[lay.cl],
+                     lambda lay: 1 << 20):
+            sl.check('lstm', B, W, 1,
+                     sl.choose('lstm', B, W, 1, fits, 132, bf16=bf16),
+                     bf16=bf16)
+        for cl in sl.CLUSTERS:
+            lay = sl.reg_layout_for('lstm', W, 1, 1, cl)
+            if lay is not None:
+                sl.check('lstm', B, W, 1, lay, bf16=bf16)
+
+
+@pytest.mark.parametrize('field, value, message', [
+    ('rb', 3, 'a register layout that fits'),
+    ('cl', 32, 'a register layout that fits'),
+    ('rt', 4, 'a register layout that fits'),
+    ('smem', 1024, 'smem equal'),
+    ('reg', False, 'the one-block layout')])
+def test_scan_layout_check_refuses(field, value, message):
+    from ocrd_keraslm_torch.ops import scan_layout as sl
+    lay = sl.reg_layout_for('lstm', 128, 1, 4, 4)
+    lay = lay._replace(**{field: value})
+    with pytest.raises(ValueError, match=message):
+        sl.check('lstm', 4, 128, 1, lay)
+    with pytest.raises(ValueError, match='multiple of 4'):
+        sl.check('lstm', 4, 126, 1, sl.reg_layout_for('lstm', 128, 1, 4, 4))
+    # the one-block layout's shared memory exceeds a block's at W=2048
+    with pytest.raises(ValueError, match='smem <= '):
+        sl.check('lstm', 8, 2048, 1, sl.one_block_layout('lstm', 8, 2048, 1))
+
+
+@pytest.mark.parametrize('W, rb, cl, rt, threads, score_threads', [
+    (128, 4, 16, 1, 256, 512), (128, 1, 16, 1, 64, 128),
+    (128, 2, 2, 2, 512, 1024), (100, 4, 8, 1, 416, 832),
+    (64, 2, 4, 1, 128, 256), (256, 1, 16, 1, 256, 512)])
+def test_register_layout_threads(W, rb, cl, rt, threads, score_threads):
+    """A layer group of ``lstm_scan``'s register layout takes 2 lanes
+    (one a gate pair) per 32-term block for each unit and row group,
+    ``score_scan``'s 4 (one a gate), rounded up to whole warps; the
+    layout takes the fewest streams a chain whose groups fit a block's
+    512 threads, and holds the rows (2, rb, W + 4 per 32-term block) and
+    two mbarriers."""
+    from ocrd_keraslm_torch.ops import scan_layout as sl
+    assert sl.reg_group_threads('lstm', W, rb, cl, rt) == threads
+    assert sl.reg_group_threads('score', W, rb, cl, rt) == score_threads
+    lay = sl.reg_layout_for('lstm', W, 1, rb, cl)
+    assert lay.reg and lay.rt == rt
+    assert lay.smem == 2 * rb * sl.padded_width(W) * 4 + 16
+    # one or more than eight 32-term blocks
+    assert sl.reg_layout_for('lstm', 32, 1, 1, 2) is None
+    assert sl.reg_layout_for('lstm', 384, 1, 1, 16) is None
+    # at most 2 streams a chain: 8 streams of W=128 on 4 blocks do not fit
+    assert sl.reg_layout_for('lstm', 128, 1, 8, 4) is None
+
+
+def test_scan_layout_cost_model():
+    """A step's cost: the register layout's by its chain and threads,
+    the one-block layout's by one thread's FMAs a step (4 streams x 128
+    terms at W=128: ~5 us, as the first port's kernel takes), each times
+    the waves of clusters or blocks the card runs one after another."""
+    from ocrd_keraslm_torch.ops import scan_layout as sl
+    reg = sl.reg_layout_for('lstm', 128, 1, 2, 2)
+    assert sl.step_cost('lstm', 128, 1, reg) == pytest.approx(
+        sl.REG_STEP + 2 * sl.REG_PER_ROW + sl.REG_PER_BLOCK)
+    one = sl.one_block_layout('lstm', 4, 128, 1)
+    assert sl.step_cost('lstm', 128, 1, one) == pytest.approx(
+        sl.ONE_PER_FMA * 4 * 128)
+    # score: 2D-1 matrices of 4W columns and the logits, a thread's share
+    one = sl.one_block_layout('score', 4, 384, 2, Vp=128)
+    assert sl.step_cost('score', 384, 2, one, Vp=128) == pytest.approx(
+        sl.ONE_PER_FMA * 4 * 384 * (3 * 3 + 1))
+    assert sl.waves(128, reg, lambda lay: 66, 132) == 1
+    assert sl.waves(512, reg, lambda lay: 66, 132) == 4
+    assert sl.waves(512, reg, lambda lay: 0, 132) == 0
+    assert sl.waves(2048, sl.one_block_layout('lstm', 2048, 128, 1),
+                    lambda lay: 0, 132) == 2

@@ -101,3 +101,69 @@ def test_score_scan_on_cpu_runs_the_plain_version():
                                         *packed)
     assert probs.shape == (B, 0) and (nll == 0).all()
     torch.testing.assert_close(h, args[3])
+
+
+# ---- the layout of the scoring scan (host arithmetic) ----
+
+H100_FITS = {16: 7, 8: 15, 4: 30, 2: 66, 1: 132}
+
+
+@pytest.mark.parametrize('B, Wd, D, want', [
+    # the main path's chunk (4 streams of the german model): one stream a
+    # cluster of 16 blocks, rec1's, ucat's and kcat's weights in
+    # registers (two layer groups of 128 threads)
+    (4, 128, 2, (1, 16, 1, True)),
+    (1, 128, 2, (1, 16, 1, True)),
+    (4, 128, 1, (1, 16, 1, True)),
+    (4, 128, 3, (1, 16, 1, True)),
+    (4, 256, 1, (1, 16, 1, True)),
+    # 33 streams: one a cluster of 8 blocks, in 3 waves of 15 clusters
+    (33, 128, 2, (1, 8, 1, True)),
+    (512, 128, 2, (8, 1, 8, False)),
+    # W=256, D=2: two layer groups of 512 threads do not fit a block;
+    # W=384: twelve 32-term blocks a column.  The one-block layout
+    (4, 256, 2, (4, 1, 4, False)),
+    (4, 384, 2, (4, 1, 4, False)),
+])
+def test_score_scan_layout_chooser(B, Wd, D, want):
+    from ocrd_keraslm_torch.ops import scan_layout as sl
+    lay = sl.choose('score', B, Wd, D, lambda lay: H100_FITS[lay.cl], 132,
+                    Vp=128)
+    assert (lay.rb, lay.cl, lay.rt, lay.reg) == want
+    sl.check('score', B, Wd, D, lay, Vp=128)
+    if lay.reg:   # D layer groups of rows and mbarriers
+        assert lay.smem == D * (2 * lay.rb * sl.padded_width(Wd) * 4 + 16)
+    else:         # the carry and the z rows
+        rb = lay.rb
+        assert lay.smem == 4 * (2 * D * rb * Wd + rb * 4 * Wd)
+
+
+@pytest.mark.parametrize('D, Wd, Vp', [(1, 32, 128), (2, 32, 256),
+                                       (2, 128, 128), (3, 384, 128),
+                                       (2, 64, 512)])
+def test_score_scan_layout_one_block_plan(D, Wd, Vp):
+    """The one-block layout holds the (D, rb, W) h and c of the streams
+    and one z row (rb, max(4W, Vp)) shared by the gates and the logits,
+    as the first port did; its shared memory depends on Vp."""
+    from ocrd_keraslm_torch.ops import scan_layout as sl
+    for B in (1, 5, 9):
+        rb = sl.rows_per_block(B)
+        lay = sl.one_block_layout('score', B, Wd, D, Vp=Vp)
+        assert lay == (rb, 1, rb, 4 * (2 * D * rb * Wd + rb * max(4 * Wd,
+                                                                  Vp)),
+                       False)
+        sl.check('score', B, Wd, D, lay, Vp=Vp)
+        with pytest.raises(ValueError, match='smem equal'):
+            sl.check('score', B, Wd, D, lay, Vp=Vp + 4 * Wd)
+
+
+@pytest.mark.parametrize('B, Wd, D', [(1, 32, 1), (9, 32, 3), (3, 36, 2),
+                                      (33, 128, 2), (128, 128, 3),
+                                      (2, 384, 2)])
+def test_score_scan_layout_every_choice_is_valid(B, Wd, D):
+    from ocrd_keraslm_torch.ops import scan_layout as sl
+    for fits in (lambda lay: 0, lambda lay: H100_FITS[lay.cl]):
+        sl.check('score', B, Wd, D,
+                 sl.choose('score', B, Wd, D, fits, 132, Vp=128), Vp=128)
+    with pytest.raises(ValueError, match='kind is lstm or score'):
+        sl.plan_bytes('decode', Wd, D, 1, False)
