@@ -18,7 +18,9 @@ Phases, each printing its own lines (any failure exits non-zero):
    the plain version run in float64:
    ``decode_lattice``'s outputs over seeded 1024-edge blocks, by sha256,
    equal to those of the kernel before its device code moved into
-   ``csrc/decode_common.cuh``;
+   ``csrc/decode_common.cuh``, in the cluster layout at every size the
+   shape takes and in the one-block layout; ``lstm_bwd``'s, equal to
+   those of commit cdb1b2b in every layout the chooser could take;
    the decode kernel (K=16, A=4, L in {1, 8}) over a seeded lattice of
    E=1024 edges and a chained tail block with n_real < E; the batched
    decode kernel over a 64-edge block of 8 documents of different
@@ -76,7 +78,9 @@ Phases, each printing its own lines (any failure exits non-zero):
    shapes: its time and the plain version's (CUDA events; the batched
    decode's plain version on the parity block only), its bound, and a
    library yardstick where there is one (for the batched decode: one
-   ``decode_lattice`` launch per document, one after another).
+   ``decode_lattice`` launch per document, one after another); for the
+   decode kernels and ``lstm_bwd`` also the one-block layout's time (the
+   first port's kernel, its code unchanged) and the layout taken.
 
 Every kernel count is set to 0 just before a path runs and read just
 after.  The last two lines are the kernel table and
@@ -1052,8 +1056,9 @@ def decode_parity(rater, dev):
 
 # sha256 of decode_lattice's outputs in decode_digests, as the kernel
 # gave them before its device code moved into csrc/decode_common.cuh
-# (commit db47096, NVIDIA H100 80GB HBM3): the move must keep them bit
-# for bit
+# (commit db47096, NVIDIA H100 80GB HBM3): the move, and the cluster
+# layout of decode_edges_cluster at every cluster size, must keep them
+# bit for bit
 DECODE_DIGESTS = {
     1: 'c1063acb6fb354605e8d0af26495f4564b278c430952fa74e3527b225925a151',
     8: 'bce90cb8e310cd156fdf66ac599e81f291945e8f555904581d883363d1d274d7'}
@@ -1167,6 +1172,24 @@ def lstm_digests(dev):
     return out
 
 
+def bwd_digests(dev, layouts):
+    """{(layout, 'lstm_bwd f32' or 'bf16'): sha256} of ``lstm_bwd``'s
+    outputs in each of ``layouts`` (``(rb, cl, reg)`` as
+    :func:`scan_layouts` gives them) on :func:`lstm_digests`' inputs at
+    the training shape (the same seeds)."""
+    from ocrd_keraslm_torch.ops import lstm_cell as lc
+    out = {}
+    for bf16 in (False, True):
+        rng = np.random.default_rng([20261102, TRAIN_B, TRAIN_T, int(bf16)])
+        fwd, cot = lstm_train_inputs(rng, dev, bf16)
+        args = lstm_bwd_args(fwd, cot, lc.lstm_scan(*fwd, want_c_all=True)[:2])
+        for rb, cl, reg in layouts:
+            with scan_layout(rb, cl, reg):
+                out[(rb, cl, reg), 'lstm_bwd %s' % (
+                    'bf16' if bf16 else 'f32')] = _digest(lc.lstm_bwd(*args))
+    return out
+
+
 BATCH_PARITY_N, BATCH_PARITY_E = 8, 64
 
 
@@ -1249,6 +1272,10 @@ def batch_parity(rater, dev):
                                rec[:, :, n * K:(n + 1) * K]), n
             assert torch.equal(single[1], stateF[n * K:(n + 1) * K]), n
             assert torch.equal(single[2][0, :K], costF[n * K:(n + 1) * K, 0])
+        with decode_cluster(1):
+            one_block = run(dk.decode_lattice_batch, arrays, E, state, cost)
+        assert all(torch.equal(a, b) for a, b in zip(one_block,
+                                                     (rec, stateF, costF)))
         k_in = torch.from_numpy(rng.integers(0, K, N).astype(np.int32)) \
             .to(dev)
         walk = dk.walk_records_batch(rec, k_in, n_docs=N, beam=K)
@@ -1261,9 +1288,16 @@ def batch_parity(rater, dev):
               '(tolerances: costs rtol 1e-5 atol 1e-4, stateF atol %g, c '
               'also rtol %g); every document\'s records and final beam '
               'equal to a single-document decode_lattice launch bit for '
-              'bit; walk_records_batch equal to its plain version in %.1f s'
+              'bit (%d blocks a document in the batch, %d in a single '
+              'launch) and to the batch in the one-block layout; '
+              'walk_records_batch equal to its plain version in %.1f s'
               % (L, N, E, n_reals, K, A, err, ties or 'none',
-                 BATCH_STATE_ATOL, BATCH_C_RTOL, time.time() - t0))
+                 BATCH_STATE_ATOL, BATCH_C_RTOL,
+                 dk.cluster_blocks(dev, True, N, K, A, L, rater.depth, W,
+                                   wts['v_pad'], wts['v_real']),
+                 dk.cluster_blocks(dev, False, 1, K, A, L, rater.depth, W,
+                                   wts['v_pad'], wts['v_real']),
+                 time.time() - t0))
         if L == 8:
             ins = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
                    for a in arrays]
@@ -1746,6 +1780,16 @@ def batch_path(rater, work, card):
              max(e for _, e in card_res), diff,
              2 * float(np.spacing(np.float32(max(e for _, e in card_res))))))
     # the first launch's inputs at the main path's shape, for the numbers
+    first = first_batch_launch(rater, docs)
+    traced_wall, busy = profiled(lambda: rater.rate_best_batch(docs))
+    out.update(traced_wall=traced_wall, busy=busy, first=first,
+               launches=out['one-page']['launches'])
+    return out
+
+
+def first_batch_launch(rater, docs):
+    """``(args, kwargs)`` of the first ``decode_lattice_batch`` launch of
+    ``rater.rate_best_batch(docs)``."""
     import ocrd_keraslm_torch.rater as rater_module
     first = []
     real = rater_module.decode_lattice_batch
@@ -1755,10 +1799,7 @@ def batch_path(rater, work, card):
         rater.rate_best_batch(docs)
     finally:
         rater_module.decode_lattice_batch = real
-    traced_wall, busy = profiled(lambda: rater.rate_best_batch(docs))
-    out.update(traced_wall=traced_wall, busy=busy, first=first[0],
-               launches=out['one-page']['launches'])
-    return out
+    return first[0]
 
 
 def batch_numbers(rater, batch, parity_times, card):
@@ -1790,7 +1831,16 @@ def batch_numbers(rater, batch, parity_times, card):
     nbytes = (tensor_bytes(*args, steps) + tensor_bytes(rec, stateF, costF)
               - 2 * W * (v_pad - v_real) * 4)
     bound_ms, bound_by, _ = bound(flops, nbytes)
+    with decode_cluster(1):
+        one_ms = cuda_ms(run, 1)
     ms2 = cuda_ms(run, 3)
+    cl = dk.cluster_blocks(chars.device, True, N, K, A, L, D, W, v_pad,
+                           v_real)
+    print('decode_lattice_batch at the main path shape in the one-block '
+          'layout (the parent\'s kernel, its code unchanged): %.3f ms (CUDA '
+          'events, one warm launch); the cluster layout (%d blocks a '
+          'document, %d units a block) %.2fx faster [%s]'
+          % (one_ms, cl, W // cl, one_ms / ms2, card))
     print('decode_lattice_batch at the main path shape (block 1 of the '
           '%d-document batch: E=%d, n_real=%d, L=%d, K=%d, A=%d): %.3f '
           'ms/launch then %.3f ms/launch (CUDA events, mean of 3 warm '
@@ -1851,21 +1901,20 @@ def batch_numbers(rater, batch, parity_times, card):
         bound_by=walk_bound[1], library_ms=None)}
 
 
-def decode_numbers(rater, decode, card):
-    """Phase 6, decode kernel at the main path's shape (page 1)."""
+def page_block(rater, directory):
+    """``decode_lattice``'s arguments for page 1 of the workspace in
+    ``directory`` as the processor launches them (K=16, A=4, device
+    walk), and the page's mask and per-edge steps as numpy arrays."""
     import torch
-    from ocrd_keraslm_torch.ops import decode_kernel as dk
     from ocrd_keraslm_torch.rater import E_BUCKETS, L_BUCKETS, _alt_steps
     from ocrd_keraslm_torch.utils.buckets import bucket
     from ocrd_keraslm_torch.wrapper.page_fast import parse_page_fast
     from ocrd_keraslm_torch.wrapper.rate import page_get_linear_lattice_at
-    first = os.path.join(decode['workspace'], 'OCR-D-OCR',
-                         'OCR-D-OCR_phys_0001.xml')
+    first = os.path.join(directory, 'OCR-D-OCR', 'OCR-D-OCR_phys_0001.xml')
     prep = rater._prepare_decode_edges(
         page_get_linear_lattice_at('glyph', parse_page_fast(first)))
     wts = rater._decode_weights(None)
-    D, W, K, A = rater.depth, rater.width, 16, 4
-    S = (2 * D + 1) * W
+    K, A = 16, 4
     n = len(prep)
     L = bucket(max(len(ids) for pe in prep for ids in pe['alt_ids']),
                L_BUCKETS)
@@ -1879,12 +1928,29 @@ def decode_numbers(rater, decode, card):
             ins[0], ins[1], ins[2], ins[3], state0, cost0)
     kw = dict(lm_weight=0.5, v_real=wts['v_real'], device_walk=True,
               alt_steps=ins[4], n_real=n)
+    return args, kw, mask, steps
+
+
+def decode_numbers(rater, decode, card):
+    """Phase 6, decode kernel at the main path's shape (page 1)."""
+    from ocrd_keraslm_torch.ops import decode_kernel as dk
+    wts = rater._decode_weights(None)
+    D, W, K, A = rater.depth, rater.width, 16, 4
+    S = (2 * D + 1) * W
+    args, kw, mask, steps = page_block(rater, decode['workspace'])
+    n = kw['n_real']
+    E, _, L = args[4].shape
+    ins = [kw['alt_steps']]
     ms = cuda_ms(lambda: dk.decode_lattice(*args, **kw), 3)
     plain_ms = cuda_ms(lambda: dk.decode_lattice_ref(*args, **kw), 1)
+    with decode_cluster(1):
+        one_ms = cuda_ms(lambda: dk.decode_lattice(*args, **kw), 1)
     ms2 = cuda_ms(lambda: dk.decode_lattice(*args, **kw), 3)
+    cl = dk.cluster_blocks(rater.device, False, 1, K, A, L, D, W,
+                           wts['v_pad'], wts['v_real'])
     out_bytes = ((E + 1) * 2 + K * S + 128) * 4
     # emb and embT are read at their v_real real rows/columns only
-    nbytes = (tensor_bytes(*args, ins[4]) + out_bytes
+    nbytes = (tensor_bytes(*args, ins[0]) + out_bytes
               - 2 * W * (wts['v_pad'] - wts['v_real']) * 4)
     bound_ms, bound_by, flops = decode_bound(
         mask, steps, n, K, D, W, wts['v_real'], nbytes)
@@ -1892,6 +1958,10 @@ def decode_numbers(rater, decode, card):
           'L=%d, K=%d, A=%d): %.3f ms/launch then %.3f ms/launch (CUDA '
           'events, mean of 3 warm launches), %.2f us/edge [%s]'
           % (E, n, L, K, A, ms, ms2, 1e3 * ms2 / n, card))
+    print('decode_lattice at the same shape in the one-block layout (the '
+          'parent\'s kernel, its code unchanged): %.3f ms (CUDA events, one '
+          'warm launch); the cluster layout (%d blocks, %d units a block) '
+          '%.1fx faster [%s]' % (one_ms, cl, W // cl, one_ms / ms2, card))
     print('decode_lattice plain version at the same shape: %.3f ms (CUDA '
           'events, one warm run) [%s]' % (plain_ms, card))
     print('decode_lattice bound: %.3f ms by %s (%.3g f32 FLOP at 67 '
@@ -2462,7 +2532,39 @@ def training_numbers(dev, card):
                      if 'bwd' in name else '', card))
             out[name] = dict(ms=ms2, plain_ms=plain_ms, bound_ms=bound_ms,
                              bound_by=bound_by, library_ms=library_ms)
+        lay = lc.bwd_layout_on(dev, B, W)
+        with scan_layout(reg=False):
+            one_ms = cuda_ms(lambda: lc.lstm_bwd(*bwd), 5)
+        print('lstm_bwd (%s U) at the training shape in the one-block layout '
+              '(the parent\'s kernel, its code unchanged): %.3f ms/launch '
+              '(CUDA events, mean of 5); the layout taken, %s (%d streams a '
+              'cluster of %d blocks, %d units a block, %d streams a thread '
+              'chain), %.2fx faster [%s]'
+              % (kind, one_ms, 'the register layout' if lay.reg else
+                 'the one-block layout', lay.rb, lay.cl, -(-W // lay.cl),
+                 lay.rt, one_ms / out['lstm_bwd' + ('_bf16' if bf16
+                                                    else '')]['ms'], card))
     return out
+
+
+def kernel_split(fn):
+    """[(kernel name, device ms)] of one ``fn()`` call (torch.profiler,
+    after a warm-up), largest first (``gen_beam_phases.py bwd``)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    per = {}
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA:
+            key = evt.name.split('<')[0].split('(')[0][:60]
+            per[key] = per.get(key, 0.0) + evt.time_range.elapsed_us() / 1e3
+    return sorted(per.items(), key=lambda kv: -kv[1])
 
 
 # ---------------------------------------------------------------------
@@ -2526,11 +2628,28 @@ def cluster_size(blocks):
 
 
 @contextlib.contextmanager
+def decode_cluster(cl):
+    """``decode_lattice`` and ``decode_lattice_batch`` run a document on
+    ``cl`` blocks (1: the one-block kernel of the first port) inside the
+    block, whatever the card's occupancy would choose.  The wrappers'
+    cached choices are dropped on entry and on exit."""
+    from ocrd_keraslm_torch.ops import decode_kernel as dk
+    choose = dk.choose_cluster
+    dk.choose_cluster = lambda *args: cl
+    dk._cluster_choice.cache_clear()
+    try:
+        yield
+    finally:
+        dk.choose_cluster = choose
+        dk._cluster_choice.cache_clear()
+
+
+@contextlib.contextmanager
 def scan_layout(rb=None, cl=1, reg=True):
-    """``lstm_scan`` and ``score_scan`` launch the register layout on
-    clusters of ``cl`` blocks of ``rb`` streams (default: as many as the
-    chooser would put in one cluster), or with ``reg`` false the
-    one-block layout, inside the block, whatever the card's occupancy
+    """``lstm_scan``, ``score_scan`` and ``lstm_bwd`` launch the register
+    layout on clusters of ``cl`` blocks of ``rb`` streams (default: as
+    many as the chooser would put in one cluster), or with ``reg`` false
+    the one-block layout, inside the block, whatever the card's occupancy
     would choose.  The wrappers' cached layouts are dropped on entry and
     on exit."""
     from ocrd_keraslm_torch.ops import lstm_cell as lc
@@ -2547,6 +2666,7 @@ def scan_layout(rb=None, cl=1, reg=True):
 
     def clear():
         lc._layout.cache_clear()
+        lc._bwd_layout.cache_clear()
         sk._layout.cache_clear()
     sl.choose = forced
     clear()
@@ -2763,14 +2883,20 @@ def main() -> int:
           % (os.path.relpath(MODEL, HERE), D, W, wts['v_real'],
              wts['v_pad'], tuple(wts['wcat'].shape)))
     for L in (1, 8):
-        print('shared memory decode_lattice: %d bytes dynamic per block at '
-              'K=16, A=4, L=%d (one block of 512 threads per document); '
-              'decode_lattice_batch: %d bytes (the same plan, one block per '
-              'document of the batch)'
-              % (dk._library().decode_lattice_smem_bytes(
-                  4, L, 16, D, W, wts['v_pad']), L,
-                 dk._batch_library().decode_lattice_batch_smem_bytes(
-                     4, L, 16, D, W, wts['v_pad'])))
+        for what, batch, N in (('decode_lattice', False, 1),
+                               ('decode_lattice_batch', True, BATCH_DOCS)):
+            cl = dk.cluster_blocks(dev, batch, N, 16, 4, L, D, W,
+                                   wts['v_pad'], wts['v_real'])
+            lib = dk._batch_library() if batch else dk._library()
+            smem = getattr(lib, what + '_smem_bytes')(
+                4, L, 16, D, W, wts['v_pad'], wts['v_real'], cl)
+            print('layout %s at K=16, A=4, L=%d, %d document(s): %s; %d '
+                  'bytes of shared memory a block'
+                  % (what, L, N, 'a thread-block cluster of %d blocks of 512 '
+                     'threads a document, %d units a block, their gate '
+                     'columns of both layers in registers' % (cl, W // cl)
+                     if cl > 1 else 'the one-block layout, one block of 512 '
+                     'threads a document', smem))
     for what, lay in (
             ('score_scan at B=4 (the scoring chunk)',
              sk.scan_layout_on(dev, 4, W, D, wts['v_pad'])),
@@ -2786,12 +2912,16 @@ def main() -> int:
                  % (lay.cl, lay.rb, lay.rt) if lay.reg else
                  'the one-block layout, %d streams a block' % lay.rb,
                  lay.smem))
-    print('shared memory lstm_bwd at the training shape (B=%d, W=%d, 8 '
-          'streams a block): %d bytes; its dU product splits the %d rows '
-          '%d ways'
-          % (TRAIN_B, TRAIN_W,
-             lc._bwd_library().lstm_bwd_smem_bytes(TRAIN_B, TRAIN_W),
-             TRAIN_B * TRAIN_T,
+    lay = lc.bwd_layout_on(dev, TRAIN_B, TRAIN_W)
+    print('layout lstm_bwd at the training shape (B=%d, W=%d), f32 and bf16 '
+          'U: %s; %d bytes of shared memory a block; its dU product splits '
+          'the %d rows %d ways'
+          % (TRAIN_B, TRAIN_W, 'the z recompute as one product, then the '
+             'chain in the register layout on clusters of %d blocks of 512 '
+             'threads, %d streams a cluster, %d a thread chain, %d units a '
+             'block' % (lay.cl, lay.rb, lay.rt, -(-TRAIN_W // lay.cl))
+             if lay.reg else 'the one-block layout, %d streams a block'
+             % lay.rb, lay.smem, TRAIN_B * TRAIN_T,
              lc._bwd_library().lstm_bwd_splits(TRAIN_B, TRAIN_T)))
     from ocrd_keraslm_torch.ops import gen_kernel as gk
     for blocks in (gk.CLUSTER_WIDE, gk.CLUSTER):
@@ -2806,12 +2936,20 @@ def main() -> int:
                                                      wts['v_pad'], 10)))
 
     # ---- 3. parity at full width ----
-    digests = decode_digests(rater, dev)
-    print('decode_lattice output digests (sha256 of records, stateF, costF '
-          'and the device walk over a seeded 1024-edge block, K=16): %s; '
-          'before the device code moved into decode_common.cuh: %s'
-          % (digests, DECODE_DIGESTS))
-    assert digests == DECODE_DIGESTS, 'decode_lattice outputs changed'
+    sizes = set(dk.cluster_sizes(16, 4, 8, D, W, wts['v_pad'],
+                                 wts['v_real'])) & set(
+        dk.cluster_sizes(16, 4, 1, D, W, wts['v_pad'], wts['v_real']))
+    for cl in sorted(sizes | {1}, reverse=True):
+        with decode_cluster(cl):
+            digests = decode_digests(rater, dev)
+        print('decode_lattice output digests, %s (sha256 of records, '
+              'stateF, costF and the device walk over a seeded 1024-edge '
+              'block, K=16): %s; before the device code moved into '
+              'decode_common.cuh: %s'
+              % ('%d blocks a document' % cl if cl > 1 else
+                 'the one-block layout', digests, DECODE_DIGESTS))
+        assert digests == DECODE_DIGESTS, ('decode_lattice outputs changed',
+                                           cl)
     t0 = time.time()
     score_dig, lstm_dig = score_digests(rater, dev), lstm_digests(dev)
     for name, got, want in (('score_scan', score_dig, SCORE_DIGESTS),
@@ -2825,6 +2963,15 @@ def main() -> int:
                                     'all' if not bad else 'NOT all',
                                     ': differ in %s' % bad if bad else ''))
         assert not bad, (name, 'outputs changed', bad)
+    layouts = scan_layouts('bwd', TRAIN_B, TRAIN_W, 1)
+    bwd_dig = bwd_digests(dev, layouts)
+    bad = sorted(k for k, v in bwd_dig.items() if v != LSTM_DIGESTS[k[1]])
+    print('lstm_bwd output digests in every layout the chooser could take '
+          'at the training shape (%s; (streams, blocks, register layout)): '
+          '%s equal to those of the kernels of commit cdb1b2b%s'
+          % (', '.join(str(x) for x in layouts), 'all' if not bad else
+             'NOT all', ': differ in %s' % bad if bad else ''))
+    assert not bad, ('lstm_bwd outputs changed', bad)
     print('digests in %.1f s' % (time.time() - t0))
     decode_err = decode_parity(rater, dev)
     batch_err, batch_times = batch_parity(rater, dev)

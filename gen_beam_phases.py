@@ -5,6 +5,8 @@ forward recurrences, goes, on one GPU.
     python3 gen_beam_phases.py          # gen_beam
     python3 gen_beam_phases.py scan     # lstm_scan and score_scan
     python3 gen_beam_phases.py host     # their host time per call
+    python3 gen_beam_phases.py bwd      # lstm_bwd
+    python3 gen_beam_phases.py decode   # decode_lattice and _batch
 
 Builds a copy of ``ocrd_keraslm_torch/csrc/gen_beam.cu`` with
 ``clock64()`` marks after each phase of a step (block 0, thread 0: the
@@ -35,6 +37,24 @@ the cost model rates best, beside the model's time a step.
 
 ``host`` prints the host time of one ``lstm_scan`` and one
 ``score_scan`` call (the wrappers' work before the launch returns).
+
+``bwd`` builds ``lstm_bwd.cu`` with ``-DSCAN_PHASES`` and runs
+``lstm_bwd`` at rows 5 and 5b of ``PERF.md`` (the training shape B=128,
+T=256, W=128, f32 and bf16 U) in the layout the wrapper chooses: cycles
+per step and phase of its chain, the device time of each of its kernels
+(the z recompute, the chain, the two of the dU product;
+``torch.profiler``), then every layout the chooser could return at those
+rows and at the shapes of ``BWD_SHAPES``, against the one-block layout
+(the first port's kernel).
+
+``decode`` builds ``decode_lattice.cu`` and ``decode_lattice_batch.cu``
+with ``-DSCAN_PHASES`` (the marks of ``decode_edges_cluster``) and runs
+them at rows 1 and 2 of ``PERF.md`` (page 1 of ``chip_smoke.py``'s
+seeded 4-page workspace; block 1 of its 32-document batch) in the
+cluster size the wrapper chooses: cycles per edge and phase of block 0,
+then each cluster size the layout takes and the one-block layout, for
+one document and for the batch (the times ``decode_kernel.CL_COST`` is
+fitted to).
 
 Without a CUDA device it exits non-zero.
 """
@@ -123,13 +143,28 @@ SCAN_PHASES = {
     'score_scan': (
         (1, 'layer-0 products, block sums (shuffles)'),
         (2, 'layer-0 gate updates, h sent (st.async), xp1 loads'),
-        (7, 'wait for every layer\'s h of the step (mbarriers)'))}
+        (7, 'wait for every layer\'s h of the step (mbarriers)')),
+    'lstm_bwd': (
+        (1, 'gates from z, the next step\'s loads issued'),
+        (2, 'wait for the step\'s dz (mbarrier)'),
+        (3, 'dh products, block and quarter sums (shuffles)'),
+        (4, 'gate derivatives, dz sent (st.async), dx_proj stores')),
+    # decode_edges_cluster: per edge, summed over its chunks and steps
+    'decode': (
+        (0, 'edge arrays, top K, beam reorder'),
+        (2, 'layer products, block sums (shuffles)'),
+        (1, 'gate updates'),
+        (3, 'h sent to every block (st.async)'),
+        (4, 'wait for every unit\'s h (mbarrier)'),
+        (5, 'logits, logsumexp (rows split over blocks)'),
+        (6, 'costs into every block, state write-back'),
+        (7, 'cluster barrier of the step'))}
 
 
-def marked_library(module, source):
+def marked_library(module, source, loader='_library'):
     """``module``'s kernel library built from ``source`` with the phase
-    marks on (into ``_build/phases/``), with the wrapper's argument
-    types; returns ``(library, its compiler log)``."""
+    marks on (into ``_build/phases/``), with the argument types its
+    ``loader`` sets; returns ``(library, its compiler log)``."""
     from ocrd_keraslm_torch.ops import _build
     out_dir = os.path.join(_build.BUILD_DIR, 'phases')
     os.makedirs(out_dir, exist_ok=True)
@@ -142,7 +177,7 @@ def marked_library(module, source):
     load = _build.load
     _build.load = lambda src: ctypes.CDLL(path)
     try:
-        lib = module._library.__wrapped__()
+        lib = getattr(module, loader).__wrapped__()
     finally:
         _build.load = load
     lib.scan_phase_read.argtypes = [ctypes.c_void_p]
@@ -292,30 +327,16 @@ def scan_main(card) -> int:
             libs[name] = marked_library(module, module.SOURCE)[0]
         plain_lib = module._library
         module._library = lambda lib=libs[name]: lib
+        marks = SCAN_PHASES[name]
         try:
-            call()                               # warm-up
-            torch.cuda.synchronize()
-            libs[name].scan_phase_reset()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            call()
-            end.record()
-            torch.cuda.synchronize()
+            ms, cycles, total = marked_run(libs[name], call, marks)
         finally:
             module._library = plain_lib
-        marks = SCAN_PHASES[name]
-        cycles = (ctypes.c_ulonglong * 8)()
-        assert libs[name].scan_phase_read(ctypes.cast(cycles,
-                                                      ctypes.c_void_p)) == 0
-        total = sum(cycles[k] for k, _ in marks)
         print('%s phases, %s, layout %s: %.3f ms a launch with the marks, '
               '%.3f ms without (CUDA events), %.0f cycles a step in block 0 '
-              '[%s]' % (name, what, tuple(lay), start.elapsed_time(end),
-                        unmarked_ms, total / T, card))
-        for k, phase in marks:
-            print('  %-46s %8.0f cycles a step %5.1f%%'
-                  % (phase, cycles[k] / T, 100.0 * cycles[k] / total))
+              '[%s]' % (name, what, tuple(lay), ms, unmarked_ms, total / T,
+                        card))
+        print_marks(marks, cycles, total, ' step', T)
         if name == 'score_scan':
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 call()
@@ -372,6 +393,227 @@ def host_main(card) -> int:
     return 0
 
 
+def marked_run(lib, call, marks):
+    """Run ``call()`` (a wrapper launch on ``lib``, the marked library)
+    once after a warm-up; returns ``(ms of the marked launch, cycles per
+    mark, total cycles of the marks)``."""
+    import torch
+    call()
+    torch.cuda.synchronize()
+    lib.scan_phase_reset()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    call()
+    end.record()
+    torch.cuda.synchronize()
+    cycles = (ctypes.c_ulonglong * 8)()
+    assert lib.scan_phase_read(ctypes.cast(cycles, ctypes.c_void_p)) == 0
+    return start.elapsed_time(end), cycles, sum(cycles[k] for k, _ in marks)
+
+
+def print_marks(marks, cycles, total, per, T):
+    for k, phase in marks:
+        print('  %-52s %9.0f cycles a%s %5.1f%%'
+              % (phase, cycles[k] / T, per, 100.0 * cycles[k] / max(total,
+                                                                   1)))
+
+
+# shapes beyond rows 5 and 5b for the backward's layout sweep: (B, T, W)
+BWD_SHAPES = ((1, 256, 128), (4, 1024, 128), (33, 256, 128),
+              (256, 256, 128), (1024, 64, 128), (128, 256, 64),
+              (128, 256, 256))
+
+
+def bwd_main(card) -> int:
+    """Phases, kernel split and layout sweep of ``lstm_bwd``."""
+    import numpy as np
+    import torch
+    from chip_smoke import (TRAIN_B, TRAIN_T, TRAIN_W, cuda_ms, kernel_split,
+                            lstm_bwd_args, lstm_train_inputs, scan_layout,
+                            scan_layouts)
+    from ocrd_keraslm_torch.ops import lstm_cell as lc
+    from ocrd_keraslm_torch.ops import scan_layout as sl
+    dev = torch.device('cuda')
+    rng = np.random.default_rng(20261105)
+    lib = marked_library(lc, lc.BWD_SOURCE, '_bwd_library')[0]
+    marks = SCAN_PHASES['lstm_bwd']
+
+    def args_at(B, T, W, bf16):
+        fwd, cot = lstm_train_inputs(rng, dev, bf16, B=B, T=T, W=W)
+        return lstm_bwd_args(fwd, cot,
+                             lc.lstm_scan(*fwd, want_c_all=True)[:2])
+    for row, bf16 in (('row 5', False), ('row 5b', True)):
+        args = args_at(TRAIN_B, TRAIN_T, TRAIN_W, bf16)
+        lay = lc.bwd_layout_on(dev, TRAIN_B, TRAIN_W)
+        what = '%s (B=%d, T=%d, W=%d, %s U)' % (
+            row, TRAIN_B, TRAIN_T, TRAIN_W, 'bf16' if bf16 else 'f32')
+
+        def call(args=args):
+            return lc.lstm_bwd(*args)
+        unmarked_ms = cuda_ms(call, 3)
+        if lay.reg:
+            plain_lib = lc._bwd_library
+            lc._bwd_library = lambda: lib
+            try:
+                ms, cycles, total = marked_run(lib, call, marks)
+            finally:
+                lc._bwd_library = plain_lib
+            print('lstm_bwd phases, %s, layout %s: %.3f ms a launch with the '
+                  'marks, %.3f ms without (CUDA events), %.0f cycles a step '
+                  'of the chain in block 0 [%s]'
+                  % (what, tuple(lay), ms, unmarked_ms, total / TRAIN_T,
+                     card))
+            print_marks(marks, cycles, total, ' step', TRAIN_T)
+        print('lstm_bwd device time by kernel, %s: %s [%s]'
+              % (what, ', '.join('%s %.3f ms' % kv
+                                 for kv in kernel_split(call)), card))
+        times = []
+        for rb, cl, reg in scan_layouts('bwd', TRAIN_B, TRAIN_W, 1):
+            with scan_layout(rb, cl, reg):
+                times.append((rb, cl, reg, cuda_ms(call, 3)))
+        print_layout_times('lstm_bwd', what, times, lay, card)
+    index = torch.cuda.current_device()
+    n_sm = torch.cuda.get_device_properties(index).multi_processor_count
+    for B, T, W in BWD_SHAPES:
+        args = args_at(B, T, W, False)
+        lay = lc.bwd_layout_on(dev, B, W)
+
+        def model(x, W=W, B=B):
+            return sl.step_cost('bwd', W, 1, x) * sl.waves(
+                B, x, lambda y: lc.bwd_clusters_that_fit(index, W, y), n_sm)
+        timed = []
+        for rb, cl, reg in scan_layouts('bwd', B, W, 1):
+            x = sl.reg_layout_for('bwd', W, 1, rb, cl) if reg else \
+                sl.one_block_layout('bwd', B, W, 1)
+            with scan_layout(rb, cl, reg):
+                timed.append((x, cuda_ms(lambda args=args: lc.lstm_bwd(
+                    *args), 3)))
+        print('lstm_bwd at B=%d, T=%d, W=%d, f32 U, the chooser takes %s: %s '
+              '(layout, ms a launch (CUDA events, mean of 3), the model\'s '
+              'us a step) [%s]'
+              % (B, T, W, tuple(lay)[:3] + (lay.reg,), '; '.join(
+                  '%s %.3f ms %.2f us' % (tuple(x)[:3] + (x.reg,), t,
+                                          model(x)) for x, t in timed), card))
+    return 0
+
+
+def decode_main(card) -> int:
+    """Phases and cluster sizes of the two decode kernels."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from chip_smoke import (BATCH_DOCS, build_workspace, cuda_ms,
+                            decode_cluster, first_batch_launch, german_rater,
+                            page_block, workspace_graphs)
+    from ocrd_keraslm_torch.ops import decode_kernel as dk
+    dev = torch.device('cuda')
+    rater = german_rater(dev)
+    D, W = rater.depth, rater.width
+    marks = SCAN_PHASES['decode']
+    with tempfile.TemporaryDirectory(prefix='phases_') as work:
+        ws = os.path.join(work, 'ws')
+        build_workspace(ws, np.random.default_rng(7), 4, 40, rater.vocab)
+        args, kw, _, _ = page_block(rater, ws)
+        ws_b = os.path.join(work, 'ws_batch')
+        build_workspace(ws_b, np.random.default_rng(11), BATCH_DOCS, 40,
+                        rater.vocab)
+        bargs, bkw = first_batch_launch(rater, workspace_graphs(ws_b))
+    E, A, L = args[4].shape
+    N = bkw['n_docs']
+    bL = bargs[4].shape[2]
+    rows = (('row 1', 'decode_lattice', False, 1, L, kw['n_real'],
+             lambda: dk.decode_lattice(*args, **kw)),
+            ('row 2', 'decode_lattice_batch', True, N, bL, bkw['n_real'],
+             lambda: dk.decode_lattice_batch(*bargs, **bkw)))
+    for row, name, batch, n_docs, l_, n_real, call in rows:
+        source = dk.BATCH_SOURCE if batch else dk.SOURCE
+        loader = '_batch_library' if batch else '_library'
+        cl = dk.cluster_blocks(dev, batch, n_docs, 16, A, l_, D, W,
+                               args[0].shape[0], kw['v_real'])
+        what = '%s (%d document(s), E=%d, n_real=%d, L=%d, K=16, A=%d)' % (
+            row, n_docs, E, n_real, l_, A)
+        unmarked_ms = cuda_ms(call, 1)
+        if cl > 1:
+            lib = marked_library(dk, source, loader)[0]
+            plain_lib = getattr(dk, loader)
+            setattr(dk, loader, lambda lib=lib: lib)
+            try:
+                ms, cycles, total = marked_run(lib, call, marks)
+            finally:
+                setattr(dk, loader, plain_lib)
+            print('%s phases, %s, %d blocks a document: %.3f ms a launch '
+                  'with the marks, %.3f ms without (CUDA events), %.0f '
+                  'cycles an edge in block 0 [%s]'
+                  % (name, what, cl, ms, unmarked_ms, total / n_real, card))
+            print_marks(marks, cycles, total, 'n edge', n_real)
+        times = []
+        for c in sorted(dk.cluster_sizes(16, A, l_, D, W, args[0].shape[0],
+                                         kw['v_real']), reverse=True) + [1]:
+            with decode_cluster(c):
+                times.append((c, cuda_ms(call, 1)))
+        print('%s at %s by blocks a document (1: the one-block layout, the '
+              'first port\'s kernel): %s; the chooser takes %d [%s]'
+              % (name, what, ', '.join('%d: %.3f ms' % ct for ct in times),
+                 cl, card))
+    decode_widths(dev, card)
+    return 0
+
+
+def decode_widths(dev, card):
+    """Each cluster size against the one-block layout at W=64, D=2
+    (seeded random weights, V=70 of 128): one document of 1024 edges at
+    L=8, and 32 documents of 1024 edges at L=1."""
+    import numpy as np
+    import torch
+    from chip_smoke import batch_lattice, cuda_ms, decode_cluster, \
+        random_lattice
+    from ocrd_keraslm_torch.ops import decode_kernel as dk
+    rng = np.random.default_rng(20261106)
+    D, W, Vp, v_real, K, A, E = 2, 64, 128, 70, 16, 4, 1024
+    emb = np.zeros((Vp, W), np.float32)
+    emb[:v_real] = rng.normal(0, 1, (v_real, W))
+    weights = [torch.from_numpy(a).to(dev) for a in (
+        emb, emb.T.copy(),
+        rng.normal(0, 0.3, (D, 2 * W, 4 * W)).astype(np.float32),
+        rng.normal(0, 0.1, (D, 1, 4 * W)).astype(np.float32))]
+    for N, L in ((1, 8), (32, 1)):
+        if N == 1:
+            arrays = random_lattice(rng, E, E, A, L, v_real)
+        else:
+            arrays = batch_lattice(rng, N, [E] * N, E, A, L, v_real)
+        ins = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+               for a in arrays]
+        state = torch.zeros((N * K, (2 * D + 1) * W), device=dev)
+        state[:, :W] = weights[0][1]
+        if N == 1:
+            cost = torch.full((1, 128), 1e30, device=dev)
+            cost[0, 0] = 0.0
+
+            def call():
+                return dk.decode_lattice(
+                    *weights, *ins[:4], state, cost, lm_weight=0.5,
+                    v_real=v_real, alt_steps=ins[4], n_real=E)
+        else:
+            cost = torch.full((N * K, 1), 1e30, device=dev)
+            cost[::K] = 0.0
+
+            def call():
+                return dk.decode_lattice_batch(
+                    *weights, *ins[:4], state, cost, n_docs=N, lm_weight=0.5,
+                    v_real=v_real, alt_steps=ins[4], n_real=E)
+        times = []
+        for c in sorted(dk.cluster_sizes(K, A, L, D, W, Vp, v_real),
+                        reverse=True) + [1]:
+            with decode_cluster(c):
+                times.append((c, cuda_ms(call, 1)))
+        print('decode at W=%d, D=%d, %d document(s) of %d edges, L=%d, '
+              'K=%d, A=%d, by blocks a document: %s [%s]'
+              % (W, D, N, E, L, K, A,
+                 ', '.join('%d: %.3f ms' % ct for ct in times), card))
+
+
 def main() -> int:
     sys.path.insert(0, HERE)
     import numpy as np
@@ -391,6 +633,10 @@ def main() -> int:
         return scan_main(card)
     if sys.argv[1:] == ['host']:
         return host_main(card)
+    if sys.argv[1:] == ['bwd']:
+        return bwd_main(card)
+    if sys.argv[1:] == ['decode']:
+        return decode_main(card)
     path, log = _build.build(instrumented_source(
         _build.CSRC_DIR, os.path.join(_build.BUILD_DIR, 'phases')))
     lib = ctypes.CDLL(path)

@@ -1,9 +1,13 @@
 // Device code shared by the lattice decode kernels (decode_lattice.cu,
 // one document a launch, and decode_lattice_batch.cu, one document a
-// block): the LSTM stack with the tied softmax over a chunk of rows, the
-// per-edge beam step and the shared-memory plan.  Both kernels run
-// decode_edges on their document, so a document's records and final
-// beam do not depend on which kernel decoded it.
+// cluster or block): the LSTM stack with the tied softmax over a chunk of
+// rows, the per-edge beam step and the shared-memory plan, in two
+// layouts: decode_edges_cluster, one document on a thread-block cluster
+// (below), and decode_edges, one document on one block, the first port's
+// code, kept unchanged for the shapes the cluster layout does not take.
+// Both kernels run them on their documents, and both layouts give the
+// same bits, so a document's records and final beam do not depend on
+// which kernel or layout decoded it.
 //
 // The edge loop: for each real edge t < n_real every beam row
 // [xemb | h_0..h_{D-1} | c_0..c_{D-1}] expands into A candidates
@@ -34,6 +38,8 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "cluster_common.cuh"
 
 #define NT 512        // threads per block
 #define RBMAX 32      // rows per chunk
@@ -380,4 +386,619 @@ __device__ void decode_edges(const Decode& p, const Doc& d, const Smem& sm) {
     __syncthreads();
   }
   __syncthreads();
+}
+
+// ---- one document on a thread-block cluster ----
+//
+// What bounds decode_edges: the FMAs of a char step on one SM, every
+// weight read from L2 for RB <= 32 rows.  Here a document runs on a
+// cluster of CL blocks (one per SM):
+//  * weights: block k owns the units [k*upb, (k+1)*upb) (upb = W/CL) and
+//    keeps the four gate columns of each owned unit, for every layer, in
+//    registers for the whole launch: lane (gate g, block kb) of a unit
+//    holds the 32 weights wcat[d][32kb ..][gW + u] of each layer d (a
+//    gate column of [input | h_d] has NKB = 2W/32 blocks of 32 terms;
+//    blocks of CNT = 256 threads, so that 255 registers a thread hold
+//    them);
+//    lane kb=0 adds the blocks in order (shuffles), then the bias: the
+//    one-block kernel's float;
+//  * state: every block holds the [xemb | h_0 .. h_{D-1}] rows of the
+//    beam and of the K*A candidates in full in shared memory (padded
+//    rows), and the c of its own units only; nothing of the state goes
+//    through device memory;
+//  * h: after each layer of a chunk's char step, the block sends its
+//    units' new h into every block (st.async onto the receiver's
+//    mbarrier, a ring of two buffers, as in scan_common.cuh), waits for
+//    the rows of all units and copies them into its rows;
+//  * the tied softmax splits the chunk's rows over the blocks (row r on
+//    block r % CL; a logit's four 32-term blocks on four threads, added
+//    in order; the real columns of embT in shared memory), each row's
+//    logsumexp on one warp in the one-block kernel's shuffle order; the
+//    owner adds the row's cost term to the candidate's cost and stores
+//    it into every block (distributed shared memory), and a cluster
+//    barrier ends each char step;
+//  * the exact top K runs in every block alike, and the beam moves in
+//    each block's own copy: no second exchange.
+// Char step 0 on the K parents, the masked rows, pad edges in closed
+// form, the records and the state in/out contract are decode_edges'.
+
+#define CNT 256   // threads per block of the cluster layout: a lane's
+                  // 64 weights (two layers) and its work fit 255 registers
+#define DC_RC 16  // rows per chunk
+#define DC_RT 8   // rows per pass of a lane's chains
+
+// blocks of 32 terms in a gate column of [input | h] at width W
+__host__ __device__ inline int dc_nkb(int W) { return 2 * W / KCH; }
+
+// Whether the cluster layout takes (W, D, CL) and an edge's A x L
+// chars: W in 32, 64, 128 (2, 4 or 8 blocks of 32 terms a gate column),
+// D <= 2 (a lane's 32 weights a layer in registers), CL in 4, 8, 16, a
+// row group (4 x NKB lanes per unit) in a block, and A x L <= CNT (a
+// thread an edge's char).
+static inline bool decode_cluster_ok(int W, int D, int CL, int AL) {
+  if (AL > CNT || (W != 32 && W != 64 && W != 128)) return false;
+  if (D < 1 || D > 2 || (CL != 4 && CL != 8 && CL != 16)) return false;
+  return W / CL * 4 * dc_nkb(W) <= CNT;
+}
+
+// The cluster layout's shared memory of a block, in floats after two
+// 8-byte mbarriers (ops/decode_kernel.cluster_smem_bytes mirrors it).
+static size_t decode_cluster_smem_floats(int A, int L, int K, int D, int W,
+                                         int Vp, int vr, int CL) {
+  const int WP = padded_width(W), XP = (D + 1) * WP, upb = W / CL;
+  const int KA = K * A, RL = (DC_RC + CL - 1) / CL;
+  return 16 + 2 * DC_RC * WP +                    // the ring of h
+         (size_t)(K + KA) * XP + (size_t)K * D * WP +  // rows, new h
+         (size_t)(2 * K + KA) * D * upb +          // their own c
+         DC_RC * 4 * upb + DC_RC * upb + D * DC_RC * upb +  // z, h, c
+         RL * (W / KCH) * Vp + RL + D * 4 * upb +  // logits, lse, bias
+         K + 2 * KA + 2 * A * L + A +              // floats
+         (size_t)W * vr +                          // embT's real columns
+         K + 2 * KA + A * L + 4;                   // ints
+}
+
+static size_t decode_cluster_smem_bytes(int A, int L, int K, int D, int W,
+                                        int Vp, int vr, int CL) {
+  return 16 + 4 * decode_cluster_smem_floats(A, L, K, D, W, Vp, vr, CL);
+}
+
+struct CSmem {
+  uint64_t* bar;  // 2: the ring of exchange buffers
+  float *hn, *beamx, *pnx, *candx, *beamc, *pnc, *candc, *zs, *hloc, *cn,
+      *lgt, *lse, *bias, *costf, *acc, *total, *emask, *econf, *evalid,
+      *embt;
+  int *sel, *live, *csrc, *echar, *nlive;
+};
+
+__device__ CSmem carve_cluster_smem(const Decode& p, void* base, int CL) {
+  const int W = p.W, D = p.D, K = p.K, A = p.A, L = p.L, KA = K * A;
+  const int WP = padded_width(W), XP = (D + 1) * WP, upb = W / CL;
+  const int RL = (DC_RC + CL - 1) / CL;
+  CSmem s;
+  s.bar = reinterpret_cast<uint64_t*>(base);
+  // the ring 16 floats on, so that a lane's input (ring) and recurrent
+  // (row) blocks of layer 1 tend to fall into distinct banks
+  s.hn = reinterpret_cast<float*>(s.bar + 2) + 16;  // (2, DC_RC, WP)
+  s.beamx = s.hn + 2 * DC_RC * WP;                   // (K, XP)
+  s.candx = s.beamx + K * XP;                        // (KA, XP)
+  s.pnx = s.candx + KA * XP;                         // (K, D, WP)
+  s.beamc = s.pnx + K * D * WP;                      // (K, D, upb)
+  s.pnc = s.beamc + K * D * upb;                     // (K, D, upb)
+  s.candc = s.pnc + K * D * upb;                     // (KA, D, upb)
+  s.zs = s.candc + KA * D * upb;                     // (DC_RC, 4, upb)
+  s.hloc = s.zs + DC_RC * 4 * upb;                   // (DC_RC, upb)
+  s.cn = s.hloc + DC_RC * upb;                       // (D, DC_RC, upb)
+  s.lgt = s.cn + D * DC_RC * upb;                    // (RL, W/32, Vp)
+  s.lse = s.lgt + RL * (W / KCH) * p.Vp;
+  s.bias = s.lse + RL;                               // (D, 4, upb)
+  s.costf = s.bias + D * 4 * upb;
+  s.acc = s.costf + K;
+  s.total = s.acc + KA;
+  s.emask = s.total + KA;
+  s.econf = s.emask + A * L;
+  s.evalid = s.econf + A * L;
+  s.embt = s.evalid + A;  // (W, v_real)
+  s.sel = reinterpret_cast<int*>(s.embt + W * p.v_real);
+  s.live = s.sel + K;
+  s.csrc = s.live + KA;
+  s.echar = s.csrc + KA;
+  s.nlive = s.echar + A * L;
+  return s;
+}
+
+// Where a candidate's state is: its parent's old row (beam), its
+// parent's row after step 0 (the new h in pnx, xemb the char taken) or
+// a row of its own (candx).
+#define SRC_OLD 0
+#define SRC_NEW 1
+#define SRC_OWN 2
+
+// Candidates list[0..n) get rows of their own (and the c of the own
+// units), from where they are now.
+template <int W, int D, int UPB>
+__device__ __forceinline__ void own_rows(const Decode& p, const CSmem& sm,
+                                         const int* list, int n) {
+  constexpr int WP = W + 4 * (W / KCH), XP4 = (D + 1) * WP / 4;
+  constexpr int WP4 = WP / 4, BP4 = (KCH + 4) / 4;  // float4s a block
+  const int A = p.A, L = p.L;
+  for (int i = threadIdx.x; i < n * XP4; i += CNT) {
+    const int j = i / XP4, e = i - j * XP4;
+    const int r = list[j], src = sm.csrc[r], par = r / A;
+    if (src == SRC_OWN) continue;
+    const int seg = e / WP4, q = e - seg * WP4;
+    float4 v;
+    if (src == SRC_OLD)
+      v = reinterpret_cast<const float4*>(sm.beamx + par * (D + 1) * WP)[e];
+    else if (seg > 0)
+      v = reinterpret_cast<const float4*>(sm.pnx +
+                                          (par * D + seg - 1) * WP)[q];
+    else if (q % BP4 == BP4 - 1)
+      continue;  // a pad
+    else
+      v = __ldg(reinterpret_cast<const float4*>(
+          p.emb + (size_t)sm.echar[(r % A) * L] * W +
+          q / BP4 * KCH) + q % BP4);
+    reinterpret_cast<float4*>(sm.candx + r * (D + 1) * WP)[e] = v;
+  }
+  for (int i = threadIdx.x; i < n * D * UPB; i += CNT) {
+    const int j = i / (D * UPB), e = i - j * D * UPB;
+    const int r = list[j], src = sm.csrc[r], par = r / A;
+    if (src != SRC_OWN)
+      sm.candc[r * D * UPB + e] =
+          (src == SRC_OLD ? sm.beamc : sm.pnc)[par * D * UPB + e];
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < n; j += CNT) sm.csrc[list[j]] = SRC_OWN;
+}
+
+// sm.live[0..n) = the candidates whose alternative has a char at step s,
+// in order (warp 0; n into sm.nlive[0])
+__device__ __forceinline__ void live_rows(const Decode& p, const CSmem& sm,
+                                          int s) {
+  if (threadIdx.x >= 32) return;
+  const int lane = threadIdx.x, KA = p.K * p.A;
+  int n = 0;
+  for (int r0 = 0; r0 < KA; r0 += 32) {
+    const int r = r0 + lane;
+    const bool on = r < KA && sm.emask[(r % p.A) * p.L + s] > 0.0f;
+    const unsigned ball = __ballot_sync(0xffffffffu, on);
+    if (on) sm.live[n + __popc(ball & ((1u << lane) - 1u))] = r;
+    n += __popc(ball);
+  }
+  if (lane == 0) sm.nlive[0] = n;
+}
+
+// Decode every edge of document d on the calling cluster of CL blocks
+// (rank: this block's); W = 16 NKB.  The final beam stays in sm.beamx
+// (full) and sm.beamc (own units), its costs in sm.costf (every block
+// alike).
+template <int NKB, int D, int CL>
+__device__ void decode_edges_cluster(const Decode& p, const Doc& d,
+                                     const CSmem& sm, int rank) {
+  cg::cluster_group cluster = cg::this_cluster();
+  constexpr int W = NKB * KCH / 2, G = 4 * W, S = (2 * D + 1) * W;
+  constexpr int GS = 4 * NKB, HB = NKB / 2, UPB = W / CL;
+  constexpr int WP = W + 4 * (W / KCH), XP = (D + 1) * WP, NB = W / KCH;
+  constexpr int NRG = CNT / (UPB * GS);  // row groups
+  const int tid = threadIdx.x, u0 = rank * UPB;
+  const int A = p.A, L = p.L, K = p.K, KA = K * A, Vp = p.Vp;
+  const size_t F = d.rec_field;
+  // the lane: row group rg, unit ul (u), gate g, 32-term block kb
+  const int rg = tid / (UPB * GS), ul_ = tid / GS % UPB, q_ = tid % GS;
+  const int g_ = q_ / NKB, kb = q_ % NKB;
+  PHASE_INIT
+
+  // the lane's weights of every layer: wcat[l][32kb + k][gW + u]
+  float wr[D][KCH];
+#pragma unroll
+  for (int l = 0; l < D; ++l)
+#pragma unroll
+    for (int k = 0; k < KCH; ++k)
+      wr[l][k] = __ldg(p.wcat + ((size_t)l * 2 * W + kb * KCH + k) * G +
+                       g_ * W + u0 + ul_);
+  // the ring and the rows, pads included, start at 0
+  for (int i = tid; i < 2 * DC_RC * WP + (K + KA) * XP; i += CNT)
+    sm.hn[i] = 0.0f;
+  __syncthreads();
+  for (int i = tid; i < K * (D + 1) * W; i += CNT) {
+    const int k = i / ((D + 1) * W), e = i - k * (D + 1) * W;
+    const int seg = e / W;
+    sm.beamx[k * XP + seg * WP + hpad(e - seg * W)] = d.state0[k * S + e];
+  }
+  for (int i = tid; i < K * D * UPB; i += CNT) {
+    const int k = i / (D * UPB), j = i - k * D * UPB;
+    const int l = j / UPB, ul = j - l * UPB;
+    sm.beamc[i] = d.state0[k * S + (1 + D + l) * W + u0 + ul];
+  }
+  for (int i = tid; i < D * 4 * UPB; i += CNT) {
+    const int l = i / (4 * UPB), j = i - l * 4 * UPB;
+    const int g = j / UPB, ul = j - g * UPB;
+    sm.bias[i] = __ldg(p.bias + l * G + g * W + u0 + ul);
+  }
+  for (int k = tid; k < K; k += CNT) sm.costf[k] = d.cost0[k];
+  for (int i = tid; i < W * p.v_real; i += CNT)
+    sm.embt[i] = __ldg(p.embT + (size_t)(i / p.v_real) * Vp + i % p.v_real);
+  if (tid == 0) {
+    mbar_init(sm.bar);
+    mbar_init(sm.bar + 1);
+    mbar_init_fence();
+  }
+  int ex = 0;
+  // an edge's arrays (A*L <= CNT), loaded into registers an edge ahead
+  int nchar = 0, nsteps_next = 0;
+  float nmask = 0.0f, nconf = 0.0f, nvalid = 0.0f;
+  auto fetch = [&](int t) {
+    if (t >= p.n_real) return;
+    const size_t eo = (size_t)t * d.alt_stride + tid;
+    if (tid < A * L) {
+      nchar = d.chars[eo];
+      nmask = d.mask[eo];
+      nconf = d.conf[eo];
+    }
+    if (tid < A) nvalid = d.valid[(size_t)t * d.valid_stride + tid];
+    nsteps_next = p.steps[t];
+  };
+  fetch(0);
+  cluster.sync();  // every block of the cluster runs, its barriers ready
+
+  for (int t = 0; t < p.E; ++t) {
+    float* rec = d.rec + (size_t)t * d.rec_stride;
+    if (t >= p.n_real) {
+      if (rank == 0)
+        for (int k = tid; k < K; k += CNT) {
+          rec[k] = (float)k;
+          rec[F + k] = 0.0f;
+          rec[2 * F + k] = sm.costf[k];
+        }
+      continue;
+    }
+    if (tid < A * L) {
+      sm.echar[tid] = nchar;
+      sm.emask[tid] = nmask;
+      sm.econf[tid] = nconf;
+    }
+    if (tid < A) sm.evalid[tid] = nvalid;
+    const int nsteps = nsteps_next;
+    fetch(t + 1);
+    for (int r = tid; r < KA; r += CNT) {
+      sm.acc[r] = 0.0f;
+      sm.csrc[r] = SRC_OLD;  // a masked candidate keeps its parent's
+    }
+    __syncthreads();
+    PHASE(0)
+
+    // ---- the char steps: step 0 on the K parent rows, steps 1.. on
+    // the candidate rows that still have chars, in chunks of DC_RC ----
+    for (int s = 0; s < nsteps; ++s) {
+      int n = K;
+      if (s > 0) {
+        live_rows(p, sm, s);
+        __syncthreads();
+        n = sm.nlive[0];
+        own_rows<W, D, UPB>(p, sm, sm.live, n);
+      }
+      for (int first = 0; first < n; first += DC_RC) {
+        const int nrows = min(n - first, DC_RC);
+        // the chunk's rows: the beam's parents first.. (step 0) or the
+        // live candidates' own rows
+        const int* idx = s == 0 ? nullptr : sm.live + first;
+        const float* rows = s == 0 ? sm.beamx + first * XP : sm.candx;
+        const float* crows = s == 0 ? sm.beamc + first * D * UPB : sm.candc;
+        if (tid == 0)
+          for (int l = 0; l < D; ++l)
+            mbar_expect(sm.bar + ((ex + l) & 1), 4u * nrows * W);
+#pragma unroll
+        for (int l = 0; l < D; ++l) {
+          const int buf = ex & 1;
+          // the lane's x: block kb of [input | h_l]; input = xemb (layer
+          // 0) or the new h of layer l-1 (the other buffer of the ring)
+          const bool in_ring = kb < HB && l > 0;
+          const int off = kb < HB ? kb * (KCH + 4)
+                                  : (l + 1) * WP + (kb - HB) * (KCH + 4);
+          const float* ring = sm.hn + (buf ^ 1) * DC_RC * WP + off;
+          for (int pass = 0; pass * NRG * DC_RT < nrows; ++pass) {
+            const int base = (pass * NRG + rg) * DC_RT;
+            const float* xr[DC_RT];
+#pragma unroll
+            for (int r = 0; r < DC_RT; ++r) {
+              const int row = min(base + r, nrows - 1);
+              xr[r] = in_ring ? ring + row * WP
+                              : rows + (idx ? idx[row] : row) * XP + off;
+            }
+            float acc[DC_RT];
+#pragma unroll
+            for (int r = 0; r < DC_RT; ++r) acc[r] = 0.0f;
+#pragma unroll
+            for (int k = 0; k < KCH; k += 4) {
+#pragma unroll
+              for (int r = 0; r < DC_RT; ++r) {
+                const float4 xv = *reinterpret_cast<const float4*>(xr[r] + k);
+                float a = acc[r];
+                a = fmaf(xv.x, wr[l][k], a);
+                a = fmaf(xv.y, wr[l][k + 1], a);
+                a = fmaf(xv.z, wr[l][k + 2], a);
+                a = fmaf(xv.w, wr[l][k + 3], a);
+                acc[r] = a;
+              }
+            }
+            kb_sum<NKB, DC_RT, GS>(acc);
+            if (kb == 0)
+#pragma unroll
+              for (int r = 0; r < DC_RT; ++r)
+                if (base + r < nrows)
+                  sm.zs[(base + r) * 4 * UPB + g_ * UPB + ul_] = acc[r];
+          }
+          __syncthreads();
+          PHASE(2)
+          // the own units' gate updates
+          for (int i = tid; i < nrows * UPB; i += CNT) {
+            const int row = i / UPB, ul = i % UPB;
+            const float* z = sm.zs + row * 4 * UPB + ul;
+            const float* bl = sm.bias + l * 4 * UPB + ul;
+            const float zi = z[0] + bl[0];
+            const float zf = z[UPB] + bl[UPB];
+            const float zg = z[2 * UPB] + bl[2 * UPB];
+            const float zo = z[3 * UPB] + bl[3 * UPB];
+            const float* cold = crows + (idx ? idx[row] : row) * D * UPB;
+            const float ig = sigm(zi);
+            const float fg = sigm(zf);
+            const float gg = tanhf(zg);
+            const float og = sigm(zo);
+            const float c2 = fg * cold[l * UPB + ul] + ig * gg;
+            sm.cn[(l * DC_RC + row) * UPB + ul] = c2;
+            sm.hloc[row * UPB + ul] = og * tanhf(c2);
+          }
+          __syncthreads();
+          PHASE(1)
+          // the new h of the own units into every block, four units a
+          // store where a block owns a multiple of 4
+          {
+            const unsigned hb = smem_addr(sm.hn + buf * DC_RC * WP);
+            const unsigned bb = smem_addr(sm.bar + buf);
+            constexpr int V = UPB % 4 == 0 ? 4 : 1, UV = UPB / V;
+            const int per = nrows * UV;
+            for (int i = tid; i < per * CL; i += CNT) {
+              const int k = i / per, j = i - k * per;
+              const int row = j / UV, ul = j % UV * V;
+              const unsigned a = mapa(
+                  hb + 4u * (unsigned)(row * WP + hpad(u0 + ul)), k);
+              if constexpr (V == 4)
+                st_async4(a,
+                          *reinterpret_cast<const float4*>(
+                              sm.hloc + row * UPB + ul),
+                          mapa(bb, k));
+              else
+                st_async(a, sm.hloc[row * UPB + ul], mapa(bb, k));
+            }
+          }
+          PHASE(3)
+          mbar_wait(sm.bar + buf, (ex >> 1) & 1);  // every unit's h
+          ++ex;
+          PHASE(4)
+          // the layer's new h into the chunk's rows (the parents' new
+          // rows at step 0): before this block's next send, after which
+          // the ring's buffer may change
+          {
+            const float4* hb =
+                reinterpret_cast<const float4*>(sm.hn + buf * DC_RC * WP);
+            for (int i = tid; i < nrows * (WP / 4); i += CNT) {
+              const int row = i / (WP / 4), e = i % (WP / 4);
+              float* dst = s == 0 ? sm.pnx + ((first + row) * D + l) * WP
+                                  : sm.candx + idx[row] * XP + (l + 1) * WP;
+              reinterpret_cast<float4*>(dst)[e] = hb[row * (WP / 4) + e];
+            }
+          }
+        }
+        // the tied softmax of this block's rows (row = rank + CL*ri): a
+        // logit's 32-term blocks on threads of their own, then added in
+        // block order
+        const float* htop = sm.hn + ((ex - 1) & 1) * DC_RC * WP;
+        const int nmine = rank < nrows ? (nrows - rank + CL - 1) / CL : 0;
+        const int vr = p.v_real;
+        for (int i = tid; i < nmine * NB * vr; i += CNT) {
+          const int ri = i / (NB * vr), j = i - ri * NB * vr;
+          const int blk = j / vr, v = j - blk * vr;
+          const float* h = htop + (rank + CL * ri) * WP + blk * (KCH + 4);
+          const float* e = sm.embt + blk * KCH * vr + v;
+          float a = 0.0f;
+#pragma unroll
+          for (int k = 0; k < KCH; ++k) a = fmaf(h[k], e[k * vr], a);
+          sm.lgt[(ri * NB + blk) * Vp + v] = a;
+        }
+        __syncthreads();
+        for (int i = tid; i < nmine * vr; i += CNT) {
+          const int ri = i / vr, v = i - ri * vr;
+          float* lg = sm.lgt + ri * NB * Vp + v;
+          float tot = lg[0];
+#pragma unroll
+          for (int blk = 1; blk < NB; ++blk) tot = tot + lg[blk * Vp];
+          lg[0] = tot;
+        }
+        __syncthreads();
+        const int lane = tid & 31, warp = tid >> 5;
+        for (int ri = warp; ri < nmine; ri += CNT / 32) {
+          const float* lg = sm.lgt + ri * NB * Vp;
+          float mx = -INFINITY;
+          for (int v = lane; v < vr; v += 32) mx = fmaxf(mx, lg[v]);
+          for (int o = 16; o > 0; o >>= 1)
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+          float sum = 0.0f;
+          for (int v = lane; v < vr; v += 32) sum += expf(lg[v] - mx);
+          for (int o = 16; o > 0; o >>= 1)
+            sum += __shfl_xor_sync(0xffffffffu, sum, o);
+          if (lane == 0) sm.lse[ri] = mx + logf(sum);
+        }
+        __syncthreads();
+        PHASE(5)
+        // the owner's cost terms, into every block's copy of the costs
+        if (s == 0) {
+          for (int i = tid; i < nmine * A; i += CNT) {
+            const int ri = i / A, a = i - ri * A;
+            const int r = (first + rank + CL * ri) * A + a;
+            const float m = sm.emask[a * L];
+            if (m > 0.0f) {
+              const float nll2 =
+                  (sm.lse[ri] - sm.lgt[ri * NB * Vp + sm.echar[a * L]]) *
+                  INV_LN2F;
+              const float v =
+                  sm.acc[r] + m * (p.lw * nll2 + p.lw1 * sm.econf[a * L]);
+              for (int k = 0; k < CL; ++k)
+                cluster.map_shared_rank(sm.acc, k)[r] = v;
+            }
+          }
+        } else {
+          for (int ri = tid; ri < nmine; ri += CNT) {
+            const int r = idx[rank + CL * ri], a = r % A;
+            const float m = sm.emask[a * L + s];
+            const float nll2 =
+                (sm.lse[ri] - sm.lgt[ri * NB * Vp + sm.echar[a * L + s]]) *
+                INV_LN2F;
+            const float v =
+                sm.acc[r] + m * (p.lw * nll2 + p.lw1 * sm.econf[a * L + s]);
+            for (int k = 0; k < CL; ++k)
+              cluster.map_shared_rank(sm.acc, k)[r] = v;
+          }
+        }
+        // the rest of the chunk's new state: c of the own units (of the
+        // parents at step 0), xemb of the char taken (steps 1..)
+        for (int i = tid; i < nrows * D * UPB; i += CNT) {
+          const int row = i / (D * UPB), e = i % (D * UPB);
+          const float v = sm.cn[(e / UPB * DC_RC + row) * UPB + e % UPB];
+          if (s == 0)
+            sm.pnc[(first + row) * D * UPB + e] = v;
+          else
+            sm.candc[idx[row] * D * UPB + e] = v;
+        }
+        if (s > 0)
+          for (int i = tid; i < nrows * W; i += CNT) {
+            const int row = i / W, e = i % W, r = idx[row];
+            sm.candx[r * XP + hpad(e)] =
+                __ldg(p.emb + (size_t)sm.echar[(r % A) * L + s] * W + e);
+          }
+        __syncthreads();
+        PHASE(6)
+      }
+      if (s == 0)  // the candidates with a char at step 0 take it
+        for (int r = tid; r < KA; r += CNT)
+          if (sm.emask[(r % A) * L] > 0.0f) sm.csrc[r] = SRC_NEW;
+      cluster.sync();  // the step's costs, from every block
+      PHASE(7)
+    }
+
+    // ---- exact top-K by (total, candidate index), in every block ----
+    for (int r = tid; r < KA; r += CNT)
+      sm.total[r] = sm.evalid[r % A] > 0.5f ? sm.costf[r / A] + sm.acc[r]
+                                            : BIGF;
+    __syncthreads();
+    for (int r = tid; r < KA; r += CNT) {
+      const float tr = sm.total[r];
+      int rank_r = 0;
+      for (int j = 0; j < KA; ++j) {
+        const float tj = sm.total[j];
+        rank_r += (tj < tr) || (tj == tr && j < r);
+      }
+      if (rank_r < K) sm.sel[rank_r] = r;
+    }
+    __syncthreads();
+    for (int k = tid; k < K; k += CNT) {
+      const int r = sm.sel[k];
+      if (rank == 0) {
+        rec[k] = (float)(r / A);
+        rec[F + k] = (float)(r % A);
+        rec[2 * F + k] = sm.total[r];
+      }
+      sm.costf[k] = sm.total[r];
+    }
+    // the chosen candidates' rows, then the new beam
+    own_rows<W, D, UPB>(p, sm, sm.sel, K);
+    __syncthreads();
+    for (int i = tid; i < K * XP / 4; i += CNT) {
+      const int k = i / (XP / 4), e = i % (XP / 4);
+      reinterpret_cast<float4*>(sm.beamx + k * XP)[e] =
+          reinterpret_cast<const float4*>(sm.candx + sm.sel[k] * XP)[e];
+    }
+    for (int i = tid; i < K * D * UPB; i += CNT) {
+      const int k = i / (D * UPB);
+      sm.beamc[i] = sm.candc[sm.sel[k] * D * UPB + i % (D * UPB)];
+    }
+    __syncthreads();
+    PHASE(0)
+  }
+  PHASE_FLUSH
+  __syncthreads();
+}
+
+// The final beam's rows into state (K, S): this block's units of xemb, h
+// and c.
+__device__ void cluster_write_state(const Decode& p, const CSmem& sm,
+                                    float* state, int CL, int rank) {
+  const int K = p.K, D = p.D, W = p.W, S = (2 * D + 1) * W;
+  const int WP = padded_width(W), XP = (D + 1) * WP, upb = W / CL;
+  const int u0 = rank * upb;
+  for (int i = threadIdx.x; i < K * (2 * D + 1) * upb; i += CNT) {
+    const int ul = i % upb, rest = i / upb;
+    const int seg = rest % (2 * D + 1), k = rest / (2 * D + 1);
+    const int u = u0 + ul;
+    state[(size_t)k * S + seg * W + u] =
+        seg <= D ? sm.beamx[k * XP + seg * WP + hpad(u)]
+                 : sm.beamc[(k * D + seg - 1 - D) * upb + ul];
+  }
+}
+
+// f(integral_constant NKB, integral_constant D, integral_constant CL)
+// for a shape decode_cluster_ok takes (W = 16 NKB; only the sizes whose
+// row group fits a block are instantiated)
+template <typename F>
+static int dispatch_cluster(int W, int D, int CL, F&& f) {
+  using std::integral_constant;
+  auto by_cl = [&](auto nkbc, auto dc) -> int {
+    constexpr int NKB = decltype(nkbc)::value;
+    auto one = [&](auto clc) -> int {
+      constexpr int C = decltype(clc)::value;
+      if constexpr (NKB * 16 / C * 4 * NKB <= CNT)
+        return f(nkbc, dc, clc);
+      else
+        return (int)cudaErrorInvalidValue;
+    };
+    if (CL == 4) return one(integral_constant<int, 4>{});
+    if (CL == 8) return one(integral_constant<int, 8>{});
+    return one(integral_constant<int, 16>{});
+  };
+  auto by_d = [&](auto nkbc) -> int {
+    if (D == 1) return by_cl(nkbc, integral_constant<int, 1>{});
+    return by_cl(nkbc, integral_constant<int, 2>{});
+  };
+  if (!decode_cluster_ok(W, D, CL, 1)) return (int)cudaErrorInvalidValue;
+  if (W == 32) return by_d(integral_constant<int, 2>{});
+  if (W == 64) return by_d(integral_constant<int, 4>{});
+  return by_d(integral_constant<int, 8>{});
+}
+
+// The launch of kern on `clusters` clusters of cl blocks of CNT threads,
+// or, with `fits`, how many such clusters the card holds at once.
+template <typename Kern, typename... Args>
+static int decode_cluster_launch(Kern kern, int cl, int clusters,
+                                 size_t smem, cudaStream_t stream, int* fits,
+                                 Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess && cl > 8)  // 16 blocks exceed the portable 8
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cl * clusters);
+  cfg.blockDim = dim3(CNT);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cl;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  if (fits) return (int)cudaOccupancyMaxActiveClusters(fits, kern, &cfg);
+  err = cudaLaunchKernelEx(&cfg, kern, args...);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }

@@ -18,12 +18,20 @@
 // f32 FMA rate (1/132 of the card's 67 TFLOP/s), not by memory: the
 // weights (1 MiB at W=128) stay L2-resident and are re-read per step.
 //
-// What the design does about it: one block of 512 threads loops over the
-// edges with the device code of decode_common.cuh (beam in shared memory,
+// What the design does about it: the document runs on one thread-block
+// cluster of CL (8 or 16) blocks, decode_edges_cluster of
+// decode_common.cuh: each block keeps its units' gate columns of every
+// layer in registers for the whole launch and computes only their gates,
+// the new h goes to every block over distributed shared memory, the tied
+// softmax splits the rows over the blocks, and the top K runs in every
+// block alike.  Shapes the cluster layout does not take (and cl = 1 from
+// the wrapper) run the first port's one-block kernel, decode_edges: one
+// block of 512 threads loops over the edges (beam in shared memory,
 // candidate rows in a global scratch buffer that the wrapper allocates,
-// step 0 on the parent rows, blocked 32-term sums, rank-count top K);
-// decode_lattice_batch.cu runs the same code one block per document.
-// All arithmetic is f32 on CUDA cores: no TF32, no bf16.
+// step 0 on the parent rows, blocked 32-term sums, rank-count top K).
+// decode_lattice_batch.cu runs the same device code one cluster (or
+// block) per document.  All arithmetic is f32 on CUDA cores: no TF32, no
+// bf16.
 
 #include "decode_common.cuh"
 
@@ -39,35 +47,17 @@ struct Params {
   float* walk;         // (E+1, 2) or null
   float* stateF;       // (K, S)
   float* costF;        // (LANE,)
-  float* stateE;       // (K*A, S) scratch
+  float* stateE;       // (K*A, S) scratch of the one-block kernel
 };
 
-__global__ void __launch_bounds__(NT, 1) decode_lattice_kernel(Params q) {
-  extern __shared__ float4 smem4[];
+// costF, the records' header row and the device walk (block 0, of nt
+// threads)
+__device__ void single_tail(const Params& q, const float* costf, int nt) {
   const Decode& p = q.p;
-  const int tid = threadIdx.x;
-  const int A = p.A, L = p.L, K = p.K;
-  const int S = (2 * p.D + 1) * p.W;
-  const Smem sm = carve_smem(p, reinterpret_cast<float*>(smem4));
-  Doc d;
-  d.chars = q.chars;
-  d.mask = q.mask;
-  d.conf = q.conf;
-  d.alt_stride = (size_t)A * L;
-  d.valid = q.valid;
-  d.valid_stride = A;
-  d.state0 = q.state0;
-  d.cost0 = q.cost0;
-  d.rec = q.records + 3 * K;  // after the header row
-  d.rec_stride = 3 * K;
-  d.rec_field = K;
-  d.stateE = q.stateE;
-  decode_edges(p, d, sm);
-
-  for (int i = tid; i < K * S; i += NT) q.stateF[i] = sm.beam[i];
-  for (int l = tid; l < LANE; l += NT)
-    q.costF[l] = l < K ? sm.costf[l] : (p.n_real > 0 ? BIGF : q.cost0[l]);
-  for (int i = tid; i < 3 * K; i += NT) {
+  const int tid = threadIdx.x, K = p.K;
+  for (int l = tid; l < LANE; l += nt)
+    q.costF[l] = l < K ? costf[l] : (p.n_real > 0 ? BIGF : q.cost0[l]);
+  for (int i = tid; i < 3 * K; i += nt) {
     float v = i >= 2 * K ? q.cost0[i - 2 * K] : 0.0f;
     if (i == 0) {
       v = BIGF;
@@ -88,10 +78,90 @@ __global__ void __launch_bounds__(NT, 1) decode_lattice_kernel(Params q) {
   }
 }
 
+// The document's arrays as decode_edges reads them.
+__device__ Doc single_doc(const Params& q) {
+  const int A = q.p.A, L = q.p.L, K = q.p.K;
+  Doc d;
+  d.chars = q.chars;
+  d.mask = q.mask;
+  d.conf = q.conf;
+  d.alt_stride = (size_t)A * L;
+  d.valid = q.valid;
+  d.valid_stride = A;
+  d.state0 = q.state0;
+  d.cost0 = q.cost0;
+  d.rec = q.records + 3 * K;  // after the header row
+  d.rec_stride = 3 * K;
+  d.rec_field = K;
+  d.stateE = q.stateE;
+  return d;
+}
+
+__global__ void __launch_bounds__(NT, 1) decode_lattice_kernel(Params q) {
+  extern __shared__ float4 smem4[];
+  const Decode& p = q.p;
+  const int tid = threadIdx.x;
+  const int K = p.K;
+  const int S = (2 * p.D + 1) * p.W;
+  const Smem sm = carve_smem(p, reinterpret_cast<float*>(smem4));
+  decode_edges(p, single_doc(q), sm);
+
+  for (int i = tid; i < K * S; i += NT) q.stateF[i] = sm.beam[i];
+  single_tail(q, sm.costf, NT);
+}
+
+// The document on one cluster of CL blocks.
+template <int NKB, int D, int CL>
+__global__ void __launch_bounds__(CNT, 1)
+    decode_lattice_cluster_kernel(Params q) {
+  extern __shared__ float4 smem4[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const CSmem sm = carve_cluster_smem(q.p, smem4, CL);
+  decode_edges_cluster<NKB, D, CL>(q.p, single_doc(q), sm, rank);
+  cluster_write_state(q.p, sm, q.stateF, CL, rank);
+  if (rank == 0) single_tail(q, sm.costf, CNT);
+  cluster.sync();  // no block leaves while another may still read it
+}
+
+// bytes of dynamic shared memory a block asks: the one-block kernel's
+// plan (cl 1) or the cluster layout's
 extern "C" size_t decode_lattice_smem_bytes(int A, int L, int K, int D,
-                                            int W, int Vp) {
+                                            int W, int Vp, int vr, int cl) {
+  if (cl > 1) return decode_cluster_smem_bytes(A, L, K, D, W, Vp, vr, cl);
   return decode_smem_floats(A, L, K, D, W, Vp,
                             decode_chunk_rows(A, L, K, D, W, Vp)) * 4;
+}
+
+// the cluster launch of one document (or, with fits, how many such
+// clusters the card holds at once; refuses a layout decode_cluster_ok
+// does not take)
+static int cluster_run(const Params& q, int cl, cudaStream_t stream,
+                       int* fits) {
+  const Decode& p = q.p;
+  if (!decode_cluster_ok(p.W, p.D, cl, p.A * p.L) || p.K > RBMAX)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      decode_cluster_smem_bytes(p.A, p.L, p.K, p.D, p.W, p.Vp, p.v_real,
+                                cl);
+  return dispatch_cluster(p.W, p.D, cl, [&](auto nkbc, auto dc,
+                                            auto clc) {
+    constexpr int NKB = decltype(nkbc)::value, D = decltype(dc)::value;
+    constexpr int C = decltype(clc)::value;
+    return decode_cluster_launch(decode_lattice_cluster_kernel<NKB, D, C>,
+                                 cl, 1, smem, stream, fits, q);
+  });
+}
+
+// How many clusters of cl blocks of the cluster layout the card holds at
+// once (0 where the layout does not take the shape or it does not fit).
+extern "C" int decode_lattice_max_clusters(int A, int L, int K, int D,
+                                           int W, int Vp, int vr, int cl) {
+  Params q{};
+  q.p.A = A, q.p.L = L, q.p.K = K, q.p.D = D, q.p.W = W, q.p.Vp = Vp;
+  q.p.v_real = vr;
+  int fits = 0;
+  return cluster_run(q, cl, 0, &fits) == 0 ? fits : 0;
 }
 
 extern "C" int decode_lattice_launch(
@@ -101,12 +171,13 @@ extern "C" int decode_lattice_launch(
     const float* state0, const float* cost0, float* records, float* walk,
     float* stateF, float* costF, float* stateE, int E, int n_real, int A,
     int L, int K, int D, int W, int Vp, int v_real, float lw, float lw1,
-    void* stream) {
+    int cl, void* stream) {
   const int rb = decode_chunk_rows(A, L, K, D, W, Vp);
   Params q{{emb, embT, wcat, bias, steps, E, n_real, A, L, K, D, W, Vp,
             v_real, rb, lw, lw1},
            chars, mask, conf, valid, state0, cost0, records, walk, stateF,
            costF, stateE};
+  if (cl > 1) return cluster_run(q, cl, (cudaStream_t)stream, nullptr);
   const size_t smem = decode_smem_floats(A, L, K, D, W, Vp, rb) * 4;
   cudaError_t err = cudaFuncSetAttribute(
       decode_lattice_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

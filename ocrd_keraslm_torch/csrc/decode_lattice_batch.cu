@@ -8,25 +8,26 @@
 // cost model, the same exact top K by (total cost, candidate index)
 // within each document, identity records for pad edges t >= n_real.
 //
-// What bounds it on this card: the recurrence, one SM per document.
-// Inside a document edge t+1 waits for edge t's top K and char step s+1
-// for step s, so a document keeps one SM busy at the f32 FMA rate of one
-// SM (see decode_lattice.cu).  The TPU kernel stacks N documents in the
-// rows of one matrix unit; here documents need no rows in common: they
-// need more SMs.
+// What bounds it on this card: the recurrence.  Inside a document edge
+// t+1 waits for edge t's top K and char step s+1 for step s (see
+// decode_lattice.cu).  The TPU kernel stacks N documents in the rows of
+// one matrix unit; here documents need no rows in common: they need more
+// SMs.
 //
-// What the design does about it: one thread block of 512 threads per
-// document, grid = N, each block running decode_edges of
-// decode_common.cuh on its own slice (beam in shared memory, candidate
-// rows in the document's slice of a global scratch (N, K*A, S), step 0
-// on the parent rows, rank-count top K).  Nothing is shared between
-// documents, so nothing needs a grid barrier; ~189 KB of shared memory
-// at K=16 keeps one block on an SM, up to 132 documents run at once and
-// a larger batch runs in waves.  Because every document runs the same
-// device code with the same A, L, K and per-edge steps as
-// decode_lattice.cu, its records and final beam equal those of a
-// single-document launch bit for bit.  A batch's wall is close to that
-// of its longest document.
+// What the design does about it: one thread-block cluster of CL blocks
+// per document (decode_edges_cluster of decode_common.cuh; the wrapper
+// chooses CL from N and from the clusters the card holds at once), or,
+// where the cluster layout does not take the shape or the wrapper asks
+// cl = 1, one block of 512 threads per document (decode_edges, the first
+// port's code, candidate rows in the document's slice of a global
+// scratch (N, K*A, S)), each on its own slice.  Nothing is shared between
+// documents, so nothing needs a grid barrier, and a cluster never waits
+// on another document's; a batch larger than the card holds at once runs
+// in waves.  Because every document runs the same device code with the
+// same A, L, K and per-edge steps as decode_lattice.cu, and both layouts
+// give the same bits, its records and final beam equal those of a
+// single-document launch bit for bit, whatever CL either took.  A
+// batch's wall is close to that of its longest document.
 //
 // walk_records_batch_kernel: one thread per document walks a block's
 // records in reverse from its start slot k_in[n] and writes the chosen
@@ -46,16 +47,13 @@ struct BatchIO {
   float* records;      // (E, 3, N*K)
   float* stateF;       // (N*K, S)
   float* costF;        // (N*K,)
-  float* stateE;       // (N, K*A, S) scratch
+  float* stateE;       // (N, K*A, S) scratch of the one-block kernel
 };
 
-__global__ void __launch_bounds__(NT, 1)
-    decode_lattice_batch_kernel(Decode p, BatchIO io) {
-  extern __shared__ float4 smem4[];
-  const int n = blockIdx.x, N = gridDim.x, tid = threadIdx.x;
+// Document n's arrays as decode_edges reads them.
+__device__ Doc batch_doc(const Decode& p, const BatchIO& io, int n, int N) {
   const int A = p.A, L = p.L, K = p.K;
   const int S = (2 * p.D + 1) * p.W;
-  const Smem sm = carve_smem(p, reinterpret_cast<float*>(smem4));
   Doc d;
   d.chars = io.chars + (size_t)n * A * L;
   d.mask = io.mask + (size_t)n * A * L;
@@ -69,11 +67,40 @@ __global__ void __launch_bounds__(NT, 1)
   d.rec_stride = (size_t)3 * N * K;
   d.rec_field = (size_t)N * K;
   d.stateE = io.stateE + (size_t)n * K * A * S;
-  decode_edges(p, d, sm);
+  return d;
+}
+
+__global__ void __launch_bounds__(NT, 1)
+    decode_lattice_batch_kernel(Decode p, BatchIO io) {
+  extern __shared__ float4 smem4[];
+  const int n = blockIdx.x, N = gridDim.x, tid = threadIdx.x;
+  const int K = p.K;
+  const int S = (2 * p.D + 1) * p.W;
+  const Smem sm = carve_smem(p, reinterpret_cast<float*>(smem4));
+  decode_edges(p, batch_doc(p, io, n, N), sm);
 
   for (int i = tid; i < K * S; i += NT)
     io.stateF[(size_t)n * K * S + i] = sm.beam[i];
   for (int k = tid; k < K; k += NT) io.costF[(size_t)n * K + k] = sm.costf[k];
+}
+
+// Document n on cluster n of CL blocks.
+template <int NKB, int D, int CL>
+__global__ void __launch_bounds__(CNT, 1)
+    decode_lattice_batch_cluster_kernel(Decode p, BatchIO io) {
+  extern __shared__ float4 smem4[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int n = (int)blockIdx.x / CL, N = (int)gridDim.x / CL;
+  const int K = p.K, S = (2 * D + 1) * p.W;
+  const CSmem sm = carve_cluster_smem(p, smem4, CL);
+  const Doc d = batch_doc(p, io, n, N);
+  decode_edges_cluster<NKB, D, CL>(p, d, sm, rank);
+  cluster_write_state(p, sm, io.stateF + (size_t)n * K * S, CL, rank);
+  if (rank == 0)
+    for (int k = threadIdx.x; k < K; k += CNT)
+      io.costF[(size_t)n * K + k] = sm.costf[k];
+  cluster.sync();  // no block leaves while another may still read it
 }
 
 __global__ void walk_records_batch_kernel(const float* records,
@@ -93,10 +120,45 @@ __global__ void walk_records_batch_kernel(const float* records,
   k_out[n] = k;
 }
 
+// bytes of dynamic shared memory a block asks: the one-block kernel's
+// plan (cl 1) or the cluster layout's
 extern "C" size_t decode_lattice_batch_smem_bytes(int A, int L, int K, int D,
-                                                  int W, int Vp) {
+                                                  int W, int Vp, int vr,
+                                                  int cl) {
+  if (cl > 1) return decode_cluster_smem_bytes(A, L, K, D, W, Vp, vr, cl);
   return decode_smem_floats(A, L, K, D, W, Vp,
                             decode_chunk_rows(A, L, K, D, W, Vp)) * 4;
+}
+
+// the cluster launch of N documents (or, with fits, how many such
+// clusters the card holds at once; refuses a layout decode_cluster_ok
+// does not take)
+static int batch_cluster_run(const Decode& p, const BatchIO& io, int N,
+                             int cl, cudaStream_t stream, int* fits) {
+  if (!decode_cluster_ok(p.W, p.D, cl, p.A * p.L) || p.K > RBMAX)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      decode_cluster_smem_bytes(p.A, p.L, p.K, p.D, p.W, p.Vp, p.v_real,
+                                cl);
+  return dispatch_cluster(p.W, p.D, cl, [&](auto nkbc, auto dc,
+                                            auto clc) {
+    constexpr int NKB = decltype(nkbc)::value, D = decltype(dc)::value;
+    constexpr int C = decltype(clc)::value;
+    return decode_cluster_launch(decode_lattice_batch_cluster_kernel<NKB, D, C>,
+                                 cl, N, smem, stream, fits, p, io);
+  });
+}
+
+// How many clusters of cl blocks of the cluster layout the card holds at
+// once (0 where the layout does not take the shape or it does not fit).
+extern "C" int decode_lattice_batch_max_clusters(int A, int L, int K, int D,
+                                                 int W, int Vp, int vr,
+                                                 int cl) {
+  Decode p{};
+  p.A = A, p.L = L, p.K = K, p.D = D, p.W = W, p.Vp = Vp, p.v_real = vr;
+  const BatchIO io{};
+  int fits = 0;
+  return batch_cluster_run(p, io, 1, cl, 0, &fits) == 0 ? fits : 0;
 }
 
 extern "C" int decode_lattice_batch_launch(
@@ -105,13 +167,15 @@ extern "C" int decode_lattice_batch_launch(
     const float* conf, const float* valid, const int* steps,
     const float* state0, const float* cost0, float* records, float* stateF,
     float* costF, float* stateE, int N, int E, int n_real, int A, int L,
-    int K, int D, int W, int Vp, int v_real, float lw, float lw1,
+    int K, int D, int W, int Vp, int v_real, float lw, float lw1, int cl,
     void* stream) {
   const int rb = decode_chunk_rows(A, L, K, D, W, Vp);
   const Decode p{emb, embT, wcat, bias, steps, E, n_real, A, L, K, D, W,
                  Vp, v_real, rb, lw, lw1};
   const BatchIO io{chars, mask, conf, valid, state0, cost0, records,
                    stateF, costF, stateE};
+  if (cl > 1)
+    return batch_cluster_run(p, io, N, cl, (cudaStream_t)stream, nullptr);
   const size_t smem = decode_smem_floats(A, L, K, D, W, Vp, rb) * 4;
   cudaError_t err = cudaFuncSetAttribute(
       decode_lattice_batch_kernel,

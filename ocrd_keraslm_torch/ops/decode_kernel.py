@@ -7,11 +7,15 @@ decode_lattice_pallas`` and ``decode_lattice_pallas_batch`` (with
 hand-written kernel ``csrc/decode_lattice.cu`` for CUDA tensors and runs
 :func:`decode_lattice_ref`, the same function in plain PyTorch, for CPU
 tensors; :func:`decode_lattice_batch` and :func:`walk_records_batch`
-do the same with ``csrc/decode_lattice_batch.cu`` (one block per
-document, the device code of ``csrc/decode_common.cuh``) and
-:func:`decode_lattice_batch_ref`/:func:`walk_records_batch_ref`.
-Nothing falls back: a CUDA tensor either goes through the kernel or the
-call raises.
+do the same with ``csrc/decode_lattice_batch.cu`` and
+:func:`decode_lattice_batch_ref`/:func:`walk_records_batch_ref`.  Both
+kernels run the device code of ``csrc/decode_common.cuh``: a document
+on a thread-block cluster of CL blocks where the cluster layout takes
+the shape (:func:`cluster_blocks` chooses CL from the number of
+documents and the clusters the card holds at once), else on one block
+(the first port's code); both layouts give the same bits.  Nothing
+falls back: a CUDA tensor either goes through the kernel or the call
+raises.
 
 Layouts are the JAX package's: the packed beam state is (K, S) with
 S = (2D+1)W and rows ``[xemb | h_0..h_{D-1} | c_0..c_{D-1}]``; the cost
@@ -40,15 +44,134 @@ INV_LN2 = 1.4426950408889634
 
 SOURCE = _build.source('decode_lattice.cu')
 
+# ---- the cluster layout of decode_common.cuh (decode_edges_cluster) ----
+CNT = 256                # threads per block of the cluster layout
+KCH = 32                 # terms per partial sum
+DC_RC = 16               # rows per chunk
+KMAX = 32                # beam rows the kernels take
+CLUSTERS = (4, 8, 16)    # blocks per document (16: non-portable)
+SMEM_MAX = 232448        # dynamic shared memory a block may ask (Hopper)
+# Time of one document by blocks a document, relative to one block (the
+# first port's code): the cost model of choose_cluster, fitted to
+# gen_beam_phases.py decode on an H100 (rows 1 and 2 of PERF.md at W=128:
+# 16 blocks 0.19-0.21; W=64, D=2: 4 blocks 0.36, 8 blocks 0.26)
+CL_COST = {1: 1.0, 4: 0.36, 8: 0.26, 16: 0.19}
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def padded_width(W: int) -> int:
+    """A padded row of the cluster layout: 4 floats after each 32-term
+    block (``cluster_common.cuh`` ``hpad``)."""
+    return W + 4 * _ceil(W, KCH)
+
+
+def cluster_ok(W: int, D: int, cl: int, K: int = 1) -> bool:
+    """Whether the cluster layout takes width W, depth D and cl blocks
+    (``decode_cluster_ok``): W in 32, 64, 128 (2, 4 or 8 blocks of 32
+    terms in a gate column of [input | h]), D <= 2 (a lane's 32 weights
+    a layer in registers), cl in :data:`CLUSTERS`, a row group (4 x 2W/32
+    lanes per unit) in a block of CNT threads, and K <= 32."""
+    if W not in (32, 64, 128) or not 1 <= D <= 2 or cl not in CLUSTERS \
+            or not 1 <= K <= KMAX:
+        return False
+    return W // cl * 4 * (2 * W // KCH) <= CNT
+
+
+def cluster_smem_bytes(A: int, L: int, K: int, D: int, W: int, Vp: int,
+                       v_real: int, cl: int) -> int:
+    """A block's dynamic shared memory in the cluster layout
+    (``decode_cluster_smem_bytes``): two mbarriers, the ring of two h
+    buffers, the padded [xemb | h] rows of the beam and of the K*A
+    candidates and the parents' new h, the c of their own units, the
+    chunk's gate sums, new h and c of the own units, the logits' 32-term
+    blocks and logsumexp of the block's rows, the own bias, the per-edge
+    arrays and embT's ``v_real`` real columns."""
+    WP = padded_width(W)
+    XP, upb, KA, RL = (D + 1) * WP, W // cl, K * A, _ceil(DC_RC, cl)
+    floats = (16 + 2 * DC_RC * WP + (K + KA) * XP + K * D * WP
+              + (2 * K + KA) * D * upb
+              + DC_RC * 4 * upb + DC_RC * upb + D * DC_RC * upb
+              + RL * (W // KCH) * Vp + RL + D * 4 * upb
+              + K + 2 * KA + 2 * A * L + A + W * v_real
+              + K + 2 * KA + A * L + 4)
+    return 16 + 4 * floats
+
+
+def cluster_sizes(K: int, A: int, L: int, D: int, W: int, Vp: int,
+                  v_real: int) -> list:
+    """The cluster sizes the layout takes for the shape: those of
+    :func:`cluster_ok` whose shared memory fits a block's, where an
+    edge's A x L chars fit a block's threads."""
+    if A * L > CNT:
+        return []
+    return [cl for cl in CLUSTERS if cluster_ok(W, D, cl, K)
+            and cluster_smem_bytes(A, L, K, D, W, Vp, v_real, cl)
+            <= SMEM_MAX]
+
+
+def choose_cluster(N: int, K: int, A: int, L: int, D: int, W: int, Vp: int,
+                   v_real: int, fits, n_sm: int) -> int:
+    """Blocks a document for a launch of N documents: of the cluster
+    sizes the layout takes (:func:`cluster_sizes`) and the card holds
+    (``fits(cl)``: how many such clusters it holds at once), the lowest
+    ``CL_COST[cl]`` times the waves of clusters wins, ties to more
+    blocks; 1 (one block a document, the first port's code, ``n_sm`` at
+    once) where none does or it costs no more."""
+    best = (CL_COST[1] * _ceil(N, n_sm), 1)
+    for cl in cluster_sizes(K, A, L, D, W, Vp, v_real):
+        at_once = fits(cl)
+        if at_once > 0:
+            best = min(best, (CL_COST[cl] * _ceil(N, at_once), -cl))
+    return abs(best[1])
+
+
+@functools.lru_cache(maxsize=None)
+def _clusters_that_fit(index: int, batch: bool, cl: int, A: int, L: int,
+                       K: int, D: int, W: int, Vp: int, v_real: int) -> int:
+    with torch.cuda.device(index):
+        if batch:
+            return _batch_library().decode_lattice_batch_max_clusters(
+                A, L, K, D, W, Vp, v_real, cl)
+        return _library().decode_lattice_max_clusters(A, L, K, D, W, Vp,
+                                                      v_real, cl)
+
+
+@functools.lru_cache(maxsize=None)
+def _cluster_choice(index: int, batch: bool, N: int, K: int, A: int,
+                    L: int, D: int, W: int, Vp: int, v_real: int) -> int:
+    return choose_cluster(
+        N, K, A, L, D, W, Vp, v_real,
+        lambda cl: _clusters_that_fit(index, batch, cl, A, L, K, D, W, Vp,
+                                      v_real),
+        torch.cuda.get_device_properties(index).multi_processor_count)
+
+
+def cluster_blocks(device: torch.device, batch: bool, N: int, K: int,
+                   A: int, L: int, D: int, W: int, Vp: int,
+                   v_real: int) -> int:
+    """Blocks a document of :func:`decode_lattice` (``batch`` false, N
+    1) or :func:`decode_lattice_batch` (N documents) on the CUDA
+    ``device``: :func:`choose_cluster` with the card's SMs and cluster
+    occupancy, chosen once per device and shape."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    return _cluster_choice(index, bool(batch), N, K, A, L, D, W, Vp,
+                           int(v_real))
+
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.decode_lattice_launch.argtypes = [P] * 16 + [I] * 9 + [F, F, P]
+    lib.decode_lattice_launch.argtypes = [P] * 16 + [I] * 9 + [F, F, I, P]
     lib.decode_lattice_launch.restype = ctypes.c_int
-    lib.decode_lattice_smem_bytes.argtypes = [I] * 6
+    lib.decode_lattice_smem_bytes.argtypes = [I] * 8
     lib.decode_lattice_smem_bytes.restype = ctypes.c_size_t
+    lib.decode_lattice_max_clusters.argtypes = [I] * 8
+    lib.decode_lattice_max_clusters.restype = ctypes.c_int
     return lib
 
 
@@ -119,6 +242,7 @@ def decode_lattice(emb, embT, wcat, bias, alt_chars, alt_mask, alt_conf,
     costF = torch.empty((1, LANE), dtype=f32, device=device)
     stateE = torch.empty((K * A, S), dtype=f32, device=device)
     lib = _library()
+    cl = cluster_blocks(device, False, 1, K, A, L, D, W, Vp, v_real)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         status = lib.decode_lattice_launch(
@@ -129,12 +253,13 @@ def decode_lattice(emb, embT, wcat, bias, alt_chars, alt_mask, alt_conf,
             records.data_ptr(), walk.data_ptr() if device_walk else None,
             stateF.data_ptr(), costF.data_ptr(), stateE.data_ptr(),
             E, n_real, A, L, K, D, W, Vp, int(v_real),
-            float(lm_weight), float(1.0 - lm_weight), stream)
+            float(lm_weight), float(1.0 - lm_weight), cl, stream)
     if status != 0:
         raise RuntimeError('decode_lattice kernel launch failed: CUDA '
-                           'error %d (%d bytes of shared memory asked)'
-                           % (status, lib.decode_lattice_smem_bytes(
-                               A, L, K, D, W, Vp)))
+                           'error %d (%d blocks, %d bytes of shared memory '
+                           'asked)' % (status, cl,
+                                       lib.decode_lattice_smem_bytes(
+                                           A, L, K, D, W, Vp, v_real, cl)))
     decode_lattice.launches += 1
     return (walk if device_walk else records), stateF, costF
 
@@ -252,10 +377,12 @@ def _batch_library() -> ctypes.CDLL:
     lib = _build.load(BATCH_SOURCE)
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.decode_lattice_batch_launch.argtypes = \
-        [P] * 15 + [I] * 10 + [F, F, P]
+        [P] * 15 + [I] * 10 + [F, F, I, P]
     lib.decode_lattice_batch_launch.restype = ctypes.c_int
-    lib.decode_lattice_batch_smem_bytes.argtypes = [I] * 6
+    lib.decode_lattice_batch_smem_bytes.argtypes = [I] * 8
     lib.decode_lattice_batch_smem_bytes.restype = ctypes.c_size_t
+    lib.decode_lattice_batch_max_clusters.argtypes = [I] * 8
+    lib.decode_lattice_batch_max_clusters.restype = ctypes.c_int
     lib.walk_records_batch_launch.argtypes = [P] * 4 + [I] * 3 + [P]
     lib.walk_records_batch_launch.restype = ctypes.c_int
     return lib
@@ -331,6 +458,7 @@ def decode_lattice_batch(emb, embT, wcat, bias, alt_chars, alt_mask,
     costF = torch.empty((N * K, 1), dtype=f32, device=device)
     stateE = torch.empty((N, K * A, S), dtype=f32, device=device)
     lib = _batch_library()
+    cl = cluster_blocks(device, True, N, K, A, L, D, W, Vp, v_real)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         status = lib.decode_lattice_batch_launch(
@@ -340,13 +468,14 @@ def decode_lattice_batch(emb, embT, wcat, bias, alt_chars, alt_mask,
             alt_steps.data_ptr(), state0.data_ptr(), cost0.data_ptr(),
             records.data_ptr(), stateF.data_ptr(), costF.data_ptr(),
             stateE.data_ptr(), N, E, n_real, A, L, K, D, W, Vp,
-            int(v_real), float(lm_weight), float(1.0 - lm_weight), stream)
+            int(v_real), float(lm_weight), float(1.0 - lm_weight), cl,
+            stream)
     if status != 0:
         raise RuntimeError('decode_lattice_batch kernel launch failed: '
-                           'CUDA error %d (%d bytes of shared memory '
-                           'asked)' % (status,
-                                       lib.decode_lattice_batch_smem_bytes(
-                                           A, L, K, D, W, Vp)))
+                           'CUDA error %d (%d blocks a document, %d bytes of '
+                           'shared memory asked)'
+                           % (status, cl, lib.decode_lattice_batch_smem_bytes(
+                               A, L, K, D, W, Vp, v_real, cl)))
     decode_lattice_batch.launches += 1
     return records, stateF, costF
 

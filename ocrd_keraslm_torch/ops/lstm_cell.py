@@ -9,8 +9,9 @@ Counterpart of ``ocrd_keraslm_tpu/ops/lstm_cell.py``:
   :func:`lstm_scan_ref`, a Python loop over :func:`lstm_gates`, for CPU
   tensors;
 * :func:`lstm_bwd` (``_lstm_bwd_pallas``) launches ``csrc/lstm_bwd.cu``
-  for CUDA tensors and runs :func:`lstm_bwd_ref`, an explicit reverse
-  loop, for CPU tensors;
+  for CUDA tensors (its chain on thread-block clusters laid out by
+  :mod:`.scan_layout`, kind ``bwd``) and runs :func:`lstm_bwd_ref`, an
+  explicit reverse loop, for CPU tensors;
 * :class:`LSTMScan` (the ``lstm_scan_pallas`` custom VJP) is the
   ``torch.autograd.Function`` over the two.
 
@@ -117,13 +118,44 @@ def scan_layout_on(device: torch.device, B: int, W: int,
 def _bwd_library() -> ctypes.CDLL:
     lib = _build.load(BWD_SOURCE)
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.lstm_bwd_launch.argtypes = [P] * 14 + [I] * 4 + [P]
+    S = ctypes.c_size_t
+    lib.lstm_bwd_launch.argtypes = [P] * 14 + [I] * 8 + [S, P]
     lib.lstm_bwd_launch.restype = ctypes.c_int
     lib.lstm_bwd_splits.argtypes = [I, I]
     lib.lstm_bwd_splits.restype = ctypes.c_int
-    lib.lstm_bwd_smem_bytes.argtypes = [I, I]
+    lib.lstm_bwd_smem_bytes.argtypes = [I, I, I]
     lib.lstm_bwd_smem_bytes.restype = ctypes.c_size_t
+    lib.lstm_bwd_max_clusters.argtypes = [I] * 4 + [S]
+    lib.lstm_bwd_max_clusters.restype = ctypes.c_int
     return lib
+
+
+def bwd_clusters_that_fit(index: int, W: int,
+                          layout: scan_layout.Layout) -> int:
+    """How many clusters of the backward's register ``layout`` card
+    ``index`` holds at once."""
+    with torch.cuda.device(index):
+        return _bwd_library().lstm_bwd_max_clusters(
+            W, layout.rb, layout.cl, layout.rt, layout.smem)
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_layout(index: int, B: int, W: int) -> scan_layout.Layout:
+    lay = scan_layout.choose(
+        'bwd', B, W, 1, lambda lay: bwd_clusters_that_fit(index, W, lay),
+        torch.cuda.get_device_properties(index).multi_processor_count)
+    scan_layout.check('bwd', B, W, 1, lay)
+    return lay
+
+
+def bwd_layout_on(device: torch.device, B: int,
+                  W: int) -> scan_layout.Layout:
+    """The layout :func:`lstm_bwd` runs the chain of B streams of width W
+    in on the CUDA ``device`` (:func:`scan_layout.choose`, kind ``bwd``;
+    chosen once per device and shape; the same for f32 and bf16 U)."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    return _bwd_layout(index, B, W)
 
 
 def _weight_dtype(name: str, recurrent: torch.Tensor) -> bool:
@@ -256,6 +288,7 @@ def lstm_bwd(xp_tm: torch.Tensor, hprev_tm: torch.Tensor,
     dc0 = torch.empty((B, W), dtype=f32, device=device)
     part = torch.empty((lib.lstm_bwd_splits(B, T), W, G), dtype=f32,
                        device=device)
+    lay = bwd_layout_on(device, B, W)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         status = lib.lstm_bwd_launch(
@@ -263,11 +296,11 @@ def lstm_bwd(xp_tm: torch.Tensor, hprev_tm: torch.Tensor,
             call_tm.data_ptr(), dhout_tm.data_ptr(), recurrent.data_ptr(),
             recT.data_ptr(), dhT.data_ptr(), dcT.data_ptr(), dxp.data_ptr(),
             dU.data_ptr(), dh0.data_ptr(), dc0.data_ptr(), part.data_ptr(),
-            B, T, W, int(bf16), stream)
+            B, T, W, int(bf16), lay.rb, lay.cl, lay.rt, int(lay.reg),
+            lay.smem, stream)
     if status != 0:
         raise RuntimeError('lstm_bwd kernel launch failed: CUDA error %d '
-                           '(%d bytes of shared memory asked)'
-                           % (status, lib.lstm_bwd_smem_bytes(B, W)))
+                           '(layout %s)' % (status, lay))
     lstm_bwd.launches += 1
     return dxp, dU, dh0, dc0
 

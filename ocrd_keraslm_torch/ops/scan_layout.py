@@ -1,10 +1,12 @@
-"""How the two LSTM forward-recurrence kernels lay a launch out on the
-card.
+"""How the LSTM recurrence kernels lay a launch out on the card: the two
+forward recurrences and the backward's chain.
 
-Pure host arithmetic, shared by :mod:`.lstm_cell` (``csrc/lstm_scan.cu``)
-and :mod:`.score_kernel` (``csrc/score_scan.cu``); the sources refuse a
-launch whose layout or shared-memory size differs from what this module
-computes (``reg_layout_ok`` in ``scan_common.cuh``).
+Pure host arithmetic, shared by :mod:`.lstm_cell` (``csrc/lstm_scan.cu``,
+kind ``lstm``; ``csrc/lstm_bwd.cu``, kind ``bwd``) and
+:mod:`.score_kernel` (``csrc/score_scan.cu``, kind ``score``); the
+sources refuse a launch whose layout or shared-memory size differs from
+what this module computes (``reg_layout_ok`` in ``scan_common.cuh``,
+``bwd_layout_ok`` in ``lstm_bwd.cu``).
 
 Two layouts:
 
@@ -17,7 +19,10 @@ Two layouts:
   weights of one column's 32-term block in registers for the whole scan
   (of both matrices of a layer above 0 in ``score``) and runs ``rt``
   streams in its chain; a block holds only the padded h rows of every
-  layer in shared memory;
+  layer in shared memory.  In ``bwd`` a lane keeps the 32 weights of one
+  32-term block of two of a unit's four quarters of U^T (the W-term sums
+  of ``dh = dz @ U^T``) and a block holds the padded dz rows (4W a
+  stream);
 * the one-block layout of the first port everywhere else, and where
   its cost model rates it faster (a large B, whose clusters would run in
   many waves one after another): one block of ``rows_per_block(B)``
@@ -47,11 +52,13 @@ MIN_UNITS = 8        # units a block owns at least (else fewer blocks)
 REG_STEP, REG_PER_ROW, REG_PER_BLOCK = 0.656, 0.498, 0.254
 ONE_PER_FMA = 0.0098
 # streams one thread's chain takes at most (its registers hold them
-# beside 64 weights; more spill), and the gate columns a lane holds
-# (lstm: two, so one load of h feeds two FMAs; score: one of each of a
-# layer's two matrices)
+# beside 64 weights and their step's loads; more spill; the backward's
+# lanes, whose loads wait in one lane a row, take 4), and the gate columns a lane holds (lstm: two, so one load
+# of h feeds two FMAs; score: one of each of a layer's two matrices;
+# bwd: two quarters of U^T, whose terms are the dz of two gates)
 REG_RT_MAX = 2
-REG_GATES = {'lstm': 2, 'score': 1}
+REG_RT_MAX_OF = {'lstm': REG_RT_MAX, 'score': REG_RT_MAX, 'bwd': 4}
+REG_GATES = {'lstm': 2, 'score': 1, 'bwd': 2}
 
 
 class Layout(NamedTuple):
@@ -76,8 +83,9 @@ def _ceil(a: int, b: int) -> int:
 
 
 def _kind(kind: str) -> str:
-    if kind not in ('lstm', 'score'):
-        raise ValueError('kind is lstm or score, not %r' % kind)
+    if kind not in REG_GATES:
+        raise ValueError('kind is lstm or score (the forward scans) or bwd '
+                         '(the backward), not %r' % kind)
     return kind
 
 
@@ -91,13 +99,23 @@ def padded_width(W: int) -> int:
     return W + 4 * _ceil(W, KCH)
 
 
+def quarter_width(W: int) -> int:
+    """A quarter of a dz row of the backward's register layout: the
+    padded width, rounded up to 8 (mod 16) floats (``lstm_bwd.cu``
+    ``quarter_width``), so that a lane group's float4 loads of two
+    quarters fall into distinct banks."""
+    wp = padded_width(W)
+    return wp + (24 - wp % 16) % 16
+
+
 def layer_groups(kind: str, D: int) -> int:
-    return 1 if _kind(kind) == 'lstm' else D
+    return D if _kind(kind) == 'score' else 1
 
 
 def reg_lanes(kind: str, W: int) -> int:
     """Lanes of one unit's group in the register layout: one per gate
-    pair (``lstm``) or gate (``score``) and 32-term block."""
+    pair (``lstm``), gate (``score``) or quarter of U^T (``bwd``) and
+    32-term block."""
     return 4 // REG_GATES[_kind(kind)] * _ceil(W, KCH)
 
 
@@ -114,13 +132,19 @@ def plan_bytes(kind: str, W: int, D: int, rb: int, reg: bool,
     """Dynamic shared memory of one block, in bytes.  The register
     layout: the padded h rows of every layer, double-buffered
     (``layer_groups`` x 2 x rb x ``padded_width``), and two mbarriers a
-    layer.  The one-block layout: ``lstm`` h, c and z rows (rb x (W + W
-    + 4W)) and, under a bf16 U (``bf16``), h rounded to bf16 (rb x W);
-    ``score`` the carry (2 x D x rb x W) and z rows (rb x max(4W,
-    Vp))."""
+    layer; ``bwd`` the padded dz rows (2 x rb x 4 x
+    :func:`quarter_width`) and two mbarriers.  The one-block layout: ``lstm`` h, c and z rows
+    (rb x (W + W + 4W)) and, under a bf16 U (``bf16``), h rounded to bf16
+    (rb x W); ``score`` the carry (2 x D x rb x W) and z rows (rb x
+    max(4W, Vp)); ``bwd`` h, dh and dc rows, z and dz rows and the four
+    partial sums of dh (rb x (3W + 2 x 4W + 4W))."""
     if reg:
+        if _kind(kind) == 'bwd':
+            return 4 * 2 * rb * 4 * quarter_width(W) + 16
         return layer_groups(kind, D) * (4 * 2 * rb * padded_width(W) + 16)
-    if _kind(kind) == 'lstm':
+    if _kind(kind) == 'bwd':
+        return 4 * rb * 15 * W
+    if kind == 'lstm':
         return 4 * rb * (6 * W + (W if bf16 else 0))
     return 4 * (2 * D * rb * W + rb * max(4 * W, Vp))
 
@@ -139,14 +163,14 @@ def reg_layout_for(kind: str, W: int, D: int, rb: int,
     """The register layout of ``rb`` streams on ``cl`` blocks, or None
     where it does not fit: 2, 4 or 8 blocks of 32 terms a column, every
     block owning a unit, and ``layer_groups`` groups of threads of at
-    most REG_RT_MAX streams a chain in a block's NT threads; the most
-    row groups that fit win."""
+    most ``REG_RT_MAX_OF[kind]`` streams a chain in a block's NT threads;
+    the most row groups that fit win."""
     nkb = _ceil(W, KCH)
     if nkb not in (2, 4, 8) or W % 4 or rb not in (1, 2, 4, RBMAX) or \
             cl not in CLUSTERS or (cl - 1) * units_per_block(W, cl) >= W:
         return None
     rt = max(1, rb // RBMAX)
-    while rt <= min(rb, REG_RT_MAX, reg_lanes(kind, W)):
+    while rt <= min(rb, REG_RT_MAX_OF[kind], reg_lanes(kind, W)):
         if layer_groups(kind, D) * reg_group_threads(kind, W, rb, cl,
                                                      rt) <= NT:
             return Layout(rb, cl, rt, plan_bytes(kind, W, D, rb, True),
@@ -163,8 +187,9 @@ def step_cost(kind: str, W: int, D: int, layout: Layout,
         return REG_STEP + layer_groups(kind, D) * (
             REG_PER_ROW * layout.rt + REG_PER_BLOCK * reg_group_threads(
                 kind, W, layout.rb, layout.cl, layout.rt) / NT)
+    # bwd: the z recompute and dh = dz @ U^T, 4W columns of W terms each
     fmas = layout.rb * W * _ceil(4 * W, NT) * (
-        1 if kind == 'lstm' else 2 * D - 1)
+        {'lstm': 1, 'bwd': 2}.get(kind, 2 * D - 1))
     if kind == 'score':
         fmas += layout.rb * W * _ceil(Vp, NT)
     return ONE_PER_FMA * fmas
@@ -220,7 +245,9 @@ def check(kind: str, B: int, W: int, D: int, layout: Layout,
         problems.append('B >= 1 and W a positive multiple of 4')
     elif layout.reg:
         if reg_layout_for(kind, W, D, layout.rb, layout.cl) is None or \
-                layout.rt not in (1, 2) or layout.rt > layout.rb or \
+                layout.rt not in (1, 2, 4) or \
+                layout.rt > REG_RT_MAX_OF[kind] or \
+                layout.rt > layout.rb or layout.rb % layout.rt or \
                 layer_groups(kind, D) * reg_group_threads(
                     kind, W, layout.rb, layout.cl, layout.rt) > NT:
             problems.append('a register layout that fits (2, 4 or 8 '
@@ -228,7 +255,7 @@ def check(kind: str, B: int, W: int, D: int, layout: Layout,
                             '%s, every block owning a unit, rt <= %d '
                             'dividing rb, the threads of a block)'
                             % (RBMAX, ', '.join(map(str, CLUSTERS)),
-                               REG_RT_MAX))
+                               REG_RT_MAX_OF[kind]))
     elif (layout.rb, layout.cl, layout.rt) != (rows_per_block(B), 1,
                                                rows_per_block(B)):
         problems.append('the one-block layout (rb = rt = %d, cl 1)'

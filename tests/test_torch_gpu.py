@@ -34,6 +34,7 @@ entropies within 1e-4 (card against CPU also two ulps of the document's
 f32 cumulative cost, ``chip_smoke.same_results``).  The batched final
 states are held within ``chip_smoke.BATCH_STATE_ATOL`` (two f32
 versions, each up to ~1e-5 from the exact state)."""
+import contextlib
 import os
 
 import numpy as np
@@ -121,14 +122,17 @@ def test_kernel_matches_plain(cuda, model, L, K):
 def test_kernel_matches_plain_long_alternatives(cuda):
     """Alternatives of up to 64 chars (line level) at K=32: the 32-row
     chunk no longer fits in shared memory and the launcher takes
-    16-row chunks."""
+    16-row chunks (the cluster layout does not take K=32: its candidates'
+    rows exceed a block's shared memory)."""
     from ocrd_keraslm_torch.ops import decode_kernel as dk
     K, L = 32, 64
     rng = np.random.default_rng([K, L])
     weights, v_real = _german(cuda)
     D, W = weights[2].shape[0], weights[0].shape[1]
-    assert dk._library().decode_lattice_smem_bytes(4, L, K, D, W, 128) \
-        < dk._library().decode_lattice_smem_bytes(4, 8, K, D, W, 128)
+    lib = dk._library()
+    assert lib.decode_lattice_smem_bytes(4, L, K, D, W, 128, v_real, 1) \
+        < lib.decode_lattice_smem_bytes(4, 8, K, D, W, 128, v_real, 1)
+    assert dk.cluster_blocks(cuda, False, 1, K, 4, L, D, W, 128, v_real) == 1
     run = _runner(weights, v_real, cuda)
     state = torch.zeros((K, (2 * D + 1) * W), device=cuda)
     state[:, :W] = weights[0][1]
@@ -139,6 +143,69 @@ def test_kernel_matches_plain_long_alternatives(cuda):
             run, dk.decode_lattice, dk.decode_lattice_ref,
             random_lattice(rng, E, n_real, 4, L, v_real), n_real, state,
             cost, K, W)
+
+
+@pytest.mark.parametrize('K', [8, 16])
+def test_kernel_matches_plain_long_alternatives_small_beams(cuda, K):
+    """Alternatives of up to 64 chars at K in {8, 16}, in the layout the
+    wrapper takes, against the plain version on every edge."""
+    from ocrd_keraslm_torch.ops import decode_kernel as dk
+    L = 64
+    rng = np.random.default_rng([K, L, 2])
+    weights, v_real = _german(cuda)
+    D, W = weights[2].shape[0], weights[0].shape[1]
+    run = _runner(weights, v_real, cuda)
+    state = torch.zeros((K, (2 * D + 1) * W), device=cuda)
+    state[:, :W] = weights[0][1]
+    cost = torch.full((1, 128), 1e30, device=cuda)
+    cost[0, 0] = 0.0
+    for E, n_real in ((64, 64), (64, 41)):
+        _, _, state, cost = parity_block(
+            run, dk.decode_lattice, dk.decode_lattice_ref,
+            random_lattice(rng, E, n_real, 4, L, v_real), n_real, state,
+            cost, K, W)
+
+
+@pytest.mark.parametrize('K', [8, 16, 32])
+@pytest.mark.parametrize('L', [1, 8, 64])
+@pytest.mark.parametrize('model', ['german', 'd1w32', 'd2w64'])
+def test_decode_cluster_sizes_agree(cuda, model, L, K):
+    """Every cluster size the layout takes and the one-block layout give
+    ``decode_lattice`` the same bits (records, device walk, final beam
+    and costs) over two chained blocks (one with pad edges); the chosen
+    size is one of them (the one-block layout where none is: K=32 at
+    W=128).  (The plain version holds the kernel in
+    ``test_kernel_matches_plain*``, which run the chosen layout.)"""
+    from chip_smoke import decode_cluster
+    from ocrd_keraslm_torch.ops import decode_kernel as dk
+    rng = np.random.default_rng([('german', 'd1w32', 'd2w64').index(model),
+                                 L, K])
+    if model == 'german':
+        weights, v_real = _german(cuda)
+    else:
+        D, W = (1, 32) if model == 'd1w32' else (2, 64)
+        v_real = 40
+        weights = [t.to(cuda) for t in _random_weights(rng, D, W, v_real)]
+    D, W = weights[2].shape[0], weights[0].shape[1]
+    sizes = dk.cluster_sizes(K, 4, L, D, W, 128, v_real)
+    assert dk.cluster_blocks(cuda, False, 1, K, 4, L, D, W, 128,
+                             v_real) in sizes + ([1] if not sizes else [])
+    run = _runner(weights, v_real, cuda)
+    state = torch.zeros((K, (2 * D + 1) * W), device=cuda)
+    state[:, :W] = weights[0][1]
+    cost = torch.full((1, 128), 1e30, device=cuda)
+    cost[0, 0] = 0.0
+    for E, n_real in ((48, 48), (32, 21)):
+        arrays = random_lattice(rng, E, n_real, 4, L, v_real)
+        outs = {}
+        for cl in [1] + sizes:
+            with decode_cluster(cl):
+                outs[cl] = [run(dk.decode_lattice, arrays, n_real, state,
+                                cost, walk) for walk in (False, True)]
+        for cl in sizes:
+            for got, want in zip(outs[cl], outs[1]):
+                assert all(torch.equal(g, w) for g, w in zip(got, want)), cl
+        state, cost = outs[1][0][1:]
 
 
 def test_cuda_tensors_never_take_the_plain_version(cuda, monkeypatch):
@@ -286,6 +353,58 @@ def test_lstm_bwd_and_bf16_scan_match_plain(cuda, B, T, W, bf16):
     assert torch.equal(outs[0][1], outs[1][1])
     assert outs[0][1].dtype == torch.float32
     compare_bwd(outs[0], lstm_cell.lstm_bwd_ref(*args))
+
+
+@pytest.mark.parametrize('bf16', [False, True], ids=['f32', 'bf16'])
+@pytest.mark.parametrize('B, T, W', [(1, 40, 64), (3, 1, 128), (3, 40, 128),
+                                     (129, 30, 128), (128, 256, 128),
+                                     (9, 20, 256), (1, 1, 64), (33, 7, 100)])
+def test_lstm_bwd_every_layout_matches_plain(cuda, B, T, W, bf16):
+    """``lstm_bwd`` in every layout the chooser can take (the register
+    layout on clusters of 1-16 blocks of 1-8 streams, and the one-block
+    layout) against its plain version: B in {1, 3, 33, 129} (not a
+    multiple of a cluster's streams), T = 1, W in {64, 100, 128, 256};
+    the chosen layout is one of them."""
+    from chip_smoke import scan_layout, scan_layouts
+    from ocrd_keraslm_torch.ops import lstm_cell
+    rng = np.random.default_rng([B, T, W, int(bf16), 5])
+    fwd, cot = lstm_train_inputs(rng, cuda, bf16, B=B, T=T, W=W)
+    args = lstm_bwd_args(fwd, cot, lstm_cell.lstm_scan(
+        *fwd, want_c_all=True)[:2])
+    want = lstm_cell.lstm_bwd_ref(*args)
+    layouts = scan_layouts('bwd', B, W, 1)
+    assert len(layouts) > 2
+    for rb, cl, reg in layouts:
+        with scan_layout(rb, cl, reg):
+            compare_bwd(lstm_cell.lstm_bwd(*args), want)
+    lay = lstm_cell.bwd_layout_on(cuda, B, W)
+    assert (lay.rb, lay.cl, lay.reg) in layouts
+
+
+@pytest.mark.parametrize('B, T, W', [(4, 300, 128), (33, 40, 128),
+                                     (9, 30, 100), (3, 40, 64),
+                                     (2, 30, 256), (129, 17, 128)])
+def test_lstm_bwd_cluster_sizes_agree(cuda, B, T, W):
+    """Every layout the chooser can return gives ``lstm_bwd`` (f32 and
+    bf16 U) the bits of the one-block layout of the first port: the z
+    recompute and the blocked sums of dh keep their order."""
+    from chip_smoke import scan_layout, scan_layouts
+    from ocrd_keraslm_torch.ops import lstm_cell
+    from ocrd_keraslm_torch.ops import scan_layout as sl
+    one_block = (sl.rows_per_block(B), 1, False)
+    for bf16 in (False, True):
+        rng = np.random.default_rng([B, T, W, int(bf16), 6])
+        fwd, cot = lstm_train_inputs(rng, cuda, bf16, B=B, T=T, W=W)
+        args = lstm_bwd_args(fwd, cot, lstm_cell.lstm_scan(
+            *fwd, want_c_all=True)[:2])
+        outs = {}
+        for rb, cl, reg in scan_layouts('bwd', B, W, 1):
+            with scan_layout(rb, cl, reg):
+                outs[rb, cl, reg] = lstm_cell.lstm_bwd(*args)
+        want = outs[one_block]
+        assert len(outs) > 2
+        for key, got in outs.items():
+            assert all(torch.equal(g, w) for g, w in zip(got, want)), key
 
 
 def test_cuda_training_never_takes_the_plain_versions(cuda, monkeypatch):
@@ -574,6 +693,46 @@ def test_batch_equals_single_document_launches(cuda, L):
                            rec[:, :, n * K:(n + 1) * K])
         assert torch.equal(single[1], stateF[n * K:(n + 1) * K])
         assert torch.equal(single[2][0, :K], costF[n * K:(n + 1) * K, 0])
+
+
+@pytest.mark.parametrize('N', [1, 32, 33])
+def test_batch_sizes_equal_single_document_launches(cuda, N):
+    """A batch of N documents of unequal length (n_real from 64 down to
+    1 edge; the batch's cluster size chosen for N, each single launch's
+    for one document) equals, document by document and bit for bit, its
+    single-document ``decode_lattice`` launches; so does the batch in the
+    one-block layout."""
+    from chip_smoke import decode_cluster
+    from ocrd_keraslm_torch.ops import decode_kernel as dk
+    rng = np.random.default_rng([8, N])
+    weights, v_real = _german(cuda)
+    K, A, E, L = 16, 4, 64, 8
+    D, W = weights[2].shape[0], weights[0].shape[1]
+    n_reals = [E] + [int(rng.integers(1, E + 1)) for _ in range(N - 1)]
+    arrays = batch_lattice(rng, N, n_reals, E, A, L, v_real)
+    state, cost = _fresh_beams(weights, N, K)
+    run = _batch_runner(weights, v_real, cuda, N)
+    got = run(dk.decode_lattice_batch, arrays, E, state, cost)
+    with decode_cluster(1):
+        one_block = run(dk.decode_lattice_batch, arrays, E, state, cost)
+    assert all(torch.equal(a, b) for a, b in zip(got, one_block))
+    rec, stateF, costF = got
+    for n in range(N):
+        one = [np.ascontiguousarray(a[:, n * A:(n + 1) * A])
+               for a in arrays[:4]]
+        cost_n = torch.full((1, 128), 1e30, device=cuda)
+        cost_n[0, :K] = cost[n * K:(n + 1) * K, 0]
+        single = dk.decode_lattice(
+            *weights, *(torch.from_numpy(a).to(cuda)
+                        for a in one[:3] + [one[3][..., 0].copy()]),
+            state[n * K:(n + 1) * K].contiguous(), cost_n, lm_weight=0.5,
+            v_real=v_real, n_real=E,
+            alt_steps=torch.from_numpy(arrays[4][:, 0].copy()).to(cuda))
+        assert torch.equal(single[0][1:].reshape(E, 3, K),
+                           rec[:, :, n * K:(n + 1) * K]), n
+        assert torch.equal(single[1], stateF[n * K:(n + 1) * K]), n
+        assert torch.equal(single[2][0, :K], costF[n * K:(n + 1) * K, 0]), n
+    assert dk.cluster_blocks(cuda, True, N, K, A, L, D, W, 128, v_real) >= 1
 
 
 @pytest.mark.parametrize('N, K', [(1, 8), (33, 16), (200, 32)])
