@@ -32,8 +32,12 @@ Phases, each printing its own lines (any failure exits non-zero):
    T=256, W=128) the LSTM-scan kernel with f32 and bf16 U and the
    LSTM backward kernel with both, ``dU`` equal from launch to launch;
    the generation beam-step kernel over 64 steps from a seeded prompt
-   (K=256, TOPK=10), every step against the plain version (near-ties
-   resumed from the kernel's fringe), and the traceback kernel;
+   (K=256, TOPK=10) in every unit layout the card takes, every step
+   against the plain version (near-ties resumed from the kernel's
+   fringe), its records and final fringe by sha256 in every layout the
+   chooser can take, equal to those of the kernel of commit 2399e92
+   (``GEN_DIGESTS``: the seeded prompt, the 16 prompts of the batch row,
+   a one-layer model of width 64), and the traceback kernel;
 4. decode path: a seeded synthetic METS/PAGE workspace (4 pages of ~1800
    glyphs, 2-4 alternatives on ~15% of them) through
    ``ocrd_keraslm_torch.wrapper.cli`` at glyph level, beam_width 10;
@@ -2614,17 +2618,108 @@ def gen_bound(weights, v_real, state0, cost0, rec):
     return bound(flops, nbytes)
 
 
-@contextlib.contextmanager
-def cluster_size(blocks):
-    """``gen_beam`` launches clusters of ``blocks`` blocks a stream
-    inside the block, whatever the card's occupancy would choose."""
+# sha256 of gen_beam's records and final fringe in gen_digests, as the
+# kernel of commit 2399e92 gave them (its first design: the fringe rows
+# split over a cluster of 16 or of 8 blocks, both equal; NVIDIA H100 80GB
+# HBM3, 700.00 W): every layout the chooser can take keeps them bit for
+# bit
+GEN_DIGESTS = {
+    'german prompt t64 rec':
+        'bc63c6725738013234fe4de0338f1bce4a1bdcbd23231c04daa89b43ed40c81f',
+    'german prompt t64 final':
+        '1621b395fa6c231d34b8dffcfc3b6ffda18d39d3b776055e2f683a96a6ce86f1',
+    'german batch16 t256 rec':
+        'dba43a54cfdfcdbd7e73bbd46a86885c2380a6bb13a61169799cb03211a9b37e',
+    'german batch16 t256 final':
+        '0fb56b8a99cb74c2b6e8c88f309de293832d56b34fb50b51d869a6e1a8a13fee',
+    'd1w64 t128 rec':
+        '30d28626262f0ca59ab1408dbdca62fbabb6d0f821e85472c807ccc25beafbd0',
+    'd1w64 t128 final':
+        'f1689115704d9a323e84bcc13123584e8dcdaaaa7d057b27a3c45ac5d3702c95'}
+
+
+def gen_digest_cases(rater, dev):
+    """{case: (weights, v_real, state0, cost0, steps)} of
+    :func:`gen_digests`: the german model from the prompt of
+    :func:`gen_parity_phase` (64 steps) and from the ``GEN_BATCH``
+    prompts of the batch row (``GEN_BATCH_N`` steps), and seeded random
+    weights of a narrower one-layer model (D=1, W=64, v_real=70 of 128)
+    from three seeded prefixes (128 steps); K=256 throughout."""
+    import torch
     from ocrd_keraslm_torch.ops import gen_kernel as gk
-    choose = gk.cluster_blocks
-    gk.cluster_blocks = lambda *args: blocks
+    from ocrd_keraslm_torch.ops.beam_device import FRINGE
+    cases = {}
+    prompts = gen_prompts(rater, np.random.default_rng(20261020), 2)
+    weights, v_real, state0, cost0 = gen_inputs(rater, prompts)
+    cases['german prompt t64'] = (weights, v_real, state0[:1].contiguous(),
+                                  cost0[:1].contiguous(), 64)
+    prompts = gen_prompts(rater, np.random.default_rng(21), GEN_BATCH)
+    cases['german batch16 t256'] = gen_inputs(rater, prompts) + (
+        GEN_BATCH_N,)
+    rng = np.random.default_rng(20261107)
+    D, W, Vp, vr = 1, 64, 128, 70
+    emb = np.zeros((Vp, W), np.float32)
+    emb[:vr] = rng.normal(0, 1, (vr, W))
+    small = tuple(torch.from_numpy(a).to(dev) for a in (
+        emb, emb.T.copy(),
+        rng.normal(0, 0.3, (D, 2 * W, 4 * W)).astype(np.float32),
+        rng.normal(0, 0.1, (D, 1, 4 * W)).astype(np.float32)))
+    ids = rng.integers(1, vr, (3, 6)).astype(np.int32)
+    mask = np.ones((3, 6), np.float32)
+    mask[:, -1] = 0.0
+    state0, cost0 = gk._prefix_fringe(*small, ids, mask, vr, FRINGE)
+    cases['d1w64 t128'] = (small, vr, state0, cost0, 128)
+    return cases
+
+
+def gen_digests(rater, dev):
+    """{(case + ' rec' or ' final', layout): sha256} of ``gen_beam``'s
+    records (N, T, 3, K) and final fringe (N, K, S) on
+    :func:`gen_digest_cases`, in every layout the chooser can take for
+    the case's shape (:func:`gen_layouts_on`)."""
+    from ocrd_keraslm_torch.ops import gen_kernel as gk
+    out = {}
+    for case, (weights, v_real, state0, cost0, T) in gen_digest_cases(
+            rater, dev).items():
+        Vp, W = weights[0].shape
+        for lay in gen_layouts_on(dev, state0.shape[1], weights[2].shape[0],
+                                  W, Vp, 10, v_real):
+            with gen_layout(lay):
+                rec, final = gk.gen_beam(*weights, state0, cost0, length=T,
+                                         v_real=v_real, final_state=True)
+            out[case + ' rec', lay] = _digest((rec,))
+            out[case + ' final', lay] = _digest((final,))
+    return out
+
+
+def gen_layouts_on(dev, K, D, W, Vp, topk, v_real):
+    """Every ``gen_beam`` layout the chooser can take for the shape on
+    the card: those of ``gen_kernel.gen_layouts`` the card holds a
+    cluster of."""
+    import torch
+    from ocrd_keraslm_torch.ops import gen_kernel as gk
+    index = dev.index if dev.index is not None else \
+        torch.cuda.current_device()
+    return [lay for lay in gk.gen_layouts(K, D, W, Vp, topk, v_real)
+            if gk.clusters_that_fit(index, K, D, W, Vp, topk, v_real,
+                                    lay) > 0]
+
+
+@contextlib.contextmanager
+def gen_layout(lay):
+    """``gen_beam`` launches the layout ``lay`` (a ``gen_kernel.GenLayout``
+    of :func:`gen_layouts_on`) inside the block, whatever the chooser
+    would take.  The wrapper's cached choices are dropped on entry and on
+    exit."""
+    from ocrd_keraslm_torch.ops import gen_kernel as gk
+    choose = gk.choose
+    gk.choose = lambda *args: lay
+    gk._layout.cache_clear()
     try:
         yield
     finally:
-        gk.cluster_blocks = choose
+        gk.choose = choose
+        gk._layout.cache_clear()
 
 
 @contextlib.contextmanager
@@ -2678,28 +2773,46 @@ def scan_layout(rb=None, cl=1, reg=True):
 
 
 def gen_parity_phase(rater):
-    """Phase 3, the two generation kernels at full width; returns the
-    beam step's max abs cost error."""
+    """Phase 3, the two generation kernels at full width: the beam step
+    in every unit layout the card takes, against its plain version, then
+    its digests in every layout the chooser can take; returns the beam
+    step's max abs cost error."""
     import torch
     from ocrd_keraslm_torch.ops import gen_kernel as gk
     rng = np.random.default_rng(20261020)
     prompts = gen_prompts(rater, rng, 2)
     weights, v_real, state0, cost0 = gen_inputs(rater, prompts)
+    Vp, W = weights[0].shape
     err = 0.0
-    for blocks in (gk.CLUSTER_WIDE, gk.CLUSTER):
+    for lay in gen_layouts_on(state0.device, 256, rater.depth, W, Vp, 10,
+                              v_real):
+        if not lay.units:
+            continue
         t0 = time.time()
-        with cluster_size(blocks):
+        with gen_layout(lay):
             e, ties = gen_parity(gk.gen_beam, gk.gen_beam_ref, weights,
                                  state0[:1].contiguous(),
                                  cost0[:1].contiguous(), 64, v_real)
         err = max(err, e)
-        print('parity gen_beam (%d blocks a stream, prompt %r, K=256, '
-              'TOPK=10, 64 steps, D=%d, W=%d, v_real=%d): chars and '
-              'backpointers equal at every step, max |kernel - plain| %.3g '
-              'over live costs, near-ties resumed from the kernel\'s fringe '
-              'at steps %s (tolerance: costs rtol 1e-5 atol 1e-6) in %.1f s'
-              % (blocks, prompts[0], rater.depth, rater.width, v_real, e,
-                 ties or 'none', time.time() - t0))
+        print('parity gen_beam (%s, prompt %r, K=256, TOPK=10, 64 steps, '
+              'D=%d, W=%d, v_real=%d): chars and backpointers equal at '
+              'every step, max |kernel - plain| %.3g over live costs, '
+              'near-ties resumed from the kernel\'s fringe at steps %s '
+              '(tolerance: costs rtol 1e-5 atol 1e-6) in %.1f s'
+              % (describe_gen_layout(lay), prompts[0], rater.depth,
+                 rater.width, v_real, e, ties or 'none', time.time() - t0))
+    t0 = time.time()
+    got = gen_digests(rater, state0.device)
+    bad = sorted((k, tuple(lay)) for (k, lay), v in got.items()
+                 if v != GEN_DIGESTS[k])
+    print('gen_beam output digests (sha256 of the records and the final '
+          'fringe, %d cases) in every layout the chooser can take (%s): %s '
+          'equal to those of the kernel of commit 2399e92%s, in %.1f s'
+          % (len(GEN_DIGESTS) // 2, '; '.join(sorted({
+              describe_gen_layout(lay) + ' for ' + k.rsplit(' ', 1)[0]
+              for k, lay in got})), 'all' if not bad else 'NOT all',
+             ': differ in %s' % bad if bad else '', time.time() - t0))
+    assert not bad, ('gen_beam outputs changed', bad)
     rec = gk.gen_beam(*weights, state0, cost0, length=64, v_real=v_real)
     for out_length in (64, 41):
         best = torch.argsort(rec[:, out_length - 1, 2], dim=1,
@@ -2711,6 +2824,16 @@ def gen_parity_phase(rater):
           'out_length 64 and 41): equal to the plain version'
           % GEN_VARIANTS)
     return err
+
+
+def describe_gen_layout(lay):
+    """A ``gen_kernel.GenLayout`` in words."""
+    if lay.units:
+        return ('the unit layout on %d blocks a stream (%d row half(s) by '
+                '%d unit groups), tiles of %d rows'
+                % (lay.cl, lay.rh, lay.cl // lay.rh, lay.tr))
+    return 'the rows layout (the first design) on %d blocks a stream' % \
+        lay.cl
 
 
 def run_generate(number, variants, platform):
@@ -2803,19 +2926,28 @@ def generation_numbers(rater, gen, card):
         rec = kernel()
         bound_ms, bound_by, flops = gen_bound(weights, v_real, state0, cost0,
                                               rec)
+        lay = gk.layout_on(state0.device, N, 256, rater.depth,
+                           rater.width, weights[0].shape[0], 10, v_real)
         print('%s at the main path shape (N=%d streams, T=%d steps, K=256, '
-              'TOPK=10, D=%d, W=%d): %.3f ms/launch then %.3f ms/launch '
-              '(CUDA events, mean of 3 warm launches), %.2f us/step, %.0f '
-              'generated chars/s over the streams [%s]'
-              % (name, N, T, rater.depth, rater.width, ms, ms2,
-                 1e3 * ms2 / T, N * T / (ms2 / 1e3), card))
+              'TOPK=10, D=%d, W=%d; %s): %.3f ms/launch then %.3f '
+              'ms/launch (CUDA events, mean of 3 warm launches), %.2f '
+              'us/step, %.0f generated chars/s over the streams [%s]'
+              % (name, N, T, rater.depth, rater.width,
+                 describe_gen_layout(lay), ms, ms2, 1e3 * ms2 / T,
+                 N * T / (ms2 / 1e3), card))
         print('%s plain version at the same shape: %.3f ms (CUDA events, '
               'one warm run) [%s]' % (name, plain_ms, card))
+        # a stream's steps run on one cluster of at most 16 SMs (128
+        # f32 FMA a clock each, 1.98 GHz boost), one cluster a stream
+        floor_ms = 1e3 * flops / min(N, 132 // 16) / (16 * 256 * 1.98e9)
         print('%s bound: %.4f ms by %s (%.4g f32 FLOP at 67 TFLOP/s, %.4g '
-              'a step and stream); kernel at %.3f%% of it; library call: '
-              'none - no single PyTorch call runs a beam step [%s]'
-              % (name, bound_ms, bound_by, flops, flops / N / T,
-                 100 * bound_ms / ms2, card))
+              'a step and stream); kernel at %.3f%% of it; the floor of '
+              'one 16-SM cluster a stream (at most %d at once; 16 x 128 '
+              'FMA a clock at 1.98 GHz): %.3f ms, kernel at %.1f%% of it; '
+              'library call: none - no single PyTorch call runs a beam step '
+              '[%s]' % (name, bound_ms, bound_by, flops, flops / N / T,
+                        100 * bound_ms / ms2, 132 // 16, floor_ms,
+                        100 * floor_ms / ms2, card))
         out[name] = dict(ms=ms2, plain_ms=plain_ms, bound_ms=bound_ms,
                          bound_by=bound_by, library_ms=None)
         if name == 'gen_beam':
@@ -2924,16 +3056,19 @@ def main() -> int:
              % lay.rb, lay.smem, TRAIN_B * TRAIN_T,
              lc._bwd_library().lstm_bwd_splits(TRAIN_B, TRAIN_T)))
     from ocrd_keraslm_torch.ops import gen_kernel as gk
-    for blocks in (gk.CLUSTER_WIDE, gk.CLUSTER):
-        print('shared memory gen_beam: %d bytes dynamic per block at K=256 '
-              'in clusters of %d blocks of 512 threads a stream (%d fringe '
-              'rows a block), TOPK=10, D=%d, W=%d, Vp=%d; %d such clusters '
-              'fit the card at once'
-              % (gk._library().gen_beam_smem_bytes(256, blocks, D, W,
-                                                   wts['v_pad'], 10),
-                 blocks, 256 // blocks, D, W, wts['v_pad'],
-                 gk._library().gen_beam_max_clusters(blocks, 256, D, W,
-                                                     wts['v_pad'], 10)))
+    index = torch.cuda.current_device()
+    for lay in gk.gen_layouts(256, D, W, wts['v_pad'], 10, wts['v_real']):
+        print('layout gen_beam at K=256, TOPK=10, D=%d, W=%d, Vp=%d: %s, %d '
+              'bytes of shared memory a block, %d such clusters fit the '
+              'card at once; the cost model\'s step %.1f us'
+              % (D, W, wts['v_pad'], describe_gen_layout(lay), lay.smem,
+                 gk.clusters_that_fit(index, 256, D, W, wts['v_pad'], 10,
+                                      wts['v_real'], lay),
+                 gk.step_cost(lay, 256, D, W, wts['v_real'])))
+    for N in (1, GEN_BATCH):
+        print('layout gen_beam for %d stream(s): the chooser takes %s'
+              % (N, describe_gen_layout(gk.layout_on(
+                  dev, N, 256, D, W, wts['v_pad'], 10, wts['v_real']))))
 
     # ---- 3. parity at full width ----
     sizes = set(dk.cluster_sizes(16, 4, 8, D, W, wts['v_pad'],

@@ -7,18 +7,20 @@ forward recurrences, goes, on one GPU.
     python3 gen_beam_phases.py host     # their host time per call
     python3 gen_beam_phases.py bwd      # lstm_bwd
     python3 gen_beam_phases.py decode   # decode_lattice and _batch
+    python3 gen_beam_phases.py walk     # walk_records_batch
 
-Builds a copy of ``ocrd_keraslm_torch/csrc/gen_beam.cu`` with
-``clock64()`` marks after each phase of a step (block 0, thread 0: the
-time from the previous mark, barriers and waits included) into
-``ocrd_keraslm_torch/_build/phases/``, runs it on the german model
-(K=256, TOPK=10) for one stream of 1024 steps and 16 streams of 256
-steps, at 16 and at 8 blocks a stream, and prints each phase's cycles a
-step and share, beside the launch's time with the marks and that of the
-unmarked kernel through its wrapper (CUDA events, mean of 3 after a
-warm-up) and the card's name and power limit.  The marks are inserted
-at fixed lines of the kernel source; after an edit there the script
-stops and names the line it did not find.
+Builds ``ocrd_keraslm_torch/csrc/gen_beam.cu`` with ``-DSCAN_PHASES``,
+which turns on the ``PHASE`` marks of its unit layout
+(``csrc/cluster_common.cuh``: block 0, thread 0, the time from the
+previous mark, barriers and waits included), into
+``ocrd_keraslm_torch/_build/phases/``, runs ``gen_beam`` on the german
+model (K=256, TOPK=10) at rows 6 and 6b of ``PERF.md`` (one stream of
+1024 steps, 16 streams of 256 steps) in every unit layout the card takes,
+and prints each phase's cycles a step and share, beside the launch's
+time with the marks and without; then it times every layout the chooser
+could take at both rows (the sweep the cost model of
+``ops/gen_kernel.py`` is fitted to), each beside the model's time, with
+the card's name and power limit.
 
 ``scan`` builds ``lstm_scan.cu`` and ``score_scan.cu`` with
 ``-DSCAN_PHASES``, which turns on the ``PHASE`` marks of the register
@@ -56,83 +58,22 @@ then each cluster size the layout takes and the one-block layout, for
 one document and for the batch (the times ``decode_kernel.CL_COST`` is
 fitted to).
 
+``walk`` times ``walk_records_batch`` at row 2w of ``PERF.md`` (block 1
+of ``chip_smoke.py``'s 32-document serving batch) against the parent's
+design of its kernel (one thread a document walking the records in
+device memory, built from the copy in ``WALK_PARENT``), and at ragged
+shapes.
+
 Without a CUDA device it exits non-zero.
 """
 from __future__ import annotations
 
 import ctypes
 import os
-import shutil
 import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-PHASES = ('load rows', 'gate products', 'gate update', 'logits',
-          'row candidates (warp 0)', 'cluster barrier 1', 'candidate copy',
-          'bisection', 'counts, scan, compaction', 'records, next state',
-          'cluster barrier 2')
-MARK = ('if (prof_on) { const unsigned long long tn = clock64(); '
-        'g_phase[%d] += tn - tp; tp = tn; }\n')
-# (anchor, text before it, text after it): each anchor occurs once
-EDITS = (
-    ('#define BIGF 3.0e38f\n', '',
-     '__device__ unsigned long long g_phase[%d];\n' % len(PHASES)),
-    ('__device__ void rows_step(const Params& p, int R, float* xs, '
-     'float* zb) {', '__device__ void rows_step(const Params& p, int R, '
-     'float* xs, float* zb, bool prof_on, unsigned long long& tp) {', None),
-    ('                     G, G, p.bias + d * G, zb);\n    __syncthreads();\n',
-     '', '    ' + MARK % 1),
-    ('      row[(1 + D + d) * W + u] = hc.y;\n    }\n    __syncthreads();\n',
-     '', '    ' + MARK % 2),
-    ('p.v_real, nullptr, zb);\n  __syncthreads();\n', '', '  ' + MARK % 3),
-    ('  const size_t buf = (size_t)p.N * fringe;\n', '',
-     '  const bool prof_on = blockIdx.x == 0 && threadIdx.x == 0;\n'
-     '  unsigned long long tp = clock64();\n'),
-    ('xs4[i] = in4[i];\n    __syncthreads();\n', '', '    ' + MARK % 0),
-    ('rows_step<RB>(p, R, xs, zb);', 'rows_step<RB>(p, R, xs, zb, prof_on, '
-     'tp);', None),
-    ('    cluster.sync();  // every block\'s candidates are ready\n',
-     '    ' + MARK % 4, '    ' + MARK % 5),
-    ('      allch[i] = cluster.map_shared_rank(cchar, b)[o];\n    }\n'
-     '    __syncthreads();\n', '', '    ' + MARK % 6),
-    ('    const unsigned thr = (unsigned)misc[1];\n', '', '    ' + MARK % 7),
-    ('    // ---- own slots: record, cost, next state ----\n',
-     '    ' + MARK % 8, ''),
-    ('    cluster.sync();  // rows and candidates may be overwritten now\n',
-     '    ' + MARK % 9, '    ' + MARK % 10),
-)
-READ = '''
-extern "C" int gen_phase_read(unsigned long long* out) {
-  return (int)cudaMemcpyFromSymbol(out, g_phase, sizeof(g_phase));
-}
-extern "C" int gen_phase_reset() {
-  unsigned long long zero[%d] = {0};
-  return (int)cudaMemcpyToSymbol(g_phase, zero, sizeof(zero));
-}
-''' % len(PHASES)
-
-
-def instrumented_source(src_dir, out_dir):
-    """Write the marked copy of gen_beam.cu (and the headers beside it)
-    into ``out_dir``; returns its path."""
-    with open(os.path.join(src_dir, 'gen_beam.cu'), encoding='utf-8') as fh:
-        text = fh.read()
-    for anchor, before, after in EDITS:
-        if text.count(anchor) != 1:
-            sys.exit('gen_beam_phases: the kernel source no longer has '
-                     'the line %r once; update EDITS' % anchor.strip())
-        text = text.replace(anchor, before + anchor + after
-                            if after is not None else before)
-    os.makedirs(out_dir, exist_ok=True)
-    for name in os.listdir(src_dir):
-        if name.endswith('.cuh'):
-            shutil.copy(os.path.join(src_dir, name), out_dir)
-    path = os.path.join(out_dir, 'gen_beam_phases.cu')
-    with open(path, 'w', encoding='utf-8') as fh:
-        fh.write(text + READ)
-    return path
-
-
 # (mark index, phase) in step order of the register layout (the
 # one-block kernels carry no marks)
 SCAN_PHASES = {
@@ -149,6 +90,16 @@ SCAN_PHASES = {
         (2, 'wait for the step\'s dz (mbarrier)'),
         (3, 'dh products, block and quarter sums (shuffles)'),
         (4, 'gate derivatives, dz sent (st.async), dx_proj stores')),
+    # gen_beam_units_kernel: per step, summed over its layers and tiles
+    'gen_beam': (
+        (0, 'wait for the staged tile, barrier, next copies'),
+        (1, 'gate products'),
+        (2, 'block sums, gate updates of the tile before'),
+        (3, 'cluster barrier after each layer'),
+        (4, 'own rows\' top-layer h, logits'),
+        (5, 'row candidates (a warp a row)'),
+        (6, 'cluster barrier, candidates copied (DSMEM)'),
+        (7, 'radix select, counts, compaction, records')),
     # decode_edges_cluster: per edge, summed over its chunks and steps
     'decode': (
         (0, 'edge arrays, top K, beam reorder'),
@@ -616,75 +567,184 @@ def decode_widths(dev, card):
 
 def main() -> int:
     sys.path.insert(0, HERE)
-    import numpy as np
     import torch
     if not torch.cuda.is_available():
         print('gen_beam_phases: no CUDA device', file=sys.stderr)
         return 1
-    from chip_smoke import (cluster_size, cuda_ms, gen_inputs, gen_prompts,
-                            german_rater)
-    from ocrd_keraslm_torch.ops import _build
-    from ocrd_keraslm_torch.ops import gen_kernel as gk
     card = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                            '--format=csv,noheader'], capture_output=True,
                           text=True, check=True).stdout.strip()
     print(card)
-    if sys.argv[1:] == ['scan']:
-        return scan_main(card)
-    if sys.argv[1:] == ['host']:
-        return host_main(card)
-    if sys.argv[1:] == ['bwd']:
-        return bwd_main(card)
-    if sys.argv[1:] == ['decode']:
-        return decode_main(card)
-    path, log = _build.build(instrumented_source(
-        _build.CSRC_DIR, os.path.join(_build.BUILD_DIR, 'phases')))
-    lib = ctypes.CDLL(path)
-    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.gen_beam_launch.argtypes = [P] * 8 + [I] * 9 + [F, P]
-    lib.gen_phase_read.argtypes = [P]
-    rater = german_rater(torch.device('cuda'))
-    prompts = gen_prompts(rater, np.random.default_rng(21), 16)
-    weights, v_real, state0, cost0 = gen_inputs(rater, prompts)
-    emb, embT, wcat, bias = weights
-    D, W, Vp = wcat.shape[0], emb.shape[1], emb.shape[0]
-    for N, T in ((1, 1024), (16, 256)):
-        st, co = state0[:N].contiguous(), cost0[:N].contiguous()
-        K, S = st.shape[1], st.shape[2]
-        for blocks in (gk.CLUSTER_WIDE, gk.CLUSTER):
-            rec = torch.empty((N, T, 3, K), device='cuda')
-            scratch = torch.empty((2, N, K, S), device='cuda')
+    modes = {'scan': scan_main, 'host': host_main, 'bwd': bwd_main,
+             'decode': decode_main, 'walk': walk_main}
+    if sys.argv[1:2] and sys.argv[1] in modes:
+        return modes[sys.argv[1]](card)
+    return gen_main(card)
 
-            def launch():
-                status = lib.gen_beam_launch(
-                    emb.data_ptr(), embT.data_ptr(), wcat.data_ptr(),
-                    bias.data_ptr(), st.data_ptr(), co.data_ptr(),
-                    rec.data_ptr(), scratch.data_ptr(), blocks, N, T, K, D,
-                    W, Vp, v_real, 10, gk.log_threshold(0.004),
-                    torch.cuda.current_stream().cuda_stream)
-                assert status == 0, status
-            launch()                       # warm-up
-            lib.gen_phase_reset()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            launch()
-            end.record()
+
+def gen_main(card) -> int:
+    """Phases of ``gen_beam``'s unit layout and every layout's time at
+    rows 6 and 6b."""
+    import numpy as np
+    import torch
+    from chip_smoke import (GEN_BATCH, GEN_BATCH_N, GEN_PROMPT, cuda_ms,
+                            describe_gen_layout, gen_inputs, gen_layout,
+                            gen_layouts_on, gen_prompts, german_rater)
+    from ocrd_keraslm_torch.ops import gen_kernel as gk
+    dev = torch.device('cuda')
+    index = torch.cuda.current_device()
+    rater = german_rater(dev)
+    lib = marked_library(gk, gk.SOURCE)[0]
+    marks = SCAN_PHASES['gen_beam']
+    prompts = gen_prompts(rater, np.random.default_rng(21), GEN_BATCH)
+    for row, ps, T in (('row 6', [GEN_PROMPT], 1024),
+                       ('row 6b', prompts, GEN_BATCH_N)):
+        weights, v_real, state0, cost0 = gen_inputs(rater, ps)
+        N, K = state0.shape[:2]
+        Vp, W = weights[0].shape
+        D = weights[2].shape[0]
+
+        def call():
+            return gk.gen_beam(*weights, state0, cost0, length=T,
+                               v_real=v_real)
+        chosen = gk.layout_on(dev, N, K, D, W, Vp, 10, v_real)
+        lays = gen_layouts_on(dev, K, D, W, Vp, 10, v_real)
+        what = '%s (N=%d streams, T=%d steps, K=%d, TOPK=10, D=%d, W=%d)' \
+            % (row, N, T, K, D, W)
+        times = []
+        for lay in lays:
+            with gen_layout(lay):
+                ms = cuda_ms(call, 3)
+                times.append((lay, ms))
+                if not lay.units:
+                    continue
+                plain_lib = gk._library
+                gk._library = lambda: lib
+                try:
+                    mms, cycles, total = marked_run(lib, call, marks)
+                finally:
+                    gk._library = plain_lib
+            print('gen_beam phases, %s, %s: %.3f ms a launch with the '
+                  'marks, %.3f ms without (CUDA events), %.0f cycles a step '
+                  'in block 0 [%s]' % (what, describe_gen_layout(lay), mms,
+                                       ms, total / T, card))
+            print_marks(marks, cycles, total, ' step', T)
+        for lay, ms in times:
+            fits = gk.clusters_that_fit(index, K, D, W, Vp, 10, v_real,
+                                        lay)
+            print('gen_beam at %s, %s: %.3f ms a launch (CUDA events, mean '
+                  'of 3), %.2f us a step a wave; %d clusters at once, %d '
+                  'wave(s); the model\'s step %.2f us%s [%s]'
+                  % (what, describe_gen_layout(lay), ms,
+                     1e3 * ms / T / -(-N // fits), fits, -(-N // fits),
+                     gk.step_cost(lay, K, D, W, v_real),
+                     '; the chooser takes it' if lay == chosen else '',
+                     card))
+    return 0
+
+
+# The parent's walk kernel (commit 2399e92, decode_lattice_batch.cu): one
+# thread a document, its chain of dependent loads from device memory;
+# built here only to time it against the kernel that replaced it.
+WALK_PARENT = r"""
+extern "C" __global__ void walk_parent_kernel(const float* records,
+                                              const int* k_in, int* k_out,
+                                              float* walks, int N, int E,
+                                              int K) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= N) return;
+  const size_t NK = (size_t)N * K;
+  int k = k_in[n];
+  for (int t = E - 1; t >= 0; --t) {
+    const float* rec = records + (size_t)t * 3 * NK + (size_t)n * K;
+    walks[((size_t)n * E + t) * 2] = rec[NK + k];
+    walks[((size_t)n * E + t) * 2 + 1] = rec[2 * NK + k];
+    k = (int)rec[k];
+  }
+  k_out[n] = k;
+}
+extern "C" int walk_parent_launch(const float* records, const int* k_in,
+                                  int* k_out, float* walks, int N, int E,
+                                  int K, void* stream) {
+  const int threads = 128;
+  walk_parent_kernel<<<(N + threads - 1) / threads, threads, 0,
+                       (cudaStream_t)stream>>>(records, k_in, k_out, walks,
+                                               N, E, K);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def walk_main(card) -> int:
+    """``walk_records_batch`` against the parent's walk kernel at row 2w
+    (the records of block 1 of the 32-document serving batch) and at
+    ragged shapes of random records; both checked equal to the plain
+    version."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from chip_smoke import (BATCH_DOCS, build_workspace, cuda_ms,
+                            first_batch_launch, german_rater,
+                            workspace_graphs)
+    from ocrd_keraslm_torch.ops import _build
+    from ocrd_keraslm_torch.ops import decode_kernel as dk
+    out_dir = os.path.join(_build.BUILD_DIR, 'phases')
+    os.makedirs(out_dir, exist_ok=True)
+    src = os.path.join(out_dir, 'walk_parent.cu')
+    with open(src, 'w', encoding='utf-8') as fh:
+        fh.write(WALK_PARENT)
+    parent = ctypes.CDLL(_build.build(src)[0])
+    P, I = ctypes.c_void_p, ctypes.c_int
+    parent.walk_parent_launch.argtypes = [P] * 4 + [I] * 3 + [P]
+    dev = torch.device('cuda')
+    rater = german_rater(dev)
+    with tempfile.TemporaryDirectory(prefix='phases_') as work:
+        ws = os.path.join(work, 'ws_batch')
+        build_workspace(ws, np.random.default_rng(11), BATCH_DOCS, 40,
+                        rater.vocab)
+        bargs, bkw = first_batch_launch(rater, workspace_graphs(ws))
+    N = bkw['n_docs']
+    rec = dk.decode_lattice_batch(*bargs, **bkw)[0]
+    K = bargs[8].shape[0] // N
+    rng = np.random.default_rng(20261108)
+    cases = [('row 2w', rec, N, K)]
+    for n_, e_, k_ in ((1, 1024, 16), (31, 1024, 32), (33, 7, 16),
+                       (100, 1024, 1), (100, 1, 32)):
+        r = np.zeros((e_, 3, n_ * k_), np.float32)
+        r[:, 0] = rng.integers(0, k_, (e_, n_ * k_))
+        r[:, 1] = rng.integers(0, 4, (e_, n_ * k_))
+        r[:, 2] = rng.normal(0, 10, (e_, n_ * k_))
+        cases.append(('random', torch.from_numpy(r).to(dev), n_, k_))
+    for what, r, n_, k_ in cases:
+        E = r.shape[0]
+        k_in = torch.from_numpy(rng.integers(0, k_, n_).astype(np.int32)) \
+            .to(dev)
+        k_out = torch.empty((n_,), dtype=torch.int32, device=dev)
+        walks = torch.empty((n_, E, 2), device=dev)
+
+        def old():
+            assert parent.walk_parent_launch(
+                r.data_ptr(), k_in.data_ptr(), k_out.data_ptr(),
+                walks.data_ptr(), n_, E, k_,
+                torch.cuda.current_stream().cuda_stream) == 0
+            return k_out, walks
+
+        def new():
+            return dk.walk_records_batch(r, k_in, n_docs=n_, beam=k_)
+        want = dk.walk_records_batch_ref(r.cpu(), k_in.cpu(), n_docs=n_,
+                                         beam=k_)
+        for fn in (old, new):
+            got = fn()
             torch.cuda.synchronize()
-            cycles = (ctypes.c_ulonglong * len(PHASES))()
-            assert lib.gen_phase_read(ctypes.cast(cycles, P)) == 0
-            total = sum(cycles)
-            with cluster_size(blocks):
-                unmarked_ms = cuda_ms(lambda: gk.gen_beam(
-                    *weights, st, co, length=T, v_real=v_real), 3)
-            print('gen_beam phases, N=%d streams, T=%d steps, %d blocks a '
-                  'stream: %.3f ms a launch with the marks, %.3f ms without '
-                  '(CUDA events), %.0f cycles a step in block 0 [%s]'
-                  % (N, T, blocks, start.elapsed_time(end), unmarked_ms,
-                     total / T, card))
-            for name, c in zip(PHASES, cycles):
-                print('  %-26s %9.0f cycles a step %5.1f%%'
-                      % (name, c / T, 100.0 * c / total))
+            assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want)), \
+                (what, fn.__name__)
+        times = [cuda_ms(fn, 20) for fn in (old, new, new, old)]
+        print('walk_records_batch at %s (N=%d documents, E=%d, K=%d): the '
+              'parent\'s design %.4f ms, the staged walk %.4f ms, %.4f ms, '
+              'the parent\'s %.4f ms (CUDA events, mean of 20, in that '
+              'order); both equal to the plain version [%s]'
+              % ((what, n_, E, k_) + tuple(times) + (card,)))
     return 0
 
 

@@ -29,10 +29,19 @@
 // single-document launch bit for bit, whatever CL either took.  A
 // batch's wall is close to that of its longest document.
 //
-// walk_records_batch_kernel: one thread per document walks a block's
-// records in reverse from its start slot k_in[n] and writes the chosen
-// alternative and the cumulative cost per edge, (N, E, 2), and the slot
-// it reached, k_out[n], which starts the walk of the block before.
+// walk_records_batch_kernel walks a block's records in reverse from each
+// document's start slot k_in[n] and writes the chosen alternative and the
+// cumulative cost per edge, (N, E, 2), and the slot it reached, k_out[n],
+// which starts the walk of the block before.  Its bytes are nothing
+// (~655 kB for 32 documents of 1024 edges); what bounds it is the chain
+// of E dependent reads.  One block per document: the document's E*K
+// backpointers are copied into shared memory as bytes by independent
+// loads, several in flight a thread; the chain then runs in shared
+// memory, cut into segments: every (segment, entry slot) pair walks its
+// segment to the slot it leaves at, one thread chains the segments' exit
+// slots from k_in[n], and one thread a segment walks it again from its
+// entry slot, storing each step's slot; last every thread gathers the
+// alternative and cost of its steps.
 // All arithmetic is f32 on CUDA cores: no TF32, no bf16.
 
 #include "decode_common.cuh"
@@ -103,21 +112,81 @@ __global__ void __launch_bounds__(CNT, 1)
   cluster.sync();  // no block leaves while another may still read it
 }
 
-__global__ void walk_records_batch_kernel(const float* records,
-                                          const int* k_in, int* k_out,
-                                          float* walks, int N, int E,
-                                          int K) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;
+#define WALK_NT 512     // threads a document
+#define WALK_UNROLL 8   // backpointer loads in flight a thread
+#define WALK_SEGS 64    // segments of the chain, at most
+
+// segments of the chain: (segment, entry slot) pairs fill the block
+__host__ __device__ inline int walk_segments(int K) {
+  const int g = WALK_NT / K;
+  return g < WALK_SEGS ? g : WALK_SEGS;
+}
+
+// bytes of dynamic shared memory a document's block asks: each step's
+// slot, the segments' exit and entry slots, the backpointers as bytes
+extern "C" size_t walk_records_batch_smem_bytes(int E, int K) {
+  const int G = walk_segments(K);
+  return (size_t)4 * (E + G * K + G) + (size_t)E * K;
+}
+
+__global__ void __launch_bounds__(WALK_NT)
+    walk_records_batch_kernel(const float* records, const int* k_in,
+                              int* k_out, float* walks, int N, int E,
+                              int K) {
+  extern __shared__ int wsm[];
+  const int n = blockIdx.x, tid = threadIdx.x;
   const size_t NK = (size_t)N * K;
-  int k = k_in[n];
-  for (int t = E - 1; t >= 0; --t) {
-    const float* rec = records + (size_t)t * 3 * NK + (size_t)n * K;
-    walks[((size_t)n * E + t) * 2] = rec[NK + k];
-    walks[((size_t)n * E + t) * 2 + 1] = rec[2 * NK + k];
-    k = (int)rec[k];
+  const int G = walk_segments(K), L = (E + G - 1) / G, EK = E * K;
+  int* slot = wsm;        // (E) the slot each step's walk is at
+  int* ex = slot + E;     // (G, K) each segment's exit slot, by entry
+  int* entry = ex + G * K;  // (G) each segment's entry slot
+  unsigned char* bp = reinterpret_cast<unsigned char*>(entry + G);
+  for (int i0 = tid; i0 < EK; i0 += WALK_NT * WALK_UNROLL) {
+    float v[WALK_UNROLL];
+#pragma unroll
+    for (int u = 0; u < WALK_UNROLL; ++u) {
+      const int i = i0 + u * WALK_NT;
+      v[u] = i < EK ? __ldg(records + (size_t)(i / K) * 3 * NK +
+                            (size_t)n * K + i % K)
+                    : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < WALK_UNROLL; ++u) {
+      const int i = i0 + u * WALK_NT;
+      if (i < EK) bp[i] = (unsigned char)(int)v[u];
+    }
   }
-  k_out[n] = k;
+  __syncthreads();
+  if (tid < G * K) {  // segment g covers steps [g*L, (g+1)*L)
+    const int g = tid / K, lo = g * L, hi = min(lo + L, E);
+    int k = tid - g * K;
+    for (int t = hi - 1; t >= lo; --t) k = bp[t * K + k];
+    ex[tid] = k;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    int k = k_in[n];
+    for (int g = G - 1; g >= 0; --g) {
+      entry[g] = k;
+      k = ex[g * K + k];
+    }
+    k_out[n] = k;
+  }
+  __syncthreads();
+  if (tid < G) {
+    const int lo = tid * L, hi = min(lo + L, E);
+    int k = entry[tid];
+    for (int t = hi - 1; t >= lo; --t) {
+      slot[t] = k;
+      k = bp[t * K + k];
+    }
+  }
+  __syncthreads();
+  for (int t = tid; t < E; t += WALK_NT) {
+    const float* rec = records + (size_t)t * 3 * NK + (size_t)n * K + slot[t];
+    walks[((size_t)n * E + t) * 2] = rec[NK];
+    walks[((size_t)n * E + t) * 2 + 1] = rec[2 * NK];
+  }
 }
 
 // bytes of dynamic shared memory a block asks: the one-block kernel's
@@ -189,9 +258,16 @@ extern "C" int walk_records_batch_launch(const float* records,
                                          const int* k_in, int* k_out,
                                          float* walks, int N, int E, int K,
                                          void* stream) {
-  const int threads = 128;
-  walk_records_batch_kernel<<<(N + threads - 1) / threads, threads, 0,
-                              (cudaStream_t)stream>>>(records, k_in, k_out,
-                                                      walks, N, E, K);
+  if (K < 1 || K > 255 || E < 0) return (int)cudaErrorInvalidValue;
+  if (N == 0) return 0;
+  const size_t smem = walk_records_batch_smem_bytes(E, K);
+  if (smem > 48 * 1024) {  // above the default: E*K > ~40k
+    const cudaError_t err = cudaFuncSetAttribute(
+        walk_records_batch_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  walk_records_batch_kernel<<<N, WALK_NT, smem, (cudaStream_t)stream>>>(
+      records, k_in, k_out, walks, N, E, K);
   return (int)cudaGetLastError();
 }

@@ -12,41 +12,55 @@
 // index), emitted in row-major order, each slot's record (char, source
 // row, cost) and its next state [emb[char] | h, c of the source row].
 //
-// What bounds it on this card: the f32 gate products.  A step of the
-// german model (D=2, W=128, K=256) is 2*K*(D*2W*4W + W*v_real) = 1.39e8
-// FLOP, 2.1 us at the card's 67 TFLOP/s, but the steps are sequential and
-// a step is too small to spread over all 132 SMs with a grid-wide barrier.
-// One SM alone would need >= 272 us a step.
+// What bounds it on this card: the f32 gate products of a step, and the
+// steps are sequential.  A step of the german model (D=2, W=128, K=256,
+// v_real=70) is K*(D*2W*4W + W*v_real) = 6.94e7 FMAs: 2.1 us at the whole
+// card's 67 TFLOP/s, but a step is too small to spread over all 132 SMs
+// with a grid-wide barrier, and one cluster holds at most 16 SMs.  On 16
+// SMs of 128 FMA/clk it is >= 33.9k cycles, 17-20 us a step: the floor of
+// this design, 18-20 ms for a 1024-step request.
 //
-// What the design does about it:
-//  * one thread-block cluster per stream, persistent over the T steps, of
-//    16 blocks (K/16 fringe rows each) where the card holds a 16-block
-//    cluster for every stream of the launch, else of 8 (the wrapper
-//    decides from the card's cluster occupancy: 16-block clusters run a
-//    step faster, 8-block ones fit the card twice as often);
-//  * block c owns fringe rows [c*R, (c+1)*R) in shared memory; a thread
-//    computes a tile of 8 rows x 4 gate columns (16-byte weight loads
-//    from L2 feed 32 FMAs, shared memory delivers 8 x values per column),
-//    each dot product summed in blocks of 32 terms (KCH, lstm_common.cuh)
-//    as the other kernels of the port do;
-//  * a row's top TOPK logits by rank counting within one warp;
-//  * after one cluster barrier every block copies all K*TOPK candidates
-//    from the cluster's shared memory (distributed shared memory), one
-//    warp finds the K-th smallest cost by bisection on the float bits
-//    (costs are >= 0, so their bits order as the floats do), and the
-//    block fills its own R output slots: the record, the cost, and the
-//    next state, gathered from the source row's block through
-//    distributed shared memory into the fringe buffer in device memory
-//    (double-buffered, L2-resident; each block reads back only its own
-//    rows);
-//  * a second cluster barrier ends the step, so no block overwrites rows
-//    or candidates another block still reads;
-//  * N streams are N clusters of one launch.
+// Two layouts, one thread-block cluster per stream, persistent over the
+// T steps, N streams as N clusters of one launch; the wrapper chooses
+// (ops/gen_kernel.choose: a cost model of a step times the waves of
+// clusters):
+//
+//  * the unit layout (gen_beam_units_kernel), for D <= 2: the cluster is RH
+//    row halves by CL/RH unit groups; block (rh, ug) owns W/(CL/RH)
+//    units and their gate columns of every layer, whose weights stay in
+//    registers for all T steps: no weight is read from L2 inside the step
+//    loop.  The rows' activations stream instead: each layer runs over the
+//    half's rows in tiles copied by cp.async from L2 buffers of h and c
+//    (every block writes its units' new h and c there; a cluster barrier
+//    after each layer), 2W + W/(CL/RH) floats a row against the first
+//    design's whole wcat a block and tile pass.  The beam's reorder is the
+//    tiles' gather by source row.  Each block computes its own K/CL rows'
+//    logits (embT's real columns in shared memory) and candidates, copies
+//    every block's candidates through distributed shared memory and finds
+//    the K-th smallest with the whole block (a radix select of 8 bits a
+//    pass on shared-memory histograms), then the slots of every row.
+//    D + 1 cluster barriers a step;
+//  * the rows layout (gen_beam_kernel, the first design, for shapes the
+//    unit layout does not take and where the cost model rates it faster):
+//    block c owns fringe rows [c*R, (c+1)*R) in shared memory; a thread
+//    computes a tile of 8 rows x 4 gate columns (16-byte weight loads from
+//    L2 feed 32 FMAs), a row's top TOPK by rank counting within one warp;
+//    after a cluster barrier every block copies all K*TOPK candidates
+//    through distributed shared memory, one warp finds the K-th smallest
+//    cost by bisection on the float bits (costs are >= 0, so their bits
+//    order as the floats do), and the block fills its own R output slots,
+//    the next state gathered from the source row's block into a fringe
+//    buffer in device memory (double-buffered, L2-resident); a second
+//    cluster barrier ends the step.
+// Every dot product is summed in blocks of 32 terms (KCH,
+// lstm_common.cuh), the blocks added to 0 in order, and the logits in the
+// same order in both layouts; so both give the same records bit for bit.
 // All arithmetic is f32 on CUDA cores; the gate update rounds as the
 // plain version does (lstm_common.cuh).
 
 #include <cooperative_groups.h>
 
+#include "cluster_common.cuh"
 #include "lstm_common.cuh"
 
 namespace cg = cooperative_groups;
@@ -425,6 +439,694 @@ __global__ void __launch_bounds__(NT, 1) gen_beam_kernel(Params p) {
   }
 }
 
+// ---- the unit layout ----
+//
+// A stream's cluster of CL blocks is RH row halves (1 or 2) by CU = CL/RH
+// unit groups.  Block (rh, ug) owns the units [ug*upb, (ug+1)*upb) (upb =
+// W/CU) and their four gate columns of every layer (NC = 4*upb columns),
+// for the KH = K/RH rows of its half.  Roles: thread q < NROLE = NC/2*NKB2
+// of a row group takes the column pair (q % (NC/2), q % (NC/2) + NC/2)
+// and the 32-term block kb = q / (NC/2) of the columns' 2W terms [x | h];
+// its 64 weights of that block, of every layer, sit in its registers for
+// the whole search (read from wcat once, before the first step; 256
+// threads a block leave 255 registers a thread).  A warp's lanes hold
+// column pairs of one 32-term block (of two where NC/2 < 32), so one
+// float4 of x, the same for the lanes of a block, feeds eight FMAs in
+// every lane.  The NRG = UNT/NROLE row groups split the rows of a tile.
+//
+// A layer runs over the block's rows in tiles of TR: the tile's [x | h]
+// rows (2W floats each, 32-term blocks padded by 4 floats) and the own
+// units' old c (three tiles' worth: tile i+1's arrive while tile i-1's
+// gate updates read theirs) are copied from L2 into shared memory by
+// cp.async while the tile before is computed; each thread's block sums go
+// to shared memory (two tiles' worth), and one thread a (row, unit) adds
+// the NKB2 block sums in block order (dot_cols' float), adds the bias and
+// runs the gate update for the tile before, beside the products of the
+// tile; half the warps do that before their products, half after.  The new h and c go to
+// L2 buffers of the stream, hbuf and cbuf (2, D, K, W) by step parity,
+// which the blocks read after a cluster barrier: h for the layer above and
+// the own rows' logits, h and c gathered by source row for the next step
+// (the beam's reorder).  The logits' weights (embT's real columns) sit in
+// shared memory.
+//
+// The host computes the geometry and the shared-memory plan once and
+// passes them with the launch (kernel parameters cost no registers).
+#define UNT 256    // threads per block of the unit layout
+#define UNW (UNT / 32)
+#define URT 4      // rows one thread's chains take at once
+#define UMAX_VCH 4 // 32-column chunks of a row's logits a lane holds
+
+struct UGeo {
+  int RH, CU, upb, NC, NKB2, NROLE, NRG, XP, PS, VR4;
+};
+
+__host__ __device__ inline UGeo make_ugeo(int W, int CL, int RH,
+                                          int v_real) {
+  UGeo g;
+  g.RH = RH;
+  g.CU = CL / RH;
+  g.upb = W / g.CU;
+  g.NC = 4 * g.upb;
+  g.NKB2 = 2 * W / KCH;
+  g.NROLE = g.NC / 2 * g.NKB2;
+  g.NRG = UNT / g.NROLE;
+  g.XP = 2 * W + 4 * g.NKB2 + 4;  // padded [x | h] row, +4: rows apart in banks
+  g.PS = g.NC + g.upb;  // a block sum row: a warp's rows apart in banks
+  g.VR4 = align4(v_real);  // embT's real columns in shared memory
+  return g;
+}
+
+// the own rows a block computes logits and candidates of: R = K/CL,
+// rounded up to 8, 16 or 32 in the plan (the first design's row caps)
+__host__ __device__ inline int own_rows_cap(int R) {
+  return R <= 8 ? 8 : (R <= 16 ? 16 : 32);
+}
+
+// Shared memory plan of the unit layout; offsets in 4-byte words, every
+// array 16-byte aligned.  xin holds the two staged tiles, then the own
+// rows' top-layer h; cin three tiles' old c; part two tiles' block sums,
+// then the own rows' logits.
+struct UPlan {
+  int xin, cin, part, bias, embs, cost, ccost, cchar, allc, allch, less, eq,
+      lpfx, epfx, srow, scol, schar, hist, misc, total;
+};
+
+__host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
+
+__host__ __device__ inline UPlan make_uplan(int K, int D, int W, int Vp,
+                                            int v_real, int topk, int CL,
+                                            int RH, int TR) {
+  const UGeo g = make_ugeo(W, CL, RH, v_real);
+  const int RB = own_rows_cap(K / CL);
+  UPlan p;
+  int o = 0;
+  p.xin = o;   o += align4(imax(2 * TR * g.XP, RB * W));
+  p.cin = o;   o += align4(3 * TR * g.upb);      // the own units' old c
+  p.part = o;  o += align4(imax(2 * g.NKB2 * TR * g.PS, RB * Vp));
+  p.bias = o;  o += align4(D * g.NC);
+  p.embs = o;  o += W * g.VR4;                  // embT's real columns
+  p.cost = o;  o += align4(RB);                 // own rows' costs
+  p.ccost = o; o += align4(RB * topk);          // own rows' candidates
+  p.cchar = o; o += align4(RB * topk);
+  p.allc = o;  o += align4(K * topk);           // every row's candidates
+  p.allch = o; o += align4(K * topk);
+  p.less = o;  o += align4(K);
+  p.eq = o;    o += align4(K);
+  p.lpfx = o;  o += align4(K);
+  p.epfx = o;  o += align4(K);
+  p.srow = o;  o += align4(K);                  // every slot's source row,
+  p.scol = o;  o += align4(K);                  // candidate and char
+  p.schar = o; o += align4(K);
+  p.hist = o;  o += 256;                        // the radix select's counts
+  p.misc = o;  o += 4;
+  p.total = o;
+  return p;
+}
+
+// Whether the unit layout takes the shape: CL in 4, 8, 16 blocks of RH
+// (1, 2) row halves by CL/RH unit groups, each W/(CL/RH) units, a
+// multiple of 4 (16-byte copies of c), D <= 2 (a thread's weights of every
+// layer in registers), 2W in 32-term blocks, the roles in UNT threads,
+// tiles of TR rows (16 or 32) that split into URT-row chains, K/RH a
+// multiple of TR, K a multiple of CL with at most 32 own rows a block,
+// v_real <= 128 (a row's logits in UMAX_VCH registers a lane).
+__host__ __device__ inline bool units_ok(int K, int D, int W, int CL, int RH,
+                                         int TR, int v_real) {
+  if (!(CL == 4 || CL == 8 || CL == 16) || !(RH == 1 || RH == 2) ||
+      D < 1 || D > 2 || W < CL / RH || W % (CL / RH) ||
+      (W / (CL / RH)) % 4 || W % 16 || !(TR == 16 || TR == 32) ||
+      K % (RH * TR) || K % CL || K / CL > 32 || v_real > 32 * UMAX_VCH)
+    return false;
+  const UGeo g = make_ugeo(W, CL, RH, v_real);
+  return g.NROLE <= UNT && g.NRG * (TR / g.NRG) == TR &&
+         (TR / g.NRG) % URT == 0;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+struct UParams {
+  float* hbuf;   // (N, 2, D, K, W): every row's h of a step, by parity
+  float* cbuf;   // (N, 2, D, K, W): every row's c of a step, by parity
+  float* fin;    // (N, K, S): the fringe after the last step, or null
+  int TR;        // rows per staged tile
+  UGeo g;        // the block's geometry and plan, from the host
+  UPlan pl;
+};
+
+// Stage rows [s0, s0 + TR) of layer d's [x | h] into the padded tile xt
+// and the own units' old c into ct: x = state0's xemb (t = 0), emb[char]
+// (layer 0) or the layer below's new h (hcur); h and c = state0's (t = 0)
+// or the source row's (hprv, cprv).  UNT/TR threads a row, each its row's
+// sources once.  One cp.async group.
+template <int D>
+__device__ __forceinline__ void stage_tile(const Params& p, int n, int t,
+                                           int d, int s0, int TR, int XP,
+                                           int u0, int upb,
+                                           const float* hcur,
+                                           const float* hprv,
+                                           const float* cprv,
+                                           const int* srow, const int* schar,
+                                           float* xt, float* ct) {
+  const int W = p.W, K = p.K, S = (2 * D + 1) * W, tpr = UNT / TR;
+  const int r = threadIdx.x / tpr, s = s0 + r, q = threadIdx.x - r * tpr;
+  const float *xs, *hs, *cs;
+  if (d > 0)
+    xs = hcur + ((size_t)(d - 1) * K + s) * W;
+  else if (t == 0)
+    xs = p.state0 + ((size_t)n * K + s) * S;
+  else
+    xs = p.emb + (size_t)schar[s] * W;
+  if (t == 0) {
+    hs = p.state0 + ((size_t)n * K + s) * S + (1 + d) * W;
+    cs = p.state0 + ((size_t)n * K + s) * S + (1 + D + d) * W;
+  } else {
+    const size_t src = (size_t)d * K + srow[s];
+    hs = hprv + src * W;
+    cs = cprv + src * W;
+  }
+  float* dst = xt + r * XP;
+  for (int e = q * 4; e < 2 * W; e += 4 * tpr)
+    cp_async16(dst + hpad(e), e < W ? xs + e : hs + (e - W));
+  for (int e = q * 4; e < upb; e += 4 * tpr)
+    cp_async16(ct + r * upb + e, cs + u0 + e);
+  cp_async_commit();
+}
+
+// A thread's block chains for rows [j0, j1) of a staged tile: xb is its
+// 32-term block of row 0 (rows XP apart), w its 32 weights of each of its
+// two columns; out[j * PS] and out[j * PS + half] get row j's chains: a
+// fresh chain of FMAs in term order (dot_cols' block), URT rows at once,
+// one broadcast float4 of x feeding eight FMAs.
+__device__ __forceinline__ void unit_products(const float* xb, int XP,
+                                              const float (&w)[2][KCH],
+                                              int j0, int j1, float* out,
+                                              int PS, int half) {
+  for (int j = j0; j < j1; j += URT) {
+    float acc[2][URT];
+#pragma unroll
+    for (int r = 0; r < URT; ++r) acc[0][r] = acc[1][r] = 0.0f;
+#pragma unroll
+    for (int k = 0; k < KCH; k += 4) {
+#pragma unroll
+      for (int r = 0; r < URT; ++r) {
+        const float4 xv =
+            *reinterpret_cast<const float4*>(xb + (j + r) * XP + k);
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          float a = acc[c][r];
+          a = fmaf(xv.x, w[c][k], a);
+          a = fmaf(xv.y, w[c][k + 1], a);
+          a = fmaf(xv.z, w[c][k + 2], a);
+          a = fmaf(xv.w, w[c][k + 3], a);
+          acc[c][r] = a;
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < URT; ++r) {
+      out[(j + r) * PS] = acc[0][r];
+      out[(j + r) * PS + half] = acc[1][r];
+    }
+  }
+}
+
+// out[r * Vp + j] = row r of xh (R rows of W) times embT's column j < v_real
+// (embs: (W, VR4) in shared memory), summed in blocks of KCH terms added to
+// 0 in order, + 0 (tile_cols' values); a thread two rows and 4 columns,
+// each weight float4 read once for both rows.
+__device__ __forceinline__ void unit_logits(const float* xh, int R, int W,
+                                            const float* embs, int VR4,
+                                            int v_real, int Vp, float* out) {
+  const int ngr = VR4 / 4, npr = (R + 1) / 2;
+  for (int it = threadIdx.x; it < npr * ngr; it += UNT) {
+    const int rp = it / ngr, j = (it - rp * ngr) * 4;
+    const int ra = 2 * rp, rb = min(ra + 1, R - 1);
+    float tot[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
+    for (int i0 = 0; i0 < W; i0 += KCH) {
+      float acc[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
+      const int i1 = min(i0 + KCH, W);
+#pragma unroll 2
+      for (int i = i0; i < i1; i += 4) {
+        const float4 xa = *reinterpret_cast<const float4*>(xh + ra * W + i);
+        const float4 xb = *reinterpret_cast<const float4*>(xh + rb * W + i);
+        const float xq[2][4] = {{xa.x, xa.y, xa.z, xa.w},
+                                {xb.x, xb.y, xb.z, xb.w}};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float4 wv =
+              *reinterpret_cast<const float4*>(embs + (i + q) * VR4 + j);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            acc[h][0] = fmaf(xq[h][q], wv.x, acc[h][0]);
+            acc[h][1] = fmaf(xq[h][q], wv.y, acc[h][1]);
+            acc[h][2] = fmaf(xq[h][q], wv.z, acc[h][2]);
+            acc[h][3] = fmaf(xq[h][q], wv.w, acc[h][3]);
+          }
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) tot[h][c] += acc[h][c];
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        if (j + c < v_real && (h == 0 || ra + 1 < R))
+          out[(ra + h) * Vp + j + c] = tot[h][c] + 0.0f;
+  }
+}
+
+// row_candidates with the row's logits in registers, NCH 32-column chunks
+// a lane, and the ranks counted against every logit passed by shuffles
+// (no branches, no loads): the same values.
+template <int NCH>
+__device__ void row_candidates_reg(const Params& p, const float* lg,
+                                   float cost, float* ccost, int* cchar) {
+  const int lane = threadIdx.x & 31;
+  const int TOPK = p.topk, vr = p.v_real;
+  float x[NCH];
+  int rank[NCH];
+  float mx = -INFINITY;
+#pragma unroll
+  for (int c = 0; c < NCH; ++c) {
+    const int v = lane + 32 * c;
+    x[c] = v < vr ? lg[v] : -INFINITY;  // past v_real: ranks no logit
+    if (v < vr) mx = fmaxf(mx, x[c]);
+    rank[c] = 0;
+  }
+  for (int o = 16; o > 0; o >>= 1)
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+  float sum = 0.0f;
+#pragma unroll
+  for (int c = 0; c < NCH; ++c)
+    if (lane + 32 * c < vr) sum += expf(x[c] - mx);
+  for (int o = 16; o > 0; o >>= 1)
+    sum += __shfl_xor_sync(0xffffffffu, sum, o);
+  const float lse = mx + logf(sum);
+#pragma unroll
+  for (int cu = 0; cu < NCH; ++cu)
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const float y = __shfl_sync(0xffffffffu, x[cu], j);
+#pragma unroll
+      for (int c = 0; c < NCH; ++c)
+        rank[c] += (int)((y > x[c]) |
+                         ((y == x[c]) & (32 * cu + j < lane + 32 * c)));
+    }
+#pragma unroll
+  for (int c = 0; c < NCH; ++c) {
+    if (lane + 32 * c < vr && rank[c] < TOPK) {
+      ccost[rank[c]] = x[c];
+      cchar[rank[c]] = lane + 32 * c;
+    }
+  }
+  __syncwarp();
+  float val = 0.0f;
+  int idx = 0;
+  if (lane < TOPK) {
+    val = ccost[lane];
+    idx = cchar[lane];
+  }
+  __syncwarp();
+  float cand = BIGF;
+  if (lane < TOPK) {
+    cand = __fadd_rn(cost, fmaxf(__fsub_rn(lse, val), 0.0f));
+    if (__fsub_rn(val, lse) < p.log_thresh) cand = BIGF;
+    if (cost >= BIGF * 0.5f) cand = BIGF;
+  }
+  const unsigned zero = __ballot_sync(0xffffffffu, lane < TOPK && idx == 0);
+  const int pos0 = zero ? __ffs(zero) - 1 : TOPK;
+  const float next_c = __shfl_down_sync(0xffffffffu, cand, 1);
+  const int next_i = __shfl_down_sync(0xffffffffu, idx, 1);
+  if (lane >= pos0) {
+    cand = lane == TOPK - 1 ? BIGF : next_c;
+    idx = lane == TOPK - 1 ? 0 : next_i;
+  }
+  if (lane < TOPK) {
+    ccost[lane] = fminf(cand, BIGF);
+    cchar[lane] = idx;
+  }
+}
+
+// the own rows' candidates, a warp a row
+template <int NCH>
+__device__ __forceinline__ void own_candidates(const Params& p, int R,
+                                               const float* lg,
+                                               const float* cost,
+                                               float* ccost, int* cchar) {
+  for (int r = threadIdx.x >> 5; r < R; r += UNW)
+    row_candidates_reg<NCH>(p, lg + r * p.Vp, cost[r], ccost + r * p.topk,
+                            cchar + r * p.topk);
+}
+
+template <int D>
+__global__ void __launch_bounds__(UNT, 1)
+    gen_beam_units_kernel(Params p, const __grid_constant__ UParams up) {
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int K = p.K, TOPK = p.topk, KT = K * TOPK, W = p.W;
+  const int S = (2 * D + 1) * W, G4 = 4 * W, TR = up.TR;
+  const int CLn = (int)cluster.num_blocks(), kc = (int)cluster.block_rank();
+  const int n = blockIdx.x / CLn;
+  // block (rh, ug): the units of group ug, the rows of half rh
+  const int upb = up.g.upb, NC = up.g.NC, u0 = (kc % up.g.CU) * upb;
+  const int KH = K / up.g.RH, h0 = (kc / up.g.CU) * KH;
+  const int R = K / CLn, r0 = kc * R;
+#define USM(f) (sm + up.pl.f)
+#define USMI(f) reinterpret_cast<int*>(sm + up.pl.f)
+  float* hbase = up.hbuf + (size_t)n * 2 * D * K * W;
+  float* cbase = up.cbuf + (size_t)n * 2 * D * K * W;
+
+  // the thread's role and its weights, of every layer, in registers
+  const int q = tid % up.g.NROLE, rg = tid / up.g.NROLE;
+  const bool worker = rg < up.g.NRG;
+  const int half = NC / 2, kb = q / half, col = q % half;
+  float wr[D][2][KCH];
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    const int cc = col + c * half;
+    const int gcol = (cc / upb) * W + u0 + cc % upb;
+#pragma unroll
+    for (int d = 0; d < D; ++d)
+#pragma unroll
+      for (int k = 0; k < KCH; ++k) {
+        const size_t i = ((size_t)d * 2 * W + kb * KCH + k) * G4 + gcol;
+        wr[d][c][k] = worker ? p.wcat[i] : 0.0f;
+      }
+  }
+  for (int i = tid; i < D * NC; i += UNT) {
+    const int d = i / NC, c = i - d * NC;
+    USM(bias)[i] = p.bias[d * G4 + (c / upb) * W + u0 + c % upb];
+  }
+  for (int i = tid; i < W * up.g.VR4; i += UNT) {
+    const int r = i / up.g.VR4;
+    USM(embs)[i] = p.embT[(size_t)r * p.Vp + i - r * up.g.VR4];
+  }
+  for (int s = tid; s < K; s += UNT) USMI(srow)[s] = s;
+  for (int i = tid; i < R; i += UNT)
+    USM(cost)[i] = p.cost0[(size_t)n * K + r0 + i];
+  __syncthreads();
+  PHASE_INIT
+
+  // half the warps run a tile's gate updates before its products
+  const bool sums_first = warp & 1;
+  for (int t = 0; t < p.T; ++t) {
+    const int cur = t & 1;
+    float* hcur = hbase + (size_t)cur * D * K * W;
+    const float* hprv = hbase + (size_t)(cur ^ 1) * D * K * W;
+    float* ccur = cbase + (size_t)cur * D * K * W;
+    const float* cprv = cbase + (size_t)(cur ^ 1) * D * K * W;
+
+    // ---- the LSTM stack over the half's rows, the own units ----
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      // one block barrier a tile: tile i's products (part[i & 1]) run
+      // beside tile i-1's block sums and gate updates (part[(i-1) & 1])
+      const int ntiles = KH / TR, nps = up.g.NKB2 * TR * up.g.PS;
+      stage_tile<D>(p, n, t, d, h0, TR, up.g.XP, u0, upb, hcur, hprv, cprv,
+                    USMI(srow), USMI(schar), USM(xin), USM(cin));
+      for (int tile = 0; tile <= ntiles; ++tile) {
+        cp_async_wait_all();
+        __syncthreads();  // tile is in; tile-1's products, tile-2's sums done
+        if (tile + 1 < ntiles)
+          stage_tile<D>(p, n, t, d, h0 + (tile + 1) * TR, TR, up.g.XP, u0,
+                        upb, hcur, hprv, cprv, USMI(srow), USMI(schar),
+                        USM(xin) + ((tile + 1) & 1) * TR * up.g.XP,
+                        USM(cin) + ((tile + 1) % 3) * TR * upb);
+        PHASE(0)
+        for (int job = 0; job < 2; ++job) {  // products, gate updates
+          if (job == (int)sums_first) {
+            if (worker && tile < ntiles) {
+              const int rpt = TR / up.g.NRG;
+              unit_products(
+                  USM(xin) + (tile & 1) * TR * up.g.XP + kb * (KCH + 4),
+                  up.g.XP, wr[d], rg * rpt, (rg + 1) * rpt,
+                  USM(part) + (tile & 1) * nps + kb * TR * up.g.PS + col,
+                  up.g.PS, half);
+            }
+            PHASE(1)
+          } else if (tile > 0) {
+            // tile-1's block sums in block order, bias, gate update: one
+            // thread a (row, own unit)
+            const int pt = tile - 1;
+            for (int i = tid; i < TR * upb; i += UNT) {
+              const int r = i / upb, uu = i - r * upb, s = h0 + pt * TR + r;
+              const float* pr =
+                  USM(part) + (pt & 1) * nps + r * up.g.PS + uu;
+              float z[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll 8
+              for (int b = 0; b < up.g.NKB2; ++b)
+#pragma unroll
+                for (int gate = 0; gate < 4; ++gate)
+                  z[gate] += pr[b * TR * up.g.PS + gate * upb];
+              const float* bs = USM(bias) + d * NC + uu;
+              const float2 hc = lstm_gate(
+                  z[0] + bs[0], z[1] + bs[upb], z[2] + bs[2 * upb],
+                  z[3] + bs[3 * upb],
+                  USM(cin)[(pt % 3) * TR * upb + r * upb + uu]);
+              const size_t o = ((size_t)d * K + s) * W + u0 + uu;
+              ccur[o] = hc.y;
+              hcur[o] = hc.x;
+            }
+            PHASE(2)
+          }
+        }
+      }
+      cluster.sync();  // every unit's new h and c of layer d are out
+      PHASE(3)
+    }
+
+    // ---- the own rows' logits and candidates ----
+    {
+      const int wq = W / 4;
+      float* xh = USM(xin);
+      for (int i = tid; i < R * wq; i += UNT) {
+        const int r = i / wq, e = (i - r * wq) * 4;
+        *reinterpret_cast<float4*>(xh + r * W + e) =
+            __ldcg(reinterpret_cast<const float4*>(
+                hcur + ((size_t)(D - 1) * K + r0 + r) * W + e));
+      }
+      __syncthreads();
+      unit_logits(xh, R, W, USM(embs), up.g.VR4, p.v_real, p.Vp, USM(part));
+      __syncthreads();
+    }
+    PHASE(4)
+    switch ((p.v_real + 31) / 32) {
+      case 1:
+        own_candidates<1>(p, R, USM(part), USM(cost), USM(ccost),
+                          USMI(cchar));
+        break;
+      case 2:
+        own_candidates<2>(p, R, USM(part), USM(cost), USM(ccost),
+                          USMI(cchar));
+        break;
+      case 3:
+        own_candidates<3>(p, R, USM(part), USM(cost), USM(ccost),
+                          USMI(cchar));
+        break;
+      default:
+        own_candidates<4>(p, R, USM(part), USM(cost), USM(ccost),
+                          USMI(cchar));
+    }
+    PHASE(5)
+    cluster.sync();  // every block's candidates are ready
+
+    // ---- all K*TOPK candidates, from the cluster's shared memory ----
+    {
+      // four remote loads of each array in flight a thread
+      float* allc = USM(allc);
+      int* allch = USMI(allch);
+      for (int i0 = tid; i0 < KT; i0 += 4 * UNT) {
+        float c4[4];
+        int h4[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int i = min(i0 + j * UNT, KT - 1);
+          const int b = i / (R * TOPK), o = i - b * R * TOPK;
+          c4[j] = cluster.map_shared_rank(USM(ccost), b)[o];
+          h4[j] = cluster.map_shared_rank(USMI(cchar), b)[o];
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (i0 + j * UNT < KT) {
+            allc[i0 + j * UNT] = c4[j];
+            allch[i0 + j * UNT] = h4[j];
+          }
+      }
+    }
+    __syncthreads();
+    PHASE(6)
+
+    // ---- the K-th smallest cost: a radix select on the float bits
+    // (costs are >= 0, so their bits order as the floats do), 8 bits a
+    // pass from the top, the whole block counting into a histogram ----
+    const float* allc = USM(allc);
+    int* hist = USMI(hist);
+    int* misc = USMI(misc);
+    unsigned prefix = 0u, pmask = 0u;
+    int kk = K;  // rank of the K-th smallest among those under prefix
+    for (int shift = 24; shift >= 0; shift -= 8) {
+      for (int i = tid; i < 256; i += UNT) hist[i] = 0;
+      __syncthreads();
+      for (int i = tid; i < KT; i += UNT) {
+        const unsigned v = __float_as_uint(allc[i]);
+        if ((v & pmask) == prefix) atomicAdd(hist + ((v >> shift) & 255u), 1);
+      }
+      __syncthreads();
+      if (warp == 0) {
+        int h[8], sum = 0;
+#pragma unroll
+        for (int b = 0; b < 8; ++b) {
+          h[b] = hist[lane * 8 + b];
+          sum += h[b];
+        }
+        int incl = sum;
+        for (int o = 1; o < 32; o <<= 1) {
+          const int v = __shfl_up_sync(0xffffffffu, incl, o);
+          if (lane >= o) incl += v;
+        }
+        int before = incl - sum;
+        if (before < kk && kk <= incl) {
+          for (int b = 0; b < 8; ++b) {
+            if (kk <= before + h[b]) {
+              misc[2] = lane * 8 + b;
+              misc[3] = kk - before;
+              break;
+            }
+            before += h[b];
+          }
+        }
+      }
+      __syncthreads();
+      prefix |= (unsigned)misc[2] << shift;
+      pmask |= 0xffu << shift;
+      kk = misc[3];
+    }
+    const unsigned thr = prefix;
+
+    // ---- per-row counts below and at the threshold, their prefixes ----
+    int* less = USMI(less);
+    int* eq = USMI(eq);
+    int* lpfx = USMI(lpfx);
+    int* epfx = USMI(epfx);
+    for (int r = tid; r < K; r += UNT) {
+      int nl = 0, ne = 0;
+      for (int k = 0; k < TOPK; ++k) {
+        const unsigned u = __float_as_uint(allc[r * TOPK + k]);
+        nl += u < thr;
+        ne += u == thr;
+      }
+      less[r] = nl;
+      eq[r] = ne;
+    }
+    __syncthreads();
+    if (warp == 0) {  // exclusive scans over the K rows, one warp
+      const int per = (K + 31) / 32, lo_r = lane * per;
+      const int hi_r = min(lo_r + per, K);
+      int sl = 0, se = 0;
+      for (int r = lo_r; r < hi_r; ++r) {
+        sl += less[r];
+        se += eq[r];
+      }
+      int il = sl, ie = se;
+      for (int o = 1; o < 32; o <<= 1) {
+        const int ul = __shfl_up_sync(0xffffffffu, il, o);
+        const int ue = __shfl_up_sync(0xffffffffu, ie, o);
+        if (lane >= o) {
+          il += ul;
+          ie += ue;
+        }
+      }
+      int al = il - sl, ae = ie - se;
+      for (int r = lo_r; r < hi_r; ++r) {
+        lpfx[r] = al;
+        epfx[r] = ae;
+        al += less[r];
+        ae += eq[r];
+      }
+      if (lane == 31) misc[0] = il;  // candidates below the threshold
+    }
+    __syncthreads();
+
+    // ---- compaction: selected candidates in row-major order; slot s is
+    // the s-th selected; every block fills every slot ----
+    {
+      int* srow = USMI(srow);
+      int* scol = USMI(scol);
+      const int need = K - misc[0];
+      for (int r = tid; r < K; r += UNT) {
+        int slot = lpfx[r] + min(epfx[r], need), seen_eq = 0;
+        for (int k = 0; k < TOPK && slot < K; ++k) {
+          const unsigned u = __float_as_uint(allc[r * TOPK + k]);
+          const bool at = u == thr;
+          const bool sel = u < thr || (at && epfx[r] + seen_eq < need);
+          seen_eq += at;
+          if (sel) {
+            srow[slot] = r;
+            scol[slot] = k;
+            ++slot;
+          }
+        }
+      }
+      __syncthreads();
+
+      // ---- every slot's char; the own slots' records and costs ----
+      const int* allch = USMI(allch);
+      int* schar = USMI(schar);
+      float* rec = p.rec + ((size_t)n * p.T + t) * 3 * K;
+      for (int s = tid; s < K; s += UNT) {
+        const int f = srow[s] * TOPK + scol[s];
+        schar[s] = allch[f];
+        if (s >= r0 && s < r0 + R) {
+          rec[s] = (float)allch[f];
+          rec[K + s] = (float)srow[s];
+          rec[2 * K + s] = allc[f];
+          USM(cost)[s - r0] = allc[f];
+        }
+      }
+      __syncthreads();
+    }
+    PHASE(7)
+  }
+  PHASE_FLUSH
+
+  // ---- the fringe after the last step: [emb[char] | h, c of the source
+  // row], the own units of every slot ----
+  if (up.fin != nullptr) {
+    const int last = (p.T - 1) & 1;
+    const float* hl = hbase + (size_t)last * D * K * W;
+    const float* cl = cbase + (size_t)last * D * K * W;
+    for (int i = tid; i < KH * upb; i += UNT) {
+      const int s = h0 + i / upb, uu = i % upb, src = USMI(srow)[s];
+      float* row = up.fin + ((size_t)n * K + s) * S + u0 + uu;
+      row[0] = p.emb[(size_t)USMI(schar)[s] * W + u0 + uu];
+      for (int d = 0; d < D; ++d) {
+        const size_t o = ((size_t)d * K + src) * W + u0 + uu;
+        row[(1 + d) * W] = __ldcg(hl + o);
+        row[(1 + D + d) * W] = __ldcg(cl + o);
+      }
+    }
+  }
+#undef USM
+#undef USMI
+  cluster.sync();  // no block leaves while another may still read it
+}
+
 static cudaLaunchConfig_t config(int cl, int N, size_t smem,
                                  cudaStream_t stream,
                                  cudaLaunchAttribute* attr) {
@@ -508,4 +1210,77 @@ extern "C" int gen_beam_launch(const float* emb, const float* embT,
   Params p{emb, embT, wcat, bias, state0, cost0, rec, scratch, N, T,
            K,   D,    W,    Vp,   v_real, topk,  log_thresh};
   return launch_rb(cl, p, (cudaStream_t)stream, nullptr);
+}
+
+// ---- the unit layout's host side ----
+
+template <int D>
+static int ulaunch_t(int cl, const Params& p, const UParams& u, size_t smem,
+                     cudaStream_t stream, int* fits) {
+  auto kern = gen_beam_units_kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess && cl > 8)  // 16 blocks exceed the portable 8
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = config(cl, p.N, smem, stream, &attr);
+  cfg.blockDim = dim3(UNT);
+  if (fits) return (int)cudaOccupancyMaxActiveClusters(fits, kern, &cfg);
+  err = cudaLaunchKernelEx(&cfg, kern, p, u);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+}
+
+// Launch (or, with `fits`, count how many clusters of cl blocks the card
+// holds at once into *fits) in the unit layout with tiles of tr rows;
+// refuses a shape units_ok does not take.
+static int ulaunch(int cl, int rh, int tr, const Params& p, UParams u,
+                   cudaStream_t stream, int* fits) {
+  if (!units_ok(p.K, p.D, p.W, cl, rh, tr, p.v_real) || p.topk < 1 ||
+      p.topk > MAX_TOPK || p.v_real > p.Vp || p.Vp % 4)
+    return (int)cudaErrorInvalidValue;
+  u.TR = tr;
+  u.g = make_ugeo(p.W, cl, rh, p.v_real);
+  u.pl = make_uplan(p.K, p.D, p.W, p.Vp, p.v_real, p.topk, cl, rh, tr);
+  const size_t smem = (size_t)u.pl.total * 4;
+  if (p.D == 1) return ulaunch_t<1>(cl, p, u, smem, stream, fits);
+  return ulaunch_t<2>(cl, p, u, smem, stream, fits);
+}
+
+extern "C" size_t gen_beam_units_smem_bytes(int K, int cl, int rh, int tr,
+                                            int D, int W, int Vp, int v_real,
+                                            int topk) {
+  return (size_t)make_uplan(K, D, W, Vp, v_real, topk, cl, rh, tr).total * 4;
+}
+
+// How many clusters of cl blocks of the unit layout the card holds at
+// once (0 where the layout does not take the shape or it does not fit).
+extern "C" int gen_beam_units_max_clusters(int cl, int rh, int tr, int K,
+                                           int D, int W, int Vp, int v_real,
+                                           int topk) {
+  Params p{};
+  p.N = 1, p.K = K, p.D = D, p.W = W, p.Vp = Vp, p.v_real = v_real;
+  p.topk = topk;
+  int fits = 0;
+  return ulaunch(cl, rh, tr, p, UParams{}, 0, &fits) == 0 ? fits : 0;
+}
+
+// hbuf, cbuf: (N, 2, D, K, W) scratch; fin: (N, K, S) or null
+extern "C" int gen_beam_units_launch(const float* emb, const float* embT,
+                                     const float* wcat, const float* bias,
+                                     const float* state0, const float* cost0,
+                                     float* rec, float* hbuf, float* cbuf,
+                                     float* fin, int cl, int rh, int tr,
+                                     int N, int T, int K,
+                                     int D, int W, int Vp, int v_real,
+                                     int topk, float log_thresh,
+                                     void* stream) {
+  Params p{emb, embT, wcat, bias, state0, cost0, rec, nullptr, N, T,
+           K,   D,    W,    Vp,   v_real, topk,  log_thresh};
+  UParams u{};
+  u.hbuf = hbuf;
+  u.cbuf = cbuf;
+  u.fin = fin;
+  return ulaunch(cl, rh, tr, p, u, (cudaStream_t)stream, nullptr);
 }

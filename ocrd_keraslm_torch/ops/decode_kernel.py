@@ -385,7 +385,23 @@ def _batch_library() -> ctypes.CDLL:
     lib.decode_lattice_batch_max_clusters.restype = ctypes.c_int
     lib.walk_records_batch_launch.argtypes = [P] * 4 + [I] * 3 + [P]
     lib.walk_records_batch_launch.restype = ctypes.c_int
+    lib.walk_records_batch_smem_bytes.argtypes = [I] * 2
+    lib.walk_records_batch_smem_bytes.restype = ctypes.c_size_t
     return lib
+
+
+WALK_NT = 512     # threads of the walk kernel a document
+WALK_SEGS = 64    # segments of its chain, at most
+WALK_MAX_K = 255  # beam rows the walk takes (a backpointer in a byte)
+
+
+def walk_smem_bytes(E: int, K: int) -> int:
+    """Dynamic shared memory of the walk kernel's block
+    (``walk_records_batch_smem_bytes``): each step's slot, the chain
+    segments' exit slots by entry and entry slots, and the document's
+    E*K backpointers as bytes."""
+    G = min(WALK_NT // K, WALK_SEGS)
+    return 4 * (E + G * K + G) + E * K
 
 
 def _batch_shapes(emb, wcat, alt_chars, state0, n_docs):
@@ -551,7 +567,9 @@ def walk_records_batch(records, k_in, *, n_docs: int, beam: int):
     each document (0, the best final hypothesis, for the last block; a
     block's ``k_out`` for the block before it).  Returns (k_out (N,)
     int32, walks (N, E, 2) ``[alt | cost]`` per edge).  One launch of the
-    walk kernel on CUDA; :func:`walk_records_batch_ref` on the CPU."""
+    walk kernel on CUDA (a block per document: its backpointers staged in
+    shared memory, the chain walked there in segments, the values gathered
+    by every thread); :func:`walk_records_batch_ref` on the CPU."""
     device = _build.one_device('walk_records_batch', (records, k_in))
     if device.type == 'cpu':
         return walk_records_batch_ref(records, k_in, n_docs=n_docs,
@@ -560,6 +578,12 @@ def walk_records_batch(records, k_in, *, n_docs: int, beam: int):
         raise ValueError('walk_records_batch runs on cpu or cuda, not %s'
                          % device)
     E, N, K = records.shape[0], int(n_docs), int(beam)
+    if not 1 <= K <= WALK_MAX_K or walk_smem_bytes(E, K) > SMEM_MAX:
+        raise ValueError('walk_records_batch kernel needs 1 <= beam <= %d '
+                         'and E*beam backpointers in a block\'s shared '
+                         'memory (got E=%d, beam=%d: %d bytes of %d)'
+                         % (WALK_MAX_K, E, K, walk_smem_bytes(E, K),
+                            SMEM_MAX))
     _check('records', records, (E, 3, N * K), torch.float32, device)
     _check('k_in', k_in, (N,), torch.int32, device)
     k_out = torch.empty((N,), dtype=torch.int32, device=device)
@@ -572,7 +596,8 @@ def walk_records_batch(records, k_in, *, n_docs: int, beam: int):
             torch.cuda.current_stream(device).cuda_stream)
     if status != 0:
         raise RuntimeError('walk_records_batch kernel launch failed: CUDA '
-                           'error %d' % status)
+                           'error %d (%d bytes of shared memory asked a '
+                           'block)' % (status, walk_smem_bytes(E, K)))
     walk_records_batch.launches += 1
     return k_out, walks
 

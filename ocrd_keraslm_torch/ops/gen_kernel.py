@@ -32,11 +32,22 @@ Layouts: ``state0`` (N, K, S) with S = (2D+1)W and rows ``[xemb |
 h_0..h_{D-1} | c_0..c_{D-1}]``, ``cost0`` (N, K); the records are
 (N, T, 3, K) float32 rows ``[char | backptr | cost]`` (the TPU's
 (T, 8, K) minus its five padding rows; ids are exact in float32).
+
+On the card each stream runs on one thread-block cluster, in one of two
+layouts of ``csrc/gen_beam.cu`` (:class:`GenLayout`): the unit layout
+(each block owns some units' gate columns of every layer, their weights
+in registers for all steps, for all rows or one of two row halves; the
+rows' h and c pass through L2 buffers) and the rows layout of the first
+design (each block owns some fringe rows and reads every weight from L2
+at each step).  :func:`choose` picks one from a cost model of a step
+times the waves of clusters the card holds, cached per device and shape
+(:func:`layout_on`).  Both give the same records bit for bit.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -45,16 +56,204 @@ from . import _build
 from ._build import check as _check
 
 BIG = 3.0e38   # cost of a dead slot
-# the beam step kernel: a cluster of CLUSTER_WIDE or CLUSTER blocks per
-# stream, each block K / blocks fringe rows; what it takes (else it
-# raises)
-CLUSTER, CLUSTER_WIDE = 8, 16
-MAX_ROWS = 32        # fringe rows per block of an 8-block cluster
+UNT = 256            # threads per block of the unit layout
+KCH = 32             # terms per partial sum
+URT = 4              # rows one thread's chains take at once (unit layout)
+SMEM_MAX = 232448    # dynamic shared memory a block may ask (Hopper)
+# blocks a stream of the two layouts of csrc/gen_beam.cu: the unit layout
+# (a block owns the units of one of cl/rh groups, their weights in
+# registers, for the rows of one of rh halves) and the rows layout of the
+# first design (a block owns K/cl fringe rows)
+UNIT_CLUSTERS = (4, 8, 16)
+ROW_HALVES = (1, 2)
+ROWS_CLUSTERS = (8, 16)
+TILES = (32, 16)     # rows per staged tile of the unit layout, first fit
+MAX_ROWS = 32        # fringe rows (own rows) a block
 MAX_TOPK = 32        # candidates per row (one lane each)
+UNIT_MAX_VREAL = 128  # a row's logits in 4 registers a lane (unit layout)
 MAX_VARIANTS = 1024  # traceback cursors (one thread each)
+# The cost model of a step in microseconds, fitted to
+# gen_beam_phases.py's layout sweep on an H100 (NVIDIA H100 80GB HBM3,
+# 700 W; rows 6 and 6b of PERF.md: the german model, K=256, one stream x
+# 1024 steps and 16 x 256): the unit layout UNIT_STEP, plus UNIT_PER_MFMA
+# per million FMAs of a block's step (its columns' gate products over its
+# rows and its own rows' logits), plus UNIT_PER_KWORD per thousand x words
+# a block loads a step (its rows' [x | h] of every layer); the rows layout
+# ROWS_STEP plus ROWS_PER_MFMA per million FMAs of its rows (the first
+# design reads every weight from L2 at each step)
+UNIT_STEP, UNIT_PER_MFMA, UNIT_PER_KWORD = 12.5, 11.62, 0.057
+ROWS_STEP, ROWS_PER_MFMA = 46.3, 7.92
 
 SOURCE = _build.source('gen_beam.cu')
 TB_SOURCE = _build.source('gen_traceback.cu')
+
+
+class GenLayout(NamedTuple):
+    cl: int       # blocks a stream (one thread-block cluster a stream)
+    units: bool   # the unit layout (else the rows layout)
+    rh: int       # row halves of the unit layout (0: rows layout)
+    tr: int       # rows per staged tile of the unit layout (0: rows)
+    smem: int     # dynamic shared memory a block, bytes
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _a4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+def own_rows_cap(R: int) -> int:
+    """Rows a block's row tiles run for R own rows (pad rows zero):
+    8, 16 or 32 (``rows_cap``, ``own_rows_cap`` in the source)."""
+    return 8 if R <= 8 else (16 if R <= 16 else 32)
+
+
+def rows_plan_bytes(K, cl, D, W, Vp, topk) -> int:
+    """A block's dynamic shared memory in the rows layout (``make_plan``):
+    its rows ``[xemb | h.. | c..]``, their gates then logits, costs and
+    candidates, every row's candidates, the per-row counts and prefixes,
+    the own slots' sources."""
+    RB, S, G = own_rows_cap(K // cl), (2 * D + 1) * W, max(4 * W, Vp)
+    return 4 * (_a4(RB * S) + _a4(RB * G) + _a4(RB) + 2 * _a4(RB * topk)
+                + 2 * _a4(K * topk) + 4 * _a4(K) + 2 * _a4(RB) + 4)
+
+
+def unit_geometry(W: int, cl: int, rh: int = 1) -> dict:
+    """The unit layout's block (``make_ugeo``): units a block ``upb`` (W
+    over the cl/rh unit groups), its gate columns ``nc``, 32-term blocks of
+    a column's 2W terms ``nkb``, thread roles ``nrole`` (a column pair's
+    block each), row groups ``nrg``, the padded staged row ``xp`` and a
+    block-sum row ``ps`` (floats)."""
+    upb = W // (cl // rh)
+    nc, nkb = 4 * upb, 2 * W // KCH
+    nrole = nc // 2 * nkb
+    return dict(upb=upb, nc=nc, nkb=nkb, nrole=nrole,
+                nrg=UNT // nrole if nrole else 0, xp=2 * W + 4 * nkb + 4,
+                ps=nc + upb)
+
+
+def units_plan_bytes(K, cl, rh, tr, D, W, Vp, topk, v_real=None) -> int:
+    """A block's dynamic shared memory in the unit layout
+    (``make_uplan``): two staged tiles of ``tr`` padded ``[x | h]`` rows
+    (then the own rows' top-layer h), three of the own units' old c, two
+    tiles' block sums (then the own rows' logits), the own bias, embT's
+    ``v_real`` real columns (rounded up to 4), the own rows' costs and
+    candidates, every row's candidates, the per-row counts and prefixes,
+    every slot's source and char, the radix select's 256 counts."""
+    g = unit_geometry(W, cl, rh)
+    RB = own_rows_cap(K // cl)
+    return 4 * (_a4(max(2 * tr * g['xp'], RB * W)) + _a4(3 * tr * g['upb'])
+                + _a4(max(2 * g['nkb'] * tr * g['ps'], RB * Vp))
+                + _a4(D * g['nc']) + W * _a4(Vp if v_real is None
+                                             else v_real)
+                + _a4(RB) + 2 * _a4(RB * topk)
+                + 2 * _a4(K * topk) + 7 * _a4(K) + 256 + 4)
+
+
+def units_ok(K, D, W, cl, rh, tr, v_real=0) -> bool:
+    """Whether the unit layout takes the shape (``units_ok``): cl in
+    :data:`UNIT_CLUSTERS` blocks of ``rh`` in :data:`ROW_HALVES` row
+    halves by cl/rh unit groups of W/(cl/rh) units, a multiple of 4 (the
+    copies of c), D <= 2 (a thread's weights of every layer in
+    registers), W a multiple of 16, the roles in UNT threads, tiles of
+    ``tr`` in :data:`TILES` rows that split evenly into the row groups and
+    into chains of URT rows, K/rh a multiple of ``tr``, K a multiple of cl
+    with at most MAX_ROWS own rows a block, v_real <= UNIT_MAX_VREAL."""
+    if cl not in UNIT_CLUSTERS or rh not in ROW_HALVES or not 1 <= D <= 2 \
+            or W < cl // rh or W % (cl // rh) or (W // (cl // rh)) % 4 \
+            or W % 16 or tr not in TILES or K % (rh * tr) or K % cl \
+            or K // cl > MAX_ROWS or v_real > UNIT_MAX_VREAL:
+        return False
+    g = unit_geometry(W, cl, rh)
+    if not 1 <= g['nrole'] <= UNT or tr % g['nrg']:
+        return False
+    rpt = tr // g['nrg']
+    return rpt >= URT and rpt % URT == 0
+
+
+def _common_ok(topk, v_real, Vp, W) -> bool:
+    return 1 <= topk <= MAX_TOPK and v_real <= Vp and Vp % 4 == 0 \
+        and W % 4 == 0
+
+
+def units_layout_for(K, D, W, Vp, topk, cl, rh=1,
+                     v_real=None) -> Optional[GenLayout]:
+    """The unit layout on cl blocks a stream in ``rh`` row halves with
+    the largest tile of :data:`TILES` whose plan fits a block's shared
+    memory, or None."""
+    v_real = Vp if v_real is None else v_real
+    if not _common_ok(topk, v_real, Vp, W):
+        return None
+    for tr in TILES:
+        smem = units_plan_bytes(K, cl, rh, tr, D, W, Vp, topk, v_real)
+        if units_ok(K, D, W, cl, rh, tr, v_real) and smem <= SMEM_MAX:
+            return GenLayout(cl, True, rh, tr, smem)
+    return None
+
+
+def rows_layout_for(K, D, W, Vp, topk, cl,
+                    v_real=None) -> Optional[GenLayout]:
+    """The rows layout on cl blocks a stream, or None: cl in
+    :data:`ROWS_CLUSTERS`, K a multiple of cl with at most MAX_ROWS rows
+    a block, its plan in a block's shared memory."""
+    if cl not in ROWS_CLUSTERS or K % cl or K // cl > MAX_ROWS \
+            or not _common_ok(topk, Vp if v_real is None else v_real, Vp,
+                              W):
+        return None
+    smem = rows_plan_bytes(K, cl, D, W, Vp, topk)
+    return GenLayout(cl, False, 0, 0, smem) if smem <= SMEM_MAX else None
+
+
+def gen_layouts(K, D, W, Vp, topk, v_real=None) -> list:
+    """Every layout that takes the shape: the unit layout at each size of
+    :data:`UNIT_CLUSTERS` and of :data:`ROW_HALVES`, then the rows layout
+    at each of :data:`ROWS_CLUSTERS`."""
+    out = [units_layout_for(K, D, W, Vp, topk, cl, rh, v_real)
+           for cl in UNIT_CLUSTERS for rh in ROW_HALVES]
+    out += [rows_layout_for(K, D, W, Vp, topk, cl, v_real)
+            for cl in ROWS_CLUSTERS]
+    return [lay for lay in out if lay is not None]
+
+
+def step_cost(lay: GenLayout, K, D, W, v_real) -> float:
+    """The cost model of one step of one cluster in microseconds (the
+    constants above)."""
+    own = K // lay.cl * W * v_real
+    if lay.units:
+        fmas = K * D * 2 * W * 4 * W // lay.cl + own
+        words = K // lay.rh * D * 2 * W   # x words a block loads a step
+        return UNIT_STEP + UNIT_PER_MFMA * fmas / 1e6 \
+            + UNIT_PER_KWORD * words / 1e3
+    return ROWS_STEP + ROWS_PER_MFMA * (
+        K // lay.cl * D * 2 * W * 4 * W + own) / 1e6
+
+
+def choose(N, K, D, W, Vp, topk, v_real, fits: Callable[[GenLayout], int]
+           ) -> GenLayout:
+    """The layout of a launch of N streams: of :func:`gen_layouts` that
+    the card holds (``fits(layout)``: how many clusters of it at once),
+    the lowest :func:`step_cost` times the waves of clusters wins, ties
+    to the unit layout, then to more blocks.  Raises ValueError where no
+    layout takes the shape or none fits the card."""
+    best = None
+    for lay in gen_layouts(K, D, W, Vp, topk, v_real):
+        at_once = fits(lay)
+        if at_once > 0:
+            key = (step_cost(lay, K, D, W, v_real) * _ceil(N, at_once),
+                   not lay.units, -lay.cl)
+            if best is None or key < best[0]:
+                best = (key, lay)
+    if best is None:
+        raise ValueError(
+            'gen_beam: no layout takes K=%d, D=%d, W=%d, Vp=%d, topk=%d, '
+            'v_real=%d on this card (unit layout: D <= 2, W a multiple of '
+            '16 in %s blocks, K a multiple of 16; rows layout: at most %d '
+            'rows a block of %s; both: shared memory <= %d bytes)'
+            % (K, D, W, Vp, topk, v_real, UNIT_CLUSTERS, MAX_ROWS,
+               ROWS_CLUSTERS, SMEM_MAX))
+    return best[1]
 
 
 @functools.lru_cache(maxsize=None)
@@ -67,28 +266,44 @@ def _library() -> ctypes.CDLL:
     lib.gen_beam_smem_bytes.restype = ctypes.c_size_t
     lib.gen_beam_max_clusters.argtypes = [I] * 6
     lib.gen_beam_max_clusters.restype = ctypes.c_int
+    lib.gen_beam_units_launch.argtypes = [P] * 10 + [I] * 11 + [F, P]
+    lib.gen_beam_units_launch.restype = ctypes.c_int
+    lib.gen_beam_units_smem_bytes.argtypes = [I] * 9
+    lib.gen_beam_units_smem_bytes.restype = ctypes.c_size_t
+    lib.gen_beam_units_max_clusters.argtypes = [I] * 9
+    lib.gen_beam_units_max_clusters.restype = ctypes.c_int
     return lib
 
 
+def clusters_that_fit(index, K, D, W, Vp, topk, v_real,
+                      lay: GenLayout) -> int:
+    """How many clusters of ``lay`` CUDA device ``index`` holds at once
+    (``cudaOccupancyMaxActiveClusters``; 0 where none)."""
+    return _fits(index, lay.cl, lay.units, lay.rh, lay.tr, K, D, W, Vp,
+                 topk, v_real)
+
+
 @functools.lru_cache(maxsize=None)
-def _clusters_that_fit(index, blocks, K, D, W, Vp, topk) -> int:
+def _fits(index, cl, units, rh, tr, K, D, W, Vp, topk, v_real) -> int:
     with torch.cuda.device(index):
-        return _library().gen_beam_max_clusters(blocks, K, D, W, Vp, topk)
+        if units:
+            return _library().gen_beam_units_max_clusters(
+                cl, rh, tr, K, D, W, Vp, v_real, topk)
+        return _library().gen_beam_max_clusters(cl, K, D, W, Vp, topk)
 
 
-def cluster_blocks(index, N, K, D, W, Vp, topk) -> int:
-    """Blocks a stream for N streams on CUDA device ``index``:
-    ``CLUSTER_WIDE`` where the card holds N clusters of it at once (fewer
-    rows a block: a shorter step) or where a ``CLUSTER``-block cluster
-    does not fit at all (a wide model); else ``CLUSTER`` (its clusters
-    fit the card twice as often)."""
-    if K % CLUSTER_WIDE:
-        return CLUSTER
-    wide = _clusters_that_fit(index, CLUSTER_WIDE, K, D, W, Vp, topk)
-    if wide >= N or (wide and not _clusters_that_fit(
-            index, CLUSTER, K, D, W, Vp, topk)):
-        return CLUSTER_WIDE
-    return CLUSTER
+@functools.lru_cache(maxsize=None)
+def _layout(index, N, K, D, W, Vp, topk, v_real) -> GenLayout:
+    return choose(N, K, D, W, Vp, topk, v_real, lambda lay: clusters_that_fit(
+        index, K, D, W, Vp, topk, v_real, lay))
+
+
+def layout_on(device, N, K, D, W, Vp, topk, v_real) -> GenLayout:
+    """:func:`choose` for CUDA ``device``, cached per device and shape
+    (``_layout.cache_clear()`` drops the cache)."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    return _layout(index, N, K, D, W, Vp, topk, v_real)
 
 
 @functools.lru_cache(maxsize=None)
@@ -129,44 +344,57 @@ def gen_beam(emb, embT, wcat, bias, state0, cost0, *, length: int,
     D = wcat.shape[0]
     N, K, S = state0.shape
     TOPK = min(int(topk), int(v_real))
-    if (S != (2 * D + 1) * W or W % 4 or K % CLUSTER
-            or K // CLUSTER > MAX_ROWS or not 1 <= TOPK <= MAX_TOPK
-            or v_real > Vp or Vp % 4 or length < 1 or N < 1):
+    if (S != (2 * D + 1) * W or W % 4 or K % 8 or K // 8 > MAX_ROWS
+            or not 1 <= TOPK <= MAX_TOPK or v_real > Vp or Vp % 4
+            or length < 1 or N < 1):
         raise ValueError(
             'gen_beam kernel needs S = (2D+1)W, W %% 4 == 0, K a multiple '
-            'of %d with at most %d rows a block, 1 <= min(topk, v_real) <= '
+            'of 8 with at most %d rows a block, 1 <= min(topk, v_real) <= '
             '%d, v_real <= Vp, Vp %% 4 == 0, length >= 1 (got S=%d, D=%d, '
-            'W=%d, K=%d, '
-            'topk=%d, v_real=%d, Vp=%d, length=%d, N=%d)'
-            % (CLUSTER, MAX_ROWS, MAX_TOPK, S, D, W, K, topk, v_real, Vp,
-               length, N))
+            'W=%d, K=%d, topk=%d, v_real=%d, Vp=%d, length=%d, N=%d)'
+            % (MAX_ROWS, MAX_TOPK, S, D, W, K, topk, v_real, Vp, length, N))
     f32 = torch.float32
     for name, t, shape in (
             ('emb', emb, (Vp, W)), ('embT', embT, (W, Vp)),
             ('wcat', wcat, (D, 2 * W, 4 * W)), ('bias', bias, (D, 1, 4 * W)),
             ('state0', state0, (N, K, S)), ('cost0', cost0, (N, K))):
         _check(name, t, shape, f32, device)
+    lay = layout_on(device, N, K, D, W, Vp, TOPK, int(v_real))
     rec = torch.empty((N, length, 3, K), dtype=f32, device=device)
-    # the fringe state, double-buffered in device memory (L2-resident)
-    scratch = torch.empty((2, N, K, S), dtype=f32, device=device)
     lib = _library()
     with torch.cuda.device(device):
-        blocks = cluster_blocks(torch.cuda.current_device(), N, K, D, W,
-                                Vp, TOPK)
         stream = torch.cuda.current_stream(device).cuda_stream
-        status = lib.gen_beam_launch(
-            emb.data_ptr(), embT.data_ptr(), wcat.data_ptr(),
-            bias.data_ptr(), state0.data_ptr(), cost0.data_ptr(),
-            rec.data_ptr(), scratch.data_ptr(), blocks, N, length, K, D,
-            W, Vp, int(v_real), TOPK, log_threshold(threshold), stream)
+        if lay.units:
+            # every row's h and c by step parity (L2-resident) and the
+            # fringe after the last step
+            hc = torch.empty((2, N, 2, D, K, W), dtype=f32, device=device)
+            fin = torch.empty((N, K, S), dtype=f32, device=device) \
+                if final_state else None
+            status = lib.gen_beam_units_launch(
+                emb.data_ptr(), embT.data_ptr(), wcat.data_ptr(),
+                bias.data_ptr(), state0.data_ptr(), cost0.data_ptr(),
+                rec.data_ptr(), hc[0].data_ptr(), hc[1].data_ptr(),
+                fin.data_ptr() if fin is not None else None, lay.cl,
+                lay.rh, lay.tr, N, length, K, D, W, Vp, int(v_real), TOPK,
+                log_threshold(threshold), stream)
+        else:
+            # the fringe state, double-buffered in device memory
+            scratch = torch.empty((2, N, K, S), dtype=f32, device=device)
+            fin = scratch[(length - 1) & 1]
+            status = lib.gen_beam_launch(
+                emb.data_ptr(), embT.data_ptr(), wcat.data_ptr(),
+                bias.data_ptr(), state0.data_ptr(), cost0.data_ptr(),
+                rec.data_ptr(), scratch.data_ptr(), lay.cl, N, length, K,
+                D, W, Vp, int(v_real), TOPK, log_threshold(threshold),
+                stream)
     if status != 0:
         raise RuntimeError(
             'gen_beam kernel launch failed: CUDA error %d (%d bytes of '
-            'shared memory asked a block, %d blocks a stream)'
-            % (status, lib.gen_beam_smem_bytes(K, blocks, D, W, Vp, TOPK),
-               blocks))
+            'shared memory asked a block, %d blocks a stream, the %s '
+            'layout)' % (status, lay.smem, lay.cl,
+                         'unit' if lay.units else 'rows'))
     gen_beam.launches += 1
-    return (rec, scratch[(length - 1) & 1]) if final_state else rec
+    return (rec, fin) if final_state else rec
 
 
 gen_beam.launches = 0

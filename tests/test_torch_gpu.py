@@ -494,34 +494,107 @@ def test_gen_beam_matches_plain(cuda, fringe, topk):
 
 def test_gen_beam_streams_are_independent(cuda):
     """Three streams in one launch give each stream's records of its own
-    launch, bit for bit (one block cluster per stream)."""
+    launch, bit for bit (one block cluster per stream), in every layout
+    the chooser can take."""
+    from chip_smoke import gen_layout, gen_layouts_on
     from ocrd_keraslm_torch.ops import gen_kernel as gk
     _, weights, v_real, state0, cost0 = _gen_inputs(
         cuda, ['Die Vernunft ', 'Was ist ', 'Der Mensch '])
-    together = gk.gen_beam(*weights, state0, cost0, length=20,
-                           v_real=v_real)
-    for s in range(3):
-        alone = gk.gen_beam(*weights, state0[s:s + 1].contiguous(),
-                            cost0[s:s + 1].contiguous(), length=20,
-                            v_real=v_real)
-        assert torch.equal(together[s], alone[0])
+    for lay in gen_layouts_on(cuda, 256, 2, 128, 128, 10, v_real):
+        with gen_layout(lay):
+            together = gk.gen_beam(*weights, state0, cost0, length=20,
+                                   v_real=v_real)
+            for s in range(3):
+                alone = gk.gen_beam(*weights, state0[s:s + 1].contiguous(),
+                                    cost0[s:s + 1].contiguous(), length=20,
+                                    v_real=v_real)
+                assert torch.equal(together[s], alone[0]), (lay, s)
 
 
-def test_gen_beam_cluster_sizes_agree(cuda):
-    """Clusters of 16 and of 8 blocks a stream give the same records, bit
-    for bit: the rows a block holds change, not the arithmetic."""
-    from chip_smoke import cluster_size
+def _small_gen_inputs(device, D, W, K, N, seed):
+    """Seeded random weights of a D-layer model of width W (v_real 70 of
+    128) and the fringes (N, K, S) of N seeded random prefixes."""
+    from ocrd_keraslm_torch.ops import gen_kernel as gk
+    rng = np.random.default_rng(seed)
+    weights = [t.to(device) for t in _random_weights(rng, D, W, 70)]
+    ids = rng.integers(1, 70, (N, 5)).astype(np.int32)
+    mask = np.ones((N, 5), np.float32)
+    mask[:, -1] = 0.0
+    state0, cost0 = gk._prefix_fringe(*weights, ids, mask, 70, K)
+    return weights, state0, cost0
+
+
+@pytest.mark.parametrize('D, W, K', [(2, 128, 256), (1, 64, 256),
+                                     (2, 64, 128), (2, 32, 64),
+                                     (1, 96, 256), (2, 128, 32)])
+def test_gen_beam_cluster_sizes_agree(cuda, D, W, K):
+    """Every layout the chooser can take (the unit layout on 4, 8 or 16
+    blocks a stream, the rows layout of the first design on 8 or 16)
+    gives the same records and final fringe, bit for bit, for one stream
+    and for nine streams a launch (more clusters of 16 blocks than the
+    card holds at once: they run in waves): the rows or units a block
+    holds change, not the arithmetic."""
+    from chip_smoke import gen_layout, gen_layouts_on
+    from ocrd_keraslm_torch.ops import gen_kernel as gk
+    weights, state0, cost0 = _small_gen_inputs(cuda, D, W, K, 9, [D, W, K])
+    lays = gen_layouts_on(cuda, K, D, W, 128, 10, 70)
+    assert any(lay.units for lay in lays) and any(not lay.units
+                                                 for lay in lays)
+    for N in (1, 9):
+        outs = {}
+        for lay in lays:
+            with gen_layout(lay):
+                outs[lay] = gk.gen_beam(*weights, state0[:N].contiguous(),
+                                        cost0[:N].contiguous(), length=24,
+                                        v_real=70, final_state=True)
+        want = outs[lays[-1]]
+        for lay, got in outs.items():
+            assert torch.equal(got[0], want[0]), lay
+            assert torch.equal(got[1], want[1]), lay
+    assert gk.layout_on(cuda, 1, K, D, W, 128, 10, 70) in lays
+
+
+@pytest.mark.parametrize('K, D, W, Vp, v_real', [
+    (256, 2, 128, 128, 70), (256, 1, 64, 128, 70), (64, 2, 32, 128, 70),
+    (32, 2, 128, 128, 70), (256, 1, 96, 128, 128)])
+def test_gen_layout_plans_match_the_source(cuda, K, D, W, Vp, v_real):
+    """The host's shared-memory plans (``gen_kernel.units_plan_bytes``,
+    ``rows_plan_bytes``) are the source's, for every layout the shape
+    takes, and the card holds a cluster of each the chooser may take."""
+    from ocrd_keraslm_torch.ops import gen_kernel as gk
+    lib = gk._library()
+    index = torch.cuda.current_device()
+    lays = gk.gen_layouts(K, D, W, Vp, 10, v_real)
+    assert lays
+    for lay in lays:
+        if lay.units:
+            assert lay.smem == lib.gen_beam_units_smem_bytes(
+                K, lay.cl, lay.rh, lay.tr, D, W, Vp, v_real, 10), lay
+        else:
+            assert lay.smem == lib.gen_beam_smem_bytes(K, lay.cl, D, W, Vp,
+                                                       10), lay
+    chosen = gk.layout_on(cuda, 1, K, D, W, Vp, 10, v_real)
+    assert gk.clusters_that_fit(index, K, D, W, Vp, 10, v_real, chosen) > 0
+
+
+def test_gen_beam_final_state_resumes(cuda):
+    """The fringe after step t (``final_state``) and its last costs
+    resume the search: 8 steps, then 16 from there, equal 24 steps in one
+    launch, bit for bit, in every layout."""
+    from chip_smoke import gen_layout, gen_layouts_on
     from ocrd_keraslm_torch.ops import gen_kernel as gk
     _, weights, v_real, state0, cost0 = _gen_inputs(
         cuda, ['Die Vernunft ', 'Was ist '])
-    recs = []
-    for blocks in (gk.CLUSTER_WIDE, gk.CLUSTER):
-        with cluster_size(blocks):
-            recs.append(gk.gen_beam(*weights, state0, cost0, length=24,
-                                    v_real=v_real))
-    assert torch.equal(recs[0], recs[1])
-    assert gk.cluster_blocks(torch.cuda.current_device(), 1, 256, 2, 128,
-                             128, 10) in (gk.CLUSTER_WIDE, gk.CLUSTER)
+    for lay in gen_layouts_on(cuda, 256, 2, 128, 128, 10, v_real):
+        with gen_layout(lay):
+            full = gk.gen_beam(*weights, state0, cost0, length=24,
+                               v_real=v_real)
+            head, fringe = gk.gen_beam(*weights, state0, cost0, length=8,
+                                       v_real=v_real, final_state=True)
+            tail = gk.gen_beam(*weights, fringe.contiguous(),
+                               head[:, -1, 2].contiguous(), length=16,
+                               v_real=v_real)
+        assert torch.equal(full, torch.cat([head, tail], 1)), lay
 
 
 @pytest.mark.parametrize('B, T, W', [(4, 300, 128), (33, 40, 128),
@@ -757,6 +830,29 @@ def test_walk_kernel_matches_plain(cuda, N, K):
         torch.cuda.synchronize()
         assert dk.walk_records_batch.launches == before + 1
         assert torch.equal(k, k_ref) and torch.equal(walk, walk_ref)
+
+
+@pytest.mark.parametrize('K', [1, 16, 32])
+@pytest.mark.parametrize('E', [1, 7, 1024])
+@pytest.mark.parametrize('N', [1, 31, 33, 100])
+def test_walk_kernel_ragged_shapes(cuda, N, E, K):
+    """The staged walk at ragged numbers of documents, edges and beam
+    rows (chains of one step, of fewer steps than segments, of 1024),
+    from non-zero start slots, equals its plain version exactly."""
+    from ocrd_keraslm_torch.ops import decode_kernel as dk
+    rng = np.random.default_rng([N, E, K])
+    rec = np.zeros((E, 3, N * K), np.float32)
+    rec[:, 0] = rng.integers(0, K, (E, N * K))
+    rec[:, 1] = rng.integers(0, 4, (E, N * K))
+    rec[:, 2] = rng.normal(0, 10, (E, N * K))
+    rec = torch.from_numpy(rec).to(cuda)
+    k_in = np.full(N, K - 1, np.int32)
+    k_in[::2] = rng.integers(0, K, k_in[::2].shape)
+    k_in = torch.from_numpy(k_in).to(cuda)
+    got = dk.walk_records_batch(rec, k_in, n_docs=N, beam=K)
+    want = dk.walk_records_batch_ref(rec, k_in, n_docs=N, beam=K)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def test_rate_best_batch_launches_and_matches_single_and_cpu(cuda, tmp_path):
