@@ -37,7 +37,11 @@ Phases, each printing its own lines (any failure exits non-zero):
    fringe), its records and final fringe by sha256 in every layout the
    chooser can take, equal to those of the kernel of commit 2399e92
    (``GEN_DIGESTS``: the seeded prompt, the 16 prompts of the batch row,
-   a one-layer model of width 64), and the traceback kernel;
+   a one-layer model of width 64), and the traceback kernel on the
+   beam step's records and on seeded records of every segment plan
+   (``TB_CASES``: the main path's 3 cursors from step 999 of 1024, 16
+   streams, T*K beyond a block's shared memory, 1024 cursors, one
+   segment, a forced plan), each equal to the plain version;
 4. decode path: a seeded synthetic METS/PAGE workspace (4 pages of ~1800
    glyphs, 2-4 alternatives on ~15% of them) through
    ``ocrd_keraslm_torch.wrapper.cli`` at glyph level, beam_width 10;
@@ -66,7 +70,14 @@ Phases, each printing its own lines (any failure exits non-zero):
    Vernunft "`` (one ``gen_beam`` and one ``gen_traceback`` launch), the
    same at ``-n 64`` on the card and on the CPU with equal lines, and
    ``Rater.generate_batch`` of 16 seeded prompts at ``-n 256`` in one
-   launch of each kernel, equal to 16 single calls; batched serving path:
+   launch of each kernel, equal to 16 single calls; host decode engine:
+   page 1 of the seeded workspace through the CLI with ``-P
+   device_decoding false``, and a branching page (the lattice builder
+   returns a DAG) through the default device lane, which bails into the
+   host engine, each on the card and on the CPU: no kernel launched,
+   the same number of ``_predict_step`` calls, the same choices (a
+   near-tie passes where both choices' path costs, decoded on the CPU,
+   lie within ``HOST_TIE_BITS``) and confs within 1e-4; batched serving path:
    ``Rater.rate_best_batch`` of 32 one-page documents of a seeded
    workspace and of 8 documents of 4 pages joined with
    ``Rater.concat_graphs`` (one ``decode_lattice_batch`` and one
@@ -79,7 +90,9 @@ Phases, each printing its own lines (any failure exits non-zero):
    step and chars/s, wall per generation and generated chars/s, wall of
    a 32-document batch, documents/s and edges/s against 32 sequential
    ``rate_best_device`` calls, and per kernel at the main path's
-   shapes: its time and the plain version's (CUDA events; the batched
+   shapes: its time and the plain version's (CUDA events; the
+   traceback's as device time, its calls queued behind a sleep kernel,
+   since a call's host work outlasts its kernels; the batched
    decode's plain version on the parity block only), its bound, and a
    library yardstick where there is one (for the batched decode: one
    ``decode_lattice`` launch per document, one after another); for the
@@ -580,9 +593,11 @@ def output_glyphs(directory, grp='OCR-D-LM'):
     return out, files
 
 
-def run_cli(directory, platform, beam_width=10, scoring=False):
+def run_cli(directory, platform, beam_width=10, scoring=False,
+            host=False):
     """The processor through its CLI entry point, in this process: beam
-    decoding, or with ``scoring`` ``-P alternative_decoding false``."""
+    decoding (with ``host`` ``-P device_decoding false``: the host
+    engine), or with ``scoring`` ``-P alternative_decoding false``."""
     from ocrd_keraslm_torch.wrapper.cli import ocrd_keraslm_rate
     args = ['-m', os.path.join(directory, 'mets.xml'),
             '-I', 'OCR-D-OCR', '-O', 'OCR-D-LM', '-l', 'WARNING',
@@ -590,6 +605,8 @@ def run_cli(directory, platform, beam_width=10, scoring=False):
             '-P', 'beam_width', str(beam_width)]
     if scoring:
         args += ['-P', 'alternative_decoding', 'false']
+    if host:
+        args += ['-P', 'device_decoding', 'false']
     with platform_env(platform):
         ocrd_keraslm_rate.main(args=args, standalone_mode=False)
 
@@ -938,6 +955,25 @@ def cuda_ms(fn, reps):
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps):
+    """Mean device ms of ``reps`` launches of ``fn()`` back to back: the
+    launches queue behind a sleep kernel, so the events time the
+    device's work and not the host's enqueue of a kernel shorter than
+    the wrapper's own host time (CUDA events, after one warm-up)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2e7))  # ~10 ms at the boost clock
     start.record()
     for _ in range(reps):
         fn()
@@ -1425,6 +1461,180 @@ def small_card_vs_cpu(work, rater, scoring, tol):
         conf_err = max(conf_err, abs(c_g - c_c))
     assert conf_err <= tol, conf_err
     return conf_err, len(outs['cuda'])
+
+
+# a near-tie of the host engine: two choices whose path costs, both
+# decoded on the CPU, lie within this many bits
+HOST_TIE_BITS = 1e-3
+
+
+@contextlib.contextmanager
+def counted_predict_steps():
+    """Count the host engine's device steps (``rater._predict_step``
+    calls) inside the block: yields a one-element list."""
+    from ocrd_keraslm_torch import rater as rater_mod
+    plain, calls = rater_mod._predict_step, [0]
+
+    def counted(*args):
+        calls[0] += 1
+        return plain(*args)
+    rater_mod._predict_step = counted
+    try:
+        yield calls
+    finally:
+        rater_mod._predict_step = plain
+
+
+@contextlib.contextmanager
+def branching_pages(page_ids):
+    """The port's lattice builder returns, for the pages ``page_ids``, a
+    DiGraph with a diamond bypass (two routes of a space between two
+    chain nodes in the middle of the page): a lattice the device engine
+    refuses, so the processor's device lane bails into the host
+    engine."""
+    import networkx as nx
+    from ocrd_keraslm_torch.wrapper import rate as rate_mod
+    from ocrd_keraslm_torch.wrapper.page import TextEquivType
+    orig = rate_mod.page_get_linear_lattice_at
+
+    def build(level, pcgts, logger=None):
+        edges = orig(level, pcgts, logger=logger)
+        if pcgts.get_pcGtsId() not in page_ids:
+            return edges
+        g = nx.DiGraph()
+        g.add_node(0)
+        for i, e in enumerate(edges):
+            g.add_edge(i, i + 1, **e)
+        m = len(edges) // 2
+        for u, v in ((m, 'bypass'), ('bypass', m + 1)):
+            g.add_edge(u, v, element=None, alternatives=[
+                TextEquivType(Unicode=' ', conf=0.4, index=0)])
+        return g
+    rate_mod.page_get_linear_lattice_at = build
+    try:
+        yield
+    finally:
+        rate_mod.page_get_linear_lattice_at = orig
+
+
+def choices_cost(cpu_rater, directory, choices):
+    """Bits of the path that takes, at every glyph, the input
+    alternative of index ``choices[glyph id]``, decoded by the host
+    engine on the CPU over the workspace's first page."""
+    from ocrd_keraslm_torch.wrapper import rate as rate_mod
+    from ocrd_keraslm_torch.wrapper.mets import Workspace
+    from ocrd_keraslm_torch.wrapper.page import parse_page
+    ws = Workspace(directory)
+    f = next(ws.mets.find_files(fileGrp='OCR-D-OCR'))
+    pcgts = parse_page(os.path.join(directory, f.local_filename))
+    graph, start, end = rate_mod.page_get_linear_graph_at('glyph', pcgts)
+    for _, _, edge in graph.edges(data=True):
+        el = edge['element']
+        if el is not None and el.id in choices:
+            edge['alternatives'] = [te for te in edge['alternatives']
+                                    if te.index == choices[el.id]]
+    _, ent, tb = cpu_rater.rate_best(
+        graph, start, end, context=rate_mod.mets_get_context(ws.mets),
+        beam_width=10, beam_clustering_dist=rate_mod.BEAM_CLUSTERING_DIST)
+    return ent + cpu_rater.next_path(tb[0], ([], tb[1]))[1]
+
+
+def host_card_vs_cpu(rater, work, name, n_lines, branching):
+    """A one-page seeded workspace through the CLI on the card and on
+    the CPU by the host engine: ``-P device_decoding false``, or, with
+    ``branching``, the default device lane on a branching page, which
+    bails into the host engine.  Same choice per glyph and confs within
+    1e-4; where the choices part at a near-tie (both choices' path
+    costs, decoded on the CPU, within ``HOST_TIE_BITS``), the glyphs are
+    listed and pass.  Returns the card's numbers."""
+    import torch
+    from ocrd_keraslm_torch.wrapper.mets import Workspace
+    outs, walls, steps = {}, {}, {}
+    for platform in ('cuda', 'cpu'):
+        d = os.path.join(work, '%s_%s' % (name, platform))
+        n_glyphs = build_workspace(d, np.random.default_rng(7), 1, n_lines,
+                                   rater.vocab)
+        ctx = branching_pages({'phys_0001'}) if branching else \
+            contextlib.nullcontext()
+        zero_counts()
+        with ctx, counted_predict_steps() as calls:
+            t0 = time.time()
+            run_cli(d, platform, host=not branching)
+            if platform == 'cuda':
+                torch.cuda.synchronize()
+            walls[platform] = time.time() - t0
+        steps[platform] = calls[0]
+        counts = read_counts()
+        assert counts == NO_LAUNCHES, (name, platform, counts)
+        assert calls[0] > 0, (name, platform, 'no host engine step')
+        glyphs, files = output_glyphs(d)
+        assert len(files) == 1 and len(glyphs) == n_glyphs
+        assert all(len(tes) == 1 for tes in glyphs.values())
+        outs[platform] = (d, glyphs)
+    assert steps['cuda'] == steps['cpu'], steps
+    (d_card, card), (d_cpu, cpu) = outs['cuda'], outs['cpu']
+    conf_err, ties = 0.0, []
+    for gid, ((u_g, c_g),) in card.items():
+        ((u_c, c_c),) = cpu[gid]
+        if u_g != u_c:
+            ties.append(gid)
+        else:
+            conf_err = max(conf_err, abs(c_g - c_c))
+    cost_gap = 0.0
+    if ties:
+        # the index of every written TextEquiv is the input alternative's
+        cpu_rater = german_rater('cpu')
+        picks = []
+        for d in (d_card, d_cpu):
+            ws = Workspace(d)
+            f = next(ws.mets.find_files(fileGrp='OCR-D-LM'))
+            picks.append(output_indices(os.path.join(d, f.local_filename)))
+        costs = [choices_cost(cpu_rater, d_cpu, c) for c in picks]
+        cost_gap = abs(costs[0] - costs[1])
+        assert cost_gap <= HOST_TIE_BITS, (name, ties, costs)
+    else:
+        assert conf_err <= 1e-4, (name, conf_err)
+    return dict(glyphs=len(card), wall=walls['cuda'], wall_cpu=walls['cpu'],
+                steps=steps['cuda'], conf_err=conf_err, ties=ties,
+                cost_gap=cost_gap)
+
+
+def output_indices(path):
+    """{glyph id: index of its one TextEquiv} of a written page."""
+    from ocrd_keraslm_torch.wrapper.page import parse_page
+    pcgts = parse_page(path)
+    return {g.id: g.get_TextEquiv()[0].index
+            for region in pcgts.get_Page().get_TextRegion()
+            for line in region.get_TextLine()
+            for word in line.get_Word() for g in word.get_Glyph()}
+
+
+def host_engine_path(rater, work, card):
+    """Phase 6, the host decode engine on the card: page 1 of the seeded
+    workspace (40 lines) with ``-P device_decoding false``, and a
+    branching page (10 lines) through the default device lane's bail,
+    each card against CPU; returns their numbers."""
+    out = {}
+    for name, n_lines, branching, what in (
+            ('host', 40, False, '-P device_decoding false'),
+            ('bail', 10, True, 'the device lane on a branching page '
+             '(bailed into the host engine)')):
+        res = host_card_vs_cpu(rater, work, name, n_lines, branching)
+        print('host engine path, %s: 1 page, %d glyphs written; no kernel '
+              'launched; %d host engine steps (_predict_step calls: one a '
+              'char position and edge), the same on the CPU; %.3f s on the '
+              'card (CLI call incl. model load, host clock), %.3f s on the '
+              'CPU; choices %s, max conf diff %.3g (tolerance 1e-4)%s [%s]'
+              % (what, res['glyphs'], res['steps'], res['wall'],
+                 res['wall_cpu'], 'equal on the card and on the CPU'
+                 if not res['ties'] else 'equal but at %d glyph(s) of a '
+                 'near-tie' % len(res['ties']), res['conf_err'],
+                 '; near-tie glyphs %s, path costs %.3g bits apart '
+                 '(tolerance %g)' % (res['ties'][:5], res['cost_gap'],
+                                     HOST_TIE_BITS) if res['ties'] else '',
+                 card))
+        out[name] = res
+    return out
 
 
 def decode_path(rater, work):
@@ -2826,6 +3036,47 @@ def gen_parity_phase(rater):
     return err
 
 
+# traceback shapes held to the plain version: (streams, steps, slots,
+# cursors, out_length, forced steps a segment)
+TB_CASES = ((1, 1024, 256, 3, 1000, None),    # generate -n 1000 -v 3
+            (16, 256, 256, 1, 256, None),     # generate_batch of 16
+            (3, 4096, 256, 3, 4000, None),    # T*K beyond a block's memory
+            (2, 1024, 256, 1024, 1024, None),  # 1024 cursors
+            (5, 16, 256, 3, 16, None),        # one segment, one launch
+            (1, 5000, 200, 2, 4999, 64))      # maps composed in chunks
+
+
+def tb_parity_phase():
+    """Phase 3, the traceback's segment plans over seeded records (half
+    the backpointers at slot K-1, 255 at K=256): equal to the plain
+    version, one launch counted a call."""
+    import torch
+    from ocrd_keraslm_torch.ops import gen_kernel as gk
+    rng = np.random.default_rng(20261017)
+    t0 = time.time()
+    for N, T, K, VARS, out_length, segment in TB_CASES:
+        rec = np.zeros((N, T, 3, K), np.float32)
+        rec[:, :, 0] = rng.integers(1, 70, (N, T, K))
+        rec[:, :, 1] = np.where(rng.random((N, T, K)) < 0.5, K - 1,
+                                rng.integers(0, K, (N, T, K)))
+        best = rng.integers(0, K, (N, VARS)).astype(np.int32)
+        rec, best = torch.from_numpy(rec), torch.from_numpy(best)
+        launches = gk.traceback.launches
+        got = gk.traceback(rec.cuda(), best.cuda(), out_length, segment)
+        torch.cuda.synchronize()
+        assert gk.traceback.launches == launches + 1
+        assert torch.equal(got.cpu(), gk.traceback_ref(rec, best,
+                                                       out_length)), \
+            (N, T, K, VARS, out_length, segment)
+    print('parity gen_traceback over seeded records at %s ((streams, steps, '
+          'slots, cursors, out_length, forced segment)): equal to the plain '
+          'version, segment plans %s, in %.1f s'
+          % (', '.join(str(c) for c in TB_CASES),
+             ', '.join('%d x %d steps' % (lay.G, lay.L) for lay in (
+                 gk.tb_layout(T, K, o, seg)
+                 for N, T, K, _, o, seg in TB_CASES)), time.time() - t0))
+
+
 def describe_gen_layout(lay):
     """A ``gen_kernel.GenLayout`` in words."""
     if lay.units:
@@ -2954,18 +3205,25 @@ def generation_numbers(rater, gen, card):
             walk = (rec, torch.argsort(rec[:, GEN_N - 1, 2], dim=1,
                                        stable=True)[:, :GEN_VARIANTS]
                     .int().contiguous(), GEN_N)
-    ms = cuda_ms(lambda: gk.traceback(*walk), 20)
+    assert torch.equal(gk.traceback(*walk).cpu(), gk.traceback_ref(
+        walk[0].cpu(), walk[1].cpu(), GEN_N))
+    ms = device_ms(lambda: gk.traceback(*walk), 20)
     plain_ms = cuda_ms(lambda: gk.traceback_ref(*walk), 1)
-    ms2 = cuda_ms(lambda: gk.traceback(*walk), 20)
+    ms2 = device_ms(lambda: gk.traceback(*walk), 20)
+    host_ms = cuda_ms(lambda: gk.traceback(*walk), 20)
     # the walk needs two floats of the records a cursor and step, the
     # cursors' start slots, and writes the (VARS, T) chars
     nbytes = GEN_VARIANTS * (GEN_N * 2 * 4 + 4 + walk[0].shape[1] * 4)
     bound_ms, bound_by, _ = bound(0, nbytes)
+    lay = gk.tb_layout(walk[0].shape[1], walk[0].shape[3], GEN_N)
     print('gen_traceback at the main path shape (%d cursors, T=%d, '
-          'out_length %d): %.4f ms/launch then %.4f ms/launch (CUDA events, '
-          'mean of 20), %.1f ns/step [%s]'
-          % (GEN_VARIANTS, walk[0].shape[1], GEN_N, ms, ms2,
-             1e6 * ms2 / GEN_N, card))
+          'out_length %d; %d segments of %d steps, %d launches a call): '
+          '%.4f ms/call then %.4f ms/call (device time: calls queued behind '
+          'a sleep kernel, CUDA events, mean of 20), %.1f ns/step; %.4f '
+          'ms/call timed as launched one after another by the host (mean '
+          'of 20) [%s]'
+          % (GEN_VARIANTS, walk[0].shape[1], GEN_N, lay.G, lay.L,
+             1 + (lay.G > 1), ms, ms2, 1e6 * ms2 / GEN_N, host_ms, card))
     print('gen_traceback plain version: %.3f ms; bound %.3g ms by %s (%d '
           'bytes at 3.35 TB/s; the walk is a chain of %d dependent loads); '
           'kernel at %.3g%% of it; library call: none - no single PyTorch '
@@ -3113,6 +3371,7 @@ def main() -> int:
     score_err, lstm_err = score_parity(rater, dev)
     train_errs = train_parity(dev)
     gen_err = gen_parity_phase(rater)
+    tb_parity_phase()
     print('kernels held against their plain versions: %s'
           % json.dumps(list(KERNELS)))
 
@@ -3123,6 +3382,7 @@ def main() -> int:
         train = training_path(work, card)
         training_steps(train, dev, card)
         gen = generation_path(rater, card)
+        host = host_engine_path(rater, work, card)
         batch = batch_path(rater, work, card)
 
         # ---- 7. numbers ----
@@ -3165,6 +3425,16 @@ def main() -> int:
         print_profile('generation path', gen['traced_wall'], gen['busy'],
                       card, over='one Rater.generate -n %d -v %d'
                       % (GEN_N, GEN_VARIANTS))
+        print('host decode engine wall: %.3f s for 1 page of %d glyphs with '
+              '-P device_decoding false (CLI call incl. model load, host '
+              'clock), %d _predict_step calls, %.2f ms a call over the '
+              'wall; the branching page of %d glyphs through the device '
+              'lane\'s bail %.3f s, %d calls [%s]'
+              % (host['host']['wall'], host['host']['glyphs'],
+                 host['host']['steps'],
+                 1e3 * host['host']['wall'] / host['host']['steps'],
+                 host['bail']['glyphs'], host['bail']['wall'],
+                 host['bail']['steps'], card))
         one = batch['one-page']
         n_edges = sum(one['sizes'])
         print('batched serving path wall: %.3f s for Rater.rate_best_batch '

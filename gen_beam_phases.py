@@ -8,6 +8,7 @@ forward recurrences, goes, on one GPU.
     python3 gen_beam_phases.py bwd      # lstm_bwd
     python3 gen_beam_phases.py decode   # decode_lattice and _batch
     python3 gen_beam_phases.py walk     # walk_records_batch
+    python3 gen_beam_phases.py tb       # gen_traceback
 
 Builds ``ocrd_keraslm_torch/csrc/gen_beam.cu`` with ``-DSCAN_PHASES``,
 which turns on the ``PHASE`` marks of its unit layout
@@ -63,6 +64,16 @@ of ``chip_smoke.py``'s 32-document serving batch) against the parent's
 design of its kernel (one thread a document walking the records in
 device memory, built from the copy in ``WALK_PARENT``), and at ragged
 shapes.
+
+``tb`` times ``traceback`` (``csrc/gen_traceback.cu``) at row 7 of
+``PERF.md`` (the records of ``generate -n 1000 -v 3``: 3 cursors from
+step 999 of 1024, K=256), the 16-prompt batch row and seeded records of
+T in {16, 64, 256, 1024, 4096} steps, against the parent's design (one
+thread a cursor walking the records in device memory, built from the
+copy in ``TB_PARENT``), and every segment length at the first two; both
+designs are checked equal to the plain version and to each other.
+Kernel times are device times (``chip_smoke.device_ms``: launches
+queued behind a sleep kernel).
 
 Without a CUDA device it exits non-zero.
 """
@@ -576,7 +587,7 @@ def main() -> int:
                           text=True, check=True).stdout.strip()
     print(card)
     modes = {'scan': scan_main, 'host': host_main, 'bwd': bwd_main,
-             'decode': decode_main, 'walk': walk_main}
+             'decode': decode_main, 'walk': walk_main, 'tb': tb_main}
     if sys.argv[1:2] and sys.argv[1] in modes:
         return modes[sys.argv[1]](card)
     return gen_main(card)
@@ -745,6 +756,140 @@ def walk_main(card) -> int:
               'the parent\'s %.4f ms (CUDA events, mean of 20, in that '
               'order); both equal to the plain version [%s]'
               % ((what, n_, E, k_) + tuple(times) + (card,)))
+    return 0
+
+
+# The parent's traceback kernel (commit 67180f1, gen_traceback.cu): one
+# thread a cursor, one block a stream, each step's backpointer loaded
+# from device memory; built here only to time it against the kernel that
+# replaced it.
+TB_PARENT = r"""
+extern "C" __global__ void tb_parent_kernel(const float* __restrict__ rec,
+                                            const int* __restrict__ best,
+                                            int* __restrict__ out, int T,
+                                            int K, int VARS, int out_length) {
+  const int n = blockIdx.x;
+  const float* rn = rec + (size_t)n * T * 3 * K;
+  for (int v = threadIdx.x; v < VARS; v += blockDim.x) {
+    int* o = out + ((size_t)n * VARS + v) * T;
+    for (int t = out_length; t < T; ++t) o[t] = 0;
+    int k = best[(size_t)n * VARS + v];
+    for (int t = out_length - 1; t >= 0; --t) {
+      const float* r = rn + (size_t)t * 3 * K;
+      k = min(max(k, 0), K - 1);
+      const float ch = r[k];
+      k = (int)r[K + k];
+      o[t] = (int)ch;
+    }
+  }
+}
+extern "C" int tb_parent_launch(const float* rec, const int* best, int* out,
+                                int N, int T, int K, int VARS,
+                                int out_length, void* stream) {
+  const int threads = VARS < 1024 ? (VARS + 31) / 32 * 32 : 1024;
+  tb_parent_kernel<<<N, threads, 0, (cudaStream_t)stream>>>(
+      rec, best, out, T, K, VARS, out_length);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def tb_main(card) -> int:
+    """``traceback`` against the parent's kernel at rows 7 and 7b, at
+    seeded records of several lengths, and over every segment length at
+    rows 7 and 7b; every output checked equal to the plain version."""
+    import numpy as np
+    import torch
+    from chip_smoke import (GEN_BATCH, GEN_BATCH_N, GEN_N, GEN_PROMPT,
+                            GEN_VARIANTS, cuda_ms, device_ms, gen_inputs,
+                            gen_prompts, german_rater)
+    from ocrd_keraslm_torch.ops import _build
+    from ocrd_keraslm_torch.ops import gen_kernel as gk
+    from ocrd_keraslm_torch.ops.beam_device import LENGTH_BUCKETS
+    from ocrd_keraslm_torch.utils.buckets import bucket_unbounded
+    out_dir = os.path.join(_build.BUILD_DIR, 'phases')
+    os.makedirs(out_dir, exist_ok=True)
+    src = os.path.join(out_dir, 'tb_parent.cu')
+    with open(src, 'w', encoding='utf-8') as fh:
+        fh.write(TB_PARENT)
+    parent = ctypes.CDLL(_build.build(src)[0])
+    P, I = ctypes.c_void_p, ctypes.c_int
+    parent.tb_parent_launch.argtypes = [P] * 3 + [I] * 5 + [P]
+    print('\n'.join(line for line in _build.build(gk.TB_SOURCE)[1]
+                     .splitlines() if 'registers' in line or 'spill' in line
+                     or 'Compiling' in line))
+    dev = torch.device('cuda')
+    rater = german_rater(dev)
+    rng = np.random.default_rng(20261017)
+    cases = []
+    for row, prompts, n in (
+            ('row 7', [GEN_PROMPT], GEN_N),
+            ('row 7b', gen_prompts(rater, np.random.default_rng(21),
+                                   GEN_BATCH), GEN_BATCH_N)):
+        weights, v_real, state0, cost0 = gen_inputs(rater, prompts)
+        T = bucket_unbounded(n, LENGTH_BUCKETS)
+        rec = gk.gen_beam(*weights, state0, cost0, length=T, v_real=v_real)
+        vars_ = GEN_VARIANTS if row == 'row 7' else 1
+        cases.append((row, rec, vars_, n))
+    for T in (16, 64, 256, 1024, 4096):
+        rec = np.zeros((1, T, 3, 256), np.float32)
+        rec[:, :, 0] = rng.integers(1, 70, (1, T, 256))
+        rec[:, :, 1] = rng.integers(0, 256, (1, T, 256))
+        cases.append(('seeded records', torch.from_numpy(rec).to(dev),
+                      GEN_VARIANTS, T))
+    cases.append(('seeded records, 1024 cursors', cases[-2][1], 1024, 1024))
+    for what, rec, vars_, out_length in cases:
+        N, T, _, K = rec.shape
+        best = torch.argsort(rec[:, out_length - 1, 2], dim=1, stable=True)
+        best = best[:, :vars_] if vars_ <= K else \
+            best.repeat(1, -(-vars_ // K))[:, :vars_]
+        best = best.int().contiguous()
+        out = torch.empty((N, vars_, T), dtype=torch.int32, device=dev)
+
+        def old():
+            assert parent.tb_parent_launch(
+                rec.data_ptr(), best.data_ptr(), out.data_ptr(), N, T, K,
+                vars_, out_length, torch.cuda.current_stream().cuda_stream
+            ) == 0
+            return out
+
+        def new():
+            return gk.traceback(rec, best, out_length)
+        want = gk.traceback_ref(rec.cpu(), best.cpu(), out_length)
+        for fn in (old, new):
+            got = fn()
+            torch.cuda.synchronize()
+            assert torch.equal(got.cpu(), want), (what, fn.__name__)
+        lay = gk.tb_layout(T, K, out_length)
+        times = [device_ms(fn, 20) for fn in (old, new, new, old)]
+        print('gen_traceback at %s (N=%d streams, T=%d, K=%d, %d cursors, '
+              'out_length %d): the parent\'s design %.4f ms, the segmented '
+              'walk (segments of %d steps, %d launch(es)) %.4f ms, %.4f ms, '
+              'the parent\'s %.4f ms (device time, mean of 20, in that '
+              'order); both equal to the plain version [%s]'
+              % ((what, N, T, K, vars_, out_length, times[0], lay.L,
+                  1 + (lay.G > 1)) + tuple(times[1:]) + (card,)))
+        if what.startswith('row'):
+            # the walk needs two floats of the records a cursor and step,
+            # the cursors' start slots, and writes the (VARS, T) chars
+            nbytes = N * vars_ * (out_length * 8 + 4 + T * 4)
+            print('gen_traceback at %s: plain version %.3f ms (CUDA events, '
+                  'one warm run); bound %.3g ms by bytes (%d bytes at 3.35 '
+                  'TB/s), the segmented walk at %.3g%% of it [%s]'
+                  % (what, cuda_ms(lambda: gk.traceback_ref(rec, best,
+                                                           out_length), 1),
+                     1e3 * nbytes / 3.35e12, nbytes,
+                     100 * 1e3 * nbytes / 3.35e12 / times[1], card))
+        sweep = []
+        for L in (L for L in (4, 8, 16, 32, 64) if L <= T):
+            def seg(L=L):
+                return gk.traceback(rec, best, out_length, segment=L)
+            assert torch.equal(seg().cpu(), want), (what, L)
+            sweep.append((L, device_ms(seg, 20)))
+        print('gen_traceback at %s by steps a segment: %s; the layout rule '
+              'takes %d [%s]'
+              % (what, ', '.join('%d: %.4f ms' % lt for lt in sweep), lay.L,
+                 card))
     return 0
 
 

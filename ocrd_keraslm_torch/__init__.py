@@ -3,16 +3,20 @@
 Character-level stacked-LSTM language model (char + metadata-context
 embeddings, weight-tied softmax) trained, saved to and loaded from the
 same h5 checkpoints; the ``ocrd-keraslm-rate`` processor that
-beam-decodes the lattice of OCR alternatives in PAGE-XML pages or
-scores their text; and the ``train``, ``apply``, ``test``,
+beam-decodes the lattice of OCR alternatives in PAGE-XML pages (on the
+device, or with the host decode engine for ``device_decoding=false``
+and for branching lattices) or scores their text; batched serving
+decode of documents; and the ``train``, ``apply``, ``test``,
 ``generate`` and ``print-history`` commands of ``keraslm-rate``.  On
 CUDA they run through hand-written kernels (``csrc/decode_lattice.cu``,
-``csrc/score_scan.cu``, ``csrc/lstm_scan.cu``, ``csrc/lstm_bwd.cu``,
-``csrc/gen_beam.cu``, ``csrc/gen_traceback.cu``).
+``csrc/decode_lattice_batch.cu``, ``csrc/score_scan.cu``,
+``csrc/lstm_scan.cu``, ``csrc/lstm_bwd.cu``, ``csrc/gen_beam.cu``,
+``csrc/gen_traceback.cu``).
 It never imports JAX or ``ocrd_keraslm_tpu``.
 """
 __version__ = '0.1.0'
 
+from .beam import Node
 from .rater import Rater
 
-__all__ = ['Rater', '__version__']
+__all__ = ['Rater', 'Node', '__version__']

@@ -42,6 +42,12 @@ design (each block owns some fringe rows and reads every weight from L2
 at each step).  :func:`choose` picks one from a cost model of a step
 times the waves of clusters the card holds, cached per device and shape
 (:func:`layout_on`).  Both give the same records bit for bit.
+
+The traceback cuts the walked steps into segments (:func:`tb_layout`):
+one launch stages each segment's backpointers in shared memory as bytes
+and maps its entry slots to its exit slots; a second composes the later
+segments' maps from each cursor's end slot, walks its own segment again
+and gathers the chars (one launch where a segment holds the walk).
 """
 from __future__ import annotations
 
@@ -71,7 +77,24 @@ TILES = (32, 16)     # rows per staged tile of the unit layout, first fit
 MAX_ROWS = 32        # fringe rows (own rows) a block
 MAX_TOPK = 32        # candidates per row (one lane each)
 UNIT_MAX_VREAL = 128  # a row's logits in 4 registers a lane (unit layout)
-MAX_VARIANTS = 1024  # traceback cursors (one thread each)
+# the traceback kernels of csrc/gen_traceback.cu (host mirrors of its
+# TB_* constants): blocks of TB_NT threads, up to TB_NT * 4 cursors a
+# stream, K <= 256 slots (a backpointer is one byte in shared memory), a
+# multiple of 4 (a float4 of backpointers a load)
+MAX_VARIANTS = 1024  # traceback cursors
+TB_NT = 256
+TB_MAPS = 64         # segment maps a walk block stages at once
+TB_SEG_MAX = 64      # steps a segment, at most
+TB_MAX_SLOTS = 256
+# the steps of a segment: a walk of at most TB_SEG_MAX steps is one
+# segment (one launch); a longer one is cut into segments of
+# ceil(out_length / TB_SEGS) steps, clamped to [TB_SEG_MIN, TB_SEG_MAX]
+# (a launch for the segment maps, one for the walk).  Fitted to
+# gen_beam_phases.py tb's sweep on an H100 (NVIDIA H100 80GB HBM3,
+# 700 W): shorter segments stage less a block, but each walk block
+# composes the maps of every later segment of its stream
+TB_SEGS = 64
+TB_SEG_MIN = 16
 # The cost model of a step in microseconds, fitted to
 # gen_beam_phases.py's layout sweep on an H100 (NVIDIA H100 80GB HBM3,
 # 700 W; rows 6 and 6b of PERF.md: the german model, K=256, one stream x
@@ -310,9 +333,44 @@ def layout_on(device, N, K, D, W, Vp, topk, v_real) -> GenLayout:
 def _tb_library() -> ctypes.CDLL:
     lib = _build.load(TB_SOURCE)
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.gen_traceback_launch.argtypes = [P, P, P, I, I, I, I, I, P]
+    lib.gen_traceback_launch.argtypes = [P] * 4 + [I] * 6 + [P]
     lib.gen_traceback_launch.restype = ctypes.c_int
+    for name in ('gen_traceback_maps_smem_bytes',
+                 'gen_traceback_walk_smem_bytes'):
+        getattr(lib, name).argtypes = [I, I]
+        getattr(lib, name).restype = ctypes.c_size_t
     return lib
+
+
+class TbLayout(NamedTuple):
+    L: int           # steps a segment
+    G: int           # segments of the walked steps (maps launched if > 1)
+    Gt: int          # segments of all T steps (walk blocks a stream)
+    maps_smem: int   # dynamic shared memory a maps block, bytes
+    walk_smem: int   # dynamic shared memory a walk block, bytes
+
+
+def tb_layout(T: int, K: int, out_length: int,
+              segment: Optional[int] = None) -> TbLayout:
+    """The segments of the traceback of a stream of T steps and K slots
+    walked from step ``out_length - 1`` (``segment`` forces the steps a
+    segment; every stream of a launch is cut the same way), with each
+    launch's shared memory as the source computes it
+    (``gen_traceback_*_smem_bytes``)."""
+    if segment is None:
+        if out_length <= TB_SEG_MAX:
+            segment = min(T, TB_SEG_MAX)
+        else:
+            segment = min(max(_ceil(out_length, TB_SEGS), TB_SEG_MIN),
+                          TB_SEG_MAX)
+    L = int(segment)
+    if not 1 <= L <= TB_SEG_MAX:
+        raise ValueError('a traceback segment takes 1..%d steps, got %d'
+                         % (TB_SEG_MAX, L))
+    sub = TB_NT // K if K < TB_NT else 1
+    return TbLayout(L, _ceil(out_length, L), _ceil(T, L),
+                    4 * sub * K + L * K,
+                    4 * TB_NT * (L | 1) + TB_MAPS * K + L * K)
 
 
 def log_threshold(threshold: float) -> float:
@@ -400,14 +458,18 @@ def gen_beam(emb, embT, wcat, bias, state0, cost0, *, length: int,
 gen_beam.launches = 0
 
 
-def traceback(rec, best, out_length: int):
+def traceback(rec, best, out_length: int, segment: Optional[int] = None):
     """Walk the records (N, T, 3, K) back from the slots ``best``
     (N, VARS) at step ``out_length - 1``; returns (N, VARS, T) int32
     char ids in forward order, 0 at steps >= ``out_length``.
 
     The TPU kernel walks its cursors in chunks sized to its scalar
-    memory (``_TB_SMEM_OUT_BYTES``); on the card every cursor walks in
-    one launch."""
+    memory (``_TB_SMEM_OUT_BYTES``).  On the card the steps are cut into
+    segments (:func:`tb_layout`; ``segment`` forces the steps a
+    segment): one launch maps each segment's entry slots to its exit
+    slots, a second composes those maps from every cursor's end slot and
+    walks and gathers each segment in parallel (one launch where a
+    segment holds every walked step).  One call counts one launch."""
     device = _build.one_device('traceback', (rec, best))
     if device.type == 'cpu':
         return traceback_ref(rec, best, out_length)
@@ -415,23 +477,31 @@ def traceback(rec, best, out_length: int):
         raise ValueError('traceback runs on cpu or cuda, not %s' % device)
     N, T, _, K = rec.shape
     VARS = best.shape[1] if best.dim() == 2 else 0
-    if not (1 <= out_length <= T and 1 <= VARS <= MAX_VARIANTS):
-        raise ValueError('traceback kernel needs 1 <= out_length <= T and '
-                         '1 <= VARS <= %d (got out_length=%d, T=%d, '
-                         'best %s)' % (MAX_VARIANTS, out_length, T,
-                                       tuple(best.shape)))
+    if not (1 <= out_length <= T and 1 <= VARS <= MAX_VARIANTS
+            and 4 <= K <= TB_MAX_SLOTS and K % 4 == 0 and N <= 65535):
+        raise ValueError('traceback kernel needs 1 <= out_length <= T, '
+                         '1 <= VARS <= %d, K <= %d slots (a multiple of 4) '
+                         'and at most 65535 streams (got out_length=%d, rec '
+                         '%s, best %s)' % (MAX_VARIANTS, TB_MAX_SLOTS,
+                                           out_length, tuple(rec.shape),
+                                           tuple(best.shape)))
     _check('rec', rec, (N, T, 3, K), torch.float32, device)
     _check('best', best, (N, VARS), torch.int32, device)
+    lay = tb_layout(T, K, int(out_length), segment)
     out = torch.empty((N, VARS, T), dtype=torch.int32, device=device)
+    maps = torch.empty((N * lay.G * K if lay.G > 1 else 0,),
+                       dtype=torch.uint8, device=device)
     lib = _tb_library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         status = lib.gen_traceback_launch(
-            rec.data_ptr(), best.data_ptr(), out.data_ptr(), N, T, K, VARS,
-            int(out_length), stream)
+            rec.data_ptr(), best.data_ptr(), maps.data_ptr(),
+            out.data_ptr(), N, T, K, VARS, int(out_length), lay.L, stream)
     if status != 0:
         raise RuntimeError('gen_traceback kernel launch failed: CUDA error '
-                           '%d' % status)
+                           '%d (segments of %d steps, %d and %d bytes of '
+                           'shared memory a block)'
+                           % (status, lay.L, lay.maps_smem, lay.walk_smem))
     traceback.launches += 1
     return out
 

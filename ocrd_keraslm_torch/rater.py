@@ -120,8 +120,10 @@ def _gc_paused(fn):
 
 
 class NonLinearLatticeError(ValueError):
-    """A branching (general-DAG) lattice reached the device engine,
-    which decodes chains only (one beam round per edge)."""
+    """A branching (general-DAG) lattice reached a device engine, which
+    decodes chains only (one beam round per edge).  The host engine
+    (``Rater.rate_best``) takes any DAG; the processor catches this to
+    decode such a page there."""
 
 
 def _linear_edges(graph):
@@ -135,7 +137,8 @@ def _linear_edges(graph):
         if u in succ or u == v:
             raise NonLinearLatticeError(
                 'device decoding requires a linear lattice, but node %r '
-                'has multiple outgoing edges' % (u,))
+                'has multiple outgoing edges; use rate_best() for general '
+                'DAG lattices' % (u,))
         succ[u] = (v, d)
         tails.add(v)
     if not succ:
@@ -144,15 +147,17 @@ def _linear_edges(graph):
     if len(starts) != 1:
         raise NonLinearLatticeError(
             'device decoding requires a linear lattice (single chain), '
-            'but found %d start nodes' % len(starts))
+            'but found %d start nodes; use rate_best() for general DAG '
+            'lattices' % len(starts))
     node = starts[0]
     out = []
     for _ in range(len(succ)):
         if node not in succ:
             raise NonLinearLatticeError(
                 'device decoding requires a linear lattice, but the chain '
-                'from %r ends after %d of %d edges'
-                % (starts[0], len(out), len(succ)))
+                'from %r ends after %d of %d edges (merge node or '
+                'disconnected component); use rate_best() for general DAG '
+                'lattices' % (starts[0], len(out), len(succ)))
         node, d = succ[node]
         out.append(d)
     return out
@@ -799,6 +804,78 @@ class Rater:
         from .host_beam import generate_host
         return generate_host(self, prefix, length, context, variants)
 
+    # -- incremental engine ---------------------------------------------
+
+    def predict(self, candidates, initial_states, context=None
+                ) -> Tuple[List[np.ndarray], List[List[np.ndarray]]]:
+        """One-character step for N parallel hypotheses with explicit
+        per-layer (h1, c1, h2, c2, ...) states in and out (the
+        reference's ``predict``): all hypotheses run as ONE
+        :func:`_predict_step` on the rater's device, the batch padded to
+        a ``STEP_BUCKETS`` bucket (unbounded: more than 512 hypotheses
+        are not cut)."""
+        if self.status < 2:
+            raise RuntimeError('predict needs loaded weights')
+        if len(candidates) != len(initial_states):
+            raise ValueError('number of inputs (%d) and number of states '
+                             '(%d) inconsistent' % (len(candidates),
+                                                    len(initial_states)))
+        if not context:
+            context = self.underspecify_contexts()
+        n = len(candidates)
+        nb = _bucket_unbounded(n, STEP_BUCKETS)
+        D, W = self.depth, self.width
+        x = np.zeros((nb,), np.int32)
+        for i, char in enumerate(candidates):
+            x[i] = self.vocab.get(char)
+        h = np.zeros((D, nb, W), np.float32)
+        c = np.zeros((D, nb, W), np.float32)
+        for i, state in enumerate(initial_states):
+            if not state:
+                continue
+            for layer in range(D):
+                h[layer, i] = np.asarray(state[2 * layer]).reshape(W)
+                c[layer, i] = np.asarray(state[2 * layer + 1]).reshape(W)
+        zs = self._context_arrays(context, nb)
+        probs, h2, c2 = _predict_step(self.params, self.cfg, x, zs, h, c)
+        preds = [probs[i] for i in range(n)]
+        final_states = [
+            [h2[layer, i:i + 1] if kind == 0 else c2[layer, i:i + 1]
+             for layer in range(D) for kind in (0, 1)]
+            for i in range(n)]
+        return preds, final_states
+
+    # -- lattice decoding on the host -----------------------------------
+
+    @_gc_paused
+    def rate_best(self, graph, start_node, end_node, start_traceback=None,
+                  context=None, lm_weight=0.5, beam_width=10,
+                  beam_clustering_dist=0):
+        """Best-path beam decode over a lattice of string alternatives,
+        any DAG with one source and one sink, by the host engine
+        (:func:`host_beam.decode_lattice_host`): hypothesis batches run as
+        single device steps, the beam's bookkeeping on the host.  The
+        processor's engine for ``device_decoding=false`` and for
+        branching pages.  Returns ``([(element, textequiv, score), ...],
+        entropy, traceback)``: the path locked in by this call (one page
+        behind, see :meth:`next_path`)."""
+        if self.status < 2:
+            raise RuntimeError('rate_best needs loaded weights')
+        from .host_beam import decode_lattice_host
+        return decode_lattice_host(
+            self, graph, start_node, end_node,
+            start_traceback=start_traceback, context=context,
+            lm_weight=lm_weight, beam_width=beam_width,
+            clustering_dist=beam_clustering_dist)
+
+    def next_path(self, beam, traceback):
+        """Lock into the previous page's best path and advance the
+        traceback (:func:`host_beam.advance_traceback`); with an empty
+        previous beam, the best hypothesis is flushed completely (the
+        document's end)."""
+        from .host_beam import advance_traceback
+        return advance_traceback(beam, traceback)
+
     # -- decode weights and beam carry ---------------------------------
 
     def _decode_weights(self, context):
@@ -894,14 +971,8 @@ class Rater:
         returns ``(pending, new device traceback)``.  Fetch and path
         emission happen in :meth:`rate_best_device_finish`, so a
         document loop can launch every page before it waits for any."""
-        try:
-            edges_raw = graph if isinstance(graph, list) \
-                else _linear_edges(graph)
-        except NonLinearLatticeError as err:
-            raise NotImplementedError(
-                '%s: branching lattices need the host decode engine, '
-                'which is not ported yet (ROADMAP.md Queue 1, "Host '
-                'decode engine")' % err) from err
+        edges_raw = graph if isinstance(graph, list) \
+            else _linear_edges(graph)
         if not edges_raw:
             return ('done', [], 0.0), device_traceback
         if self.decode_bf16:

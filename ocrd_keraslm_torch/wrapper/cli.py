@@ -7,8 +7,9 @@ options (-m/-I/-O/-p/-P/--overwrite) over a local workspace::
     python -m ocrd_keraslm_torch.wrapper.cli -m WS/mets.xml \\
         -I OCR-D-OCR -O OCR-D-LM -P model_file pretrained/model_german.h5
 
-It decodes the lattice of alternatives, or with ``-P
-alternative_decoding false`` scores the text, on CUDA;
+It decodes the lattice of alternatives (with ``-P device_decoding
+false`` by the host decode engine, one device step per char position),
+or with ``-P alternative_decoding false`` scores the text, on CUDA;
 ``KERASLM_PLATFORM=cpu`` selects the CPU.
 """
 from __future__ import annotations

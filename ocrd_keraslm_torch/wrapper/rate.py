@@ -12,9 +12,14 @@ artificial whitespace/newline edges and tokenisation repair, then
   the LM's char probabilities;
 * with ``alternative_decoding=true`` (the default): best-path beam
   decoding over all TextEquiv alternatives with the beam carried across
-  pages.  Every page is launched on the device first (the beam carry
-  chains there), then each is fetched, walked and written in page
-  order.
+  pages.  With ``device_decoding=true`` (the default) every page is
+  launched on the device first (the beam carry chains there), then each
+  is fetched, walked and written in page order; a page whose lattice
+  branches (a customised lattice builder may return a DAG) decodes
+  through the host engine instead, and the carry resets at that page.
+  With ``device_decoding=false`` every page decodes through the host
+  engine (``Rater.rate_best``), with the reference's one-page lookahead:
+  page N is written once page N+1 has decoded, the last page at the end.
 
 Both write the result back and recompute all higher hierarchy levels
 honoring ReadingOrder, ``textLineOrder`` (bottom-to-top),
@@ -31,9 +36,9 @@ import threading
 from collections import defaultdict
 from dataclasses import dataclass
 from math import ceil, log
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
-from ..rater import Rater, _gc_paused
+from ..rater import NonLinearLatticeError, Rater, _gc_paused
 from .mets import MIMETYPE_PAGE, Mets, Workspace
 from .page import (BOTTOM_TO_TOP, RIGHT_TO_LEFT, OrderedGroupIndexedType,
                    OrderedGroupType, PcGts, TextEquivType, MetadataItem,
@@ -44,6 +49,9 @@ LOG = logging.getLogger(__name__)
 
 CHOICE_THRESHOLD_NUM = 4     # maximum number of choices per element
 CHOICE_THRESHOLD_CONF = 0.1  # maximum conf drop from best choice
+# history clustering of the host engine's beam (the reference's values)
+BEAM_CLUSTERING_ENABLE = True
+BEAM_CLUSTERING_DIST = 5
 
 # child level per hierarchy tag (for tokenisation-problem filtering)
 _HIERARCHY = {
@@ -76,7 +84,6 @@ OCRD_TOOL = {
 
 # parameter values this package cannot serve yet -> ROADMAP.md item
 _NOT_PORTED = (
-    ('device_decoding', False, 'Host decode engine'),
     ('lookahead_writeback', True, 'Lookahead write-back'),
 )
 # the JAX processor's environment switches of lanes this package does
@@ -91,9 +98,21 @@ def _config_env(name, default):
     return os.environ.get(name, default)
 
 
+@dataclass
+class RateState:
+    """Cross-page state of the host engine: its traceback is one page
+    ahead of the written output (page N's decisions lock in when page
+    N+1 decodes).  ``traceback`` is ``(hypotheses, anchor)`` as
+    ``host_beam.advance_traceback`` leaves it."""
+    traceback: Tuple[List[Any], Any]
+    pcgts: PcGts
+    file_id: str
+    page_id: str
+
+
 class KerasRate:
     """The ``ocrd-keraslm-rate`` processor (scoring, or beam decoding of
-    TextEquiv alternatives, on the device)."""
+    TextEquiv alternatives on the device or by the host engine)."""
 
     def __init__(self, workspace: Optional[Workspace] = None,
                  input_file_grp: str = 'OCR-D-OCR',
@@ -304,9 +323,16 @@ class KerasRate:
     def process_workspace_stateful(self, workspace: Workspace) -> None:
         """Sequential page loop with the beam carried across pages and
         the OCR-D error policy (OCRD_MISSING_OUTPUT /
-        OCRD_EXISTING_OUTPUT / OCRD_MAX_MISSING_OUTPUTS).  All pages
-        are launched first; each is then fetched and written in page
-        order."""
+        OCRD_EXISTING_OUTPUT / OCRD_MAX_MISSING_OUTPUTS).  On the device
+        all pages are launched first; each is then fetched and written
+        in page order.  A branching page there decodes through the host
+        engine and is locked in and written at once (the pages launched
+        before it are written first), and the device carry resets: the
+        device and host beams are not interchangeable.  With
+        ``device_decoding=false`` the host engine decodes every page,
+        writing each once the next has decoded; the last is locked in
+        at the end."""
+        level = self.parameter['textequiv_level']
         self.workspace = workspace
         self.verify()
         nr_succeeded = 0
@@ -315,7 +341,9 @@ class KerasRate:
         missing_policy = _config_env('OCRD_MISSING_OUTPUT', 'SKIP')
         reason = {'SKIP': 'skipped', 'COPY': 'fallback-copied'}.get(
             missing_policy, 'failed')
+        prev: Optional[RateState] = None
         device_tb = None
+        device_mode = self.parameter['device_decoding']
         device_pending = []  # launched pages awaiting fetch/write
         input_files = list(self.input_files)
 
@@ -351,6 +379,22 @@ class KerasRate:
                 raise RuntimeError(
                     'got %r despite OCRD_EXISTING_OUTPUT==OVERWRITE' % err)
 
+        def finish_pending():
+            """Fetch and write every launched page, in page order."""
+            nonlocal nr_succeeded
+            while device_pending:
+                rec = device_pending.pop(0)
+                page_id, input_file = rec[3], rec[4]
+                try:
+                    self._finish_device_page(rec[:4])
+                    nr_succeeded += 1
+                except FileExistsError as err:
+                    existing_output(err)
+                except KeyboardInterrupt:
+                    raise
+                except Exception as err:
+                    page_failure(input_file, page_id, err)
+
         for input_file in input_files:
             page_id = input_file.pageId
             self.logger.info('preparing page %s', page_id)
@@ -363,10 +407,38 @@ class KerasRate:
                 file_id = self._make_file_id(input_file)
                 if self._output_exists(file_id):
                     continue
-                rec, device_tb = self.process_page_pcgts_device_begin(
-                    pcgts, device_tb, file_id, page_id)
+                if not device_mode:
+                    prev = self.process_page_pcgts_stateful(
+                        pcgts, prev, file_id, page_id)
+                    nr_succeeded += 1
+                    continue
+                try:
+                    rec, device_tb = self.process_page_pcgts_device_begin(
+                        pcgts, device_tb, file_id, page_id)
+                except NonLinearLatticeError as nle:
+                    # a branching lattice (a customised builder returned
+                    # a DAG) decodes THIS page by the host engine, locked
+                    # in at once; the device carry resets in both
+                    # directions at the engine switch
+                    self.logger.info(
+                        'page %s: %s — decoding via the host DAG engine '
+                        '(beam carry resets at the engine switch)',
+                        page_id, nle)
+                    state = self.process_page_pcgts_stateful(
+                        pcgts, None, file_id, page_id)
+                    path, entropy, _ = self.rater.next_path(
+                        state.traceback[0], ([], state.traceback[1]))
+                    finish_pending()
+                    _page_update_from_path(level, path, entropy,
+                                           logger=self.logger)
+                    page_update_higher_textequiv_levels(level, state.pcgts)
+                    self._write_page(state.pcgts, state.file_id,
+                                     state.page_id)
+                    nr_succeeded += 1
+                    device_tb = None
+                    continue
                 # success is only counted when the page is fetched AND
-                # written (finish loop below)
+                # written (finish_pending)
                 device_pending.append(rec + (input_file,))
             except FileExistsError as err:
                 existing_output(err)
@@ -374,17 +446,14 @@ class KerasRate:
                 raise
             except Exception as err:
                 page_failure(input_file, page_id, err)
-        for rec in device_pending:
-            page_id, input_file = rec[3], rec[4]
-            try:
-                self._finish_device_page(rec[:4])
-                nr_succeeded += 1
-            except FileExistsError as err:
-                existing_output(err)
-            except KeyboardInterrupt:
-                raise
-            except Exception as err:
-                page_failure(input_file, page_id, err)
+        finish_pending()
+        if prev:
+            # the host engine's last page: lock it into its own best path
+            path, entropy, _ = self.rater.next_path(
+                prev.traceback[0], ([], prev.traceback[1]))
+            _page_update_from_path(level, path, entropy, logger=self.logger)
+            page_update_higher_textequiv_levels(level, prev.pcgts)
+            self._write_page(prev.pcgts, prev.file_id, prev.page_id)
         if nr_failed > 0:
             self.logger.warning('%s %d of %d pages due to %s', reason,
                                 nr_failed, nr_failed + nr_succeeded,
@@ -420,6 +489,46 @@ class KerasRate:
             lm_weight=self.parameter['lm_weight'],
             beam_width=self.parameter['beam_width'])
         return (pending, pcgts, file_id, page_id), device_tb
+
+    def process_page_pcgts_stateful(self, pcgts: PcGts,
+                                    prev: Optional[RateState],
+                                    file_id: str, page_id: str
+                                    ) -> RateState:
+        """Decode one page by the host engine from the previous page's
+        traceback, and write the previous page with the path this
+        decode locked in; returns this page's state (written later)."""
+        level = self.parameter['textequiv_level']
+        self.rater.logger.info("Scoring text in page '%s' at the %s level",
+                               pcgts.get_pcGtsId(), level)
+        graph, start_node, end_node = page_get_linear_graph_at(
+            level, pcgts, logger=self.logger)
+        # edge count, not node arithmetic: a customised builder's DAG may
+        # use non-integer node labels
+        self.rater.logger.info('Rating %d elements including its '
+                               'alternatives', graph.number_of_edges())
+        path, entropy, traceback = self.rater.rate_best(
+            graph, start_node, end_node,
+            start_traceback=prev and prev.traceback,
+            context=self._page_context(),
+            lm_weight=self.parameter['lm_weight'],
+            beam_width=self.parameter['beam_width'],
+            beam_clustering_dist=(BEAM_CLUSTERING_DIST
+                                  if BEAM_CLUSTERING_ENABLE else 0))
+        if prev:
+            _page_update_from_path(level, path, entropy,
+                                   logger=self.logger)
+            page_update_higher_textequiv_levels(level, prev.pcgts)
+            try:
+                self._write_page(prev.pcgts, prev.file_id, prev.page_id)
+            except FileExistsError:
+                # this page's state must still advance: re-raising would
+                # freeze ``prev`` and drop every later page's output
+                if _config_env('OCRD_EXISTING_OUTPUT', 'SKIP') == 'ABORT':
+                    raise
+                self.logger.warning('output for page %s already exists: '
+                                    'skipped', prev.page_id)
+        return RateState(traceback=traceback, pcgts=pcgts, file_id=file_id,
+                         page_id=page_id)
 
     def _finish_device_page(self, rec):
         pending, pcgts, file_id, page_id = rec
@@ -633,15 +742,50 @@ def _require_edge_list(edges, where: str) -> list:
         raise ValueError(
             'a customized lattice builder returned a DAG, but %s scores '
             'the single best chain; DAG lattices need '
-            'alternative_decoding=true and the host decode engine, which '
-            'is not ported yet (ROADMAP.md Queue 1, "Host decode engine")'
-            % where)
+            'alternative_decoding=true (the host decode engine decodes '
+            'them)' % where)
     return edges
 
 
 # ---------------------------------------------------------------------
 # lattice construction
 # ---------------------------------------------------------------------
+
+def page_get_linear_graph_at(level: str, pcgts: PcGts, logger=None):
+    """The page's lattice as a networkx DiGraph for the host engine:
+    ``(graph, start node, end node)``, one edge per element (carrying
+    ``element`` and ``alternatives``) along the chain of
+    :func:`page_get_linear_lattice_at`.  A customised builder that
+    returns a DiGraph passes through when it has one source, one sink
+    and no cycle (``rate_best`` takes any such DAG); an empty graph
+    becomes the empty chain."""
+    import networkx as nx
+    edges = page_get_linear_lattice_at(level, pcgts, logger=logger)
+    if hasattr(edges, 'add_edge'):
+        graph = edges
+        if graph.number_of_edges() == 0:
+            # a blank page is not an error
+            graph = nx.DiGraph(level=level)
+            graph.add_node(0)
+            return graph, 0, 0
+        starts = [n for n in graph if graph.in_degree(n) == 0]
+        ends = [n for n in graph if graph.out_degree(n) == 0]
+        if len(starts) != 1 or len(ends) != 1:
+            raise ValueError(
+                'lattice DAG needs exactly one source and one sink '
+                '(got %d/%d)' % (len(starts), len(ends)))
+        if not nx.is_directed_acyclic_graph(graph):
+            raise ValueError(
+                'lattice graph contains a cycle: the decoder requires a '
+                'directed acyclic lattice (one edge per text alternative '
+                'in reading order)')
+        return graph, starts[0], ends[0]
+    graph = nx.DiGraph(level=level)
+    graph.add_node(0)
+    for i, edge in enumerate(edges):
+        graph.add_edge(i, i + 1, **edge)
+    return graph, 0, len(edges)
+
 
 
 def page_get_linear_lattice_at(level: str, pcgts, logger=None) -> list:

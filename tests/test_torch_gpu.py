@@ -657,6 +657,52 @@ def test_traceback_matches_plain(cuda, variants):
         assert torch.equal(got, gk.traceback_ref(rec, best, out_length))
 
 
+@pytest.mark.parametrize('N, T, K, VARS, out_length, segment', [
+    (1, 1024, 256, 3, 1000, None),   # the main path: generate -n 1000 -v 3
+    (16, 256, 256, 1, 256, None),    # generate_batch of 16 prompts
+    (3, 4096, 256, 3, 4000, None),   # T*K beyond one block's shared memory
+    (2, 1024, 256, 1024, 1024, None),  # 1024 cursors, four a thread
+    (2, 130, 8, 1024, 130, 16),      # K=8: 32 sub-segments a segment
+    (1, 5000, 200, 2, 4999, 64),     # more than TB_MAPS maps to compose
+    (5, 16, 256, 3, 16, None),       # one segment: the walk launch alone
+    (1, 512, 256, 3, 500, 1),        # one step a segment
+    (1, 300, 24, 7, 111, 7),
+])
+def test_traceback_segments_match_plain(cuda, N, T, K, VARS, out_length,
+                                        segment):
+    """Seeded records (half the backpointers at slot K-1, so 255 at
+    K=256): the segmented walk equals the plain version, one launch
+    counted a call."""
+    from ocrd_keraslm_torch.ops import gen_kernel as gk
+    rng = np.random.default_rng(N * 131 + T + K + VARS)
+    rec = np.zeros((N, T, 3, K), np.float32)
+    rec[:, :, 0] = rng.integers(1, 70, (N, T, K))
+    rec[:, :, 1] = np.where(rng.random((N, T, K)) < 0.5, K - 1,
+                            rng.integers(0, K, (N, T, K)))
+    best = rng.integers(0, K, (N, VARS)).astype(np.int32)
+    best[:, 0] = K - 1
+    rec, best = torch.from_numpy(rec), torch.from_numpy(best)
+    t0 = gk.traceback.launches
+    got = gk.traceback(rec.to(cuda), best.to(cuda), out_length, segment)
+    torch.cuda.synchronize()
+    assert gk.traceback.launches == t0 + 1
+    assert torch.equal(got.cpu(), gk.traceback_ref(rec, best, out_length))
+
+
+def test_traceback_refuses_what_it_does_not_take(cuda):
+    from ocrd_keraslm_torch.ops import gen_kernel as gk
+    rec = torch.zeros((1, 8, 3, 264), device=cuda)
+    best = torch.zeros((1, 2), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match='K <= 256'):
+        gk.traceback(rec, best, 8)
+    with pytest.raises(ValueError, match='multiple of 4'):
+        gk.traceback(rec[..., :6].contiguous(), best, 8)
+    with pytest.raises(ValueError, match='VARS <= 1024'):
+        gk.traceback(rec[..., :8].contiguous(),
+                     torch.zeros((1, 1025), dtype=torch.int32, device=cuda),
+                     8)
+
+
 def test_generate_batch_launches_and_matches_single_calls(cuda):
     """``generate_batch`` launches each kernel once for all prompts and
     returns what single ``generate`` calls return, on the card as on the
@@ -879,6 +925,45 @@ def test_rate_best_batch_launches_and_matches_single_and_cpu(cuda, tmp_path):
     rater.merge_runs = True
     same_results(got, german_rater('cpu').rate_best_batch(docs),
                  cost_ulps=2)
+
+
+def test_host_engine_card_matches_cpu(cuda, tmp_path):
+    """The host decode engine on the card: ``rate_best`` over three
+    seeded glyph pages with the traceback carried (history clustering at
+    the processor's distance 5) and ``next_path``'s lock-in give the
+    CPU's paths, scores and entropies within 1e-4; ``predict`` its
+    probabilities and states within 1e-5."""
+    card, cpu = german_rater(cuda), german_rater('cpu')
+    build_workspace(str(tmp_path), np.random.default_rng(5), 3, 2,
+                    card.vocab, alt_share=0.3)
+    pages = workspace_graphs(str(tmp_path))
+    results = []
+    for r in (card, cpu):
+        out, tb = [], None
+        for g in pages:
+            path, ent, tb = r.rate_best(g, 0, g.number_of_edges(),
+                                        start_traceback=tb,
+                                        beam_clustering_dist=5)
+            out.append((path, ent))
+        out.append(r.next_path(tb[0], ([], tb[1]))[:2])
+        results.append(out)
+    assert sum(len(p) for p, _ in results[0]) == sum(
+        g.number_of_edges() for g in pages)
+    for (pg, eg), (pc, ec) in zip(*results):
+        assert [(e, t.Unicode) for e, t, _ in pg] == \
+            [(e, t.Unicode) for e, t, _ in pc]
+        assert all(abs(a - b) <= 1e-4 for (_, _, a), (_, _, b) in
+                   zip(pg, pc))
+        assert abs(eg - ec) <= 1e-4
+    rng = np.random.default_rng(6)
+    states = [[rng.normal(0, 0.5, (1, 128)).astype(np.float32)
+               for _ in range(4)] if i % 2 else None for i in range(5)]
+    (pg, sg), (pc, sc) = (r.predict(list('Kant '), states)
+                          for r in (card, cpu))
+    np.testing.assert_allclose(np.stack(pg), np.stack(pc), atol=1e-5)
+    np.testing.assert_allclose(np.stack([np.concatenate(x) for x in sg]),
+                               np.stack([np.concatenate(x) for x in sc]),
+                               atol=1e-5)
 
 
 def test_cuda_batch_never_takes_the_plain_versions(cuda, tmp_path,

@@ -165,13 +165,21 @@ def test_unported_parameters_raise(param, value):
     """Parameters that select paths not ported yet raise, naming their
     ROADMAP.md item.  Scoring (``alternative_decoding=false``) is
     ported: the processor is built in scoring mode, a stateful model
-    with batch size 1, as in the JAX processor."""
+    with batch size 1, as in the JAX processor.  So is the host decode
+    engine (``device_decoding=false``): the processor is built for
+    incremental decoding."""
     kwargs = dict(parameter={'model_file': GERMAN, param: value},
                   device='cpu')
     if param == 'alternative_decoding':
         proc = TKerasRate(**kwargs)
         proc.setup()
         assert proc.rater.stateful and proc.rater.batch_size == 1
+        return
+    if param == 'device_decoding':
+        proc = TKerasRate(**kwargs)
+        proc.setup()
+        assert proc.parameter['device_decoding'] is False
+        assert not proc.rater.stateful and proc.rater.incremental
         return
     with pytest.raises(NotImplementedError, match='ROADMAP.md'):
         TKerasRate(**kwargs)

@@ -11,6 +11,7 @@ import torch
 from ocrd_keraslm_tpu.rater import Rater as JRater
 from ocrd_keraslm_tpu.rater import _alt_steps as j_alt_steps
 from ocrd_keraslm_torch.models.lstm_lm import params_from_numpy
+from ocrd_keraslm_torch.rater import NonLinearLatticeError
 from ocrd_keraslm_torch.rater import Rater as TRater
 from ocrd_keraslm_torch.rater import _alt_steps as t_alt_steps
 
@@ -182,8 +183,9 @@ def test_port_matches_exhaustive_multichar(seed):
 
 
 def test_unported_paths_raise(raters, monkeypatch):
-    """A beam wider than 32, a branching lattice (the JAX package's bail
-    into its host engine) and bf16 decode raise, naming their item."""
+    """A beam wider than 32 and bf16 decode raise, naming their item; a
+    branching lattice raises the package's ``NonLinearLatticeError`` (the
+    processor bails into the host engine on it, as JAX's does)."""
     _, tr = raters
     graph = _toy_graph(['ab'])[0]
     with pytest.raises(NotImplementedError, match='ROADMAP.md'):
@@ -191,7 +193,7 @@ def test_unported_paths_raise(raters, monkeypatch):
     branching = graph.copy()
     u = next(iter(branching.edges))[0]   # a node that has a successor
     branching.add_edge(u, 'detour', element=None, alternatives=[])
-    with pytest.raises(NotImplementedError, match='Host decode engine'):
+    with pytest.raises(NonLinearLatticeError, match='rate_best'):
         tr.rate_best_device(branching, 0, 0)
     monkeypatch.setattr(tr, 'decode_bf16', True)
     with pytest.raises(NotImplementedError, match='bf16 decode'):
