@@ -11,7 +11,10 @@ Phases, each printing its own lines (any failure exits non-zero):
    ``ocrd_keraslm_torch/csrc/`` (``decode_lattice.cu``, ``score_scan.cu``,
    ``lstm_scan.cu``, ``lstm_bwd.cu``, ``gen_beam.cu``,
    ``gen_traceback.cu``, ``decode_lattice_batch.cu``) for sm_90a, all at
-   once; prints seconds, ``-Xptxas -v`` registers and spills, and each
+   once, and beside them ``g++`` the three host C++ libraries of
+   ``ocrd_keraslm_torch/native_src/`` (the decode prep, the PAGE
+   scanner, the training windows; with the CPython headers' path);
+   prints seconds, ``-Xptxas -v`` registers and spills, and each
    block's dynamic shared memory;
 3. parity at full width (``pretrained/model_german.h5``), each kernel
    against its plain PyTorch version, and both versions' error against
@@ -44,10 +47,14 @@ Phases, each printing its own lines (any failure exits non-zero):
    segment, a forced plan), each equal to the plain version;
 4. decode path: a seeded synthetic METS/PAGE workspace (4 pages of ~1800
    glyphs, 2-4 alternatives on ~15% of them) through
-   ``ocrd_keraslm_torch.wrapper.cli`` at glyph level, beam_width 10;
-   every glyph must end with one TextEquiv, every page must be written,
-   the kernel must have launched once per page block, and a small
-   workspace must decode the same on the card and on the CPU;
+   ``ocrd_keraslm_torch.wrapper.cli`` at glyph level, beam_width 10, in
+   the processor's default lanes; every glyph must end with one
+   TextEquiv, every page must be written, the native page lane must
+   have served every page, the kernel must have launched once per page
+   group (a page a group at these sizes), and a small workspace must
+   decode the same on the card and on the CPU; the same pages in the
+   native and the record lane alternately (same output), and once more
+   with the host clock split;
 5. scoring path: the same 4 pages with ``-P alternative_decoding
    false`` (one ``score_scan`` launch per 4096-char chunk of the one
    ``rate_batch``), a small workspace scored on the card and on the
@@ -70,7 +77,12 @@ Phases, each printing its own lines (any failure exits non-zero):
    Vernunft "`` (one ``gen_beam`` and one ``gen_traceback`` launch), the
    same at ``-n 64`` on the card and on the CPU with equal lines, and
    ``Rater.generate_batch`` of 16 seeded prompts at ``-n 256`` in one
-   launch of each kernel, equal to 16 single calls; host decode engine:
+   launch of each kernel, equal to 16 single calls; page lanes: the
+   native, record and object lanes give the same content, page groups
+   on and off (``KERASLM_FUSE_PAGES``) byte-identical files over 16
+   short pages, and ``-P lookahead_writeback true`` over the 4 pages of
+   phase 4 the choices of the pages decoded as one lattice on the card
+   and the CPU's lookahead (``lane_path``); host decode engine:
    page 1 of the seeded workspace through the CLI with ``-P
    device_decoding false``, and a branching page (the lattice builder
    returns a DAG) through the default device lane, which bails into the
@@ -84,9 +96,12 @@ Phases, each printing its own lines (any failure exits non-zero):
    ``walk_records_batch`` launch per block of <= 1024 edges for the whole
    batch), every document's path equal to its own ``rate_best_device``
    decode on the card, a double-buffered pair (begin B before finish A)
-   equal to the batch, 4 documents card against CPU;
-7. numbers: wall per page, edges/s and scored chars/s, the device's busy
-   and idle share of the paths (``torch.profiler``), wall per training
+   equal to the batch, 4 documents card against CPU, the begin (host
+   prep) with the C++ prep and with ``KERASLM_NATIVE=0``;
+7. numbers: wall per page (by page lane, and its host split), edges/s
+   and scored chars/s, the page groups' and lookahead's walls, the
+   device's busy and idle share of the paths (``torch.profiler``), wall
+   per training
    step and chars/s, wall per generation and generated chars/s, wall of
    a 32-document batch, documents/s and edges/s against 32 sequential
    ``rate_best_device`` calls, and per kernel at the main path's
@@ -594,10 +609,11 @@ def output_glyphs(directory, grp='OCR-D-LM'):
 
 
 def run_cli(directory, platform, beam_width=10, scoring=False,
-            host=False):
+            host=False, lookahead=False):
     """The processor through its CLI entry point, in this process: beam
     decoding (with ``host`` ``-P device_decoding false``: the host
-    engine), or with ``scoring`` ``-P alternative_decoding false``."""
+    engine; with ``lookahead`` ``-P lookahead_writeback true``), or with
+    ``scoring`` ``-P alternative_decoding false``."""
     from ocrd_keraslm_torch.wrapper.cli import ocrd_keraslm_rate
     args = ['-m', os.path.join(directory, 'mets.xml'),
             '-I', 'OCR-D-OCR', '-O', 'OCR-D-LM', '-l', 'WARNING',
@@ -607,22 +623,41 @@ def run_cli(directory, platform, beam_width=10, scoring=False,
         args += ['-P', 'alternative_decoding', 'false']
     if host:
         args += ['-P', 'device_decoding', 'false']
+    if lookahead:
+        args += ['-P', 'lookahead_writeback', 'true']
     with platform_env(platform):
         ocrd_keraslm_rate.main(args=args, standalone_mode=False)
 
 
 @contextlib.contextmanager
-def platform_env(platform):
-    """``KERASLM_PLATFORM`` set to ``platform`` inside the block."""
-    old = os.environ.get('KERASLM_PLATFORM')
-    os.environ['KERASLM_PLATFORM'] = platform
+def env_vars(**values):
+    """The environment variables ``values`` set inside the block (None
+    unsets one)."""
+    old = {k: os.environ.get(k) for k in values}
     try:
+        for k, v in values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
         yield
     finally:
-        if old is None:
-            del os.environ['KERASLM_PLATFORM']
-        else:
-            os.environ['KERASLM_PLATFORM'] = old
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def platform_env(platform):
+    """``KERASLM_PLATFORM`` set to ``platform`` inside the block."""
+    return env_vars(KERASLM_PLATFORM=platform)
+
+
+# the page lanes, by the environment variables that choose them
+LANES = {'native': dict(KERASLM_NATIVE_PAGE='1', KERASLM_FAST_PAGE='1'),
+         'records': dict(KERASLM_NATIVE_PAGE='0', KERASLM_FAST_PAGE='1'),
+         'object': dict(KERASLM_NATIVE_PAGE='0', KERASLM_FAST_PAGE='0')}
 
 
 KERNELS = ('decode_lattice', 'score_scan', 'lstm_scan', 'lstm_bwd',
@@ -696,22 +731,36 @@ def print_profile(what, wall, busy, card, over='same 4 pages'):
               'device activity); wall %.3f s [%s]' % (what, wall, card))
 
 
-def page_blocks(directory, rater):
-    """(kernel launches the processor makes, prepared edges) summed
-    over the input pages: one launch per block of <= 1024 edges."""
-    from ocrd_keraslm_torch.rater import E_BUCKETS
+def native_docs(directory):
+    """The native page lane's document of every input page, in page
+    order."""
     from ocrd_keraslm_torch.wrapper.mets import Workspace
-    from ocrd_keraslm_torch.wrapper.page_fast import parse_page_fast
-    from ocrd_keraslm_torch.wrapper.rate import page_get_linear_lattice_at
+    from ocrd_keraslm_torch.wrapper.page_native import NativePageDoc
     ws = Workspace(directory)
-    launches = edges = 0
-    for f in ws.mets.find_files(fileGrp='OCR-D-OCR'):
-        pcgts = parse_page_fast(os.path.join(directory, f.local_filename))
-        prep = rater._prepare_decode_edges(
-            page_get_linear_lattice_at('glyph', pcgts))
-        launches += -(-len(prep) // E_BUCKETS[-1])
-        edges += len(prep)
-    return launches, edges
+    return [NativePageDoc(os.path.join(directory, f.local_filename))
+            for f in ws.mets.find_files(fileGrp='OCR-D-OCR')]
+
+
+def page_groups(directory, rater, beam_width=10):
+    """(prepared edges of each page's glyph lattice, the page groups the
+    processor launches as lists of page indices): consecutive pages
+    while the group fits one launch (``Rater.fused_group_fits``)."""
+    from ocrd_keraslm_torch.rater import DECODE_MERGE_MAX
+    sizes, maxlens, groups = [], [], []
+    for i, doc in enumerate(native_docs(directory)):
+        assert doc.bail is None, doc.bail
+        _, n_prep, maxlen = doc.lattice('glyph', rater.merge_runs,
+                                        DECODE_MERGE_MAX)
+        if groups and rater.fused_group_fits(
+                sum(sizes[j] for j in groups[-1]) + n_prep,
+                max([maxlens[j] for j in groups[-1]] + [maxlen]),
+                beam_width):
+            groups[-1].append(i)
+        else:
+            groups.append([i])
+        sizes.append(n_prep)
+        maxlens.append(maxlen)
+    return sizes, groups
 
 
 def decode_bound(mask, steps, n_real, K, D, W, v_real, nbytes):
@@ -1031,8 +1080,10 @@ def build_kernels():
         path, log = _build.build(src)
         return path, log, time.time() - t0
     t0 = time.time()
-    with ThreadPoolExecutor(len(sources)) as pool:
+    with ThreadPoolExecutor(len(sources) + 1) as pool:
+        host = pool.submit(build_native)
         built = list(pool.map(one, sources))
+        host = host.result()
     for src, (path, log, secs) in zip(sources, built):
         name = os.path.splitext(os.path.basename(src))[0]
         print('build %s: nvcc %s -> %s in %.2f s'
@@ -1044,6 +1095,30 @@ def build_kernels():
                 print('ptxas:', line.strip())
     print('build: %d kernel sources in %.2f s (parallel nvcc)'
           % (len(sources), time.time() - t0))
+    for line in host:
+        print(line)
+
+
+def build_native():
+    """Build the three host C++ libraries of ``native_src/`` (one
+    ``g++`` each, at once) and load them; returns the lines to print:
+    each build's seconds and the CPython headers it compiled against."""
+    from ocrd_keraslm_torch import native
+    inc = native.python_include()
+    lines = ['build native: CPython headers %s (Python.h %s)'
+             % (inc, 'present' if os.path.isfile(os.path.join(
+                 inc, 'Python.h')) else 'MISSING')]
+    t0 = time.time()
+    for name, path, secs in native.build_all():
+        lines.append('build native %s: g++ %s -> %s in %.2f s'
+                     % (name, ' '.join(native.CXX_FLAGS),
+                        os.path.relpath(path, HERE), secs))
+    assert native.load_decode_prep() is not None
+    assert native.load_page_scan() is not None
+    assert native.load_library() is not None
+    lines.append('build native: 3 host C++ libraries in %.2f s (parallel '
+                 'g++, beside nvcc), loaded' % (time.time() - t0))
+    return lines
 
 
 def decode_parity(rater, dev):
@@ -1425,13 +1500,26 @@ def _wrappers():
             'walk_records_batch': decode_kernel.walk_records_batch}
 
 
+LANE_COUNTERS = ('pages', 'groups', 'bails')
+
+
 def zero_counts():
+    from ocrd_keraslm_torch.wrapper import page_native
     for fn in _wrappers().values():
         fn.launches = 0
+    for name in LANE_COUNTERS:
+        setattr(page_native, name, 0)
 
 
 def read_counts():
     return {name: fn.launches for name, fn in _wrappers().items()}
+
+
+def read_lanes():
+    """The native page lane's counters: pages it served, page-group
+    launches, documents it bailed on."""
+    from ocrd_keraslm_torch.wrapper import page_native
+    return {name: getattr(page_native, name) for name in LANE_COUNTERS}
 
 
 def check_glyphs(directory, n_glyphs):
@@ -1512,7 +1600,10 @@ def branching_pages(page_ids):
         return g
     rate_mod.page_get_linear_lattice_at = build
     try:
-        yield
+        # the native lane builds its lattices in C++: a customised
+        # builder reaches the record lane only
+        with env_vars(KERASLM_NATIVE_PAGE='0'):
+            yield
     finally:
         rate_mod.page_get_linear_lattice_at = orig
 
@@ -1643,29 +1734,113 @@ def decode_path(rater, work):
     big = os.path.join(work, 'ws')
     n_glyphs = build_workspace(big, np.random.default_rng(7), 4, 40,
                                rater.vocab)
-    expect, n_edges = page_blocks(big, rater)
+    sizes, groups = page_groups(big, rater)
+    n_edges = sum(sizes)
     zero_counts()
     t0 = time.time()
     run_cli(big, 'cuda')
     wall = time.time() - t0
-    counts = read_counts()
+    counts, lanes = read_counts(), read_lanes()
     check_glyphs(big, n_glyphs)
-    assert counts['decode_lattice'] == expect, (counts, expect)
-    print('decode path: 4 pages, %d glyphs, %d decode edges written; '
-          'launches %s (expected %d decode_lattice, one per page block of '
-          '<= %d edges)' % (n_glyphs, n_edges, counts, expect,
-                            E_BUCKETS[-1]))
+    assert counts == dict(NO_LAUNCHES, decode_lattice=len(groups)), \
+        (counts, groups)
+    assert lanes == dict(pages=4, groups=len(groups), bails=0), lanes
+    print('decode path: 4 pages, %d glyphs, %d decode edges (%s a page) '
+          'written; launches %s (expected %d decode_lattice: one a page '
+          'group of <= %d edges, groups %s); the native page lane served '
+          '%d pages in %d group launch(es), %d bails'
+          % (n_glyphs, n_edges, sizes, counts, len(groups), E_BUCKETS[-1],
+             groups, lanes['pages'], lanes['groups'], lanes['bails']))
     conf_err, n_small = small_card_vs_cpu(work, rater, False, 1e-4)
     print('decode path small workspace: %d glyphs, same choices on the '
           'card and on the CPU, max conf diff %.3g (tolerance 1e-4)'
           % (n_small, conf_err))
+    # the native lane against the record lane (KERASLM_NATIVE_PAGE=0),
+    # alternating on fresh copies of the same 4 pages
+    walls = {'native': [], 'records': []}
+    for i, lane in enumerate(('native', 'records') * 2):
+        d = os.path.join(work, 'ws_lane%d' % i)
+        build_workspace(d, np.random.default_rng(7), 4, 40, rater.vocab)
+        zero_counts()
+        with env_vars(**LANES[lane]):
+            t0 = time.time()
+            run_cli(d, 'cuda')
+            walls[lane].append(time.time() - t0)
+        assert read_lanes()['pages'] == (4 if lane == 'native' else 0)
+        assert output_glyphs(d)[0] == output_glyphs(big)[0], lane
+    # where the host time goes: the same pages once more, split
+    d = os.path.join(work, 'ws_split')
+    build_workspace(d, np.random.default_rng(7), 4, 40, rater.vocab)
+    with decode_split() as split:
+        t0 = time.time()
+        run_cli(d, 'cuda')
+        split_wall = time.time() - t0
     # where the time goes: the same four pages (a fresh copy) once
     # more, under torch.profiler
     traced = os.path.join(work, 'ws_traced')
     build_workspace(traced, np.random.default_rng(7), 4, 40, rater.vocab)
     traced_wall, busy = profile_main_path(traced)
     return dict(wall=wall, n_edges=n_edges, launches=counts,
-                traced_wall=traced_wall, busy=busy, workspace=big)
+                traced_wall=traced_wall, busy=busy, workspace=big,
+                lane_walls=walls, split=split, split_wall=split_wall,
+                sizes=sizes, groups=groups)
+
+
+@contextlib.contextmanager
+def decode_split():
+    """Host seconds of the decoding processor's parts, summed into the
+    yielded dict while the block runs (host clocks around the port's
+    calls): ``model load``, ``page scan`` (``NativePageDoc`` and the
+    record lanes' parsers: in the prefetch thread, beside the rest),
+    ``lattice and fill`` (the native lattice and array fill, the record
+    lane's lattice), ``launch`` (``Rater._launch_decode``: uploads and
+    the kernel launch, which does not wait), ``finish`` (the group,
+    array and record finishes: the wait for the device and the walk)
+    and ``splice write-back`` (``apply_decode``, the record lane's
+    write-back and ``_write_page``)."""
+    from ocrd_keraslm_torch import rater as rmod
+    from ocrd_keraslm_torch.wrapper import page_native
+    from ocrd_keraslm_torch.wrapper import rate as wmod
+    secs = dict.fromkeys(('model load', 'page scan', 'lattice and fill',
+                          'launch', 'finish', 'splice write-back'), 0.0)
+    saved = []
+
+    def wrap(obj, name, key):
+        fn, raw = getattr(obj, name), vars(obj)[name]
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                secs[key] += time.perf_counter() - t0
+        saved.append((obj, name, raw))
+        setattr(obj, name, staticmethod(timed)
+                if isinstance(raw, staticmethod) else timed)
+    doc = page_native.NativePageDoc
+    for obj, name, key in (
+            (wmod.KerasRate, 'setup', 'model load'),
+            (doc, '__init__', 'page scan'),
+            (wmod, 'parse_page_fast', 'page scan'),
+            (wmod, 'parse_page', 'page scan'),
+            (doc, 'lattice', 'lattice and fill'),
+            (doc, 'fill', 'lattice and fill'),
+            (wmod, 'page_get_linear_lattice_at', 'lattice and fill'),
+            (rmod.Rater, '_launch_decode', 'launch'),
+            (rmod.Rater, 'rate_best_device_finish_group', 'finish'),
+            (rmod.Rater, 'rate_best_device_finish_arrays', 'finish'),
+            (rmod.Rater, 'rate_best_device_finish', 'finish'),
+            (doc, 'apply_decode', 'splice write-back'),
+            (wmod, '_page_update_from_path', 'splice write-back'),
+            (wmod, 'page_update_higher_textequiv_levels',
+             'splice write-back'),
+            (wmod.KerasRate, '_write_page', 'splice write-back')):
+        wrap(obj, name, key)
+    try:
+        yield secs
+    finally:
+        for obj, name, fn in reversed(saved):
+            setattr(obj, name, fn)
 
 
 @contextlib.contextmanager
@@ -1851,6 +2026,209 @@ def scoring_path(rater, work):
 BATCH_DOCS, BATCH_MULTI, BATCH_PAGES = 32, 8, 4
 
 
+def page_contents(directory, grp='OCR-D-LM'):
+    """{element id: (texts, confs)} of every region, line, word and
+    glyph of the pages written to ``grp``."""
+    from ocrd_keraslm_torch.wrapper.mets import Workspace
+    from ocrd_keraslm_torch.wrapper.page import parse_page
+    out = {}
+    for f in Workspace(directory).mets.find_files(fileGrp=grp):
+        pcgts = parse_page(os.path.join(directory, f.local_filename))
+        for region in pcgts.get_Page().get_AllRegions():
+            els = [region]
+            for line in region.get_TextLine():
+                els.append(line)
+                for word in line.get_Word():
+                    els += [word] + list(word.get_Glyph())
+            for el in els:
+                out[el.id] = tuple((te.Unicode, te.conf)
+                                   for te in el.get_TextEquiv())
+    return out
+
+
+def output_files(directory, grp='OCR-D-LM'):
+    """{file name: the written page}, its Created and LastChange times
+    blanked."""
+    d = os.path.join(directory, grp)
+    return {name: re.sub(r'<(Created|LastChange)>[^<]*</\1>', r'<\1/>',
+                         open(os.path.join(d, name), encoding='utf-8').read())
+            for name in sorted(os.listdir(d))}
+
+
+def output_choices(directory):
+    """{glyph id: index of its one TextEquiv} over every written page."""
+    from ocrd_keraslm_torch.wrapper.mets import Workspace
+    out = {}
+    for f in Workspace(directory).mets.find_files(fileGrp='OCR-D-LM'):
+        out.update(output_indices(os.path.join(directory, f.local_filename)))
+    return out
+
+
+def concat_choices(rater, directory, picks=None):
+    """(glyph id: index chosen, bits) of the decode of every input page
+    of ``directory`` as ONE lattice (``Rater.concat_graphs``) by
+    ``rater``; with ``picks`` ({glyph id: index}) every such glyph keeps
+    only that alternative (the bits of that path)."""
+    from ocrd_keraslm_torch.wrapper.mets import Workspace
+    from ocrd_keraslm_torch.wrapper.rate import mets_get_context
+    pages = workspace_graphs(directory)
+    if picks is not None:
+        for g in pages:
+            for _, _, e in g.edges(data=True):
+                el = e['element']
+                if el is not None and el.id in picks:
+                    e['alternatives'] = [te for te in e['alternatives']
+                                         if te.index == picks[el.id]]
+    whole = rater.concat_graphs(pages)
+    path, ent, _ = rater.rate_best_device(
+        whole, 0, 0, context=mets_get_context(Workspace(directory).mets),
+        beam_width=10)
+    return {el.id: te.index for el, te, _ in path if el is not None}, ent
+
+
+@contextlib.contextmanager
+def reverse_walk_clock():
+    """Seconds of the lookahead's reverse walk (the
+    ``rate_best_device_finish`` calls with ``return_entry``), summed
+    into the yielded list's first item."""
+    from ocrd_keraslm_torch import rater as rmod
+    fn = rmod.Rater.rate_best_device_finish
+    secs = [0.0]
+
+    def timed(self, pending, start_slot=0, return_entry=False):
+        t0 = time.perf_counter()
+        try:
+            return fn(self, pending, start_slot=start_slot,
+                      return_entry=return_entry)
+        finally:
+            if return_entry:
+                secs[0] += time.perf_counter() - t0
+    rmod.Rater.rate_best_device_finish = timed
+    try:
+        yield secs
+    finally:
+        rmod.Rater.rate_best_device_finish = fn
+
+
+def lane_path(rater, work, card):
+    """Phase 6, the page lanes on the card: the native, record and
+    object lanes give the same content (a seeded 2-page workspace, 30%
+    of the glyphs with alternatives); page groups on and off
+    (``KERASLM_FUSE_PAGES``) write byte-identical files over 16 short
+    pages (6 lines), launches and walls alternating; lookahead
+    write-back over the 4-page workspace of phase 4 equals the card's
+    decode of the pages concatenated, and the CPU's lookahead (a
+    near-tie passes where both choices' path bits, decoded on the CPU,
+    lie within ``HOST_TIE_BITS``).  Returns the numbers."""
+    import torch
+    out = {}
+    contents = {}
+    for lane, env in LANES.items():
+        d = os.path.join(work, 'lanes_%s' % lane)
+        build_workspace(d, np.random.default_rng(17), 2, 6, rater.vocab,
+                        alt_share=0.3)
+        zero_counts()
+        with env_vars(**env):
+            run_cli(d, 'cuda')
+        lanes = read_lanes()
+        assert lanes['pages'] == (2 if lane == 'native' else 0), \
+            (lane, lanes)
+        contents[lane] = page_contents(d)
+    assert contents['native'] == contents['records'] == contents['object']
+    print('page lanes on the card: native (C++ scan, array lattice, splice '
+          'write-back), records (ElementTree) and object model over 2 pages '
+          'of 6 lines: the same text and conf in all %d elements'
+          % len(contents['native']))
+    short = os.path.join(work, 'short_sizes')
+    build_workspace(short, np.random.default_rng(19), 16, 6, rater.vocab)
+    sizes, groups = page_groups(short, rater)
+    files, walls, counts = {}, {'on': [], 'off': []}, {}
+    for i, fuse in enumerate(('on', 'off') * 2):
+        d = os.path.join(work, 'short_%d' % i)
+        build_workspace(d, np.random.default_rng(19), 16, 6, rater.vocab)
+        zero_counts()
+        with env_vars(KERASLM_FUSE_PAGES='1' if fuse == 'on' else '0'):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            run_cli(d, 'cuda')
+            walls[fuse].append(time.time() - t0)
+        counts[fuse] = dict(read_counts(), **read_lanes())
+        got = output_files(d)
+        assert files.setdefault(fuse, got) == got, fuse
+    assert files['on'] == files['off'] and len(files['on']) == 16
+    assert counts['on']['decode_lattice'] == len(groups) == \
+        counts['on']['groups'], (counts, groups)
+    assert counts['off']['decode_lattice'] == 16 and \
+        counts['off']['groups'] == 0, counts
+    print('page groups on the card: 16 pages of 6 lines (%d-%d decode edges '
+          'a page), groups %s; KERASLM_FUSE_PAGES=1 %d decode_lattice '
+          'launch(es), =0 %d; the written files byte-identical (times '
+          'aside)' % (min(sizes), max(sizes), [len(g) for g in groups],
+                      counts['on']['decode_lattice'],
+                      counts['off']['decode_lattice']))
+    traced = {}
+    for fuse in ('on', 'off'):
+        d = os.path.join(work, 'short_traced_%s' % fuse)
+        build_workspace(d, np.random.default_rng(19), 16, 6, rater.vocab)
+        with env_vars(KERASLM_FUSE_PAGES='1' if fuse == 'on' else '0'):
+            traced[fuse] = profiled(lambda: run_cli(d, 'cuda'))
+    out['groups'] = dict(walls=walls, groups=groups, sizes=sizes,
+                         traced=traced,
+                         launches={k: v['decode_lattice']
+                                   for k, v in counts.items()})
+    # lookahead write-back over the 4 pages of phase 4
+    look = {}
+    for platform in ('cuda', 'cpu'):
+        d = os.path.join(work, 'look_%s' % platform)
+        build_workspace(d, np.random.default_rng(7), 4, 40, rater.vocab)
+        zero_counts()
+        with reverse_walk_clock() as walk:
+            t0 = time.time()
+            run_cli(d, platform, lookahead=True)
+            if platform == 'cuda':
+                torch.cuda.synchronize()
+            wall = time.time() - t0
+        counts, lanes = read_counts(), read_lanes()
+        look[platform] = dict(dir=d, wall=wall, walk=walk[0],
+                              choices=output_choices(d), counts=counts)
+        assert lanes['pages'] == 0, lanes
+    blocks = -(-np.asarray(page_groups(look['cuda']['dir'], rater)[0])
+               // 1024)
+    assert look['cuda']['counts'] == dict(
+        NO_LAUNCHES, decode_lattice=int(blocks.sum())), look['cuda']
+    assert look['cpu']['counts'] == NO_LAUNCHES, look['cpu']
+    card = look['cuda']['choices']
+    whole = concat_choices(rater, look['cuda']['dir'])[0]
+    said = []
+    for what, other, r in (('the card\'s decode of the 4 pages as one '
+                            'lattice', whole, rater),
+                           ('the CPU\'s lookahead', look['cpu']['choices'],
+                            None)):
+        ties = sorted(g for g in card if card[g] != other[g])
+        gap = 0.0
+        if ties:
+            # both choices' path bits, the pages decoded as one lattice
+            r = r or german_rater('cpu')
+            bits = [concat_choices(r, look['cuda']['dir'], c)[1]
+                    for c in (card, other)]
+            gap = abs(bits[0] - bits[1])
+            assert gap <= HOST_TIE_BITS, (what, ties, bits)
+        said.append('%s %s' % (what, 'at every glyph' if not ties else
+                               'but at %d glyph(s) of a near-tie (path bits '
+                               '%.3g apart, tolerance %g): %s'
+                               % (len(ties), gap, HOST_TIE_BITS, ties[:5])))
+    print('lookahead write-back on the card (-P lookahead_writeback true, 4 '
+          'pages of 40 lines, %d glyphs): every page written, %d '
+          'decode_lattice launches (records kept, walked in reverse with '
+          'the entry slot chained), the native lane stood aside; the '
+          'choices equal %s' % (len(card), int(blocks.sum()),
+                                ', and '.join(said)))
+    out['lookahead'] = dict(wall=look['cuda']['wall'],
+                            walk=look['cuda']['walk'],
+                            wall_cpu=look['cpu']['wall'], glyphs=len(card))
+    return out
+
+
 def workspace_graphs(directory):
     """The glyph-level linear lattice of every page of a workspace's
     OCR-D-OCR group, each as a networkx chain."""
@@ -1952,18 +2330,31 @@ def batch_path(rater, work, card):
         out[name] = dict(wall=wall, wall_seq=wall_seq, sizes=sizes,
                          launches=counts, merge=merge, results=got)
     # where the wall goes: begin (host prep, uploads, launches; it does
-    # not wait) and finish (the wait for the device, path emission)
-    torch.cuda.synchronize()
-    t0 = time.time()
-    pending = rater.rate_best_batch_begin(docs)
-    t1 = time.time()
-    again = rater.rate_best_batch_finish(pending)
-    t2 = time.time()
-    assert again == out['one-page']['results']
-    print('batched serving path, %d one-page documents split: begin %.3f s '
-          '(host prep, uploads, launches), finish %.3f s (the wait for the '
-          'device, path emission); same results [%s]'
-          % (BATCH_DOCS, t1 - t0, t2 - t1, card))
+    # not wait) and finish (the wait for the device, path emission), the
+    # prep in C++ and with KERASLM_NATIVE=0 in Python, alternating
+    splits = {'native': [], 'python': []}
+    for prep in ('native', 'python') * 2:
+        with env_vars(KERASLM_NATIVE='0' if prep == 'python' else None):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            pending = rater.rate_best_batch_begin(docs)
+            t1 = time.time()
+            again = rater.rate_best_batch_finish(pending)
+            t2 = time.time()
+        splits[prep].append((t1 - t0, t2 - t1))
+        if prep == 'native':
+            assert again == out['one-page']['results']
+        else:
+            same_results(again, out['one-page']['results'])
+    for prep, what in (('native', 'C++ prep'),
+                       ('python', 'Python prep, KERASLM_NATIVE=0')):
+        print('batched serving path, %d one-page documents split (%s): '
+              'begin %s s (host prep, uploads, launches), finish %s s (the '
+              'wait for the device, path emission); results equal [%s]'
+              % (BATCH_DOCS, what,
+                 ', '.join('%.3f' % b for b, _ in splits[prep]),
+                 ', '.join('%.3f' % f for _, f in splits[prep]), card))
+    out['begin'] = splits
     # double buffering: batch B launched before batch A finishes
     half = BATCH_DOCS // 2
     zero_counts()
@@ -2117,30 +2508,25 @@ def batch_numbers(rater, batch, parity_times, card):
 
 def page_block(rater, directory):
     """``decode_lattice``'s arguments for page 1 of the workspace in
-    ``directory`` as the processor launches them (K=16, A=4, device
-    walk), and the page's mask and per-edge steps as numpy arrays."""
+    ``directory`` as the processor launches them (the native lane's
+    arrays of its page group, page 1 alone at the main path's 40-line
+    pages; K=16, A=4, records walked on the host), and the page's mask
+    and per-edge steps as numpy arrays."""
     import torch
-    from ocrd_keraslm_torch.rater import E_BUCKETS, L_BUCKETS, _alt_steps
-    from ocrd_keraslm_torch.utils.buckets import bucket
-    from ocrd_keraslm_torch.wrapper.page_fast import parse_page_fast
-    from ocrd_keraslm_torch.wrapper.rate import page_get_linear_lattice_at
-    first = os.path.join(directory, 'OCR-D-OCR', 'OCR-D-OCR_phys_0001.xml')
-    prep = rater._prepare_decode_edges(
-        page_get_linear_lattice_at('glyph', parse_page_fast(first)))
+    from ocrd_keraslm_torch.rater import DECODE_MERGE_MAX, _alt_steps
+    doc = native_docs(directory)[0]
+    _, n, maxlen = doc.lattice('glyph', rater.merge_runs, DECODE_MERGE_MAX)
+    E, L = rater.fused_gate_arrays(n, maxlen, 10)
     wts = rater._decode_weights(None)
-    K, A = 16, 4
-    n = len(prep)
-    L = bucket(max(len(ids) for pe in prep for ids in pe['alt_ids']),
-               L_BUCKETS)
-    E = bucket(n, E_BUCKETS)
-    chars, mask, conf, valid = rater._fill_decode_arrays(prep, E, A, L)
+    K = 16
+    chars, mask, conf, valid = doc.fill(rater.vocab._table(), E, 4, L)
     steps = _alt_steps(mask)[:, 0]
     ins = [torch.from_numpy(a).to(rater.device)
            for a in (chars, mask, conf, valid, steps)]
     state0, cost0 = rater._fused_traceback(None, K, wts['emb'])
     args = (wts['emb'], wts['embT'], wts['wcat'], wts['bias'],
             ins[0], ins[1], ins[2], ins[3], state0, cost0)
-    kw = dict(lm_weight=0.5, v_real=wts['v_real'], device_walk=True,
+    kw = dict(lm_weight=0.5, v_real=wts['v_real'], device_walk=False,
               alt_steps=ins[4], n_real=n)
     return args, kw, mask, steps
 
@@ -2162,7 +2548,7 @@ def decode_numbers(rater, decode, card):
     ms2 = cuda_ms(lambda: dk.decode_lattice(*args, **kw), 3)
     cl = dk.cluster_blocks(rater.device, False, 1, K, A, L, D, W,
                            wts['v_pad'], wts['v_real'])
-    out_bytes = ((E + 1) * 2 + K * S + 128) * 4
+    out_bytes = ((E + 1) * 3 * K + K * S + 128) * 4
     # emb and embT are read at their v_real real rows/columns only
     nbytes = (tensor_bytes(*args, ins[0]) + out_bytes
               - 2 * W * (wts['v_pad'] - wts['v_real']) * 4)
@@ -3383,6 +3769,7 @@ def main() -> int:
         training_steps(train, dev, card)
         gen = generation_path(rater, card)
         host = host_engine_path(rater, work, card)
+        lanes = lane_path(rater, work, card)
         batch = batch_path(rater, work, card)
 
         # ---- 7. numbers ----
@@ -3392,6 +3779,41 @@ def main() -> int:
                  decode['n_edges'] / decode['wall'], card))
         print_profile('decode path', decode['traced_wall'], decode['busy'],
                       card)
+        lw = decode['lane_walls']
+        print('decode path wall by page lane (same 4 pages, fresh copies, '
+              'alternating; CLI call incl. model load, host clock): native '
+              '%s s = %s s/page; records (KERASLM_NATIVE_PAGE=0) %s s = %s '
+              's/page [%s]'
+              % (', '.join('%.3f' % w for w in lw['native']),
+                 ', '.join('%.3f' % (w / 4) for w in lw['native']),
+                 ', '.join('%.3f' % w for w in lw['records']),
+                 ', '.join('%.3f' % (w / 4) for w in lw['records']), card))
+        sw = decode['split_wall']
+        print('decode path wall split (host clocks around the port\'s calls, '
+              'one more processor run over the same 4 pages, native lane; '
+              'the page scan runs in the prefetch thread beside the rest): '
+              '%.3f s = %s, other (CLI, METS, the loop) %.4f s [%s]'
+              % (sw, ', '.join('%s %.4f s (%.1f%%)' % (k, v, 100 * v / sw)
+                               for k, v in decode['split'].items()),
+                 sw - sum(decode['split'].values()), card))
+        gr = lanes['groups']
+        print('page groups wall (16 pages of 6 lines, alternating; CLI call '
+              'incl. model load, host clock): KERASLM_FUSE_PAGES=1 %s s with '
+              '%d decode_lattice launch(es), =0 %s s with %d [%s]'
+              % (', '.join('%.3f' % w for w in gr['walls']['on']),
+                 gr['launches']['on'],
+                 ', '.join('%.3f' % w for w in gr['walls']['off']),
+                 gr['launches']['off'], card))
+        for fuse in ('on', 'off'):
+            print_profile('page groups %s' % fuse, *gr['traced'][fuse],
+                          card, over='16 pages of 6 lines, '
+                          'KERASLM_FUSE_PAGES=%d' % (fuse == 'on'))
+        la = lanes['lookahead']
+        print('lookahead write-back wall: %.3f s for the 4 pages (CLI call '
+              'incl. model load, host clock; the default lane %.3f s in '
+              'phase 4), of it the reverse walk %.4f s; the CPU %.3f s [%s]'
+              % (la['wall'], decode['wall'], la['walk'], la['wall_cpu'],
+                 card))
         print('scoring path wall: %.3f s for 4 pages = %.3f s/page, %.0f '
               'scored chars/s (host clock, CLI call incl. model load) [%s]'
               % (scoring['wall'], scoring['wall'] / 4,

@@ -405,7 +405,11 @@ def gen_stateful_streams(files: Sequence[str], vocab: Vocab, *,
     holds window t of every stream, carry reset at file boundaries.
     Dense batches with per-stream recurrence (truncated BPTT).
     Train-time degradation follows the per-window extra-batch semantics
-    batch-wide, as the batched stateless path does."""
+    batch-wide, as the batched stateless path does.  A file's windows
+    come from one C++ call (``native.build_stream_batches``), or with
+    ``KERASLM_NATIVE=0`` (and for a text of fewer than two ids) from
+    the exact numpy equivalent :func:`_stream_windows_numpy`."""
+    from .native import build_stream_batches
     rng = rng or np.random.default_rng()
     while True:
         for name in files:
@@ -413,9 +417,16 @@ def gen_stateful_streams(files: Sequence[str], vocab: Vocab, *,
             context = context_from_filename(name)
             ids = vocab.encode(text)
             size = len(ids)
+            prebuilt = build_stream_batches(ids, batch_size, length)
+            if prebuilt is not None:
+                xs, ys, masks = prebuilt
+                windows = ((xs[w], ys[w], masks[w])
+                           for w in range(len(xs)))
+            else:
+                windows = _stream_windows_numpy(ids, size, batch_size,
+                                                length)
             first = True
-            for x, y, mask in _stream_windows_numpy(ids, size, batch_size,
-                                                    length):
+            for x, y, mask in windows:
                 x = np.ascontiguousarray(x)
                 zs = _context_arrays(context, n_contexts, batch_size)
                 yield Batch(x, zs, y, mask, reset_carry=first,

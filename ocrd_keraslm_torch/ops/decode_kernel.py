@@ -112,6 +112,26 @@ def cluster_sizes(K: int, A: int, L: int, D: int, W: int, Vp: int,
             <= SMEM_MAX]
 
 
+def one_block_smem_bytes(A: int, L: int, K: int, D: int, W: int, Vp: int,
+                         rb: int) -> int:
+    """A block's dynamic shared memory in the one-block layout at ``rb``
+    rows a chunk (``decode_smem_floats``): the beam, the chunk's rows,
+    its gates or logits, then the per-edge arrays."""
+    S, KA = (2 * D + 1) * W, K * A
+    return 4 * (K * S + rb * S + rb * max(4 * W, Vp)
+                + K + 2 * KA + rb + 2 * A * L + A + K + KA + A * L + 4)
+
+
+def decode_smem_fits(A: int, L: int, K: int, D: int, W: int, Vp: int,
+                     v_real: int) -> bool:
+    """Whether :func:`decode_lattice` can lay the shape out within a
+    block's shared memory: the one-block layout at its smallest chunk
+    (8 rows; ``decode_chunk_rows``), or a cluster size
+    (:func:`cluster_sizes`)."""
+    return one_block_smem_bytes(A, L, K, D, W, Vp, 8) <= SMEM_MAX or \
+        bool(cluster_sizes(K, A, L, D, W, Vp, v_real))
+
+
 def choose_cluster(N: int, K: int, A: int, L: int, D: int, W: int, Vp: int,
                    v_real: int, fits, n_sm: int) -> int:
     """Blocks a document for a launch of N documents: of the cluster

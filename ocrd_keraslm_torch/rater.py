@@ -22,9 +22,13 @@ saves it (:meth:`Rater.save`), and
   single-document kernel
   (:func:`ocrd_keraslm_torch.ops.decode_kernel.decode_lattice`): the
   host merges runs of single-alternative edges, fills fixed-size edge
-  arrays, launches one kernel per block of at most 1024 edges, and
-  walks the returned backpointers.  The beam carries from page to page
-  as device tensors ``(packed state (K, S), cost (1, 128))``.
+  arrays (in C++, :mod:`ocrd_keraslm_torch.native`, unless
+  ``KERASLM_NATIVE=0``), launches one kernel per block of at most 1024
+  edges, and walks the returned backpointers; pre-filled array
+  lattices (the native page lane) take one launch a page or one for a
+  group of consecutive pages.  The beam carries from page to page as
+  device tensors ``(packed state (K, S), cost (1, 128))``; each
+  result's copy into pinned host memory starts at its launch.
 
 The device follows ``KERASLM_PLATFORM`` unless the caller names one:
 ``cpu`` runs on the CPU (the kernels' plain PyTorch versions), unset,
@@ -46,8 +50,10 @@ from .models.lstm_lm import (DEFAULT_CONTEXTS, LMConfig, embed_inputs,
                              forward_seq, forward_step, host_to_device,
                              init_params, params_from_numpy, zero_carry)
 from .ops.beam_device import _copy_to_host, _fetch
+from . import native
 from .ops.decode_kernel import (BIG, LANE, decode_lattice,
-                                decode_lattice_batch, walk_records_batch)
+                                decode_lattice_batch, decode_smem_fits,
+                                walk_records_batch)
 from .ops.score_kernel import pack_score_weights, score_scan
 from .utils import h5io
 from .utils.buckets import bucket as _bucket
@@ -186,6 +192,35 @@ def _decode_scan(edges, merge: bool, merge_max: int):
             for te in alts[:4]:
                 maxlen = max(maxlen, len(te.Unicode or ''))
     return n_prep + (run >= 0), maxlen
+
+
+class _Pinned:
+    """A result on the device whose copy into pinned host memory was
+    started at its launch (a CPU result is its own host copy)."""
+    __slots__ = ('host', 'event')
+
+    def __init__(self, t):
+        self.host, self.event = _copy_to_host(t)
+
+    def ready(self) -> bool:
+        """Whether reading the copy would not block."""
+        return self.event is None or self.event.query()
+
+    def numpy(self) -> np.ndarray:
+        return _fetch(self.host, self.event)
+
+
+def _host(a) -> np.ndarray:
+    """A pending's result on the host (waits for its copy)."""
+    return a.numpy() if isinstance(a, _Pinned) else np.asarray(a)
+
+
+def _scan(edges, merge: bool, merge_max: int):
+    """(prepared edges, longest alternative) of an edge chain: the C++
+    scan, or with ``KERASLM_NATIVE=0`` :func:`_decode_scan`."""
+    out = native.decode_scan(edges, merge, merge_max)
+    return tuple(out) if out is not None else \
+        _decode_scan(edges, merge, merge_max)
 
 
 def _alt_steps(alt_mask):
@@ -965,12 +1000,18 @@ class Rater:
     @_gc_paused
     def rate_best_device_begin(self, graph, start_node, end_node,
                                device_traceback=None, context=None,
-                               lm_weight=0.5, beam_width=10):
+                               lm_weight=0.5, beam_width=10,
+                               defer_walk=False):
         """Prepare and launch the decode of a linear lattice (an edge
         list in chain order, or a networkx DiGraph that is one chain);
         returns ``(pending, new device traceback)``.  Fetch and path
         emission happen in :meth:`rate_best_device_finish`, so a
-        document loop can launch every page before it waits for any."""
+        document loop can launch every page before it waits for any.
+
+        With ``defer_walk`` a single-block page also returns its
+        per-slot records (pending kind ``'blocks'``) instead of the
+        kernel's own rank-0 walk: lookahead write-back walks the pages
+        later, in reverse, from chained entry slots."""
         edges_raw = graph if isinstance(graph, list) \
             else _linear_edges(graph)
         if not edges_raw:
@@ -986,22 +1027,34 @@ class Rater:
                 '"Wide-beam decode engine")'
                 % (beam_width, FUSED_MAX_BEAM))
         return self._rate_best_kernel(edges_raw, device_traceback,
-                                      context, lm_weight, beam_width)
+                                      context, lm_weight, beam_width,
+                                      defer_walk=defer_walk)
 
     def _rate_best_kernel(self, edges_raw, device_traceback, context,
-                          lm_weight, beam_width):
+                          lm_weight, beam_width, defer_walk=False):
         """Kernel decode dispatch (the counterpart of the JAX
-        ``_rate_best_pallas``): run merging, per-block array fill and
-        one kernel launch per block of at most 1024 edges, the carry
-        chaining on the device.  Single-block pages walk their
-        backpointers inside the kernel and return (E+1, 2); longer pages
-        return per-block records, walked on the host at finish."""
+        ``_rate_best_pallas``): run merging, array fill and one kernel
+        launch per block of at most 1024 edges, the carry chaining on
+        the device.  The prep runs in C++ (``native.decode_scan`` and
+        ``decode_fill``: the whole document filled once, sliced per
+        block), or with ``KERASLM_NATIVE=0`` in Python
+        (:meth:`_prepare_decode_edges`, :meth:`_fill_decode_arrays` per
+        block).  Single-block pages walk their backpointers inside the
+        kernel and return (E+1, 2) unless ``defer_walk``; longer pages
+        return per-block records, walked on the host at finish.  Every
+        result's copy to pinned host memory starts at its launch."""
         K = _bucket(min(beam_width, FUSED_MAX_BEAM), K_BUCKETS)
         A = 4
         E_MAX = E_BUCKETS[-1]
-        edges = self._prepare_decode_edges(edges_raw)
-        maxlen = max(max((len(ids) for ids in pe['alt_ids']), default=1)
-                     for pe in edges)
+        scan = native.decode_scan(edges_raw, self.merge_runs,
+                                  DECODE_MERGE_MAX)
+        if scan is None:
+            edges = self._prepare_decode_edges(edges_raw)
+            nE = len(edges)
+            maxlen = max(max((len(ids) for ids in pe['alt_ids']),
+                             default=1) for pe in edges)
+        else:
+            nE, maxlen = scan
         if maxlen > FUSED_MAX_ALT_LEN:
             raise NotImplementedError(
                 'an alternative of %d chars exceeds the decode kernel\'s '
@@ -1009,44 +1062,91 @@ class Rater:
                 '(ROADMAP.md Queue 1, "Wide-beam decode engine")'
                 % (maxlen, FUSED_MAX_ALT_LEN))
         L = _bucket(max(maxlen, 1), L_BUCKETS)
+        full = None
+        if scan is not None:
+            # a document of several blocks pads to a multiple of E_MAX,
+            # so every block slices to E_MAX rows (padding: free edges)
+            E_full = (_bucket(nE, E_BUCKETS) if nE <= E_MAX
+                      else -(-nE // E_MAX) * E_MAX)
+            edges, *full = native.decode_fill(
+                edges_raw, self.merge_runs, DECODE_MERGE_MAX, E_full, A, L,
+                self.vocab._table())
         wts = self._decode_weights(context)
         state, cost = self._fused_traceback(device_traceback, K,
                                             wts['emb'])
-        nE = len(edges)
-        single = nE <= E_MAX
-        dev = self.device
+        single = nE <= E_MAX and not defer_walk
         packed_blocks = []
         for lo in range(0, nE, E_MAX):
-            block = edges[lo:lo + E_MAX]
-            E = _bucket(len(block), E_BUCKETS)
-            chars, mask, conf, valid = self._fill_decode_arrays(
-                block, E, A, L)
-            steps = _alt_steps(mask)[:, 0] if L > 1 else None
-            packed, state, cost = decode_lattice(
-                wts['emb'], wts['embT'], wts['wcat'], wts['bias'],
-                torch.from_numpy(chars).to(dev),
-                torch.from_numpy(mask).to(dev),
-                torch.from_numpy(conf).to(dev),
-                torch.from_numpy(valid).to(dev),
-                state, cost, lm_weight=float(lm_weight),
-                v_real=wts['v_real'], device_walk=single,
-                alt_steps=(None if steps is None
-                           else torch.from_numpy(steps).to(dev)),
-                n_real=len(block))
-            packed_blocks.append(packed)
+            n_blk = min(E_MAX, nE - lo)
+            if full is not None:
+                E = E_full if nE <= E_MAX else E_MAX
+                arrays = [a[lo:lo + E] for a in full]
+            else:
+                arrays = self._fill_decode_arrays(
+                    edges[lo:lo + E_MAX], _bucket(n_blk, E_BUCKETS), A, L)
+            packed, state, cost = self._launch_decode(
+                wts, arrays, state, cost, lm_weight, single, n_blk)
+            packed_blocks.append(_Pinned(packed))
         return (('single' if single else 'blocks'), edges, packed_blocks,
                 K), (state, cost)
 
+    def _launch_decode(self, wts, arrays, state, cost, lm_weight,
+                       device_walk, n_real):
+        """One ``decode_lattice`` launch over host arrays ``(chars,
+        mask, conf, valid)`` of one block (uploaded through pinned
+        memory, without blocking); returns (packed, state, cost)."""
+        chars, mask, conf, valid = arrays
+        L = chars.shape[2]
+        dev = self.device
+        steps = _alt_steps(mask)[:, 0] if L > 1 else None
+        return decode_lattice(
+            wts['emb'], wts['embT'], wts['wcat'], wts['bias'],
+            *(host_to_device(torch.from_numpy(np.ascontiguousarray(a)), dev)
+              for a in (chars, mask, conf, valid)),
+            state, cost, lm_weight=float(lm_weight), v_real=wts['v_real'],
+            device_walk=device_walk,
+            alt_steps=(None if steps is None else
+                       host_to_device(torch.from_numpy(steps), dev)),
+            n_real=int(n_real))
+
     @_gc_paused
-    def rate_best_device_finish(self, pending):
+    def fetch_pendings(self, pendings, prefetched=False):
+        """Pendings with every result on the host (numpy): each
+        result's copy into pinned memory started at its launch, so this
+        waits on each copy's event in turn.  ``prefetched`` is accepted
+        for the JAX package's signature; it changes nothing here."""
+        out = []
+        for p in pendings:
+            if p[0] == 'done':
+                out.append(p)
+                continue
+            p = list(p)
+            p[2] = [_host(a) for a in p[2]]
+            out.append(tuple(p))
+        return out
+
+    @_gc_paused
+    def rate_best_device_finish(self, pending, start_slot=0,
+                                return_entry=False):
         """Fetch + backpointer walk + path emission for a pending decode
-        (see :meth:`rate_best_device_begin`).  Returns (path, entropy)."""
+        (see :meth:`rate_best_device_begin`).  Returns (path, entropy).
+
+        ``start_slot``/``return_entry`` serve lookahead write-back
+        (pages walked in reverse with chained entry slots): the walk
+        starts at final slot ``start_slot`` and, with ``return_entry``,
+        the result is ``((path, entropy), entry slot)``.  They need the
+        records (``defer_walk=True`` at begin)."""
         if pending[0] == 'done':
-            return pending[1], pending[2]
+            out = pending[1], pending[2]
+            return (out, int(start_slot)) if return_entry else out
         kind, edges, packed_blocks, K = pending
         nE = len(edges)
         if kind == 'single':
-            packed = packed_blocks[0].cpu().numpy()
+            if start_slot != 0 or return_entry:
+                raise ValueError(
+                    'device-walked pending has no per-slot records: '
+                    'dispatch with defer_walk=True for lookahead')
+            packed = _host(packed_blocks[0])
             return self._emit_path(edges, packed[1:nE + 1, 0]
                                    .astype(np.int32),
                                    packed[1:nE + 1, 1],
@@ -1054,7 +1154,7 @@ class Rater:
         all_rows = []
         start_cost = start_costs = None
         for packed in packed_blocks:
-            packed = packed.cpu().numpy()
+            packed = _host(packed)
             if start_cost is None:
                 start_cost = float(packed[0, 0])
                 # per-slot initial-beam costs (header's cost third): the
@@ -1063,7 +1163,142 @@ class Rater:
                                          np.float64)
             all_rows.append(packed[1:])
         return self._walk_traceback(edges, all_rows, K, E_BUCKETS[-1],
-                                    start_cost, start_costs)
+                                    start_cost, start_slot=start_slot,
+                                    return_entry=return_entry,
+                                    start_costs=start_costs)
+
+    # -- array lattices: the native page lane and page groups ----------
+
+    def fused_gate_arrays(self, n_prep, maxlen, beam_width):
+        """(E, L) buckets when one ``decode_lattice`` launch can serve
+        an array lattice of ``n_prep`` prepared edges whose longest
+        alternative has ``maxlen`` chars, else None (the processor then
+        takes the record lane).  The card's gate: one block of edges,
+        the kernel's beam and alternative limits, and a layout whose
+        shared memory fits a block's
+        (:func:`ops.decode_kernel.decode_smem_fits`)."""
+        if n_prep <= 0 or beam_width > FUSED_MAX_BEAM or \
+                maxlen > FUSED_MAX_ALT_LEN or n_prep > E_BUCKETS[-1]:
+            return None
+        L = _bucket(max(maxlen, 1), L_BUCKETS)
+        E = _bucket(n_prep, E_BUCKETS)
+        K = _bucket(min(beam_width, FUSED_MAX_BEAM), K_BUCKETS)
+        Vp = max(128, -(-self.voc_size // 128) * 128)
+        if not decode_smem_fits(4, L, K, self.depth, self.width, Vp,
+                                self.voc_size):
+            return None
+        return E, L
+
+    @_gc_paused
+    def rate_best_device_begin_arrays(self, n_prep, E, L, alt_chars,
+                                      alt_mask, alt_conf, alt_valid,
+                                      device_traceback=None, context=None,
+                                      lm_weight=0.5, beam_width=10):
+        """One ``decode_lattice`` launch over a pre-filled array lattice
+        (the native page lane, ``wrapper/page_native.py``), walked on
+        the device; same carry and pending protocol as
+        :meth:`rate_best_device_begin`.  The caller reads choices and
+        costs with :meth:`rate_best_device_finish_arrays`."""
+        K = _bucket(min(beam_width, FUSED_MAX_BEAM), K_BUCKETS)
+        wts = self._decode_weights(context)
+        state, cost = self._fused_traceback(device_traceback, K,
+                                            wts['emb'])
+        packed, state, cost = self._launch_decode(
+            wts, (alt_chars, alt_mask, alt_conf, alt_valid), state, cost,
+            lm_weight, True, n_prep)
+        return ('arrays', n_prep, [_Pinned(packed)], K), (state, cost)
+
+    @staticmethod
+    def rate_best_device_finish_arrays(pending):
+        """(choices, costs, start_cost) of an ``'arrays'`` pending."""
+        _, n_prep, packed_blocks, _ = pending
+        packed = _host(packed_blocks[0])
+        return (packed[1:n_prep + 1, 0].astype(np.int64),
+                np.asarray(packed[1:n_prep + 1, 1], np.float64),
+                float(packed[0, 0]))
+
+    @_gc_paused
+    def rate_best_device_begin_arrays_group(self, segs,
+                                            device_traceback=None,
+                                            context=None, lm_weight=0.5,
+                                            beam_width=10):
+        """Decode several consecutive pages in ONE ``decode_lattice``
+        launch: the pages of a document form one linear lattice.
+
+        ``segs``: per page ``(n_prep, chars, mask, conf, valid)`` with
+        arrays of at least ``n_prep`` rows at a common A and L (the
+        caller sizes the group to one block, :meth:`fused_group_fits`).
+        The launch takes the concatenated real edges with
+        ``device_walk=False`` and ``n_real`` set to their count.
+        Returns ``(group pending, traceback)``; per-page results come
+        from :meth:`rate_best_device_finish_group`.
+
+        Bit-identical to per-page launches: the kernel's per-edge work
+        does not depend on the E bucket (pad edges are skipped), the
+        beam carry flows through the concatenated edges as it would
+        across per-page launches, and each page is walked from its own
+        last edge's rank-0 slot, anchored at its entry slot's carried
+        cost."""
+        A = 4
+        bounds = np.cumsum([0] + [s[0] for s in segs])
+        n_group = int(bounds[-1])
+        L = segs[0][1].shape[2]
+        E = _bucket(n_group, E_BUCKETS)
+        chars = np.zeros((E, A, L), np.int32)
+        mask = np.zeros((E, A, L), np.float32)
+        conf = np.zeros((E, A, L), np.float32)
+        valid = np.zeros((E, A), np.float32)
+        for (n_i, ch_i, m_i, cf_i, v_i), lo in zip(segs, bounds):
+            chars[lo:lo + n_i] = ch_i[:n_i]
+            mask[lo:lo + n_i] = m_i[:n_i]
+            conf[lo:lo + n_i] = cf_i[:n_i]
+            valid[lo:lo + n_i] = v_i[:n_i]
+        valid[n_group:, 0] = 1.0   # pad edges: a free alternative
+        K = _bucket(min(beam_width, FUSED_MAX_BEAM), K_BUCKETS)
+        wts = self._decode_weights(context)
+        state, cost = self._fused_traceback(device_traceback, K,
+                                            wts['emb'])
+        packed, state, cost = self._launch_decode(
+            wts, (chars, mask, conf, valid), state, cost, lm_weight, False,
+            n_group)
+        return ('group', bounds, [_Pinned(packed)], K, {}), (state, cost)
+
+    def fused_group_fits(self, n_group, maxlen, beam_width):
+        """Whether a page group of ``n_group`` prepared edges with
+        alternatives of up to ``maxlen`` chars still fits one launch
+        (the gate of :meth:`fused_gate_arrays`)."""
+        return self.fused_gate_arrays(n_group, maxlen,
+                                      beam_width) is not None
+
+    @staticmethod
+    def rate_best_device_finish_group(pending, i):
+        """(choices, costs, start_cost) of page ``i`` of a group
+        pending.  The records reach the host once a group (cached in
+        the pending); page ``i`` is walked back from its own last edge's
+        rank-0 slot through its own edge range and anchored at the entry
+        slot's carried cost: the previous page's last edge's cost there,
+        or the header's initial cost for the group's first page."""
+        _, bounds, packed_blocks, K, cache = pending
+        if 'bp' not in cache:
+            packed = _host(packed_blocks[0])
+            rows = packed[1:]
+            cache['bp'] = rows[:, :K].astype(np.int32).tolist()
+            cache['alt'] = rows[:, K:2 * K].astype(np.int64).tolist()
+            cache['cost'] = np.asarray(rows[:, 2 * K:3 * K],
+                                       np.float64).tolist()
+            cache['cost0'] = np.asarray(packed[0, 2 * K:3 * K], np.float64)
+        bp, alt, co = cache['bp'], cache['alt'], cache['cost']
+        lo, hi = int(bounds[i]), int(bounds[i + 1])
+        choices = np.empty(hi - lo, np.int64)
+        costs = np.empty(hi - lo, np.float64)
+        k = 0
+        for j in range(hi - 1, lo - 1, -1):
+            choices[j - lo] = alt[j][k]
+            costs[j - lo] = co[j][k]
+            k = bp[j][k]
+        start_cost = float(cache['cost0'][k]) if lo == 0 \
+            else co[lo - 1][k]
+        return choices, costs, start_cost
 
     def _prepare_decode_edges(self, edges, merge=None):
         """Convert lattice edges into decode-edge dicts, merging runs of
@@ -1179,16 +1414,24 @@ class Rater:
         return alt_chars, alt_mask, alt_conf, alt_valid
 
     def _walk_traceback(self, edges, all_rows, K, E_MAX, start_cost,
+                        start_slot=0, return_entry=False,
                         start_costs=None):
         """Host backpointer walk over fetched [bp|alt|cost] rows (exact
         across chained blocks; slot 0 is the best final hypothesis),
-        then path emission anchored at the entry slot's initial cost."""
+        then path emission anchored at the entry slot's initial cost.
+
+        ``start_slot`` selects the final-beam hypothesis the walk starts
+        from (rank order): lookahead write-back walks page N from the
+        slot page N+1's walk entered through.  With ``return_entry`` the
+        result is ``((path, entropy), entry slot)``, the entry slot
+        being the slot in the previous page's final beam (the carry
+        keeps slot order)."""
         nE = len(edges)
         rows = np.concatenate(all_rows, axis=0)
         bp = rows[:, :K].astype(np.int32)
         alts_m = rows[:, K:2 * K].astype(np.int32)
         costs_m = rows[:, 2 * K:]
-        k = 0
+        k = int(start_slot)
         rev_choices = []
         rev_costs = []
         for ei in range(len(rows) - 1, -1, -1):
@@ -1210,12 +1453,17 @@ class Rater:
             # anchor at the ENTRY slot's initial cost: the walked path
             # may continue from a non-best previous-page hypothesis
             start_cost = float(start_costs[k])
-        return self._emit_path(edges, choices, path_costs, start_cost)
+        out = self._emit_path(edges, choices, path_costs, start_cost)
+        return (out, k) if return_entry else out
 
     def _emit_path(self, edges, choices, path_costs, start_cost):
         """Build the (element, textequiv, score) path from per-edge
         choices + cumulative costs, expanding merged runs (uniform
-        per-char score within a run).  Returns (path, entropy)."""
+        per-char score within a run).  Returns (path, entropy).  Runs
+        in C++ (``native.decode_emit``) unless ``KERASLM_NATIVE=0``."""
+        out = native.decode_emit(edges, choices, path_costs, start_cost)
+        if out is not None:
+            return out
         costs = np.asarray(path_costs[:len(edges)], np.float64).tolist()
         chs = np.asarray(choices[:len(edges)], np.int64).tolist()
         path = []
@@ -1327,11 +1575,10 @@ class Rater:
             raise NotImplementedError(
                 'decode_bf16 is not ported yet (ROADMAP.md Queue 1, '
                 '"bf16 decode")')
-        prepared: List[Any] = [
-            self._prepare_decode_edges(raw, merge=merge) if sizes[i]
-            else None for i, raw in enumerate(raw_list)]
+        prepared: List[Any] = [None] * len(raw_list)
         gpending = self._rate_best_batch_fused_begin(
-            prepared, live, maxlen, context, lm_weight, beam_width)
+            raw_list, merge, sizes, prepared, live, maxlen, context,
+            lm_weight, beam_width)
         return ('fusedb', gpending, prepared, results)
 
     def _batch_scans(self, raw_list, beam_width):
@@ -1343,11 +1590,11 @@ class Rater:
         every edge takes one char step (on the parent rows) instead of an
         L=8 bucket; paths equal the merged decode's, per-char scores are
         exact (a merged run's are uniform)."""
-        scans = [_decode_scan(raw, self.merge_runs, DECODE_MERGE_MAX)
+        scans = [_scan(raw, self.merge_runs, DECODE_MERGE_MAX)
                  if raw else (0, 0) for raw in raw_list]
         if self.merge_runs and beam_width <= FUSED_MAX_BEAM and \
                 max((m for _, m in scans), default=1) > 1:
-            scans_u = [_decode_scan(raw, False, 1) if raw else (0, 0)
+            scans_u = [_scan(raw, False, 1) if raw else (0, 0)
                        for raw in raw_list]
             if max((m for n, m in scans_u if n), default=1) <= 1:
                 return False, [(n, min(m, 1)) for n, m in scans_u]
@@ -1366,7 +1613,8 @@ class Rater:
         cost[::K] = 0.0
         return state, cost
 
-    def _rate_best_batch_fused_begin(self, prepared, live, maxlen, context,
+    def _rate_best_batch_fused_begin(self, raw_list, merge, all_sizes,
+                                     prepared, live, maxlen, context,
                                      lm_weight, beam_width):
         """Launch the batched decode of the ``live`` documents (one group:
         one block of the kernel per document) in blocks of
@@ -1375,7 +1623,11 @@ class Rater:
         backpointer walk kernel once per block, last block first; starts
         one copy of all walks into pinned host memory and returns
         ``(live, E_blk, per-block walk sizes, (host walks, event))``
-        without waiting."""
+        without waiting.  Each live document's arrays are filled once
+        (in C++, ``native.decode_fill``, or with ``KERASLM_NATIVE=0`` by
+        :meth:`_prepare_decode_edges` and :meth:`_fill_decode_arrays`)
+        and sliced per block; its emission metadata go into
+        ``prepared[i]``."""
         K = _bucket(min(beam_width, FUSED_MAX_BEAM), K_BUCKETS)
         A = 4
         N = len(live)
@@ -1383,12 +1635,22 @@ class Rater:
         dev = self.device
         wts = self._decode_weights(context)
         E_blk = getattr(self, 'fused_batch_E_blk', None) or E_BUCKETS[-1]
-        sizes = [len(prepared[i]) for i in live]
+        sizes = [all_sizes[i] for i in live]
         nE = max(sizes)
-        # whole-document arrays filled once, sliced per block
-        full = [self._fill_decode_arrays(
-            prepared[i], _bucket_unbounded(n, E_BUCKETS), A, L)
-            for i, n in zip(live, sizes)]
+        table = self.vocab._table()
+        full = []
+        for i, n in zip(live, sizes):
+            E_doc = _bucket_unbounded(n, E_BUCKETS)
+            filled = native.decode_fill(raw_list[i], merge, DECODE_MERGE_MAX,
+                                        E_doc, A, L, table)
+            if filled is None:
+                prepared[i] = self._prepare_decode_edges(raw_list[i],
+                                                         merge=merge)
+                full.append(self._fill_decode_arrays(prepared[i], E_doc, A,
+                                                     L))
+            else:
+                prepared[i] = filled[0]
+                full.append(filled[1:])
         state, cost = self._batch_beam_init(wts['emb'], N, K)
         recs = []
         for lo in range(0, nE, E_blk):

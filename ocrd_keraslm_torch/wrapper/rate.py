@@ -21,12 +21,20 @@ artificial whitespace/newline edges and tokenisation repair, then
   engine (``Rater.rate_best``), with the reference's one-page lookahead:
   page N is written once page N+1 has decoded, the last page at the end.
 
+Pages are read in one of three lanes: the native lane (default for
+device decoding at word or glyph level; ``KERASLM_NATIVE_PAGE=0`` turns
+it off): a C++ byte scan builds the array lattice and the result is
+spliced into the original bytes (``page_native``); the ElementTree
+records (``page_fast``); the object model (``KERASLM_FAST_PAGE=0``).
+Consecutive native-lane pages decode as page groups, one kernel launch
+for up to 1024 edges of several pages (``KERASLM_FUSE_PAGES=0``: a
+launch a page).  ``lookahead_writeback=true`` keeps every page's
+records and walks the pages in reverse with the entry slot chained
+(the reference's lock-in); its pages take the record lane.
+
 Both write the result back and recompute all higher hierarchy levels
 honoring ReadingOrder, ``textLineOrder`` (bottom-to-top),
 ``readingDirection`` (right-to-left) and ``Relation type=join``.
-Parameters of the JAX processor that select paths this package does not
-have yet raise ``NotImplementedError`` naming the ROADMAP.md item that
-ports them.
 """
 from __future__ import annotations
 
@@ -38,12 +46,16 @@ from dataclasses import dataclass
 from math import ceil, log
 from typing import Any, Dict, List, Optional, Tuple
 
-from ..rater import NonLinearLatticeError, Rater, _gc_paused
+from .. import native
+from ..rater import (DECODE_MERGE_MAX, NonLinearLatticeError, Rater,
+                     _gc_paused)
 from .mets import MIMETYPE_PAGE, Mets, Workspace
 from .page import (BOTTOM_TO_TOP, RIGHT_TO_LEFT, OrderedGroupIndexedType,
                    OrderedGroupType, PcGts, TextEquivType, MetadataItem,
                    parse_page, to_xml)
+from . import page_native
 from .page_fast import parse_page_fast
+from .page_native import NativePageDoc
 
 LOG = logging.getLogger(__name__)
 
@@ -82,20 +94,19 @@ OCRD_TOOL = {
     },
 }
 
-# parameter values this package cannot serve yet -> ROADMAP.md item
-_NOT_PORTED = (
-    ('lookahead_writeback', True, 'Lookahead write-back'),
-)
-# the JAX processor's environment switches of lanes this package does
-# not have yet: set to anything but 0 they ask for them -> ROADMAP.md item
-_NOT_PORTED_ENV = (
-    ('KERASLM_NATIVE_PAGE', 'Native page lane'),
-    ('KERASLM_FUSE_PAGES', 'Page-group fusion'),
-)
-
-
 def _config_env(name, default):
     return os.environ.get(name, default)
+
+
+def _pending_ready(pending) -> bool:
+    """Whether finishing a launched page cannot block: every result of
+    its pending is on the host (its copy's CUDA event has completed, or
+    it lies in host memory already)."""
+    if pending[0] == 'done':
+        return True
+    if pending[0] == 'gseg':
+        pending = pending[1]
+    return all(not hasattr(a, 'ready') or a.ready() for a in pending[2])
 
 
 @dataclass
@@ -140,16 +151,6 @@ class KerasRate:
                     self.parameter[name] not in schema['enum']:
                 raise ValueError('invalid value %r for parameter %s'
                                  % (self.parameter[name], name))
-        for name, value, item in _NOT_PORTED:
-            if bool(self.parameter[name]) == value:
-                raise NotImplementedError(
-                    '%s=%s is not ported yet (ROADMAP.md Queue 1, "%s")'
-                    % (name, str(value).lower(), item))
-        for name, item in _NOT_PORTED_ENV:
-            if os.environ.get(name, '0') != '0':
-                raise NotImplementedError(
-                    '%s=%s is not ported yet (ROADMAP.md Queue 1, "%s")'
-                    % (name, os.environ[name], item))
         self.rater: Optional[Rater] = None
 
     @property
@@ -323,15 +324,25 @@ class KerasRate:
     def process_workspace_stateful(self, workspace: Workspace) -> None:
         """Sequential page loop with the beam carried across pages and
         the OCR-D error policy (OCRD_MISSING_OUTPUT /
-        OCRD_EXISTING_OUTPUT / OCRD_MAX_MISSING_OUTPUTS).  On the device
-        all pages are launched first; each is then fetched and written
-        in page order.  A branching page there decodes through the host
-        engine and is locked in and written at once (the pages launched
-        before it are written first), and the device carry resets: the
-        device and host beams are not interchangeable.  With
-        ``device_decoding=false`` the host engine decodes every page,
-        writing each once the next has decoded; the last is locked in
-        at the end."""
+        OCRD_EXISTING_OUTPUT / OCRD_MAX_MISSING_OUTPUTS).
+
+        On the device every page is launched first, then fetched and
+        written in page order; pages whose results are already on the
+        host are written between launches.  Pages that the native lane
+        serves gather into page groups, one ``decode_lattice`` launch a
+        group (``KERASLM_FUSE_PAGES=0``: a launch a page); any other
+        page flushes the open group first, so the carry stays in page
+        order.  With ``lookahead_writeback`` every page keeps its
+        records, and the pages are walked in reverse with the entry
+        slot chained, so that page N's path is the one the globally
+        best final path runs through (reference lib/rating.py:736-741);
+        they are still written in page order.  A branching page decodes
+        through the host engine and is locked in and written at once
+        (the pages launched before it are walked and written first),
+        and the device carry resets: the device and host beams are not
+        interchangeable.  With ``device_decoding=false`` the host engine
+        decodes every page, writing each once the next has decoded; the
+        last is locked in at the end."""
         level = self.parameter['textequiv_level']
         self.workspace = workspace
         self.verify()
@@ -344,13 +355,20 @@ class KerasRate:
         prev: Optional[RateState] = None
         device_tb = None
         device_mode = self.parameter['device_decoding']
+        lookahead = bool(self.parameter['lookahead_writeback'])
         device_pending = []  # launched pages awaiting fetch/write
         input_files = list(self.input_files)
+        if device_mode and native.enabled():
+            # build the native libraries here, outside the page policy:
+            # a failed build raises instead of failing every page
+            native.load_decode_prep()
+            self._native_page_eligible()
 
         def page_failure(input_file, page_id, err):
             """OCRD_MISSING_OUTPUT policy for ONE failed page: ABORT
             raises, COPY emits the input as fallback, every failure is
-            logged and counted toward the ratio abort."""
+            logged and counted toward the ratio abort.  A failure inside
+            a page group is attributed to ITS page."""
             nonlocal nr_failed
             if missing_policy == 'ABORT':
                 self.logger.error('Failure on page %s: %s', page_id,
@@ -379,39 +397,144 @@ class KerasRate:
                 raise RuntimeError(
                     'got %r despite OCRD_EXISTING_OUTPUT==OVERWRITE' % err)
 
-        def finish_pending():
-            """Fetch and write every launched page, in page order."""
+        def finish_one(rec, result=None):
+            """Fetch and write ONE launched page under the policy;
+            success counts only once the page is written."""
             nonlocal nr_succeeded
-            while device_pending:
-                rec = device_pending.pop(0)
-                page_id, input_file = rec[3], rec[4]
+            page_id, input_file = rec[3], rec[4]
+            try:
+                self._finish_device_page(rec[:4], result=result)
+                nr_succeeded += 1
+            except FileExistsError as err:
+                existing_output(err)
+            except KeyboardInterrupt:
+                raise
+            except Exception as err:
+                page_failure(input_file, page_id, err)
+
+        def drain_ready():
+            """Write head pages whose results are already on the host
+            (never blocks the launches); lookahead needs every page's
+            records first, so it never drains early."""
+            if lookahead:
+                return
+            while device_pending and \
+                    _pending_ready(device_pending[0][0]):
+                finish_one(device_pending.pop(0))
+
+        def finish_pending():
+            """Fetch and write every launched page, in page order; under
+            lookahead walk them in reverse first, chaining the entry
+            slot.  A failed walk restarts the chain at slot 0 and leaves
+            its page to the write loop's error policy."""
+            results = [None] * len(device_pending)
+            if lookahead and device_pending:
+                fetched = self.rater.fetch_pendings(
+                    [rec[0] for rec in device_pending], prefetched=True)
+                device_pending[:] = [(p,) + rec[1:] for p, rec in
+                                     zip(fetched, device_pending)]
+                slot = 0
+                for pi in range(len(device_pending) - 1, -1, -1):
+                    try:
+                        results[pi], slot = \
+                            self.rater.rate_best_device_finish(
+                                device_pending[pi][0], start_slot=slot,
+                                return_entry=True)
+                    except KeyboardInterrupt:
+                        raise
+                    except Exception:
+                        if missing_policy == 'ABORT':
+                            raise
+                        self.logger.exception(
+                            'lookahead walk failed on page %s',
+                            device_pending[pi][3])
+                        slot = 0
+            pending = list(device_pending)
+            device_pending.clear()
+            for rec, result in zip(pending, results):
+                finish_one(rec, result)
+
+        # page-group fusion: consecutive native-lane pages gather here
+        # and launch as ONE decode_lattice call (bit-identical results)
+        gbuf: List[tuple] = []
+        fuse_pages = os.environ.get('KERASLM_FUSE_PAGES', '1') != '0'
+
+        def flush_group():
+            nonlocal device_tb
+            device_tb = self._flush_page_group(gbuf, device_tb,
+                                               device_pending, page_failure)
+
+        # one-ahead page load: the file read and native scan of page i+1
+        # overlap page i's launch work (one worker thread; an error
+        # surfaces at .result() inside the consuming page's policy guard)
+        prefetcher = None
+        futures: List[Any] = [None] * len(input_files)
+        if device_mode and len(input_files) > 1:
+            from concurrent.futures import ThreadPoolExecutor
+            prefetcher = ThreadPoolExecutor(max_workers=1)
+
+        def load_page_at(i):
+            if prefetcher is None:
+                return self._load_page(input_files[i],
+                                       input_files[i].pageId)
+            for j in (i, i + 1):
+                if j < len(input_files) and futures[j] is None:
+                    futures[j] = prefetcher.submit(
+                        self._load_page, input_files[j],
+                        input_files[j].pageId)
+            return futures[i].result()
+
+        try:
+            for page_i, input_file in enumerate(input_files):
+                drain_ready()
+                page_id = input_file.pageId
+                self.logger.info('preparing page %s', page_id)
                 try:
-                    self._finish_device_page(rec[:4])
-                    nr_succeeded += 1
+                    # inside the policy guard: a non-PAGE input is a page
+                    # failure (SKIP/COPY/ABORT), not a silent skip
+                    pcgts = load_page_at(page_i)
+                    if pcgts is None:
+                        continue
+                    file_id = self._make_file_id(input_file)
+                    if self._output_exists(file_id):
+                        continue
+                    if not device_mode:
+                        prev = self.process_page_pcgts_stateful(
+                            pcgts, prev, file_id, page_id)
+                        nr_succeeded += 1
+                        continue
+                    scan = (self._native_scan_for_group(pcgts)
+                            if fuse_pages and
+                            isinstance(pcgts, NativePageDoc) else None)
                 except FileExistsError as err:
                     existing_output(err)
+                    continue
                 except KeyboardInterrupt:
                     raise
                 except Exception as err:
                     page_failure(input_file, page_id, err)
-
-        for input_file in input_files:
-            page_id = input_file.pageId
-            self.logger.info('preparing page %s', page_id)
-            try:
-                # inside the policy guard: a non-PAGE input is a page
-                # failure (SKIP/COPY/ABORT), not a silent skip
-                pcgts = self._load_page(input_file, page_id)
-                if pcgts is None:
                     continue
-                file_id = self._make_file_id(input_file)
-                if self._output_exists(file_id):
+                # group flushes run outside the page guard: host-side
+                # failures retry page by page inside the flush, and a
+                # kernel error raises
+                if scan is not None:
+                    n_raw, n_prep, maxlen = scan
+                    if gbuf and not self.rater.fused_group_fits(
+                            sum(g[3] for g in gbuf) + n_prep,
+                            max(max(g[4] for g in gbuf), maxlen),
+                            self.parameter['beam_width']):
+                        flush_group()
+                    # per-page log lines as on the per-page path
+                    self.rater.logger.info(
+                        "Scoring text in page '%s' at the %s level "
+                        '(device beam)', pcgts.get_pcGtsId(), level)
+                    self.rater.logger.info(
+                        'Rating %d elements including its alternatives',
+                        n_raw)
+                    gbuf.append((pcgts, file_id, page_id, n_prep, maxlen,
+                                 n_raw, input_file))
                     continue
-                if not device_mode:
-                    prev = self.process_page_pcgts_stateful(
-                        pcgts, prev, file_id, page_id)
-                    nr_succeeded += 1
-                    continue
+                flush_group()
                 try:
                     rec, device_tb = self.process_page_pcgts_device_begin(
                         pcgts, device_tb, file_id, page_id)
@@ -424,28 +547,46 @@ class KerasRate:
                         'page %s: %s — decoding via the host DAG engine '
                         '(beam carry resets at the engine switch)',
                         page_id, nle)
-                    state = self.process_page_pcgts_stateful(
-                        pcgts, None, file_id, page_id)
-                    path, entropy, _ = self.rater.next_path(
-                        state.traceback[0], ([], state.traceback[1]))
-                    finish_pending()
-                    _page_update_from_path(level, path, entropy,
-                                           logger=self.logger)
-                    page_update_higher_textequiv_levels(level, state.pcgts)
-                    self._write_page(state.pcgts, state.file_id,
-                                     state.page_id)
-                    nr_succeeded += 1
+                    try:
+                        if isinstance(pcgts, NativePageDoc):
+                            # the host engine needs the PAGE object API
+                            pcgts = pcgts.to_fast()
+                        state = self.process_page_pcgts_stateful(
+                            pcgts, None, file_id, page_id)
+                        path, entropy, _ = self.rater.next_path(
+                            state.traceback[0], ([], state.traceback[1]))
+                        finish_pending()
+                        _page_update_from_path(level, path, entropy,
+                                               logger=self.logger)
+                        page_update_higher_textequiv_levels(level,
+                                                            state.pcgts)
+                        self._write_page(state.pcgts, state.file_id,
+                                         state.page_id)
+                        nr_succeeded += 1
+                    except FileExistsError as err:
+                        existing_output(err)
+                    except KeyboardInterrupt:
+                        raise
+                    except Exception as err:
+                        page_failure(input_file, page_id, err)
                     device_tb = None
                     continue
+                except FileExistsError as err:
+                    existing_output(err)
+                    continue
+                except KeyboardInterrupt:
+                    raise
+                except Exception as err:
+                    page_failure(input_file, page_id, err)
+                    continue
                 # success is only counted when the page is fetched AND
-                # written (finish_pending)
+                # written (finish_one)
                 device_pending.append(rec + (input_file,))
-            except FileExistsError as err:
-                existing_output(err)
-            except KeyboardInterrupt:
-                raise
-            except Exception as err:
-                page_failure(input_file, page_id, err)
+        finally:
+            # the prefetch thread must not outlive the run
+            if prefetcher is not None:
+                prefetcher.shutdown(wait=False, cancel_futures=True)
+        flush_group()
         finish_pending()
         if prev:
             # the host engine's last page: lock it into its own best path
@@ -470,10 +611,129 @@ class KerasRate:
 
     # -- per-page processing ------------------------------------------
 
+    def _native_page_eligible(self) -> bool:
+        """Whether the native lane serves this run's pages: device
+        decoding at word or glyph level without lookahead (whose reverse
+        walk needs the record protocol), ``KERASLM_NATIVE_PAGE`` not 0
+        and the scanner built (a failed build raises)."""
+        return (self.parameter['alternative_decoding']
+                and self.parameter['device_decoding']
+                and not self.parameter['lookahead_writeback']
+                and self.parameter['textequiv_level'] in ('word', 'glyph')
+                and self.rater is not None
+                and os.environ.get('KERASLM_NATIVE_PAGE', '1') != '0'
+                and page_native.available())
+
+    def _native_scan_for_group(self, doc: NativePageDoc):
+        """The lattice of a native doc for page-group fusion: ``(n_raw,
+        n_prep, maxlen)`` when one launch can take the page, else None
+        (the caller flushes the group and takes the per-page path,
+        which checks its own gates)."""
+        lat = doc.lattice(self.parameter['textequiv_level'],
+                          self.rater.merge_runs, DECODE_MERGE_MAX)
+        if lat is None or self.rater.fused_gate_arrays(
+                lat[1], lat[2], self.parameter['beam_width']) is None:
+            return None
+        return lat
+
+    def _flush_page_group(self, gbuf, device_tb, device_pending,
+                          on_failure):
+        """Launch the buffered native pages as ONE ``decode_lattice``
+        call (:meth:`Rater.rate_best_device_begin_arrays_group`): the
+        carry flows through the concatenated edges as it would across
+        per-page launches, and each page is walked from its own last
+        edge's rank-0 slot.  When the host side of the group fails (the
+        gate or a page's fill), each page is retried through the
+        per-page begin, and a page that fails there too goes to
+        ``on_failure`` (the caller's page policy) under ITS page id.  A
+        failure of the launch itself (a kernel build or launch error)
+        raises."""
+        if not gbuf:
+            return device_tb
+        beam_width = self.parameter['beam_width']
+        pages = list(gbuf)
+        gbuf.clear()
+        try:
+            gate = self.rater.fused_gate_arrays(
+                sum(g[3] for g in pages), max(g[4] for g in pages),
+                beam_width)
+            if gate is None:
+                raise RuntimeError('page group no longer fits one launch')
+            table = self.rater.vocab._table()
+            segs = [(n_prep,) + doc.fill(table, n_prep, 4, gate[1])
+                    for doc, _, _, n_prep, _, _, _ in pages]
+        except KeyboardInterrupt:
+            raise
+        except Exception:
+            self.logger.exception('page-group prep failed; launching its '
+                                  'pages one by one')
+            for doc, fid, pid, _, _, _, inf in pages:
+                try:
+                    rec, device_tb = self.process_page_pcgts_device_begin(
+                        doc, device_tb, fid, pid)
+                except KeyboardInterrupt:
+                    raise
+                except Exception as err:
+                    on_failure(inf, pid, err)
+                    continue
+                device_pending.append(rec + (inf,))
+            return device_tb
+        pending, device_tb = self.rater.rate_best_device_begin_arrays_group(
+            segs, device_traceback=device_tb, context=self._page_context(),
+            lm_weight=self.parameter['lm_weight'], beam_width=beam_width)
+        page_native.groups += 1
+        page_native.pages += len(pages)
+        for i, (doc, fid, pid, _, _, _, inf) in enumerate(pages):
+            device_pending.append((('gseg', pending, i), doc, fid, pid, inf))
+        return device_tb
+
+    def _device_begin_native(self, doc: NativePageDoc, device_tb,
+                             file_id: str, page_id: str):
+        """Native-lane begin: the array lattice straight into one
+        ``decode_lattice`` launch.  Returns None when the lattice or the
+        kernel's gate refuses the page (counted as a bail; the caller
+        takes the record lane through ``doc.to_fast()``)."""
+        level = self.parameter['textequiv_level']
+        beam_width = self.parameter['beam_width']
+        lat = doc.lattice(level, self.rater.merge_runs, DECODE_MERGE_MAX)
+        if lat is None:
+            return None
+        n_raw, n_prep, maxlen = lat
+        gate = self.rater.fused_gate_arrays(n_prep, maxlen, beam_width)
+        if gate is None:
+            page_native._bail(
+                doc, 'kernel gate: %d prepared edges, alternatives of up '
+                'to %d chars at beam width %d' % (n_prep, maxlen,
+                                                  beam_width))
+            return None
+        E, L = gate
+        self.rater.logger.info("Scoring text in page '%s' at the %s "
+                               'level (device beam)',
+                               doc.get_pcGtsId(), level)
+        chars, mask, conf, valid = doc.fill(self.rater.vocab._table(),
+                                            E, 4, L)
+        self.rater.logger.info('Rating %d elements including its '
+                               'alternatives', n_raw)
+        pending, device_tb = self.rater.rate_best_device_begin_arrays(
+            n_prep, E, L, chars, mask, conf, valid,
+            device_traceback=device_tb, context=self._page_context(),
+            lm_weight=self.parameter['lm_weight'], beam_width=beam_width)
+        page_native.pages += 1
+        return (pending, doc, file_id, page_id), device_tb
+
     def process_page_pcgts_device_begin(self, pcgts: PcGts, device_tb,
                                         file_id: str, page_id: str):
         """Build the page lattice and LAUNCH its decode; returns
-        (pending record, new device traceback)."""
+        (pending record, new device traceback).  A native doc takes the
+        array lattice where its gates pass, else the record lane."""
+        if isinstance(pcgts, NativePageDoc):
+            rec = self._device_begin_native(pcgts, device_tb, file_id,
+                                            page_id)
+            if rec is not None:
+                return rec
+            self.logger.debug('native page lane ineligible (%s): record '
+                              'lane', pcgts.bail)
+            pcgts = pcgts.to_fast()
         level = self.parameter['textequiv_level']
         self.rater.logger.info("Scoring text in page '%s' at the %s "
                                'level (device beam)',
@@ -487,7 +747,8 @@ class KerasRate:
             device_traceback=device_tb,
             context=self._page_context(),
             lm_weight=self.parameter['lm_weight'],
-            beam_width=self.parameter['beam_width'])
+            beam_width=self.parameter['beam_width'],
+            defer_walk=bool(self.parameter['lookahead_writeback']))
         return (pending, pcgts, file_id, page_id), device_tb
 
     def process_page_pcgts_stateful(self, pcgts: PcGts,
@@ -530,10 +791,28 @@ class KerasRate:
         return RateState(traceback=traceback, pcgts=pcgts, file_id=file_id,
                          page_id=page_id)
 
-    def _finish_device_page(self, rec):
+    def _finish_device_page(self, rec, result=None):
+        """Fetch, walk and write one launched page: a page-group segment
+        or a native doc by splice edits inside the doc, a record-lane
+        page by its path (``result``: the path a lookahead walk
+        found)."""
         pending, pcgts, file_id, page_id = rec
         level = self.parameter['textequiv_level']
-        path, entropy = self.rater.rate_best_device_finish(pending)
+        if pending[0] == 'gseg' or isinstance(pcgts, NativePageDoc):
+            if pending[0] == 'gseg':
+                _, group_pending, seg_i = pending
+                choices, costs, start_cost = \
+                    self.rater.rate_best_device_finish_group(group_pending,
+                                                             seg_i)
+            else:
+                choices, costs, start_cost = \
+                    self.rater.rate_best_device_finish_arrays(pending)
+            pcgts.apply_decode(level, choices, costs, start_cost,
+                               logger=self.logger)
+            self._write_page(pcgts, file_id, page_id)
+            return
+        path, entropy = (result if result is not None
+                         else self.rater.rate_best_device_finish(pending))
         _page_update_from_path(level, path, entropy, logger=self.logger)
         page_update_higher_textequiv_levels(level, pcgts)
         self._write_page(pcgts, file_id, page_id)
@@ -548,9 +827,19 @@ class KerasRate:
         path = os.path.join(self.workspace.directory,
                             input_file.local_filename)
         self.logger.info('processing page %s', page_id)
+        # outside the page guard: a failed build of the scanner raises
+        native_lane = os.environ.get('KERASLM_FAST_PAGE', '1') != '0' and \
+            self._native_page_eligible()
         try:
-            # etree-direct records (page_fast) by default; the object
-            # model with KERASLM_FAST_PAGE=0
+            # three lanes: the native byte lane (C++ scan and splice
+            # write-back, device decoding only), the ElementTree records
+            # (page_fast), the object model (KERASLM_FAST_PAGE=0)
+            if native_lane:
+                doc = NativePageDoc(path)
+                if doc.bail is None:
+                    return doc
+                self.logger.debug('native page lane bailed (%s): record '
+                                  'lane', doc.bail)
             if os.environ.get('KERASLM_FAST_PAGE', '1') != '0':
                 return parse_page_fast(path)
             return parse_page(path)

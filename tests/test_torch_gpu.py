@@ -978,3 +978,78 @@ def test_cuda_batch_never_takes_the_plain_versions(cuda, tmp_path,
     assert all(path for path, _ in
                rater.rate_best_batch(workspace_graphs(str(tmp_path))))
     assert dk.decode_lattice_batch.launches == b0 + 1
+
+
+def _arrays_launches(rater, docs, group):
+    """Per page (choices, costs, start_cost) and the final carry of the
+    native docs ``docs`` decoded in one group launch, or in a launch a
+    page (``group`` false)."""
+    from ocrd_keraslm_torch.rater import DECODE_MERGE_MAX
+    table = rater.vocab._table()
+    lats = [doc.lattice('glyph', True, DECODE_MERGE_MAX) for doc in docs]
+    if group:
+        E, L = rater.fused_gate_arrays(sum(n for _, n, _ in lats),
+                                       max(m for _, _, m in lats), 10)
+        segs = [(n,) + doc.fill(table, n, 4, L)
+                for doc, (_, n, _) in zip(docs, lats)]
+        pending, tb = rater.rate_best_device_begin_arrays_group(segs)
+        return [rater.rate_best_device_finish_group(pending, i)
+                for i in range(len(docs))], tb
+    out, tb = [], None
+    for doc, (_, n, m) in zip(docs, lats):
+        E, L = rater.fused_gate_arrays(n, m, 10)
+        pending, tb = rater.rate_best_device_begin_arrays(
+            n, E, L, *doc.fill(table, E, 4, L), device_traceback=tb)
+        out.append(rater.rate_best_device_finish_arrays(pending))
+    return out, tb
+
+
+def test_group_launch_equals_per_page_launches_bitwise(cuda, tmp_path):
+    """Six seeded glyph pages in ONE group launch (records walked on the
+    host from each page's last edge) against a launch a page (walked on
+    the device): every page's choices, costs and anchor, and the final
+    carry, equal bit for bit."""
+    from chip_smoke import native_docs
+    from ocrd_keraslm_torch.ops import decode_kernel as dk
+    rater = german_rater(cuda)
+    build_workspace(str(tmp_path), np.random.default_rng(23), 6, 3,
+                    rater.vocab, alt_share=0.3)
+    n0 = dk.decode_lattice.launches
+    grouped, (gs, gc) = _arrays_launches(rater, native_docs(str(tmp_path)),
+                                         True)
+    assert dk.decode_lattice.launches == n0 + 1
+    pages, (ps, pc) = _arrays_launches(rater, native_docs(str(tmp_path)),
+                                       False)
+    assert dk.decode_lattice.launches == n0 + 7
+    for (gch, gco, g0), (pch, pco, p0) in zip(grouped, pages):
+        assert np.array_equal(gch, pch) and np.array_equal(gco, pco)
+        assert g0 == p0
+    assert torch.equal(gs, ps) and torch.equal(gc, pc)
+
+
+def test_native_lane_card_matches_cpu(cuda, tmp_path):
+    """The processor's default lanes (native pages in page groups) on
+    the card against the CPU: the lane served every page on both, the
+    same choice per glyph, confs within 1e-4; on the card the record
+    lane writes the native lane's content exactly."""
+    from chip_smoke import (LANES, env_vars, output_glyphs, page_contents,
+                            read_lanes, run_cli, zero_counts)
+    rater = german_rater('cpu')
+    outs = {}
+    for name, platform, lane in (('card', 'cuda', 'native'),
+                                 ('cpu', 'cpu', 'native'),
+                                 ('records', 'cuda', 'records')):
+        d = str(tmp_path / name)
+        build_workspace(d, np.random.default_rng(29), 3, 4, rater.vocab,
+                        alt_share=0.3)
+        zero_counts()
+        with env_vars(**LANES[lane]):
+            run_cli(d, platform)
+        assert read_lanes()['pages'] == (3 if lane == 'native' else 0)
+        outs[name] = (output_glyphs(d)[0], page_contents(d))
+    card, cpu = outs['card'][0], outs['cpu'][0]
+    assert card.keys() == cpu.keys() and card
+    for gid, ((u_g, c_g),) in card.items():
+        ((u_c, c_c),) = cpu[gid]
+        assert u_g == u_c and abs(c_g - c_c) <= 1e-4, (gid, u_g, u_c)
+    assert outs['records'][1] == outs['card'][1]

@@ -162,36 +162,49 @@ def test_cli_module_scores_on_cpu(tmp_path):
     ('alternative_decoding', False), ('device_decoding', False),
     ('lookahead_writeback', True)])
 def test_unported_parameters_raise(param, value):
-    """Parameters that select paths not ported yet raise, naming their
-    ROADMAP.md item.  Scoring (``alternative_decoding=false``) is
-    ported: the processor is built in scoring mode, a stateful model
-    with batch size 1, as in the JAX processor.  So is the host decode
-    engine (``device_decoding=false``): the processor is built for
-    incremental decoding."""
+    """The JAX processor's parameters build the port's processor, each
+    in its mode: scoring (``alternative_decoding=false``: a stateful
+    model with batch size 1, as in the JAX processor), the host decode
+    engine (``device_decoding=false``: incremental decoding) and
+    lookahead write-back (``lookahead_writeback=true``: the record lane,
+    never the native lane)."""
     kwargs = dict(parameter={'model_file': GERMAN, param: value},
                   device='cpu')
+    proc = TKerasRate(**kwargs)
+    proc.setup()
     if param == 'alternative_decoding':
-        proc = TKerasRate(**kwargs)
-        proc.setup()
         assert proc.rater.stateful and proc.rater.batch_size == 1
         return
+    assert not proc.rater.stateful and proc.rater.incremental
     if param == 'device_decoding':
-        proc = TKerasRate(**kwargs)
-        proc.setup()
         assert proc.parameter['device_decoding'] is False
-        assert not proc.rater.stateful and proc.rater.incremental
         return
-    with pytest.raises(NotImplementedError, match='ROADMAP.md'):
-        TKerasRate(**kwargs)
+    assert proc.parameter['lookahead_writeback'] is True
+    assert not proc._native_page_eligible()
 
 
 @pytest.mark.parametrize('var', ['KERASLM_NATIVE_PAGE',
                                  'KERASLM_FUSE_PAGES'])
-def test_unported_lanes_raise(var, monkeypatch):
-    """The JAX processor's native page lane and page-group fusion:
-    asked for, they raise; switched off (0), the processor is built."""
-    monkeypatch.setenv(var, '1')
-    with pytest.raises(NotImplementedError, match='ROADMAP.md'):
-        TKerasRate(parameter={'model_file': GERMAN}, device='cpu')
-    monkeypatch.setenv(var, '0')
-    TKerasRate(parameter={'model_file': GERMAN}, device='cpu')
+def test_unported_lanes_raise(var, tmp_path, monkeypatch):
+    """The JAX processor's native page lane and page-group fusion, on by
+    default as there: asked for (unset or 1), the processor takes the
+    lane and its counter moves; switched off (0), it does not."""
+    from ocrd_keraslm_torch.wrapper import page_native
+    counter = 'pages' if var == 'KERASLM_NATIVE_PAGE' else 'groups'
+    seen = {}
+    for value in (None, '1', '0'):
+        if value is None:
+            monkeypatch.delenv(var, raising=False)
+        else:
+            monkeypatch.setenv(var, value)
+        d = str(tmp_path / ('ws_%s' % value))
+        ws = build_workspace(d, PAGES, glyph_alternatives=ALTERNATIVES)
+        proc = TKerasRate(workspace=ws, parameter={
+            'model_file': GERMAN, 'beam_width': 3}, device='cpu')
+        proc.setup()
+        setattr(page_native, counter, 0)
+        proc.process_workspace(ws)
+        seen[value] = getattr(page_native, counter)
+        assert len(_outputs(d)[0]) == len(PAGES)
+    want = len(PAGES) if counter == 'pages' else 1
+    assert seen == {None: want, '1': want, '0': 0}, seen
