@@ -98,6 +98,26 @@ Phases, each printing its own lines (any failure exits non-zero):
    decode on the card, a double-buffered pair (begin B before finish A)
    equal to the batch, 4 documents card against CPU, the begin (host
    prep) with the C++ prep and with ``KERASLM_NATIVE=0``;
+   unbounded engines (the decode and generation engines of
+   ``ops/beam_device.py``, plain PyTorch on the card): (a) ``-P
+   beam_width 40`` over pages 1-2 of phase 4's workspace through the
+   CLI, no kernel launched, card against CPU (a near-tie passes where
+   both documents' path costs, decoded on the CPU, lie within
+   ``HOST_TIE_BITS``), beside the same pages at beam 32 through
+   ``decode_lattice``, and the engine alone on page 1 (seconds per edge
+   and char step, CUDA launches per edge from ``torch.profiler``); (b)
+   ``-P textequiv_level line`` over 3 pages whose page 2 has lines over
+   64 chars: two ``decode_lattice`` launches (pages 1 and 3), page 2
+   through the engine, card against CPU, 3 of 3 pages written with
+   ``OCRD_MISSING_OUTPUT`` unset; (c) ``rate_best_batch`` of 4 documents
+   at beam 40 in one engine call, each equal to its own
+   ``rate_best_device``; (d) a seeded D=2, W=512 model: decode and a
+   2-document batch with no kernel launch, ``generate -n 256`` with no
+   ``gen_beam`` launch and ``-n 32`` card against CPU, three
+   ``train_step``s with ``lstm_bwd`` in its one-block layout of 4
+   streams a block, card against CPU, ``lstm_bwd`` there against its
+   plain version and pinned by ``WIDE_BWD_DIGEST``, and the one-block
+   layout at 8, 4 and 2 streams a block bit-equal at W=256;
 7. numbers: wall per page (by page lane, and its host split), edges/s
    and scored chars/s, the page groups' and lookahead's walls, the
    device's busy and idle share of the paths (``torch.profiler``), wall
@@ -518,11 +538,14 @@ def _charset(vocab):
 
 
 def build_workspace(directory, rng, n_pages, n_lines, vocab,
-                    alt_share=0.15, identifier='urn:smoke/kant_1784'):
+                    alt_share=0.15, identifier='urn:smoke/kant_1784',
+                    line_words=((8, 13),)):
     """A METS/PAGE workspace of German-like text from ``vocab``'s
-    charset: one region per page, ``n_lines`` lines of ~10 words, one
-    Glyph per char; ``alt_share`` of the glyphs carry 2-4 alternatives
-    (the true char among them, confs within 0.1 of the first)."""
+    charset: one region per page, ``n_lines`` lines of ~10 words (page p:
+    ``line_words[p % len(line_words)]`` gives the range, upper bound
+    excluded), one Glyph per char; ``alt_share`` of the glyphs carry 2-4
+    alternatives (the true char among them, confs within 0.1 of the
+    first)."""
     from ocrd_keraslm_torch.wrapper.mets import Mets, MetsFile, mets_to_xml
     from ocrd_keraslm_torch.wrapper.page import (Glyph, PcGts, TextEquivType,
                                                  TextLine, TextRegion, Word,
@@ -543,7 +566,8 @@ def build_workspace(directory, rng, n_pages, n_lines, vocab,
         for li in range(n_lines):
             line = TextLine('%s_l%d' % (page_id, li))
             texts = []
-            for wi in range(int(rng.integers(8, 13))):
+            for wi in range(int(rng.integers(
+                    *line_words[p % len(line_words)]))):
                 text = words[int(rng.integers(len(words)))]
                 if rng.random() < 0.1:
                     text += ',' if ',' in charset else ''
@@ -609,15 +633,16 @@ def output_glyphs(directory, grp='OCR-D-LM'):
 
 
 def run_cli(directory, platform, beam_width=10, scoring=False,
-            host=False, lookahead=False):
+            host=False, lookahead=False, level='glyph'):
     """The processor through its CLI entry point, in this process: beam
     decoding (with ``host`` ``-P device_decoding false``: the host
     engine; with ``lookahead`` ``-P lookahead_writeback true``), or with
-    ``scoring`` ``-P alternative_decoding false``."""
+    ``scoring`` ``-P alternative_decoding false``; at ``textequiv_level``
+    ``level``."""
     from ocrd_keraslm_torch.wrapper.cli import ocrd_keraslm_rate
     args = ['-m', os.path.join(directory, 'mets.xml'),
             '-I', 'OCR-D-OCR', '-O', 'OCR-D-LM', '-l', 'WARNING',
-            '-P', 'model_file', MODEL, '-P', 'textequiv_level', 'glyph',
+            '-P', 'model_file', MODEL, '-P', 'textequiv_level', level,
             '-P', 'beam_width', str(beam_width)]
     if scoring:
         args += ['-P', 'alternative_decoding', 'false']
@@ -2579,7 +2604,7 @@ def scan_layouts(kind, B, W, D):
     clusters of 1-16 blocks of rows_per_block(B) streams down to one
     where it fits."""
     from ocrd_keraslm_torch.ops import scan_layout as sl
-    out = [(sl.rows_per_block(B), 1, False)]
+    out = [(sl.one_block_rows(kind, B, W, D), 1, False)]
     for cl in sl.CLUSTERS:
         rb = sl.rows_per_block(B)
         while rb >= 1:
@@ -2797,10 +2822,10 @@ def seed_host(seed):
     np.random.seed(seed)
 
 
-def stream_batches(files, vocab, train=False, rng=None):
+def stream_batches(files, vocab, train=False, rng=None, length=TRAIN_T):
     from ocrd_keraslm_torch import data as pdata
     return pdata.gen_stateful_streams(
-        files, vocab, length=TRAIN_T, batch_size=TRAIN_B, n_contexts=1,
+        files, vocab, length=length, batch_size=TRAIN_B, n_contexts=1,
         train=train, rng=rng)
 
 
@@ -2941,14 +2966,15 @@ def training_path(work, card):
                 n_chars=n_chars)
 
 
-def trainer(device, vocab, compute_dtype='float32'):
-    """A configured ``Rater`` at the main path's width with fresh
-    parameters (``configure`` seeds them), trainable copies of them and
-    their optimizer."""
+def trainer(device, vocab, compute_dtype='float32', width=TRAIN_W,
+            length=TRAIN_T):
+    """A configured ``Rater`` at the main path's width (or ``width``)
+    with fresh parameters (``configure`` seeds them), trainable copies of
+    them and their optimizer."""
     from ocrd_keraslm_torch import training
     from ocrd_keraslm_torch.rater import Rater
     rater = Rater(device=device)
-    rater.width, rater.depth, rater.length = TRAIN_W, TRAIN_D, TRAIN_T
+    rater.width, rater.depth, rater.length = width, TRAIN_D, length
     rater.compute_dtype = compute_dtype
     rater.vocab, rater.voc_size = vocab, vocab.size
     rater.configure()
@@ -2956,14 +2982,16 @@ def trainer(device, vocab, compute_dtype='float32'):
     return rater.cfg, params, training.make_optimizer(params)
 
 
-def run_steps(device, vocab, batches, compute_dtype='float32', sync=None):
+def run_steps(device, vocab, batches, compute_dtype='float32', sync=None,
+              width=TRAIN_W, length=TRAIN_T):
     """``train_step`` over ``batches`` from a fresh initialisation and
     dropout seed 5; returns ([loss per step], final carry, [wall s per
     step] when ``sync`` is given)."""
     import torch
     from ocrd_keraslm_torch import training
     from ocrd_keraslm_torch.models.lstm_lm import zero_carry
-    cfg, params, optimizer = trainer(device, vocab, compute_dtype)
+    cfg, params, optimizer = trainer(device, vocab, compute_dtype, width,
+                                     length)
     rng = torch.Generator().manual_seed(5)
     carry = zero_carry(cfg, TRAIN_B, device)
     losses, walls = [], []
@@ -3340,13 +3368,16 @@ def scan_layout(rb=None, cl=1, reg=True):
     """``lstm_scan``, ``score_scan`` and ``lstm_bwd`` launch the register
     layout on clusters of ``cl`` blocks of ``rb`` streams (default: as
     many as the chooser would put in one cluster), or with ``reg`` false
-    the one-block layout, inside the block, whatever the card's occupancy
-    would choose.  The wrappers' cached layouts are dropped on entry and
-    on exit."""
+    the one-block layout (of ``rb`` streams a block where given), inside
+    the block, whatever the card's occupancy would choose.  The wrappers'
+    cached layouts are dropped on entry and on exit."""
     from ocrd_keraslm_torch.ops import lstm_cell as lc
     from ocrd_keraslm_torch.ops import scan_layout as sl
     from ocrd_keraslm_torch.ops import score_kernel as sk
-    choose = sl.choose
+    choose, one_block_rows = sl.choose, sl.one_block_rows
+    if not reg and rb:
+        sl.one_block_rows = lambda kind, B, *a, **k: min(
+            rb, sl.rows_per_block(B))
 
     def forced(kind, B, W, D, fits, n_sm, bf16=False, Vp=0):
         if not reg:
@@ -3364,7 +3395,7 @@ def scan_layout(rb=None, cl=1, reg=True):
     try:
         yield
     finally:
-        sl.choose = choose
+        sl.choose, sl.one_block_rows = choose, one_block_rows
         clear()
 
 
@@ -3622,6 +3653,629 @@ def generation_numbers(rater, gen, card):
     return out
 
 
+# ---------------------------------------------------------------------
+# the unbounded engines: beam widths over 32, texts over 64 chars, a
+# model that no kernel layout takes
+# ---------------------------------------------------------------------
+
+ENGINE_BEAM = 40             # -P beam_width of part (a) and the batch
+WIDE_W, WIDE_T = 512, 64     # part (d): the width and training window
+# sha256 of lstm_bwd's outputs at W=512 (the one-block layout at 4
+# streams a block; B=128, T=64, f32 U, seeded as wide_bwd_inputs makes
+# them), from the first chip run of that layout (NVIDIA H100 80GB HBM3)
+WIDE_BWD_DIGEST = \
+    'e392cbde8c1ceb9ff0cff5732ba8124c0bb03437cade73bd3a82ee16265dc629'
+
+
+def engine_counters():
+    """(edges, char steps) the decode engine ran so far."""
+    from ocrd_keraslm_torch.ops import beam_device as bd
+    return (bd.decode_lattice_device.edges,
+            bd.decode_lattice_device.char_steps)
+
+
+def output_level(directory, level, grp='OCR-D-LM'):
+    """({glyph, line or region id: [(Unicode, conf), ...]}, output files)
+    over every page of ``grp``."""
+    if level == 'glyph':
+        return output_glyphs(directory, grp)
+    from ocrd_keraslm_torch.wrapper.mets import Workspace
+    from ocrd_keraslm_torch.wrapper.page import parse_page
+    ws = Workspace(directory)
+    out, files = {}, list(ws.mets.find_files(fileGrp=grp))
+    for f in files:
+        pcgts = parse_page(os.path.join(directory, f.local_filename))
+        for region in pcgts.get_Page().get_TextRegion():
+            for el in ([region] if level == 'region' else
+                       region.get_TextLine()):
+                out[el.id] = [(te.Unicode, te.conf)
+                              for te in el.get_TextEquiv()]
+    return out, files
+
+
+def engine_choices_cost(cpu_rater, directory, picks, beam_width):
+    """Bits of the document path that takes, at every glyph, the input
+    alternative of index ``picks[glyph id]``: every page of the
+    workspace, restricted to those alternatives, decoded on the CPU by
+    ``rate_best_device`` with the carry (one live path)."""
+    from ocrd_keraslm_torch.wrapper import rate as rate_mod
+    from ocrd_keraslm_torch.wrapper.mets import Workspace
+    from ocrd_keraslm_torch.wrapper.page import parse_page
+    ws = Workspace(directory)
+    total, tb = 0.0, None
+    for f in ws.mets.find_files(fileGrp='OCR-D-OCR'):
+        pcgts = parse_page(os.path.join(directory, f.local_filename))
+        graph, start, end = rate_mod.page_get_linear_graph_at('glyph',
+                                                              pcgts)
+        for _, _, edge in graph.edges(data=True):
+            el = edge['element']
+            if el is not None and el.id in picks:
+                edge['alternatives'] = [te for te in edge['alternatives']
+                                        if te.index == picks[el.id]]
+        _, ent, tb = cpu_rater.rate_best_device(
+            graph, start, end, device_traceback=tb,
+            context=rate_mod.mets_get_context(ws.mets),
+            beam_width=beam_width)
+        total += ent
+    return total
+
+
+def engine_parity(raters, graphs, context, beam_width):
+    """The decode engine on the card against the CPU over the pages
+    ``graphs`` (the beam carried from page to page), each page from the
+    card's carry: records and final beam held by :func:`compare_decode`.
+    Where the two part at a near-tie at the K-th rank (edge t: at K=64
+    the candidates about rank 64 of cumulative costs of thousands of bits
+    lie within a few f32 ulps, 4.9e-4 bits each, of each other often, and
+    the two runs' costs drift apart by that much over a page), the card
+    decodes the page once more up to t and both go on from its carry
+    after t, as :func:`parity_block` does for the kernels.  Returns (max
+    abs error, edges compared, near-tie edges)."""
+    from ocrd_keraslm_torch.rater import (L_BUCKETS, STEP_BUCKETS,
+                                          _bucket, _bucket_unbounded,
+                                          _linear_edges, _longest)
+    card, cpu = raters['cuda'], raters['cpu']
+    K = _bucket(beam_width, STEP_BUCKETS)
+    carry = card._engine_traceback(None, K)
+    err, n, ties, offset = 0.0, 0, [], 0
+    for graph in graphs:
+        edges = card._prepare_decode_edges(_linear_edges(graph))
+        arrays = card._fill_decode_arrays(
+            edges, len(edges), 4,
+            _bucket_unbounded(max(_longest(edges), 1), L_BUCKETS))
+        lo = 0
+        while lo < len(edges):
+            part = tuple(a[lo:] for a in arrays)
+            outs = []
+            for r, cr in ((card, carry),
+                          (cpu, tuple(t.cpu() for t in carry))):
+                packed, *new = r._launch_engine(part, context, cr, 0.5,
+                                                False)
+                # the final beam packed as the kernels carry it
+                outs.append((packed.cpu().numpy(),) + tuple(
+                    t.cpu().numpy() for t in r._fused_traceback(
+                        tuple(new), K, r._decode_weights(context)['emb'])))
+                if r is card:
+                    nxt = tuple(new)
+            e, m, tie = compare_decode(outs[0], outs[1], K, card.width)
+            err, n = max(err, e), n + m
+            if tie is None:
+                carry, lo = nxt, lo + len(part[0])
+                continue
+            ties.append(offset + lo + tie)
+            carry = tuple(card._launch_engine(
+                tuple(a[:tie + 1] for a in part), context, carry, 0.5,
+                False)[1:])
+            lo += tie + 1
+        offset += len(edges)
+    return err, n, ties
+
+
+def engine_cli_card_vs_cpu(rater, base, build, level, beam_width, n_pages,
+                           may_part=False):
+    """A seeded workspace (``build(directory)``) through the processor's
+    CLI on the card and on the CPU, ``OCRD_MISSING_OUTPUT`` unset: every
+    page written; the same text per glyph, line or region and confs
+    within 1e-4; where glyph choices part at a near-tie (both documents'
+    path costs, decoded on the CPU, within ``HOST_TIE_BITS``), the
+    glyphs are listed and pass.  With ``may_part`` (the engine's parity
+    over the same pages found near-ties at the K-th rank, after which
+    the two beam searches hold other hypotheses and their later confs
+    differ) the outputs may part further: at least 98% of the glyphs
+    must keep the same choice.  Returns {platform:
+    numbers}, the card's kernel counts and the engine's edges and char
+    steps."""
+    import torch
+    outs = {}
+    for platform in ('cuda', 'cpu'):
+        d = '%s_%s' % (base, platform)
+        build(d)
+        zero_counts()
+        e0 = engine_counters()
+        with env_vars(OCRD_MISSING_OUTPUT=None):
+            t0 = time.time()
+            run_cli(d, platform, beam_width=beam_width, level=level)
+            if platform == 'cuda':
+                torch.cuda.synchronize()
+            wall = time.time() - t0
+        edges, steps = (b - a for a, b in zip(e0, engine_counters()))
+        out, files = output_level(d, level)
+        assert len(files) == n_pages, ('pages written', len(files), n_pages)
+        assert out and all(len(tes) == 1 for tes in out.values())
+        outs[platform] = dict(dir=d, out=out, wall=wall, counts=read_counts(),
+                              edges=edges, steps=steps)
+    card, cpu = outs['cuda']['out'], outs['cpu']['out']
+    assert card.keys() == cpu.keys()
+    # a near-tie at K=64 among cumulative costs of thousands of bits (one
+    # f32 ulp: 4.9e-4 bits) may part the choices or only the entry slot a
+    # later page's path walks back to, which moves the confs of its first
+    # glyphs
+    ties = [k for k, ((u, c),) in card.items()
+            if cpu[k][0][0] != u or abs(c - cpu[k][0][1]) > 1e-4]
+    conf_err = max([abs(c - cpu[k][0][1]) for k, ((_, c),) in card.items()
+                    if k not in ties] + [0.0])
+    gap = None
+    changed = sum(card[k][0][0] != cpu[k][0][0] for k in ties)
+    if ties and may_part:
+        assert changed <= 0.02 * len(card), (changed, len(card))
+    elif ties:
+        assert level == 'glyph', (level, ties[:5])
+        from ocrd_keraslm_torch.wrapper.mets import Workspace
+        cpu_rater = german_rater('cpu')
+        costs = []
+        for p in ('cuda', 'cpu'):
+            d = outs[p]['dir']
+            picks = {}
+            for f in Workspace(d).mets.find_files(fileGrp='OCR-D-LM'):
+                picks.update(output_indices(os.path.join(
+                    d, f.local_filename)))
+            costs.append(engine_choices_cost(cpu_rater, outs['cpu']['dir'],
+                                             picks, beam_width))
+        gap = abs(costs[0] - costs[1])
+        assert gap <= HOST_TIE_BITS, (ties[:5], costs)
+    outs.update(ties=ties, conf_err=conf_err, gap=gap, changed=changed,
+                n=len(card))
+    return outs
+
+
+def path_cost(cpu_rater, graph, path, beam_width):
+    """Bits of a decode result's ``path`` (one entry an edge, in chain
+    order) through ``graph``: the graph restricted to the path's
+    TextEquivs, decoded on the CPU."""
+    edges = [data for _, _, data in sorted(graph.edges(data=True),
+                                           key=lambda e: e[0])]
+    assert len(edges) == len(path)
+    restricted = chain_graph([dict(data, alternatives=[te])
+                              for data, (_, te, _) in zip(edges, path)])
+    return cpu_rater.rate_best_device(restricted, 0, 0,
+                                      beam_width=beam_width)[1]
+
+
+def same_or_tied(got, want, graphs, cpu_rater, beam_width, cost_ulps=2):
+    """:func:`same_results` document by document; a document whose two
+    results part (an f32 near-tie of two paths) passes where the two
+    paths' costs, decoded on the CPU, lie within ``HOST_TIE_BITS``.
+    Returns (largest difference of the equal documents, [cost gap of
+    each tied document])."""
+    diff, gaps = 0.0, []
+    for g, w, graph in zip(got, want, graphs):
+        try:
+            diff = max(diff, same_results([g], [w], cost_ulps=cost_ulps))
+        except AssertionError:
+            gap = abs(path_cost(cpu_rater, graph, g[0], beam_width)
+                      - path_cost(cpu_rater, graph, w[0], beam_width))
+            assert gap <= HOST_TIE_BITS, ('paths part beyond a near-tie',
+                                          gap)
+            gaps.append(gap)
+    return diff, gaps
+
+
+def device_launches(fn):
+    """(host wall s, CUDA kernel launches, device ms of them) of one
+    ``fn()`` call under ``torch.profiler`` (copies and fills not
+    counted)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not e.name.startswith(('Memcpy', 'Memset'))]
+    return (wall, len(kernels),
+            sum(e.time_range.elapsed_us() for e in kernels) / 1e3)
+
+
+def engine_glyph_pages(rater, work, card):
+    """Part (a): ``-P beam_width 40`` over pages 1-2 of phase 4's seeded
+    workspace, card against CPU: every page written, no kernel launched,
+    the engine's edges and char steps counted; the same pages at beam 32
+    through ``decode_lattice``, for scale; then the engine alone on page
+    1 (``Rater.rate_best_device``): seconds per edge and per char step,
+    CUDA launches per edge."""
+    import torch
+
+    def build(d):
+        return build_workspace(d, np.random.default_rng(7), 2, 40,
+                               rater.vocab)
+    from ocrd_keraslm_torch.wrapper import rate as rate_mod
+    from ocrd_keraslm_torch.wrapper.mets import Workspace
+    base = os.path.join(work, 'engine_glyph')
+    d = base + '_parity'
+    build(d)
+    context = rate_mod.mets_get_context(Workspace(d).mets)
+    t0 = time.time()
+    p_err, p_edges, p_ties = engine_parity(
+        {'cuda': rater, 'cpu': german_rater('cpu')}, workspace_graphs(d),
+        context, ENGINE_BEAM)
+    print('unbounded engines (a), the decode engine card against CPU over '
+          'the 2 pages (the processor\'s context %s, beam %d, K=64, each page '
+          'from the card\'s carry): %d edges compared, max abs error %.3g '
+          '(costs rtol 1e-5 / atol 1e-4, states atol 1e-5), near-ties at the '
+          'K-th rank at edges %s, both resumed from the card\'s beam after '
+          'each; %.1f s'
+          % (context, ENGINE_BEAM, p_edges, p_err, p_ties, time.time() - t0))
+    res = engine_cli_card_vs_cpu(rater, base, build, 'glyph', ENGINE_BEAM, 2,
+                                 may_part=bool(p_ties))
+    run = res['cuda']
+    assert run['counts'] == NO_LAUNCHES, run['counts']
+    assert run['edges'] > 0 and run['steps'] >= run['edges'], run
+    d32 = base + '_beam32'
+    build(d32)
+    zero_counts()
+    t0 = time.time()
+    run_cli(d32, 'cuda', beam_width=32)
+    torch.cuda.synchronize()
+    wall32 = time.time() - t0
+    launches32 = read_counts()['decode_lattice']
+    assert launches32 > 0
+    graph = workspace_graphs(run['dir'])[0]
+    rater.rate_best_device(graph, 0, 0, beam_width=ENGINE_BEAM)  # warm
+    e0 = engine_counters()
+    t0 = time.time()
+    rater.rate_best_device(graph, 0, 0, beam_width=ENGINE_BEAM)
+    torch.cuda.synchronize()
+    alone = time.time() - t0
+    edges, steps = (b - a for a, b in zip(e0, engine_counters()))
+    # traced over the page's first 400 lattice edges (the trace of the
+    # whole page holds ~10^5 launches)
+    head = chain_graph([data for _, _, data in sorted(
+        graph.edges(data=True), key=lambda e: e[0])[:400]])
+    e0 = engine_counters()
+    traced, launches, dev_ms = device_launches(
+        lambda: rater.rate_best_device(head, 0, 0, beam_width=ENGINE_BEAM))
+    t_edges, t_steps = (b - a for a, b in zip(e0, engine_counters()))
+    print('unbounded engines (a), -P beam_width %d (K=64) over 2 glyph pages '
+          '(%d glyphs) through the CLI: every page written, no kernel '
+          'launched (%s), %d engine edges and %d char steps on the card; '
+          '%.3f s on the card = %.3f s/page (CLI call incl. model load, host '
+          'clock), %.3f s on the CPU; choices and confs %s, max conf diff '
+          '%.3g elsewhere (tolerance 1e-4)%s [%s]'
+          % (ENGINE_BEAM, len(run['out']), json.dumps(run['counts']),
+             run['edges'], run['steps'], run['wall'], run['wall'] / 2,
+             res['cpu']['wall'], 'equal on the card and on the CPU'
+             if not res['ties'] else 'equal but at %d of %d glyph(s)'
+             % (len(res['ties']), res['n']), res['conf_err'],
+             '' if not res['ties'] else
+             '; those glyphs %s... (%d with another choice): %s'
+             % (res['ties'][:3], res['changed'],
+                'the two beam searches part after the near-ties above'
+                if res['gap'] is None else 'a near-tie, the two documents\' '
+                'path costs %.3g bits apart (tolerance %g)'
+                % (res['gap'], HOST_TIE_BITS)), card))
+    print('unbounded engines (a) for scale: the same 2 pages at -P '
+          'beam_width 32 (K=32) through decode_lattice, %d launch(es): '
+          '%.3f s = %.3f s/page (CLI call incl. model load) [%s]'
+          % (launches32, wall32, wall32 / 2, card))
+    print('unbounded engines (a), the engine alone on page 1 '
+          '(Rater.rate_best_device, beam %d, K=64; %d edges, %d char '
+          'steps): %.3f s (host clock, synchronised) = %.3f ms/edge, %.3f '
+          'ms/char step; traced (torch.profiler) over its first %d edges '
+          '(%d char steps): wall %.3f s, %d CUDA kernel launches = %.1f a '
+          'char step, %.1f an edge, %.1f ms of device time (device idle '
+          '%.1f%% of the wall) [%s]'
+          % (ENGINE_BEAM, edges, steps, alone, 1e3 * alone / edges,
+             1e3 * alone / steps, t_edges, t_steps, traced, launches,
+             launches / t_steps, launches / t_edges, dev_ms,
+             100 * (1 - dev_ms / 1e3 / traced), card))
+    return dict(wall=run['wall'], wall_cpu=res['cpu']['wall'],
+                edges=run['edges'], steps=run['steps'], wall32=wall32,
+                alone=alone, alone_edges=edges, alone_steps=steps,
+                launches_per_edge=launches / t_edges)
+
+
+def engine_line_pages(rater, work, card):
+    """Part (b): ``-P textequiv_level line`` over a seeded 3-page
+    workspace whose page 2 has lines over 64 chars, card against CPU:
+    pages 1 and 3 launch ``decode_lattice`` (2 launches), page 2 goes
+    through the engine, so the carry converts both ways; every page is
+    written with ``OCRD_MISSING_OUTPUT`` unset."""
+    from ocrd_keraslm_torch.wrapper.mets import Workspace
+    from ocrd_keraslm_torch.wrapper.page import parse_page
+
+    def build(d):
+        return build_workspace(d, np.random.default_rng(17), 3, 12,
+                               rater.vocab, line_words=((2, 5), (8, 13),
+                                                        (2, 5)))
+    base = os.path.join(work, 'engine_line')
+    res = engine_cli_card_vs_cpu(rater, base, build, 'line', 10, 3)
+    run = res['cuda']
+    ws = Workspace(run['dir'])
+    longest = [max(len(line.get_TextEquiv()[0].Unicode)
+                   for region in parse_page(os.path.join(
+                       run['dir'], f.local_filename)).get_Page()
+                   .get_TextRegion() for line in region.get_TextLine())
+               for f in ws.mets.find_files(fileGrp='OCR-D-OCR')]
+    assert longest[1] > 64 >= max(longest[0], longest[2]), longest
+    assert run['counts']['decode_lattice'] == 2, run['counts']
+    assert run['edges'] > 0, run
+    print('unbounded engines (b), -P textequiv_level line over 3 pages '
+          '(longest line per page: %s chars; %d lines), OCRD_MISSING_OUTPUT '
+          'unset: 3 of 3 pages written; decode_lattice launched %d times '
+          '(pages 1 and 3), the engine %d edges and %d char steps (page 2); '
+          '%.3f s on the card = %.3f s/page (CLI call incl. model load, host '
+          'clock), %.3f s on the CPU; line texts equal, max conf diff %.3g '
+          '(tolerance 1e-4) [%s]'
+          % (longest, len(run['out']), run['counts']['decode_lattice'],
+             run['edges'], run['steps'], run['wall'], run['wall'] / 3,
+             res['cpu']['wall'], res['conf_err'], card))
+    return dict(wall=run['wall'], wall_cpu=res['cpu']['wall'])
+
+
+def engine_batch(rater, work, card):
+    """Part (c): ``rate_best_batch`` of 4 one-page documents at beam 40:
+    one engine call for the batch (pending ``'xlab'``), no kernel
+    launched, each document equal to its own ``rate_best_device``."""
+    import torch
+    d = os.path.join(work, 'engine_batch')
+    build_workspace(d, np.random.default_rng(27), 4, 10, rater.vocab)
+    docs = workspace_graphs(d)
+    calls = []
+    launch = rater._launch_engine
+
+    def counted(arrays, *args, **kwargs):
+        calls.append(arrays[0].shape)
+        return launch(arrays, *args, **kwargs)
+    rater._launch_engine = counted
+    try:
+        zero_counts()
+        t0 = time.time()
+        got = rater.rate_best_batch(docs, beam_width=ENGINE_BEAM)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = read_counts()
+        n_calls = len(calls)
+        t0 = time.time()
+        single = [rater.rate_best_device(g, 0, 0,
+                                         beam_width=ENGINE_BEAM)[:2]
+                  for g in docs]
+        wall_seq = time.time() - t0
+    finally:
+        del rater._launch_engine
+    assert counts == NO_LAUNCHES, counts
+    assert n_calls == 1 and calls[0][0] == len(docs), calls
+    diff, gaps = same_or_tied(got, single, docs, german_rater('cpu'),
+                              ENGINE_BEAM)
+    print('unbounded engines (c), Rater.rate_best_batch of %d one-page '
+          'documents (%s edges) at beam %d: one engine call over (%s) '
+          'arrays, no kernel launched; %.3f s (host clock, ended by the '
+          'fetch), %d sequential rate_best_device calls %.3f s; each '
+          'document equal to its own decode (max score/entropy diff %.3g)%s '
+          '[%s]' % (len(docs), [len(p) for p, _ in got], ENGINE_BEAM,
+                    ', '.join(map(str, calls[0])), wall, len(docs),
+                    wall_seq, diff, '' if not gaps else ' but %d at a '
+                    'near-tie (path costs %s bits apart, tolerance %g)'
+                    % (len(gaps), ['%.3g' % g for g in gaps],
+                       HOST_TIE_BITS), card))
+    return dict(wall=wall, wall_seq=wall_seq)
+
+
+def wide_params(rng, V, W, D, contexts):
+    """Seeded float32 weights of a D-layer, width-W model (numpy, the
+    layout the h5 reader gives): embeddings N(0, 0.5), so that the
+    softmax is not flat; kernels N(0, 1/fan-in); forget bias 1."""
+    def normal(shape, scale):
+        return (scale * rng.standard_normal(shape)).astype(np.float32)
+    ctx = sum(dim for _, dim in contexts)
+    lstm = []
+    for d in range(D):
+        n_in = W + (ctx if d == 0 else 0)
+        bias = np.zeros((4 * W,), np.float32)
+        bias[W:2 * W] = 1.0
+        lstm.append(dict(kernel=normal((n_in, 4 * W), n_in ** -0.5),
+                         recurrent=normal((W, 4 * W), W ** -0.5), bias=bias))
+    return {'char_embedding': normal((V, W), 0.5),
+            'context_embeddings': [normal((n, dim), 0.001)
+                                   for n, dim in contexts],
+            'lstm': lstm}
+
+
+def wide_rater(device):
+    """A D=2, W=512 ``Rater`` with the german model's vocabulary and
+    seeded weights carried in by ``params_from_numpy``."""
+    from ocrd_keraslm_torch.models.lstm_lm import params_from_numpy
+    from ocrd_keraslm_torch.rater import Rater
+    vocab = german_rater('cpu').vocab
+    rater = Rater(device=device)
+    rater.width, rater.depth, rater.length = WIDE_W, 2, WIDE_T
+    rater.vocab, rater.voc_size = vocab, vocab.size
+    rater.params = params_from_numpy(wide_params(
+        np.random.default_rng(512), vocab.size, WIDE_W, 2, rater.contexts),
+        device)
+    rater.configure()
+    rater.status = 2
+    return rater
+
+
+def wide_lattice(rng, vocab, n_edges):
+    """A seeded chain of ``n_edges`` glyph edges, a third of them with
+    2-3 alternatives."""
+    from ocrd_keraslm_torch.wrapper.page import TextEquivType
+    letters = sorted(c for c in _charset(vocab) if c.isalpha())
+    edges = []
+    for e in range(n_edges):
+        n = int(rng.integers(2, 4)) if rng.random() < 0.33 else 1
+        edges.append(dict(element='g%d' % e, alternatives=[
+            TextEquivType(Unicode=letters[int(rng.integers(len(letters)))],
+                          conf=float(round(rng.uniform(0.7, 0.95), 4)),
+                          index=i) for i in range(n)]))
+    return chain_graph(edges)
+
+
+def wide_bwd_inputs(dev):
+    """``lstm_bwd``'s arguments at W=512 (B=128, T=64, f32 U), seeded."""
+    from ocrd_keraslm_torch.ops import lstm_cell as lc
+    rng = np.random.default_rng([20261103, TRAIN_B, WIDE_T, WIDE_W])
+    fwd, cot = lstm_train_inputs(rng, dev, False, B=TRAIN_B, T=WIDE_T,
+                                 W=WIDE_W)
+    return fwd, lstm_bwd_args(fwd, cot, lc.lstm_scan(*fwd,
+                                                     want_c_all=True)[:2])
+
+
+def wide_model_path(dev, train, card):
+    """Part (d), a D=2, W=512 model that no layout of the decode and
+    generation kernels takes: ``rate_best_device`` of a 256-edge lattice
+    and a 2-document batch with no kernel launched, card against CPU;
+    ``generate -n 256`` with no ``gen_beam`` launch, ``-n 32`` card
+    against CPU; three ``train_step``s at B=128, T=64 with ``lstm_bwd``
+    in its one-block layout of 4 streams a block, card against CPU;
+    ``lstm_bwd`` there against its plain version, its digest, and the
+    one-block layout at 8, 4 and 2 streams a block bit-equal at W=256.
+    Returns the ``lstm_bwd_w512`` kernel row and the wall numbers."""
+    import itertools
+
+    import torch
+    from ocrd_keraslm_torch.ops import lstm_cell as lc
+    raters = {p: wide_rater(p) for p in ('cuda', 'cpu')}
+    rng = np.random.default_rng(33)
+    vocab = raters['cpu'].vocab
+    graphs = [wide_lattice(rng, vocab, n) for n in (256, 97)]
+    out = {}
+    for p, r in raters.items():
+        zero_counts()
+        t0 = time.time()
+        single = r.rate_best_device(graphs[0], 0, 0)[:2]
+        batch = r.rate_best_batch(graphs)
+        wall = time.time() - t0
+        out[p] = (single, batch, wall, read_counts())
+    assert out['cuda'][3] == NO_LAUNCHES, out['cuda'][3]
+    d1, g1 = same_or_tied([out['cuda'][0]], [out['cpu'][0]], graphs[:1],
+                          raters['cpu'], 10)
+    d2, g2 = same_or_tied(out['cuda'][1], out['cpu'][1], graphs,
+                          raters['cpu'], 10)
+    print('unbounded engines (d), D=2 W=%d V=%d (seeded weights through '
+          'params_from_numpy): rate_best_device of a 256-edge lattice and '
+          'rate_best_batch of 2 documents (256 and 97 edges) at beam 10 '
+          '(K=16: no decode layout fits a block), no kernel launched; card '
+          'equal to CPU (max score/entropy diff %.3g)%s; %.3f s on the card '
+          '(host clock), %.3f s on the CPU [%s]'
+          % (WIDE_W, vocab.size, max(d1, d2), '' if not g1 + g2 else
+             ' but %d document(s) at a near-tie (path costs %s bits apart)'
+             % (len(g1 + g2), ['%.3g' % g for g in g1 + g2]),
+             out['cuda'][2], out['cpu'][2], card))
+    wr = raters['cuda']
+    zero_counts()
+    walls = []
+    for _ in range(2):
+        t0 = time.time()
+        text = wr.generate(GEN_PROMPT, 256)
+        walls.append(time.time() - t0)
+    counts = read_counts()
+    assert counts['gen_beam'] == counts['gen_traceback'] == 0, counts
+    assert text and len(text[0]) == 257, text
+    want = raters['cpu'].generate(GEN_PROMPT, 32, variants=2)
+    got = wr.generate(GEN_PROMPT, 32, variants=2)
+    assert got == want, (got, want)
+    print('unbounded engines (d), generate -n 256 at W=%d through the '
+          'engine (gen_layouts empty; no gen_beam or gen_traceback launch): '
+          '%s s per request (host clock, ended by the fetch) = %s generated '
+          'chars/s; -n 32 -v 2 card equal to CPU: %s [%s]'
+          % (WIDE_W, ', '.join('%.3f' % w for w in walls),
+             ', '.join('%.0f' % (256 / w) for w in walls), json.dumps(got),
+             card))
+    lay = lc.bwd_layout_on(dev, TRAIN_B, WIDE_W)
+    assert (lay.rb, lay.cl, lay.reg) == (4, 1, False), lay
+    batches = list(itertools.islice(stream_batches(
+        train['plan'].training_files, train['vocab'], length=WIDE_T), 3))
+    zero_counts()
+    got, carry_g, _ = run_steps(dev, train['vocab'], batches, width=WIDE_W,
+                                length=WIDE_T)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    assert counts['lstm_scan'] == counts['lstm_bwd'] == 3 * TRAIN_D, counts
+    want, carry_c, _ = run_steps('cpu', train['vocab'], batches,
+                                 width=WIDE_W, length=WIDE_T)
+    loss_err = max(abs(g - w) / abs(w) for g, w in zip(got, want))
+    carry_err = max(float((g.cpu() - c).abs().max())
+                    for g, c in zip(carry_g, carry_c))
+    assert loss_err <= 1e-5 and carry_err <= 1e-5, (got, want, carry_err)
+    print('unbounded engines (d), 3 train_steps at -w %d -d %d -l %d -b %d: '
+          'lstm_bwd %d launches in the one-block layout of %d streams a '
+          'block (%d bytes of shared memory; 8 streams would need %d), '
+          'lstm_scan %d; losses %s on the card, %s on the CPU, max relative '
+          'diff %.3g; final carry max abs diff %.3g (tolerances: losses '
+          'rtol 1e-5, carry atol 1e-5) [%s]'
+          % (WIDE_W, TRAIN_D, WIDE_T, TRAIN_B, counts['lstm_bwd'], lay.rb,
+             lay.smem, 4 * 8 * 15 * WIDE_W, counts['lstm_scan'],
+             ['%.6f' % v for v in got], ['%.6f' % v for v in want],
+             loss_err, carry_err, card))
+    fwd, bwd = wide_bwd_inputs(dev)
+    got = lc.lstm_bwd(*bwd)
+    err = compare_bwd(got, lc.lstm_bwd_ref(*bwd))
+    digest = _digest(got)
+    print('lstm_bwd at W=%d (B=%d, T=%d, f32 U) against its plain version: '
+          'max abs error %.3g, dU %.3g of its max; output digest %s%s'
+          % (WIDE_W, TRAIN_B, WIDE_T, err[0], err[1], digest,
+             ', pinned %s' % WIDE_BWD_DIGEST))
+    assert digest == WIDE_BWD_DIGEST, ('lstm_bwd at W=512 changed', digest)
+    rng = np.random.default_rng(20261104)
+    fwd256, cot256 = lstm_train_inputs(rng, dev, False, B=TRAIN_B, T=32,
+                                       W=256)
+    digests = {}
+    for rb in (8, 4, 2):
+        with scan_layout(rb, reg=False):
+            saved = lc.lstm_scan(*fwd256, want_c_all=True)
+            digests[rb] = (_digest(saved), _digest(lc.lstm_bwd(
+                *lstm_bwd_args(fwd256, cot256, saved[:2]))))
+    assert len(set(digests.values())) == 1, digests
+    print('one-block layout at W=256 (B=%d, T=32) with 8, 4 and 2 streams a '
+          'block: lstm_scan and lstm_bwd outputs bit-equal (sha256 %s, %s)'
+          % (TRAIN_B, digests[8][0][:16], digests[8][1][:16]))
+    ms = cuda_ms(lambda: lc.lstm_bwd(*bwd), 5)
+    plain_ms = cuda_ms(lambda: lc.lstm_bwd_ref(*bwd), 1)
+    inp = torch.from_numpy(rng.normal(0, 1, (TRAIN_B, WIDE_T, WIDE_W)).astype(
+        np.float32)).to(dev)
+    library_ms = cuda_ms(cudnn_layer(inp, WIDE_W)[1], 5)
+    bound_ms, bound_by, flops = lstm_bwd_bound(bwd, False)
+    print('lstm_bwd at W=%d (B=%d, T=%d): %.3f ms/launch (CUDA events, mean '
+          'of 5), plain version %.3f ms, bound %.4f ms by %s (%.3g FLOP), '
+          'kernel at %.2f%% of it; cuDNN torch.nn.LSTM forward+backward, 1 '
+          'layer, f32: %.3f ms [%s]'
+          % (WIDE_W, TRAIN_B, WIDE_T, ms, plain_ms, bound_ms, bound_by, flops,
+             100 * bound_ms / ms, library_ms, card))
+    row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+               bound_by=bound_by, library_ms=library_ms)
+    return dict(row=row, launches=counts['lstm_bwd'], err=err[0],
+                gen_walls=walls)
+
+
+def engine_path(rater, work, train, card):
+    """Phase 6, the unbounded engines: parts (a)-(d) (see each);
+    returns their numbers.  Matmuls stay f32 throughout."""
+    import torch
+    out = dict(glyph=engine_glyph_pages(rater, work, card),
+               line=engine_line_pages(rater, work, card),
+               batch=engine_batch(rater, work, card),
+               wide=wide_model_path(torch.device('cuda'), train, card))
+    assert torch.get_float32_matmul_precision() == 'highest'
+    assert not torch.backends.cuda.matmul.allow_tf32
+    return out
+
+
 def main() -> int:
     sys.path.insert(0, HERE)
     import torch
@@ -3631,6 +4285,8 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # f32 products throughout (the engines' too): no TF32
+    assert torch.get_float32_matmul_precision() == 'highest'
     dev = torch.device('cuda')
 
     # ---- 1. card ----
@@ -3771,6 +4427,9 @@ def main() -> int:
         host = host_engine_path(rater, work, card)
         lanes = lane_path(rater, work, card)
         batch = batch_path(rater, work, card)
+        t0 = time.time()
+        engines = engine_path(rater, work, train, card)
+        print('unbounded engines phase: %.1f s' % (time.time() - t0))
 
         # ---- 7. numbers ----
         print('decode path wall: %.3f s for 4 pages = %.3f s/page, %.0f '
@@ -3876,7 +4535,8 @@ def main() -> int:
                        **scoring_numbers(rater, scoring, card),
                        **training_numbers(dev, card),
                        **generation_numbers(rater, gen, card),
-                       **batch_numbers(rater, batch, batch_times, card))
+                       **batch_numbers(rater, batch, batch_times, card),
+                       lstm_bwd_w512=engines['wide']['row'])
     rows = []
     # lstm_scan is on two paths: 'lstm_scan' is the layered scoring
     # path's row (B=4, T=4096), 'lstm_scan_train' and 'lstm_scan_bf16'
@@ -3897,6 +4557,10 @@ def main() -> int:
             ('lstm_bwd_bf16', 'lstm_bwd',
              train['launches_bf16']['lstm_bwd'],
              train_errs['lstm_bwd_bf16']),
+            # the W=512 model's training steps: the one-block layout at 4
+            # streams a block
+            ('lstm_bwd_w512', 'lstm_bwd', engines['wide']['launches'],
+             engines['wide']['err']),
             ('gen_beam', 'gen_beam', gen['launches']['gen_beam'], gen_err),
             ('gen_beam_batch', 'gen_beam',
              gen['batch_launches']['gen_beam'], gen_err),

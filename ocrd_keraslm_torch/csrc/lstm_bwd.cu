@@ -625,7 +625,7 @@ static int du_product(const BwdArgs& a, int u_bf16, float* dU, float* part,
 // the one-block layout's chain, the first port's launch
 template <typename WT>
 static int one_block(const BwdArgs& a, size_t smem, cudaStream_t stream) {
-  return dispatch_rows(a.B, [&](auto rbc) {
+  return dispatch_rows(a.rb, [&](auto rbc) {
     constexpr int RB = decltype(rbc)::value;
     cudaError_t err = cudaFuncSetAttribute(
         lstm_bwd_kernel<RB, WT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -680,13 +680,13 @@ static int reg_chain_launch(const BwdArgs& a, int cl, int rt, size_t smem,
 }
 
 // Refuses (invalid value) a layout that is neither a register layout of
-// bwd_layout_ok nor the one-block layout (rows_per_block(B) streams, cl
+// bwd_layout_ok nor the one-block layout (one_block_rows_ok streams, cl
 // 1, rt rb), or whose smem differs from lstm_bwd_smem_bytes.
 static bool checked(const BwdArgs& a, int cl, int rt, int reg, size_t smem,
                     bool fits) {
   return a.B >= 1 && a.W >= 4 && a.W % 4 == 0 &&
          (reg ? bwd_layout_ok(a.W, a.rb, cl, rt)
-              : !fits && a.rb == rows_per_block(a.B) && cl == 1 &&
+              : !fits && one_block_rows_ok(a.B, a.rb) && cl == 1 &&
                     rt == a.rb) &&
          smem == lstm_bwd_smem_bytes(a.W, a.rb, reg);
 }

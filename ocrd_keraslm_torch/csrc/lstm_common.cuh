@@ -111,10 +111,19 @@ static inline int rows_per_block(int B) {
   return rb;
 }
 
-// f(std::integral_constant<int, RB>) for the RB that B streams take
+// whether rb streams a block is a one-block layout of B streams: a power
+// of two <= rows_per_block(B) (ops/scan_layout.py one_block_rows takes the
+// largest whose rows fit a block's shared memory: 4 for the backward at
+// W = 512)
+static inline bool one_block_rows_ok(int B, int rb) {
+  return rb >= 1 && rb <= rows_per_block(B) && (rb & (rb - 1)) == 0;
+}
+
+// f(std::integral_constant<int, RB>) for rb streams a block (a power of
+// two <= RBMAX)
 template <typename F>
-static int dispatch_rows(int B, F&& f) {
-  switch (rows_per_block(B)) {
+static int dispatch_rows(int rb, F&& f) {
+  switch (rb) {
     case 1:
       return f(std::integral_constant<int, 1>{});
     case 2:

@@ -218,7 +218,7 @@ template <typename WT>
 static int run(const LstmArgs& a, int cl, int rt, int reg, size_t smem,
                cudaStream_t stream, int* fits) {
   if (!reg) {
-    return dispatch_rows(a.B, [&](auto rbc) {
+    return dispatch_rows(a.rb, [&](auto rbc) {
       constexpr int RB = decltype(rbc)::value;
       cudaError_t err = cudaFuncSetAttribute(
           lstm_scan_kernel<RB, WT>,
@@ -240,7 +240,7 @@ static int run(const LstmArgs& a, int cl, int rt, int reg, size_t smem,
 }
 
 // Refuses (invalid value) a layout that is not the register layout of
-// ops/scan_layout.py or the one-block layout (rows_per_block(B) streams,
+// ops/scan_layout.py or the one-block layout (one_block_rows_ok streams,
 // cl 1, rt rb), or whose smem differs from lstm_scan_smem_bytes.
 static int checked_run(const LstmArgs& a, int u_bf16, int cl, int rt,
                        int reg, size_t smem, cudaStream_t stream,
@@ -248,7 +248,8 @@ static int checked_run(const LstmArgs& a, int u_bf16, int cl, int rt,
   const bool ok =
       a.B >= 1 && a.W >= 4 && a.W % 4 == 0 &&
       (reg ? reg_layout_ok(a.W, 1, a.rb, cl, rt, GPL)
-           : !fits && a.rb == rows_per_block(a.B) && cl == 1 && rt == a.rb) &&
+           : !fits && one_block_rows_ok(a.B, a.rb) && cl == 1 &&
+                 rt == a.rb) &&
       smem == lstm_scan_smem_bytes(a.W, u_bf16, a.rb, reg);
   if (!ok) return (int)cudaErrorInvalidValue;
   return u_bf16 ? run<__nv_bfloat16>(a, cl, rt, reg, smem, stream, fits)

@@ -413,18 +413,19 @@ static size_t softmax_smem_bytes(int W, int v_real) {
 }
 
 // Refuses (invalid value) a layout that is not the register layout of
-// ops/scan_layout.py or the one-block layout (rows_per_block(B) streams,
+// ops/scan_layout.py or the one-block layout (one_block_rows_ok streams,
 // cl 1, rt rb), or whose smem differs from score_scan_smem_bytes.
 static int checked_scan(const ScoreArgs& a, int cl, int rt, int reg,
                         size_t smem, cudaStream_t stream, int* fits) {
   const bool ok =
       a.B >= 1 && a.D >= 1 && a.W >= 4 && a.W % 4 == 0 &&
       (reg ? reg_layout_ok(a.W, a.D, a.rb, cl, rt, 1)
-           : !fits && a.rb == rows_per_block(a.B) && cl == 1 && rt == a.rb) &&
+           : !fits && one_block_rows_ok(a.B, a.rb) && cl == 1 &&
+                 rt == a.rb) &&
       smem == score_scan_smem_bytes(a.D, a.W, a.Vp, a.rb, reg);
   if (!ok) return (int)cudaErrorInvalidValue;
   if (!reg)
-    return dispatch_rows(a.B, [&](auto rbc) {
+    return dispatch_rows(a.rb, [&](auto rbc) {
       constexpr int RB = decltype(rbc)::value;
       cudaError_t err = cudaFuncSetAttribute(
           score_scan_kernel<RB>, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -1,15 +1,27 @@
-"""On-device generation: the beam search of one prompt or of many, in
-one kernel launch, and the strings built from its records.
+"""On-device beam search: generation and lattice decoding.
 
-Counterpart of the generation half of
-``ocrd_keraslm_tpu/ops/beam_device.py``.  Semantics are the reference's
-(per-hypothesis top-10 candidates, absolute probability threshold 0.004,
-fringe capped at 256, cumulative-cost ordering), as the JAX package's
-fused TPU kernel computes them (see :mod:`.gen_kernel`): the prefix is
-consumed step by step in plain PyTorch, then one :func:`gen_kernel.
-gen_beam` launch runs the whole search and one :func:`gen_kernel.
-traceback` launch walks the chosen end slots back, so the host fetches
-only (variants, bucket) char ids and their costs.
+Counterpart of ``ocrd_keraslm_tpu/ops/beam_device.py``.  Two engines
+serve each search:
+
+* the kernels: generation runs its prefix steps in plain PyTorch, then
+  one :func:`gen_kernel.gen_beam` launch for the whole search and one
+  :func:`gen_kernel.traceback` launch that walks the chosen end slots
+  back (the JAX package's fused TPU kernel); lattice decoding launches
+  :func:`decode_kernel.decode_lattice` from ``Rater``;
+* the unbounded engines, the counterparts of the JAX package's XLA
+  scans: :func:`generate_device` / :func:`generate_device_best` and
+  :func:`decode_lattice_device`, plain PyTorch on the rater's device
+  (products, index gathers and stable sorts, a few dozen small launches
+  per beam step).  They take every shape: any beam width, alternatives
+  of any length, models no kernel layout takes (``Rater.fused_decode``,
+  ``Rater.fused_generate``).
+
+Semantics are the reference's (generation: per-hypothesis top-10
+candidates, absolute probability threshold 0.004, fringe capped at 256,
+cumulative-cost ordering; decoding: the per-char cost ``lm_weight *
+-log2 p_LM + (1 - lm_weight) * -log2 conf`` and an exact top K per
+edge).  Selections are stable sorts, so equal costs order by the lower
+index, as ``lax.top_k`` orders them, on the CPU and on the card alike.
 
 Each request is split in two: ``*_begin`` queues the device work and
 starts a copy of the result into pinned host memory without waiting;
@@ -23,9 +35,10 @@ from typing import List
 import numpy as np
 import torch
 
-from ..models.lstm_lm import host_to_device
+from ..models.lstm_lm import forward_step, host_to_device
 from ..utils.buckets import bucket_unbounded
-from .gen_kernel import BIG, generate_best, generate_variants
+from .gen_kernel import (BIG, gen_layouts, generate_best, generate_variants,
+                         log_threshold)
 
 NEG_INF = BIG
 # prompt lengths and generated lengths round up to these, so that the
@@ -33,6 +46,7 @@ NEG_INF = BIG
 PREFIX_BUCKETS = (64, 256, 1024, 4096)
 LENGTH_BUCKETS = (16, 64, 256, 1024, 4096)
 FRINGE = 256
+TOPK = 10
 
 
 def _gen_weights(rater, context):
@@ -136,12 +150,128 @@ def _decode(rater, ids) -> str:
     return ''.join(rater.vocab.i2c.get(int(i), '') for i in ids)
 
 
+# ----------------------------------------------------------------------
+# the generation engine
+# ----------------------------------------------------------------------
+
+def use_gen_kernel(rater, weights) -> bool:
+    """Whether generation takes the beam-step kernel (``gen_beam``) or
+    the engine (:func:`generate_device`): ``rater.fused_generate`` True
+    (the default) takes the kernel where a layout of ``gen_beam`` takes
+    the model (:func:`gen_kernel.gen_layouts`, a rule of shapes alone, so
+    the CPU and the card choose alike), ``'force'`` always, False never
+    (the JAX package's ``_use_fused_gen``)."""
+    mode = getattr(rater, 'fused_generate', True)
+    if mode == 'force':
+        return True
+    if not mode:
+        return False
+    emb, _, wcat, _, v_real = weights
+    return bool(gen_layouts(FRINGE, wcat.shape[0], emb.shape[1],
+                            emb.shape[0], TOPK, int(v_real)))
+
+
+def generate_device(emb, embT, wcat, bias, prefix, prefix_mask,
+                    length: int, v_real: int, topk: int = TOPK,
+                    fringe: int = FRINGE, threshold: float = 0.004):
+    """The beam search of N streams as plain PyTorch steps on the
+    weights' device (the JAX package's ``generate_device``, with a
+    leading stream axis).
+
+    prefix, prefix_mask: (N, P) numpy (see :func:`_prefix_state`).  Per
+    step: the LSTM stack over the K fringe rows, each row's ``topk``
+    largest log-probabilities (a stable descending sort: ties to the
+    smaller char id), candidates ``cost - logp`` (nats), dead below the
+    probability threshold, for the unmapped char 0 and under a dead
+    parent, then the K cheapest of the K*topk in cost order (a stable
+    sort: ties to the smaller flat index); the next rows are gathered by
+    index.  Returns (chars, backptrs, costs), each (N, length, K)."""
+    root = _prefix_state(emb, embT, wcat, bias, prefix, prefix_mask, v_real)
+    N, S = root.shape
+    K = fringe
+    topk = min(int(topk), int(v_real))
+    device = root.device
+    state = root[:, None, :].expand(N, K, S).reshape(N * K, S)
+    cost = torch.full((N * K,), NEG_INF, dtype=torch.float32, device=device)
+    cost[::K] = 0.0
+    log_thresh = log_threshold(threshold)
+    base = (torch.arange(N, device=device) * K)[:, None]
+    chars, backs, costs = [], [], []
+    for _ in range(length):
+        hs, logits = _gen_layers(emb, embT, wcat, bias, v_real, state)
+        logp = logits - torch.logsumexp(logits, dim=1, keepdim=True)
+        top = torch.sort(logp, dim=1, descending=True, stable=True)
+        l_top, idx_top = top.values[:, :topk], top.indices[:, :topk]
+        cand = cost[:, None] - l_top
+        cand = torch.where(l_top < log_thresh, NEG_INF, cand)
+        cand = torch.where(idx_top == 0, NEG_INF, cand)
+        cand = torch.where(cost[:, None] >= NEG_INF / 2, NEG_INF, cand)
+        sel = torch.sort(cand.reshape(N, K * topk), dim=1, stable=True)
+        new_cost, flat = sel.values[:, :K], sel.indices[:, :K]
+        backptr = torch.div(flat, topk, rounding_mode='floor')
+        new_char = idx_top.reshape(N, K * topk).gather(1, flat)
+        state = torch.cat([emb[new_char.reshape(-1)],
+                           hs[(backptr + base).reshape(-1)]], 1)
+        cost = new_cost.reshape(-1)
+        chars.append(new_char)
+        backs.append(backptr)
+        costs.append(new_cost)
+    generate_device.steps += length
+    return (torch.stack(chars, 1), torch.stack(backs, 1),
+            torch.stack(costs, 1))
+
+
+generate_device.steps = 0
+
+
+def _walk_back(chars, backs, slots, out_length: int):
+    """Char ids (N, V, length) of the paths that end in ``slots`` (N, V)
+    at step ``out_length - 1``, walked back through the backpointers by
+    index gathers on the device; 0 at steps >= out_length."""
+    N, T, _ = chars.shape
+    k = slots
+    ks = []
+    for t in range(out_length - 1, -1, -1):
+        ks.append(k)
+        k = backs[:, t].gather(1, k)
+    ks = torch.stack(ks[::-1], 1)                   # (N, out_length, V)
+    out = torch.zeros((N, slots.shape[1], T), dtype=chars.dtype,
+                      device=chars.device)
+    out[:, :, :out_length] = chars[:, :out_length].gather(2, ks) \
+        .permute(0, 2, 1)
+    return out
+
+
+def generate_device_best(emb, embT, wcat, bias, prefix, prefix_mask,
+                         length: int, out_length: int, v_real: int,
+                         topk: int = TOPK, fringe: int = FRINGE,
+                         threshold: float = 0.004):
+    """:func:`generate_device` and the walk of each stream's cheapest
+    slot at step ``out_length - 1`` (the first at equal cost) on the
+    device.  Returns (seqs (N, length), valid in [0, out_length); costs
+    (N,))."""
+    chars, backs, costs = generate_device(
+        emb, embT, wcat, bias, prefix, prefix_mask, length, v_real, topk,
+        fringe, threshold)
+    costs_out = costs[:, out_length - 1]
+    best = torch.argmin(costs_out, dim=1, keepdim=True)
+    seqs = _walk_back(chars, backs, best, out_length)[:, 0]
+    return seqs, costs_out.gather(1, best)[:, 0]
+
+
+# ----------------------------------------------------------------------
+# generation requests
+# ----------------------------------------------------------------------
+
 def generate_beam_begin(rater, prefix: str, length: int, context=None,
                         variants: int = 1):
     """Queue the beam search after ``prefix`` (``length`` >= 1 chars,
     the ``variants`` best, at most the fringe of 256) and start the
     fetch of its result; :func:`generate_beam_finish` builds the
-    strings."""
+    strings.  The kernels (:func:`use_gen_kernel`) walk the variants on
+    the device; the engine walks one variant on the device
+    (``'gen-best'``) and fetches all records for several
+    (``'gen-walk'``)."""
     if not context:
         context = rater.underspecify_contexts()
     length = int(length)
@@ -152,27 +282,61 @@ def generate_beam_begin(rater, prefix: str, length: int, context=None,
     if nv <= 0:
         return ('gen-empty', meta)
     prefix_ids, prefix_mask = _prefix_arrays([rater.vocab.encode(prefix)])
-    emb, embT, wcat, bias, v_real = _gen_weights(rater, context)
-    seqs, vcosts = generate_variants(
-        emb, embT, wcat, bias, prefix_ids, prefix_mask,
-        bucket_unbounded(length, LENGTH_BUCKETS), length, int(v_real), nv,
-        fringe=FRINGE)
-    # ids are exact in float32: ONE packed (variants, bucket + 1) fetch
-    packed = torch.cat([seqs[0].float(), vcosts[0][:, None]], 1)
-    return ('gen-fusedv',) + _copy_to_host(packed) + (nv, meta)
+    weights = _gen_weights(rater, context)
+    emb, embT, wcat, bias, v_real = weights
+    run_length = bucket_unbounded(length, LENGTH_BUCKETS)
+    if use_gen_kernel(rater, weights):
+        seqs, vcosts = generate_variants(
+            emb, embT, wcat, bias, prefix_ids, prefix_mask, run_length,
+            length, int(v_real), nv, fringe=FRINGE)
+        # ids are exact in float32: ONE packed (variants, bucket + 1)
+        # fetch
+        packed = torch.cat([seqs[0].float(), vcosts[0][:, None]], 1)
+        return ('gen-fusedv',) + _copy_to_host(packed) + (nv, meta)
+    if nv == 1:
+        seqs, costs = generate_device_best(
+            emb, embT, wcat, bias, prefix_ids, prefix_mask, run_length,
+            length, int(v_real))
+        packed = torch.cat([seqs[0].float(), costs])
+        return ('gen-best',) + _copy_to_host(packed) + (meta,)
+    chars, backs, costs = generate_device(
+        emb, embT, wcat, bias, prefix_ids, prefix_mask, run_length,
+        int(v_real))
+    packed = torch.stack([chars[0].float(), backs[0].float(), costs[0]])
+    return ('gen-walk',) + _copy_to_host(packed) + (meta,)
 
 
 def generate_beam_finish(pending) -> List[str]:
     """Wait for a :func:`generate_beam_begin` result and build its
     strings (dead end slots, cost >= 1e38, are skipped)."""
-    rater, prefix, length, _variants, _ctx = pending[-1]
-    if pending[0] == 'gen-empty':
+    kind = pending[0]
+    rater, prefix, length, variants, _ctx = pending[-1]
+    if kind == 'gen-empty':
         return []
-    _, host, event, nv, _ = pending
-    packed = _fetch(host, event)
-    # seqs span the whole bucket; positions >= length are not walked
-    return [prefix[-1:] + _decode(rater, packed[v, :length])
-            for v in range(nv) if packed[v, -1] < 1e38]
+    packed = _fetch(pending[1], pending[2])
+    if kind == 'gen-fusedv':
+        # seqs span the whole bucket; positions >= length are not walked
+        return [prefix[-1:] + _decode(rater, packed[v, :length])
+                for v in range(pending[3]) if packed[v, -1] < 1e38]
+    if kind == 'gen-best':
+        if packed[-1] >= 1e38:
+            return []
+        return [prefix[-1:] + _decode(rater, packed[:length])]
+    chars = packed[0].astype(np.int64)          # (run_length, K)
+    backs = packed[1].astype(np.int64)
+    final = packed[2][length - 1]
+    # stable: equal costs order by slot, as the kernels' variants do
+    results = []
+    for k in np.argsort(final, kind='stable')[:variants]:
+        if final[k] >= 1e38:
+            continue
+        seq = []
+        idx = int(k)
+        for t in range(length - 1, -1, -1):
+            seq.append(int(chars[t, idx]))
+            idx = int(backs[t, idx])
+        results.append(prefix[-1:] + _decode(rater, seq[::-1]))
+    return results
 
 
 def generate_beam(rater, prefix: str, length: int, context=None,
@@ -184,11 +348,13 @@ def generate_beam(rater, prefix: str, length: int, context=None,
 
 def generate_streams_begin(rater, prefixes: List[str], length: int,
                            context=None):
-    """Queue the best continuation of each of S prefixes, all in ONE
-    :func:`gen_kernel.gen_beam` launch (one block cluster per stream, the
-    card's counterpart of the JAX package's vmapped stream engine), and
-    start the fetch; :func:`generate_streams_finish` builds the strings.
-    Each stream returns what ``generate(prefix, length)`` returns."""
+    """Queue the best continuation of each of S prefixes, all in one
+    search with a leading stream axis (the card's counterpart of the
+    JAX package's vmapped stream engine): ONE :func:`gen_kernel.gen_beam`
+    launch (one block cluster per stream), or where the kernel does not
+    take the model the engine (:func:`generate_device_best`); then start
+    the fetch.  :func:`generate_streams_finish` builds the strings.  Each
+    stream returns what ``generate(prefix, length)`` returns."""
     if getattr(rater, 'mesh', None) is not None:
         raise NotImplementedError(
             'generation over a device mesh is not ported yet (ROADMAP.md '
@@ -203,8 +369,11 @@ def generate_streams_begin(rater, prefixes: List[str], length: int,
         raise ValueError('generate needs a length >= 1, got %d' % length)
     prefix_ids, prefix_mask = _prefix_arrays(
         [rater.vocab.encode(p) for p in prefixes])
-    emb, embT, wcat, bias, v_real = _gen_weights(rater, context)
-    seqs, costs = generate_best(
+    weights = _gen_weights(rater, context)
+    emb, embT, wcat, bias, v_real = weights
+    best = generate_best if use_gen_kernel(rater, weights) \
+        else generate_device_best
+    seqs, costs = best(
         emb, embT, wcat, bias, prefix_ids, prefix_mask,
         bucket_unbounded(length, LENGTH_BUCKETS), length, int(v_real),
         fringe=FRINGE)
@@ -226,6 +395,124 @@ def generate_streams_finish(pending) -> List[str]:
 
 def generate_streams(rater, prefixes: List[str], length: int,
                      context=None) -> List[str]:
-    """Batched generation in one launch (= begin + finish)."""
+    """Batched generation in one search (= begin + finish)."""
     return generate_streams_finish(generate_streams_begin(
         rater, prefixes, length, context))
+
+
+# ----------------------------------------------------------------------
+# the lattice decode engine
+# ----------------------------------------------------------------------
+
+def decode_lattice_device(params, cfg, alt_chars, alt_mask, alt_conf_bits,
+                          alt_valid, zs, h0, c0, x0, cost0, lm_weight,
+                          device_walk: bool = False, steps=None):
+    """Beam decode of a linear lattice as plain PyTorch steps on the
+    device (the JAX package's ``decode_lattice_device``); the arrays may
+    carry a leading document axis N, decoded side by side (the JAX
+    package vmaps it, ``parallel/decode.py``).
+
+    alt_chars (E, A, L) int char ids; alt_mask, alt_conf_bits (E, A, L)
+    float32 (conf as -log2 bits per char); alt_valid (E, A); zs: the
+    context ids, one per context variable (its first element counts);
+    h0, c0 (D, K, W); x0 (K,) last consumed char ids; cost0 (K,), 3e38
+    for an empty slot; ``steps``: char steps per edge (default: the
+    longest alternative of the edge, read from ``alt_mask``).  Per edge
+    the K beam rows expand to K*A hypotheses (row k*A + a: slot k,
+    alternative a), :func:`models.lstm_lm.forward_step` runs once per
+    char position (masked rows keep their state), each char costs
+    ``lm_weight * -log2 max(p, 1e-99) + (1 - lm_weight) * conf_bits``,
+    and the K cheapest hypotheses (a stable sort: ties to the lower
+    index, as ``lax.top_k``) are the next beam, reordered by index.
+    Steps after an edge's longest alternative are skipped: every row is
+    masked there.
+
+    Returns (packed, h, c, x, cost) with the leading axis where given.
+    ``device_walk``: packed is (E+1, 2), the path walked back from slot 0
+    (rows ``[choice, cumulative cost]``, header ``[cost0[entry slot],
+    0]``); else (E+1, 3K) records ``[backptr | alt | cost]`` whose header
+    holds ``min(cost0)`` and ``cost0`` in its last K columns."""
+    batched = alt_chars.dim() == 4
+    if not batched:
+        alt_chars, alt_mask, alt_conf_bits, alt_valid, h0, c0, x0, cost0 = (
+            a[None] for a in (alt_chars, alt_mask, alt_conf_bits,
+                              alt_valid, h0, c0, x0, cost0))
+    N, E, A, L = alt_chars.shape
+    D, K, W = h0.shape[1:]
+    KA = K * A
+    device = h0.device
+    if steps is None:
+        steps = alt_mask.sum(3).amax(dim=(0, 2)).long().tolist()
+    lw = float(np.float32(lm_weight))
+    lw1 = float(np.float32(1.0) - np.float32(lm_weight))
+    rows = torch.arange(N * KA, device=device)
+    parent = torch.div(rows, A, rounding_mode='floor')
+    zs_rows = [torch.full((N * KA,), int(np.asarray(z).reshape(-1)[0]),
+                          dtype=torch.long, device=device) for z in zs]
+    doc_base = (torch.arange(N, device=device) * KA)[:, None]
+    h = h0.permute(1, 0, 2, 3).reshape(D, N * K, W)
+    c = c0.permute(1, 0, 2, 3).reshape(D, N * K, W)
+    x = x0.reshape(N * K).long()
+    cost = cost0.reshape(N * K).float()
+    alt_chars = alt_chars.long()
+    bps, alts, costs = [], [], []
+    for e in range(E):
+        chars_e, mask_e, conf_e = (
+            a[:, e, None].expand(N, K, A, L).reshape(N * KA, L)
+            for a in (alt_chars, alt_mask, alt_conf_bits)) \
+            if steps[e] else (None, None, None)
+        valid_e = alt_valid[:, e, None].expand(N, K, A).reshape(N * KA)
+        hh, cc, xx, cost_e = h[:, parent], c[:, parent], x[parent], \
+            cost[parent]
+        acc = torch.zeros((N * KA,), dtype=torch.float32, device=device)
+        for t in range(steps[e]):
+            probs, (h2, c2) = forward_step(params, cfg, xx, zs_rows,
+                                           (hh, cc))
+            cur, m = chars_e[:, t], mask_e[:, t]
+            p = probs.gather(1, cur[:, None])[:, 0]
+            acc = acc + m * (lw * -torch.log2(torch.clamp(p, min=1e-99))
+                             + lw1 * conf_e[:, t])
+            keep = m > 0
+            hh = torch.where(keep[None, :, None], h2, hh)
+            cc = torch.where(keep[None, :, None], c2, cc)
+            xx = torch.where(keep, cur, xx)
+        total = torch.where(valid_e > 0.5, cost_e + acc, NEG_INF)
+        total = torch.where(cost_e >= NEG_INF / 2, NEG_INF, total)
+        top = torch.sort(total.reshape(N, KA), dim=1, stable=True)
+        sel = top.indices[:, :K]
+        cost = top.values[:, :K].reshape(N * K)
+        g = (sel + doc_base).reshape(N * K)
+        h, c, x = hh[:, g], cc[:, g], xx[g]
+        bps.append(torch.div(sel, A, rounding_mode='floor'))
+        alts.append(sel % A)
+        costs.append(top.values[:, :K])
+    decode_lattice_device.edges += E
+    decode_lattice_device.char_steps += sum(steps)
+    bp, al, co = (torch.stack(v, 1) for v in (bps, alts, costs))
+    cost0 = cost0.reshape(N, K).float()
+    if device_walk:
+        k = torch.zeros((N, 1), dtype=torch.long, device=device)
+        ks = [None] * E
+        for e in range(E - 1, -1, -1):
+            ks[e] = k
+            k = bp[:, e].gather(1, k)
+        ks = torch.stack(ks, 1)                     # (N, E, 1)
+        head = torch.cat([cost0.gather(1, k),
+                          torch.zeros_like(cost0[:, :1])], 1)
+        packed = torch.cat([head[:, None], torch.cat(
+            [al.gather(2, ks).float(), co.gather(2, ks)], 2)], 1)
+    else:
+        head = torch.zeros((N, 1, 3 * K), dtype=torch.float32,
+                           device=device)
+        head[:, 0, 0] = cost0.min(dim=1).values
+        head[:, 0, 2 * K:] = cost0
+        packed = torch.cat([head, torch.cat([bp.float(), al.float(), co],
+                                            2)], 1)
+    out = (packed, h.reshape(D, N, K, W).permute(1, 0, 2, 3).contiguous(),
+           c.reshape(D, N, K, W).permute(1, 0, 2, 3).contiguous(),
+           x.reshape(N, K).int(), cost.reshape(N, K))
+    return out if batched else tuple(a[0] for a in out)
+
+
+decode_lattice_device.edges = 0
+decode_lattice_device.char_steps = 0

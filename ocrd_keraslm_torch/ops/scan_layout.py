@@ -25,9 +25,10 @@ Two layouts:
   stream);
 * the one-block layout of the first port everywhere else, and where
   its cost model rates it faster (a large B, whose clusters would run in
-  many waves one after another): one block of ``rows_per_block(B)``
-  streams, each thread running whole columns from weights read from L2
-  at every step.
+  many waves one after another): blocks of ``rows_per_block(B)``
+  streams, fewer where a block's rows would not fit its shared memory
+  (:func:`one_block_rows`: the backward at W=512 takes 4), each thread
+  running whole columns from weights read from L2 at every step.
 
 Both give the same bits: each column's dot product is summed in blocks
 of 32 terms, the blocks added to 0 in order.
@@ -149,11 +150,24 @@ def plan_bytes(kind: str, W: int, D: int, rb: int, reg: bool,
     return 4 * (2 * D * rb * W + rb * max(4 * W, Vp))
 
 
+def one_block_rows(kind: str, B: int, W: int, D: int, bf16: bool = False,
+                   Vp: int = 0) -> int:
+    """Streams a block of the one-block layout: the largest power of two
+    <= ``rows_per_block(B)`` whose plan fits a block's shared memory
+    (``rows_per_block(B)`` itself up to W=256; 4 for the backward at
+    W=512), at least 1."""
+    rb = rows_per_block(B)
+    while rb > 1 and plan_bytes(kind, W, D, rb, False, bf16, Vp) > SMEM_MAX:
+        rb //= 2
+    return rb
+
+
 def one_block_layout(kind: str, B: int, W: int, D: int, bf16: bool = False,
                      Vp: int = 0) -> Layout:
-    """The first port's layout: one block of ``rows_per_block(B)``
-    streams, each thread running every stream of its columns."""
-    rb = rows_per_block(B)
+    """The first port's layout: one block of :func:`one_block_rows`
+    streams, each thread running every stream of its columns, and
+    ``ceil(B / rb)`` blocks."""
+    rb = one_block_rows(kind, B, W, D, bf16, Vp)
     return Layout(rb, 1, rb, plan_bytes(kind, W, D, rb, False, bf16, Vp),
                   False)
 
@@ -256,10 +270,11 @@ def check(kind: str, B: int, W: int, D: int, layout: Layout,
                             'dividing rb, the threads of a block)'
                             % (RBMAX, ', '.join(map(str, CLUSTERS)),
                                REG_RT_MAX_OF[kind]))
-    elif (layout.rb, layout.cl, layout.rt) != (rows_per_block(B), 1,
-                                               rows_per_block(B)):
-        problems.append('the one-block layout (rb = rt = %d, cl 1)'
-                        % rows_per_block(B))
+    else:
+        rb = one_block_rows(kind, B, W, D, bf16, Vp)
+        if (layout.rb, layout.cl, layout.rt) != (rb, 1, rb):
+            problems.append('the one-block layout (rb = rt = %d, cl 1)'
+                            % rb)
     if not problems and layout.smem != plan_bytes(
             kind, W, D, layout.rb, layout.reg, bf16, Vp):
         problems.append('smem equal to plan_bytes')

@@ -16,8 +16,10 @@ saves it (:meth:`Rater.save`), and
 * generates continuations of prompts by beam search (``generate*``):
   one launch of the beam-step kernel and one of the traceback kernel
   per call (:mod:`ocrd_keraslm_torch.ops.beam_device`), for one prompt
-  or a batch; an empty prompt, ``device_beam`` off or a dead fringe take
-  the host engine (:mod:`ocrd_keraslm_torch.host_beam`);
+  or a batch, or the generation engine where no layout of the
+  kernel takes the model or ``fused_generate`` is off; an empty prompt,
+  ``device_beam`` off or a dead fringe take the host engine
+  (:mod:`ocrd_keraslm_torch.host_beam`);
 * beam-decodes linear lattices of OCR alternatives with the fused
   single-document kernel
   (:func:`ocrd_keraslm_torch.ops.decode_kernel.decode_lattice`): the
@@ -28,7 +30,12 @@ saves it (:meth:`Rater.save`), and
   lattices (the native page lane) take one launch a page or one for a
   group of consecutive pages.  The beam carries from page to page as
   device tensors ``(packed state (K, S), cost (1, 128))``; each
-  result's copy into pinned host memory starts at its launch.
+  result's copy into pinned host memory starts at its launch.  Beam
+  widths over 32, alternatives over 64 chars, models that no layout of
+  the kernel takes and ``fused_decode`` off decode through the unbounded
+  engine (:func:`ops.beam_device.decode_lattice_device`, plain PyTorch
+  on the device, the carry ``(h, c, x, cost)``); a document may mix the
+  two engines from page to page.
 
 The device follows ``KERASLM_PLATFORM`` unless the caller names one:
 ``cpu`` runs on the CPU (the kernels' plain PyTorch versions), unset,
@@ -49,6 +56,7 @@ import torch
 from .models.lstm_lm import (DEFAULT_CONTEXTS, LMConfig, embed_inputs,
                              forward_seq, forward_step, host_to_device,
                              init_params, params_from_numpy, zero_carry)
+from .ops.beam_device import NEG_INF as ENGINE_BIG
 from .ops.beam_device import _copy_to_host, _fetch
 from . import native
 from .ops.decode_kernel import (BIG, LANE, decode_lattice,
@@ -223,6 +231,12 @@ def _scan(edges, merge: bool, merge_max: int):
         _decode_scan(edges, merge, merge_max)
 
 
+def _longest(edges) -> int:
+    """The longest alternative of prepared decode edges, in chars."""
+    return max(max((len(ids) for ids in pe['alt_ids']), default=1)
+               for pe in edges)
+
+
 def _alt_steps(alt_mask):
     """Per-edge char-step bound: the longest real alternative at each
     edge.  Exact — steps beyond it are fully masked no-ops.
@@ -349,6 +363,12 @@ class Rater:
         self.fused_score = self.device.type == 'cuda'
         self.merge_runs = True     # merge single-alternative edge runs
         self.device_beam = True    # generation on the device (1 launch)
+        # the kernels where they take the shape (the JAX package's
+        # defaults on its accelerator), else the unbounded engines of
+        # ops/beam_device.py; False: always the engines ('force' also
+        # takes gen_beam where no layout of it takes the model)
+        self.fused_decode = True
+        self.fused_generate = True
         self.decode_bf16 = False   # the JAX package's opt-in bf16 mode
         self.logger = logger or LOG
         self.cfg: Optional[LMConfig] = None
@@ -959,7 +979,9 @@ class Rater:
         (all rows at the newline embedding, only slot 0 alive) when
         ``tb`` is None, else the previous page's ``(state, cost)`` with
         the beam narrowed (best K slots kept — the carry is rank
-        ordered) or widened (dead zero rows appended)."""
+        ordered) or widened (dead zero rows appended).  The engine's
+        carry ``(h, c, x, cost)`` is packed first (its best ``LANE``
+        slots where it holds more)."""
         D, W = self.depth, self.width
         if tb is None:
             state = torch.zeros((K, (2 * D + 1) * W), dtype=torch.float32,
@@ -969,6 +991,16 @@ class Rater:
                               device=self.device)
             cost[0, 0] = 0.0
             return state, cost
+        if len(tb) == 4:
+            h, c, x, cost4 = (a[:, :LANE] if a.dim() == 3 else a[:LANE]
+                              for a in tb)
+            K0 = h.shape[1]
+            state = torch.cat([emb[x.long()]] + [h[d] for d in range(D)]
+                              + [c[d] for d in range(D)], 1).float()
+            cost = torch.full((1, LANE), BIG, dtype=torch.float32,
+                              device=state.device)
+            cost[0, :K0] = torch.where(cost4 >= 1.0e37, BIG, cost4)
+            tb = (state, cost)
         state, cost = tb
         K0 = state.shape[0]
         if K0 == K:
@@ -1020,12 +1052,10 @@ class Rater:
             raise NotImplementedError(
                 'decode_bf16 is not ported yet (ROADMAP.md Queue 1, '
                 '"bf16 decode")')
-        if beam_width > FUSED_MAX_BEAM:
-            raise NotImplementedError(
-                'beam_width %d > %d needs the unbounded decode engine, '
-                'which is not ported yet (ROADMAP.md Queue 1, '
-                '"Wide-beam decode engine")'
-                % (beam_width, FUSED_MAX_BEAM))
+        if not self.fused_decode or beam_width > FUSED_MAX_BEAM:
+            return self._rate_best_engine(edges_raw, device_traceback,
+                                          context, lm_weight, beam_width,
+                                          defer_walk=defer_walk)
         return self._rate_best_kernel(edges_raw, device_traceback,
                                       context, lm_weight, beam_width,
                                       defer_walk=defer_walk)
@@ -1042,26 +1072,33 @@ class Rater:
         block).  Single-block pages walk their backpointers inside the
         kernel and return (E+1, 2) unless ``defer_walk``; longer pages
         return per-block records, walked on the host at finish.  Every
-        result's copy to pinned host memory starts at its launch."""
+        result's copy to pinned host memory starts at its launch.
+        Alternatives over 64 chars, and shapes that no layout of the
+        kernel lays out in a block's shared memory
+        (:func:`ops.decode_kernel.decode_smem_fits`), take the engine
+        (:meth:`_rate_best_engine`)."""
         K = _bucket(min(beam_width, FUSED_MAX_BEAM), K_BUCKETS)
         A = 4
         E_MAX = E_BUCKETS[-1]
         scan = native.decode_scan(edges_raw, self.merge_runs,
                                   DECODE_MERGE_MAX)
+        edges = None
         if scan is None:
             edges = self._prepare_decode_edges(edges_raw)
             nE = len(edges)
-            maxlen = max(max((len(ids) for ids in pe['alt_ids']),
-                             default=1) for pe in edges)
+            maxlen = _longest(edges)
         else:
             nE, maxlen = scan
-        if maxlen > FUSED_MAX_ALT_LEN:
-            raise NotImplementedError(
-                'an alternative of %d chars exceeds the decode kernel\'s '
-                '%d; the unbounded decode engine is not ported yet '
-                '(ROADMAP.md Queue 1, "Wide-beam decode engine")'
-                % (maxlen, FUSED_MAX_ALT_LEN))
         L = _bucket(max(maxlen, 1), L_BUCKETS)
+        if not self._kernel_fits(maxlen, L, K):
+            self.logger.info(
+                'decode kernel unavailable (alternative of %d chars > %d, '
+                'or no layout of the model fits a block): using the '
+                'unbounded engine', maxlen, FUSED_MAX_ALT_LEN)
+            return self._rate_best_engine(edges_raw, device_traceback,
+                                          context, lm_weight, beam_width,
+                                          defer_walk=defer_walk,
+                                          edges=edges)
         full = None
         if scan is not None:
             # a document of several blocks pads to a multiple of E_MAX,
@@ -1089,6 +1126,109 @@ class Rater:
             packed_blocks.append(_Pinned(packed))
         return (('single' if single else 'blocks'), edges, packed_blocks,
                 K), (state, cost)
+
+    def _kernel_fits(self, maxlen, L, K):
+        """Whether ``decode_lattice`` takes alternatives of ``maxlen``
+        chars (bucket ``L``) at beam ``K`` for this model: at most 64
+        chars, and a layout within a block's shared memory."""
+        Vp = max(128, -(-self.voc_size // 128) * 128)
+        return maxlen <= FUSED_MAX_ALT_LEN and decode_smem_fits(
+            4, L, K, self.depth, self.width, Vp, self.voc_size)
+
+    def _rate_best_engine(self, edges_raw, device_traceback, context,
+                          lm_weight, beam_width, defer_walk=False,
+                          edges=None):
+        """Engine decode dispatch (the counterpart of the JAX package's
+        XLA path): :func:`ops.beam_device.decode_lattice_device` per
+        block of at most 1024 edges, at K = the beam width's bucket (up
+        to 512) and alternatives of any length, the carry ``(h, c, x,
+        cost)`` chaining on the device.  A single block walks on the
+        device (``'single'``) unless ``defer_walk``; longer pages and
+        lookahead keep per-block records (``'blocks'``).  Blocks hold
+        exactly their edges (no padding edges: they would leave the live
+        slots as they are)."""
+        if edges is None:
+            edges = self._prepare_decode_edges(edges_raw)
+        K = _bucket(beam_width, STEP_BUCKETS)
+        A = 4
+        E_MAX = E_BUCKETS[-1]
+        L = _bucket_unbounded(max(_longest(edges), 1), L_BUCKETS)
+        h, c, x, cost = self._engine_traceback(device_traceback, K)
+        nE = len(edges)
+        single = nE <= E_MAX and not defer_walk
+        packed_blocks = []
+        for lo in range(0, nE, E_MAX):
+            block = edges[lo:lo + E_MAX]
+            packed, h, c, x, cost = self._launch_engine(
+                self._fill_decode_arrays(block, len(block), A, L), context,
+                (h, c, x, cost), lm_weight, single)
+            packed_blocks.append(_Pinned(packed))
+        return (('single' if single else 'blocks'), edges, packed_blocks,
+                K), (h, c, x, cost)
+
+    def _launch_engine(self, arrays, context, carry, lm_weight,
+                       device_walk):
+        """One :func:`ops.beam_device.decode_lattice_device` call over
+        host arrays ``(chars, mask, conf, valid)``, with or without a
+        leading document axis (uploaded through pinned memory); returns
+        (packed, h, c, x, cost)."""
+        from .ops.beam_device import decode_lattice_device
+        mask = arrays[1]
+        # the most char steps of an edge over the documents
+        steps = _alt_steps(mask.reshape((-1,) + mask.shape[-3:])
+                           .max(axis=0))[:, 0].tolist()
+        dev = self.device
+        return decode_lattice_device(
+            self.params, self.cfg,
+            *(host_to_device(torch.from_numpy(np.ascontiguousarray(a)), dev)
+              for a in arrays),
+            self._context_arrays(context, 1), *carry, float(lm_weight),
+            device_walk=device_walk, steps=steps)
+
+    def _engine_traceback(self, tb, K):
+        """The beam carry in the engine's format ``(h (D, K, W), c, x
+        (K,), cost (K,))`` with empty slots at 3e38: a fresh beam (only
+        slot 0 alive, every x the newline) when ``tb`` is None; the
+        kernel's ``(state, cost)`` unpacked (the JAX package's
+        ``_xla_traceback``: x is the char whose embedding row the state's
+        xemb is, exactly, found by the nearest row in float64); the beam
+        narrowed (best K slots kept, the carry is rank ordered) or widened
+        (dead slots appended)."""
+        D, W = self.depth, self.width
+        dev = self.device
+        if tb is None:
+            h = torch.zeros((D, K, W), dtype=torch.float32, device=dev)
+            x = torch.full((K,), self.vocab.get('\n'), dtype=torch.int32,
+                           device=dev)
+            cost = torch.full((K,), ENGINE_BIG, dtype=torch.float32,
+                              device=dev)
+            cost[0] = 0.0
+            return h, h.clone(), x, cost
+        if len(tb) == 2:
+            state, cost_l = tb
+            K0 = state.shape[0]
+            h = torch.stack([state[:, (1 + d) * W:(2 + d) * W]
+                             for d in range(D)])
+            c = torch.stack([state[:, (1 + D + d) * W:(2 + D + d) * W]
+                             for d in range(D)])
+            emb = self.params['char_embedding'].double()
+            xemb = state[:, :W].double()
+            d2 = (emb * emb).sum(1)[None, :] - 2.0 * (xemb @ emb.T)
+            x = torch.argmin(d2, dim=1).int()
+            cost = cost_l[0, :K0]
+            tb = (h, c, x, torch.where(cost >= 1.0e29, ENGINE_BIG, cost))
+        h, c, x, cost = tb
+        K0 = h.shape[1]
+        if K0 >= K:
+            return h[:, :K], c[:, :K], x[:K], cost[:K]
+        pad = K - K0
+        zeros = torch.zeros((D, pad, W), dtype=h.dtype, device=h.device)
+        return (torch.cat([h, zeros], 1), torch.cat([c, zeros], 1),
+                torch.cat([x, torch.zeros((pad,), dtype=x.dtype,
+                                          device=x.device)]),
+                torch.cat([cost, torch.full((pad,), ENGINE_BIG,
+                                            dtype=cost.dtype,
+                                            device=cost.device)]))
 
     def _launch_decode(self, wts, arrays, state, cost, lm_weight,
                        device_walk, n_real):
@@ -1177,17 +1317,14 @@ class Rater:
         the kernel's beam and alternative limits, and a layout whose
         shared memory fits a block's
         (:func:`ops.decode_kernel.decode_smem_fits`)."""
-        if n_prep <= 0 or beam_width > FUSED_MAX_BEAM or \
-                maxlen > FUSED_MAX_ALT_LEN or n_prep > E_BUCKETS[-1]:
+        if n_prep <= 0 or not self.fused_decode or self.decode_bf16 or \
+                beam_width > FUSED_MAX_BEAM or n_prep > E_BUCKETS[-1]:
             return None
         L = _bucket(max(maxlen, 1), L_BUCKETS)
-        E = _bucket(n_prep, E_BUCKETS)
         K = _bucket(min(beam_width, FUSED_MAX_BEAM), K_BUCKETS)
-        Vp = max(128, -(-self.voc_size // 128) * 128)
-        if not decode_smem_fits(4, L, K, self.depth, self.width, Vp,
-                                self.voc_size):
+        if not self._kernel_fits(maxlen, L, K):
             return None
-        return E, L
+        return _bucket(n_prep, E_BUCKETS), L
 
     @_gc_paused
     def rate_best_device_begin_arrays(self, n_prep, E, L, alt_chars,
@@ -1526,8 +1663,16 @@ class Rater:
     def rate_best_batch_finish(self, pending):
         """Wait for a :meth:`rate_best_batch_begin` batch and emit its
         paths; returns the results list."""
-        if pending[0] == 'done':
+        kind = pending[0]
+        if kind == 'done':
             return pending[1]
+        if kind == 'xlab':
+            _, edges_list, live, packed, K, results = pending
+            packed = _host(packed)
+            for row, i in enumerate(live):
+                results[i] = self.rate_best_device_finish(
+                    ('single', edges_list[i], [packed[row]], K))
+            return results
         _, gpending, prepared, results = pending
         self._rate_best_batch_fused_finish(gpending, prepared, results)
         return results
@@ -1540,7 +1685,14 @@ class Rater:
         launch batch B before it finishes batch A (results equal the
         synchronous :meth:`rate_best_batch`).  Empty batches, all-empty
         documents and a single live document resolve inside begin.
-        Branching lattices raise :class:`NonLinearLatticeError`."""
+        Branching lattices raise :class:`NonLinearLatticeError`.
+
+        The batched kernel takes the batch where it takes the shape (beam
+        <= 32, alternatives <= 64 chars, a layout that fits a block);
+        else one engine call decodes every live document side by side
+        (:func:`ops.beam_device.decode_lattice_device` with a leading
+        document axis, pending ``'xlab'``), and documents over 1024
+        prepared edges decode one by one (:meth:`rate_best_device`)."""
         if self.status < 2:
             raise RuntimeError('rate_best_batch needs loaded weights')
         raw_list = [_linear_edges(g) for g in graphs]
@@ -1551,21 +1703,19 @@ class Rater:
         if not live:
             return ('done', results)
         maxlen = max(scans[i][1] for i in live)
-        if beam_width > FUSED_MAX_BEAM or maxlen > FUSED_MAX_ALT_LEN:
-            raise NotImplementedError(
-                'beam_width %d (at most %d) or an alternative of %d chars '
-                '(at most %d) needs the unbounded decode engine, which is '
-                'not ported yet (ROADMAP.md Queue 1, "Wide-beam decode '
-                'engine")' % (beam_width, FUSED_MAX_BEAM, maxlen,
-                              FUSED_MAX_ALT_LEN))
-        if len(live) == 1:
-            # a single live document takes the single-document kernel
-            # (merged prep), as in the JAX package
-            i = live[0]
-            path, ent, _ = self.rate_best_device(
-                raw_list[i], 0, 0, context=context, lm_weight=lm_weight,
-                beam_width=beam_width)
-            results[i] = (path, ent)
+        kernel = self.fused_decode and beam_width <= FUSED_MAX_BEAM and \
+            self._kernel_fits(maxlen, _bucket(max(maxlen, 1), L_BUCKETS),
+                              _bucket(beam_width, K_BUCKETS))
+        if len(live) == 1 or (not kernel and
+                              max(sizes) > E_BUCKETS[-1]):
+            # a single live document takes the single-document decode
+            # (merged prep), as in the JAX package; so do documents too
+            # long for one engine block
+            for i in live:
+                path, ent, _ = self.rate_best_device(
+                    raw_list[i], 0, 0, context=context,
+                    lm_weight=lm_weight, beam_width=beam_width)
+                results[i] = (path, ent)
             return ('done', results)
         if self.mesh is not None:
             raise NotImplementedError(
@@ -1575,25 +1725,56 @@ class Rater:
             raise NotImplementedError(
                 'decode_bf16 is not ported yet (ROADMAP.md Queue 1, '
                 '"bf16 decode")')
+        if not kernel:
+            return self._rate_best_batch_engine(
+                raw_list, live, results, context, lm_weight, beam_width)
         prepared: List[Any] = [None] * len(raw_list)
         gpending = self._rate_best_batch_fused_begin(
             raw_list, merge, sizes, prepared, live, maxlen, context,
             lm_weight, beam_width)
         return ('fusedb', gpending, prepared, results)
 
+    def _rate_best_batch_engine(self, raw_list, live, results, context,
+                                lm_weight, beam_width):
+        """One engine call over the live documents (merged prep, fresh
+        beams at K = the beam width's bucket), each walked on the
+        device; the shorter documents take free edges up to the longest
+        (they leave the live slots as they are).  Returns the
+        ``'xlab'`` pending."""
+        edges_list = [self._prepare_decode_edges(raw) if raw else []
+                      for raw in raw_list]
+        K = _bucket(beam_width, STEP_BUCKETS)
+        A = 4
+        E = max(len(edges_list[i]) for i in live)
+        L = _bucket_unbounded(max(_longest(edges_list[i]) for i in live),
+                              L_BUCKETS)
+        arrays = [np.stack(a) for a in zip(*(
+            self._fill_decode_arrays(edges_list[i], E, A, L)
+            for i in live))]
+        N = len(live)
+        h, c, x, cost = self._engine_traceback(None, K)
+        packed = self._launch_engine(
+            arrays, context, tuple(a.expand((N,) + a.shape).contiguous()
+                                   for a in (h, c, x, cost)),
+            lm_weight, True)[0]
+        return ('xlab', edges_list, live, _Pinned(packed), K, results)
+
     def _batch_scans(self, raw_list, beam_width):
         """The prep of a batch of edge chains: (merge flag, per document
         (prepared edges, longest alternative; (0, 0) when empty)).
         Unmerged-L1 preference: when every real alternative of every
         document is a single char (glyph lattices: run merging is the
-        only source of L > 1), the batch preps without merging, so that
-        every edge takes one char step (on the parent rows) instead of an
-        L=8 bucket; paths equal the merged decode's, per-char scores are
-        exact (a merged run's are uniform)."""
+        only source of L > 1) and the batched kernel takes the batch at
+        L=1, the batch preps without merging, so that every edge takes
+        one char step (on the parent rows) instead of an L=8 bucket;
+        paths equal the merged decode's, per-char scores are exact (a
+        merged run's are uniform)."""
         scans = [_scan(raw, self.merge_runs, DECODE_MERGE_MAX)
                  if raw else (0, 0) for raw in raw_list]
-        if self.merge_runs and beam_width <= FUSED_MAX_BEAM and \
-                max((m for _, m in scans), default=1) > 1:
+        if self.merge_runs and self.fused_decode and \
+                beam_width <= FUSED_MAX_BEAM and \
+                max((m for _, m in scans), default=1) > 1 and \
+                self._kernel_fits(1, 1, _bucket(beam_width, K_BUCKETS)):
             scans_u = [_scan(raw, False, 1) if raw else (0, 0)
                        for raw in raw_list]
             if max((m for n, m in scans_u if n), default=1) <= 1:

@@ -368,9 +368,12 @@ class KerasRate:
             """OCRD_MISSING_OUTPUT policy for ONE failed page: ABORT
             raises, COPY emits the input as fallback, every failure is
             logged and counted toward the ratio abort.  A failure inside
-            a page group is attributed to ITS page."""
+            a page group is attributed to ITS page.  What the port does
+            not have yet (NotImplementedError) raises under every
+            policy: a page it cannot write is never skipped silently."""
             nonlocal nr_failed
-            if missing_policy == 'ABORT':
+            if missing_policy == 'ABORT' or \
+                    isinstance(err, NotImplementedError):
                 self.logger.error('Failure on page %s: %s', page_id,
                                   str(err) or err.__class__.__name__)
                 raise err
@@ -918,9 +921,10 @@ class KerasRate:
     def _handle_page_error(self, err, page_id, input_file=None):
         """Apply OCRD_MISSING_OUTPUT to one page failure: ABORT
         re-raises, COPY falls back to the input file (when given),
-        anything else skips with a log."""
+        anything else skips with a log.  NotImplementedError (what the
+        port does not have yet) re-raises under every policy."""
         policy = _config_env('OCRD_MISSING_OUTPUT', 'SKIP')
-        if policy == 'ABORT':
+        if policy == 'ABORT' or isinstance(err, NotImplementedError):
             self.logger.error('Failure on page %s: %s', page_id, err)
             raise err
         self.logger.exception('Failure on page %s', page_id)

@@ -259,22 +259,25 @@ def test_batch_matches_exhaustive(multichar):
 def test_unported_and_invalid_batches_raise(raters, monkeypatch):
     """A branching lattice raises ``NonLinearLatticeError`` (no host
     fallback in the batch API, as in JAX); a beam wider than 32 or an
-    alternative longer than 64 chars names the wide-beam engine; a mesh
-    names the distributed item."""
+    alternative longer than 64 chars takes the unbounded engine (pending
+    ``'xlab'``), each document as it decodes alone; a mesh names the
+    distributed item."""
     _, tr = raters
     g = _toy_graph(['ab'])[0]
     branching = g.copy()
     branching.add_edge(0, 'detour', element=None, alternatives=[])
     with pytest.raises(NonLinearLatticeError, match='linear lattice'):
         tr.rate_best_batch([g, branching], beam_width=4)
-    with pytest.raises(NotImplementedError, match='Wide-beam decode engine'):
-        tr.rate_best_batch([g, g], beam_width=40)
     long_alt = _toy_graph(['ab'])[0]
     long_alt.add_edge(2, 3, element='long', alternatives=[
         TextEquivType(Unicode='a' * 65, conf=0.9, index=0),
         TextEquivType(Unicode='b', conf=0.8, index=1)])
-    with pytest.raises(NotImplementedError, match='Wide-beam decode engine'):
-        tr.rate_best_batch([g, long_alt], beam_width=4)
+    for docs, beam in (([g, g], 40), ([g, long_alt], 4)):
+        pending = tr.rate_best_batch_begin(docs, beam_width=beam)
+        assert pending[0] == 'xlab'
+        _same(tr.rate_best_batch_finish(pending),
+              [tr.rate_best_device(d, 0, 0, beam_width=beam)[:2]
+               for d in docs])
     monkeypatch.setattr(tr, 'mesh', object())
     with pytest.raises(NotImplementedError, match='Distributed'):
         tr.rate_best_batch([g, g], beam_width=4)

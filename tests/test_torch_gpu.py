@@ -1053,3 +1053,133 @@ def test_native_lane_card_matches_cpu(cuda, tmp_path):
         ((u_c, c_c),) = cpu[gid]
         assert u_g == u_c and abs(c_g - c_c) <= 1e-4, (gid, u_g, u_c)
     assert outs['records'][1] == outs['card'][1]
+
+
+def test_decode_engine_card_matches_cpu(cuda, tmp_path):
+    """The unbounded decode engine on the card against the CPU: three
+    seeded glyph pages at beam 40 (K=64) with the carry, each page's
+    path equal, scores and entropies within 1e-4 (plus two ulps of the
+    cumulative cost); no kernel launched."""
+    from chip_smoke import NO_LAUNCHES, read_counts, zero_counts
+    build_workspace(str(tmp_path), np.random.default_rng(41), 3, 3,
+                    german_rater('cpu').vocab, alt_share=0.3)
+    pages = workspace_graphs(str(tmp_path))
+    out = {}
+    for device in ('cuda', 'cpu'):
+        rater = german_rater(device)
+        zero_counts()
+        tb, res = None, []
+        for g in pages:
+            path, ent, tb = rater.rate_best_device(g, 0, 0,
+                                                   device_traceback=tb,
+                                                   beam_width=40)
+            res.append((path, ent))
+        assert read_counts() == NO_LAUNCHES
+        assert len(tb) == 4 and tb[0].device.type == device
+        out[device] = res
+    same_results(out['cuda'], out['cpu'], cost_ulps=2)
+
+
+def test_generation_engine_card_matches_cpu(cuda):
+    """``fused_generate`` off: the generation engine on the card gives
+    the CPU's strings (three variants, and a batch of two prompts), with
+    no ``gen_beam`` or ``gen_traceback`` launch."""
+    from chip_smoke import read_counts, zero_counts
+    out = {}
+    for device in ('cuda', 'cpu'):
+        rater = german_rater(device)
+        rater.fused_generate = False
+        zero_counts()
+        out[device] = (rater.generate('Die Vernunft ', 24, variants=3),
+                       rater.generate_batch(['Was ist ', 'Der '], 24))
+        counts = read_counts()
+        assert counts['gen_beam'] == counts['gen_traceback'] == 0
+    assert out['cuda'] == out['cpu']
+    assert len(out['cuda'][0]) == 3
+
+
+def test_wide_model_runs_on_the_card(cuda):
+    """A D=2, W=512 model (``chip_smoke.wide_rater``): the decode of a
+    64-edge lattice and a 2-document batch take the engine (no decode
+    kernel fits), generation takes the engine (no ``gen_beam`` layout),
+    each equal to the CPU's; a backward through ``forward_seq`` launches
+    ``lstm_bwd`` in its one-block layout of 4 streams a block without a
+    CUDA error, its gradients those of the CPU."""
+    from chip_smoke import (NO_LAUNCHES, read_counts, wide_lattice,
+                            wide_rater, zero_counts)
+    from ocrd_keraslm_torch.models.lstm_lm import forward_seq
+    from ocrd_keraslm_torch.ops import lstm_cell
+    rng = np.random.default_rng(43)
+    out = {}
+    for device in ('cuda', 'cpu'):
+        rater = wide_rater(device)
+        graphs = [wide_lattice(rng, rater.vocab, n) for n in (64, 23)] \
+            if not out else graphs
+        zero_counts()
+        out[device] = (rater.rate_best_device(graphs[0], 0, 0)[:2],
+                       rater.rate_best_batch(graphs),
+                       rater.generate('Die ', 16, variants=2))
+        assert read_counts() == NO_LAUNCHES
+    same_results([out['cuda'][0]], [out['cpu'][0]], cost_ulps=2)
+    same_results(out['cuda'][1], out['cpu'][1], cost_ulps=2)
+    assert out['cuda'][2] == out['cpu'][2]
+    lay = lstm_cell.bwd_layout_on(cuda, 5, 512)
+    assert (lay.rb, lay.cl, lay.reg) == (4, 1, False)
+    grads = {}
+    x = torch.from_numpy(rng.integers(1, 60, (5, 8)))
+    for device in ('cuda', 'cpu'):
+        rater = wide_rater(device)
+        params = {k: v for k, v in rater.params.items()}
+        leaves = [lp['recurrent'].requires_grad_() for lp in params['lstm']]
+        b0 = lstm_cell.lstm_bwd.launches
+        logits, _ = forward_seq(params, rater.cfg, x.to(device),
+                                [torch.zeros((5,), dtype=torch.long,
+                                             device=device)], None)
+        logits.square().mean().backward()
+        if device == 'cuda':
+            torch.cuda.synchronize()
+            assert lstm_cell.lstm_bwd.launches == b0 + 2
+        grads[device] = [leaf.grad.cpu() for leaf in leaves]
+    for g, w in zip(grads['cuda'], grads['cpu']):
+        scale = float(w.abs().max())
+        torch.testing.assert_close(g, w, rtol=1e-3, atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize('bf16', [False, True], ids=['f32', 'bf16'])
+@pytest.mark.parametrize('B, T', [(3, 9), (13, 7), (128, 16)])
+def test_lstm_bwd_at_width_512_matches_plain(cuda, B, T, bf16):
+    """``lstm_bwd`` at W=512, where only the one-block layout takes the
+    chain and its rows fit a block's shared memory at 4 streams a block:
+    against its plain version, ``dU`` bit-equal over two launches."""
+    from ocrd_keraslm_torch.ops import lstm_cell
+    rng = np.random.default_rng([B, T, 512, int(bf16)])
+    fwd, cot = lstm_train_inputs(rng, cuda, bf16, B=B, T=T, W=512)
+    lay = lstm_cell.bwd_layout_on(cuda, B, 512)
+    assert (lay.rb, lay.reg) == (4, False)
+    got = lstm_cell.lstm_scan(*fwd, want_c_all=True)
+    compare_lstm(got, lstm_cell.lstm_scan_ref(*fwd, want_c_all=True),
+                 atol=BF16_FWD_ATOL if bf16 else 1e-5)
+    args = lstm_bwd_args(fwd, cot, got[:2])
+    outs = [lstm_cell.lstm_bwd(*args) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0][1], outs[1][1])
+    compare_bwd(outs[0], lstm_cell.lstm_bwd_ref(*args))
+
+
+@pytest.mark.parametrize('W', [128, 256])
+def test_one_block_rows_keep_the_bits(cuda, W):
+    """The one-block layout at 8, 4, 2 and 1 streams a block gives
+    ``lstm_scan`` and ``lstm_bwd`` the same bits: a smaller block only
+    changes which block runs a stream."""
+    from chip_smoke import scan_layout
+    from ocrd_keraslm_torch.ops import lstm_cell
+    rng = np.random.default_rng([W, 7])
+    fwd, cot = lstm_train_inputs(rng, cuda, False, B=11, T=12, W=W)
+    outs = []
+    for rb in (8, 4, 2, 1):
+        with scan_layout(rb, reg=False):
+            saved = lstm_cell.lstm_scan(*fwd, want_c_all=True)
+            outs.append(tuple(saved) + tuple(lstm_cell.lstm_bwd(
+                *lstm_bwd_args(fwd, cot, saved[:2]))))
+    for got in outs[1:]:
+        assert all(torch.equal(g, w) for g, w in zip(got, outs[0]))

@@ -303,9 +303,18 @@ def test_scan_layout_check_refuses(field, value, message):
         sl.check('lstm', 4, 128, 1, lay)
     with pytest.raises(ValueError, match='multiple of 4'):
         sl.check('lstm', 4, 126, 1, sl.reg_layout_for('lstm', 128, 1, 4, 4))
-    # the one-block layout's shared memory exceeds a block's at W=2048
+    # at W=2048 the one-block layout takes 4 streams a block, whose rows
+    # fit a block's shared memory (8 would not); at W=10240 not even one
+    # stream's rows fit
+    one = sl.one_block_layout('lstm', 8, 2048, 1)
+    assert one.rb == 4
+    sl.check('lstm', 8, 2048, 1, one)
+    with pytest.raises(ValueError, match='the one-block layout'):
+        sl.check('lstm', 8, 2048, 1, one._replace(
+            rb=8, rt=8, smem=sl.plan_bytes('lstm', 2048, 1, 8, False)))
     with pytest.raises(ValueError, match='smem <= '):
-        sl.check('lstm', 8, 2048, 1, sl.one_block_layout('lstm', 8, 2048, 1))
+        sl.check('lstm', 8, 10240, 1,
+                 sl.one_block_layout('lstm', 8, 10240, 1))
 
 
 @pytest.mark.parametrize('W, rb, cl, rt, threads, score_threads', [

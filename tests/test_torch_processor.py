@@ -10,6 +10,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -208,3 +209,101 @@ def test_unported_lanes_raise(var, tmp_path, monkeypatch):
         assert len(_outputs(d)[0]) == len(PAGES)
     want = len(PAGES) if counter == 'pages' else 1
     assert seen == {None: want, '1': want, '0': 0}, seen
+
+
+# page 1: a 79-char line in a 113-char region (beyond the decode kernel's
+# 64 chars at line and region level); page 2: short lines
+LONG_PAGES = {
+    'phys_0001': [['Was', 'ist', 'Aufklärung'],
+                  ['Aufklärung', 'ist', 'Ausgang', 'des', 'Menschen', 'aus',
+                   'seiner', 'selbstverschuldeten', 'Unmündigkeit'],
+                  ['Habe', 'Mut,', 'dich']],
+    'phys_0002': [['die', 'Vernunft', 'siegt'], ['am', 'Ende', 'doch']],
+}
+
+
+def _level_confs(directory, level):
+    """{id: [(Unicode, conf)]} of the output's lines or regions."""
+    ws = Workspace(directory)
+    out = {}
+    for f in ws.mets.find_files(fileGrp='OCR-D-LM'):
+        pcgts = parse_page(os.path.join(directory, f.local_filename))
+        for region in pcgts.get_Page().get_TextRegion():
+            elements = [region] if level == 'region' else \
+                region.get_TextLine()
+            for el in elements:
+                out[el.id] = [(te.Unicode, te.conf)
+                              for te in el.get_TextEquiv()]
+    return out
+
+
+def _run_default(tmp_path, pages, alternatives, params):
+    """Both processors at their defaults (the JAX one: its XLA engine on
+    the CPU; the port: its page lanes, the kernel's plain version where
+    the kernel takes the page and the engine elsewhere); returns the two
+    output directories."""
+    dirs = []
+    for name, cls, kw in (('jax', JKerasRate, {}),
+                          ('torch', TKerasRate, {'device': 'cpu'})):
+        d = str(tmp_path / name)
+        ws = build_workspace(d, pages, glyph_alternatives=alternatives)
+        proc = cls(workspace=ws, parameter=dict(params, model_file=GERMAN),
+                   **kw)
+        proc.setup()
+        proc.process_workspace(ws)
+        dirs.append(d)
+    return dirs
+
+
+def test_wide_beam_pages_match_jax(tmp_path):
+    """``-P beam_width 40`` (K=64, the unbounded engine) over 3 glyph
+    pages: every page written, the JAX processor's choices, confs within
+    1e-4."""
+    pages = dict(PAGES, phys_0003=[['Sapere', 'aude']])
+    alternatives = {**ALTERNATIVES, (0, 1, 2): [('p', 0.9), ('b', 0.89)]}
+    want, got = (_outputs(d) for d in _run_default(
+        tmp_path, pages, alternatives, {'beam_width': 40}))
+    assert len(got[0]) == 3
+    _assert_same(want, got, 1e-4)
+
+
+@pytest.mark.parametrize('level, n_chars', [('line', 79),
+                                            ('region', 113)])
+def test_long_texts_match_jax(tmp_path, level, n_chars):
+    """``textequiv_level`` line (a 79-char line) and region (a 113-char
+    region): the page with the long text decodes through the engine, the
+    short page through the kernel, the carry handed between them; every
+    page written, the JAX processor's texts, confs within 1e-4."""
+    lengths = [len(' '.join(words)) for words in LONG_PAGES['phys_0001']]
+    assert (max(lengths) if level == 'line' else
+            sum(lengths) + len(lengths) - 1) == n_chars
+    want, got = (_level_confs(d, level) for d in _run_default(
+        tmp_path, LONG_PAGES, None, {'textequiv_level': level}))
+    assert got.keys() == want.keys() and len(want) == \
+        (5 if level == 'line' else 2)
+    for key, w_tes in want.items():
+        g_tes = got[key]
+        assert [u for u, _ in g_tes] == [u for u, _ in w_tes], key
+        np.testing.assert_allclose([c for _, c in g_tes],
+                                   [c for _, c in w_tes], rtol=0, atol=1e-4)
+    assert any(len(u) == n_chars for tes in got.values() for u, _ in tes)
+
+
+@pytest.mark.parametrize('policy', [None, 'SKIP', 'COPY'])
+def test_unported_feature_raises_through_the_processor(tmp_path,
+                                                       monkeypatch, policy):
+    """What the port does not have yet raises its NotImplementedError out
+    of the processor under every OCRD_MISSING_OUTPUT policy (here the
+    opt-in bf16 decode), instead of skipping the page and exiting 0."""
+    if policy is None:
+        monkeypatch.delenv('OCRD_MISSING_OUTPUT', raising=False)
+    else:
+        monkeypatch.setenv('OCRD_MISSING_OUTPUT', policy)
+    ws = build_workspace(str(tmp_path), PAGES,
+                         glyph_alternatives=ALTERNATIVES)
+    proc = TKerasRate(workspace=ws, parameter={'model_file': GERMAN},
+                      device='cpu')
+    proc.setup()
+    proc.rater.decode_bf16 = True
+    with pytest.raises(NotImplementedError, match='bf16 decode'):
+        proc.process_workspace(ws)
