@@ -14,8 +14,11 @@ Phases, each printing its own lines (any failure exits non-zero):
    once, and beside them ``g++`` the three host C++ libraries of
    ``ocrd_keraslm_torch/native_src/`` (the decode prep, the PAGE
    scanner, the training windows; with the CPython headers' path);
-   prints seconds, ``-Xptxas -v`` registers and spills, and each
-   block's dynamic shared memory;
+   prints seconds, ``-Xptxas -v`` registers and spills (the decode
+   kernels' bf16 instantiations among them), each block's dynamic shared
+   memory, and the ``HMMA`` instructions in each bf16 decode cluster
+   kernel's SASS (``cuobjdump -sass``; none may be missing, and no f32
+   kernel may have one);
 3. parity at full width (``pretrained/model_german.h5``), each kernel
    against its plain PyTorch version, and both versions' error against
    the plain version run in float64:
@@ -45,6 +48,14 @@ Phases, each printing its own lines (any failure exits non-zero):
    (``TB_CASES``: the main path's 3 cursors from step 999 of 1024, 16
    streams, T*K beyond a block's shared memory, 1024 cursors, one
    segment, a forced plan), each equal to the plain version;
+   under the german model's bf16 decode weights, ``decode_lattice`` in
+   the cluster layout at every size the shape takes and in the one-block
+   layout, pinned by ``DECODE_BF16_DIGESTS``, and ``decode_lattice_batch``
+   on the 64-edge block of 8 documents (each document equal to a single
+   bf16 launch bit for bit), both held to their plain bf16 versions
+   edge by edge from the kernel's beam (``parity_stepwise``: two bf16
+   runs part from the first h that rounds to the other bf16 value), with
+   both versions' state error against float64;
 4. decode path: a seeded synthetic METS/PAGE workspace (4 pages of ~1800
    glyphs, 2-4 alternatives on ~15% of them) through
    ``ocrd_keraslm_torch.wrapper.cli`` at glyph level, beam_width 10, in
@@ -117,7 +128,17 @@ Phases, each printing its own lines (any failure exits non-zero):
    ``train_step``s with ``lstm_bwd`` in its one-block layout of 4
    streams a block, card against CPU, ``lstm_bwd`` there against its
    plain version and pinned by ``WIDE_BWD_DIGEST``, and the one-block
-   layout at 8, 4 and 2 streams a block bit-equal at W=256;
+   layout at 8, 4 and 2 streams a block bit-equal at W=256; bf16 decode
+   mode (``rater.decode_bf16 = True``): phase 4's pages through the
+   processor's Python entry point (every page written, the native lane
+   serving every page, one bf16 ``decode_lattice`` launch a page group
+   and no f32 one; the glyph choices that differ from the f32 default's
+   counted), a one-page workspace card against CPU (near-ties by the
+   bf16 path costs on the CPU within ``BF16_TIE_BITS``), a bf16 kernel
+   page, a page at beam 40 through the engine and a kernel page again,
+   card against CPU, the 32 one-page documents through
+   ``rate_best_batch``, each equal to its own bf16 ``rate_best_device``,
+   and ``generate -n 64`` equal with the flag set and unset;
 7. numbers: wall per page (by page lane, and its host split), edges/s
    and scored chars/s, the page groups' and lookahead's walls, the
    device's busy and idle share of the paths (``torch.profiler``), wall
@@ -132,7 +153,11 @@ Phases, each printing its own lines (any failure exits non-zero):
    library yardstick where there is one (for the batched decode: one
    ``decode_lattice`` launch per document, one after another); for the
    decode kernels and ``lstm_bwd`` also the one-block layout's time (the
-   first port's kernel, its code unchanged) and the layout taken.
+   first port's kernel, its code unchanged) and the layout taken; the
+   bf16 decode kernels at rows 1 and 2's shapes beside the f32 kernels
+   in the same call (rows ``decode_lattice_bf16`` and
+   ``decode_lattice_batch_bf16``, their bound at the bf16 tensor-core
+   rate).
 
 Every kernel count is set to 0 just before a path runs and read just
 after.  The last two lines are the kernel table and
@@ -221,7 +246,7 @@ def walk_records(packed, K):
 
 
 def compare_decode(got, want, K, width, gap=1e-3, state_atol=1e-5,
-                   c_rtol=2e-5, cost_rtol=1e-5, cost_atol=1e-4):
+                   c_rtol=2e-5, cost_rtol=1e-5, cost_atol=1e-4, stats=None):
     """Hold one decode output ``(packed, stateF, costF)`` (numpy)
     against another; returns ``(max abs error, edges compared, edge
     where the two diverged at a near-tie or None)``.
@@ -241,7 +266,11 @@ def compare_decode(got, want, K, width, gap=1e-3, state_atol=1e-5,
     final state's xemb and h agree within ``state_atol``; the cell
     state c within ``state_atol + c_rtol * |c|`` (on long pages |c|
     grows to ~10^3, where one f32 ulp exceeds 1e-5).  A device-walk
-    output (E+1, 2) is compared whole: choices equal, costs close."""
+    output (E+1, 2) is compared whole: choices equal, costs close.
+    ``stats`` (a dict) gets the largest difference of the finite costs
+    (``cost``), of the final xemb and h (``h``) and of c relative to
+    max(1, |c|) (``c_rel``) seen, each over the values it already
+    holds."""
     g_pk, g_st, g_co = got
     w_pk, w_st, w_co = want
     assert g_pk.shape == w_pk.shape, (g_pk.shape, w_pk.shape)
@@ -250,6 +279,9 @@ def compare_decode(got, want, K, width, gap=1e-3, state_atol=1e-5,
     def close(name, a, b):
         nonlocal err
         fin = np.abs(b) < 1e29
+        if fin.any() and stats is not None:
+            stats['cost'] = max(stats.get('cost', 0.0),
+                                float(np.abs(a - b)[fin].max()))
         np.testing.assert_allclose(a, b, rtol=cost_rtol, atol=cost_atol,
                                    err_msg=name)
         if fin.any():
@@ -297,6 +329,10 @@ def compare_decode(got, want, K, width, gap=1e-3, state_atol=1e-5,
     D = (w_st.shape[1] // width - 1) // 2
     split = (1 + D) * width   # [xemb | h..] | [c..]
     d = np.abs(g_st[perm] - w_st)
+    if stats is not None:
+        stats['h'] = max(stats.get('h', 0.0), float(d[:, :split].max()))
+        stats['c_rel'] = max(stats.get('c_rel', 0.0), float(
+            (d[:, split:] / np.maximum(1.0, np.abs(w_st[:, split:]))).max()))
     assert d[:, :split].max() <= state_atol, \
         ('stateF xemb/h', float(d[:, :split].max()))
     c_tol = state_atol + c_rtol * np.abs(w_st[:, split:])
@@ -308,10 +344,11 @@ def compare_decode(got, want, K, width, gap=1e-3, state_atol=1e-5,
 
 
 def parity_block(run, kernel, plain, arrays, n_real, state, cost, K,
-                 width):
+                 width, tol=None):
     """Hold ``kernel`` against ``plain`` over one block of edges, both
     from the same ``state``/``cost``, records and device walk, with
-    :func:`compare_decode`.  ``run(fn, arrays, n_real, state, cost,
+    :func:`compare_decode` (its tolerances, or ``tol``: keyword arguments
+    of :func:`compare_decode`, e.g. :data:`BF16_DECODE_TOL`).  ``run(fn, arrays, n_real, state, cost,
     walk)`` returns a decode output as tensors.  Each version's device
     walk equals the host walk of its own records.  Where the runs part
     at a near-tie at the K-th rank (edge t), the kernel decodes the
@@ -336,13 +373,16 @@ def parity_block(run, kernel, plain, arrays, n_real, state, cost, K,
                 outs[name][1][0], walk_records(outs[name][0][0], K),
                 err_msg='%s device walk' % name)
         got, want = outs['kernel'], outs['plain']
-        e, _, div = compare_decode(got[0], want[0], K, width)
+        tol = tol or {}
+        e, _, div = compare_decode(got[0], want[0], K, width, **tol)
         err = max(err, e)
         if div is None:
             final = want[0][0][-1, 2 * K:]
-            if final[1] - final[0] > max(1e-3, 1e-5 * abs(final[0])):
+            if final[1] - final[0] > max(tol.get('gap', 1e-3),
+                                         1e-5 * abs(final[0])):
                 # the best final slot is one hypothesis in both runs
-                err = max(err, compare_decode(got[1], want[1], K, width)[0])
+                err = max(err, compare_decode(got[1], want[1], K, width,
+                                              **tol)[0])
             return (err, ties) + tuple(carry)
         ties.append(start + div)
         _, state, cost = run(kernel, part, div + 1, state, cost, False)
@@ -380,12 +420,23 @@ def batch_doc(records, stateF, costF, n, K):
 BATCH_STATE_ATOL, BATCH_C_RTOL = 2e-5, 4e-5
 
 
+# the bf16 decode mode (Rater.decode_bf16): two runs whose f32 h differ
+# in the last bit (sums in another order, another tanh) round some h to
+# neighbouring bf16 values, a step of 2^-8 relative (as BF16_FWD_ATOL),
+# which moves that candidate's cost by up to ~1e-3 bits and the state
+# after it by up to a bf16 step of h; ranks whose costs lie within 4e-3
+# bits may then come in another order.  Held at the CPU tests' small
+# widths (W=16, 16-edge blocks), where few h flip
+BF16_DECODE_TOL = dict(gap=4e-3, state_atol=4e-3, cost_atol=4e-3)
+
+
 def parity_batch(run, kernel, plain, arrays, n_real, state, cost, N, K,
-                 width):
+                 width, tol=None):
     """:func:`parity_block` for the batched decode: every document of
     ``kernel``'s output held against ``plain``'s with
     :func:`compare_decode` (final states within ``BATCH_STATE_ATOL``,
-    cell states also ``BATCH_C_RTOL``); ``run(fn, arrays, n_real, state,
+    cell states also ``BATCH_C_RTOL``, or the tolerances ``tol``, e.g.
+    :data:`BF16_DECODE_TOL`); ``run(fn, arrays, n_real, state,
     cost)`` returns a batched output as tensors.  Where a document's runs
     part at a near-tie at the K-th rank (edge t, the first over the
     documents), the kernel decodes the block once more with ``n_real = t
@@ -404,7 +455,8 @@ def parity_batch(run, kernel, plain, arrays, n_real, state, cost, N, K,
         for d in range(N):
             e, _, div = compare_decode(
                 batch_doc(*got, d, K), batch_doc(*want, d, K), K, width,
-                state_atol=BATCH_STATE_ATOL, c_rtol=BATCH_C_RTOL)
+                **(tol or dict(state_atol=BATCH_STATE_ATOL,
+                               c_rtol=BATCH_C_RTOL)))
             err = max(err, e)
             if div is not None:
                 divs.append(div)
@@ -491,11 +543,14 @@ def gen_parity(kernel, plain, weights, state, cost, length, v_real,
 def as_float64(fn):
     """``fn`` (a decode function) run in float64 on the same inputs,
     outputs back in float32.  The cost carry's dead lanes map to BIG
-    exactly, so dead slots still tie as in float32."""
+    exactly, so dead slots still tie as in float32.  bf16 weights stay
+    bf16 (the plain version widens them and rounds its operands to bf16
+    in the state's dtype)."""
     import torch
 
     def run64(*args, **kwargs):
-        args = [a.double() if a.is_floating_point() else a for a in args]
+        args = [a.double() if a.is_floating_point()
+                and a.dtype != torch.bfloat16 else a for a in args]
         args[9] = torch.where(args[9] >= 1e29, torch.full_like(args[9], BIG),
                               args[9])
         return [x.float() for x in fn(*args, **kwargs)]
@@ -688,7 +743,11 @@ LANES = {'native': dict(KERASLM_NATIVE_PAGE='1', KERASLM_FAST_PAGE='1'),
 KERNELS = ('decode_lattice', 'score_scan', 'lstm_scan', 'lstm_bwd',
            'gen_beam', 'gen_traceback', 'decode_lattice_batch',
            'walk_records_batch')
-NO_LAUNCHES = {name: 0 for name in KERNELS}
+# the decode kernels count their launches with bf16 weights apart (the
+# bf16 decode mode, Rater.decode_bf16)
+BF16_COUNTERS = ('decode_lattice', 'decode_lattice_batch')
+NO_LAUNCHES = dict({name: 0 for name in KERNELS},
+                   **{name + '_bf16': 0 for name in BF16_COUNTERS})
 # device kernels by name, for the profiler's sums: an activity counts for
 # the first name it contains, so the batched decode comes before
 # decode_lattice (lstm_bwd launches three: the recurrence, the dU partial
@@ -1204,14 +1263,15 @@ DECODE_DIGESTS = {
     8: 'bce90cb8e310cd156fdf66ac599e81f291945e8f555904581d883363d1d274d7'}
 
 
-def decode_digests(rater, dev):
+def decode_digests(rater, dev, bf16=False):
     """{L: sha256 of ``decode_lattice``'s records, stateF and costF and
     of its device walk} over a seeded 1024-edge block of the german model
-    at K=16, A=4, from a fresh beam."""
+    at K=16, A=4, from a fresh beam; with ``bf16`` the model's bf16
+    decode weights."""
     import hashlib
     import torch
     from ocrd_keraslm_torch.ops import decode_kernel as dk
-    wts = rater._decode_weights(None)
+    wts = rater._decode_weights(None, bf16=bf16)
     out = {}
     for L in (1, 8):
         arrays = random_lattice(np.random.default_rng(20261018 + L), 1024,
@@ -1451,6 +1511,324 @@ def batch_parity(rater, dev):
     return max_err, times
 
 
+# bf16 decode: the tolerances of one edge, kernel against plain version
+# from the same beam (parity_stepwise).  Within an edge of up to 8 char
+# steps the two runs' h round to other bf16 values and the differences
+# grow from step to step; over every edge of phase 3's blocks (NVIDIA
+# H100 80GB HBM3) they reached 0.0127 bits of cost, 0.0347 of xemb and h
+# and 0.0331 of c relative to max(1, |c|); held to about twice that.  A
+# kernel fault moves h by O(1) and parts the records
+BF16_EDGE_TOL = dict(gap=0.03, cost_atol=0.03, state_atol=0.08, c_rtol=0.07)
+# sha256 of decode_lattice's outputs under bf16 weights in decode_digests,
+# by layout, as the kernel gave them when it was written (NVIDIA H100
+# 80GB HBM3): every cluster size gives the cluster layout's bits
+DECODE_BF16_DIGESTS = {
+    'cluster': {
+        1: '8024b429651f8345bb3d8a16bfd4301b5c1bdb5a4e236a9f620c1b7c6b6a34c6',
+        8: '4b1824093f5bdbb23212650c6266b0712fca1497151b330bc55b9ee8ffc57cd0'},
+    'one-block': {
+        1: 'c3fdced38089df686732333f13ce2be212f53a816abc78c76fe18191e6b6373c',
+        8: '96215942f991c62a5925cfcb873dca95b10f89572bca46ef7a43175d5df73f09'}}
+
+
+def parity_stepwise(step, compare, arrays, n_real, state, cost):
+    """Hold a kernel against its plain version one edge at a time: at
+    every edge ``t`` both decode edge t alone (``step(edge arrays,
+    n_real 1 or 0, state, cost)`` returns ``(kernel output, plain
+    output)`` as tensors) from the kernel's beam after edge t-1, and
+    ``compare(got, want)`` returns ``(max abs error, edge where they
+    parted at a near-tie at the K-th rank or None)``.  Under bf16 weights
+    two runs that differ in the last bit of an f32 h round it to another
+    bf16 value, and the difference grows from edge to edge (each run
+    lies as far from a float64 run as from the other): so the runs are
+    held to each other edge by edge, not over a block.  A kernel's
+    per-edge work does not depend on the block it runs in, so the chained
+    one-edge launches give the block launch's bits (the caller checks
+    this).  Returns ``(max abs error, near-tie edges, the kernel's
+    records of every edge, final state, final cost)``."""
+    err, ties, recs = 0.0, [], []
+    for t in range(len(arrays[0])):
+        part = tuple(a[t:t + 1] for a in arrays)
+        got, want = step(part, int(t < n_real), state, cost)
+        e, div = compare([x.cpu().numpy() for x in got],
+                         [x.cpu().numpy() for x in want])
+        err = max(err, e)
+        if div is not None:
+            ties.append(t)
+        recs.append(got[0])
+        state, cost = got[1], got[2]
+    return err, ties, recs, state, cost
+
+
+def stepwise_error_vs_f64(run, kernel, plain, arrays, n_real, state, cost,
+                         width):
+    """:func:`state_error_vs_f64` one edge at a time, as
+    :func:`parity_stepwise` holds the bf16 kernel: at every edge kernel,
+    plain version and the plain version in float64 decode that edge from
+    the kernel's beam; over the edges where the three chose alike, the
+    largest cost and xemb/h error of each f32 version against the float64
+    run.  Returns ``(edges compared, edges, (kernel cost error, kernel h
+    error), (plain cost error, plain h error))``."""
+    K = state.shape[0]
+    D = (state.shape[1] // width - 1) // 2
+    fns = (kernel, plain, as_float64(plain))
+    errs = [[0.0, 0.0], [0.0, 0.0]]
+    alike = 0
+    for t in range(len(arrays[0])):
+        part = tuple(a[t:t + 1] for a in arrays)
+        outs = [[x.cpu().numpy() for x in run(fn, part, int(t < n_real),
+                                              state, cost, False)]
+                for fn in fns]
+        if all(np.array_equal(o[0][:, :2 * K], outs[2][0][:, :2 * K])
+               for o in outs[:2]):
+            alike += 1
+            fin = outs[2][0][1:, 2 * K:] < 1e29
+            for e, o in zip(errs, outs[:2]):
+                if fin.any():
+                    e[0] = max(e[0], float(np.abs(
+                        o[0][1:, 2 * K:] - outs[2][0][1:, 2 * K:])[fin].max()))
+                e[1] = max(e[1], float(np.abs(
+                    o[1] - outs[2][1])[:, :(1 + D) * width].max()))
+        state = run(kernel, part, int(t < n_real), state, cost, False)
+        state, cost = state[1], state[2]
+    return (alike, len(arrays[0])) + tuple(tuple(e) for e in errs)
+
+
+def decode_parity_bf16(rater, dev):
+    """Phase 3, ``decode_lattice`` under the german model's bf16 decode
+    weights, in the cluster layout at every size the shape takes and in
+    the one-block layout: its digests (``DECODE_BF16_DIGESTS``), both
+    versions' state error against float64, every edge of two chained
+    seeded blocks per L in {1, 8} against the plain version
+    (:func:`parity_stepwise`, ``BF16_EDGE_TOL``), the chained one-edge
+    launches bit-equal to the block's launch, whose device walk equals the
+    host walk of its records.  Returns the max abs error."""
+    import torch
+    from ocrd_keraslm_torch.ops import decode_kernel as dk
+    wts = rater._decode_weights(None, bf16=True)
+    W, K, A, D = rater.width, 16, 4, rater.depth
+    weights = (wts['emb'], wts['embT'], wts['wcat'], wts['bias'])
+
+    def run(fn, arrays, n_real, state, cost, walk):
+        chars, mask, conf, valid, steps = (torch.from_numpy(
+            np.ascontiguousarray(a)).to(dev) for a in arrays)
+        out = fn(*weights, chars, mask, conf, valid, state, cost,
+                 lm_weight=0.5, v_real=wts['v_real'], device_walk=walk,
+                 alt_steps=steps, n_real=n_real)
+        torch.cuda.synchronize()
+        return out
+
+    def step(part, n, state, cost):
+        return (run(dk.decode_lattice, part, n, state, cost, False),
+                run(dk.decode_lattice_ref, part, n, state, cost, False))
+
+    stats = {}
+
+    def compare(got, want):
+        e, _, div = compare_decode(got, want, K, W, stats=stats,
+                                   **BF16_EDGE_TOL)
+        return e, div
+
+    sizes = set(dk.cluster_sizes(K, A, 8, D, W, wts['v_pad'],
+                                 wts['v_real'])) & set(
+        dk.cluster_sizes(K, A, 1, D, W, wts['v_pad'], wts['v_real']))
+    max_err = 0.0
+    for cl in sorted(sizes, reverse=True) + [1]:
+        layout = 'cluster' if cl > 1 else 'one-block'
+        with decode_cluster(cl):
+            digests = decode_digests(rater, dev, bf16=True)
+            print('decode_lattice bf16 output digests, %s (sha256 of '
+                  'records, stateF, costF and the device walk over a seeded '
+                  '1024-edge block, K=16): %s; pinned: %s'
+                  % ('%d blocks a document' % cl if cl > 1 else
+                     'the one-block layout', digests,
+                     DECODE_BF16_DIGESTS.get(layout)))
+            assert digests == DECODE_BF16_DIGESTS[layout], \
+                ('decode_lattice bf16 outputs changed', cl)
+            rng = np.random.default_rng(20261016)
+            for L in (1, 8):
+                state, cost = rater._fused_traceback(None, K, wts['emb'])
+                for b, (E, n) in enumerate(((1024, 1024), (256, 200))):
+                    arr = random_lattice(rng, E, n, A, L, wts['v_real'])
+                    t0 = time.time()
+                    if b == 0:
+                        print('accuracy bf16 L=%d, %s: max |h - h_float64| '
+                              'of the beam state after the first %d edges '
+                              '(all runs chose alike there; the float64 '
+                              'run rounds its operands to bf16 too): '
+                              'kernel %.3g, plain version %.3g'
+                              % ((L, layout) + state_error_vs_f64(
+                                  run, dk.decode_lattice,
+                                  dk.decode_lattice_ref, arr, n, state,
+                                  cost, W)))
+                    if b == 0:
+                        acc = stepwise_error_vs_f64(
+                            run, dk.decode_lattice, dk.decode_lattice_ref,
+                            tuple(a[:256] for a in arr), n, state, cost, W)
+                        print('accuracy bf16 L=%d, %s, edge by edge from '
+                              'the kernel\'s beam over the first 256 edges '
+                              '(%d where kernel, plain version and float64 '
+                              'run chose alike): max |cost - cost_float64| '
+                              'and |h - h_float64|: kernel %.3g, %.3g; plain '
+                              'version %.3g, %.3g'
+                              % ((L, layout, acc[0]) + acc[2] + acc[3]))
+                    block = run(dk.decode_lattice, arr, n, state, cost, False)
+                    walk = run(dk.decode_lattice, arr, n, state, cost, True)
+                    np.testing.assert_array_equal(
+                        walk[0].cpu().numpy(),
+                        walk_records(block[0].cpu().numpy(), K))
+                    stats.clear()
+                    err, ties, recs, state_k, cost_k = parity_stepwise(
+                        step, compare, arr, n, state, cost)
+                    assert torch.equal(torch.cat([r[1:] for r in recs]),
+                                       block[0][1:]), 'records'
+                    assert torch.equal(state_k, block[1]) and \
+                        torch.equal(cost_k, block[2]), 'final beam'
+                    max_err = max(max_err, err)
+                    print('parity bf16 L=%d block %d (E=%d, n_real=%d, K=%d, '
+                          'A=%d), %s: every edge compared from the kernel\'s '
+                          'beam, max |kernel - plain| %.3g (costs %.3g, xemb '
+                          'and h %.3g, c relative to max(1, |c|) %.3g), '
+                          'near-ties at the '
+                          'K-th rank at edges %s; the %d one-edge launches '
+                          'equal the block launch bit for bit, its device '
+                          'walk = host walk of its records (tolerances: '
+                          'costs rtol 1e-5 atol %g, ties within %g, stateF '
+                          'atol %g, c also rtol %g) in %.1f s'
+                          % (L, b, E, n, K, A, layout, err,
+                             stats.get('cost', 0.0), stats.get('h', 0.0),
+                             stats.get('c_rel', 0.0), ties or 'none', E,
+                             BF16_EDGE_TOL['cost_atol'], BF16_EDGE_TOL['gap'],
+                             BF16_EDGE_TOL['state_atol'],
+                             BF16_EDGE_TOL['c_rtol'], time.time() - t0))
+                    state, cost = state_k, cost_k
+    return max_err
+
+
+def batch_parity_bf16(rater, dev):
+    """Phase 3, ``decode_lattice_batch`` under bf16 decode weights on the
+    64-edge block of 8 documents (L in {1, 8}): every document's records
+    and final beam equal to a single-document bf16 ``decode_lattice``
+    launch bit for bit, and to the batch in the one-block layout where
+    the single launches take it too; every edge of every document against
+    the plain version from the kernel's beams (:func:`parity_stepwise`).
+    Returns (max abs error, the kernel's and the plain version's ms on
+    the L=8 block)."""
+    import torch
+    from ocrd_keraslm_torch.ops import decode_kernel as dk
+    wts = rater._decode_weights(None, bf16=True)
+    W, K, A = rater.width, 16, 4
+    N, E = BATCH_PARITY_N, BATCH_PARITY_E
+    weights = (wts['emb'], wts['embT'], wts['wcat'], wts['bias'])
+
+    def run(fn, arrays, n_real, state, cost):
+        chars, mask, conf, valid, steps = (torch.from_numpy(
+            np.ascontiguousarray(a)).to(dev) for a in arrays)
+        out = fn(*weights, chars, mask, conf, valid, state, cost, n_docs=N,
+                 lm_weight=0.5, v_real=wts['v_real'], alt_steps=steps,
+                 n_real=n_real)
+        torch.cuda.synchronize()
+        return out
+
+    def step(part, n, state, cost):
+        return (run(dk.decode_lattice_batch, part, n, state, cost),
+                run(dk.decode_lattice_batch_ref, part, n, state, cost))
+
+    def compare(got, want):
+        err, div = 0.0, None
+        for d in range(N):
+            e, _, dv = compare_decode(batch_doc(*got, d, K),
+                                      batch_doc(*want, d, K), K, W,
+                                      stats=stats, **BF16_EDGE_TOL)
+            err = max(err, e)
+            div = dv if div is None else div
+        return err, div
+
+    stats = {}
+    rng = np.random.default_rng(20261019)
+    max_err, times = 0.0, None
+    for L in (1, 8):
+        n_reals = [E] + [int(rng.integers(8, E + 1)) for _ in range(N - 1)]
+        arrays = batch_lattice(rng, N, n_reals, E, A, L, wts['v_real'])
+        state, cost = rater._batch_beam_init(wts['emb'], N, K)
+        t0 = time.time()
+        rec, stateF, costF = run(dk.decode_lattice_batch, arrays, E, state,
+                                 cost)
+        stats.clear()
+        err, ties, recs, state_k, cost_k = parity_stepwise(
+            step, compare, arrays, E, state, cost)
+        assert torch.equal(torch.cat(recs), rec) and \
+            torch.equal(state_k, stateF) and torch.equal(cost_k, costF)
+        max_err = max(max_err, err)
+        for n in range(N):
+            one = [np.ascontiguousarray(a[:, n * A:(n + 1) * A])
+                   for a in arrays[:4]]
+            one[3] = one[3][..., 0]
+            cost_n = torch.full((1, 128), BIG, device=dev)
+            cost_n[0, :K] = cost[n * K:(n + 1) * K, 0]
+            single = dk.decode_lattice(
+                *weights, *(torch.from_numpy(a).to(dev) for a in one),
+                state[n * K:(n + 1) * K].contiguous(), cost_n,
+                lm_weight=0.5, v_real=wts['v_real'],
+                alt_steps=torch.from_numpy(arrays[4][:, 0].copy()).to(dev),
+                n_real=E)
+            assert torch.equal(single[0][1:].reshape(E, 3, K),
+                               rec[:, :, n * K:(n + 1) * K]), n
+            assert torch.equal(single[1], stateF[n * K:(n + 1) * K]), n
+            assert torch.equal(single[2][0, :K], costF[n * K:(n + 1) * K, 0])
+        print('parity decode_lattice_batch bf16 L=%d (%d documents, E=%d, '
+              'n_real per document %s, K=%d, A=%d): every edge of every '
+              'document compared from the kernel\'s beams, max |kernel - '
+              'plain| %.3g (costs %.3g, xemb and h %.3g, c relative %.3g), '
+              'near-ties at the K-th rank at edges %s '
+              '(tolerances as decode_lattice bf16\'s); the %d one-edge '
+              'launches equal the block launch and every document\'s '
+              'records and final beam equal a single-document bf16 '
+              'decode_lattice launch bit for bit (%d blocks a document in '
+              'the batch, %d in a single launch) in %.1f s'
+              % (L, N, E, n_reals, K, A, err, stats.get('cost', 0.0),
+                 stats.get('h', 0.0), stats.get('c_rel', 0.0),
+                 ties or 'none', E,
+                 dk.cluster_blocks(dev, True, N, K, A, L, rater.depth, W,
+                                   wts['v_pad'], wts['v_real'], True),
+                 dk.cluster_blocks(dev, False, 1, K, A, L, rater.depth, W,
+                                   wts['v_pad'], wts['v_real'], True),
+                 time.time() - t0))
+        if L == 8:
+            ins = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                   for a in arrays]
+
+            def call(fn):
+                return fn(*weights, *ins[:4], state, cost, n_docs=N,
+                          lm_weight=0.5, v_real=wts['v_real'],
+                          alt_steps=ins[4], n_real=E)
+            times = (cuda_ms(lambda: call(dk.decode_lattice_batch), 3),
+                     cuda_ms(lambda: call(dk.decode_lattice_batch_ref), 1))
+    return max_err, times
+
+
+def sass_hmma():
+    """{function name: HMMA instructions in its SASS} of the two decode
+    libraries as built (``cuobjdump -sass``)."""
+    import subprocess as sp
+    from ocrd_keraslm_torch.ops import _build
+    from ocrd_keraslm_torch.ops import decode_kernel as dk
+    counts = {}
+    for src in (dk.SOURCE, dk.BATCH_SOURCE):
+        path = _build.build(src)[0]
+        tool = os.path.join(os.path.dirname(_build._nvcc(src)), 'cuobjdump')
+        sass = sp.run([tool, '-sass', path], capture_output=True, text=True,
+                      check=True).stdout
+        fn = None
+        for line in sass.splitlines():
+            if 'Function :' in line:
+                fn = line.split('Function :')[1].strip()
+                counts[fn] = 0
+            elif fn is not None and 'HMMA' in line:
+                counts[fn] += 1
+    return counts
+
+
 def score_parity(rater, dev):
     """Phase 3, scoring and LSTM-scan kernels at full width; returns
     their max abs errors."""
@@ -1530,14 +1908,22 @@ LANE_COUNTERS = ('pages', 'groups', 'bails')
 
 def zero_counts():
     from ocrd_keraslm_torch.wrapper import page_native
-    for fn in _wrappers().values():
+    wrappers = _wrappers()
+    for fn in wrappers.values():
         fn.launches = 0
+    for name in BF16_COUNTERS:
+        wrappers[name].launches_bf16 = 0
     for name in LANE_COUNTERS:
         setattr(page_native, name, 0)
 
 
 def read_counts():
-    return {name: fn.launches for name, fn in _wrappers().items()}
+    """Launches of each kernel wrapper, the decode kernels' bf16 launches
+    apart (``<name>_bf16``)."""
+    wrappers = _wrappers()
+    return dict({name: fn.launches for name, fn in wrappers.items()},
+                **{name + '_bf16': wrappers[name].launches_bf16
+                   for name in BF16_COUNTERS})
 
 
 def read_lanes():
@@ -2531,18 +2917,19 @@ def batch_numbers(rater, batch, parity_times, card):
         bound_by=walk_bound[1], library_ms=None)}
 
 
-def page_block(rater, directory):
+def page_block(rater, directory, bf16=False):
     """``decode_lattice``'s arguments for page 1 of the workspace in
     ``directory`` as the processor launches them (the native lane's
     arrays of its page group, page 1 alone at the main path's 40-line
-    pages; K=16, A=4, records walked on the host), and the page's mask
-    and per-edge steps as numpy arrays."""
+    pages; K=16, A=4, records walked on the host; with ``bf16`` the bf16
+    decode weights), and the page's mask and per-edge steps as numpy
+    arrays."""
     import torch
     from ocrd_keraslm_torch.rater import DECODE_MERGE_MAX, _alt_steps
     doc = native_docs(directory)[0]
     _, n, maxlen = doc.lattice('glyph', rater.merge_runs, DECODE_MERGE_MAX)
     E, L = rater.fused_gate_arrays(n, maxlen, 10)
-    wts = rater._decode_weights(None)
+    wts = rater._decode_weights(None, bf16=bf16)
     K = 16
     chars, mask, conf, valid = doc.fill(rater.vocab._table(), E, 4, L)
     steps = _alt_steps(mask)[:, 0]
@@ -2595,6 +2982,108 @@ def decode_numbers(rater, decode, card):
           'decoding' % (bound_ms, bound_by, flops,
                         nbytes, 100 * bound_ms / ms2))
     return dict(ms=ms2, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None)
+
+
+def decode_numbers_bf16(rater, decode, card):
+    """Phase 7, row 1b: ``decode_lattice`` with the bf16 decode weights at
+    the main path's shape (page 1), its plain version, its one-block
+    layout, and the f32 kernel on the same page in the same call."""
+    from ocrd_keraslm_torch.ops import decode_kernel as dk
+    wts = rater._decode_weights(None, bf16=True)
+    D, W, K, A = rater.depth, rater.width, 16, 4
+    S = (2 * D + 1) * W
+    args, kw, mask, steps = page_block(rater, decode['workspace'], True)
+    args32 = page_block(rater, decode['workspace'])[0]
+    n = kw['n_real']
+    E, _, L = args[4].shape
+    times = {'bf16': [], 'f32': []}
+    for kind in ('bf16', 'f32') * 2:
+        times[kind].append(cuda_ms(lambda: dk.decode_lattice(
+            *(args if kind == 'bf16' else args32), **kw), 3))
+    plain_ms = cuda_ms(lambda: dk.decode_lattice_ref(*args, **kw), 1)
+    with decode_cluster(1):
+        one_ms = cuda_ms(lambda: dk.decode_lattice(*args, **kw), 1)
+    cl = dk.cluster_blocks(rater.device, False, 1, K, A, L, D, W,
+                           wts['v_pad'], wts['v_real'], True)
+    out_bytes = ((E + 1) * 3 * K + K * S + 128) * 4
+    # emb and embT (bf16) are read at their v_real real rows/columns only
+    nbytes = (tensor_bytes(*args, kw['alt_steps']) + out_bytes
+              - 2 * W * (wts['v_pad'] - wts['v_real']) * 2)
+    flops = decode_bound(mask, steps, n, K, D, W, wts['v_real'], 0)[2]
+    bound_ms, bound_by, _ = bound(flops, nbytes, bf16_flops=flops)
+    ms = times['bf16'][-1]
+    print('decode_lattice bf16 at the main path shape (page 1: E=%d, '
+          'n_real=%d, L=%d, K=%d, A=%d): %s ms/launch (CUDA events, mean of '
+          '3 warm launches, alternating with the f32 kernel), %.2f us/edge; '
+          'the f32 kernel on the same page in the same call %s ms, %.2fx '
+          'the bf16 one [%s]'
+          % (E, n, L, K, A, ', '.join('%.3f' % t for t in times['bf16']),
+             1e3 * ms / n, ', '.join('%.3f' % t for t in times['f32']),
+             times['f32'][-1] / ms, card))
+    print('decode_lattice bf16 in the one-block layout: %.3f ms (CUDA '
+          'events, one warm launch); the cluster layout (%d blocks) %.1fx '
+          'faster; its plain version %.3f ms [%s]'
+          % (one_ms, cl, one_ms / ms, plain_ms, card))
+    print('decode_lattice bf16 bound: %.4f ms by %s (%.3g FLOP with bf16 '
+          'operands at 989 TFLOP/s, %d bytes at 3.35 TB/s); kernel at %.3f%% '
+          'of it; library call: none - no single PyTorch call computes '
+          'lattice decoding' % (bound_ms, bound_by, flops, nbytes,
+                                100 * bound_ms / ms))
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None)
+
+
+def batch_numbers_bf16(rater, batch, bf16, parity_times, card):
+    """Phase 7, row 2b: ``decode_lattice_batch`` with the bf16 decode
+    weights at the main path's shape (the first block of the 32-document
+    batch as ``rate_best_batch`` launches it in bf16), and the f32
+    kernel's first block in the same call."""
+    from ocrd_keraslm_torch.ops import decode_kernel as dk
+    args, kw = bf16['first']
+    args32, kw32 = batch['first']
+    emb, embT, wcat, bias, chars, mask, conf, valid, state0, cost0 = args
+    N, n_real = kw['n_docs'], kw['n_real']
+    E, NA, L = chars.shape
+    A, K = NA // N, state0.shape[0] // N
+    D, W = rater.depth, rater.width
+    v_real, v_pad = kw['v_real'], emb.shape[0]
+    times = {'bf16': [], 'f32': []}
+    for kind in ('bf16', 'f32') * 2:
+        times[kind].append(cuda_ms(
+            (lambda: dk.decode_lattice_batch(*args, **kw)) if kind == 'bf16'
+            else (lambda: dk.decode_lattice_batch(*args32, **kw32)), 3))
+    rec, stateF, costF = dk.decode_lattice_batch(*args, **kw)
+    mask_np = mask.cpu().numpy().reshape(E, N, A, L)
+    flops = 0
+    for n in range(N):
+        steps_n = mask_np[:, n].sum(axis=2).max(axis=1).astype(int)
+        flops += decode_bound(mask_np[:, n], steps_n, n_real, K, D, W,
+                              v_real, 0)[2]
+    nbytes = (tensor_bytes(*args, kw['alt_steps'])
+              + tensor_bytes(rec, stateF, costF)
+              - 2 * W * (v_pad - v_real) * 2)
+    bound_ms, bound_by, _ = bound(flops, nbytes, bf16_flops=flops)
+    ms = times['bf16'][-1]
+    kernel_ms, plain_ms = parity_times
+    print('decode_lattice_batch bf16 at the main path shape (block 1 of the '
+          '%d-document batch: E=%d, n_real=%d, L=%d, K=%d, A=%d): %s '
+          'ms/launch (CUDA events, mean of 3 warm launches, alternating with '
+          'the f32 kernel); the f32 kernel on its block 1 in the same call '
+          '%s ms, %.2fx the bf16 one [%s]'
+          % (N, E, n_real, L, K, A, ', '.join('%.3f' % t for t in
+                                              times['bf16']),
+             ', '.join('%.3f' % t for t in times['f32']),
+             times['f32'][-1] / ms, card))
+    print('decode_lattice_batch bf16 plain version on the parity block (%d '
+          'documents x %d edges, L=8): %.3f ms, the kernel %.3f ms there '
+          '(CUDA events) [%s]' % (BATCH_PARITY_N, BATCH_PARITY_E, plain_ms,
+                                   kernel_ms, card))
+    print('decode_lattice_batch bf16 bound: %.4f ms by %s (%.3g FLOP with '
+          'bf16 operands at 989 TFLOP/s: the documents\' own edges, %d bytes '
+          'at 3.35 TB/s); kernel at %.3f%% of it; library call: none'
+          % (bound_ms, bound_by, flops, nbytes, 100 * bound_ms / ms))
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=None)
 
 
@@ -3667,6 +4156,229 @@ WIDE_BWD_DIGEST = \
     'e392cbde8c1ceb9ff0cff5732ba8124c0bb03437cade73bd3a82ee16265dc629'
 
 
+# the bf16 decode mode card against CPU: two bf16 runs drift apart from
+# the first h that rounds to another bf16 value (parity_stepwise).  On
+# the card (NVIDIA H100 80GB HBM3) the one-page workspace's confs parted
+# by 1.1e-3 and the kernel-engine-kernel pages' scores by 9.2e-5: scores
+# are held to BF16_SCORE_TOL, about twice the larger.  Kernel and plain
+# version lie up to 0.0127 bits apart after one edge (BF16_EDGE_TOL) and
+# drift further from edge to edge: two paths whose bf16 costs lie within
+# BF16_TIE_BITS are a near-tie
+BF16_SCORE_TOL = 2.5e-3
+BF16_TIE_BITS = 0.1
+
+
+def run_processor(directory, platform, bf16, beam_width=10,
+                  level='glyph'):
+    """The processor over ``directory`` through its Python entry point
+    (``KerasRate``) on ``platform``, with ``rater.decode_bf16 = bf16``
+    set after its setup, as a caller turns the bf16 decode mode on (it
+    has no CLI parameter, as in the JAX package)."""
+    from ocrd_keraslm_torch.wrapper import KerasRate
+    from ocrd_keraslm_torch.wrapper.mets import Workspace
+    ws = Workspace(directory)
+    proc = KerasRate(workspace=ws, parameter=dict(
+        model_file=MODEL, textequiv_level=level, beam_width=beam_width),
+        device=platform)
+    proc.setup()
+    proc.rater.decode_bf16 = bf16
+    proc.process_workspace(ws)
+
+
+def bf16_path(rater, work, decode, batch, card):
+    """The bf16 decode mode (``rater.decode_bf16 = True``) on its paths:
+    (a) the 4 pages of phase 4 through the processor, every glyph with
+    one TextEquiv, every page written, the native lane serving every page
+    in the page groups of phase 4, one bf16 ``decode_lattice`` launch a
+    group and no f32 one; how many glyph choices differ from the f32
+    default's; the processor's wall in both modes, alternating; (b) a
+    one-page workspace through the processor on the card and on the CPU
+    (its plain bf16 version): the same choice per glyph and scores within
+    ``BF16_SCORE_TOL``, or, where the choices part, both paths' bf16
+    costs on the CPU within ``BF16_TIE_BITS``; (c) a bf16 kernel page,
+    a page at beam 40 (the f32 engine: x recovered exactly from the bf16
+    carry), a kernel page again, card against CPU; (d)
+    ``rate_best_batch`` of the 32 one-page documents of the batched path
+    in bf16, every path equal to its own bf16 ``rate_best_device``; (e)
+    ``generate -n 64`` equal with the flag set and unset.  Returns the
+    path's numbers."""
+    import torch
+    from ocrd_keraslm_torch.ops import decode_kernel as dk
+    # (a) the main path's pages
+    d = os.path.join(work, 'ws_bf16')
+    n_glyphs = build_workspace(d, np.random.default_rng(7), 4, 40,
+                               rater.vocab)
+    groups = page_groups(d, rater)[1]
+    zero_counts()
+    t0 = time.time()
+    run_processor(d, 'cuda', True)
+    wall = time.time() - t0
+    counts, lanes = read_counts(), read_lanes()
+    check_glyphs(d, n_glyphs)
+    assert counts == dict(NO_LAUNCHES, decode_lattice_bf16=len(groups)), \
+        (counts, groups)
+    assert lanes == dict(pages=4, groups=len(groups), bails=0), lanes
+    bf16_out, f32_out = output_glyphs(d)[0], output_glyphs(
+        decode['workspace'])[0]
+    assert bf16_out.keys() == f32_out.keys()
+    differ = [g for g in f32_out if bf16_out[g][0][0] != f32_out[g][0][0]]
+    conf_moved = max(abs(bf16_out[g][0][1] - f32_out[g][0][1])
+                     for g in f32_out if g not in differ)
+    print('bf16 decode path: 4 pages, %d glyphs written through the '
+          'processor with rater.decode_bf16 = True; launches %s (expected '
+          '%d bf16 decode_lattice: one a page group %s, no f32 launch); the '
+          'native page lane served %d pages in %d group launch(es), %d '
+          'bails; %d of %d glyph choices differ from the f32 default\'s '
+          '(phase 4), confs of the others moved by up to %.3g'
+          % (n_glyphs, counts, len(groups), groups, lanes['pages'],
+             lanes['groups'], lanes['bails'], len(differ), len(f32_out),
+             conf_moved))
+    walls = {True: [], False: []}
+    for i, mode in enumerate((False, True) * 2):
+        di = os.path.join(work, 'ws_bf16_%d' % i)
+        build_workspace(di, np.random.default_rng(7), 4, 40, rater.vocab)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        run_processor(di, 'cuda', mode)
+        walls[mode].append(time.time() - t0)
+    print('bf16 decode path wall (the processor\'s Python entry point over '
+          'the same 4 pages, fresh copies, alternating; model load '
+          'included, host clock): f32 %s s, bf16 %s s [%s]'
+          % (', '.join('%.3f' % w for w in walls[False]),
+             ', '.join('%.3f' % w for w in walls[True]), card))
+    # (b) card against CPU through the processor
+    outs = {}
+    for platform in ('cuda', 'cpu'):
+        small = os.path.join(work, 'small_bf16_%s' % platform)
+        build_workspace(small, np.random.default_rng(8), 1, 6, rater.vocab,
+                        alt_share=0.3)
+        run_processor(small, platform, True)
+        outs[platform] = (small, output_glyphs(small)[0])
+    (d_card, card_g), (d_cpu, cpu_g) = outs['cuda'], outs['cpu']
+    assert card_g.keys() == cpu_g.keys()
+    ties = [g for g in card_g if card_g[g][0][0] != cpu_g[g][0][0]]
+    conf_err = max(abs(card_g[g][0][1] - cpu_g[g][0][1])
+                   for g in card_g if g not in ties)
+    assert conf_err <= BF16_SCORE_TOL, conf_err
+    cost_gap = 0.0
+    if ties:
+        from ocrd_keraslm_torch.wrapper.mets import Workspace
+        cpu_rater = german_rater('cpu')
+        cpu_rater.decode_bf16 = True
+        graph = workspace_graphs(d_cpu)[0]
+        costs = []
+        for dd in (d_card, d_cpu):
+            f = next(Workspace(dd).mets.find_files(fileGrp='OCR-D-LM'))
+            costs.append(picks_cost(cpu_rater, graph, output_indices(
+                os.path.join(dd, f.local_filename))))
+        cost_gap = abs(costs[0] - costs[1])
+        assert cost_gap <= BF16_TIE_BITS, (ties, costs)
+    print('bf16 decode path, one page of %d glyphs through the processor on '
+          'the card and on the CPU (its plain bf16 version): %d choice(s) '
+          'part%s; max conf diff of the others %.3g (tolerance %g)'
+          % (len(card_g), len(ties),
+             ' at a near-tie (both paths\' bf16 costs on the CPU %.4g bits '
+             'apart, within %g)' % (cost_gap, BF16_TIE_BITS) if ties else '',
+             conf_err, BF16_SCORE_TOL))
+    # (c) kernel -> engine -> kernel
+    carry = os.path.join(work, 'ws_bf16_carry')
+    build_workspace(carry, np.random.default_rng(41), 3, 3, rater.vocab,
+                    alt_share=0.3)
+    pages = workspace_graphs(carry)
+    res = {}
+    for device in ('cuda', 'cpu'):
+        r = rater if device == 'cuda' else german_rater('cpu')
+        r.decode_bf16 = True
+        zero_counts()
+        edges0 = engine_counters()[0]
+        tb, out = None, []
+        for g, beam in zip(pages, (10, ENGINE_BEAM, 10)):
+            if beam == ENGINE_BEAM:
+                x = r._engine_traceback(tb, 64)[2].long()
+                emb16 = r.params['char_embedding'].bfloat16().float()
+                assert torch.equal(emb16[x[:tb[0].shape[0]]],
+                                   tb[0][:, :r.width]), 'x not exact'
+            path, ent, tb = r.rate_best_device(g, 0, 0, device_traceback=tb,
+                                               beam_width=beam)
+            out.append((path, ent))
+        r.decode_bf16 = None
+        if device == 'cuda':
+            carry_counts = read_counts()
+            assert carry_counts == dict(NO_LAUNCHES, decode_lattice_bf16=2), \
+                carry_counts
+            assert engine_counters()[0] > edges0
+        res[device] = out
+    cpu_rater = german_rater('cpu')
+    cpu_rater.decode_bf16 = True
+    diff, gaps = same_or_tied(res['cuda'], res['cpu'], pages, cpu_rater,
+                              10, tol=BF16_SCORE_TOL, tie_bits=BF16_TIE_BITS)
+    print('bf16 decode path, kernel -> engine -> kernel: page 1 at beam 10 '
+          '(one bf16 decode_lattice launch), page 2 at beam %d (the f32 '
+          'engine, x of every slot recovered exactly from the bf16 carry), '
+          'page 3 at beam 10 (one more); card against CPU: max score or '
+          'entropy difference %.3g (tolerance %g), near-ties %s'
+          % (ENGINE_BEAM, diff, BF16_SCORE_TOL, gaps or 'none'))
+    # (d) the serving batch
+    docs = workspace_graphs(os.path.join(work, 'ws_batch'))
+    merge = batch_prep(rater, docs)[0]
+    rater.decode_bf16 = True
+    try:
+        zero_counts()
+        t0 = time.time()
+        got = rater.rate_best_batch(docs)
+        wall_batch = time.time() - t0
+        batch_counts = read_counts()
+        keep = rater.merge_runs
+        rater.merge_runs = merge
+        try:
+            seq = [rater.rate_best_device(g, 0, 0)[:2] for g in docs]
+        finally:
+            rater.merge_runs = keep
+        first = first_batch_launch(rater, docs)
+    finally:
+        rater.decode_bf16 = None
+    n_blk = batch['one-page']['launches']['decode_lattice_batch']
+    assert batch_counts == dict(NO_LAUNCHES, decode_lattice_batch_bf16=n_blk,
+                                walk_records_batch=n_blk), batch_counts
+    diff = same_results(got, seq)
+    print('bf16 decode path: Rater.rate_best_batch of the %d one-page '
+          'documents in %.3f s (host clock, ended by the fetch; f32 %.3f s '
+          'in the batched path); launches %s; every path equals the '
+          'document\'s own bf16 rate_best_device decode on the card (max '
+          'score or entropy difference %.3g, tolerance 1e-4) [%s]'
+          % (len(docs), wall_batch, batch['one-page']['wall'], batch_counts,
+             diff, card))
+    # (e) generation ignores the flag
+    plain = rater.generate(GEN_PROMPT, 64, variants=GEN_VARIANTS)
+    rater.decode_bf16 = True
+    try:
+        zero_counts()
+        flagged = rater.generate(GEN_PROMPT, 64, variants=GEN_VARIANTS)
+        gen_counts = read_counts()
+    finally:
+        rater.decode_bf16 = None
+    assert flagged == plain, (flagged, plain)
+    assert gen_counts == dict(NO_LAUNCHES, gen_beam=1, gen_traceback=1)
+    print('bf16 decode path: Rater.generate -n 64 -v %d with decode_bf16 '
+          'set equals it unset (generation stays f32); launches %s'
+          % (GEN_VARIANTS, gen_counts))
+    return dict(wall=wall, walls=walls, launches=counts, groups=groups,
+                batch_launches=batch_counts, batch_wall=wall_batch,
+                first=first, differ=len(differ), glyphs=len(f32_out))
+
+
+def picks_cost(cpu_rater, graph, pick):
+    """Bits, decoded by ``cpu_rater``, of the path through a page's
+    ``graph`` that takes at every glyph the alternative of index
+    ``pick[glyph id]`` (:func:`output_indices`)."""
+    path = []
+    for _, _, data in sorted(graph.edges(data=True), key=lambda e: e[0]):
+        el, alts = data['element'], data['alternatives']
+        path.append((el, alts[0] if el is None else next(
+            te for te in alts if te.index == pick[el.id]), 0.0))
+    return path_cost(cpu_rater, graph, path, 10)
+
+
 def engine_counters():
     """(edges, char steps) the decode engine ran so far."""
     from ocrd_keraslm_torch.ops import beam_device as bd
@@ -3851,21 +4563,22 @@ def path_cost(cpu_rater, graph, path, beam_width):
                                       beam_width=beam_width)[1]
 
 
-def same_or_tied(got, want, graphs, cpu_rater, beam_width, cost_ulps=2):
-    """:func:`same_results` document by document; a document whose two
-    results part (an f32 near-tie of two paths) passes where the two
-    paths' costs, decoded on the CPU, lie within ``HOST_TIE_BITS``.
-    Returns (largest difference of the equal documents, [cost gap of
-    each tied document])."""
+def same_or_tied(got, want, graphs, cpu_rater, beam_width, cost_ulps=2,
+                 tol=1e-4, tie_bits=HOST_TIE_BITS):
+    """:func:`same_results` document by document (within ``tol``); a
+    document whose two results part (an f32 near-tie of two paths)
+    passes where the two paths' costs, decoded on the CPU, lie within
+    ``tie_bits``.  Returns (largest difference of the equal documents,
+    [cost gap of each tied document])."""
     diff, gaps = 0.0, []
     for g, w, graph in zip(got, want, graphs):
         try:
-            diff = max(diff, same_results([g], [w], cost_ulps=cost_ulps))
+            diff = max(diff, same_results([g], [w], tol=tol,
+                                          cost_ulps=cost_ulps))
         except AssertionError:
             gap = abs(path_cost(cpu_rater, graph, g[0], beam_width)
                       - path_cost(cpu_rater, graph, w[0], beam_width))
-            assert gap <= HOST_TIE_BITS, ('paths part beyond a near-tie',
-                                          gap)
+            assert gap <= tie_bits, ('paths part beyond a near-tie', gap)
             gaps.append(gap)
     return diff, gaps
 
@@ -4329,6 +5042,26 @@ def main() -> int:
                      'columns of both layers in registers' % (cl, W // cl)
                      if cl > 1 else 'the one-block layout, one block of 512 '
                      'threads a document', smem))
+    for L in (1, 8):
+        for what, batch, N in (('decode_lattice', False, 1),
+                               ('decode_lattice_batch', True, BATCH_DOCS)):
+            print('layout %s with bf16 weights at K=16, A=4, L=%d, %d '
+                  'document(s): %d blocks a document (the f32 plan of shared '
+                  'memory)' % (what, L, N, dk.cluster_blocks(
+                      dev, batch, N, 16, 4, L, D, W, wts['v_pad'],
+                      wts['v_real'], True)))
+    hmma = sass_hmma()
+    bf16_fns = {f: n for f, n in hmma.items()
+                if 'cluster_kernel' in f and 'bfloat16' in f}
+    f32_hmma = sum(n for f, n in hmma.items() if 'bfloat16' not in f)
+    print('SASS (cuobjdump -sass of the two decode libraries): HMMA '
+          'instructions in each bf16 cluster kernel %s; in every f32 kernel '
+          'and the one-block kernels %d'
+          % (json.dumps(bf16_fns), f32_hmma + sum(
+              n for f, n in hmma.items()
+              if 'bfloat16' in f and 'cluster_kernel' not in f)))
+    assert bf16_fns and all(n > 0 for n in bf16_fns.values()), bf16_fns
+    assert f32_hmma == 0, 'an f32 kernel uses the tensor cores'
     for what, lay in (
             ('score_scan at B=4 (the scoring chunk)',
              sk.scan_layout_on(dev, 4, W, D, wts['v_pad'])),
@@ -4410,6 +5143,10 @@ def main() -> int:
     print('digests in %.1f s' % (time.time() - t0))
     decode_err = decode_parity(rater, dev)
     batch_err, batch_times = batch_parity(rater, dev)
+    t0 = time.time()
+    decode_bf16_err = decode_parity_bf16(rater, dev)
+    batch_bf16_err, batch_bf16_times = batch_parity_bf16(rater, dev)
+    print('bf16 decode parity in %.1f s' % (time.time() - t0))
     score_err, lstm_err = score_parity(rater, dev)
     train_errs = train_parity(dev)
     gen_err = gen_parity_phase(rater)
@@ -4427,6 +5164,9 @@ def main() -> int:
         host = host_engine_path(rater, work, card)
         lanes = lane_path(rater, work, card)
         batch = batch_path(rater, work, card)
+        t0 = time.time()
+        bf16 = bf16_path(rater, work, decode, batch, card)
+        print('bf16 decode paths: %.1f s' % (time.time() - t0))
         t0 = time.time()
         engines = engine_path(rater, work, train, card)
         print('unbounded engines phase: %.1f s' % (time.time() - t0))
@@ -4536,7 +5276,11 @@ def main() -> int:
                        **training_numbers(dev, card),
                        **generation_numbers(rater, gen, card),
                        **batch_numbers(rater, batch, batch_times, card),
-                       lstm_bwd_w512=engines['wide']['row'])
+                       lstm_bwd_w512=engines['wide']['row'],
+                       decode_lattice_bf16=decode_numbers_bf16(rater, decode,
+                                                               card),
+                       decode_lattice_batch_bf16=batch_numbers_bf16(
+                           rater, batch, bf16, batch_bf16_times, card))
     rows = []
     # lstm_scan is on two paths: 'lstm_scan' is the layered scoring
     # path's row (B=4, T=4096), 'lstm_scan_train' and 'lstm_scan_bf16'
@@ -4571,7 +5315,14 @@ def main() -> int:
              batch['launches']['decode_lattice_batch'], batch_err),
             # the walk equals its plain version exactly
             ('walk_records_batch', 'decode_lattice_batch',
-             batch['launches']['walk_records_batch'], 0.0)):
+             batch['launches']['walk_records_batch'], 0.0),
+            # the bf16 decode mode: the processor's pages and the serving
+            # batch with rater.decode_bf16 = True
+            ('decode_lattice_bf16', 'decode_lattice',
+             bf16['launches']['decode_lattice_bf16'], decode_bf16_err),
+            ('decode_lattice_batch_bf16', 'decode_lattice_batch',
+             bf16['batch_launches']['decode_lattice_batch_bf16'],
+             batch_bf16_err)):
         assert launches > 0, (name, 'was not launched on its path')
         module = {'decode_lattice': 'decode_kernel.py:318',
                   'score_scan': 'score_kernel.py:132',

@@ -33,11 +33,29 @@
 //  * the one-hot "gathers" of the TPU kernels are index loads; top-K is
 //    one thread per candidate counting its predecessors in the exact
 //    (cost, index) order.
-// All arithmetic is f32 on CUDA cores: no TF32, no bf16.
+// With f32 weights all arithmetic is f32 on CUDA cores: no TF32, no bf16.
+//
+// bf16 weights (the opt-in bf16 decode mode; the TPU kernels'
+// decode_lattice_pallas and decode_lattice_pallas_batch given bf16 emb,
+// embT and wcat): every device function below is a template on the
+// weights' type WT, and the f32 instantiation is the code above as it
+// was.  Under WT = __nv_bfloat16 each matmul operand ([input | h_d] of a
+// layer, the top h of the logits) is rounded to bf16 (nearest even),
+// every product of two bf16 values is exact in f32, and the sums stay
+// f32: the TPU's preferred_element_type=f32 product on bf16 inputs.  The
+// carried state (xemb rows are bf16 embedding values widened), the
+// biases, the gates, the softmax and all cost arithmetic stay f32.  Its
+// bound is that of the f32 kernel's operations at the tensor cores'
+// bf16 rate, 989 TFLOP/s (1.92e10 FLOP a page of 617 edges: 0.0194 ms);
+// what the design does about the products is said above
+// decode_edges_cluster.  One shared-memory plan serves both types.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <type_traits>
 
 #include "cluster_common.cuh"
 
@@ -57,7 +75,56 @@ struct Decode {
   int E, n_real, A, L, K, D, W, Vp, v_real;
   int rb;              // rows per chunk: 8, 16 or RBMAX
   float lw, lw1;
+  // the same three weights in bf16 (the bf16 decode mode; the f32
+  // pointers above are null then, and these null under f32 weights)
+  const __nv_bfloat16* emb16;
+  const __nv_bfloat16* embT16;
+  const __nv_bfloat16* wcat16;
 };
+
+// The weights of type WT of a launch.
+template <typename WT>
+struct Weights {
+  const WT *emb, *embT, *wcat;
+};
+template <typename WT>
+__device__ __forceinline__ Weights<WT> weights_of(const Decode& p) {
+  if constexpr (std::is_same<WT, float>::value)
+    return {p.emb, p.embT, p.wcat};
+  else
+    return {p.emb16, p.embT16, p.wcat16};
+}
+
+// A weight as f32 (a bf16 value widened exactly).
+__device__ __forceinline__ float ldw(const float* w) { return __ldg(w); }
+__device__ __forceinline__ float ldw(const __nv_bfloat16* w) {
+  return __bfloat162float(__ldg(w));
+}
+// Four weights from w + 4 i4 (16 or 8 bytes, aligned) as f32.
+__device__ __forceinline__ float4 ldw4(const float* w, int i4) {
+  return __ldg(reinterpret_cast<const float4*>(w) + i4);
+}
+__device__ __forceinline__ float4 ldw4(const __nv_bfloat16* w, int i4) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(w) + i4);
+  return make_float4(__uint_as_float(u.x << 16),
+                     __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
+}
+// An f32 matmul operand under weights of type WT: as it is (f32), or
+// rounded to bf16 (nearest even) and widened back.
+template <typename WT>
+__device__ __forceinline__ float opnd(float v) {
+  if constexpr (std::is_same<WT, float>::value)
+    return v;
+  else
+    return __bfloat162float(__float2bfloat16_rn(v));
+}
+template <typename WT>
+__device__ __forceinline__ float4 opnd4(float4 v) {
+  return make_float4(opnd<WT>(v.x), opnd<WT>(v.y), opnd<WT>(v.z),
+                     opnd<WT>(v.w));
+}
 
 // One document's slice of the launch's arrays.
 struct Doc {
@@ -86,10 +153,13 @@ __device__ __forceinline__ float sigm(float x) {
 // one chain of 2W = 256 FMAs into a register loses more precision than
 // the plain version's product, and the beam state carries that error
 // from edge to edge.
+// Under bf16 weights (WT) the one-block layout rounds each operand value
+// as it loads it and widens each weight: the same f32 FMAs over bf16
+// values, a simple path for the shapes the cluster layout does not take.
 #define KCH 32
-template <int RB>
+template <int RB, typename WT>
 __device__ void matmul_rows(const float* __restrict__ x, int S,
-                            int kdim, const float* __restrict__ w,
+                            int kdim, const WT* __restrict__ w,
                             int ncols, const float* __restrict__ b,
                             float* out) {
   for (int j = threadIdx.x; j < ncols; j += NT) {
@@ -99,14 +169,14 @@ __device__ void matmul_rows(const float* __restrict__ x, int S,
       for (int r = 0; r < RB; ++r) acc[r] = 0.0f;
       const int i1 = min(i0 + KCH, kdim);
       for (int i = i0; i < i1; i += 4) {
-        const float w0 = __ldg(w + (size_t)(i + 0) * ncols + j);
-        const float w1 = __ldg(w + (size_t)(i + 1) * ncols + j);
-        const float w2 = __ldg(w + (size_t)(i + 2) * ncols + j);
-        const float w3 = __ldg(w + (size_t)(i + 3) * ncols + j);
+        const float w0 = ldw(w + (size_t)(i + 0) * ncols + j);
+        const float w1 = ldw(w + (size_t)(i + 1) * ncols + j);
+        const float w2 = ldw(w + (size_t)(i + 2) * ncols + j);
+        const float w3 = ldw(w + (size_t)(i + 3) * ncols + j);
 #pragma unroll
         for (int r = 0; r < RB; ++r) {
-          const float4 xv =
-              *reinterpret_cast<const float4*>(x + r * S + i);
+          const float4 xv = opnd4<WT>(
+              *reinterpret_cast<const float4*>(x + r * S + i));
           float a = acc[r];
           a = fmaf(xv.x, w0, a);
           a = fmaf(xv.y, w1, a);
@@ -128,12 +198,13 @@ __device__ void matmul_rows(const float* __restrict__ x, int S,
 // One char step of the LSTM stack and the tied softmax over the RB rows
 // in xs (in place: xs keeps xemb, gets the new h and c).  Leaves the
 // logits in zb (row stride Vp) and the per-row logsumexp in lse.
-template <int RB>
+template <int RB, typename WT>
 __device__ void chunk_step(const Decode& p, float* xs, float* zb,
                            float* lse) {
   const int W = p.W, D = p.D, S = (2 * D + 1) * W, G = 4 * W;
+  const Weights<WT> wt = weights_of<WT>(p);
   for (int d = 0; d < D; ++d) {
-    matmul_rows<RB>(xs + d * W, S, 2 * W, p.wcat + (size_t)d * 2 * W * G,
+    matmul_rows<RB>(xs + d * W, S, 2 * W, wt.wcat + (size_t)d * 2 * W * G,
                     G, p.bias + d * G, zb);
     __syncthreads();
     for (int idx = threadIdx.x; idx < RB * W; idx += NT) {
@@ -150,7 +221,7 @@ __device__ void chunk_step(const Decode& p, float* xs, float* zb,
     }
     __syncthreads();
   }
-  matmul_rows<RB>(xs + D * W, S, W, p.embT, p.Vp, nullptr, zb);
+  matmul_rows<RB>(xs + D * W, S, W, wt.embT, p.Vp, nullptr, zb);
   __syncthreads();
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int r = warp; r < RB; r += NT / 32) {
@@ -168,14 +239,15 @@ __device__ void chunk_step(const Decode& p, float* xs, float* zb,
   __syncthreads();
 }
 
+template <typename WT>
 __device__ void run_chunk(const Decode& p, int nrows, float* xs, float* zb,
                           float* lse) {
   if (nrows <= 8)
-    chunk_step<8>(p, xs, zb, lse);
+    chunk_step<8, WT>(p, xs, zb, lse);
   else if (nrows <= 16)
-    chunk_step<16>(p, xs, zb, lse);
+    chunk_step<16, WT>(p, xs, zb, lse);
   else
-    chunk_step<32>(p, xs, zb, lse);
+    chunk_step<32, WT>(p, xs, zb, lse);
 }
 
 static size_t decode_smem_floats(int A, int L, int K, int D, int W, int Vp,
@@ -235,7 +307,9 @@ __device__ Smem carve_smem(const Decode& p, float* base) {
 
 // Decode every edge of document `d`; the final beam and its costs stay
 // in sm.beam and sm.costf (the caller writes them out after a barrier).
+template <typename WT>
 __device__ void decode_edges(const Decode& p, const Doc& d, const Smem& sm) {
+  const Weights<WT> wt = weights_of<WT>(p);
   const int tid = threadIdx.x;
   const int A = p.A, L = p.L, K = p.K, KA = K * p.A, W = p.W;
   const int S = (2 * p.D + 1) * W;
@@ -290,7 +364,7 @@ __device__ void decode_edges(const Decode& p, const Doc& d, const Smem& sm) {
         const int nrows = min(K - k0, rb);
         for (int i = tid; i < nrows * S; i += NT) xs[i] = beam[k0 * S + i];
         __syncthreads();
-        run_chunk(p, nrows, xs, zb, lse);
+        run_chunk<WT>(p, nrows, xs, zb, lse);
         for (int i = tid; i < nrows * A; i += NT) {
           const int r = k0 * A + i, a = r % A, row = i / A;
           const float m = emask[a * L];
@@ -305,7 +379,7 @@ __device__ void decode_edges(const Decode& p, const Doc& d, const Smem& sm) {
           const int r = k0 * A + rr, a = r % A, row = rr / A;
           float v;
           if (emask[a * L] > 0.0f)
-            v = e < W ? __ldg(p.emb + (size_t)echar[a * L] * W + e)
+            v = e < W ? ldw(wt.emb + (size_t)echar[a * L] * W + e)
                       : xs[row * S + e];
           else
             v = beam[(k0 + row) * S + e];
@@ -338,7 +412,7 @@ __device__ void decode_edges(const Decode& p, const Doc& d, const Smem& sm) {
           xs[i] = d.stateE[(size_t)live[c0 + row] * S + (i - row * S)];
         }
         __syncthreads();
-        run_chunk(p, nrows, xs, zb, lse);
+        run_chunk<WT>(p, nrows, xs, zb, lse);
         for (int row = tid; row < nrows; row += NT) {
           const int r = live[c0 + row], a = r % A;
           const float m = emask[a * L + s];
@@ -350,7 +424,7 @@ __device__ void decode_edges(const Decode& p, const Doc& d, const Smem& sm) {
           const int row = i / S, e = i - row * S;
           const int r = live[c0 + row], a = r % A;
           d.stateE[(size_t)r * S + e] =
-              e < W ? __ldg(p.emb + (size_t)echar[a * L + s] * W + e)
+              e < W ? ldw(wt.emb + (size_t)echar[a * L + s] * W + e)
                     : xs[row * S + e];
         }
         __syncthreads();
@@ -421,6 +495,23 @@ __device__ void decode_edges(const Decode& p, const Doc& d, const Smem& sm) {
 //    each block's own copy: no second exchange.
 // Char step 0 on the K parents, the masked rows, pad edges in closed
 // form, the records and the state in/out contract are decode_edges'.
+//
+// Under bf16 weights the gate products go to the tensor cores.  A
+// chunk's DC_RC = 16 rows are one m16 tile; the block's 4*upb gate
+// columns (gate g, unit ul: column g*upb + ul) are upb/2 n8 tiles, and a
+// gate column's 2W terms NKB blocks of 32 (two k16 steps each).  Warp w
+// < upb/2 owns n8 tile w: its lanes keep the tile's B fragments of every
+// layer and block in registers for the whole launch (bf16 pairs, 4 a
+// block and layer: 64 registers at W=128, D=2), load the A fragments
+// (the chunk's padded rows, each value rounded to bf16 once a layer) from
+// shared memory and run mma.sync.m16n8k16 bf16 with f32 sums: each
+// 32-term block from 0, the blocks added to 0 in block order, as the f32
+// lanes do, then the bias in the gate update.  The products of a chunk
+// move onto the tensor cores and its operand loads shrink from every
+// lane's 8-row passes to one A fragment a warp and block; the exchange,
+// the softmax split (its products stay on CUDA cores over bf16-rounded h
+// and the bf16 embT values, in f32) and the top K stay as they are.  The
+// plan of shared memory is the f32 one (embT's columns widened to f32).
 
 #define CNT 256   // threads per block of the cluster layout: a lane's
                   // 64 weights (two layers) and its work fit 255 registers
@@ -515,9 +606,10 @@ __device__ CSmem carve_cluster_smem(const Decode& p, void* base, int CL) {
 
 // Candidates list[0..n) get rows of their own (and the c of the own
 // units), from where they are now.
-template <int W, int D, int UPB>
+template <int W, int D, int UPB, typename WT>
 __device__ __forceinline__ void own_rows(const Decode& p, const CSmem& sm,
                                          const int* list, int n) {
+  const Weights<WT> wt = weights_of<WT>(p);
   constexpr int WP = W + 4 * (W / KCH), XP4 = (D + 1) * WP / 4;
   constexpr int WP4 = WP / 4, BP4 = (KCH + 4) / 4;  // float4s a block
   const int A = p.A, L = p.L;
@@ -535,9 +627,8 @@ __device__ __forceinline__ void own_rows(const Decode& p, const CSmem& sm,
     else if (q % BP4 == BP4 - 1)
       continue;  // a pad
     else
-      v = __ldg(reinterpret_cast<const float4*>(
-          p.emb + (size_t)sm.echar[(r % A) * L] * W +
-          q / BP4 * KCH) + q % BP4);
+      v = ldw4(wt.emb + (size_t)sm.echar[(r % A) * L] * W + q / BP4 * KCH,
+               q % BP4);
     reinterpret_cast<float4*>(sm.candx + r * (D + 1) * WP)[e] = v;
   }
   for (int i = threadIdx.x; i < n * D * UPB; i += CNT) {
@@ -568,34 +659,84 @@ __device__ __forceinline__ void live_rows(const Decode& p, const CSmem& sm,
   if (lane == 0) sm.nlive[0] = n;
 }
 
+// Two f32 as the bf16 pair of an mma fragment register (lo in the low
+// half), each rounded to nearest even.
+__device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+// Two bf16 weights as the pair of a B fragment register.
+__device__ __forceinline__ uint32_t bf16_bits(const __nv_bfloat16* lo,
+                                              const __nv_bfloat16* hi) {
+  const unsigned short* l = reinterpret_cast<const unsigned short*>(lo);
+  const unsigned short* h = reinterpret_cast<const unsigned short*>(hi);
+  return (uint32_t)__ldg(l) | ((uint32_t)__ldg(h) << 16);
+}
+// c += A B over one m16n8k16 tile: bf16 operands, f32 sums.
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // Decode every edge of document d on the calling cluster of CL blocks
 // (rank: this block's); W = 16 NKB.  The final beam stays in sm.beamx
 // (full) and sm.beamc (own units), its costs in sm.costf (every block
 // alike).
-template <int NKB, int D, int CL>
+template <int NKB, int D, int CL, typename WT>
 __device__ void decode_edges_cluster(const Decode& p, const Doc& d,
                                      const CSmem& sm, int rank) {
   cg::cluster_group cluster = cg::this_cluster();
+  constexpr bool BF = !std::is_same<WT, float>::value;
   constexpr int W = NKB * KCH / 2, G = 4 * W, S = (2 * D + 1) * W;
   constexpr int GS = 4 * NKB, HB = NKB / 2, UPB = W / CL;
   constexpr int WP = W + 4 * (W / KCH), XP = (D + 1) * WP, NB = W / KCH;
   constexpr int NRG = CNT / (UPB * GS);  // row groups
+  constexpr int NT8 = UPB / 2;           // n8 tiles of the block (bf16)
   const int tid = threadIdx.x, u0 = rank * UPB;
   const int A = p.A, L = p.L, K = p.K, KA = K * A, Vp = p.Vp;
   const size_t F = d.rec_field;
+  const Weights<WT> wt = weights_of<WT>(p);
   // the lane: row group rg, unit ul (u), gate g, 32-term block kb
   const int rg = tid / (UPB * GS), ul_ = tid / GS % UPB, q_ = tid % GS;
   const int g_ = q_ / NKB, kb = q_ % NKB;
+  // under bf16: the warp's n8 tile, the lane's fragment row gq and
+  // column pair tq
+  const int warp = tid >> 5, gq = (tid & 31) >> 2, tq = tid & 3;
   PHASE_INIT
 
-  // the lane's weights of every layer: wcat[l][32kb + k][gW + u]
-  float wr[D][KCH];
+  // f32: the lane's weights of every layer, wcat[l][32kb + k][gW + u];
+  // bf16: the warp's B fragments of every layer and 32-term block
+  // (k16 step j >> 1, rows 2tq (j even) or 2tq + 8 (j odd), column gq of
+  // the tile)
+  std::conditional_t<BF, uint32_t[D][NKB][4], float[D][KCH]> wr;
+  if constexpr (BF) {
+    if (warp < NT8) {
+      const int n = warp * 8 + gq;  // the block's column
+      const size_t col = (size_t)(n / UPB) * W + u0 + n % UPB;
 #pragma unroll
-  for (int l = 0; l < D; ++l)
+      for (int l = 0; l < D; ++l)
 #pragma unroll
-    for (int k = 0; k < KCH; ++k)
-      wr[l][k] = __ldg(p.wcat + ((size_t)l * 2 * W + kb * KCH + k) * G +
-                       g_ * W + u0 + ul_);
+        for (int b = 0; b < NKB; ++b)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int k = b * KCH + (j >> 1) * 16 + (j & 1) * 8 + 2 * tq;
+            const __nv_bfloat16* w = wt.wcat + ((size_t)l * 2 * W + k) * G;
+            wr[l][b][j] = bf16_bits(w + col, w + G + col);
+          }
+    }
+  } else {
+#pragma unroll
+    for (int l = 0; l < D; ++l)
+#pragma unroll
+      for (int k = 0; k < KCH; ++k)
+        wr[l][k] = __ldg(p.wcat + ((size_t)l * 2 * W + kb * KCH + k) * G +
+                         g_ * W + u0 + ul_);
+  }
   // the ring and the rows, pads included, start at 0
   for (int i = tid; i < 2 * DC_RC * WP + (K + KA) * XP; i += CNT)
     sm.hn[i] = 0.0f;
@@ -617,7 +758,7 @@ __device__ void decode_edges_cluster(const Decode& p, const Doc& d,
   }
   for (int k = tid; k < K; k += CNT) sm.costf[k] = d.cost0[k];
   for (int i = tid; i < W * p.v_real; i += CNT)
-    sm.embt[i] = __ldg(p.embT + (size_t)(i / p.v_real) * Vp + i % p.v_real);
+    sm.embt[i] = ldw(wt.embT + (size_t)(i / p.v_real) * Vp + i % p.v_real);
   if (tid == 0) {
     mbar_init(sm.bar);
     mbar_init(sm.bar + 1);
@@ -675,7 +816,7 @@ __device__ void decode_edges_cluster(const Decode& p, const Doc& d,
         live_rows(p, sm, s);
         __syncthreads();
         n = sm.nlive[0];
-        own_rows<W, D, UPB>(p, sm, sm.live, n);
+        own_rows<W, D, UPB, WT>(p, sm, sm.live, n);
       }
       for (int first = 0; first < n; first += DC_RC) {
         const int nrows = min(n - first, DC_RC);
@@ -696,37 +837,85 @@ __device__ void decode_edges_cluster(const Decode& p, const Doc& d,
           const int off = kb < HB ? kb * (KCH + 4)
                                   : (l + 1) * WP + (kb - HB) * (KCH + 4);
           const float* ring = sm.hn + (buf ^ 1) * DC_RC * WP + off;
-          for (int pass = 0; pass * NRG * DC_RT < nrows; ++pass) {
-            const int base = (pass * NRG + rg) * DC_RT;
-            const float* xr[DC_RT];
+          if constexpr (BF) {
+            if (warp < NT8) {
+              // the fragment rows gq and gq + 8 (pad rows read the
+              // chunk's last row; their sums are not stored)
+              const int r0 = min(gq, nrows - 1), r1 = min(gq + 8, nrows - 1);
+              const float* x0 = rows + (idx ? idx[r0] : r0) * XP;
+              const float* x1 = rows + (idx ? idx[r1] : r1) * XP;
+              const float* h0 = sm.hn + (buf ^ 1) * DC_RC * WP + r0 * WP;
+              const float* h1 = sm.hn + (buf ^ 1) * DC_RC * WP + r1 * WP;
+              float tot[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
-            for (int r = 0; r < DC_RT; ++r) {
-              const int row = min(base + r, nrows - 1);
-              xr[r] = in_ring ? ring + row * WP
-                              : rows + (idx ? idx[row] : row) * XP + off;
-            }
-            float acc[DC_RT];
+              for (int b = 0; b < NKB; ++b) {
+                // block b of [input | h_l]: as the f32 lane's `off`
+                const bool ring_b = b < HB && l > 0;
+                const int off_b = b < HB ? b * (KCH + 4)
+                                         : (l + 1) * WP + (b - HB) * (KCH + 4);
+                const float* y0 = (ring_b ? h0 : x0) + off_b;
+                const float* y1 = (ring_b ? h1 : x1) + off_b;
+                float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
-            for (int r = 0; r < DC_RT; ++r) acc[r] = 0.0f;
+                for (int ks = 0; ks < 2; ++ks) {
+                  const int k = ks * 16 + 2 * tq;
+                  const float2 v00 = *reinterpret_cast<const float2*>(y0 + k);
+                  const float2 v10 = *reinterpret_cast<const float2*>(y1 + k);
+                  const float2 v01 =
+                      *reinterpret_cast<const float2*>(y0 + k + 8);
+                  const float2 v11 =
+                      *reinterpret_cast<const float2*>(y1 + k + 8);
+                  const uint32_t a[4] = {
+                      bf16_pair(v00.x, v00.y), bf16_pair(v10.x, v10.y),
+                      bf16_pair(v01.x, v01.y), bf16_pair(v11.x, v11.y)};
+                  mma_bf16(c, a, wr[l][b][2 * ks], wr[l][b][2 * ks + 1]);
+                }
 #pragma unroll
-            for (int k = 0; k < KCH; k += 4) {
-#pragma unroll
-              for (int r = 0; r < DC_RT; ++r) {
-                const float4 xv = *reinterpret_cast<const float4*>(xr[r] + k);
-                float a = acc[r];
-                a = fmaf(xv.x, wr[l][k], a);
-                a = fmaf(xv.y, wr[l][k + 1], a);
-                a = fmaf(xv.z, wr[l][k + 2], a);
-                a = fmaf(xv.w, wr[l][k + 3], a);
-                acc[r] = a;
+                for (int i = 0; i < 4; ++i) tot[i] += c[i];
+              }
+              const int col = warp * 8 + 2 * tq;
+              if (gq < nrows) {
+                sm.zs[gq * 4 * UPB + col] = tot[0];
+                sm.zs[gq * 4 * UPB + col + 1] = tot[1];
+              }
+              if (gq + 8 < nrows) {
+                sm.zs[(gq + 8) * 4 * UPB + col] = tot[2];
+                sm.zs[(gq + 8) * 4 * UPB + col + 1] = tot[3];
               }
             }
-            kb_sum<NKB, DC_RT, GS>(acc);
-            if (kb == 0)
+          } else {
+            for (int pass = 0; pass * NRG * DC_RT < nrows; ++pass) {
+              const int base = (pass * NRG + rg) * DC_RT;
+              const float* xr[DC_RT];
 #pragma unroll
-              for (int r = 0; r < DC_RT; ++r)
-                if (base + r < nrows)
-                  sm.zs[(base + r) * 4 * UPB + g_ * UPB + ul_] = acc[r];
+              for (int r = 0; r < DC_RT; ++r) {
+                const int row = min(base + r, nrows - 1);
+                xr[r] = in_ring ? ring + row * WP
+                                : rows + (idx ? idx[row] : row) * XP + off;
+              }
+              float acc[DC_RT];
+#pragma unroll
+              for (int r = 0; r < DC_RT; ++r) acc[r] = 0.0f;
+#pragma unroll
+              for (int k = 0; k < KCH; k += 4) {
+#pragma unroll
+                for (int r = 0; r < DC_RT; ++r) {
+                  const float4 xv = *reinterpret_cast<const float4*>(xr[r] + k);
+                  float a = acc[r];
+                  a = fmaf(xv.x, wr[l][k], a);
+                  a = fmaf(xv.y, wr[l][k + 1], a);
+                  a = fmaf(xv.z, wr[l][k + 2], a);
+                  a = fmaf(xv.w, wr[l][k + 3], a);
+                  acc[r] = a;
+                }
+              }
+              kb_sum<NKB, DC_RT, GS>(acc);
+              if (kb == 0)
+#pragma unroll
+                for (int r = 0; r < DC_RT; ++r)
+                  if (base + r < nrows)
+                    sm.zs[(base + r) * 4 * UPB + g_ * UPB + ul_] = acc[r];
+            }
           }
           __syncthreads();
           PHASE(2)
@@ -802,7 +991,7 @@ __device__ void decode_edges_cluster(const Decode& p, const Doc& d,
           const float* e = sm.embt + blk * KCH * vr + v;
           float a = 0.0f;
 #pragma unroll
-          for (int k = 0; k < KCH; ++k) a = fmaf(h[k], e[k * vr], a);
+          for (int k = 0; k < KCH; ++k) a = fmaf(opnd<WT>(h[k]), e[k * vr], a);
           sm.lgt[(ri * NB + blk) * Vp + v] = a;
         }
         __syncthreads();
@@ -873,7 +1062,7 @@ __device__ void decode_edges_cluster(const Decode& p, const Doc& d,
           for (int i = tid; i < nrows * W; i += CNT) {
             const int row = i / W, e = i % W, r = idx[row];
             sm.candx[r * XP + hpad(e)] =
-                __ldg(p.emb + (size_t)sm.echar[(r % A) * L + s] * W + e);
+                ldw(wt.emb + (size_t)sm.echar[(r % A) * L + s] * W + e);
           }
         __syncthreads();
         PHASE(6)
@@ -910,7 +1099,7 @@ __device__ void decode_edges_cluster(const Decode& p, const Doc& d,
       sm.costf[k] = sm.total[r];
     }
     // the chosen candidates' rows, then the new beam
-    own_rows<W, D, UPB>(p, sm, sm.sel, K);
+    own_rows<W, D, UPB, WT>(p, sm, sm.sel, K);
     __syncthreads();
     for (int i = tid; i < K * XP / 4; i += CNT) {
       const int k = i / (XP / 4), e = i % (XP / 4);

@@ -30,8 +30,17 @@
 // candidate rows in a global scratch buffer that the wrapper allocates,
 // step 0 on the parent rows, blocked 32-term sums, rank-count top K).
 // decode_lattice_batch.cu runs the same device code one cluster (or
-// block) per document.  All arithmetic is f32 on CUDA cores: no TF32, no
-// bf16.
+// block) per document.  With f32 weights all arithmetic is f32 on CUDA
+// cores: no TF32, no bf16.
+//
+// With bf16 weights (bf16 != 0 in decode_lattice_launch: the TPU
+// kernel's bf16 instantiation, the JAX package's opt-in bf16 decode
+// mode) the same layouts run the bf16 instantiation of the device code:
+// the cluster layout's gate products on the tensor cores (mma.sync
+// m16n8k16, bf16 operands, f32 sums), the one-block layout's over
+// bf16-rounded operands on CUDA cores; the state and the costs stay f32.
+// Bound: the f32 kernel's operations at the bf16 tensor-core rate
+// (989 TFLOP/s), 0.0194 ms for a page of 617 edges at K=16.
 
 #include "decode_common.cuh"
 
@@ -97,6 +106,7 @@ __device__ Doc single_doc(const Params& q) {
   return d;
 }
 
+template <typename WT>
 __global__ void __launch_bounds__(NT, 1) decode_lattice_kernel(Params q) {
   extern __shared__ float4 smem4[];
   const Decode& p = q.p;
@@ -104,21 +114,21 @@ __global__ void __launch_bounds__(NT, 1) decode_lattice_kernel(Params q) {
   const int K = p.K;
   const int S = (2 * p.D + 1) * p.W;
   const Smem sm = carve_smem(p, reinterpret_cast<float*>(smem4));
-  decode_edges(p, single_doc(q), sm);
+  decode_edges<WT>(p, single_doc(q), sm);
 
   for (int i = tid; i < K * S; i += NT) q.stateF[i] = sm.beam[i];
   single_tail(q, sm.costf, NT);
 }
 
 // The document on one cluster of CL blocks.
-template <int NKB, int D, int CL>
+template <int NKB, int D, int CL, typename WT>
 __global__ void __launch_bounds__(CNT, 1)
     decode_lattice_cluster_kernel(Params q) {
   extern __shared__ float4 smem4[];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const CSmem sm = carve_cluster_smem(q.p, smem4, CL);
-  decode_edges_cluster<NKB, D, CL>(q.p, single_doc(q), sm, rank);
+  decode_edges_cluster<NKB, D, CL, WT>(q.p, single_doc(q), sm, rank);
   cluster_write_state(q.p, sm, q.stateF, CL, rank);
   if (rank == 0) single_tail(q, sm.costf, CNT);
   cluster.sync();  // no block leaves while another may still read it
@@ -135,9 +145,9 @@ extern "C" size_t decode_lattice_smem_bytes(int A, int L, int K, int D,
 
 // the cluster launch of one document (or, with fits, how many such
 // clusters the card holds at once; refuses a layout decode_cluster_ok
-// does not take)
-static int cluster_run(const Params& q, int cl, cudaStream_t stream,
-                       int* fits) {
+// does not take), with f32 or bf16 weights
+static int cluster_run(const Params& q, int cl, bool bf16,
+                       cudaStream_t stream, int* fits) {
   const Decode& p = q.p;
   if (!decode_cluster_ok(p.W, p.D, cl, p.A * p.L) || p.K > RBMAX)
     return (int)cudaErrorInvalidValue;
@@ -148,41 +158,67 @@ static int cluster_run(const Params& q, int cl, cudaStream_t stream,
                                             auto clc) {
     constexpr int NKB = decltype(nkbc)::value, D = decltype(dc)::value;
     constexpr int C = decltype(clc)::value;
-    return decode_cluster_launch(decode_lattice_cluster_kernel<NKB, D, C>,
-                                 cl, 1, smem, stream, fits, q);
+    if (bf16)
+      return decode_cluster_launch(
+          decode_lattice_cluster_kernel<NKB, D, C, __nv_bfloat16>, cl, 1,
+          smem, stream, fits, q);
+    return decode_cluster_launch(
+        decode_lattice_cluster_kernel<NKB, D, C, float>, cl, 1, smem, stream,
+        fits, q);
   });
 }
 
 // How many clusters of cl blocks of the cluster layout the card holds at
 // once (0 where the layout does not take the shape or it does not fit).
 extern "C" int decode_lattice_max_clusters(int A, int L, int K, int D,
-                                           int W, int Vp, int vr, int cl) {
+                                           int W, int Vp, int vr, int cl,
+                                           int bf16) {
   Params q{};
   q.p.A = A, q.p.L = L, q.p.K = K, q.p.D = D, q.p.W = W, q.p.Vp = Vp;
   q.p.v_real = vr;
   int fits = 0;
-  return cluster_run(q, cl, 0, &fits) == 0 ? fits : 0;
+  return cluster_run(q, cl, bf16 != 0, 0, &fits) == 0 ? fits : 0;
 }
 
+// The one-block launch of the kernel of weight type WT.
+template <typename WT>
+static int one_block_run(const Params& q, size_t smem, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      decode_lattice_kernel<WT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  decode_lattice_kernel<WT><<<1, NT, smem, stream>>>(q);
+  return (int)cudaGetLastError();
+}
+
+// emb, embT and wcat: float (bf16 == 0) or __nv_bfloat16 (bf16 != 0)
 extern "C" int decode_lattice_launch(
-    const float* emb, const float* embT, const float* wcat,
+    const void* emb, const void* embT, const void* wcat,
     const float* bias, const int* chars, const float* mask,
     const float* conf, const float* valid, const int* steps,
     const float* state0, const float* cost0, float* records, float* walk,
     float* stateF, float* costF, float* stateE, int E, int n_real, int A,
     int L, int K, int D, int W, int Vp, int v_real, float lw, float lw1,
-    int cl, void* stream) {
+    int cl, int bf16, void* stream) {
   const int rb = decode_chunk_rows(A, L, K, D, W, Vp);
-  Params q{{emb, embT, wcat, bias, steps, E, n_real, A, L, K, D, W, Vp,
-            v_real, rb, lw, lw1},
+  const float* f32[3] = {nullptr, nullptr, nullptr};
+  const __nv_bfloat16* b16[3] = {nullptr, nullptr, nullptr};
+  if (bf16) {
+    b16[0] = static_cast<const __nv_bfloat16*>(emb);
+    b16[1] = static_cast<const __nv_bfloat16*>(embT);
+    b16[2] = static_cast<const __nv_bfloat16*>(wcat);
+  } else {
+    f32[0] = static_cast<const float*>(emb);
+    f32[1] = static_cast<const float*>(embT);
+    f32[2] = static_cast<const float*>(wcat);
+  }
+  Params q{{f32[0], f32[1], f32[2], bias, steps, E, n_real, A, L, K, D, W,
+            Vp, v_real, rb, lw, lw1, b16[0], b16[1], b16[2]},
            chars, mask, conf, valid, state0, cost0, records, walk, stateF,
            costF, stateE};
-  if (cl > 1) return cluster_run(q, cl, (cudaStream_t)stream, nullptr);
+  if (cl > 1)
+    return cluster_run(q, cl, bf16 != 0, (cudaStream_t)stream, nullptr);
   const size_t smem = decode_smem_floats(A, L, K, D, W, Vp, rb) * 4;
-  cudaError_t err = cudaFuncSetAttribute(
-      decode_lattice_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  decode_lattice_kernel<<<1, NT, smem, (cudaStream_t)stream>>>(q);
-  return (int)cudaGetLastError();
+  return bf16 ? one_block_run<__nv_bfloat16>(q, smem, (cudaStream_t)stream)
+              : one_block_run<float>(q, smem, (cudaStream_t)stream);
 }

@@ -42,7 +42,13 @@
 // slots from k_in[n], and one thread a segment walks it again from its
 // entry slot, storing each step's slot; last every thread gathers the
 // alternative and cost of its steps.
-// All arithmetic is f32 on CUDA cores: no TF32, no bf16.
+// With f32 weights all arithmetic is f32 on CUDA cores: no TF32, no bf16.
+// With bf16 weights (bf16 != 0 in decode_lattice_batch_launch: the TPU
+// kernel's bf16 instantiation) every document runs the bf16 device code
+// of decode_common.cuh, as decode_lattice.cu does: the cluster layout's
+// gate products on the tensor cores; a document's records and beam equal
+// a single-document bf16 launch's bit for bit.  Bound: the f32 kernel's
+// operations at the bf16 tensor-core rate (989 TFLOP/s).
 
 #include "decode_common.cuh"
 
@@ -79,6 +85,7 @@ __device__ Doc batch_doc(const Decode& p, const BatchIO& io, int n, int N) {
   return d;
 }
 
+template <typename WT>
 __global__ void __launch_bounds__(NT, 1)
     decode_lattice_batch_kernel(Decode p, BatchIO io) {
   extern __shared__ float4 smem4[];
@@ -86,7 +93,7 @@ __global__ void __launch_bounds__(NT, 1)
   const int K = p.K;
   const int S = (2 * p.D + 1) * p.W;
   const Smem sm = carve_smem(p, reinterpret_cast<float*>(smem4));
-  decode_edges(p, batch_doc(p, io, n, N), sm);
+  decode_edges<WT>(p, batch_doc(p, io, n, N), sm);
 
   for (int i = tid; i < K * S; i += NT)
     io.stateF[(size_t)n * K * S + i] = sm.beam[i];
@@ -94,7 +101,7 @@ __global__ void __launch_bounds__(NT, 1)
 }
 
 // Document n on cluster n of CL blocks.
-template <int NKB, int D, int CL>
+template <int NKB, int D, int CL, typename WT>
 __global__ void __launch_bounds__(CNT, 1)
     decode_lattice_batch_cluster_kernel(Decode p, BatchIO io) {
   extern __shared__ float4 smem4[];
@@ -104,7 +111,7 @@ __global__ void __launch_bounds__(CNT, 1)
   const int K = p.K, S = (2 * D + 1) * p.W;
   const CSmem sm = carve_cluster_smem(p, smem4, CL);
   const Doc d = batch_doc(p, io, n, N);
-  decode_edges_cluster<NKB, D, CL>(p, d, sm, rank);
+  decode_edges_cluster<NKB, D, CL, WT>(p, d, sm, rank);
   cluster_write_state(p, sm, io.stateF + (size_t)n * K * S, CL, rank);
   if (rank == 0)
     for (int k = threadIdx.x; k < K; k += CNT)
@@ -201,9 +208,10 @@ extern "C" size_t decode_lattice_batch_smem_bytes(int A, int L, int K, int D,
 
 // the cluster launch of N documents (or, with fits, how many such
 // clusters the card holds at once; refuses a layout decode_cluster_ok
-// does not take)
+// does not take), with f32 or bf16 weights
 static int batch_cluster_run(const Decode& p, const BatchIO& io, int N,
-                             int cl, cudaStream_t stream, int* fits) {
+                             int cl, bool bf16, cudaStream_t stream,
+                             int* fits) {
   if (!decode_cluster_ok(p.W, p.D, cl, p.A * p.L) || p.K > RBMAX)
     return (int)cudaErrorInvalidValue;
   const size_t smem =
@@ -213,8 +221,13 @@ static int batch_cluster_run(const Decode& p, const BatchIO& io, int N,
                                             auto clc) {
     constexpr int NKB = decltype(nkbc)::value, D = decltype(dc)::value;
     constexpr int C = decltype(clc)::value;
-    return decode_cluster_launch(decode_lattice_batch_cluster_kernel<NKB, D, C>,
-                                 cl, N, smem, stream, fits, p, io);
+    if (bf16)
+      return decode_cluster_launch(
+          decode_lattice_batch_cluster_kernel<NKB, D, C, __nv_bfloat16>, cl,
+          N, smem, stream, fits, p, io);
+    return decode_cluster_launch(
+        decode_lattice_batch_cluster_kernel<NKB, D, C, float>, cl, N, smem,
+        stream, fits, p, io);
   });
 }
 
@@ -222,36 +235,60 @@ static int batch_cluster_run(const Decode& p, const BatchIO& io, int N,
 // once (0 where the layout does not take the shape or it does not fit).
 extern "C" int decode_lattice_batch_max_clusters(int A, int L, int K, int D,
                                                  int W, int Vp, int vr,
-                                                 int cl) {
+                                                 int cl, int bf16) {
   Decode p{};
   p.A = A, p.L = L, p.K = K, p.D = D, p.W = W, p.Vp = Vp, p.v_real = vr;
   const BatchIO io{};
   int fits = 0;
-  return batch_cluster_run(p, io, 1, cl, 0, &fits) == 0 ? fits : 0;
+  return batch_cluster_run(p, io, 1, cl, bf16 != 0, 0, &fits) == 0 ? fits
+                                                                     : 0;
 }
 
+// The one-block launch of N documents with the kernel of weight type WT.
+template <typename WT>
+static int batch_one_block_run(const Decode& p, const BatchIO& io, int N,
+                               size_t smem, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      decode_lattice_batch_kernel<WT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  decode_lattice_batch_kernel<WT><<<N, NT, smem, stream>>>(p, io);
+  return (int)cudaGetLastError();
+}
+
+// emb, embT and wcat: float (bf16 == 0) or __nv_bfloat16 (bf16 != 0)
 extern "C" int decode_lattice_batch_launch(
-    const float* emb, const float* embT, const float* wcat,
+    const void* emb, const void* embT, const void* wcat,
     const float* bias, const int* chars, const float* mask,
     const float* conf, const float* valid, const int* steps,
     const float* state0, const float* cost0, float* records, float* stateF,
     float* costF, float* stateE, int N, int E, int n_real, int A, int L,
     int K, int D, int W, int Vp, int v_real, float lw, float lw1, int cl,
-    void* stream) {
+    int bf16, void* stream) {
   const int rb = decode_chunk_rows(A, L, K, D, W, Vp);
-  const Decode p{emb, embT, wcat, bias, steps, E, n_real, A, L, K, D, W,
-                 Vp, v_real, rb, lw, lw1};
+  const float* f32[3] = {nullptr, nullptr, nullptr};
+  const __nv_bfloat16* b16[3] = {nullptr, nullptr, nullptr};
+  if (bf16) {
+    b16[0] = static_cast<const __nv_bfloat16*>(emb);
+    b16[1] = static_cast<const __nv_bfloat16*>(embT);
+    b16[2] = static_cast<const __nv_bfloat16*>(wcat);
+  } else {
+    f32[0] = static_cast<const float*>(emb);
+    f32[1] = static_cast<const float*>(embT);
+    f32[2] = static_cast<const float*>(wcat);
+  }
+  const Decode p{f32[0], f32[1], f32[2], bias, steps, E, n_real, A, L, K,
+                 D, W, Vp, v_real, rb, lw, lw1, b16[0], b16[1], b16[2]};
   const BatchIO io{chars, mask, conf, valid, state0, cost0, records,
                    stateF, costF, stateE};
   if (cl > 1)
-    return batch_cluster_run(p, io, N, cl, (cudaStream_t)stream, nullptr);
+    return batch_cluster_run(p, io, N, cl, bf16 != 0, (cudaStream_t)stream,
+                             nullptr);
   const size_t smem = decode_smem_floats(A, L, K, D, W, Vp, rb) * 4;
-  cudaError_t err = cudaFuncSetAttribute(
-      decode_lattice_batch_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  decode_lattice_batch_kernel<<<N, NT, smem, (cudaStream_t)stream>>>(p, io);
-  return (int)cudaGetLastError();
+  return bf16 ? batch_one_block_run<__nv_bfloat16>(p, io, N, smem,
+                                                   (cudaStream_t)stream)
+              : batch_one_block_run<float>(p, io, N, smem,
+                                           (cudaStream_t)stream);
 }
 
 extern "C" int walk_records_batch_launch(const float* records,

@@ -54,8 +54,9 @@ def _gen_weights(rater, context):
     decoding through ``Rater._decode_weights``): vocab-padded embedding
     and its transpose, fused per-layer ``[input; recurrent]`` kernels,
     biases with the context embedding folded into layer 0, and the real
-    vocabulary size."""
-    wts = rater._decode_weights(context)
+    vocabulary size.  Always f32: generation ignores the bf16 decode
+    mode, as the JAX package's does."""
+    wts = rater._decode_weights(context, bf16=False)
     return (wts['emb'], wts['embT'], wts['wcat'], wts['bias'],
             wts['v_real'])
 

@@ -24,6 +24,16 @@ either the device-walked ``(E+1, 2)`` path (header ``[cost0[k_fin], 0]``)
 or the ``(E+1, 3K)`` records ``[backptr | alt | cost]`` whose header
 carries ``min(cost0)`` and the initial-beam costs.
 
+The weights ``emb``/``embT``/``wcat`` are all float32 (the default) or
+all bfloat16 (the JAX package's opt-in bf16 decode mode); everything
+else, the carried state and all cost arithmetic stay float32.  Under
+bf16 weights every matmul operand (``[input | h_d]`` of a layer, the top
+h of the logits) is rounded to bf16 and each product summed in f32:
+JAX's ``preferred_element_type=float32`` on bf16 inputs.  The kernels
+then run their gate products on the tensor cores (``mma.sync`` bf16 with
+f32 sums) and count their launches in ``launches_bf16``, apart from the
+f32 launches in ``launches``.
+
 The kernels are compiled at first use by :mod:`._build` (``nvcc`` for
 ``sm_90a``, loaded with ``ctypes``).
 """
@@ -127,7 +137,7 @@ def decode_smem_fits(A: int, L: int, K: int, D: int, W: int, Vp: int,
     """Whether :func:`decode_lattice` can lay the shape out within a
     block's shared memory: the one-block layout at its smallest chunk
     (8 rows; ``decode_chunk_rows``), or a cluster size
-    (:func:`cluster_sizes`)."""
+    (:func:`cluster_sizes`).  f32 and bf16 weights share one plan."""
     return one_block_smem_bytes(A, L, K, D, W, Vp, 8) <= SMEM_MAX or \
         bool(cluster_sizes(K, A, L, D, W, Vp, v_real))
 
@@ -150,49 +160,77 @@ def choose_cluster(N: int, K: int, A: int, L: int, D: int, W: int, Vp: int,
 
 @functools.lru_cache(maxsize=None)
 def _clusters_that_fit(index: int, batch: bool, cl: int, A: int, L: int,
-                       K: int, D: int, W: int, Vp: int, v_real: int) -> int:
+                       K: int, D: int, W: int, Vp: int, v_real: int,
+                       bf16: bool) -> int:
     with torch.cuda.device(index):
         if batch:
             return _batch_library().decode_lattice_batch_max_clusters(
-                A, L, K, D, W, Vp, v_real, cl)
+                A, L, K, D, W, Vp, v_real, cl, int(bf16))
         return _library().decode_lattice_max_clusters(A, L, K, D, W, Vp,
-                                                      v_real, cl)
+                                                      v_real, cl, int(bf16))
 
 
 @functools.lru_cache(maxsize=None)
 def _cluster_choice(index: int, batch: bool, N: int, K: int, A: int,
-                    L: int, D: int, W: int, Vp: int, v_real: int) -> int:
+                    L: int, D: int, W: int, Vp: int, v_real: int,
+                    bf16: bool) -> int:
     return choose_cluster(
         N, K, A, L, D, W, Vp, v_real,
         lambda cl: _clusters_that_fit(index, batch, cl, A, L, K, D, W, Vp,
-                                      v_real),
+                                      v_real, bf16),
         torch.cuda.get_device_properties(index).multi_processor_count)
 
 
 def cluster_blocks(device: torch.device, batch: bool, N: int, K: int,
                    A: int, L: int, D: int, W: int, Vp: int,
-                   v_real: int) -> int:
+                   v_real: int, bf16: bool = False) -> int:
     """Blocks a document of :func:`decode_lattice` (``batch`` false, N
     1) or :func:`decode_lattice_batch` (N documents) on the CUDA
-    ``device``: :func:`choose_cluster` with the card's SMs and cluster
-    occupancy, chosen once per device and shape."""
+    ``device``: :func:`choose_cluster` with the card's SMs and the
+    cluster occupancy of the kernel of the weights' dtype (``bf16``),
+    chosen once per device, shape and dtype.  Both dtypes share one
+    shared-memory plan, so the layouts a shape takes
+    (:func:`cluster_sizes`) do not depend on it."""
     index = device.index if device.index is not None \
         else torch.cuda.current_device()
     return _cluster_choice(index, bool(batch), N, K, A, L, D, W, Vp,
-                           int(v_real))
+                           int(v_real), bool(bf16))
 
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.decode_lattice_launch.argtypes = [P] * 16 + [I] * 9 + [F, F, I, P]
+    lib.decode_lattice_launch.argtypes = \
+        [P] * 16 + [I] * 9 + [F, F, I, I, P]
     lib.decode_lattice_launch.restype = ctypes.c_int
     lib.decode_lattice_smem_bytes.argtypes = [I] * 8
     lib.decode_lattice_smem_bytes.restype = ctypes.c_size_t
-    lib.decode_lattice_max_clusters.argtypes = [I] * 8
+    lib.decode_lattice_max_clusters.argtypes = [I] * 9
     lib.decode_lattice_max_clusters.restype = ctypes.c_int
     return lib
+
+
+def weight_dtype(emb, embT, wcat) -> torch.dtype:
+    """The dtype of the decode weights: ``emb``, ``embT`` and ``wcat``
+    all float32 or all bfloat16 (the plain versions also take float64,
+    the f32 mode in float64); raises on a mix or another dtype."""
+    dtypes = {emb.dtype, embT.dtype, wcat.dtype}
+    if len(dtypes) != 1 or not dtypes <= {torch.float32, torch.bfloat16,
+                                          torch.float64}:
+        raise ValueError('emb, embT and wcat must all be float32 or all '
+                         'bfloat16 (got %s, %s, %s)'
+                         % (emb.dtype, embT.dtype, wcat.dtype))
+    return dtypes.pop()
+
+
+def _kernel_weight_dtype(emb, embT, wcat) -> torch.dtype:
+    """:func:`weight_dtype` of a kernel launch: float32 or bfloat16."""
+    wdt = weight_dtype(emb, embT, wcat)
+    if wdt == torch.float64:
+        raise ValueError('the decode kernels take float32 or bfloat16 '
+                         'weights, not float64')
+    return wdt
 
 
 def _shapes(emb, wcat, alt_chars, state0):
@@ -214,8 +252,9 @@ def decode_lattice(emb, embT, wcat, bias, alt_chars, alt_mask, alt_conf,
     """One-launch lattice decode of E edges.
 
     emb: (Vp, W); embT: (W, Vp); wcat: (D, 2W, 4W) fused
-    ``[input-kernel; recurrent-kernel]``; bias: (D, 1, 4W) (context
-    folded into layer 0); alt_chars: (E, A, L) int32; alt_mask,
+    ``[input-kernel; recurrent-kernel]``, the three float32 or bfloat16
+    (:func:`weight_dtype`); bias: (D, 1, 4W) (context folded into layer
+    0); alt_chars: (E, A, L) int32; alt_mask,
     alt_conf: (E, A, L) float32 (conf as -log2 bits per char);
     alt_valid: (E, A); state0: (K, S); cost0: (1, 128);
     alt_steps: (E,) int32 char steps per edge (default L);
@@ -241,10 +280,10 @@ def decode_lattice(emb, embT, wcat, bias, alt_chars, alt_mask, alt_conf,
     if alt_steps is None:
         alt_steps = torch.full((E,), L, dtype=torch.int32, device=device)
     alt_steps = alt_steps.reshape(E)
-    f32 = torch.float32
+    f32, wdt = torch.float32, _kernel_weight_dtype(emb, embT, wcat)
     for name, t, shape, dtype in (
-            ('emb', emb, (Vp, W), f32), ('embT', embT, (W, Vp), f32),
-            ('wcat', wcat, (D, 2 * W, 4 * W), f32),
+            ('emb', emb, (Vp, W), wdt), ('embT', embT, (W, Vp), wdt),
+            ('wcat', wcat, (D, 2 * W, 4 * W), wdt),
             ('bias', bias, (D, 1, 4 * W), f32),
             ('alt_chars', alt_chars, (E, A, L), torch.int32),
             ('alt_mask', alt_mask, (E, A, L), f32),
@@ -262,7 +301,8 @@ def decode_lattice(emb, embT, wcat, bias, alt_chars, alt_mask, alt_conf,
     costF = torch.empty((1, LANE), dtype=f32, device=device)
     stateE = torch.empty((K * A, S), dtype=f32, device=device)
     lib = _library()
-    cl = cluster_blocks(device, False, 1, K, A, L, D, W, Vp, v_real)
+    bf16 = wdt == torch.bfloat16
+    cl = cluster_blocks(device, False, 1, K, A, L, D, W, Vp, v_real, bf16)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         status = lib.decode_lattice_launch(
@@ -273,29 +313,53 @@ def decode_lattice(emb, embT, wcat, bias, alt_chars, alt_mask, alt_conf,
             records.data_ptr(), walk.data_ptr() if device_walk else None,
             stateF.data_ptr(), costF.data_ptr(), stateE.data_ptr(),
             E, n_real, A, L, K, D, W, Vp, int(v_real),
-            float(lm_weight), float(1.0 - lm_weight), cl, stream)
+            float(lm_weight), float(1.0 - lm_weight), cl, int(bf16), stream)
     if status != 0:
         raise RuntimeError('decode_lattice kernel launch failed: CUDA '
-                           'error %d (%d blocks, %d bytes of shared memory '
-                           'asked)' % (status, cl,
-                                       lib.decode_lattice_smem_bytes(
-                                           A, L, K, D, W, Vp, v_real, cl)))
-    decode_lattice.launches += 1
+                           'error %d (%s weights, %d blocks, %d bytes of '
+                           'shared memory asked)'
+                           % (status, 'bf16' if bf16 else 'f32', cl,
+                              lib.decode_lattice_smem_bytes(
+                                  A, L, K, D, W, Vp, v_real, cl)))
+    if bf16:
+        decode_lattice.launches_bf16 += 1
+    else:
+        decode_lattice.launches += 1
     return (walk if device_walk else records), stateF, costF
 
 
-decode_lattice.launches = 0
+decode_lattice.launches = 0        # f32 weights
+decode_lattice.launches_bf16 = 0   # bf16 weights
 
 
-def _lstm_logits(stateE, embT, wcat, bias, D, W, v_real):
-    """The D-layer LSTM stack over packed rows and the tied softmax:
+def _plain_weights(emb, embT, wcat, dtype):
+    """The plain versions' weights in the compute ``dtype`` (the
+    state's) and the rounding of their matmul operands: under bf16
+    weights (:func:`weight_dtype`) the weights are widened exactly and
+    each operand is rounded to bf16 (nearest even) and widened, so that
+    every product is exact and summed in ``dtype`` (JAX's
+    ``preferred_element_type=float32`` on bf16 inputs; a bfloat16 ``@``
+    in PyTorch would round its result too); under f32 weights nothing
+    changes."""
+    if weight_dtype(emb, embT, wcat) == torch.bfloat16:
+        def rnd(x):
+            return x.to(torch.bfloat16).to(dtype)
+    else:
+        def rnd(x):
+            return x
+    return emb.to(dtype), embT.to(dtype), wcat.to(dtype), rnd
+
+
+def _lstm_logits(stateE, embT, wcat, bias, D, W, v_real, rnd):
+    """The D-layer LSTM stack over packed rows and the tied softmax,
+    each matmul operand through ``rnd`` (:func:`_plain_weights`):
     returns (new h per layer, new c per layer, logits (rows, v_real),
     their logsumexp (rows,))."""
     inp = stateE[:, :W]
     hs, cs = [], []
     for d in range(D):
         operand = torch.cat([inp, stateE[:, (1 + d) * W:(2 + d) * W]], 1)
-        z = operand @ wcat[d] + bias[d]
+        z = rnd(operand) @ wcat[d] + bias[d]
         i = torch.sigmoid(z[:, 0 * W:1 * W])
         f = torch.sigmoid(z[:, 1 * W:2 * W])
         g = torch.tanh(z[:, 2 * W:3 * W])
@@ -305,16 +369,16 @@ def _lstm_logits(stateE, embT, wcat, bias, D, W, v_real):
         hs.append(h2)
         cs.append(c2)
         inp = h2
-    logits = (inp @ embT)[:, :v_real]
+    logits = (rnd(inp) @ embT)[:, :v_real]
     return hs, cs, logits, torch.logsumexp(logits, dim=1)
 
 
-def _char_step(stateE, chars, emb, embT, wcat, bias, D, W, v_real):
+def _char_step(stateE, chars, emb, embT, wcat, bias, D, W, v_real, rnd):
     """One char step of the LSTM stack over packed rows plus the
     tied-softmax -log2 p of ``chars``; returns (new packed rows,
     nll2)."""
     hs, cs, logits, lse = _lstm_logits(stateE, embT, wcat, bias, D, W,
-                                       v_real)
+                                       v_real, rnd)
     nll2 = (lse - logits.gather(1, chars[:, None])[:, 0]) * INV_LN2
     return torch.cat([emb[chars]] + hs + cs, 1), nll2
 
@@ -328,8 +392,10 @@ def decode_lattice_ref(emb, embT, wcat, bias, alt_chars, alt_mask,
     """Plain PyTorch version of :func:`decode_lattice` (same arguments,
     same outputs): every candidate row runs every char step of its
     edge, masked rows keep their state, and the top K is a stable sort
-    by cost, so ties go to the lower candidate index."""
+    by cost, so ties go to the lower candidate index.  Arithmetic in
+    the state's dtype, bf16 weights as :func:`_plain_weights` says."""
     E, A, L, K, S, Vp, W, D = _shapes(emb, wcat, alt_chars, state0)
+    emb, embT, wcat, rnd = _plain_weights(emb, embT, wcat, state0.dtype)
     device = state0.device
     n_real = E if n_real is None else int(n_real)
     steps = ([L] * E if alt_steps is None
@@ -352,7 +418,7 @@ def decode_lattice_ref(emb, embT, wcat, bias, alt_chars, alt_mask,
         for s in range(int(steps[t])):
             m = alt_mask[t, aidx, s]
             new, nll2 = _char_step(stateE, chars_l[t, aidx, s], emb, embT,
-                                   wcat, bias, D, W, v_real)
+                                   wcat, bias, D, W, v_real, rnd)
             acc = acc + m * (lw * nll2 + lw1 * alt_conf[t, aidx, s])
             stateE = torch.where((m > 0)[:, None], new, stateE)
         total = torch.where(alt_valid[t, aidx] > 0.5, cost[parent] + acc,
@@ -397,11 +463,11 @@ def _batch_library() -> ctypes.CDLL:
     lib = _build.load(BATCH_SOURCE)
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.decode_lattice_batch_launch.argtypes = \
-        [P] * 15 + [I] * 10 + [F, F, I, P]
+        [P] * 15 + [I] * 10 + [F, F, I, I, P]
     lib.decode_lattice_batch_launch.restype = ctypes.c_int
     lib.decode_lattice_batch_smem_bytes.argtypes = [I] * 8
     lib.decode_lattice_batch_smem_bytes.restype = ctypes.c_size_t
-    lib.decode_lattice_batch_max_clusters.argtypes = [I] * 8
+    lib.decode_lattice_batch_max_clusters.argtypes = [I] * 9
     lib.decode_lattice_batch_max_clusters.restype = ctypes.c_int
     lib.walk_records_batch_launch.argtypes = [P] * 4 + [I] * 3 + [P]
     lib.walk_records_batch_launch.restype = ctypes.c_int
@@ -475,10 +541,10 @@ def decode_lattice_batch(emb, embT, wcat, bias, alt_chars, alt_mask,
                          'E >= 1 (got W=%d, K=%d, E=%d)' % (W, K, E))
     if alt_steps is None:
         alt_steps = torch.full((E, 1), L, dtype=torch.int32, device=device)
-    f32 = torch.float32
+    f32, wdt = torch.float32, _kernel_weight_dtype(emb, embT, wcat)
     for name, t, shape, dtype in (
-            ('emb', emb, (Vp, W), f32), ('embT', embT, (W, Vp), f32),
-            ('wcat', wcat, (D, 2 * W, 4 * W), f32),
+            ('emb', emb, (Vp, W), wdt), ('embT', embT, (W, Vp), wdt),
+            ('wcat', wcat, (D, 2 * W, 4 * W), wdt),
             ('bias', bias, (D, 1, 4 * W), f32),
             ('alt_chars', alt_chars, (E, N * A, L), torch.int32),
             ('alt_mask', alt_mask, (E, N * A, L), f32),
@@ -494,7 +560,8 @@ def decode_lattice_batch(emb, embT, wcat, bias, alt_chars, alt_mask,
     costF = torch.empty((N * K, 1), dtype=f32, device=device)
     stateE = torch.empty((N, K * A, S), dtype=f32, device=device)
     lib = _batch_library()
-    cl = cluster_blocks(device, True, N, K, A, L, D, W, Vp, v_real)
+    bf16 = wdt == torch.bfloat16
+    cl = cluster_blocks(device, True, N, K, A, L, D, W, Vp, v_real, bf16)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         status = lib.decode_lattice_batch_launch(
@@ -505,18 +572,23 @@ def decode_lattice_batch(emb, embT, wcat, bias, alt_chars, alt_mask,
             records.data_ptr(), stateF.data_ptr(), costF.data_ptr(),
             stateE.data_ptr(), N, E, n_real, A, L, K, D, W, Vp,
             int(v_real), float(lm_weight), float(1.0 - lm_weight), cl,
-            stream)
+            int(bf16), stream)
     if status != 0:
         raise RuntimeError('decode_lattice_batch kernel launch failed: '
-                           'CUDA error %d (%d blocks a document, %d bytes of '
-                           'shared memory asked)'
-                           % (status, cl, lib.decode_lattice_batch_smem_bytes(
-                               A, L, K, D, W, Vp, v_real, cl)))
-    decode_lattice_batch.launches += 1
+                           'CUDA error %d (%s weights, %d blocks a document, '
+                           '%d bytes of shared memory asked)'
+                           % (status, 'bf16' if bf16 else 'f32', cl,
+                              lib.decode_lattice_batch_smem_bytes(
+                                  A, L, K, D, W, Vp, v_real, cl)))
+    if bf16:
+        decode_lattice_batch.launches_bf16 += 1
+    else:
+        decode_lattice_batch.launches += 1
     return records, stateF, costF
 
 
-decode_lattice_batch.launches = 0
+decode_lattice_batch.launches = 0        # f32 weights
+decode_lattice_batch.launches_bf16 = 0   # bf16 weights
 
 
 def decode_lattice_batch_ref(emb, embT, wcat, bias, alt_chars, alt_mask,
@@ -530,9 +602,10 @@ def decode_lattice_batch_ref(emb, embT, wcat, bias, alt_chars, alt_mask,
     state there, as in the kernel), later steps on every candidate row
     (masked rows keep their state), and each document's top K is a
     stable sort of its candidates by cost, so ties go to the lower
-    candidate index."""
+    candidate index.  Arithmetic as :func:`decode_lattice_ref`'s."""
     E, N, A, L, K, S, Vp, W, D = _batch_shapes(emb, wcat, alt_chars,
                                                state0, n_docs)
+    emb, embT, wcat, rnd = _plain_weights(emb, embT, wcat, state0.dtype)
     device = state0.device
     n_real = E if n_real is None else int(n_real)
     steps = ([L] * E if alt_steps is None
@@ -560,12 +633,12 @@ def decode_lattice_batch_ref(emb, embT, wcat, bias, alt_chars, alt_mask,
             ch = chars_l[t, alt, s]
             if s == 0:
                 hs, cs, logits, lse = _lstm_logits(state, embT, wcat, bias,
-                                                   D, W, v_real)
+                                                   D, W, v_real, rnd)
                 nll2 = (lse[parent] - logits[parent, ch]) * INV_LN2
                 new = torch.cat([emb[ch], torch.cat(hs + cs, 1)[parent]], 1)
             else:
                 new, nll2 = _char_step(stateE, ch, emb, embT, wcat, bias, D,
-                                       W, v_real)
+                                       W, v_real, rnd)
             acc = acc + m * (lw * nll2 + lw1 * alt_conf[t, alt, s])
             stateE = torch.where((m > 0)[:, None], new, stateE)
         total = torch.where(alt_valid[t, alt, 0] > 0.5, cost[parent] + acc,

@@ -369,7 +369,10 @@ class Rater:
         # takes gen_beam where no layout of it takes the model)
         self.fused_decode = True
         self.fused_generate = True
-        self.decode_bf16 = False   # the JAX package's opt-in bf16 mode
+        # the JAX package's bf16 decode mode (bf16 emb, embT and wcat in
+        # the decode kernels): None, its default, is "on the TPU only", so
+        # off here; True or False decide (:meth:`_decode_bf16`)
+        self.decode_bf16 = None
         self.logger = logger or LOG
         self.cfg: Optional[LMConfig] = None
         self.params = None
@@ -933,13 +936,27 @@ class Rater:
 
     # -- decode weights and beam carry ---------------------------------
 
-    def _decode_weights(self, context):
+    def _decode_bf16(self) -> bool:
+        """Whether the decode kernels take bf16 weights (the JAX
+        package's ``decode_bf16`` mode: emb, embT and wcat in bf16, the
+        state and every cost in f32).  ``None`` (the default) means what
+        it means in the JAX package, on by default on the TPU only, where
+        it gives the f32 mode's bits: so off here.  On the card the mode
+        changes results (real f32 products against bf16 ones), so it is
+        opt-in: ``rater.decode_bf16 = True``.  Generation is f32
+        whatever the flag says."""
+        return bool(self.decode_bf16)
+
+    def _decode_weights(self, context, bf16=False):
         """Decode weight set on the device: vocab-padded embedding and
         its transpose, per-layer fused ``[kernel; recurrent]`` (D, 2W, 4W)
         and biases (D, 1, 4W) with the page-constant context embedding
-        folded into layer 0.  Cached per context."""
+        folded into layer 0.  ``bf16`` (the bf16 decode mode) casts emb,
+        embT and wcat to bfloat16; the biases stay f32.  Cached per
+        context and dtype."""
         ctx = tuple(context or self.underspecify_contexts())
-        cached = self._decode_cache.get(ctx)
+        key = (ctx, bool(bf16))
+        cached = self._decode_cache.get(key)
         if cached is not None:
             return cached
         W, D, V = self.width, self.depth, self.voc_size
@@ -965,13 +982,14 @@ class Rater:
                 kernel = kernel[:W]
             wcats.append(torch.cat([kernel, lp['recurrent']], 0))
             biases.append(bias)
-        weights = dict(emb=emb, embT=emb.T.contiguous(),
-                       wcat=torch.stack(wcats).contiguous(),
+        wdt = torch.bfloat16 if bf16 else torch.float32
+        weights = dict(emb=emb.to(wdt), embT=emb.T.contiguous().to(wdt),
+                       wcat=torch.stack(wcats).contiguous().to(wdt),
                        bias=torch.stack(biases)[:, None, :].contiguous(),
                        v_pad=V_pad, v_real=V)
         while len(self._decode_cache) >= 4:
             del self._decode_cache[next(iter(self._decode_cache))]
-        self._decode_cache[ctx] = weights
+        self._decode_cache[key] = weights
         return weights
 
     def _fused_traceback(self, tb, K, emb):
@@ -981,8 +999,11 @@ class Rater:
         the beam narrowed (best K slots kept — the carry is rank
         ordered) or widened (dead zero rows appended).  The engine's
         carry ``(h, c, x, cost)`` is packed first (its best ``LANE``
-        slots where it holds more)."""
+        slots where it holds more).  The packed state is f32 whatever the
+        weights' dtype: a bf16 ``emb`` (the bf16 decode mode) is widened
+        exactly."""
         D, W = self.depth, self.width
+        emb = emb.float()
         if tb is None:
             state = torch.zeros((K, (2 * D + 1) * W), dtype=torch.float32,
                                 device=self.device)
@@ -1048,10 +1069,6 @@ class Rater:
             else _linear_edges(graph)
         if not edges_raw:
             return ('done', [], 0.0), device_traceback
-        if self.decode_bf16:
-            raise NotImplementedError(
-                'decode_bf16 is not ported yet (ROADMAP.md Queue 1, '
-                '"bf16 decode")')
         if not self.fused_decode or beam_width > FUSED_MAX_BEAM:
             return self._rate_best_engine(edges_raw, device_traceback,
                                           context, lm_weight, beam_width,
@@ -1108,7 +1125,7 @@ class Rater:
             edges, *full = native.decode_fill(
                 edges_raw, self.merge_runs, DECODE_MERGE_MAX, E_full, A, L,
                 self.vocab._table())
-        wts = self._decode_weights(context)
+        wts = self._decode_weights(context, bf16=self._decode_bf16())
         state, cost = self._fused_traceback(device_traceback, K,
                                             wts['emb'])
         single = nE <= E_MAX and not defer_walk
@@ -1193,7 +1210,10 @@ class Rater:
         ``_xla_traceback``: x is the char whose embedding row the state's
         xemb is, exactly, found by the nearest row in float64); the beam
         narrowed (best K slots kept, the carry is rank ordered) or widened
-        (dead slots appended)."""
+        (dead slots appended).  Under the bf16 decode mode the kernel
+        wrote bf16 embedding values, so x is found against the table
+        rounded to bf16 (the distance is then exactly 0 at the true row),
+        as in the JAX package; the engine itself stays f32."""
         D, W = self.depth, self.width
         dev = self.device
         if tb is None:
@@ -1211,7 +1231,10 @@ class Rater:
                              for d in range(D)])
             c = torch.stack([state[:, (1 + D + d) * W:(2 + D + d) * W]
                              for d in range(D)])
-            emb = self.params['char_embedding'].double()
+            emb = self.params['char_embedding']
+            if self._decode_bf16():
+                emb = emb.to(torch.bfloat16)
+            emb = emb.double()
             xemb = state[:, :W].double()
             d2 = (emb * emb).sum(1)[None, :] - 2.0 * (xemb @ emb.T)
             x = torch.argmin(d2, dim=1).int()
@@ -1317,7 +1340,7 @@ class Rater:
         the kernel's beam and alternative limits, and a layout whose
         shared memory fits a block's
         (:func:`ops.decode_kernel.decode_smem_fits`)."""
-        if n_prep <= 0 or not self.fused_decode or self.decode_bf16 or \
+        if n_prep <= 0 or not self.fused_decode or \
                 beam_width > FUSED_MAX_BEAM or n_prep > E_BUCKETS[-1]:
             return None
         L = _bucket(max(maxlen, 1), L_BUCKETS)
@@ -1337,7 +1360,7 @@ class Rater:
         :meth:`rate_best_device_begin`.  The caller reads choices and
         costs with :meth:`rate_best_device_finish_arrays`."""
         K = _bucket(min(beam_width, FUSED_MAX_BEAM), K_BUCKETS)
-        wts = self._decode_weights(context)
+        wts = self._decode_weights(context, bf16=self._decode_bf16())
         state, cost = self._fused_traceback(device_traceback, K,
                                             wts['emb'])
         packed, state, cost = self._launch_decode(
@@ -1392,7 +1415,7 @@ class Rater:
             valid[lo:lo + n_i] = v_i[:n_i]
         valid[n_group:, 0] = 1.0   # pad edges: a free alternative
         K = _bucket(min(beam_width, FUSED_MAX_BEAM), K_BUCKETS)
-        wts = self._decode_weights(context)
+        wts = self._decode_weights(context, bf16=self._decode_bf16())
         state, cost = self._fused_traceback(device_traceback, K,
                                             wts['emb'])
         packed, state, cost = self._launch_decode(
@@ -1721,10 +1744,6 @@ class Rater:
             raise NotImplementedError(
                 'a batch decode sharded over a mesh is not ported yet '
                 '(ROADMAP.md Queue 1, "Distributed")')
-        if self.decode_bf16:
-            raise NotImplementedError(
-                'decode_bf16 is not ported yet (ROADMAP.md Queue 1, '
-                '"bf16 decode")')
         if not kernel:
             return self._rate_best_batch_engine(
                 raw_list, live, results, context, lm_weight, beam_width)
@@ -1814,7 +1833,7 @@ class Rater:
         N = len(live)
         L = _bucket(max(maxlen, 1), L_BUCKETS)
         dev = self.device
-        wts = self._decode_weights(context)
+        wts = self._decode_weights(context, bf16=self._decode_bf16())
         E_blk = getattr(self, 'fused_batch_E_blk', None) or E_BUCKETS[-1]
         sizes = [all_sizes[i] for i in live]
         nE = max(sizes)

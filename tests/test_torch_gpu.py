@@ -33,7 +33,12 @@ exactly; batched paths equal single-document and CPU paths, scores and
 entropies within 1e-4 (card against CPU also two ulps of the document's
 f32 cumulative cost, ``chip_smoke.same_results``).  The batched final
 states are held within ``chip_smoke.BATCH_STATE_ATOL`` (two f32
-versions, each up to ~1e-5 from the exact state)."""
+versions, each up to ~1e-5 from the exact state).  Under bf16 decode
+weights two runs part from the first h that rounds to the other bf16
+value and drift apart, so the decode kernels are held to their plain
+versions edge by edge from the kernel's beam
+(``chip_smoke.parity_stepwise``, ``chip_smoke.BF16_EDGE_TOL``), and the
+chained one-edge launches to the block launch bit for bit."""
 import contextlib
 import os
 
@@ -1183,3 +1188,157 @@ def test_one_block_rows_keep_the_bits(cuda, W):
                 *lstm_bwd_args(fwd, cot, saved[:2]))))
     for got in outs[1:]:
         assert all(torch.equal(g, w) for g, w in zip(got, outs[0]))
+
+
+# ---- the bf16 decode mode (bf16 emb, embT and wcat) ----
+
+def _bf16(weights):
+    return [w.bfloat16() for w in weights[:3]] + [weights[3]]
+
+
+def _stepwise(cuda, weights, v_real, arrays, n_real, state, cost, K, W):
+    """``chip_smoke.parity_stepwise`` of ``decode_lattice`` under bf16
+    weights (every edge from the kernel's beam, ``BF16_EDGE_TOL``), and
+    the chained one-edge launches equal to the block launch bit for bit;
+    returns the block's final state and cost."""
+    from chip_smoke import BF16_EDGE_TOL, compare_decode, parity_stepwise
+    from ocrd_keraslm_torch.ops import decode_kernel as dk
+    run = _runner(weights, v_real, cuda)
+
+    def step(part, n, s, c):
+        return (run(dk.decode_lattice, part, n, s, c, False),
+                run(dk.decode_lattice_ref, part, n, s, c, False))
+
+    def compare(got, want):
+        e, _, div = compare_decode(got, want, K, W, **BF16_EDGE_TOL)
+        return e, div
+
+    block = run(dk.decode_lattice, arrays, n_real, state, cost, False)
+    _, _, recs, state_k, cost_k = parity_stepwise(step, compare, arrays,
+                                                  n_real, state, cost)
+    assert torch.equal(torch.cat([r[1:] for r in recs]), block[0][1:])
+    assert torch.equal(state_k, block[1]) and torch.equal(cost_k, block[2])
+    return block[1], block[2]
+
+
+@pytest.mark.parametrize('L', [1, 8])
+@pytest.mark.parametrize('cl', [16, 1], ids=['cluster', 'one-block'])
+def test_bf16_kernel_matches_plain(cuda, cl, L):
+    """The german model's bf16 decode weights in the cluster layout (16
+    blocks, gate products on the tensor cores) and the one-block layout:
+    two chained blocks, every edge against the plain version from the
+    kernel's beam; only bf16 launches are counted."""
+    from chip_smoke import decode_cluster
+    from ocrd_keraslm_torch.ops import decode_kernel as dk
+    weights, v_real = _german(cuda)
+    weights = _bf16(weights)
+    D, W, K = weights[2].shape[0], weights[0].shape[1], 16
+    rng = np.random.default_rng([cl, L, 12])
+    state = torch.zeros((K, (2 * D + 1) * W), device=cuda)
+    state[:, :W] = weights[0][1].float()
+    cost = torch.full((1, 128), 1e30, device=cuda)
+    cost[0, 0] = 0.0
+    before = dk.decode_lattice.launches, dk.decode_lattice.launches_bf16
+    with decode_cluster(cl):
+        for E, n_real in ((96, 96), (48, 31)):
+            state, cost = _stepwise(
+                cuda, weights, v_real,
+                random_lattice(rng, E, n_real, 4, L, v_real), n_real, state,
+                cost, K, W)
+    assert dk.decode_lattice.launches == before[0]
+    assert dk.decode_lattice.launches_bf16 > before[1]
+
+
+@pytest.mark.parametrize('L', [1, 8])
+def test_bf16_cluster_sizes_agree(cuda, L):
+    """At W=64, D=2 (clusters of 4, 8 and 16 blocks: 8, 4 and 2 n8 tiles
+    a block) bf16 weights give every cluster size the same bits, and the
+    kernel holds against the plain version edge by edge."""
+    from chip_smoke import decode_cluster
+    from ocrd_keraslm_torch.ops import decode_kernel as dk
+    rng = np.random.default_rng([64, L])
+    v_real, K = 40, 16
+    weights = _bf16([t.to(cuda) for t in _random_weights(rng, 2, 64,
+                                                         v_real)])
+    D, W = 2, 64
+    sizes = dk.cluster_sizes(K, 4, L, D, W, 128, v_real)
+    assert sizes == [4, 8, 16]
+    run = _runner(weights, v_real, cuda)
+    state = torch.zeros((K, (2 * D + 1) * W), device=cuda)
+    state[:, :W] = weights[0][1].float()
+    cost = torch.full((1, 128), 1e30, device=cuda)
+    cost[0, 0] = 0.0
+    arrays = random_lattice(rng, 64, 57, 4, L, v_real)
+    outs = []
+    for cl in sizes:
+        with decode_cluster(cl):
+            outs.append(run(dk.decode_lattice, arrays, 57, state, cost,
+                            True))
+    for out in outs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(out, outs[0]))
+    with decode_cluster(16):
+        _stepwise(cuda, weights, v_real, arrays, 57, state, cost, K, W)
+
+
+def test_bf16_batch_equals_single_document_launches(cuda):
+    """The batched kernel under the german model's bf16 weights: every
+    document's records and final beam equal a single-document bf16
+    launch bit for bit, every edge of every document holds against the
+    plain version from the kernel's beams, and only bf16 launches are
+    counted."""
+    from chip_smoke import (BF16_EDGE_TOL, batch_doc, compare_decode,
+                            parity_stepwise)
+    from ocrd_keraslm_torch.ops import decode_kernel as dk
+    weights, v_real = _german(cuda)
+    weights = _bf16(weights)
+    D, W = weights[2].shape[0], weights[0].shape[1]
+    N, E, K, A, L = 4, 40, 16, 4, 8
+    rng = np.random.default_rng([N, E, 12])
+    n_reals = [E] + [int(rng.integers(5, E + 1)) for _ in range(N - 1)]
+    arrays = batch_lattice(rng, N, n_reals, E, A, L, v_real)
+    state = torch.zeros((N * K, (2 * D + 1) * W), device=cuda)
+    state[:, :W] = weights[0][1].float()
+    cost = torch.full((N * K, 1), 1e30, device=cuda)
+    cost[::K] = 0.0
+
+    def run(fn, arr, n_real, s, c):
+        ins = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+               for a in arr]
+        out = fn(*weights, *ins[:4], s, c, n_docs=N, lm_weight=0.5,
+                 v_real=v_real, alt_steps=ins[4], n_real=n_real)
+        torch.cuda.synchronize()
+        return out
+
+    def compare(got, want):
+        err, div = 0.0, None
+        for d in range(N):
+            e, _, dv = compare_decode(batch_doc(*got, d, K),
+                                      batch_doc(*want, d, K), K, W,
+                                      **BF16_EDGE_TOL)
+            err, div = max(err, e), div if div is not None else dv
+        return err, div
+
+    before = dk.decode_lattice_batch.launches
+    rec, stateF, costF = run(dk.decode_lattice_batch, arrays, E, state, cost)
+    _, _, recs, state_k, _ = parity_stepwise(
+        lambda part, n, s, c: (run(dk.decode_lattice_batch, part, n, s, c),
+                               run(dk.decode_lattice_batch_ref, part, n, s,
+                                   c)),
+        compare, arrays, E, state, cost)
+    assert torch.equal(torch.cat(recs), rec) and torch.equal(state_k, stateF)
+    assert dk.decode_lattice_batch.launches == before
+    for n in range(N):
+        one = [np.ascontiguousarray(a[:, n * A:(n + 1) * A])
+               for a in arrays[:4]]
+        cost_n = torch.full((1, 128), 1e30, device=cuda)
+        cost_n[0, :K] = cost[n * K:(n + 1) * K, 0]
+        single = dk.decode_lattice(
+            *weights, *(torch.from_numpy(a).to(cuda)
+                        for a in one[:3] + [one[3][..., 0].copy()]),
+            state[n * K:(n + 1) * K].contiguous(), cost_n, lm_weight=0.5,
+            v_real=v_real, n_real=E,
+            alt_steps=torch.from_numpy(arrays[4][:, 0].copy()).to(cuda))
+        assert torch.equal(single[0][1:].reshape(E, 3, K),
+                           rec[:, :, n * K:(n + 1) * K]), n
+        assert torch.equal(single[1], stateF[n * K:(n + 1) * K]), n
+        assert torch.equal(single[2][0, :K], costF[n * K:(n + 1) * K, 0]), n

@@ -293,8 +293,9 @@ def test_long_texts_match_jax(tmp_path, level, n_chars):
 def test_unported_feature_raises_through_the_processor(tmp_path,
                                                        monkeypatch, policy):
     """What the port does not have yet raises its NotImplementedError out
-    of the processor under every OCRD_MISSING_OUTPUT policy (here the
-    opt-in bf16 decode), instead of skipping the page and exiting 0."""
+    of the processor under every OCRD_MISSING_OUTPUT policy, instead of
+    skipping the page and exiting 0 (here a decode launch that raises
+    one, as an unported feature's does, naming its ROADMAP item)."""
     if policy is None:
         monkeypatch.delenv('OCRD_MISSING_OUTPUT', raising=False)
     else:
@@ -304,6 +305,81 @@ def test_unported_feature_raises_through_the_processor(tmp_path,
     proc = TKerasRate(workspace=ws, parameter={'model_file': GERMAN},
                       device='cpu')
     proc.setup()
-    proc.rater.decode_bf16 = True
-    with pytest.raises(NotImplementedError, match='bf16 decode'):
+
+    def unported(*args, **kwargs):
+        raise NotImplementedError('a decode sharded over a mesh is not '
+                                  'ported yet (ROADMAP.md Queue 1, '
+                                  '"Distributed")')
+    monkeypatch.setattr(proc.rater, '_launch_decode', unported)
+    with pytest.raises(NotImplementedError, match='Distributed'):
         proc.process_workspace(ws)
+
+
+# confs under the bf16 decode mode at full width: JAX's tanh and sigmoid
+# (XLA's approximations) leave its f32 h a few ulps off the port's, and
+# at K=16, W=128, D=2 some of the 4096 h values of a char step round to
+# the other bf16 neighbour, each moving the costs after it by ~1e-3
+# bits: over a page of long lines the line confs part by more than 1e-4
+BF16_CONF_TOL = 2e-3
+
+
+def _run_bf16(tmp_path, pages, alternatives, params):
+    """Both processors with ``rater.decode_bf16 = True`` (the JAX one
+    with its Pallas kernels in interpret mode, ``fused_decode``; the
+    port at its defaults: the native page lane and page groups where the
+    kernel takes the pages); returns the two output directories and the
+    pages the port's native lane served."""
+    from ocrd_keraslm_torch.wrapper import page_native
+    dirs = []
+    for name, cls, kw in (('jax', JKerasRate, {}),
+                          ('torch', TKerasRate, {'device': 'cpu'})):
+        d = str(tmp_path / name)
+        ws = build_workspace(d, pages, glyph_alternatives=alternatives)
+        proc = cls(workspace=ws, parameter=dict(params, model_file=GERMAN),
+                   **kw)
+        proc.setup()
+        if name == 'jax':
+            proc.rater.fused_decode = True
+        proc.rater.decode_bf16 = True
+        page_native.pages = 0
+        proc.process_workspace(ws)
+        dirs.append(d)
+    return dirs, page_native.pages
+
+
+@pytest.mark.parametrize('lookahead', [False, True])
+def test_bf16_decode_matches_jax(tmp_path, monkeypatch, lookahead):
+    """The bf16 decode mode through the processor at glyph level: the
+    port's native lane serves every page (one page group), or with
+    ``lookahead_writeback`` the record lane walks the pages in reverse;
+    JAX's texts, confs within ``BF16_CONF_TOL`` (bf16 weights of
+    model_german.h5 at full width)."""
+    monkeypatch.delenv('KERASLM_NATIVE_PAGE', raising=False)
+    alternatives = {**ALTERNATIVES, (0, 1, 2): [('p', 0.9), ('b', 0.89)]}
+    (jax_dir, torch_dir), served = _run_bf16(
+        tmp_path, PAGES, alternatives, {'textequiv_level': 'glyph',
+                                        'lookahead_writeback': lookahead})
+    assert served == (0 if lookahead else len(PAGES))
+    want, got = _outputs(jax_dir), _outputs(torch_dir)
+    _assert_same(want, got, BF16_CONF_TOL)
+
+
+def test_bf16_decode_hands_the_carry_to_the_engine(tmp_path):
+    """Under the bf16 decode mode at line level, a page with a 79-char
+    line between two short pages: kernel (bf16), engine (f32, x
+    recovered from the bf16 carry), kernel again, in both packages;
+    JAX's texts, confs within ``BF16_CONF_TOL``."""
+    pages = {'phys_0001': PAGES['phys_0001'],
+             'phys_0002': LONG_PAGES['phys_0001'],
+             'phys_0003': PAGES['phys_0002']}
+    (jax_dir, torch_dir), _ = _run_bf16(tmp_path, pages, None,
+                                        {'textequiv_level': 'line'})
+    want, got = (_level_confs(d, 'line') for d in (jax_dir, torch_dir))
+    assert got.keys() == want.keys() and len(want) == 7
+    for key, w_tes in want.items():
+        g_tes = got[key]
+        assert [u for u, _ in g_tes] == [u for u, _ in w_tes], key
+        np.testing.assert_allclose([c for _, c in g_tes],
+                                   [c for _, c in w_tes], rtol=0,
+                                   atol=BF16_CONF_TOL)
+    assert any(len(u) == 79 for tes in got.values() for u, _ in tes)

@@ -183,10 +183,11 @@ def test_port_matches_exhaustive_multichar(seed):
 
 
 def test_unported_paths_raise(raters, monkeypatch):
-    """bf16 decode raises, naming its item (a beam wider than 32 decodes
-    through the unbounded engine: two chars, two path entries); a
-    branching lattice raises the package's ``NonLinearLatticeError`` (the
-    processor bails into the host engine on it, as JAX's does)."""
+    """A batch decode sharded over a mesh, still unported, raises naming
+    its item (a beam wider than 32 decodes through the unbounded engine:
+    two chars, two path entries); a branching lattice raises the
+    package's ``NonLinearLatticeError`` (the processor bails into the
+    host engine on it, as JAX's does)."""
     _, tr = raters
     graph = _toy_graph(['ab'])[0]
     path, entropy, tb = tr.rate_best_device(graph, 0, 0, beam_width=40)
@@ -196,7 +197,7 @@ def test_unported_paths_raise(raters, monkeypatch):
     branching.add_edge(u, 'detour', element=None, alternatives=[])
     with pytest.raises(NonLinearLatticeError, match='rate_best'):
         tr.rate_best_device(branching, 0, 0)
-    monkeypatch.setattr(tr, 'decode_bf16', True)
-    with pytest.raises(NotImplementedError, match='bf16 decode'):
-        tr.rate_best_device(graph, 0, 0)
+    monkeypatch.setattr(tr, 'mesh', object())
+    with pytest.raises(NotImplementedError, match='Distributed'):
+        tr.rate_best_batch([graph, graph])
     assert torch.is_tensor(tr._decode_weights(None)['wcat'])
