@@ -125,10 +125,12 @@ Phases, each printing its own lines (any failure exits non-zero):
    ``rate_best_device``; (d) a seeded D=2, W=512 model: decode and a
    2-document batch with no kernel launch, ``generate -n 256`` with no
    ``gen_beam`` launch and ``-n 32`` card against CPU, three
-   ``train_step``s with ``lstm_bwd`` in its one-block layout of 4
-   streams a block, card against CPU, ``lstm_bwd`` there against its
-   plain version and pinned by ``WIDE_BWD_DIGEST``, and the one-block
-   layout at 8, 4 and 2 streams a block bit-equal at W=256; bf16 decode
+   ``train_step``s with ``lstm_scan`` and ``lstm_bwd`` in their grid
+   layouts (the layouts printed), card against CPU, both kernels there
+   against their plain versions and pinned by ``WIDE_SCAN_DIGEST`` and
+   ``WIDE_BWD_DIGEST``, each digest taken through the one-block layout
+   first and then through the chosen one, and the one-block layout at
+   8, 4 and 2 streams a block bit-equal at W=256; bf16 decode
    mode (``rater.decode_bf16 = True``): phase 4's pages through the
    processor's Python entry point (every page written, the native lane
    serving every page, one bf16 ``decode_lattice`` launch a page group
@@ -153,11 +155,16 @@ Phases, each printing its own lines (any failure exits non-zero):
    library yardstick where there is one (for the batched decode: one
    ``decode_lattice`` launch per document, one after another); for the
    decode kernels and ``lstm_bwd`` also the one-block layout's time (the
-   first port's kernel, its code unchanged) and the layout taken; the
+   first port's kernel; ``lstm_bwd``'s chain reads z from its z kernel)
+   and the layout taken; the
    bf16 decode kernels at rows 1 and 2's shapes beside the f32 kernels
    in the same call (rows ``decode_lattice_bf16`` and
    ``decode_lattice_batch_bf16``, their bound at the bf16 tensor-core
-   rate).
+   rate); at W=512 (``wide_numbers``) rows 3w (``score_scan`` with the
+   seeded D=2, W=512 model on the scoring chunk, timing only), 4w
+   (``lstm_scan``) and 5w (``lstm_bwd``) at part (d)'s training shape,
+   4w and 5w in the chosen grid layout and the one-block layout side by
+   side, each beside its plain version, its bound and cuDNN.
 
 Every kernel count is set to 0 just before a path runs and read just
 after.  The last two lines are the kernel table and
@@ -3087,13 +3094,19 @@ def batch_numbers_bf16(rater, batch, bf16, parity_times, card):
                 bound_by=bound_by, library_ms=None)
 
 
-def scan_layouts(kind, B, W, D):
+def scan_layouts(kind, B, W, D, n_sm=132):
     """Every layout the chooser could return for the shape, as
-    ``(rb, cl, reg)``: the one-block layout, and the register layout on
+    ``(rb, cl, reg)``: the one-block layout, the register layout on
     clusters of 1-16 blocks of rows_per_block(B) streams down to one
-    where it fits."""
+    where it fits, and the grid layout (``reg`` ``GRID``) in as few
+    groups as ``n_sm`` SMs hold where it fits."""
     from ocrd_keraslm_torch.ops import scan_layout as sl
     out = [(sl.one_block_rows(kind, B, W, D), 1, False)]
+    groups = sl.grid_groups(W, n_sm) if W >= sl.GRID_UNITS else 0
+    if groups:
+        grid = sl.grid_layout_for(kind, B, W, -(-B // min(B, groups)))
+        if grid is not None:
+            out.append((grid.rb, grid.cl, GRID))
     for cl in sl.CLUSTERS:
         rb = sl.rows_per_block(B)
         while rb >= 1:
@@ -3653,7 +3666,7 @@ def training_numbers(dev, card):
         with scan_layout(reg=False):
             one_ms = cuda_ms(lambda: lc.lstm_bwd(*bwd), 5)
         print('lstm_bwd (%s U) at the training shape in the one-block layout '
-              '(the parent\'s kernel, its code unchanged): %.3f ms/launch '
+              '(the first port\'s chain, z from lstm_bwd_z): %.3f ms/launch '
               '(CUDA events, mean of 5); the layout taken, %s (%d streams a '
               'cluster of %d blocks, %d units a block, %d streams a thread '
               'chain), %.2fx faster [%s]'
@@ -3852,14 +3865,21 @@ def decode_cluster(cl):
         dk._cluster_choice.cache_clear()
 
 
+# scan_layout's and scan_layouts' third field for the grid layout
+GRID = 'grid'
+
+
 @contextlib.contextmanager
 def scan_layout(rb=None, cl=1, reg=True):
     """``lstm_scan``, ``score_scan`` and ``lstm_bwd`` launch the register
     layout on clusters of ``cl`` blocks of ``rb`` streams (default: as
-    many as the chooser would put in one cluster), or with ``reg`` false
-    the one-block layout (of ``rb`` streams a block where given), inside
-    the block, whatever the card's occupancy would choose.  The wrappers'
-    cached layouts are dropped on entry and on exit."""
+    many as the chooser would put in one cluster), with ``reg`` false
+    the one-block layout (of ``rb`` streams a block where given), or
+    with ``reg`` equal to ``GRID`` the grid layout of ``lstm_scan`` and
+    ``lstm_bwd`` in groups of ``rb`` streams (default: as the chooser
+    groups them on this card), inside the block, whatever the card's
+    occupancy would choose.  The wrappers' cached layouts are dropped on
+    entry and on exit."""
     from ocrd_keraslm_torch.ops import lstm_cell as lc
     from ocrd_keraslm_torch.ops import scan_layout as sl
     from ocrd_keraslm_torch.ops import score_kernel as sk
@@ -3871,8 +3891,13 @@ def scan_layout(rb=None, cl=1, reg=True):
     def forced(kind, B, W, D, fits, n_sm, bf16=False, Vp=0):
         if not reg:
             return sl.one_block_layout(kind, B, W, D, bf16, Vp)
-        lay = sl.reg_layout_for(kind, W, D, rb or sl.rows_per_block(B), cl)
-        assert lay is not None, (kind, B, W, D, rb, cl)
+        if reg == GRID:
+            lay = sl.grid_layout_for(kind, B, W, rb or -(-B // min(
+                B, sl.grid_groups(W, n_sm))))
+        else:
+            lay = sl.reg_layout_for(kind, W, D, rb or sl.rows_per_block(B),
+                                    cl)
+        assert lay is not None, (kind, B, W, D, rb, cl, reg)
         return lay
 
     def clear():
@@ -4151,9 +4176,15 @@ ENGINE_BEAM = 40             # -P beam_width of part (a) and the batch
 WIDE_W, WIDE_T = 512, 64     # part (d): the width and training window
 # sha256 of lstm_bwd's outputs at W=512 (the one-block layout at 4
 # streams a block; B=128, T=64, f32 U, seeded as wide_bwd_inputs makes
-# them), from the first chip run of that layout (NVIDIA H100 80GB HBM3)
+# them), from the first chip run of that layout (NVIDIA H100 80GB HBM3);
+# the grid layout keeps it
 WIDE_BWD_DIGEST = \
     'e392cbde8c1ceb9ff0cff5732ba8124c0bb03437cade73bd3a82ee16265dc629'
+# sha256 of lstm_scan's outputs (h_all, c_all, hT, cT) on the same
+# inputs, from the one-block layout of the first port (NVIDIA H100 80GB
+# HBM3); the grid layout keeps it
+WIDE_SCAN_DIGEST = \
+    '9ce353c0d7c8542b00b675e4c36c05aba141838cc23ef4daf4948aa54027abfc'
 
 
 # the bf16 decode mode card against CPU: two bf16 runs drift apart from
@@ -4854,11 +4885,13 @@ def wide_model_path(dev, train, card):
     generation kernels takes: ``rate_best_device`` of a 256-edge lattice
     and a 2-document batch with no kernel launched, card against CPU;
     ``generate -n 256`` with no ``gen_beam`` launch, ``-n 32`` card
-    against CPU; three ``train_step``s at B=128, T=64 with ``lstm_bwd``
-    in its one-block layout of 4 streams a block, card against CPU;
-    ``lstm_bwd`` there against its plain version, its digest, and the
-    one-block layout at 8, 4 and 2 streams a block bit-equal at W=256.
-    Returns the ``lstm_bwd_w512`` kernel row and the wall numbers."""
+    against CPU; three ``train_step``s at B=128, T=64 with ``lstm_scan``
+    and ``lstm_bwd`` in their grid layouts, card against CPU; both
+    kernels there against their plain versions, their digests through
+    the one-block layout and then the chosen one (``WIDE_SCAN_DIGEST``,
+    ``WIDE_BWD_DIGEST``), and the one-block layout at 8, 4 and 2 streams
+    a block bit-equal at W=256.  Returns the training steps' launch
+    counts, both kernels' errors and the generation walls."""
     import itertools
 
     import torch
@@ -4911,7 +4944,8 @@ def wide_model_path(dev, train, card):
              ', '.join('%.0f' % (256 / w) for w in walls), json.dumps(got),
              card))
     lay = lc.bwd_layout_on(dev, TRAIN_B, WIDE_W)
-    assert (lay.rb, lay.cl, lay.reg) == (4, 1, False), lay
+    scan_lay = lc.scan_layout_on(dev, TRAIN_B, WIDE_W, False)
+    assert lay.grid and scan_lay.grid, (lay, scan_lay)
     batches = list(itertools.islice(stream_batches(
         train['plan'].training_files, train['vocab'], length=WIDE_T), 3))
     zero_counts()
@@ -4927,24 +4961,41 @@ def wide_model_path(dev, train, card):
                     for g, c in zip(carry_g, carry_c))
     assert loss_err <= 1e-5 and carry_err <= 1e-5, (got, want, carry_err)
     print('unbounded engines (d), 3 train_steps at -w %d -d %d -l %d -b %d: '
-          'lstm_bwd %d launches in the one-block layout of %d streams a '
-          'block (%d bytes of shared memory; 8 streams would need %d), '
-          'lstm_scan %d; losses %s on the card, %s on the CPU, max relative '
-          'diff %.3g; final carry max abs diff %.3g (tolerances: losses '
-          'rtol 1e-5, carry atol 1e-5) [%s]'
-          % (WIDE_W, TRAIN_D, WIDE_T, TRAIN_B, counts['lstm_bwd'], lay.rb,
-             lay.smem, 4 * 8 * 15 * WIDE_W, counts['lstm_scan'],
+          'lstm_bwd %d launches, its chain in %s (%d bytes of shared memory '
+          'a block), lstm_scan %d in %s (%d bytes); losses %s on the card, '
+          '%s on the CPU, max relative diff %.3g; final carry max abs diff '
+          '%.3g (tolerances: losses rtol 1e-5, carry atol 1e-5) [%s]'
+          % (WIDE_W, TRAIN_D, WIDE_T, TRAIN_B, counts['lstm_bwd'],
+             describe_scan_layout(lay), lay.smem, counts['lstm_scan'],
+             describe_scan_layout(scan_lay), scan_lay.smem,
              ['%.6f' % v for v in got], ['%.6f' % v for v in want],
              loss_err, carry_err, card))
     fwd, bwd = wide_bwd_inputs(dev)
-    got = lc.lstm_bwd(*bwd)
+    # the digests through the one-block layout first, then the chosen one
+    digests = {}
+    for what, ctx in (('one-block', scan_layout(reg=False)),
+                      ('chosen', contextlib.nullcontext())):
+        with ctx:
+            saved = lc.lstm_scan(*fwd, want_c_all=True)
+            got = lc.lstm_bwd(*bwd)
+            digests[what] = (_digest(saved), _digest(got))
+    scan_err = compare_lstm(saved, lc.lstm_scan_ref(*fwd, want_c_all=True))
     err = compare_bwd(got, lc.lstm_bwd_ref(*bwd))
-    digest = _digest(got)
-    print('lstm_bwd at W=%d (B=%d, T=%d, f32 U) against its plain version: '
-          'max abs error %.3g, dU %.3g of its max; output digest %s%s'
-          % (WIDE_W, TRAIN_B, WIDE_T, err[0], err[1], digest,
-             ', pinned %s' % WIDE_BWD_DIGEST))
-    assert digest == WIDE_BWD_DIGEST, ('lstm_bwd at W=512 changed', digest)
+    print('lstm_scan at W=%d (B=%d, T=%d, f32 U, c_all on) in %s against '
+          'its plain version: max abs error %.3g over h, relative %.3g over '
+          'c; output digest %s, the one-block layout\'s %s, pinned %s'
+          % (WIDE_W, TRAIN_B, WIDE_T, describe_scan_layout(scan_lay),
+             scan_err[0], scan_err[1], digests['chosen'][0],
+             digests['one-block'][0], WIDE_SCAN_DIGEST))
+    print('lstm_bwd at W=%d (B=%d, T=%d, f32 U) in %s against its plain '
+          'version: max abs error %.3g, dU %.3g of its max; output digest '
+          '%s, the one-block layout\'s %s, pinned %s'
+          % (WIDE_W, TRAIN_B, WIDE_T, describe_scan_layout(lay), err[0],
+             err[1], digests['chosen'][1], digests['one-block'][1],
+             WIDE_BWD_DIGEST))
+    assert digests['one-block'] == digests['chosen'] == (
+        WIDE_SCAN_DIGEST, WIDE_BWD_DIGEST), ('W=512 outputs changed',
+                                             digests)
     rng = np.random.default_rng(20261104)
     fwd256, cot256 = lstm_train_inputs(rng, dev, False, B=TRAIN_B, T=32,
                                        W=256)
@@ -4958,22 +5009,98 @@ def wide_model_path(dev, train, card):
     print('one-block layout at W=256 (B=%d, T=32) with 8, 4 and 2 streams a '
           'block: lstm_scan and lstm_bwd outputs bit-equal (sha256 %s, %s)'
           % (TRAIN_B, digests[8][0][:16], digests[8][1][:16]))
-    ms = cuda_ms(lambda: lc.lstm_bwd(*bwd), 5)
-    plain_ms = cuda_ms(lambda: lc.lstm_bwd_ref(*bwd), 1)
+    return dict(launches=counts, err=err[0], scan_err=scan_err[0],
+                gen_walls=walls)
+
+
+def wide_texts(seed=4):
+    """Four seeded German texts of 400 words each: the scoring chunk of
+    row 3w where no workspace's pages are at hand."""
+    rng = np.random.default_rng(seed)
+    return [' '.join(rng.choice(GERMAN_WORDS, 400)) for _ in range(4)]
+
+
+def wide_numbers(dev, card, texts):
+    """Rows 3w, 4w and 5w of PERF.md at W=512: ``score_scan`` with the
+    seeded D=2, W=512 model on the first chunk of ``texts`` (timing only:
+    the rater scores W > 384 through the layered path), ``lstm_scan``
+    (c_all on) and ``lstm_bwd`` at part (d)'s training shape (B=128,
+    T=64, f32 U), each beside its plain version, its bound and cuDNN;
+    the two training kernels in the layout the chooser takes and in the
+    one-block layout, side by side.  Returns {row name: numbers}."""
+    import torch
+    from ocrd_keraslm_torch.ops import lstm_cell as lc
+    from ocrd_keraslm_torch.ops import score_kernel as sk
+    wr = wide_rater(dev)
+    args, inp = score_main_inputs(wr, texts, [179])
+    B, T, _ = args[0].shape
+    ms = cuda_ms(lambda: sk.score_scan(*args), 2)
+    plain_ms = cuda_ms(lambda: sk.score_scan_ref(*args), 1)
+    library_ms = cuda_ms(cudnn_lstm(wr, 2, inp), 3)
+    bound_ms, bound_by, flops = score_bound(args)
+    lay = sk.scan_layout_on(dev, B, WIDE_W, 2, args[-2].shape[1])
+    print('score_scan_w512 (row 3w: the seeded D=2, W=%d model, the scoring '
+          'chunk B=%d, T=%d; timing only, the rater scores W > 384 through '
+          'the layered path): %.3f ms/launch (CUDA events, mean of 2) in %s, '
+          '%.2f us/step; plain version %.3f ms; bound %.4f ms by %s (%.3g '
+          'FLOP), kernel at %.3f%% of it; cuDNN torch.nn.LSTM, 2 layers, '
+          'f32, without the softmax: %.3f ms [%s]'
+          % (WIDE_W, B, T, ms, describe_scan_layout(lay), 1e3 * ms / T,
+             plain_ms, bound_ms, bound_by, flops, 100 * bound_ms / ms,
+             library_ms, card))
+    out = {'score_scan_w512': dict(ms=ms, plain_ms=plain_ms,
+                                   bound_ms=bound_ms, bound_by=bound_by,
+                                   library_ms=library_ms)}
+    fwd, bwd = wide_bwd_inputs(dev)
+    rng = np.random.default_rng(20261106)
     inp = torch.from_numpy(rng.normal(0, 1, (TRAIN_B, WIDE_T, WIDE_W)).astype(
         np.float32)).to(dev)
-    library_ms = cuda_ms(cudnn_layer(inp, WIDE_W)[1], 5)
-    bound_ms, bound_by, flops = lstm_bwd_bound(bwd, False)
-    print('lstm_bwd at W=%d (B=%d, T=%d): %.3f ms/launch (CUDA events, mean '
-          'of 5), plain version %.3f ms, bound %.4f ms by %s (%.3g FLOP), '
-          'kernel at %.2f%% of it; cuDNN torch.nn.LSTM forward+backward, 1 '
-          'layer, f32: %.3f ms [%s]'
-          % (WIDE_W, TRAIN_B, WIDE_T, ms, plain_ms, bound_ms, bound_by, flops,
-             100 * bound_ms / ms, library_ms, card))
-    row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-               bound_by=bound_by, library_ms=library_ms)
-    return dict(row=row, launches=counts['lstm_bwd'], err=err[0],
-                gen_walls=walls)
+    cudnn_fwd, cudnn_fwd_bwd = cudnn_layer(inp, WIDE_W)
+    for name, kernel, plain, library, bnd, lay, what in (
+            ('lstm_scan_w512', lambda: lc.lstm_scan(*fwd, want_c_all=True),
+             lambda: lc.lstm_scan_ref(*fwd, want_c_all=True), cudnn_fwd,
+             lstm_train_bound(fwd, False),
+             lc.scan_layout_on(dev, TRAIN_B, WIDE_W, False), 'forward'),
+            ('lstm_bwd_w512', lambda: lc.lstm_bwd(*bwd),
+             lambda: lc.lstm_bwd_ref(*bwd), cudnn_fwd_bwd,
+             lstm_bwd_bound(bwd, False), lc.bwd_layout_on(dev, TRAIN_B,
+                                                          WIDE_W),
+             'forward+backward')):
+        ms = cuda_ms(kernel, 5)
+        with scan_layout(reg=False):
+            one_ms = cuda_ms(kernel, 3)
+        plain_ms = cuda_ms(plain, 1)
+        library_ms = cuda_ms(library, 5)
+        ms2 = cuda_ms(kernel, 5)
+        with scan_layout(reg=False):
+            one_ms2 = cuda_ms(kernel, 3)
+        bound_ms, bound_by, flops = bnd
+        print('%s (row %s) at W=%d (B=%d, T=%d, f32 U%s): %.3f then '
+              '%.3f ms/launch in %s; the one-block layout %.3f then %.3f '
+              'ms/launch (CUDA events, means of 5 and 3, alternating), %.2fx; '
+              'plain version %.3f ms; bound %.4f ms by %s (%.3g FLOP), kernel '
+              'at %.2f%% of it; cuDNN torch.nn.LSTM %s, 1 layer, f32: %.3f ms '
+              '(%.2fx the kernel) [%s]'
+              % (name, '4w' if 'scan' in name else '5w', WIDE_W, TRAIN_B,
+                 WIDE_T, ', c_all on' if 'scan' in name else '', ms, ms2,
+                 describe_scan_layout(lay), one_ms, one_ms2,
+                 one_ms2 / ms2, plain_ms, bound_ms, bound_by, flops,
+                 100 * bound_ms / ms2, what, library_ms, library_ms / ms2,
+                 card))
+        out[name] = dict(ms=ms2, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=library_ms)
+    return out
+
+
+def describe_scan_layout(lay):
+    """A layout of ``ops/scan_layout.py`` in words."""
+    if getattr(lay, 'grid', False):
+        return ('the grid layout (%d streams a group of %d blocks, %d '
+                'streams a staged chunk)' % (lay.rb, lay.cl, lay.rt))
+    if lay.reg:
+        return ('the register layout (%d streams a cluster of %d blocks, %d '
+                'a thread chain)' % (lay.rb, lay.cl, lay.rt))
+    return 'the one-block layout (%d streams a block)' % lay.rb
 
 
 def engine_path(rater, work, train, card):
@@ -5088,6 +5215,17 @@ def main() -> int:
              if lay.reg else 'the one-block layout, %d streams a block'
              % lay.rb, lay.smem, TRAIN_B * TRAIN_T,
              lc._bwd_library().lstm_bwd_splits(TRAIN_B, TRAIN_T)))
+    for what, lay in (
+            ('lstm_scan at W=%d (B=%d: part (d)\'s training steps), f32 '
+             'and bf16 U' % (WIDE_W, TRAIN_B),
+             lc.scan_layout_on(dev, TRAIN_B, WIDE_W, False)),
+            ('lstm_bwd\'s chain at W=%d (B=%d)' % (WIDE_W, TRAIN_B),
+             lc.bwd_layout_on(dev, TRAIN_B, WIDE_W))):
+        print('layout %s: %s, %d blocks of 256 threads in all; %d bytes of '
+              'shared memory a block'
+              % (what, describe_scan_layout(lay),
+                 -(-TRAIN_B // lay.rb) * lay.cl if lay.grid else 0,
+                 lay.smem))
     from ocrd_keraslm_torch.ops import gen_kernel as gk
     index = torch.cuda.current_device()
     for lay in gk.gen_layouts(256, D, W, wts['v_pad'], 10, wts['v_real']):
@@ -5276,7 +5414,7 @@ def main() -> int:
                        **training_numbers(dev, card),
                        **generation_numbers(rater, gen, card),
                        **batch_numbers(rater, batch, batch_times, card),
-                       lstm_bwd_w512=engines['wide']['row'],
+                       **wide_numbers(dev, card, scoring['texts']),
                        decode_lattice_bf16=decode_numbers_bf16(rater, decode,
                                                                card),
                        decode_lattice_batch_bf16=batch_numbers_bf16(
@@ -5301,9 +5439,13 @@ def main() -> int:
             ('lstm_bwd_bf16', 'lstm_bwd',
              train['launches_bf16']['lstm_bwd'],
              train_errs['lstm_bwd_bf16']),
-            # the W=512 model's training steps: the one-block layout at 4
-            # streams a block
-            ('lstm_bwd_w512', 'lstm_bwd', engines['wide']['launches'],
+            # the W=512 model's training steps (part (d)): the grid
+            # layouts
+            ('lstm_scan_w512', 'lstm_scan',
+             engines['wide']['launches']['lstm_scan'],
+             engines['wide']['scan_err']),
+            ('lstm_bwd_w512', 'lstm_bwd',
+             engines['wide']['launches']['lstm_bwd'],
              engines['wide']['err']),
             ('gen_beam', 'gen_beam', gen['launches']['gen_beam'], gen_err),
             ('gen_beam_batch', 'gen_beam',

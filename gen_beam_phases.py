@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""Where a step of the generation beam-step kernel, or of the two LSTM
-forward recurrences, goes, on one GPU.
+"""Where a step of the generation beam-step kernel, or of the LSTM
+recurrences, goes, on one GPU.
 
     python3 gen_beam_phases.py          # gen_beam
     python3 gen_beam_phases.py scan     # lstm_scan and score_scan
     python3 gen_beam_phases.py host     # their host time per call
     python3 gen_beam_phases.py bwd      # lstm_bwd
+    python3 gen_beam_phases.py wide     # lstm_scan and lstm_bwd at W=512
+    python3 gen_beam_phases.py wide-rows [--root DIR]   # rows 4w, 5w alone
     python3 gen_beam_phases.py decode   # decode_lattice and _batch
     python3 gen_beam_phases.py walk     # walk_records_batch
     python3 gen_beam_phases.py tb       # gen_traceback
@@ -50,6 +52,22 @@ per step and phase of its chain, the device time of each of its kernels
 rows and at the shapes of ``BWD_SHAPES``, against the one-block layout
 (the first port's kernel).
 
+``wide`` runs ``lstm_scan`` and ``lstm_bwd`` at W=512 (B=128, T=64,
+f32 U: ``chip_smoke.py`` part (d)'s training shape) in the chosen grid
+layout and in the one-block layout: cycles per step and phase (the grid
+kernels' ``PHASE`` marks and the one-block backward's), the device time
+of each kernel of a launch (``torch.profiler``); then it times the grid
+layout at B=128 for each staged chunk size of ``GRID_RT_SWEEP`` (the
+sources built with ``-DGRID_RT``) and at each batch of ``GRID_B_SWEEP``
+beside the cost model's time a step (the sweep ``scan_layout.GRID_STEP``
+and ``GRID_PER_ROW`` are fitted to), and prints rows 3w, 4w and 5w of
+``PERF.md`` (``chip_smoke.wide_numbers``).
+
+``wide-rows`` times rows 4w and 5w alone beside cuDNN, with the
+kernels of the package under ``--root DIR`` (another checkout, such as a
+``git archive`` of the parent commit) or of this checkout; run parent,
+change, change, parent in one call to compare two versions.
+
 ``decode`` builds ``decode_lattice.cu`` and ``decode_lattice_batch.cu``
 with ``-DSCAN_PHASES`` (the marks of ``decode_edges_cluster``) and runs
 them at rows 1 and 2 of ``PERF.md`` (page 1 of ``chip_smoke.py``'s
@@ -79,6 +97,7 @@ Without a CUDA device it exits non-zero.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 import subprocess
@@ -96,6 +115,26 @@ SCAN_PHASES = {
         (1, 'layer-0 products, block sums (shuffles)'),
         (2, 'layer-0 gate updates, h sent (st.async), xp1 loads'),
         (7, 'wait for every layer\'s h of the step (mbarriers)')),
+    # lstm_bwd_kernel, the one-block layout (every block's thread 0 waits
+    # at the block barrier after each phase)
+    'lstm_bwd_one': (
+        (1, 'z recompute (U from L2)'),
+        (2, 'gate derivatives, dz and dx_proj stores'),
+        (3, 'dh products (U^T from L2)'),
+        (4, 'the four quarters added')),
+    # the grid layouts (W=512): per step, summed over its chunks
+    'lstm_scan_grid': (
+        (1, 'wait for the group\'s h of the step before (counter)'),
+        (2, 'wait for the staged h rows (TMA)'),
+        (3, 'gate products, partial sums stored'),
+        (4, 'block sums, gate updates, h_all stores'),
+        (5, 'arrival on the group\'s counter')),
+    'lstm_bwd_grid': (
+        (1, 'wait for the group\'s dz of the step before (counter)'),
+        (2, 'wait for the staged dz rows (TMA)'),
+        (3, 'dh products, partial sums stored'),
+        (4, 'block and quarter sums, gate derivatives, dz stores'),
+        (5, 'arrival on the group\'s counter')),
     'lstm_bwd': (
         (1, 'gates from z, the next step\'s loads issued'),
         (2, 'wait for the step\'s dz (mbarrier)'),
@@ -123,27 +162,40 @@ SCAN_PHASES = {
         (7, 'cluster barrier of the step'))}
 
 
-def marked_library(module, source, loader='_library'):
+def marked_library(module, source, loader='_library',
+                   flags=('-DSCAN_PHASES',), tag='', built=None):
     """``module``'s kernel library built from ``source`` with the phase
-    marks on (into ``_build/phases/``), with the argument types its
+    marks on (or with other ``flags``; into ``_build/phases/``, the file
+    name ending in ``tag``; ``built``: the path and log of
+    :func:`build_variant`'s build of it), with the argument types its
     ``loader`` sets; returns ``(library, its compiler log)``."""
     from ocrd_keraslm_torch.ops import _build
-    out_dir = os.path.join(_build.BUILD_DIR, 'phases')
-    os.makedirs(out_dir, exist_ok=True)
-    path = os.path.join(out_dir, os.path.basename(source)[:-3] + '.so')
-    proc = subprocess.run([_build._nvcc(source)] + _build.NVCC_FLAGS
-                          + ['-DSCAN_PHASES', '-o', path, source],
-                          capture_output=True, text=True)
-    if proc.returncode:
-        sys.exit('gen_beam_phases: nvcc failed:\n' + proc.stderr)
+    path, log = built or build_variant(source, flags, tag)
     load = _build.load
     _build.load = lambda src: ctypes.CDLL(path)
     try:
         lib = getattr(module, loader).__wrapped__()
     finally:
         _build.load = load
-    lib.scan_phase_read.argtypes = [ctypes.c_void_p]
-    return lib, proc.stdout + proc.stderr
+    if '-DSCAN_PHASES' in flags:
+        lib.scan_phase_read.argtypes = [ctypes.c_void_p]
+    return lib, log
+
+
+def build_variant(source, flags, tag):
+    """``nvcc`` of ``source`` with ``flags`` into ``_build/phases/`` (the
+    file name ending in ``tag``); returns ``(path, compiler log)``."""
+    from ocrd_keraslm_torch.ops import _build
+    out_dir = os.path.join(_build.BUILD_DIR, 'phases')
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir,
+                        os.path.basename(source)[:-3] + tag + '.so')
+    proc = subprocess.run([_build._nvcc(source)] + _build.NVCC_FLAGS
+                          + list(flags) + ['-o', path, source],
+                          capture_output=True, text=True)
+    if proc.returncode:
+        sys.exit('gen_beam_phases: nvcc failed:\n' + proc.stderr)
+    return path, proc.stdout + proc.stderr
 
 
 def layout_times(fn, kind, B, W, D, reps):
@@ -158,13 +210,20 @@ def layout_times(fn, kind, B, W, D, reps):
     return out
 
 
+# scan_layouts' third field as printed: the register (r), one-block (1)
+# or grid (g) layout
+LAYOUT_MARK = {True: 'r', False: '1', 'grid': 'g'}
+
+
 def print_layout_times(name, shape, times, chosen, card):
-    print('%s at %s by layout (streams a block or cluster, blocks a '
-          'cluster, register layout (r) or one-block (1): ms a launch, CUDA '
-          'events): %s; the chooser takes (%d, %d, %s) [%s]'
+    print('%s at %s by layout (streams a block, cluster or group, blocks a '
+          'cluster or group, register layout (r), grid layout (g) or '
+          'one-block (1): ms a launch, CUDA events): %s; the chooser takes '
+          '(%d, %d, %s) [%s]'
           % (name, shape, ', '.join('(%d, %d, %s): %.3f' % (
-              rb, cl, 'r' if reg else '1', ms) for rb, cl, reg, ms in times),
-             chosen.rb, chosen.cl, 'r' if chosen.reg else '1', card))
+              rb, cl, LAYOUT_MARK[reg], ms) for rb, cl, reg, ms in times),
+             chosen.rb, chosen.cl, 'g' if chosen.grid else 'r' if chosen.reg
+             else '1', card))
 
 
 def scan_rows(rater, dev, rng):
@@ -251,7 +310,7 @@ def width_times(dev, rng, card):
         ms = cuda_ms(call, 3)
         timed = [('chosen', lay, ms)]
         regs = [sl.reg_layout_for(kind, W, D, rb, cl)
-                for rb, cl, reg in scan_layouts(kind, B, W, D) if reg]
+                for rb, cl, reg in scan_layouts(kind, B, W, D) if reg is True]
         regs = [r for r in regs if sl.waves(B, r, fits, n_sm)]
         best = min(regs, key=model) if regs else None
         for what, other in (('one-block', sl.one_block_layout(
@@ -446,7 +505,8 @@ def bwd_main(card) -> int:
                 B, x, lambda y: lc.bwd_clusters_that_fit(index, W, y), n_sm)
         timed = []
         for rb, cl, reg in scan_layouts('bwd', B, W, 1):
-            x = sl.reg_layout_for('bwd', W, 1, rb, cl) if reg else \
+            x = sl.grid_layout_for('bwd', B, W, rb) if reg == 'grid' else \
+                sl.reg_layout_for('bwd', W, 1, rb, cl) if reg else \
                 sl.one_block_layout('bwd', B, W, 1)
             with scan_layout(rb, cl, reg):
                 timed.append((x, cuda_ms(lambda args=args: lc.lstm_bwd(
@@ -455,9 +515,202 @@ def bwd_main(card) -> int:
               '(layout, ms a launch (CUDA events, mean of 3), the model\'s '
               'us a step) [%s]'
               % (B, T, W, tuple(lay)[:3] + (lay.reg,), '; '.join(
-                  '%s %.3f ms %.2f us' % (tuple(x)[:3] + (x.reg,), t,
+                  '%s %.3f ms %.2f us' % (tuple(x)[:3] + (
+                      'grid' if x.grid else x.reg,), t,
                                           model(x)) for x, t in timed), card))
     return 0
+
+
+def wide_marks(name, lay):
+    """The phase marks of ``name``'s (``lstm_scan`` or ``lstm_bwd``)
+    kernel in ``lay``, or None where it has none."""
+    if getattr(lay, 'grid', False):
+        return SCAN_PHASES.get(name + '_grid')
+    if lay.reg:
+        return SCAN_PHASES[name]
+    return SCAN_PHASES.get(name + '_one')
+
+
+def wide_main(card) -> int:
+    """Rows 3w, 4w and 5w of PERF.md (W=512): for ``lstm_scan`` and
+    ``lstm_bwd`` at part (d)'s training shape (B=128, T=64, f32 U) in the
+    chosen layout and the one-block layout, the cycles a step per phase
+    where the kernel has marks and the device time of each kernel of a
+    launch; then ``chip_smoke.wide_numbers`` (each row's time beside the
+    one-block layout's, the plain version's, its bound and cuDNN's)."""
+    import torch
+    from chip_smoke import (TRAIN_B, WIDE_T, WIDE_W, cuda_ms,
+                            describe_scan_layout, kernel_split, scan_layout,
+                            wide_bwd_inputs, wide_numbers, wide_texts)
+    from ocrd_keraslm_torch.ops import lstm_cell as lc
+    dev = torch.device('cuda')
+    fwd, bwd = wide_bwd_inputs(dev)
+    libs = {}
+    for name, module, loader, source, call, lay in (
+            ('lstm_scan', lc, '_library', lc.SOURCE,
+             lambda: lc.lstm_scan(*fwd, want_c_all=True),
+             lc.scan_layout_on(dev, TRAIN_B, WIDE_W, False)),
+            ('lstm_bwd', lc, '_bwd_library', lc.BWD_SOURCE,
+             lambda: lc.lstm_bwd(*bwd),
+             lc.bwd_layout_on(dev, TRAIN_B, WIDE_W))):
+        for forced in (False, True):
+            with scan_layout(reg=False) if forced else \
+                    contextlib.nullcontext():
+                x = lay if not forced else (
+                    lc.bwd_layout_on(dev, TRAIN_B, WIDE_W) if name ==
+                    'lstm_bwd' else lc.scan_layout_on(dev, TRAIN_B, WIDE_W,
+                                                      False))
+                if forced and x == lay:
+                    continue
+                what = '%s at W=%d (B=%d, T=%d, f32 U), %s' % (
+                    name, WIDE_W, TRAIN_B, WIDE_T, describe_scan_layout(x))
+                unmarked_ms = cuda_ms(call, 3)
+                marks = wide_marks(name, x)
+                if marks:
+                    if name not in libs:
+                        libs[name] = marked_library(module, source,
+                                                    loader)[0]
+                    plain_lib = getattr(module, loader)
+                    setattr(module, loader, lambda lib=libs[name]: lib)
+                    try:
+                        ms, cycles, total = marked_run(libs[name], call,
+                                                       marks)
+                    finally:
+                        setattr(module, loader, plain_lib)
+                    print('%s phases, %s: %.3f ms a launch with the marks, '
+                          '%.3f ms without (CUDA events), %.0f cycles a step '
+                          'in block 0 [%s]' % (name, what, ms, unmarked_ms,
+                                               total / WIDE_T, card))
+                    print_marks(marks, cycles, total, ' step', WIDE_T)
+                print('%s device time by kernel, %s: %s [%s]'
+                      % (name, what, ', '.join('%s %.3f ms' % kv
+                                               for kv in kernel_split(call)),
+                         card))
+    wide_sweeps(dev, card)
+    wide_numbers(dev, card, wide_texts())
+    return 0
+
+
+def wide_rows_main(card) -> int:
+    """Rows 4w and 5w alone (``lstm_scan`` with ``c_all`` and ``lstm_bwd``
+    at W=512, B=128, T=64, f32 U; CUDA events, mean of 5, after a
+    warm-up) and cuDNN's one-layer forward and forward+backward, with
+    the kernels of the ``ocrd_keraslm_torch`` package under ``--root
+    DIR`` (another checkout, e.g. a ``git archive`` of the parent) where
+    given, else this one's; prints the layouts taken and the outputs'
+    sha256 digests, which every version must share."""
+    import numpy as np
+    import torch
+    import chip_smoke as cs
+    if '--root' in sys.argv:
+        root = os.path.abspath(sys.argv[sys.argv.index('--root') + 1])
+        sys.path.insert(0, root)
+    from ocrd_keraslm_torch.ops import lstm_cell as lc
+    dev = torch.device('cuda')
+    fwd, bwd = cs.wide_bwd_inputs(dev)
+    rng = np.random.default_rng(20261106)
+    inp = torch.from_numpy(rng.normal(0, 1, (cs.TRAIN_B, cs.WIDE_T,
+                                             cs.WIDE_W)).astype(
+        np.float32)).to(dev)
+    cudnn_fwd, cudnn_fwd_bwd = cs.cudnn_layer(inp, cs.WIDE_W)
+    fmt = []
+    for name, call, lay, library in (
+            ('lstm_scan (row 4w)', lambda: lc.lstm_scan(*fwd, want_c_all=True),
+             lc.scan_layout_on(dev, cs.TRAIN_B, cs.WIDE_W, False), cudnn_fwd),
+            ('lstm_bwd (row 5w)', lambda: lc.lstm_bwd(*bwd),
+             lc.bwd_layout_on(dev, cs.TRAIN_B, cs.WIDE_W), cudnn_fwd_bwd)):
+        ms = cs.cuda_ms(call, 5)
+        fmt.append('%s %.3f ms in %s, digest %s; cuDNN %.3f ms'
+                   % (name, ms, tuple(lay), cs._digest(call())[:16],
+                      cs.cuda_ms(library, 5)))
+    print('wide rows of the package at %s: %s [%s]'
+          % (os.path.dirname(os.path.dirname(lc.__file__)), '; '.join(fmt),
+             card))
+    return 0
+
+
+# the grid layout's streams a staged chunk timed by wide_sweeps (at most
+# 16: one thread a stream and unit; a plan of 10 or fewer fits a block of
+# the backward at B=128), the rows whose chains a thread runs at once, and the
+# batches of its cost model's fit
+GRID_RT_SWEEP = {'lstm': (8, 12, 16), 'bwd': (6, 8, 10)}
+GRID_RU_SWEEP = (1, 2)
+GRID_B_SWEEP = (4, 32, 128, 512)
+
+
+def wide_sweeps(dev, card):
+    """The grid layout at W=512, T=64, f32 U: at B=128 each staged chunk
+    size of GRID_RT_SWEEP (the sources built with ``-DGRID_RT``), then at
+    each B of GRID_B_SWEEP its time a step beside the cost model's
+    (``scan_layout.step_cost``, the sweep GRID_STEP and GRID_PER_ROW are
+    fitted to)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+    from chip_smoke import (WIDE_T, WIDE_W, cuda_ms, lstm_bwd_args,
+                            lstm_train_inputs)
+    from ocrd_keraslm_torch.ops import lstm_cell as lc
+    from ocrd_keraslm_torch.ops import scan_layout as sl
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    rng = np.random.default_rng(20261107)
+    calls = {}
+    for B in GRID_B_SWEEP:
+        fwd, cot = lstm_train_inputs(rng, dev, False, B=B, T=WIDE_T,
+                                     W=WIDE_W)
+        bwd = lstm_bwd_args(fwd, cot, lc.lstm_scan(*fwd, want_c_all=True)[:2])
+        calls[B] = {'lstm': lambda fwd=fwd: lc.lstm_scan(*fwd,
+                                                         want_c_all=True),
+                    'bwd': lambda bwd=bwd: lc.lstm_bwd(*bwd)}
+    kinds = (('lstm', lc, '_library', lc.SOURCE),
+             ('bwd', lc, '_bwd_library', lc.BWD_SOURCE))
+    variants = {kind: [('rt %d' % rt, '-DGRID_RT=%d' % rt, rt)
+                       for rt in GRID_RT_SWEEP[kind]] + [
+        ('ru %d' % ru, '-DGRID_RU=%d' % ru, sl.GRID_RT[kind])
+        for ru in GRID_RU_SWEEP] for kind, _, _, _ in kinds}
+    # every variant's nvcc at once
+    with ThreadPoolExecutor(8) as pool:
+        built = {(kind, what): pool.submit(
+            build_variant, source, [flag], '_' + what.replace(' ', ''))
+            for kind, _, _, source in kinds
+            for what, flag, _ in variants[kind]}
+        built = {k: f.result() for k, f in built.items()}
+    for kind, module, loader, source in kinds:
+        times = []
+        plain_rt = sl.GRID_RT[kind]
+        for what, flag, rt in variants[kind]:
+            lib = marked_library(module, source, loader, [flag],
+                                 built=built[kind, what])[0]
+            plain_lib = getattr(module, loader)
+            setattr(module, loader, lambda lib=lib: lib)
+            sl.GRID_RT[kind] = rt
+            lc._layout.cache_clear()
+            lc._bwd_layout.cache_clear()
+            try:
+                times.append((what, cuda_ms(calls[128][kind], 5)))
+            finally:
+                setattr(module, loader, plain_lib)
+                sl.GRID_RT[kind] = plain_rt
+                lc._layout.cache_clear()
+                lc._bwd_layout.cache_clear()
+        print('grid layout %s at W=%d, B=128, T=%d by streams a staged chunk '
+              '(rt) and rows a thread runs at once (ru), each built with '
+              'that one value (ms a launch, CUDA events, mean of 5): %s; the '
+              'sources\' rt %d [%s]' % (kind, WIDE_W, WIDE_T, ', '.join(
+                  '%s: %.3f' % x for x in times), plain_rt, card))
+        rows = []
+        for B in GRID_B_SWEEP:
+            lay = (lc.bwd_layout_on(dev, B, WIDE_W) if kind == 'bwd' else
+                   lc.scan_layout_on(dev, B, WIDE_W, False))
+            ms = cuda_ms(calls[B][kind], 5)
+            rows.append('B=%d %s %.3f ms, %.2f us a step, model %.2f us'
+                        % (B, tuple(lay)[:3], ms, 1e3 * ms / WIDE_T,
+                           sl.step_cost(kind, WIDE_W, 1, lay) * sl.waves(
+                               B, lay, None, n_sm)))
+        print('grid layout %s at W=%d, T=%d by batch (layout (rb, cl, rt), '
+              'ms a launch (CUDA events, mean of 5), us a step, the cost '
+              'model\'s): %s [%s]' % (kind, WIDE_W, WIDE_T, '; '.join(rows),
+                                      card))
 
 
 def decode_main(card) -> int:
@@ -587,7 +840,8 @@ def main() -> int:
                           text=True, check=True).stdout.strip()
     print(card)
     modes = {'scan': scan_main, 'host': host_main, 'bwd': bwd_main,
-             'decode': decode_main, 'walk': walk_main, 'tb': tb_main}
+             'decode': decode_main, 'walk': walk_main, 'tb': tb_main,
+             'wide': wide_main, 'wide-rows': wide_rows_main}
     if sys.argv[1:2] and sys.argv[1] in modes:
         return modes[sys.argv[1]](card)
     return gen_main(card)

@@ -35,12 +35,23 @@
 //    completing on the receiving block's mbarrier, and a block waits
 //    only for the step's rows to arrive: no block or cluster barrier in
 //    the T loop;
+//  * at W = 512 (16 blocks of 32 terms a column) the grid layout of
+//    scan_common.cuh (lstm_scan_grid_kernel): groups of rb streams on
+//    W/16 blocks each, one block an SM, every group resident at once (a
+//    cooperative launch); a block keeps U's 64 gate columns of its 16
+//    units in registers (128 weights a thread); the h rows of a step
+//    cross the group's blocks through device memory (h_all itself,
+//    behind the group's counter) and are staged in chunks into shared
+//    memory; each thread's 32-term chains leave partial sums that one
+//    thread a (stream, unit) adds in block order before its gate
+//    update.  A step moves the group's h rows from L2 once a block (8
+//    MiB at B=128) instead of U once a block (64 MiB);
 //  * every other width, and a launch whose clusters the card cannot
 //    hold at once, runs the one-block kernel of the first port,
 //    unchanged;
 //  * h_all and c_all are written by the lane that owns each unit; under
 //    a bf16 U the rows exchanged hold h rounded to bf16.
-// Both layouts give dot_cols' sums in its order, so every output keeps
+// Every layout gives dot_cols' sums in its order, so every output keeps
 // the first port's bits.  All arithmetic is f32 on CUDA cores: no TF32,
 // no tensor cores.
 
@@ -55,7 +66,8 @@ struct LstmArgs {
   float* c_all;     // (T, B, W) or null
   float* hT;        // (B, W)
   float* cT;        // (B, W)
-  int B, T, W, rb;
+  unsigned* flags;  // the grid layout's group counters, zeroed
+  int B, T, W, rb, rt;
 };
 
 // The one-block layout: each thread owns one gate column of U and keeps
@@ -206,18 +218,193 @@ __global__ void __launch_bounds__(SCAN_NT, 1)
   cluster.sync();  // no block leaves while another may still write to it
 }
 
+// The grid layout (scan_common.cuh; W = 512): thread (warp w, lane l)
+// of block k keeps U[32kb .. 32kb + 32, g*W + u] for the four gates g of
+// unit u = 16k + 2w + l/16 and the block kb = l % 16 in registers (128
+// weights); per chunk of rt streams it runs the four 32-term chains of
+// each stream's staged h row (rounded to bf16 when Q) and stores them
+// as partial sums; thread (r, eu) of the chunk adds each gate's 16 in
+// block order, adds x_proj (loaded before the products) and updates the
+// unit (c in shared memory), writing h_all (the rows the next step
+// reads), c_all and, at the last step, hT and cT.
+#define GRID_PS (4 * GRID_UPB + 4)  // a block's partial sums of one 32-term block
+// rows whose chains a thread runs at once (gen_beam_phases.py wide
+// builds other values to time them)
+#ifndef GRID_RU
+#define GRID_RU 2
+#endif
+
+template <bool Q, typename WT>
+__global__ void __launch_bounds__(GRID_NT, 1)
+    lstm_scan_grid_kernel(LstmArgs p, const __grid_constant__ CUtensorMap th0,
+                          const __grid_constant__ CUtensorMap th) {
+  extern __shared__ float4 smem4[];
+  const int W = p.W, G = 4 * W, B = p.B, T = p.T, RT = p.rt;
+  const int cl = W / GRID_UPB, per = W / KCH;  // per: blocks of a row
+  float* rows = grid_smem(smem4);  // (2, RT, W), swizzled
+  float* part = rows + 2 * RT * W;             // (RT, GRID_NKB, PS)
+  float* cs = part + RT * GRID_NKB * GRID_PS;  // (rb, GRID_UPB)
+  // the staged buffers' mbarriers
+  uint64_t* bar = reinterpret_cast<uint64_t*>(cs + p.rb * GRID_UPB);
+  const int grp = blockIdx.x / cl, u0 = (blockIdx.x % cl) * GRID_UPB;
+  const int s0 = grp * p.rb, nr = min(p.rb, B - s0);
+  unsigned* flag = p.flags + grp;
+  // the products' role: unit ul, 32-term block kb
+  const int ul = 2 * (threadIdx.x >> 5) + ((threadIdx.x >> 4) & 1);
+  const int kb = threadIdx.x & 15;
+  // the sums' role: row er of a chunk, unit eu
+  const int er = threadIdx.x >> 4, eu = threadIdx.x & 15;
+  PHASE_INIT
+
+  float wr[4 * KCH];
+  const WT* U = static_cast<const WT*>(p.U);
+#pragma unroll
+  for (int g = 0; g < 4; ++g)
+#pragma unroll
+    for (int k = 0; k < KCH; ++k)
+      wr[g * KCH + k] =
+          ldw(U + (size_t)(kb * KCH + k) * G + g * W + u0 + ul);
+  for (int i = threadIdx.x; i < nr * GRID_UPB; i += GRID_NT)
+    cs[i] = p.c0[(size_t)(s0 + i / GRID_UPB) * W + u0 + i % GRID_UPB];
+  if (T == 0)
+    for (int i = threadIdx.x; i < nr * GRID_UPB; i += GRID_NT) {
+      const size_t o = (size_t)(s0 + i / GRID_UPB) * W + u0 + i % GRID_UPB;
+      p.hT[o] = p.h0[o];
+      p.cT[o] = p.c0[o];
+    }
+  if (threadIdx.x == 0) {
+    mbar_init(bar);
+    mbar_init(bar + 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  unsigned ph = 0;  // bit b: the parity of buffer b's next phase
+  const int nch = (nr + RT - 1) / RT;
+  const int sw = kb & 7;  // the swizzle of the lane's blocks
+  for (int t = 0; t < T; ++t) {
+    // the rows of step t-1 (of the initial carry at t = 0), from block
+    // row0 of th0 or th
+    const CUtensorMap* tm = t == 0 ? &th0 : &th;
+    const int row0 = ((t == 0 ? 0 : (t - 1) * B) + s0) * per;
+    if (t > 0) group_wait(flag, (unsigned)(cl * t));
+    PHASE(1)
+    grid_stage_rows(rows, tm, row0, per, min(RT, nr), bar);
+    for (int c = 0; c < nch; ++c) {
+      const int rc = min(RT, nr - c * RT);
+      const bool mine = er < rc;
+      const int s = s0 + c * RT + er;
+      float xg[4];
+#pragma unroll
+      for (int g = 0; g < 4; ++g)
+        xg[g] = mine ? __ldg(p.xp + ((size_t)s * T + t) * G + g * W + u0 + eu)
+                     : 0.0f;
+      if (c + 1 < nch)
+        grid_stage_rows(rows + ((c + 1) & 1) * RT * W, tm,
+                        row0 + (c + 1) * RT * per, per,
+                        min(RT, nr - (c + 1) * RT), bar + ((c + 1) & 1));
+      mbar_wait(bar + (c & 1), (ph >> (c & 1)) & 1u);
+      ph ^= 1u << (c & 1);
+      __syncthreads();  // the sums of the chunk before are read
+      PHASE(2)
+      const float* xr = rows + (c & 1) * RT * W + kb * KCH;
+      // RU rows at a time (more independent chains), then the rest
+      auto rows_of = [&](auto ruc, int r) {
+        constexpr int RU = decltype(ruc)::value;
+        float acc[RU][4];
+#pragma unroll
+        for (int u = 0; u < RU; ++u)
+#pragma unroll
+          for (int g = 0; g < 4; ++g) acc[u][g] = 0.0f;
+#pragma unroll
+        for (int k = 0; k < KCH; k += 4) {
+#pragma unroll
+          for (int u = 0; u < RU; ++u) {
+            float4 xv = swz_ld4(xr + (r + u) * W, k / 4, sw);
+            if (Q) {
+              xv.x = round_bf16(xv.x);
+              xv.y = round_bf16(xv.y);
+              xv.z = round_bf16(xv.z);
+              xv.w = round_bf16(xv.w);
+            }
+#pragma unroll
+            for (int g = 0; g < 4; ++g) {
+              float a = acc[u][g];
+              a = fmaf(xv.x, wr[g * KCH + k], a);
+              a = fmaf(xv.y, wr[g * KCH + k + 1], a);
+              a = fmaf(xv.z, wr[g * KCH + k + 2], a);
+              a = fmaf(xv.w, wr[g * KCH + k + 3], a);
+              acc[u][g] = a;
+            }
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < RU; ++u)
+          *reinterpret_cast<float4*>(part + ((r + u) * GRID_NKB + kb) *
+                                              GRID_PS +
+                                     4 * ul) =
+              make_float4(acc[u][0], acc[u][1], acc[u][2], acc[u][3]);
+      };
+      int r = 0;
+      for (; r + GRID_RU <= rc; r += GRID_RU)
+        rows_of(std::integral_constant<int, GRID_RU>{}, r);
+      for (; r < rc; ++r) rows_of(std::integral_constant<int, 1>{}, r);
+      __syncthreads();
+      PHASE(3)
+      if (mine) {
+        float z[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        for (int b = 0; b < GRID_NKB; ++b) {
+          const float4 v = *reinterpret_cast<const float4*>(
+              part + (er * GRID_NKB + b) * GRID_PS + 4 * eu);
+          z[0] += v.x;
+          z[1] += v.y;
+          z[2] += v.z;
+          z[3] += v.w;
+        }
+        float* cp = cs + (c * RT + er) * GRID_UPB + eu;
+        const float2 hc = lstm_gate(xg[0] + z[0], xg[1] + z[1],
+                                    xg[2] + z[2], xg[3] + z[3], *cp);
+        *cp = hc.y;
+        const size_t o = ((size_t)t * B + s) * W + u0 + eu;
+        p.h_all[o] = hc.x;
+        if (p.c_all != nullptr) p.c_all[o] = hc.y;
+        if (t == T - 1) {
+          p.hT[(size_t)s * W + u0 + eu] = hc.x;
+          p.cT[(size_t)s * W + u0 + eu] = hc.y;
+        }
+      }
+      PHASE(4)
+    }
+    group_arrive(flag);
+    PHASE(5)
+  }
+  PHASE_FLUSH
+}
+
 // bytes of dynamic shared memory a block of the layout asks: the
 // register layout's padded rows (2, rb, WP) and two mbarriers, or the
 // one-block layout's rows (h, c, z and, under a bf16 U, the rounded h)
-static size_t lstm_scan_smem_bytes(int W, int u_bf16, int rb, int reg) {
-  if (reg) return (size_t)2 * rb * padded_width(W) * 4 + 2 * 8;
+static size_t lstm_scan_smem_bytes(int W, int u_bf16, int rb, int rt,
+                                   int mode) {
+  if (mode == MODE_GRID)  // 1024 bytes to align the rows, 2 mbarriers
+    return 1024 + (size_t)4 * (2 * rt * W + rt * GRID_NKB * GRID_PS +
+                               rb * GRID_UPB) +
+           2 * 8;
+  if (mode == MODE_REG) return (size_t)2 * rb * padded_width(W) * 4 + 2 * 8;
   return (size_t)rb * (2 * W + 4 * W + (u_bf16 ? W : 0)) * sizeof(float);
 }
 
+// the grid layout's streams a staged chunk at most (ops/scan_layout.py
+// GRID_RT; gen_beam_phases.py wide builds other values to time them)
+#ifndef GRID_RT
+#define GRID_RT 16
+#endif
+// one thread a (stream, unit) of a chunk runs its sums and update
+static_assert(GRID_RT <= GRID_NT / GRID_UPB, "a chunk's streams > 16");
+
 template <typename WT>
-static int run(const LstmArgs& a, int cl, int rt, int reg, size_t smem,
+static int run(const LstmArgs& a, int cl, int rt, int mode, size_t smem,
                cudaStream_t stream, int* fits) {
-  if (!reg) {
+  if (mode == MODE_ONE) {
     return dispatch_rows(a.rb, [&](auto rbc) {
       constexpr int RB = decltype(rbc)::value;
       cudaError_t err = cudaFuncSetAttribute(
@@ -231,7 +418,27 @@ static int run(const LstmArgs& a, int cl, int rt, int reg, size_t smem,
       return (int)cudaGetLastError();
     });
   }
-  const int clusters = fits ? 1 : (a.B + a.rb - 1) / a.rb;
+  const int groups = (a.B + a.rb - 1) / a.rb;
+  if (mode == MODE_GRID) {
+    cudaError_t err =
+        cudaMemsetAsync(a.flags, 0, groups * sizeof(unsigned), stream);
+    if (err != cudaSuccess) return (int)err;
+    // the tensor maps of the rows the steps read: h0, then h_all (none
+    // without steps)
+    CUtensorMap th0 = {}, th = {};
+    int e = 0;
+    if (a.T > 0) {
+      e = encode_rows(&th0, a.h0, (size_t)a.B * a.W / KCH, a.W / KCH);
+      if (e == 0)
+        e = encode_rows(&th, a.h_all, (size_t)a.T * a.B * a.W / KCH,
+                        a.W / KCH);
+    }
+    if (e != 0) return e;
+    constexpr bool Q = is_bf16<WT>::value;
+    return grid_launch(lstm_scan_grid_kernel<Q, WT>, groups * cl, smem,
+                       stream, a, th0, th);
+  }
+  const int clusters = fits ? 1 : groups;
   return dispatch_nkb_rt((a.W + KCH - 1) / KCH, rt, [&](auto nkbc, auto rtc) {
     constexpr int NKB = decltype(nkbc)::value, RT = decltype(rtc)::value;
     return cluster_launch(lstm_scan_reg_kernel<NKB, RT, WT>, a, cl, clusters,
@@ -240,20 +447,30 @@ static int run(const LstmArgs& a, int cl, int rt, int reg, size_t smem,
 }
 
 // Refuses (invalid value) a layout that is not the register layout of
-// ops/scan_layout.py or the one-block layout (one_block_rows_ok streams,
-// cl 1, rt rb), or whose smem differs from lstm_scan_smem_bytes.
+// ops/scan_layout.py, the grid layout (W = 512, cl = W/16 blocks a group
+// of 1 <= rb <= B streams, rt = grid_chunk_rows(rb, GRID_RT, the plan),
+// the group counters given) or the one-block layout (one_block_rows_ok
+// streams, cl 1, rt rb), or whose smem differs from
+// lstm_scan_smem_bytes.
 static int checked_run(const LstmArgs& a, int u_bf16, int cl, int rt,
-                       int reg, size_t smem, cudaStream_t stream,
+                       int mode, size_t smem, cudaStream_t stream,
                        int* fits) {
-  const bool ok =
-      a.B >= 1 && a.W >= 4 && a.W % 4 == 0 &&
-      (reg ? reg_layout_ok(a.W, 1, a.rb, cl, rt, GPL)
-           : !fits && one_block_rows_ok(a.B, a.rb) && cl == 1 &&
-                 rt == a.rb) &&
-      smem == lstm_scan_smem_bytes(a.W, u_bf16, a.rb, reg);
+  bool ok = a.B >= 1 && a.W >= 4 && a.W % 4 == 0;
+  if (mode == MODE_REG)
+    ok = ok && reg_layout_ok(a.W, 1, a.rb, cl, rt, GPL);
+  else if (mode == MODE_GRID)
+    ok = ok && !fits && grid_width_ok(a.W) && cl == a.W / GRID_UPB &&
+         a.rb >= 1 && a.rb <= a.B && a.flags != nullptr &&
+         rt == grid_chunk_rows(a.rb, GRID_RT, [&](int r) {
+           return lstm_scan_smem_bytes(a.W, u_bf16, a.rb, r, MODE_GRID);
+         });
+  else
+    ok = ok && mode == MODE_ONE && !fits && one_block_rows_ok(a.B, a.rb) &&
+         cl == 1 && rt == a.rb;
+  ok = ok && smem == lstm_scan_smem_bytes(a.W, u_bf16, a.rb, rt, mode);
   if (!ok) return (int)cudaErrorInvalidValue;
-  return u_bf16 ? run<__nv_bfloat16>(a, cl, rt, reg, smem, stream, fits)
-                : run<float>(a, cl, rt, reg, smem, stream, fits);
+  return u_bf16 ? run<__nv_bfloat16>(a, cl, rt, mode, smem, stream, fits)
+                : run<float>(a, cl, rt, mode, smem, stream, fits);
 }
 
 // How many clusters of the register layout the card holds at once (0 if
@@ -263,19 +480,23 @@ extern "C" int lstm_scan_max_clusters(int W, int u_bf16, int rb, int cl,
   LstmArgs a{};
   a.B = rb, a.W = W, a.rb = rb;
   int fits = 0;
-  return checked_run(a, u_bf16, cl, rt, 1, smem, 0, &fits) == 0 ? fits : 0;
+  return checked_run(a, u_bf16, cl, rt, MODE_REG, smem, 0, &fits) == 0
+             ? fits
+             : 0;
 }
 
 // U points to W*4W floats, or to W*4W bf16 values when u_bf16 is set;
-// (rb, cl, rt, reg) is the layout and smem its shared memory
-// (ops/scan_layout.py), which must equal lstm_scan_smem_bytes
+// (rb, cl, rt, mode) is the layout (mode: MODE_ONE, MODE_REG or
+// MODE_GRID) and smem its shared memory (ops/scan_layout.py), which must
+// equal lstm_scan_smem_bytes; flags is the grid layout's scratch of
+// ceil(B / rb) counters (zeroed here), else unused
 extern "C" int lstm_scan_launch(const float* xp, const float* h0,
                                 const float* c0, const void* U,
                                 float* h_all, float* c_all, float* hT,
-                                float* cT, int B, int T, int W, int u_bf16,
-                                int rb, int cl, int rt, int reg, size_t smem,
-                                void* stream) {
-  LstmArgs a{xp, h0, c0, U, h_all, c_all, hT, cT, B, T, W, rb};
-  return checked_run(a, u_bf16, cl, rt, reg, smem, (cudaStream_t)stream,
+                                float* cT, unsigned* flags, int B, int T,
+                                int W, int u_bf16, int rb, int cl, int rt,
+                                int mode, size_t smem, void* stream) {
+  LstmArgs a{xp, h0, c0, U, h_all, c_all, hT, cT, flags, B, T, W, rb, rt};
+  return checked_run(a, u_bf16, cl, rt, mode, smem, (cudaStream_t)stream,
                      nullptr);
 }

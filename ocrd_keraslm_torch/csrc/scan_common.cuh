@@ -16,6 +16,8 @@
 // RB or RT.
 #pragma once
 
+#include <cuda.h>
+
 #include "cluster_common.cuh"
 #include "lstm_common.cuh"
 
@@ -285,4 +287,187 @@ static int dispatch_nkb_rt(int nkb, int rt, F&& f) {
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// ---- the grid layout (W = 512) ----
+//
+// A group of rb streams runs on cl = W/16 blocks of GRID_NT threads, one
+// block an SM, all of the launch's groups resident at once (a
+// cooperative launch, which fails rather than queue a group's blocks one
+// after another).  Block k of a group owns the units [16k, 16k + 16); a
+// thread keeps 128 weights in registers for the whole launch: the 32
+// terms of one 32-term block of four columns (lstm_scan.cu: the four
+// gates of one unit; lstm_bwd.cu: one quarter of U^T for four units), so
+// the block holds its 64 columns x W terms (128 KiB of f32) on chip.
+// The rows a step reads (h, or dz) cross the group's blocks through
+// device memory (L2): each block writes its units of the step's output
+// rows, arrives on the group's counter, and the step after waits for
+// every block's arrival, then copies the rows it needs (a TMA copy a
+// stream's row, completing on the buffer's mbarrier) in chunks of rt
+// streams into a ring of two buffers in shared memory, the next chunk in
+// flight while the block runs the one before.
+// Each thread's 32-term chains go into shared memory as partial sums; a
+// thread a (stream, unit) adds a column's 16 blocks in block order from
+// 0 and runs the unit's update: dot_cols' float, as in every layout.
+
+// the layouts, as the launch functions take them
+#define MODE_ONE 0   // the one-block layout
+#define MODE_REG 1   // the register layout
+#define MODE_GRID 2  // the grid layout
+
+#define GRID_NT 256   // threads a block
+#define GRID_UPB 16   // units a block
+#define GRID_NKB 16   // 32-term blocks of a W-term sum
+
+// whether the grid layout takes width W: 16 blocks of 32 terms, so that
+// a half-warp's lanes are the 16 blocks of one sum
+__host__ __device__ inline bool grid_width_ok(int W) {
+  return W == GRID_NKB * KCH;
+}
+
+#define GRID_SMEM_MAX 232448  // dynamic shared memory a block may ask
+
+// The grid layout's streams a staged chunk: min(rb, rt_max), halved
+// while a block's plan (smem(rt) bytes) exceeds what a block may ask
+// (ops/scan_layout.py grid_layout_for).
+template <typename Plan>
+static inline int grid_chunk_rows(int rb, int rt_max, Plan smem) {
+  int rt = rb < rt_max ? rb : rt_max;
+  while (rt > 1 && smem(rt) > GRID_SMEM_MAX) rt /= 2;
+  return rt;
+}
+
+// ---- staging by the Tensor Memory Accelerator ----
+//
+// The rows a step reads, viewed as a 2-D tensor of 32-float (128-byte)
+// blocks, (blocks, 32): one TMA copy brings a stream's row (a box of its
+// blocks) into shared memory, swizzled by 128 bytes: 16-byte chunk j of
+// block i lands at i*128 + (j ^ (i % 8))*16 from a 1024-byte aligned
+// start, so the float4 loads of a half-warp's 16 blocks (lanes kb, and i
+// % 8 = kb % 8) fall into distinct banks, as padding the rows would.
+
+// the float4 of terms 4j .. 4j+3 of a staged 32-term block `blk` whose
+// block index is i (mod 8: sw)
+__device__ __forceinline__ float4 swz_ld4(const float* blk, int j, int sw) {
+  return *reinterpret_cast<const float4*>(blk + 4 * (j ^ sw));
+}
+
+// the dynamic shared memory from its first 1024-byte boundary (the plans
+// ask 1024 bytes more)
+__device__ __forceinline__ float* grid_smem(float4* base) {
+  const unsigned a = smem_addr(base);
+  return reinterpret_cast<float*>(base) + ((1024u - (a & 1023u)) & 1023u) / 4;
+}
+
+// Stage rc stream rows (row r: the box at block row0 + r * per of tm,
+// per blocks) into buf (row r at buf + r * per * 32), completing on bar:
+// thread 0 arms bar for the rows' bytes, thread r < rc issues row r's
+// copy.  Every thread of the block calls this, after a barrier that
+// ends every read of buf.
+__device__ __forceinline__ void grid_stage_rows(float* buf,
+                                                const CUtensorMap* tm,
+                                                int row0, int per, int rc,
+                                                uint64_t* bar) {
+  if (threadIdx.x == 0) mbar_expect(bar, 128u * per * rc);
+  if (threadIdx.x < rc) {
+    // order the block's reads of buf and the rows' writes by other
+    // blocks (generic proxy, acquired through the group's counter)
+    // before the copy (async proxy)
+    asm volatile("fence.proxy.async;\n" ::: "memory");
+    asm volatile(
+        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::"
+        "complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(
+            smem_addr(buf + threadIdx.x * per * KCH)),
+        "l"(reinterpret_cast<uint64_t>(tm)), "r"(0),
+        "r"(row0 + (int)threadIdx.x * per), "r"(smem_addr(bar))
+        : "memory");
+  }
+}
+
+// The tensor map of `n_blocks` 32-float blocks at base (16-byte
+// aligned), boxes of `per` blocks, 128-byte swizzle, encoded by the
+// driver's cuTensorMapEncodeTiled (found through the runtime, so the
+// library needs no link to the driver); returns a CUDA error code.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+static inline int encode_rows(CUtensorMap* tm, const float* base,
+                              size_t n_blocks, int per) {
+  static EncodeTiled encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+    if (err != cudaSuccess) return (int)err;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr)
+      return (int)cudaErrorNotSupported;
+    encode = reinterpret_cast<EncodeTiled>(fn);
+  }
+  const cuuint64_t dims[2] = {KCH, n_blocks > 0 ? n_blocks : 1};
+  const cuuint64_t strides[1] = {KCH * sizeof(float)};
+  const cuuint32_t box[2] = {KCH, (cuuint32_t)per};
+  const cuuint32_t step[2] = {1, 1};
+  const CUresult r = encode(
+      tm, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(base), dims,
+      strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// the group's counter: a block arrives once a step, after its writes of
+// the step (every thread of the block calls these)
+__device__ __forceinline__ void group_arrive(unsigned* flag) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(flag, 1u);
+  }
+}
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+// Wait until the counter reaches target.  A wait that has not ended
+// after MBAR_TIMEOUT_NS traps, as mbar_wait does: a fault of the
+// exchange fails the process instead of hanging the card.
+__device__ __forceinline__ void group_wait(const unsigned* flag,
+                                           unsigned target) {
+  if (threadIdx.x == 0) {
+    unsigned polls = 0;
+    unsigned long long t0 = 0;
+    while (ld_acquire(flag) < target) {
+      if ((++polls & 1023u) == 0) {
+        const unsigned long long now = global_ns();
+        if (t0 == 0)
+          t0 = now;
+        else if (now - t0 > MBAR_TIMEOUT_NS)
+          __trap();
+      }
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+// The cooperative launch of kern(args...) over `blocks` blocks of
+// GRID_NT threads (every block resident at once, or the launch fails).
+template <typename Kern, typename... Args>
+static int grid_launch(Kern kern, int blocks, size_t smem,
+                       cudaStream_t stream, Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  void* params[] = {(void*)&args...};
+  err = cudaLaunchCooperativeKernel((const void*)kern, dim3(blocks),
+                                    dim3(GRID_NT), params, smem, stream);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }

@@ -78,7 +78,7 @@ def recurrent_product(h: torch.Tensor, recurrent: torch.Tensor
 def _library() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     P, I, S = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
-    lib.lstm_scan_launch.argtypes = [P] * 8 + [I] * 8 + [S, P]
+    lib.lstm_scan_launch.argtypes = [P] * 9 + [I] * 8 + [S, P]
     lib.lstm_scan_launch.restype = ctypes.c_int
     lib.lstm_scan_max_clusters.argtypes = [I] * 5 + [S]
     lib.lstm_scan_max_clusters.restype = ctypes.c_int
@@ -119,11 +119,11 @@ def _bwd_library() -> ctypes.CDLL:
     lib = _build.load(BWD_SOURCE)
     P, I = ctypes.c_void_p, ctypes.c_int
     S = ctypes.c_size_t
-    lib.lstm_bwd_launch.argtypes = [P] * 14 + [I] * 8 + [S, P]
+    lib.lstm_bwd_launch.argtypes = [P] * 15 + [I] * 8 + [S, P]
     lib.lstm_bwd_launch.restype = ctypes.c_int
     lib.lstm_bwd_splits.argtypes = [I, I]
     lib.lstm_bwd_splits.restype = ctypes.c_int
-    lib.lstm_bwd_smem_bytes.argtypes = [I, I, I]
+    lib.lstm_bwd_smem_bytes.argtypes = [I, I, I, I]
     lib.lstm_bwd_smem_bytes.restype = ctypes.c_size_t
     lib.lstm_bwd_max_clusters.argtypes = [I] * 4 + [S]
     lib.lstm_bwd_max_clusters.restype = ctypes.c_int
@@ -156,6 +156,21 @@ def bwd_layout_on(device: torch.device, B: int,
     index = device.index if device.index is not None \
         else torch.cuda.current_device()
     return _bwd_layout(index, B, W)
+
+
+def _mode(layout: scan_layout.Layout) -> int:
+    """The layout as the sources' launch functions take it: 0 the
+    one-block layout, 1 the register layout, 2 the grid layout
+    (``MODE_*`` in ``csrc/scan_common.cuh``)."""
+    return 2 if layout.grid else int(layout.reg)
+
+
+def _group_flags(layout: scan_layout.Layout, B: int,
+                 device: torch.device) -> torch.Tensor:
+    """The grid layout's scratch: one counter a group of streams (the
+    launch zeroes them); empty for the other layouts."""
+    n = -(-B // layout.rb) if layout.grid else 0
+    return torch.empty((n,), dtype=torch.int32, device=device)
 
 
 def _weight_dtype(name: str, recurrent: torch.Tensor) -> bool:
@@ -200,14 +215,15 @@ def lstm_scan(x_proj: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor,
     cT = torch.empty((B, W), dtype=f32, device=device)
     lib = _library()
     lay = scan_layout_on(device, B, W, bf16)
+    flags = _group_flags(lay, B, device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         status = lib.lstm_scan_launch(
             x_proj.data_ptr(), h0.data_ptr(), c0.data_ptr(),
             recurrent.data_ptr(), h_all.data_ptr(),
             c_all.data_ptr() if want_c_all else None, hT.data_ptr(),
-            cT.data_ptr(), B, T, W, int(bf16), lay.rb, lay.cl, lay.rt,
-            int(lay.reg), lay.smem, stream)
+            cT.data_ptr(), flags.data_ptr() if lay.grid else None, B, T, W,
+            int(bf16), lay.rb, lay.cl, lay.rt, _mode(lay), lay.smem, stream)
     if status != 0:
         raise RuntimeError('lstm_scan kernel launch failed: CUDA error %d '
                            '(layout %s)' % (status, lay))
@@ -289,6 +305,7 @@ def lstm_bwd(xp_tm: torch.Tensor, hprev_tm: torch.Tensor,
     part = torch.empty((lib.lstm_bwd_splits(B, T), W, G), dtype=f32,
                        device=device)
     lay = bwd_layout_on(device, B, W)
+    flags = _group_flags(lay, B, device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         status = lib.lstm_bwd_launch(
@@ -296,8 +313,8 @@ def lstm_bwd(xp_tm: torch.Tensor, hprev_tm: torch.Tensor,
             call_tm.data_ptr(), dhout_tm.data_ptr(), recurrent.data_ptr(),
             recT.data_ptr(), dhT.data_ptr(), dcT.data_ptr(), dxp.data_ptr(),
             dU.data_ptr(), dh0.data_ptr(), dc0.data_ptr(), part.data_ptr(),
-            B, T, W, int(bf16), lay.rb, lay.cl, lay.rt, int(lay.reg),
-            lay.smem, stream)
+            flags.data_ptr() if lay.grid else None, B, T, W, int(bf16),
+            lay.rb, lay.cl, lay.rt, _mode(lay), lay.smem, stream)
     if status != 0:
         raise RuntimeError('lstm_bwd kernel launch failed: CUDA error %d '
                            '(layout %s)' % (status, lay))

@@ -30,7 +30,19 @@ Two layouts:
   (:func:`one_block_rows`: the backward at W=512 takes 4), each thread
   running whole columns from weights read from L2 at every step.
 
-Both give the same bits: each column's dot product is summed in blocks
+* the grid layout (``grid``) of the forward and the backward's chain at
+  W=512, where a column has 16 blocks of 32 terms and the register
+  layout's groups would not fit a block: a group of ``rb`` streams runs
+  on ``cl = W/16`` blocks of 256 threads, one block an SM, every group
+  of the launch resident at once (``n_sm // cl`` groups at most, so
+  ``rb = ceil(B / groups)``); block k owns 16 units, whose 64 columns x
+  W terms a block's threads keep in registers (128 weights a thread) for
+  the whole launch; the rows a step reads cross the group's blocks
+  through device memory, each block arriving on the group's counter
+  after writing its units, and are staged into shared memory in chunks
+  of ``rt`` streams.
+
+All give the same bits: each column's dot product is summed in blocks
 of 32 terms, the blocks added to 0 in order.
 """
 from __future__ import annotations
@@ -60,14 +72,33 @@ ONE_PER_FMA = 0.0098
 REG_RT_MAX = 2
 REG_RT_MAX_OF = {'lstm': REG_RT_MAX, 'score': REG_RT_MAX, 'bwd': 4}
 REG_GATES = {'lstm': 2, 'score': 1, 'bwd': 2}
+# the grid layout: units a block, 32-term blocks of a W-term sum (so
+# W = 512), streams a staged chunk (GRID_RT in lstm_scan.cu and
+# lstm_bwd.cu; at most 16, one of a block's 256 threads a stream and
+# unit) and the partial sums' row of one 32-term block, padded
+# (GRID_PS in the sources: a block's 64 gate columns, or a quarter's 16
+# units); its cost model a step in microseconds, GRID_STEP and
+# GRID_PER_ROW per stream of a group, fitted to gen_beam_phases.py wide
+GRID_UNITS, GRID_NKB = 16, 16
+GRID_RT = {'lstm': 16, 'bwd': 8}
+GRID_PS = {'lstm': 4 * GRID_UNITS + 4, 'bwd': GRID_UNITS + 4}
+GRID_GV = 8          # bwd: a (stream, unit)'s gate values, padded
+GRID_STEP = {'lstm': 2.56, 'bwd': 4.31}
+GRID_PER_ROW = {'lstm': 0.3039, 'bwd': 0.805}
 
 
 class Layout(NamedTuple):
-    rb: int      # streams per block or cluster
-    cl: int      # blocks per cluster
-    rt: int      # streams per thread chain
+    rb: int      # streams per block, cluster or group
+    cl: int      # blocks per cluster or group
+    rt: int      # streams per thread chain, or a staged chunk's (grid)
     smem: int    # dynamic shared memory per block, bytes
-    reg: bool    # the register layout (else the one-block layout)
+    reg: bool    # the register layout
+
+    @property
+    def grid(self) -> bool:
+        """The grid layout: not the register layout, and a group of more
+        blocks than a cluster holds (the one-block layout has one)."""
+        return not self.reg and self.cl > CLUSTERS[-1]
 
 
 def rows_per_block(B: int) -> int:
@@ -150,6 +181,45 @@ def plan_bytes(kind: str, W: int, D: int, rb: int, reg: bool,
     return 4 * (2 * D * rb * W + rb * max(4 * W, Vp))
 
 
+def grid_plan_bytes(kind: str, W: int, rb: int, rt: int) -> int:
+    """Dynamic shared memory of one block of the grid layout, in bytes:
+    1024 to align the rows for the copies' swizzle, the ring of two
+    chunks of ``rt`` staged rows (``lstm``: h; ``bwd``: dz), the partial
+    sums of a chunk
+    (rt x 16 x ``GRID_PS``, in ``bwd`` for each quarter), in ``bwd`` the
+    values of a chunk's gate derivatives that do not depend on dh (rt x
+    16 x ``GRID_GV``), the carried state of the group's units (c, or dc:
+    rb x 16) and the two buffers' mbarriers."""
+    rows = W if kind == 'lstm' else 4 * W
+    sums = GRID_NKB * GRID_PS[kind] * (1 if kind == 'lstm' else 4)
+    vals = 0 if kind == 'lstm' else rt * GRID_UNITS * GRID_GV
+    return 1024 + 4 * (2 * rt * rows + rt * sums + vals
+                       + rb * GRID_UNITS) + 16
+
+
+def grid_groups(W: int, n_sm: int) -> int:
+    """Groups of the grid layout the card holds at once: one block an
+    SM, ``W / GRID_UNITS`` blocks a group."""
+    return n_sm // (W // GRID_UNITS)
+
+
+def grid_layout_for(kind: str, B: int, W: int,
+                    rb: int) -> Optional[Layout]:
+    """The grid layout of B streams in groups of ``rb``, or None where it
+    does not fit: kinds ``lstm`` and ``bwd``, W = 512 (16 blocks of 32
+    terms a column), 1 <= rb <= B, chunks of ``min(rb, GRID_RT[kind])``
+    streams halved until the plan fits a block's shared memory."""
+    if kind not in GRID_RT or W != GRID_NKB * KCH or not 1 <= rb <= B:
+        return None
+    rt = min(rb, GRID_RT[kind])
+    while rt > 1 and grid_plan_bytes(kind, W, rb, rt) > SMEM_MAX:
+        rt //= 2
+    smem = grid_plan_bytes(kind, W, rb, rt)
+    if smem > SMEM_MAX:
+        return None
+    return Layout(rb, W // GRID_UNITS, rt, smem, False)
+
+
 def one_block_rows(kind: str, B: int, W: int, D: int, bf16: bool = False,
                    Vp: int = 0) -> int:
     """Streams a block of the one-block layout: the largest power of two
@@ -197,6 +267,8 @@ def step_cost(kind: str, W: int, D: int, layout: Layout,
               Vp: int = 0) -> float:
     """The cost model of one step of ``layout`` in microseconds (the
     constants above), for one wave of blocks."""
+    if layout.grid:
+        return GRID_STEP[kind] + GRID_PER_ROW[kind] * layout.rb
     if layout.reg:
         return REG_STEP + layer_groups(kind, D) * (
             REG_PER_ROW * layout.rt + REG_PER_BLOCK * reg_group_threads(
@@ -213,7 +285,10 @@ def waves(B: int, layout: Layout, fits: Callable[[Layout], int],
           n_sm: int) -> int:
     """Waves of clusters (or blocks) the card runs one after another:
     ``fits(layout)`` clusters of the register layout at once, ``n_sm``
-    blocks of the one-block layout; 0 where none fits."""
+    blocks of the one-block layout; the grid layout's groups all at once
+    (1) or not at all (0); 0 where none fits."""
+    if layout.grid:
+        return int(_ceil(B, layout.rb) * layout.cl <= n_sm)
     at_once = fits(layout) if layout.reg else n_sm
     return _ceil(_ceil(B, layout.rb), at_once) if at_once > 0 else 0
 
@@ -225,15 +300,25 @@ def choose(kind: str, B: int, W: int, D: int,
     CLUSTERS blocks of ``rb`` <= ``rows_per_block(B)`` streams, where
     each block owns at least MIN_UNITS units and the card holds a
     cluster (``fits(layout)``: how many clusters of that layout the card
-    holds at once), the lowest :func:`step_cost` times :func:`waves`
-    wins, ties to fewer blocks a cluster (at three tied shapes the
-    smaller cluster took 10-13% less time), then to more streams a
-    cluster; where
-    none does or :func:`one_block_layout` costs no more (on ``n_sm``
-    SMs), the one-block layout."""
+    holds at once), and of the grid layout in as few groups as the card
+    holds at once (:func:`grid_layout_for` with ``rb = ceil(B /
+    groups)``, ``groups = min(B, grid_groups(W, n_sm))``), the lowest
+    :func:`step_cost` times :func:`waves` wins, ties to fewer blocks a
+    cluster (at three tied shapes the smaller cluster took 10-13% less
+    time), then to more streams a cluster; where none does or
+    :func:`one_block_layout` costs no more (on ``n_sm`` SMs), the
+    one-block layout."""
     one = one_block_layout(kind, B, W, D, bf16, Vp)
     best = (step_cost(kind, W, D, one, Vp) * waves(B, one, fits, n_sm),
             0, 0), one
+    groups = grid_groups(W, n_sm) if W >= GRID_UNITS else 0
+    grid = grid_layout_for(kind, B, W, _ceil(B, min(B, groups))) \
+        if groups else None
+    if grid is not None and waves(B, grid, fits, n_sm):
+        key = (step_cost(kind, W, D, grid) * waves(B, grid, fits, n_sm),
+               grid.cl, -grid.rb)
+        if key < best[0]:
+            best = (key, grid)
     for cl in CLUSTERS:
         if W < MIN_UNITS * cl:
             continue
@@ -257,6 +342,14 @@ def check(kind: str, B: int, W: int, D: int, layout: Layout,
     problems = []
     if B < 1 or W < 4 or W % 4:
         problems.append('B >= 1 and W a positive multiple of 4')
+    elif layout.grid:
+        if layout != grid_layout_for(kind, B, W, layout.rb):
+            problems.append('the grid layout (kind lstm or bwd, W = %d, %d '
+                            'blocks a group of 1 <= rb <= B streams, rt = '
+                            'min(rb, %s) halved to fit, smem equal to '
+                            'grid_plan_bytes and <= %d)'
+                            % (GRID_NKB * KCH, W // GRID_UNITS,
+                               GRID_RT.get(kind), SMEM_MAX))
     elif layout.reg:
         if reg_layout_for(kind, W, D, layout.rb, layout.cl) is None or \
                 layout.rt not in (1, 2, 4) or \
@@ -275,7 +368,7 @@ def check(kind: str, B: int, W: int, D: int, layout: Layout,
         if (layout.rb, layout.cl, layout.rt) != (rb, 1, rb):
             problems.append('the one-block layout (rb = rt = %d, cl 1)'
                             % rb)
-    if not problems and layout.smem != plan_bytes(
+    if not problems and not layout.grid and layout.smem != plan_bytes(
             kind, W, D, layout.rb, layout.reg, bf16, Vp):
         problems.append('smem equal to plan_bytes')
     if not problems and layout.smem > SMEM_MAX:

@@ -1108,8 +1108,8 @@ def test_wide_model_runs_on_the_card(cuda):
     64-edge lattice and a 2-document batch take the engine (no decode
     kernel fits), generation takes the engine (no ``gen_beam`` layout),
     each equal to the CPU's; a backward through ``forward_seq`` launches
-    ``lstm_bwd`` in its one-block layout of 4 streams a block without a
-    CUDA error, its gradients those of the CPU."""
+    ``lstm_bwd`` in its grid layout (5 streams in 4 groups of 2) without
+    a CUDA error, its gradients those of the CPU."""
     from chip_smoke import (NO_LAUNCHES, read_counts, wide_lattice,
                             wide_rater, zero_counts)
     from ocrd_keraslm_torch.models.lstm_lm import forward_seq
@@ -1129,7 +1129,7 @@ def test_wide_model_runs_on_the_card(cuda):
     same_results(out['cuda'][1], out['cpu'][1], cost_ulps=2)
     assert out['cuda'][2] == out['cpu'][2]
     lay = lstm_cell.bwd_layout_on(cuda, 5, 512)
-    assert (lay.rb, lay.cl, lay.reg) == (4, 1, False)
+    assert (lay.rb, lay.cl, lay.reg, lay.grid) == (2, 32, False, True)
     grads = {}
     x = torch.from_numpy(rng.integers(1, 60, (5, 8)))
     for device in ('cuda', 'cpu'):
@@ -1151,16 +1151,20 @@ def test_wide_model_runs_on_the_card(cuda):
 
 
 @pytest.mark.parametrize('bf16', [False, True], ids=['f32', 'bf16'])
-@pytest.mark.parametrize('B, T', [(3, 9), (13, 7), (128, 16)])
+@pytest.mark.parametrize('B, T', [(3, 9), (13, 7), (128, 16), (512, 8)])
 def test_lstm_bwd_at_width_512_matches_plain(cuda, B, T, bf16):
-    """``lstm_bwd`` at W=512, where only the one-block layout takes the
-    chain and its rows fit a block's shared memory at 4 streams a block:
-    against its plain version, ``dU`` bit-equal over two launches."""
+    """``lstm_bwd`` at W=512, where the chain takes the grid layout
+    (groups of ceil(B / groups) streams on 32 blocks each, as many groups
+    as the card's SMs hold): against its plain version, ``dU`` bit-equal
+    over two launches."""
     from ocrd_keraslm_torch.ops import lstm_cell
+    from ocrd_keraslm_torch.ops import scan_layout as sl
     rng = np.random.default_rng([B, T, 512, int(bf16)])
     fwd, cot = lstm_train_inputs(rng, cuda, bf16, B=B, T=T, W=512)
     lay = lstm_cell.bwd_layout_on(cuda, B, 512)
-    assert (lay.rb, lay.reg) == (4, False)
+    groups = min(B, sl.grid_groups(512, torch.cuda.get_device_properties(
+        cuda).multi_processor_count))
+    assert lay == sl.grid_layout_for('bwd', B, 512, -(-B // groups))
     got = lstm_cell.lstm_scan(*fwd, want_c_all=True)
     compare_lstm(got, lstm_cell.lstm_scan_ref(*fwd, want_c_all=True),
                  atol=BF16_FWD_ATOL if bf16 else 1e-5)
@@ -1169,6 +1173,32 @@ def test_lstm_bwd_at_width_512_matches_plain(cuda, B, T, bf16):
     torch.cuda.synchronize()
     assert torch.equal(outs[0][1], outs[1][1])
     compare_bwd(outs[0], lstm_cell.lstm_bwd_ref(*args))
+
+
+@pytest.mark.parametrize('bf16', [False, True], ids=['f32', 'bf16'])
+@pytest.mark.parametrize('B, T', [(3, 9), (128, 16), (512, 8)])
+def test_grid_layout_equals_one_block_at_width_512(cuda, B, T, bf16):
+    """The grid layout and the one-block layout on the same inputs at
+    W=512: ``lstm_scan`` (``c_all`` on and off) and ``lstm_bwd`` give
+    the same bits in every output, and the chooser takes the grid
+    layout for both."""
+    from chip_smoke import GRID, scan_layout
+    from ocrd_keraslm_torch.ops import lstm_cell
+    rng = np.random.default_rng([B, T, 512, int(bf16), 8])
+    fwd, cot = lstm_train_inputs(rng, cuda, bf16, B=B, T=T, W=512)
+    assert lstm_cell.scan_layout_on(cuda, B, 512, bf16).grid
+    assert lstm_cell.bwd_layout_on(cuda, B, 512).grid
+    outs = {}
+    for reg in (False, GRID):
+        with scan_layout(reg=reg):
+            saved = lstm_cell.lstm_scan(*fwd, want_c_all=True)
+            args = lstm_bwd_args(fwd, cot, saved[:2]) if not reg else args
+            outs[reg] = (tuple(lstm_cell.lstm_scan(*fwd)) + tuple(saved)
+                         + tuple(lstm_cell.lstm_bwd(*args)))
+    torch.cuda.synchronize()
+    for i, (g, w) in enumerate(zip(outs[GRID], outs[False])):
+        assert (g is None) == (w is None), i
+        assert g is None or torch.equal(g, w), i
 
 
 @pytest.mark.parametrize('W', [128, 256])

@@ -101,7 +101,9 @@ def _bwd_arrays(a, rec_t):
 
 @pytest.mark.parametrize('B, T, W, bf16', [
     (3, 7, 8, False), (12, 9, 16, False), (5, 1, 8, False),
-    (12, 9, 16, True), (3, 1, 8, True)])
+    (12, 9, 16, True), (3, 1, 8, True),
+    # the width of the grid layout on the card (16 blocks of 32 terms)
+    (2, 3, 512, False)])
 def test_lstm_bwd_ref_matches_pallas(B, T, W, bf16):
     """The plain backward and the Pallas backward kernel (interpret
     mode) on the same saved states: every output, f32 tolerance in both

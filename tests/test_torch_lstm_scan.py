@@ -52,6 +52,22 @@ def test_lstm_scan_ref_matches_pallas(want_c_all):
             np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=ATOL)
 
 
+@pytest.mark.parametrize('want_c_all', [False, True])
+def test_lstm_scan_ref_matches_pallas_at_width_512(want_c_all):
+    """At W=512, the width the grid layout of ``csrc/lstm_scan.cu``
+    takes on the card (16 blocks of 32 terms a gate column): the plain
+    version against the Pallas kernel, B=2, T=3."""
+    arrays = _layer_inputs(512, B=2, T=3, W=512)
+    want = _lstm_scan_pallas_raw(*map(jnp.asarray, arrays),
+                                 want_c_all=want_c_all)
+    got = lstm_cell.lstm_scan_ref(*map(torch.from_numpy, arrays),
+                                  want_c_all=want_c_all)
+    for g, w in zip(got, want):
+        if w is not None:
+            assert tuple(g.shape) == w.shape
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=ATOL)
+
+
 def test_lstm_scan_on_cpu_runs_the_plain_version():
     """For CPU tensors the wrapper returns the plain version's values
     and launches nothing."""
@@ -200,17 +216,21 @@ H100_FITS = {16: 7, 8: 15, 4: 30, 2: 66, 1: 132}
     # ... 8 waves not: the one-block layout
     (1024, 128, False, (8, 1, 8, False)),
     (4096, 128, True, (8, 1, 8, False)),
-    # twelve or more 32-term blocks a column: the one-block layout
+    # twelve 32-term blocks a column: the one-block layout
     (4, 384, False, (4, 1, 4, False)),
-    (4, 512, True, (4, 1, 4, False)),
+    # sixteen (W=512): the grid layout, 4 groups of one stream on 32
+    # blocks each
+    (4, 512, True, (1, 32, 1, False)),
 ])
 def test_scan_layout_chooser(B, W, bf16, want):
     from ocrd_keraslm_torch.ops import scan_layout as sl
     lay = sl.choose('lstm', B, W, 1, lambda lay: H100_FITS[lay.cl], 132,
                     bf16=bf16)
     assert (lay.rb, lay.cl, lay.rt, lay.reg) == want
-    assert lay.smem == sl.plan_bytes('lstm', W, 1, lay.rb, lay.reg,
-                                     bf16=bf16)
+    assert lay.grid == (W == 512)
+    assert lay.smem == (
+        sl.grid_plan_bytes('lstm', W, lay.rb, lay.rt) if lay.grid else
+        sl.plan_bytes('lstm', W, 1, lay.rb, lay.reg, bf16=bf16))
     sl.check('lstm', B, W, 1, lay, bf16=bf16)
 
 

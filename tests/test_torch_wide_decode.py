@@ -358,14 +358,20 @@ def test_wide_model_takes_the_engine_by_the_gate(monkeypatch):
 
 
 def test_backward_layout_at_width_512():
-    """The one-block layout shrinks its streams a block to fit: the
-    backward at W=512 takes 4 (4 x 15 x 512 floats = 122,880 bytes; 8
-    would need 245,760), and ``check`` accepts it; the forward kinds keep
-    8 there and every kind fits at W=1024.  Up to W=256 nothing
+    """At W=512 the backward's chain takes the grid layout: 4 groups of
+    32 streams on 32 blocks each, staged in chunks of 8 (179,216 bytes of
+    shared memory a block).  The one-block layout shrinks its streams a
+    block to fit: 4 there (4 x 15 x 512 floats = 122,880 bytes; 8 would
+    need 245,760), and ``check`` accepts it; the forward kinds keep 8
+    there and every kind fits at W=1024.  Up to W=256 nothing
     changes."""
     def fits(lay):
         return 8
     lay = sl.choose('bwd', 128, 512, 1, fits, 132)
+    assert (lay.rb, lay.cl, lay.rt, lay.reg, lay.grid, lay.smem) == \
+        (32, 32, 8, False, True, 179216)
+    sl.check('bwd', 128, 512, 1, lay)
+    lay = sl.one_block_layout('bwd', 128, 512, 1)
     assert (lay.rb, lay.cl, lay.rt, lay.reg, lay.smem) == \
         (4, 1, 4, False, 122880)
     sl.check('bwd', 128, 512, 1, lay)
