@@ -141,6 +141,29 @@ Phases, each printing its own lines (any failure exits non-zero):
    card against CPU, the 32 one-page documents through
    ``rate_best_batch``, each equal to its own bf16 ``rate_best_device``,
    and ``generate -n 64`` equal with the flag set and unset;
+   serving roles (``serving_path``): the HTTP processing server
+   (``wrapper/cli.make_processing_server`` in a thread on an ephemeral
+   port): ``GET /health``, then 3 ``POST /process`` jobs on fresh copies
+   of phase 4's workspace, every page equal to phase 4's CLI output and
+   one ``decode_lattice`` launch a page group; ``worker --once`` over 2
+   spool jobs, the same; a METS server in a spawned process
+   (``wrapper/mets_server.serve``) serving a scoring run with ``-U`` and
+   ``OCRD_MAX_PARALLEL_PAGES=4``, every page equal to phase 5's local
+   run, the server stopped by its client; 8 threads decoding phase 4's
+   pages on 4 raters, two a page, equal bit for bit to the serial
+   decodes, the decode weights shared through the process-wide cache;
+   resume snapshots (``resume_path``): ``keraslm-rate train -w 128 -d 2
+   -l 256 -b 128 -e 3`` on a seeded corpus uninterrupted, killed during
+   epoch 2 with ``--resume-dir`` (the snapshot of epoch 1 kept), and
+   resumed: every history key within rtol 1e-5, the resumed run's
+   ``lstm_bwd`` launches those of epochs 2-3, the snapshot's bytes and
+   the seconds of its copy and commit; pruning (``prune_path``):
+   ``prune-charset`` of 'J' (V=69), page 1 decoded and its text scored
+   through the kernels, each kernel held against its plain version at
+   V=69, a small page's decode and the scoring card against CPU; device
+   trace (``trace_path``): the decoding CLI with ``--jax-trace``, whose
+   Chrome trace must name the ``decode_lattice`` kernel among its CUDA
+   kernel events;
 7. numbers: wall per page (by page lane, and its host split), edges/s
    and scored chars/s, the page groups' and lookahead's walls, the
    device's busy and idle share of the paths (``torch.profiler``), wall
@@ -2435,7 +2458,7 @@ def scoring_path(rater, work):
     build_workspace(traced, np.random.default_rng(7), 4, 40, rater.vocab)
     traced_wall, busy = profile_main_path(traced, scoring=True)
     return dict(wall=wall, n_chars=n_chars, texts=texts, split=split,
-                split_wall=split_wall,
+                split_wall=split_wall, workspace=ws,
                 launches=counts['score_scan'],
                 lstm_launches=layered_counts['lstm_scan'],
                 traced_wall=traced_wall, busy=busy)
@@ -5116,6 +5139,517 @@ def engine_path(rater, work, train, card):
     return out
 
 
+# ---------------------------------------------------------------------
+# serving roles, resume snapshots, pruning, device trace
+# ---------------------------------------------------------------------
+
+SERVE_JOBS, WORKER_JOBS, SERVE_THREADS = 3, 2, 4
+RESUME_EPOCHS = 3
+PRUNED_CHAR = 'J'
+
+
+def _post_job(base, payload):
+    """``POST /process`` of ``payload``; returns (HTTP status, JSON
+    answer)."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(
+        base + '/process', data=json.dumps(payload).encode(),
+        headers={'Content-Type': 'application/json'})
+    try:
+        with urllib.request.urlopen(req) as resp:
+            return resp.status, json.load(resp)
+    except urllib.error.HTTPError as err:
+        return err.code, json.load(err)
+
+
+def _wait_for_socket(path, proc, timeout=120.0):
+    deadline = time.time() + timeout
+    while not os.path.exists(path):
+        assert proc.is_alive(), 'the METS server process died'
+        assert time.time() < deadline, 'the METS server did not start'
+        time.sleep(0.05)
+
+
+def switch_jobs(params, fresh, groups, decode, n_jobs=2):
+    """Decoding jobs on a processing server set up for scoring: the
+    reuse gate builds a new processor and Rater for each, the first
+    stages the decode weights, the next find them in the process-wide
+    cache (emptied first).  Times each new Rater's first staging
+    (synchronised) and whether it came from that cache."""
+    import threading
+    import torch
+    from ocrd_keraslm_torch import rater as rater_mod
+    from ocrd_keraslm_torch.wrapper import cli as wcli
+    staged = []
+    plain = rater_mod.Rater._decode_weights
+
+    def timed(self, context, bf16=False):
+        key = (tuple(context or self.underspecify_contexts()), bool(bf16))
+        if key in self._decode_cache:
+            return plain(self, context, bf16)
+        held = {id(w) for w in rater_mod._DECODE_WCACHE.values()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        weights = plain(self, context, bf16)
+        torch.cuda.synchronize()
+        staged.append(((time.perf_counter() - t0) * 1e3,
+                       id(weights) in held))
+        return weights
+    dirs = [fresh('switch_%d' % i) for i in range(n_jobs)]
+    job_s = []
+    with platform_env('cuda'):
+        httpd = wcli.make_processing_server(
+            '127.0.0.1:0', dict(params, alternative_decoding=False))
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        rater_mod._DECODE_WCACHE.clear()
+        rater_mod.Rater._decode_weights = timed
+        try:
+            base = 'http://127.0.0.1:%d' % httpd.server_address[1]
+            zero_counts()
+            for d in dirs:
+                t0 = time.time()
+                answer = _post_job(base, {
+                    'mets': d, 'parameter': {'alternative_decoding': True}})
+                job_s.append(time.time() - t0)
+                assert answer == (200, {'state': 'SUCCESS'}), answer
+            counts = read_counts()
+        finally:
+            rater_mod.Rater._decode_weights = plain
+            httpd.shutdown()
+            httpd.server_close()
+            thread.join(timeout=10)
+    assert counts == dict(NO_LAUNCHES, decode_lattice=n_jobs * groups), \
+        counts
+    want = page_contents(decode['workspace'])
+    for d in dirs:
+        assert page_contents(d) == want, ('switched job output', d)
+    assert [hit for _, hit in staged] == [False] + [True] * (n_jobs - 1), \
+        staged
+    return dict(job_s=job_s, staged=staged, counts=counts)
+
+
+def serving_path(rater, work, decode, scoring, card):
+    """Part (a) of the serving roles: the HTTP processing server, the
+    spool worker, a METS server in a spawned process and decodes in
+    threads; returns the numbers."""
+    import multiprocessing
+    import threading
+    import urllib.request
+
+    import torch
+    from ocrd_keraslm_torch.wrapper import cli as wcli
+    from ocrd_keraslm_torch.wrapper import mets_server
+    from ocrd_keraslm_torch.wrapper.mets import Workspace
+    from ocrd_keraslm_torch.wrapper.rate import mets_get_context
+    want = output_files(decode['workspace'])
+    groups = len(decode['groups'])
+    # run_cli's parameters, in its order (the written pages list them)
+    params = {'model_file': MODEL, 'textequiv_level': 'glyph',
+              'beam_width': 10}
+
+    def fresh(name):
+        d = os.path.join(work, name)
+        build_workspace(d, np.random.default_rng(7), 4, 40, rater.vocab)
+        return d
+    # the processing server: model load once, SERVE_JOBS jobs
+    with platform_env('cuda'):
+        t0 = time.time()
+        httpd = wcli.make_processing_server('127.0.0.1:0', params)
+        setup_s = time.time() - t0
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        try:
+            base = 'http://127.0.0.1:%d' % httpd.server_address[1]
+            with urllib.request.urlopen(base + '/health') as resp:
+                assert json.load(resp) == {'status': 'ok'}
+            dirs = [fresh('serve_%d' % i) for i in range(SERVE_JOBS)]
+            job_s = []
+            zero_counts()
+            for d in dirs:
+                t0 = time.time()
+                answer = _post_job(base, {'mets': d})
+                job_s.append(time.time() - t0)
+                assert answer == (200, {'state': 'SUCCESS'}), answer
+            counts = read_counts()
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            thread.join(timeout=10)
+    assert counts == dict(NO_LAUNCHES,
+                          decode_lattice=SERVE_JOBS * groups), counts
+    for d in dirs:
+        assert output_files(d) == want, ('server job output', d)
+    print('serving: processing server on 127.0.0.1:%d (model load %.3f s), '
+          'GET /health ok, %d POST /process jobs on fresh copies of phase '
+          '4\'s workspace: %s s a job (host clock, HTTP included); launches '
+          '%s (expected decode_lattice %d: %d page groups a job); every '
+          'page equal to phase 4\'s CLI output (timestamps blanked) [%s]'
+          % (httpd.server_address[1], setup_s, SERVE_JOBS,
+             ', '.join('%.3f' % w for w in job_s), counts,
+             SERVE_JOBS * groups, groups, card))
+    switch = switch_jobs(params, fresh, groups, decode)
+    print('serving: a server set up for scoring, %d decoding jobs (a new '
+          'processor and Rater each, the process-wide weight cache emptied '
+          'first): %s s a job (host clock, model load included); each new '
+          'Rater\'s first staging of the decode weights %s ms (synchronised; '
+          'from the process-wide cache: %s); launches %s; every page\'s '
+          'texts and confs equal to phase 4\'s [%s]'
+          % (len(switch['job_s']), ', '.join('%.3f' % w
+                                             for w in switch['job_s']),
+             ', '.join('%.3f' % ms for ms, _ in switch['staged']),
+             [hit for _, hit in switch['staged']], switch['counts'], card))
+    # the spool worker, --once
+    queue = os.path.join(work, 'spool')
+    os.makedirs(queue)
+    wdirs = [fresh('worker_%d' % i) for i in range(WORKER_JOBS)]
+    for i, d in enumerate(wdirs):
+        with open(os.path.join(queue, 'job%d.json' % i), 'w') as fh:
+            json.dump({'mets': d}, fh)
+    zero_counts()
+    t0 = time.time()
+    with platform_env('cuda'):
+        wcli.ocrd_keraslm_rate.main(args=[
+            'worker', '--queue', queue, '--once', '-l', 'WARNING',
+            '-P', 'model_file', MODEL, '-P', 'textequiv_level', 'glyph',
+            '-P', 'beam_width', '10'], standalone_mode=False)
+    worker_s = time.time() - t0
+    wcounts = read_counts()
+    for i, d in enumerate(wdirs):
+        with open(os.path.join(queue, 'job%d.result.json' % i)) as fh:
+            result = json.load(fh)
+        assert result == {'state': 'SUCCESS'}, result
+        assert os.path.exists(os.path.join(queue, 'job%d.json.done' % i))
+        assert output_files(d) == want, ('worker job output', d)
+    assert wcounts == dict(NO_LAUNCHES,
+                           decode_lattice=WORKER_JOBS * groups), wcounts
+    print('serving: worker --once over %d spool jobs: %.3f s (model load '
+          'included); both SUCCESS, renamed .done; launches %s; every page '
+          'equal to phase 4\'s [%s]'
+          % (WORKER_JOBS, worker_s, wcounts, card))
+    # page-parallel scoring through a METS server in a spawned process
+    served = fresh('served')
+    url = os.path.join(work, 'mets.sock')
+    proc = multiprocessing.get_context('spawn').Process(
+        target=mets_server.serve, args=(served, url), daemon=True)
+    t0 = time.time()
+    proc.start()
+    try:
+        _wait_for_socket(url, proc)
+        start_s = time.time() - t0
+        zero_counts()
+        t0 = time.time()
+        with platform_env('cuda'), env_vars(OCRD_MAX_PARALLEL_PAGES='4'):
+            wcli.ocrd_keraslm_rate.main(args=[
+                '-U', url, '-I', 'OCR-D-OCR', '-O', 'OCR-D-LM', '-l',
+                'WARNING', '-P', 'model_file', MODEL, '-P',
+                'textequiv_level', 'glyph', '-P', 'beam_width', '10', '-P',
+                'alternative_decoding', 'false'], standalone_mode=False)
+        mets_s = time.time() - t0
+        mcounts = read_counts()
+        remote = mets_server.RemoteWorkspace(url)
+        n_out = len(list(remote.mets.find_files(fileGrp='OCR-D-LM')))
+        remote.stop_server()
+        remote.close()
+        proc.join(timeout=30)
+    finally:
+        if proc.is_alive():
+            proc.terminate()
+            proc.join(timeout=10)
+    assert proc.exitcode == 0, ('METS server exit code', proc.exitcode)
+    assert n_out == 4, n_out
+    assert output_files(served) == output_files(scoring['workspace']), \
+        'METS-server scoring output differs from the local run'
+    assert mcounts == dict(NO_LAUNCHES, score_scan=scoring['launches']), \
+        mcounts
+    print('serving: METS server in a spawned process (socket up after %.2f '
+          's), scoring with -U and OCRD_MAX_PARALLEL_PAGES=4: %.3f s (CLI '
+          'call incl. model load), 4 pages registered through the server; '
+          'launches %s; every page equal to phase 5\'s local run; the server '
+          'stopped by its client, exit code 0 [%s]'
+          % (start_s, mets_s, mcounts, card))
+    # SERVE_THREADS threads decode a page each on their own raters (the
+    # decode weights shared through the process-wide cache), against the
+    # same decodes one after another
+    from ocrd_keraslm_torch import rater as rater_mod
+    graphs = workspace_graphs(decode['workspace'])[:SERVE_THREADS]
+    ctx = mets_get_context(Workspace(decode['workspace']).mets)
+    raters = [german_rater(rater.device) for _ in graphs]
+
+    def decode_page(i):
+        path, ent, _ = raters[i].rate_best_device(
+            graphs[i], 0, 0, context=ctx, beam_width=10)
+        return [(el.id if el is not None else None, te.index, score)
+                for el, te, score in path], ent
+    zero_counts()
+    serial = [decode_page(i) for i in range(len(graphs))]
+    n_serial = read_counts()['decode_lattice']
+    results = {}
+    errors = []
+
+    def work_thread(k):
+        try:
+            results[k] = decode_page(k % len(graphs))
+        except BaseException as err:  # noqa: BLE001 - asserted below
+            errors.append(err)
+    zero_counts()
+    t0 = time.time()
+    threads = [threading.Thread(target=work_thread, args=(k,))
+               for k in range(2 * len(graphs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    threads_s = time.time() - t0
+    tcounts = read_counts()
+    assert not errors, errors
+    for k, got in results.items():
+        assert got == serial[k % len(graphs)], ('thread result', k)
+    assert tcounts == dict(NO_LAUNCHES, decode_lattice=2 * n_serial), \
+        (tcounts, n_serial)
+    shared = len({id(r._decode_weights(ctx)['wcat']) for r in raters})
+    print('serving: %d threads at once on %d raters, two a page of phase '
+          '4\'s 4: %.3f s (host clock), every path and cost equal bit for '
+          'bit to the serial decodes; launches %s (serial: %d); decode '
+          'weights shared: %d set(s) for %d raters, process cache %d of %d '
+          'entries [%s]' % (len(threads), len(raters), threads_s, tcounts,
+                            n_serial,
+                    shared, len(raters), len(rater_mod._DECODE_WCACHE),
+                    rater_mod.DECODE_WCACHE_SIZE, card))
+    assert shared == 1
+    return dict(setup_s=setup_s, job_s=job_s, worker_s=worker_s,
+                mets_s=mets_s, threads_s=threads_s,
+                launches=counts['decode_lattice'],
+                worker_launches=wcounts['decode_lattice'],
+                thread_launches=tcounts['decode_lattice'])
+
+
+def resume_path(work, card):
+    """Part (b): ``keraslm-rate train`` at the main path's width three
+    epochs uninterrupted, killed during epoch 2 with ``--resume-dir``,
+    then resumed from its snapshot; returns the numbers."""
+    from ocrd_keraslm_torch import training
+    from ocrd_keraslm_torch.utils import h5io, orbaxio
+    rng = np.random.default_rng(12)
+    per_file = TRAIN_B * (2 * TRAIN_T + 1)
+    files = write_corpus(os.path.join(work, 'resume_corpus'), rng, {
+        'kant_kritik_1781.txt': per_file, 'goethe_faust_1808.txt': per_file,
+        'lessing_nathan_1779.txt': per_file})
+    seed = 37
+    models = {k: os.path.join(work, 'resume_%s.h5' % k) for k in 'abc'}
+    snap = os.path.join(work, 'resume_snap')
+    wall_a, counts_a, _ = run_train_cli(work, models['a'], files,
+                                        RESUME_EPOCHS, seed)
+    hist_a = h5io.load_config(models['a'])[2]
+
+    class Killed(BaseException):
+        pass
+    real = training.Prefetcher
+
+    class Dying:
+        made = 0
+
+        def __init__(self, gen):
+            type(self).made += 1
+            self.inner = real(gen)
+
+        def __iter__(self):
+            for n, batch in enumerate(iter(self.inner)):
+                # the third prefetcher is epoch 2's training pass
+                if type(self).made == 3 and n == 1:
+                    self.inner.close()
+                    raise Killed()
+                yield batch
+    training.Prefetcher = Dying
+    try:
+        run_train_cli(work, models['b'], files, RESUME_EPOCHS, seed,
+                      extra=('--resume-dir', snap))
+        raise AssertionError('the run to be killed was not killed')
+    except Killed:
+        pass
+    finally:
+        training.Prefetcher = real
+    kept = orbaxio.load_train_state(snap)
+    assert kept['meta']['epoch_done'] == 1, kept['meta']['epoch_done']
+    assert sorted(os.listdir(snap)) == ['ep_0001'], os.listdir(snap)
+    made = []
+    real_ckpt = orbaxio.TrainCheckpointer
+
+    class Recording(real_ckpt):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            made.append(self)
+    orbaxio.TrainCheckpointer = Recording
+    try:
+        wall_c, counts_c, _ = run_train_cli(work, models['c'], files,
+                                            RESUME_EPOCHS, seed,
+                                            extra=('--resume-dir', snap))
+    finally:
+        orbaxio.TrainCheckpointer = real_ckpt
+    hist_c = h5io.load_config(models['c'])[2]
+    for key in hist_a:
+        np.testing.assert_allclose(hist_c[key], hist_a[key], rtol=1e-5,
+                                   err_msg=key)
+    diff = max(float(np.max(np.abs(np.subtract(hist_c[k], hist_a[k]))))
+               for k in hist_a)
+    steps1 = int(kept['meta']['steps_done'])
+    assert counts_c == dict(
+        NO_LAUNCHES, lstm_bwd=counts_a['lstm_bwd'] - steps1 * TRAIN_D,
+        lstm_scan=counts_c['lstm_scan']), (counts_c, counts_a, steps1)
+    assert counts_c['lstm_scan'] > counts_c['lstm_bwd'] > 0
+    last = made[-1].last
+    assert orbaxio.load_train_state(snap)['meta']['epoch_done'] == \
+        RESUME_EPOCHS
+    print('resume: keraslm-rate train -w %d -d %d -l %d -b %d -e %d on 3 '
+          'files of %d chars: uninterrupted %.3f s; killed in epoch 2 with '
+          '--resume-dir (snapshot of epoch 1 kept: %d steps); resumed %.3f '
+          's; every history key within rtol 1e-5 of the uninterrupted run '
+          '(max |diff| %.3g; loss %s); the resumed run\'s launches %s '
+          '(lstm_bwd = uninterrupted %d - epoch 1\'s %d) [%s]'
+          % (TRAIN_W, TRAIN_D, TRAIN_T, TRAIN_B, RESUME_EPOCHS, per_file,
+             wall_a, steps1, wall_c, diff,
+             ['%.6f' % v for v in hist_c['loss']], counts_c,
+             counts_a['lstm_bwd'], steps1 * TRAIN_D, card))
+    print('resume: a snapshot is %d bytes (params, best params and Adam\'s '
+          'state as CPU tensors, meta.json); its synchronous copy to the '
+          'host %.4f s, its write and commit in the background %.4f s '
+          '(host clock, the last epoch\'s) [%s]'
+          % (last['bytes'], last['copy_s'], last['commit_s'], card))
+    return dict(wall_a=wall_a, wall_c=wall_c, launches=counts_c,
+                snapshot_bytes=last['bytes'], copy_s=last['copy_s'],
+                commit_s=last['commit_s'])
+
+
+def prune_path(rater, work, decode, card):
+    """Part (c): ``prune-charset`` of one char, then page 1 decoded and
+    scored at V=69 through the kernels, each held against its plain
+    version, the decode against the CPU; returns the numbers."""
+    import shutil
+
+    import torch
+    from click.testing import CliRunner
+    from ocrd_keraslm_torch.ops import decode_kernel as dk
+    from ocrd_keraslm_torch.ops import score_kernel as sk
+    from ocrd_keraslm_torch.scripts.run import cli as keraslm_rate
+    from ocrd_keraslm_torch.wrapper.mets import Workspace
+    from ocrd_keraslm_torch.wrapper.rate import mets_get_context
+    pruned = os.path.join(work, 'pruned.h5')
+    shutil.copy(MODEL, pruned)
+    res = CliRunner().invoke(keraslm_rate, [
+        '-l', 'WARNING', 'prune-charset', '-m', pruned, PRUNED_CHAR],
+        env={'KERASLM_PLATFORM': 'cuda'})
+    assert res.exit_code == 0, (res.output, res.exception)
+    card_r, cpu_r = (_load_pruned(pruned, dev)
+                     for dev in (rater.device, 'cpu'))
+    assert card_r.voc_size == rater.voc_size - 1 and \
+        PRUNED_CHAR not in card_r.vocab.c2i
+    ws = decode['workspace']
+    ctx = mets_get_context(Workspace(ws).mets)
+    graph = workspace_graphs(ws)[0]
+    zero_counts()
+    path, ent, _ = card_r.rate_best_device(graph, 0, 0, context=ctx,
+                                           beam_width=10)
+    texts = page_texts(ws)[:1]
+    ratings, ppl = card_r.rate2(texts[0], ctx)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    assert counts == dict(NO_LAUNCHES, decode_lattice=1,
+                          score_scan=counts['score_scan']), counts
+    assert counts['score_scan'] >= 1
+    # the kernels against their plain versions at these shapes
+    args, kw, _, _ = page_block(card_r, ws)
+    got = [a.cpu().numpy() for a in dk.decode_lattice(*args, **kw)]
+    want = [a.cpu().numpy() for a in dk.decode_lattice_ref(*args, **kw)]
+    err, n_cmp, tie = compare_decode(got, want, 16, card_r.width)
+    sargs = score_inputs(np.random.default_rng(69), 'german_b4',
+                         rater.device, card_r)
+    s_err, c_err, flips = compare_score(sk.score_scan(*sargs),
+                                        sk.score_scan_ref(*sargs))
+    # the decode and the scoring against the CPU (a small page: two f32
+    # beam searches part at K-th-rank near-ties on long ones)
+    small = os.path.join(work, 'small_pruned')
+    build_workspace(small, np.random.default_rng(8), 2, 3, rater.vocab,
+                    alt_share=0.3)
+    sgraph = workspace_graphs(small)[0]
+    on = {}
+    for name, r in (('card', card_r), ('cpu', cpu_r)):
+        p, e, _ = r.rate_best_device(sgraph, 0, 0, context=ctx,
+                                     beam_width=10)
+        on[name] = [(p, e)]
+    cpu_diff = same_results(on['card'], on['cpu'], cost_ulps=2)
+    cpu_ppl = cpu_r.rate2(texts[0], ctx)[1]
+    assert abs(ppl - cpu_ppl) <= 1e-4 * cpu_ppl, (ppl, cpu_ppl)
+    print('pruning: keraslm-rate prune-charset %r: V %d -> %d, saved in '
+          'place; page 1 (%d glyphs) decoded through decode_lattice and its '
+          'text (%d chars) scored through score_scan at V=%d: launches %s; '
+          'entropy %.3f bits, ppl %.6f on the card, %.6f on the CPU '
+          '(tolerance rtol 1e-4) [%s]'
+          % (PRUNED_CHAR, rater.voc_size, card_r.voc_size, len(path),
+             len(texts[0]), card_r.voc_size, counts, ent, ppl, cpu_ppl,
+             card))
+    print('pruning: decode_lattice against its plain version at V=%d '
+          '(page 1: K=16, A=4, n_real=%d): %d edges compared, max |kernel - '
+          'plain| %.3g%s; score_scan against its plain version (B=4, T=4096): max '
+          '|kernel - plain| %.3g over probs and h, relative %.3g over c, %d '
+          'probs round to another float16; a 2-page small workspace\'s page '
+          '1 card against CPU: same path, max score/entropy diff %.3g'
+          % (card_r.voc_size, kw['n_real'], n_cmp, err, '' if tie is None else
+             ' (compared up to a near-tie at the K-th rank, edge %d)' % tie,
+             s_err, c_err, flips, cpu_diff))
+    return dict(launches=counts, err=err, score_err=s_err)
+
+
+def _load_pruned(path, device):
+    from ocrd_keraslm_torch.rater import Rater
+    r = Rater(device=device)
+    r.load_config(path)
+    r.configure()
+    r.load_weights(path)
+    return r
+
+
+def trace_path(rater, work, decode, card):
+    """Part (d): the decoding processor's CLI with ``--jax-trace``; its
+    Chrome trace must name the ``decode_lattice`` kernel among the CUDA
+    events."""
+    import glob
+
+    from ocrd_keraslm_torch.wrapper.cli import ocrd_keraslm_rate
+    d = os.path.join(work, 'ws_jax_trace')
+    build_workspace(d, np.random.default_rng(7), 4, 40, rater.vocab)
+    tdir = os.path.join(work, 'jax_trace')
+    zero_counts()
+    t0 = time.time()
+    with platform_env('cuda'):
+        ocrd_keraslm_rate.main(args=[
+            '-m', os.path.join(d, 'mets.xml'), '-I', 'OCR-D-OCR', '-O',
+            'OCR-D-LM', '-l', 'WARNING', '--jax-trace', tdir, '-P',
+            'model_file', MODEL, '-P', 'textequiv_level', 'glyph', '-P',
+            'beam_width', '10'], standalone_mode=False)
+    wall = time.time() - t0
+    counts = read_counts()
+    files = glob.glob(os.path.join(tdir, '*.pt.trace.json'))
+    assert len(files) == 1, files
+    with open(files[0], encoding='utf-8') as fh:
+        events = json.load(fh)['traceEvents']
+    kernels = [e for e in events if e.get('cat') == 'kernel']
+    named = sorted({e['name'] for e in kernels
+                    if 'decode_lattice' in e.get('name', '')})
+    assert named, 'the trace names no decode_lattice kernel'
+    assert counts == decode['launches'], (counts, decode['launches'])
+    assert output_files(d) == output_files(decode['workspace'])
+    print('trace: the decoding CLI with --jax-trace: %.3f s (host clock, '
+          'tracing on), %d bytes of Chrome trace, %d events, %d of them CUDA '
+          'kernels; decode_lattice kernel events %d (%s); launches %s; the '
+          'pages equal to phase 4\'s [%s]'
+          % (wall, os.path.getsize(files[0]), len(events), len(kernels),
+             sum(1 for e in kernels if e['name'] in named),
+             '; '.join(n[:60] for n in named), counts, card))
+    return dict(wall=wall, kernels=len(kernels))
+
+
 def main() -> int:
     sys.path.insert(0, HERE)
     import torch
@@ -5308,6 +5842,13 @@ def main() -> int:
         t0 = time.time()
         engines = engine_path(rater, work, train, card)
         print('unbounded engines phase: %.1f s' % (time.time() - t0))
+        t0 = time.time()
+        serving_path(rater, work, decode, scoring, card)
+        resume_path(work, card)
+        prune_path(rater, work, decode, card)
+        trace_path(rater, work, decode, card)
+        print('serving, resume, pruning and trace phases: %.1f s'
+              % (time.time() - t0))
 
         # ---- 7. numbers ----
         print('decode path wall: %.3f s for 4 pages = %.3f s/page, %.0f '

@@ -8,9 +8,12 @@ device, or with the host decode engine for ``device_decoding=false``
 and for branching lattices; by default through the native page lane,
 a C++ byte scan with splice write-back, with consecutive pages fused
 into one kernel launch; ``lookahead_writeback`` walks the pages in
-reverse with chained entry slots) or scores their text; batched serving
-decode of documents; and the ``train``, ``apply``, ``test``,
-``generate`` and ``print-history`` commands of ``keraslm-rate``.  On
+reverse with chained entry slots) or scores their text, standalone or
+as a processing server, a spool-queue worker, through a METS server or
+on a genuine OCR-D core; batched serving decode of documents; and every
+command of ``keraslm-rate`` (training with resumable train-state
+snapshots, rating, generation, the charset tools and the embedding
+plots), with ``--jax-trace`` device traces.  On
 CUDA they run through hand-written kernels (``csrc/decode_lattice.cu``,
 ``csrc/decode_lattice_batch.cu``, ``csrc/score_scan.cu``,
 ``csrc/lstm_scan.cu``, ``csrc/lstm_bwd.cu``, ``csrc/gen_beam.cu``,

@@ -165,15 +165,31 @@ def embed_inputs(params: Params, x: torch.Tensor,
     broadcast over time: the values are those of ``table[index]``, but
     the gradient sums the B*T rows that share a table row by sorting
     them, where the backward of an index expression goes row by row
-    (most of a training step's device time at 32,768 positions)."""
-    embedding = torch.nn.functional.embedding
-    feats = [embedding(x, params['char_embedding'])]
+    (most of a training step's device time at 32,768 positions).
+
+    Where a CUDA table takes a gradient (training on the card), the
+    lookup is a product with the indices' one-hot rows instead: the
+    same values (one product by 1.0, the rest by 0.0), and a gradient
+    summed by a matrix product, the same from run to run, where the
+    CUDA backward of ``embedding`` sums the rows that share a table row
+    in an order that changes from run to run (so that a resumed
+    training run could not replay an uninterrupted one)."""
+    feats = [_lookup(x, params['char_embedding'])]
     for z, table in zip(zs, params['context_embeddings']):
-        rows = embedding(z.clamp(max=table.shape[0] - 1), table)
+        rows = _lookup(z.clamp(max=table.shape[0] - 1), table)
         if z.dim() == 1:                        # time-constant context
             rows = rows[:, None, :].expand(x.shape + rows.shape[-1:])
         feats.append(rows)
     return torch.cat(feats, dim=-1)
+
+
+def _lookup(idx: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """``table[idx]``; see :func:`embed_inputs` for the one-hot product
+    of a CUDA table that takes a gradient."""
+    if table.is_cuda and table.requires_grad and torch.is_grad_enabled():
+        one_hot = torch.nn.functional.one_hot(idx, table.shape[0])
+        return one_hot.to(table.dtype) @ table
+    return torch.nn.functional.embedding(idx, table)
 
 
 def host_to_device(t: torch.Tensor, device) -> torch.Tensor:

@@ -9,13 +9,13 @@ Nothing here runs at import.
 from __future__ import annotations
 
 import ctypes
-import functools
 import glob
 import hashlib
 import os
 import shutil
 import subprocess
 import tempfile
+import threading
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, 'csrc')
@@ -75,10 +75,32 @@ def build(src: str) -> tuple:
     return path, proc.stdout + proc.stderr
 
 
-@functools.lru_cache(maxsize=None)
+# serialises first builds: threads that serve jobs may reach a kernel
+# at once, and each source is built by one nvcc run
+_BUILD_LOCK = threading.Lock()
+# guards the launch counters' read-modify-write
+_COUNT_LOCK = threading.Lock()
+_LOADED: dict = {}   # source path -> its loaded library
+
+
 def load(src: str) -> ctypes.CDLL:
-    """The library built from ``src``, loaded once per process."""
-    return ctypes.CDLL(build(src)[0])
+    """The library built from ``src``, loaded once per process (one
+    build even when several threads ask at once; a loaded library is
+    returned without the lock)."""
+    lib = _LOADED.get(src)
+    if lib is None:
+        with _BUILD_LOCK:
+            lib = _LOADED.get(src)
+            if lib is None:
+                lib = _LOADED[src] = ctypes.CDLL(build(src)[0])
+    return lib
+
+
+def count(fn, attr: str = 'launches') -> None:
+    """Add one to the launch counter ``fn.<attr>`` (under a lock: a
+    plain ``+= 1`` from several threads can lose counts)."""
+    with _COUNT_LOCK:
+        setattr(fn, attr, getattr(fn, attr) + 1)
 
 
 def check(name, t, shape, dtype, device):

@@ -322,9 +322,9 @@ def decode_lattice(emb, embT, wcat, bias, alt_chars, alt_mask, alt_conf,
                               lib.decode_lattice_smem_bytes(
                                   A, L, K, D, W, Vp, v_real, cl)))
     if bf16:
-        decode_lattice.launches_bf16 += 1
+        _build.count(decode_lattice, 'launches_bf16')
     else:
-        decode_lattice.launches += 1
+        _build.count(decode_lattice)
     return (walk if device_walk else records), stateF, costF
 
 
@@ -581,9 +581,9 @@ def decode_lattice_batch(emb, embT, wcat, bias, alt_chars, alt_mask,
                               lib.decode_lattice_batch_smem_bytes(
                                   A, L, K, D, W, Vp, v_real, cl)))
     if bf16:
-        decode_lattice_batch.launches_bf16 += 1
+        _build.count(decode_lattice_batch, 'launches_bf16')
     else:
-        decode_lattice_batch.launches += 1
+        _build.count(decode_lattice_batch)
     return records, stateF, costF
 
 
@@ -691,7 +691,7 @@ def walk_records_batch(records, k_in, *, n_docs: int, beam: int):
         raise RuntimeError('walk_records_batch kernel launch failed: CUDA '
                            'error %d (%d bytes of shared memory asked a '
                            'block)' % (status, walk_smem_bytes(E, K)))
-    walk_records_batch.launches += 1
+    _build.count(walk_records_batch)
     return k_out, walks
 
 

@@ -451,7 +451,7 @@ def gen_beam(emb, embT, wcat, bias, state0, cost0, *, length: int,
             'shared memory asked a block, %d blocks a stream, the %s '
             'layout)' % (status, lay.smem, lay.cl,
                          'unit' if lay.units else 'rows'))
-    gen_beam.launches += 1
+    _build.count(gen_beam)
     return (rec, fin) if final_state else rec
 
 
@@ -502,7 +502,7 @@ def traceback(rec, best, out_length: int, segment: Optional[int] = None):
                            '%d (segments of %d steps, %d and %d bytes of '
                            'shared memory a block)'
                            % (status, lay.L, lay.maps_smem, lay.walk_smem))
-    traceback.launches += 1
+    _build.count(traceback)
     return out
 
 

@@ -227,7 +227,7 @@ def lstm_scan(x_proj: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor,
     if status != 0:
         raise RuntimeError('lstm_scan kernel launch failed: CUDA error %d '
                            '(layout %s)' % (status, lay))
-    lstm_scan.launches += 1
+    _build.count(lstm_scan)
     return h_all, c_all, hT, cT
 
 
@@ -318,7 +318,7 @@ def lstm_bwd(xp_tm: torch.Tensor, hprev_tm: torch.Tensor,
     if status != 0:
         raise RuntimeError('lstm_bwd kernel launch failed: CUDA error %d '
                            '(layout %s)' % (status, lay))
-    lstm_bwd.launches += 1
+    _build.count(lstm_bwd)
     return dxp, dU, dh0, dc0
 
 

@@ -171,7 +171,7 @@ def score_scan(xp1: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
     if status != 0:
         raise RuntimeError('score_scan kernel launch failed: CUDA error %d '
                            '(layout %s)' % (status, lay))
-    score_scan.launches += 1
+    _build.count(score_scan)
     return probs, nll, (hT, cT)
 
 

@@ -46,6 +46,8 @@ from __future__ import annotations
 import gc
 import logging
 import os
+import threading
+from collections import OrderedDict
 from functools import wraps
 from math import exp, log
 from typing import Any, Dict, List, Optional, Tuple
@@ -63,7 +65,7 @@ from .ops.decode_kernel import (BIG, LANE, decode_lattice,
                                 decode_lattice_batch, decode_smem_fits,
                                 walk_records_batch)
 from .ops.score_kernel import pack_score_weights, score_scan
-from .utils import h5io
+from .utils import h5io, orbaxio
 from .utils.buckets import bucket as _bucket
 from .utils.buckets import bucket_unbounded as _bucket_unbounded
 from .utils.vocab import Vocab, nfc, read_normalized
@@ -94,6 +96,16 @@ E_BUCKETS = (64, 256, 1024)
 L_BUCKETS = (1, 2, 4, 8, 16, 32, 64)
 # the processor's default beam_width 10 buckets to K = 16
 K_BUCKETS = (8, 16, 32)
+
+# process-wide device-resident decode weights, keyed by the loaded model
+# file's (path, size, mtime_ns) fingerprint, the device, the context and
+# the dtype: a serving loop that builds a new processor (and Rater) for
+# every job reuses the weights already staged on the device (see
+# Rater._decode_weights).  At most DECODE_WCACHE_SIZE entries, the least
+# recently used out first; the lock serialises concurrent Raters.
+_DECODE_WCACHE: 'OrderedDict[tuple, dict]' = OrderedDict()
+_DECODE_WCACHE_LOCK = threading.Lock()
+DECODE_WCACHE_SIZE = 4
 
 
 def resolve_device(device=None) -> torch.device:
@@ -138,6 +150,52 @@ class NonLinearLatticeError(ValueError):
     decodes chains only (one beam round per edge).  The host engine
     (``Rater.rate_best``) takes any DAG; the processor catches this to
     decode such a page there."""
+
+
+def _spread_labels(points, iters=40):
+    """De-overlap 2-D label positions by iterative pairwise repulsion
+    (the reference's optional adjustText): labels closer than 2% of the
+    plot span push each other apart; the anchor points stay put."""
+    pts = np.asarray(points, np.float64).copy()
+    if len(pts) < 2:
+        return pts
+    span = max(float(np.ptp(pts[:, 0])), float(np.ptp(pts[:, 1])),
+               1e-9)
+    min_d = 0.02 * span
+    for _ in range(iters):
+        diff = pts[:, None, :] - pts[None, :, :]      # (N, N, 2)
+        dist = np.sqrt((diff ** 2).sum(-1))
+        np.fill_diagonal(dist, np.inf)
+        close = dist < min_d
+        if not close.any():
+            break
+        # unit push away from every too-close neighbour; exactly
+        # coincident pairs separate along per-index directions
+        with np.errstate(invalid='ignore', divide='ignore'):
+            unit = diff / dist[..., None]
+        ang = np.linspace(0, 2 * np.pi, len(pts), endpoint=False)
+        fallback = np.stack([np.cos(ang), np.sin(ang)], axis=1)
+        unit = np.where(np.isfinite(unit), unit,
+                        fallback[:, None, :])
+        push = (unit * close[..., None]).sum(axis=1)
+        norm = np.sqrt((push ** 2).sum(-1, keepdims=True))
+        push = np.where(norm > 0, push / np.maximum(norm, 1e-12), 0.0)
+        pts = pts + push * (min_d * 0.25)
+    return pts
+
+
+def _pyplot():
+    """matplotlib's ``pyplot`` and ``cm``, imported at the plot's call
+    (the ``plotting`` extra, not needed anywhere else)."""
+    logging.getLogger('matplotlib').setLevel(logging.WARNING)
+    try:
+        from matplotlib import cm
+        from matplotlib import pyplot as plt
+    except ImportError as err:
+        raise ImportError('the plot commands need matplotlib and '
+                          'scikit-learn (the "plotting" extra): %s'
+                          % err) from err
+    return plt, cm
 
 
 def _linear_edges(graph):
@@ -354,8 +412,10 @@ class Rater:
         # where training writes its best-only checkpoints (also
         # KERASLM_CKPT_DIR; default: the working directory)
         self.ckpt_dir = None
-        # not ported yet: training raises when either is set
+        # training over a device mesh: not ported yet, raises when set
         self.mesh = None
+        # train-state snapshots of every epoch, and the resume from the
+        # newest (also KERASLM_RESUME_DIR)
         self.resume_dir = None
         # fused scoring kernel (all layers + tied softmax per chunk) on
         # CUDA, as the JAX package's default on its accelerator; the
@@ -378,6 +438,12 @@ class Rater:
         self.params = None
         self.status = 0
         self._decode_cache: Dict[Any, Any] = {}
+        # params generation (bumped by _params_changed), and the loaded
+        # model file's fingerprint with the generation it holds for: the
+        # process-wide decode weights serve only unchanged loaded params
+        self._params_epoch = 0
+        self._weights_fp: Optional[tuple] = None
+        self._fp_epoch = -1
         # (params, their packed score_scan weights)
         self._score_pack: Optional[Tuple[Any, tuple]] = None
 
@@ -437,7 +503,9 @@ class Rater:
 
     def _params_changed(self):
         """Drop the device-resident weight sets derived from
-        ``self.params`` (after a load, vocabulary growth or training)."""
+        ``self.params`` (after a load, vocabulary growth, pruning or
+        training)."""
+        self._params_epoch += 1
         self._decode_cache.clear()
         self._score_pack = None
 
@@ -450,7 +518,10 @@ class Rater:
     def load_config(self, filename):
         if self.status != 0:
             raise RuntimeError('load_config needs a fresh Rater')
-        cfg, vocab, history = h5io.load_config(filename)
+        if orbaxio.is_orbax_path(filename):
+            cfg, vocab, history = orbaxio.load_config(filename)
+        else:
+            cfg, vocab, history = h5io.load_config(filename)
         self.width = cfg.width
         self.depth = cfg.depth
         self.length = cfg.length
@@ -464,24 +535,65 @@ class Rater:
     def load_weights(self, filename):
         if self.status < 1:
             raise RuntimeError('load_weights needs configure() first')
-        self.params = params_from_numpy(
-            h5io.load_weights(filename, self.cfg), self.device)
+        if orbaxio.is_orbax_path(filename):
+            self.params = params_from_numpy(
+                orbaxio.load_weights(filename, self.cfg), self.device)
+            self._weights_fp = None
+        else:
+            self.params = params_from_numpy(
+                h5io.load_weights(filename, self.cfg), self.device)
+            # the h5 file's fingerprint: a new Rater over the same
+            # unchanged file reuses the process-wide decode weights
+            # (only while its params are untouched since this load)
+            try:
+                st = os.stat(filename)
+                self._weights_fp = (os.path.abspath(filename),
+                                    st.st_size, st.st_mtime_ns)
+                self._fp_epoch = self._params_epoch + 1
+            except OSError:
+                self._weights_fp = None
         self.voc_size = self.params['char_embedding'].shape[0]
         self._params_changed()
         self.cfg = self.cfg.replace(voc_size=self.voc_size)
         self.status = 2
 
     def save(self, filename):
-        """Save weights and config as one h5 file."""
+        """Save weights and config: one h5 file, or a model directory
+        (``utils/orbaxio.py``) where ``filename`` is a directory or ends
+        in ``.orbax``."""
         if self.status < 2:
             raise RuntimeError('save needs trained or loaded weights')
-        if str(filename).endswith(('.orbax', '/')) or \
-                os.path.isdir(filename):
-            raise NotImplementedError(
-                'the Orbax directory format is not ported yet (ROADMAP.md '
-                'Queue 1 #12, "Resume snapshots"): save to an .h5 file')
-        h5io.save_model(filename, self.params, self.cfg, self.vocab,
-                        self.history)
+        if orbaxio.is_orbax_path(filename):
+            orbaxio.save_model(filename, self.params, self.cfg, self.vocab,
+                               self.history)
+        else:
+            h5io.save_model(filename, self.params, self.cfg, self.vocab,
+                            self.history)
+
+    def remove_from_mapping(self, char=None, idx=None) -> bool:
+        """Remove one char from the mapping, deleting its embedding row
+        (all higher indices move down by one)."""
+        if self.status < 2 or self.voc_size <= 0:
+            raise RuntimeError('remove_from_mapping needs loaded weights')
+        removed = None
+        if char is not None and char in self.vocab.c2i:
+            removed = self.vocab.c2i[char]
+        elif idx is not None and idx in self.vocab.i2c:
+            removed = idx
+        if removed is None:
+            self.vocab.remove(char, idx)  # logs the unmapped error
+            return False
+        emb = self.params['char_embedding']
+        self.logger.warning('pruning character "%s" [%d] with norm %f',
+                            char or self.vocab.i2c.get(removed), removed,
+                            float(torch.linalg.vector_norm(emb[removed])))
+        self.vocab.remove(char, idx)
+        self.voc_size -= 1
+        self.params = dict(self.params, char_embedding=torch.cat(
+            [emb[:removed], emb[removed + 1:]]).contiguous())
+        self.cfg = self.cfg.replace(voc_size=self.voc_size)
+        self._params_changed()
+        return True
 
     def train(self, data, val_data=None):
         """Train on text files (paths or handles); see
@@ -492,6 +604,9 @@ class Rater:
     def print_history(self):
         for k, v in self.history.items():
             print(f"{k}: {v}")
+
+    def print_charset(self):
+        self.vocab.print_charset()
 
     # -- whole-text scoring --------------------------------------------
 
@@ -953,12 +1068,26 @@ class Rater:
         and biases (D, 1, 4W) with the page-constant context embedding
         folded into layer 0.  ``bf16`` (the bf16 decode mode) casts emb,
         embT and wcat to bfloat16; the biases stay f32.  Cached per
-        context and dtype."""
+        context and dtype (at most 4 sets a Rater), and process-wide
+        (``_DECODE_WCACHE``) while the params are those loaded from an
+        unchanged h5 file."""
         ctx = tuple(context or self.underspecify_contexts())
         key = (ctx, bool(bf16))
         cached = self._decode_cache.get(key)
         if cached is not None:
             return cached
+        mkey = None
+        if self._weights_fp is not None and \
+                self._params_epoch == self._fp_epoch:
+            mkey = (self._weights_fp, self.device.type, self.device.index,
+                    ctx, bool(bf16))
+            with _DECODE_WCACHE_LOCK:
+                hit = _DECODE_WCACHE.get(mkey)
+                if hit is not None:
+                    _DECODE_WCACHE.move_to_end(mkey)
+            if hit is not None:
+                self._cache_decode_weights(key, hit)
+                return hit
         W, D, V = self.width, self.depth, self.voc_size
         V_pad = max(128, -(-V // 128) * 128)
         params = self.params
@@ -987,10 +1116,21 @@ class Rater:
                        wcat=torch.stack(wcats).contiguous().to(wdt),
                        bias=torch.stack(biases)[:, None, :].contiguous(),
                        v_pad=V_pad, v_real=V)
+        self._cache_decode_weights(key, weights)
+        if mkey is not None:
+            with _DECODE_WCACHE_LOCK:
+                _DECODE_WCACHE[mkey] = weights
+                _DECODE_WCACHE.move_to_end(mkey)
+                while len(_DECODE_WCACHE) > DECODE_WCACHE_SIZE:
+                    _DECODE_WCACHE.popitem(last=False)
+        return weights
+
+    def _cache_decode_weights(self, key, weights):
+        """Keep a decode weight set in this Rater's cache of 4 (the
+        oldest out first)."""
         while len(self._decode_cache) >= 4:
             del self._decode_cache[next(iter(self._decode_cache))]
         self._decode_cache[key] = weights
-        return weights
 
     def _fused_traceback(self, tb, K, emb):
         """The beam carry for a page decoded at beam ``K``: a fresh beam
@@ -1916,3 +2056,47 @@ class Rater:
                 choices.extend(walk[di, :real, 0].astype(np.int64))
                 costs.extend(walk[di, :real, 1])
             results[i] = self._emit_path(edges, choices, costs, 0.0)
+
+    # -- embedding analysis and plots ------------------------------------
+
+    def _host_weights(self, name, n=1):
+        if self.status != 2:
+            raise RuntimeError('plots need loaded weights')
+        if name == 'char_embedding':
+            wgt = self.params[name]
+        else:
+            wgt = self.params['context_embeddings'][n - 1]
+        return wgt.detach().to('cpu', torch.float32).numpy()
+
+    def plot_char_embeddings_similarity(self, filename):
+        """Heat map of the char embeddings' autocorrelation."""
+        plt, cm = _pyplot()
+        wgt = self._host_weights('char_embedding')
+        plt.imsave(filename, np.abs(np.dot(wgt, wgt.T)), cmap=cm.gray)
+
+    def plot_context_embeddings_similarity(self, filename, n=1):
+        """Heat map of context variable ``n``'s embeddings'
+        autocorrelation."""
+        plt, cm = _pyplot()
+        wgt = self._host_weights('context_embeddings', n)
+        plt.imsave(filename, np.abs(np.dot(wgt, wgt.T)), cmap=cm.gray)
+
+    def plot_context_embeddings_projection(self, filename, n=1):
+        """2-D PCA projection of context variable ``n``'s embeddings,
+        each point labelled by its decade."""
+        plt, _ = _pyplot()
+        try:
+            from sklearn.decomposition import PCA
+        except ImportError as err:
+            raise ImportError('the plot commands need matplotlib and '
+                              'scikit-learn (the "plotting" extra): %s'
+                              % err) from err
+        wgt = self._host_weights('context_embeddings', n)
+        prj = PCA(n_components=2).fit_transform(wgt)
+        plt.figure(figsize=(11.7, 8.3))
+        plt.plot(prj[:, 0], prj[:, 1], 'bo', markersize=2)
+        for year, xy in enumerate(_spread_labels(prj)):
+            plt.text(xy[0], xy[1], str(year) + 'x', c='b', size='xx-small')
+        plt.tick_params(left=False, right=False, bottom=False,
+                        labelleft=False, labelbottom=False)
+        plt.savefig(filename)

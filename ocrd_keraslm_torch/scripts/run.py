@@ -10,13 +10,21 @@ commands and group options, run as::
     python -m ocrd_keraslm_torch.scripts.run generate -m MODEL.h5 \
         -n 1000 -v 3 "Die Vernunft "
 
-``train`` (with continuation from a model or checkpoint), ``apply``
-(per-character probabilities and base-2 perplexity), ``test`` (corpus
-perplexity), ``generate`` (beam-search continuations of a prefix) and
-``print-history`` run on CUDA, or on the CPU with
-``KERASLM_PLATFORM=cpu``.  The other commands are registered and raise
-``NotImplementedError`` naming the ROADMAP.md item that ports them, as
-do ``train``'s ``--mesh`` and ``--resume-dir``.
+    python -m ocrd_keraslm_torch.scripts.run train --resume-dir SNAP ...
+    python -m ocrd_keraslm_torch.scripts.run prune-charset -m MODEL.h5 "#"
+    python -m ocrd_keraslm_torch.scripts.run --jax-trace DIR test ...
+
+``train`` (with continuation from a model or checkpoint, and with
+``--resume-dir`` full train-state snapshots at every epoch, from which
+a killed run resumes), ``apply`` (per-character probabilities and
+base-2 perplexity), ``test`` (corpus perplexity), ``generate``
+(beam-search continuations of a prefix), ``print-history``,
+``print-charset``, ``prune-charset`` (delete a char and its embedding
+row) and the three embedding plots (matplotlib and scikit-learn, the
+``plotting`` extra, imported by the plot) run on CUDA, or on the CPU
+with ``KERASLM_PLATFORM=cpu``.  ``--jax-trace DIR`` writes a
+``torch.profiler`` trace of the command into DIR.  ``train``'s
+``--mesh`` raises ``NotImplementedError`` (ROADMAP.md Queue 1 #16).
 """
 from __future__ import annotations
 
@@ -56,12 +64,11 @@ class SortedGroup(click.Group):
               type=click.Path(dir_okay=False, writable=True),
               help='write host profile stats to this file')
 @click.option('--jax-trace', default=None,
-              help='device trace directory (not ported yet)')
-def cli(log_level, profile, profile_file, jax_trace):
-    if jax_trace:
-        raise NotImplementedError(
-            '--jax-trace is not ported yet (ROADMAP.md Queue 1, '
-            '"Device trace")')
+              type=click.Path(file_okay=False, writable=True),
+              help='capture a device trace (torch.profiler, Chrome trace '
+                   'JSON) of the command into this directory')
+@click.pass_context
+def cli(ctx, log_level, profile, profile_file, jax_trace):
     logging.basicConfig(
         level=getattr(logging, log_level.upper(), logging.INFO),
         format='%(asctime)s %(levelname)s %(name)s - %(message)s')
@@ -79,6 +86,10 @@ def cli(log_level, profile, profile_file, jax_trace):
             else:
                 pstats.Stats(prof).sort_stats('cumulative').print_stats(30)
         atexit.register(_dump)
+    if jax_trace:
+        # written when the command ends
+        from ..utils.devtrace import start_trace
+        ctx.call_on_close(start_trace(jax_trace))
 
 
 def _expand_paths(items):
@@ -140,8 +151,10 @@ def _load_rater(model, incremental=False):
                    '(float32 cell state/softmax)')
 @click.option('--resume-dir', default=None,
               type=click.Path(file_okay=False),
-              help='directory for full train-state snapshots '
-                   '(not ported yet)')
+              help='directory for full train-state snapshots (params, '
+                   'Adam moments, dropout generator, history): every '
+                   'epoch is snapshotted and an interrupted run resumes '
+                   'from the last completed epoch')
 @click.option('--mesh', 'mesh_spec', default=None, metavar='DPxMP',
               help='shard the train step over a device mesh '
                    '(not ported yet)')
@@ -159,10 +172,6 @@ def train(model, ckpt, width, depth, length, val_data, epochs,
         raise NotImplementedError(
             '--mesh is not ported yet (ROADMAP.md Queue 1 #16, '
             '"Distributed")')
-    if resume_dir:
-        raise NotImplementedError(
-            '--resume-dir is not ported yet (ROADMAP.md Queue 1 #12, '
-            '"Resume snapshots")')
     from .. import training
     training.EPOCHS = epochs
 
@@ -185,6 +194,8 @@ def train(model, ckpt, width, depth, length, val_data, epochs,
     rater.depth = depth
     rater.length = length
     rater.batch_size = batch_size
+    if resume_dir:
+        rater.resume_dir = resume_dir
     if bf16:
         rater.compute_dtype = 'bfloat16'
     rater.configure()
@@ -260,27 +271,61 @@ def print_history(model):
     rater.print_history()
 
 
-def _not_ported(name, item):
-    @cli.command(name=name, context_settings=dict(
-        ignore_unknown_options=True, allow_extra_args=True),
-        short_help='not ported yet (ROADMAP.md Queue 1, "%s")' % item)
-    def command():
-        raise NotImplementedError(
-            'keraslm-rate %s is not ported yet (ROADMAP.md Queue 1, "%s")'
-            % (name, item))
-    return command
+@cli.command(short_help='Print the mapped characters')
+@click.option('-m', '--model', required=True, help='model file',
+              type=click.Path(dir_okay=False, exists=True))
+def print_charset(model):
+    rater = Rater()
+    rater.load_config(model)
+    rater.print_charset()
 
 
-for _name, _item in (
-        ('print-charset', '`keraslm-rate` CLI and tooling'),
-        ('prune-charset', '`keraslm-rate` CLI and tooling'),
-        ('plot-char-embeddings-similarity',
-         '`keraslm-rate` CLI and tooling'),
-        ('plot-context-embeddings-similarity',
-         '`keraslm-rate` CLI and tooling'),
-        ('plot-context-embeddings-projection',
-         '`keraslm-rate` CLI and tooling')):
-    _not_ported(_name, _item)
+@cli.command(short_help='Delete one character from mapping')
+@click.option('-m', '--model', required=True, help='model file',
+              type=click.Path(dir_okay=False, exists=True,
+                              writable=True))
+@click.argument('char')
+def prune_charset(model, char):
+    """Delete CHAR from the model's mapping and its row from the
+    embedding, and save the model in place."""
+    rater = _load_rater(model)
+    if rater.remove_from_mapping(char=char):
+        rater.save(model)
+
+
+@cli.command(short_help='Paint a heat map of character embeddings')
+@click.option('-m', '--model', required=True, help='model file',
+              type=click.Path(dir_okay=False, exists=True))
+@click.argument('filename', type=click.Path(dir_okay=False,
+                                            writable=True))
+def plot_char_embeddings_similarity(model, filename):
+    _load_rater(model).plot_char_embeddings_similarity(filename)
+
+
+@cli.command(short_help='Paint a heat map of context embeddings')
+@click.option('-m', '--model', required=True, help='model file',
+              type=click.Path(dir_okay=False, exists=True))
+@click.option('-n', '--number', default=1,
+              help='which context variable',
+              type=click.IntRange(min=1, max=100))
+@click.argument('filename', type=click.Path(dir_okay=False,
+                                            writable=True))
+def plot_context_embeddings_similarity(model, filename, number):
+    _load_rater(model).plot_context_embeddings_similarity(filename,
+                                                          n=number)
+
+
+@cli.command(short_help='Paint a 2-d PCA projection of context embeddings')
+@click.option('-m', '--model', required=True, help='model file',
+              type=click.Path(dir_okay=False, exists=True))
+@click.option('-n', '--number', default=1,
+              help='which context variable',
+              type=click.IntRange(min=1, max=100))
+@click.argument('filename', type=click.Path(dir_okay=False,
+                                            writable=True))
+def plot_context_embeddings_projection(model, filename, number):
+    _load_rater(model).plot_context_embeddings_projection(filename,
+                                                          n=number)
 
 
 if __name__ == '__main__':

@@ -14,10 +14,15 @@ elementwise gradient clip at 1.0 (Keras ``Adam(clipvalue=1.0)``); the
 train-phase-only embedding regularizers are added inside the loss, so
 the evaluation loss stays pure cross-entropy.
 
-Not ported yet, each raising ``NotImplementedError``: training over a
-device mesh (``rater.mesh``; ROADMAP.md Queue 1 #16, "Distributed") and
-full train-state snapshots (``rater.resume_dir`` / ``KERASLM_RESUME_DIR``;
-ROADMAP.md Queue 1 #12, "Resume snapshots").
+With ``rater.resume_dir`` (or ``KERASLM_RESUME_DIR``) set, every epoch
+boundary snapshots the whole training state (``utils/orbaxio.py``
+``TrainCheckpointer``: params, best params, Adam's state, the dropout
+generator, history, early-stopping counters, data seed and split), and
+a killed run resumes from the last completed epoch with the trajectory
+of an uninterrupted run.
+
+Not ported yet, raising ``NotImplementedError``: training over a device
+mesh (``rater.mesh``; ROADMAP.md Queue 1 #16, "Distributed").
 """
 from __future__ import annotations
 
@@ -32,12 +37,13 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .data import (Batch, Prefetcher, gen_stateful_parity,
+from .data import (Batch, Prefetcher, SplitPlan, gen_stateful_parity,
                    gen_stateful_streams, gen_stateless, split_data)
 from .models.lstm_lm import (Carry, LMConfig, Params, forward_seq,
                              host_to_device, param_leaves,
                              regularization_loss, sequence_xent, zero_carry)
-from .utils import h5io
+from .utils import h5io, orbaxio
+from .utils.vocab import Vocab
 
 LOG = logging.getLogger(__name__)
 
@@ -159,10 +165,6 @@ def train_rater(rater, data, val_data=None) -> None:
         raise NotImplementedError(
             'training over a device mesh is not ported yet (ROADMAP.md '
             'Queue 1 #16, "Distributed")')
-    if rater.resume_dir or os.environ.get('KERASLM_RESUME_DIR'):
-        raise NotImplementedError(
-            'train-state snapshots (resume_dir, KERASLM_RESUME_DIR) are '
-            'not ported yet (ROADMAP.md Queue 1 #12, "Resume snapshots")')
 
     # handles without a re-openable path (StringIO, pipes, stdin)
     # spool to temp files: the generators re-read inputs by name every
@@ -194,32 +196,90 @@ def train_rater(rater, data, val_data=None) -> None:
                 pass
 
 
+def _topology(rater) -> dict:
+    """What a snapshot must share with the run that resumes it: the
+    parameter shapes and the data layout."""
+    return {'width': rater.width, 'depth': rater.depth,
+            'length': rater.length, 'stateful': bool(rater.stateful),
+            'train_streams': bool(rater.train_streams),
+            'batch_size': rater.batch_size,
+            'contexts': [list(c) for c in rater.contexts],
+            'variable_length': bool(rater.variable_length)}
+
+
+def _load_resume(rater, resume_dir):
+    """The newest snapshot in ``resume_dir`` that this run can continue,
+    or None (none there, or one of another configuration: warned)."""
+    resume = orbaxio.load_train_state(resume_dir)
+    if resume is None:
+        return None
+    topo = resume['meta'].get('topology') or {}
+    want = _topology(rater)
+    if topo and topo != want:
+        rater.logger.warning(
+            'ignoring train-state snapshot in %s: it was written by a '
+            'different configuration (%s vs %s)', resume_dir, topo, want)
+        return None
+    return resume
+
+
 def _train_rater(rater, files, val_files) -> None:
-    plan = split_data(
-        files, stateful=rater.stateful, length=rater.length,
-        validation_split=rater.validation_split, val_files=val_files,
-        known_chars=set(rater.vocab.c2i.keys()))
-    rater.logger.info(
-        'training on %d files / %d character tokens for %d character types',
-        len(plan.training_files), plan.total_chars, len(plan.charset) + 1)
-    # grow vocabulary (index 0 reserved):
-    if rater.vocab.i2c:
-        rater.vocab.grow(plan.charset)
+    resume_dir = rater.resume_dir or os.environ.get('KERASLM_RESUME_DIR')
+    resume = ckpt_mgr = None
+    if resume_dir:
+        resume = _load_resume(rater, resume_dir)
+        ckpt_mgr = orbaxio.TrainCheckpointer(resume_dir)
+    if resume is not None:
+        # the snapshot pins the split and the vocabulary: no corpus read
+        meta = resume['meta']
+        rater.vocab = Vocab.from_codepoints(
+            np.asarray(meta['mapping'], dtype=np.uint32))
+        plan = SplitPlan(
+            training_files=list(meta['training_files']),
+            validation_files=list(meta['validation_files']),
+            window_split=(np.asarray(meta['window_split'])
+                          if meta.get('window_split') is not None
+                          else None),
+            total_chars=0, step=rater.length if rater.stateful else 3)
+        rater.logger.info('resuming training from %s (epoch %d)',
+                          resume_dir, meta['epoch_done'] + 1)
     else:
-        rater.vocab.assign(plan.charset)
+        plan = split_data(
+            files, stateful=rater.stateful, length=rater.length,
+            validation_split=rater.validation_split, val_files=val_files,
+            known_chars=set(rater.vocab.c2i.keys()))
+        rater.logger.info(
+            'training on %d files / %d character tokens for %d character '
+            'types', len(plan.training_files), plan.total_chars,
+            len(plan.charset) + 1)
+        # grow vocabulary (index 0 reserved):
+        if rater.vocab.i2c:
+            rater.vocab.grow(plan.charset)
+        else:
+            rater.vocab.assign(plan.charset)
     rater.voc_size = rater.vocab.size
     rater.reconfigure_for_mapping()
     cfg = rater.cfg
     device = rater.device
     # the trained tensors are fresh leaves: rater.params stays as it is
     # until training ends
-    params = copy_params(rater.params, requires_grad=True)
+    params = copy_params(rater.params if resume is None else
+                         _on_device(resume['state']['params'], device),
+                         requires_grad=True)
     optimizer = make_optimizer(params)
     # dropout masks come from a CPU generator, so a seed gives the same
-    # run on any device; the data-stream generator is seeded per epoch
+    # run on any device; the data-stream generator is seeded per epoch.
+    # A resumed run draws both too, as JAX's does, then takes the
+    # snapshot's; the global stream after these draws is an
+    # uninterrupted run's only when no window split was drawn (a resumed
+    # run skips split_data, whose stateless validation split draws one).
     rng = torch.Generator().manual_seed(
         int(np.random.randint(0, 2 ** 31 - 1)))
     data_seed = int(np.random.randint(0, 2 ** 31 - 1))
+    if resume is not None:
+        optimizer.load_state_dict(resume['state']['opt'])
+        rng.set_state(torch.tensor(meta['rng'], dtype=torch.uint8))
+        data_seed = int(meta['data_seed'])
     stopper = StopSignal(logger=rater.logger)
     batch_dim = (1 if (rater.stateful and not rater.train_streams)
                  else rater.batch_size)
@@ -297,9 +357,46 @@ def _train_rater(rater, files, val_files) -> None:
     bad_epochs = 0
     nan_seen = False
     steps_done = 0
+    start_epoch = 0
     first_step_logged = False
+    if resume is not None:
+        history = {k: list(v) for k, v in meta['history'].items()}
+        best_val = (float(meta['best_val'])
+                    if meta['best_val'] is not None else np.inf)
+        best_params = _on_device(resume['state']['best_params'], device)
+        best_epoch = int(meta['best_epoch'])
+        bad_epochs = int(meta['bad_epochs'])
+        steps_done = int(meta['steps_done'])
+        start_epoch = int(meta['epoch_done'])
+
+    def snapshot(epoch_done):
+        """The state after ``epoch_done`` completed epochs, committed in
+        the background (the tensors are copied before this returns)."""
+        if ckpt_mgr is None:
+            return
+        ckpt_mgr.save(epoch_done, {
+            'params': params,
+            'best_params': best_params if best_params is not None
+            else params,
+            'opt': optimizer.state_dict()}, {
+            'epoch_done': epoch_done,
+            'steps_done': steps_done,
+            'history': history,
+            'best_val': None if not np.isfinite(best_val)
+            else float(best_val),
+            'best_epoch': best_epoch,
+            'bad_epochs': bad_epochs,
+            'rng': rng.get_state().tolist(),
+            'data_seed': data_seed,
+            'training_files': plan.training_files,
+            'validation_files': plan.validation_files,
+            'window_split': (plan.window_split.tolist()
+                             if plan.window_split is not None else None),
+            'mapping': rater.vocab.to_codepoints().tolist(),
+            'topology': _topology(rater)})
+
     try:
-        for epoch in range(EPOCHS):
+        for epoch in range(start_epoch, EPOCHS):
             # ---- training pass ----
             epoch_t0 = time.perf_counter()
             tr_nll, tr_acc, tr_n, last_loss, interrupted = run_epoch(
@@ -371,13 +468,21 @@ def _train_rater(rater, files, val_files) -> None:
                 if bad_epochs >= PATIENCE and \
                         steps_done >= MIN_STEPS_BEFORE_STOP and \
                         not interrupted:
+                    snapshot(epoch + 1)
                     rater.logger.info('early stopping (best epoch %d)',
                                       best_epoch + 1)
                     break
-            if interrupted or stopper.received:
+            if interrupted:
+                # SIGINT cut the epoch: keep the last completed epoch's
+                # snapshot (a resume must not skip the unseen data)
+                break
+            snapshot(epoch + 1)
+            if stopper.received:
                 break
     finally:
         stopper.restore()
+        if ckpt_mgr is not None:
+            ckpt_mgr.close()  # wait for and commit the last snapshot
 
     rater.params = best_params if (
         best_epoch >= 0 and best_params is not None) \
@@ -404,4 +509,13 @@ def copy_params(params: Params, requires_grad: bool = False) -> Params:
             'context_embeddings': [copy(e) for e in
                                    params['context_embeddings']],
             'lstm': [{k: copy(v) for k, v in lp.items()}
+                     for lp in params['lstm']]}
+
+
+def _on_device(params: Params, device) -> Params:
+    """A parameter tree of CPU tensors (a snapshot's) on ``device``."""
+    return {'char_embedding': params['char_embedding'].to(device),
+            'context_embeddings': [e.to(device) for e in
+                                   params['context_embeddings']],
+            'lstm': [{k: v.to(device) for k, v in lp.items()}
                      for lp in params['lstm']]}

@@ -3,14 +3,14 @@
 Bidirectional char<->index mapping with index 0 reserved for
 unknown/padding ("underspecification"), as read from the h5
 ``config/mapping`` codepoint array or assigned and grown by training.
-Counterpart of ``ocrd_keraslm_tpu/utils/vocab.py`` (numpy only; pruning
-is not ported yet), with ``read_normalized`` for reading text files.
+Counterpart of ``ocrd_keraslm_tpu/utils/vocab.py`` (numpy only), with
+``read_normalized`` for reading text files.
 """
 from __future__ import annotations
 
 import logging
 import unicodedata
-from typing import Dict, Iterable, List, Sequence
+from typing import Dict, Iterable, List, Optional, Sequence
 
 import numpy as np
 
@@ -102,6 +102,54 @@ class Vocab:
                 on_unmapped(char)
             return 0
         return idx
+
+    def char(self, idx: int) -> Optional[str]:
+        return self.i2c.get(idx)
+
+    def decode(self, indices: Iterable[int]) -> str:
+        return ''.join(self.i2c.get(int(i), '\ufffd') for i in indices)
+
+    def remove(self, char: Optional[str] = None,
+               idx: Optional[int] = None) -> Optional[int]:
+        """Remove one char, re-indexing all higher indices down by one.
+        Returns the removed index (for the weight row to delete), or
+        None where nothing was mapped."""
+        if char is None and idx is None:
+            return None
+        if char is not None:
+            if char not in self.c2i:
+                LOG.error('unmapped character "%s" cannot be removed', char)
+                return None
+            idx = self.c2i[char]
+        else:
+            if idx not in self.i2c:
+                LOG.error('unmapped index "%d" cannot be removed', idx)
+                return None
+            char = self.i2c[idx]
+        size = self.size
+        self.c2i.pop(char)
+        self.i2c.pop(idx)
+        for i in range(idx + 1, size):
+            other = self.i2c.get(i)
+            if other is None:
+                continue
+            self.c2i[other] = i - 1
+            self.i2c[i - 1] = other
+            self.i2c.pop(i)
+        self._mapping_changed()
+        return idx
+
+    def print_charset(self) -> None:
+        """Print the mapped characters, warning about entries that are
+        not NFC-normalised."""
+        for i, c in sorted(self.i2c.items()):
+            print('%d: "%s"' % (i, c))
+            char = nfc(c)
+            if c != char:
+                LOG.warning(
+                    'mapped character "%s" (%d) should have been normalized '
+                    'to "%s", which is %s mapped',
+                    c, i, char, 'also' if char in self.c2i else 'not')
 
     def encode(self, text: str, log_unmapped: bool = False) -> np.ndarray:
         """Encode a string into an int32 index array (0 for unmapped),

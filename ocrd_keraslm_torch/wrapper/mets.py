@@ -82,6 +82,11 @@ class Workspace:
         self.mets = (parse_mets(self.mets_path)
                      if os.path.exists(self.mets_path) else Mets())
 
+    def download_file(self, f: MetsFile) -> MetsFile:
+        """Resolve a file for local reading: a workspace's files are
+        local already, so this returns ``f`` unchanged."""
+        return f
+
     def add_file(self, file_grp: str, ID: str, pageId: Optional[str],
                  local_filename: str, mimetype: str = MIMETYPE_PAGE,
                  content: Optional[str] = None,

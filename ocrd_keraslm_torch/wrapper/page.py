@@ -328,6 +328,9 @@ class PcGts:
     def set_pcGtsId(self, value):
         self.pcGtsId = value
 
+    def get_Metadata(self):
+        return self.metadata
+
     def add_metadata_item(self, item: MetadataItem):
         self.metadata.items.append(item)
 

@@ -177,6 +177,19 @@ class KerasRate:
                 return cand
         raise FileNotFoundError('cannot resolve model resource %r' % name)
 
+    # frequently consulted parameters, in one place
+    @property
+    def _level(self) -> str:
+        return self.parameter['textequiv_level']
+
+    @property
+    def _beam_width(self) -> int:
+        return self.parameter['beam_width']
+
+    @property
+    def _lm_weight(self) -> float:
+        return self.parameter['lm_weight']
+
     def _page_context(self):
         """Year-decade context from the METS unique identifier."""
         return mets_get_context(self.workspace.mets)
@@ -255,7 +268,7 @@ class KerasRate:
         self.workspace = workspace
         self.verify()
         n_par = int(os.environ.get('OCRD_MAX_PARALLEL_PAGES', '1') or 1)
-        level = self.parameter['textequiv_level']
+        level = self._level
         context = self._page_context()
 
         def prep(input_file):
@@ -319,7 +332,7 @@ class KerasRate:
 
     def _apply_confidences(self, pcgts, text, confidences, level):
         apply_confidences(text, confidences, level,
-                          self.parameter['lm_weight'], self.logger)
+                          self._lm_weight, self.logger)
 
     def process_workspace_stateful(self, workspace: Workspace) -> None:
         """Sequential page loop with the beam carried across pages and
@@ -343,7 +356,7 @@ class KerasRate:
         interchangeable.  With ``device_decoding=false`` the host engine
         decodes every page, writing each once the next has decoded; the
         last is locked in at the end."""
-        level = self.parameter['textequiv_level']
+        level = self._level
         self.workspace = workspace
         self.verify()
         nr_succeeded = 0
@@ -525,7 +538,7 @@ class KerasRate:
                     if gbuf and not self.rater.fused_group_fits(
                             sum(g[3] for g in gbuf) + n_prep,
                             max(max(g[4] for g in gbuf), maxlen),
-                            self.parameter['beam_width']):
+                            self._beam_width):
                         flush_group()
                     # per-page log lines as on the per-page path
                     self.rater.logger.info(
@@ -622,7 +635,7 @@ class KerasRate:
         return (self.parameter['alternative_decoding']
                 and self.parameter['device_decoding']
                 and not self.parameter['lookahead_writeback']
-                and self.parameter['textequiv_level'] in ('word', 'glyph')
+                and self._level in ('word', 'glyph')
                 and self.rater is not None
                 and os.environ.get('KERASLM_NATIVE_PAGE', '1') != '0'
                 and page_native.available())
@@ -632,10 +645,10 @@ class KerasRate:
         n_prep, maxlen)`` when one launch can take the page, else None
         (the caller flushes the group and takes the per-page path,
         which checks its own gates)."""
-        lat = doc.lattice(self.parameter['textequiv_level'],
+        lat = doc.lattice(self._level,
                           self.rater.merge_runs, DECODE_MERGE_MAX)
         if lat is None or self.rater.fused_gate_arrays(
-                lat[1], lat[2], self.parameter['beam_width']) is None:
+                lat[1], lat[2], self._beam_width) is None:
             return None
         return lat
 
@@ -653,7 +666,7 @@ class KerasRate:
         raises."""
         if not gbuf:
             return device_tb
-        beam_width = self.parameter['beam_width']
+        beam_width = self._beam_width
         pages = list(gbuf)
         gbuf.clear()
         try:
@@ -683,7 +696,7 @@ class KerasRate:
             return device_tb
         pending, device_tb = self.rater.rate_best_device_begin_arrays_group(
             segs, device_traceback=device_tb, context=self._page_context(),
-            lm_weight=self.parameter['lm_weight'], beam_width=beam_width)
+            lm_weight=self._lm_weight, beam_width=beam_width)
         page_native.groups += 1
         page_native.pages += len(pages)
         for i, (doc, fid, pid, _, _, _, inf) in enumerate(pages):
@@ -696,8 +709,8 @@ class KerasRate:
         ``decode_lattice`` launch.  Returns None when the lattice or the
         kernel's gate refuses the page (counted as a bail; the caller
         takes the record lane through ``doc.to_fast()``)."""
-        level = self.parameter['textequiv_level']
-        beam_width = self.parameter['beam_width']
+        level = self._level
+        beam_width = self._beam_width
         lat = doc.lattice(level, self.rater.merge_runs, DECODE_MERGE_MAX)
         if lat is None:
             return None
@@ -720,7 +733,7 @@ class KerasRate:
         pending, device_tb = self.rater.rate_best_device_begin_arrays(
             n_prep, E, L, chars, mask, conf, valid,
             device_traceback=device_tb, context=self._page_context(),
-            lm_weight=self.parameter['lm_weight'], beam_width=beam_width)
+            lm_weight=self._lm_weight, beam_width=beam_width)
         page_native.pages += 1
         return (pending, doc, file_id, page_id), device_tb
 
@@ -737,7 +750,7 @@ class KerasRate:
             self.logger.debug('native page lane ineligible (%s): record '
                               'lane', pcgts.bail)
             pcgts = pcgts.to_fast()
-        level = self.parameter['textequiv_level']
+        level = self._level
         self.rater.logger.info("Scoring text in page '%s' at the %s "
                                'level (device beam)',
                                pcgts.get_pcGtsId(), level)
@@ -749,8 +762,8 @@ class KerasRate:
             edges, 0, len(edges),
             device_traceback=device_tb,
             context=self._page_context(),
-            lm_weight=self.parameter['lm_weight'],
-            beam_width=self.parameter['beam_width'],
+            lm_weight=self._lm_weight,
+            beam_width=self._beam_width,
             defer_walk=bool(self.parameter['lookahead_writeback']))
         return (pending, pcgts, file_id, page_id), device_tb
 
@@ -761,7 +774,7 @@ class KerasRate:
         """Decode one page by the host engine from the previous page's
         traceback, and write the previous page with the path this
         decode locked in; returns this page's state (written later)."""
-        level = self.parameter['textequiv_level']
+        level = self._level
         self.rater.logger.info("Scoring text in page '%s' at the %s level",
                                pcgts.get_pcGtsId(), level)
         graph, start_node, end_node = page_get_linear_graph_at(
@@ -774,8 +787,8 @@ class KerasRate:
             graph, start_node, end_node,
             start_traceback=prev and prev.traceback,
             context=self._page_context(),
-            lm_weight=self.parameter['lm_weight'],
-            beam_width=self.parameter['beam_width'],
+            lm_weight=self._lm_weight,
+            beam_width=self._beam_width,
             beam_clustering_dist=(BEAM_CLUSTERING_DIST
                                   if BEAM_CLUSTERING_ENABLE else 0))
         if prev:
@@ -800,7 +813,7 @@ class KerasRate:
         page by its path (``result``: the path a lookahead walk
         found)."""
         pending, pcgts, file_id, page_id = rec
-        level = self.parameter['textequiv_level']
+        level = self._level
         if pending[0] == 'gseg' or isinstance(pcgts, NativePageDoc):
             if pending[0] == 'gseg':
                 _, group_pending, seg_i = pending

@@ -1372,3 +1372,107 @@ def test_bf16_batch_equals_single_document_launches(cuda):
                            rec[:, :, n * K:(n + 1) * K]), n
         assert torch.equal(single[1], stateF[n * K:(n + 1) * K]), n
         assert torch.equal(single[2][0, :K], costF[n * K:(n + 1) * K, 0]), n
+
+
+def _train_steps(cuda, steps=3, seed=5):
+    """Three ``train_step``s at W=32 from one initialisation and dropout
+    seed on the card; returns the gradients of each step and the final
+    parameters."""
+    from ocrd_keraslm_torch import training
+    from ocrd_keraslm_torch.models.lstm_lm import param_leaves, zero_carry
+    from ocrd_keraslm_torch.rater import Rater
+    from ocrd_keraslm_torch.utils.vocab import Vocab
+    rater = Rater(device=cuda)
+    rater.width, rater.depth, rater.length = 32, 2, 16
+    rater.vocab = Vocab()
+    rater.vocab.assign('abcdefghij ')
+    rater.voc_size = rater.vocab.size
+    rater.configure()
+    params = training.copy_params(rater.params, requires_grad=True)
+    optimizer = training.make_optimizer(params)
+    cfg, gen = rater.cfg, torch.Generator().manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    carry = zero_carry(cfg, 64, cuda)
+    grads = []
+    for _ in range(steps):
+        # many repeats of few chars: the rows of a table row meet often
+        x = torch.from_numpy(rng.integers(1, 12, (64, 16))).to(cuda)
+        y = torch.from_numpy(rng.integers(1, 12, (64, 16))).to(cuda)
+        zs = [torch.from_numpy(rng.integers(0, 20, (64,))).to(cuda)]
+        mask = torch.ones((64, 16), device=cuda)
+        optimizer.zero_grad(set_to_none=True)
+        loss, (_, _, carry) = training._loss_fn(params, cfg, x, zs, y, mask,
+                                                carry, gen, True)
+        loss.backward()
+        grads.append([p.grad.clone() for p in param_leaves(params)])
+        optimizer.step()
+        carry = (carry[0].detach(), carry[1].detach())
+    return grads, [p.detach().clone() for p in param_leaves(params)]
+
+
+def test_training_steps_are_the_same_from_run_to_run(cuda):
+    """The embedding lookups of a training step on the card sum their
+    gradient in a fixed order (a one-hot product), so two runs from one
+    initialisation give the same gradients and parameters bit for bit:
+    a resumed run can replay an uninterrupted one."""
+    (g1, p1), (g2, p2) = _train_steps(cuda), _train_steps(cuda)
+    for step, (a, b) in enumerate(zip(g1, g2)):
+        assert all(torch.equal(u, v) for u, v in zip(a, b)), step
+    assert all(torch.equal(u, v) for u, v in zip(p1, p2))
+
+
+def test_resume_matches_uninterrupted_on_the_card(cuda, tmp_path,
+                                                  monkeypatch):
+    """``train --resume-dir`` on the card: a run killed in epoch 2
+    resumes from its epoch-1 snapshot with the uninterrupted run's
+    history, equal exactly."""
+    import random
+
+    from ocrd_keraslm_torch import training
+    from ocrd_keraslm_torch.rater import Rater
+    from ocrd_keraslm_torch.utils.orbaxio import load_train_state
+    rng = np.random.default_rng(4)
+    words = ('die', 'der', 'und', 'ist', 'kant', 'vernunft', 'mensch')
+    files = []
+    for name in ('a_eins_1781.txt', 'b_zwei_1790.txt', 'c_drei_1800.txt'):
+        (tmp_path / name).write_text('\n'.join(
+            ' '.join(words[i] for i in rng.integers(0, 7, 10))
+            for _ in range(60)))
+        files.append(str(tmp_path / name))
+
+    class Killed(BaseException):
+        pass
+
+    def run(resume_dir, tag):
+        monkeypatch.setattr(training, 'EPOCHS', 3)
+        random.seed(11)
+        np.random.seed(13)
+        r = Rater(device=cuda)
+        r.width, r.depth, r.length, r.batch_size = 32, 2, 16, 16
+        r.ckpt_dir = str(tmp_path / ('ckpt_' + tag))
+        r.resume_dir = resume_dir
+        r.configure()
+        r.train(files)
+        return r
+    want = run(None, 'a').history
+    real = training.Prefetcher
+    made = []
+
+    class Dying:
+        def __init__(self, gen):
+            made.append(1)
+            self.inner = real(gen)
+
+        def __iter__(self):
+            for n, b in enumerate(iter(self.inner)):
+                if len(made) == 3 and n == 1:
+                    self.inner.close()
+                    raise Killed()
+                yield b
+    monkeypatch.setattr(training, 'Prefetcher', Dying)
+    snap = str(tmp_path / 'snap')
+    with pytest.raises(Killed):
+        run(snap, 'b')
+    monkeypatch.setattr(training, 'Prefetcher', real)
+    assert load_train_state(snap)['meta']['epoch_done'] == 1
+    assert run(snap, 'c').history == want

@@ -4,6 +4,7 @@ through the port's own reader.  (JAX-written files read by the port are
 covered by ``test_torch_io_model.py``.)  All comparisons are exact: the
 writer stores the float32 arrays as they are."""
 import json
+import os
 
 import h5py
 import numpy as np
@@ -194,6 +195,10 @@ def test_writer_lays_out_large_groups_and_value_types(tmp_path):
 
 
 def test_rater_save_refuses_the_orbax_format(tmp_path):
+    """Saving needs weights; since the port's model directory format
+    (Queue 1 #12) a directory or an ``.orbax`` path is saved in it (and
+    loads back bit for bit), an h5 path as an h5 file the JAX package
+    loads."""
     from ocrd_keraslm_torch.rater import Rater
     r = Rater(device='cpu')
     r.load_config(GERMAN)
@@ -202,8 +207,14 @@ def test_rater_save_refuses_the_orbax_format(tmp_path):
         r.save(str(tmp_path / 'm.h5'))
     r.load_weights(GERMAN)
     for target in (str(tmp_path / 'model.orbax'), str(tmp_path)):
-        with pytest.raises(NotImplementedError, match='Queue 1 #12'):
-            r.save(target)
+        r.save(target)
+        assert os.path.isfile(os.path.join(target, 'config.json'))
+        back = Rater(device='cpu')
+        back.load_config(target)
+        back.configure()
+        back.load_weights(target)
+        for a, b in zip(_leaves(back.params), _leaves(r.params)):
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
     r.save(str(tmp_path / 'm.h5'))
     got = jh5.load_model(str(tmp_path / 'm.h5'))
     want = jh5.load_model(GERMAN)

@@ -331,18 +331,54 @@ def test_keraslm_rate_apply_and_test_match_jax(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize('args, item', [
     (['train', '--mesh', '2'], 'Distributed'),
-    # generate is ported since; its case became another unported
-    # command under the id it had, so that the id stays
-    pytest.param(['prune-charset', '-m', GERMAN], 'CLI and tooling',
+    # generate, then prune-charset, print-charset and --jax-trace were
+    # ported since; each case keeps the id it had
+    pytest.param(['prune-charset', '-m', 'MODEL', 'J'], 'CLI and tooling',
                  id='args1-Generation'),
     (['print-charset', '-m', GERMAN], 'CLI and tooling'),
-    (['--jax-trace', 'd', 'test', '-m', GERMAN], 'Device trace')])
-def test_keraslm_rate_unported_commands_raise(args, item):
-    res = CliRunner().invoke(tcli, args)
-    assert isinstance(res.exception, NotImplementedError), res.output
-    assert item in str(res.exception) and 'ROADMAP.md' in str(
-        res.exception)
+    (['--jax-trace', 'TRACE', 'test', '-m', GERMAN, 'DATA'],
+     'Device trace')])
+def test_keraslm_rate_unported_commands_raise(args, item, tmp_path,
+                                              monkeypatch):
+    """``train --mesh`` still raises, naming its ROADMAP.md item
+    ("Distributed"); the other three commands are ported and run as
+    JAX's do (``tests/test_torch_cli_tooling.py`` holds them against
+    JAX in full)."""
+    monkeypatch.setenv('KERASLM_PLATFORM', 'cpu')
     assert tcli.list_commands(None)[:3] == ['train', 'test', 'apply']
+    if item == 'Distributed':
+        res = CliRunner().invoke(tcli, args)
+        assert isinstance(res.exception, NotImplementedError), res.output
+        assert item in str(res.exception) and 'ROADMAP.md' in str(
+            res.exception)
+        return
+    model = str(tmp_path / 'm.h5')
+    data = tmp_path / 'kant_werk_1784.txt'
+    data.write_text('Die Vernunft ist das Vermögen der Prinzipien.',
+                    encoding='utf-8')
+    import shutil
+    shutil.copy(GERMAN, model)
+    subst = {'MODEL': model, 'TRACE': str(tmp_path / 'trace'),
+             'DATA': str(data)}
+    args = [subst.get(a, a) for a in args]
+    res = CliRunner().invoke(tcli, ['-l', 'WARNING'] + args)
+    assert res.exit_code == 0, (res.output, res.exception)
+    # JAX's run of the same command, without the trace
+    want = CliRunner().invoke(jcli, ['-l', 'WARNING'] + (
+        args[2:] if args[0] == '--jax-trace' else args))
+    if item == 'Device trace':
+        trace, = os.listdir(tmp_path / 'trace')
+        with open(tmp_path / 'trace' / trace) as fh:
+            assert json.load(fh)['traceEvents']
+        assert float(res.output.strip().splitlines()[-1]) == \
+            pytest.approx(float(want.output.strip().splitlines()[-1]),
+                          rel=RTOL)
+    elif args[0] == 'print-charset':
+        assert res.output == want.output
+    else:
+        from ocrd_keraslm_torch.utils import h5io
+        assert 'J' not in h5io.load_config(model)[1].c2i
+        assert 'J' in h5io.load_config(GERMAN)[1].c2i
 
 
 def test_context_beyond_the_table_reads_its_last_row():

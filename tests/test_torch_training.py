@@ -13,6 +13,7 @@ rounding-sized difference between the packages (such elements exist:
 the embedding rows of chars that do not occur).  Started in the middle,
 with Adam's moments carried across from optax, the denominators are
 well away from zero and parameters agree to rtol 1e-3 / atol 1e-5."""
+import contextlib
 import glob
 import io
 import os
@@ -227,6 +228,19 @@ def corpus(tmp_path):
                 fh.write(' '.join(random.choices(words, k=10)) + '\n')
         files.append(str(path))
     return files
+
+
+@contextlib.contextmanager
+def _global_rngs_kept():
+    """Keep the global random states across a block that trains: the
+    tests after it in this file (unseeded, run in one worker) then draw
+    what they drew when the block trained nothing."""
+    np_state, py_state = np.random.get_state(), random.getstate()
+    try:
+        yield
+    finally:
+        np.random.set_state(np_state)
+        random.setstate(py_state)
 
 
 def _train(files, tmp_path, epochs=2, monkeypatch=None, **attrs):
@@ -466,16 +480,30 @@ def test_train_from_handles_and_no_data(tmp_path):
     ('KERASLM_RESUME_DIR', 'Queue 1 #12')])
 def test_unported_training_modes_name_their_roadmap_item(
         corpus, tmp_path, monkeypatch, how, item):
-    r = Rater(device='cpu')
-    r.width, r.depth, r.length = 16, 1, 16
-    r.configure()
+    """Training over a mesh (Queue 1 #16) still raises, naming its item;
+    the train-state snapshots of Queue 1 #12 (``resume_dir`` or
+    ``KERASLM_RESUME_DIR``) are ported: the run snapshots every epoch
+    (``tests/test_torch_resume.py`` holds the resume itself)."""
+    snap = tmp_path / 'snap'
+    if how == 'mesh':
+        r = Rater(device='cpu')
+        r.width, r.depth, r.length = 16, 1, 16
+        r.configure()
+        r.mesh = str(tmp_path)
+        with pytest.raises(NotImplementedError, match=item):
+            r.train(corpus)
+        assert r.params is None      # nothing was touched
+        return
+    from ocrd_keraslm_torch.utils.orbaxio import load_train_state
     if how == 'KERASLM_RESUME_DIR':
-        monkeypatch.setenv(how, str(tmp_path))
-    else:
-        setattr(r, how, str(tmp_path))
-    with pytest.raises(NotImplementedError, match=item):
-        r.train(corpus)
-    assert r.params is None      # nothing was touched
+        monkeypatch.setenv(how, str(snap))
+    with _global_rngs_kept():
+        r = _train(corpus, tmp_path, batch_size=8, **(
+            {'resume_dir': str(snap)} if how == 'resume_dir' else {}))
+    assert r.status == 2
+    assert os.listdir(snap) == ['ep_0002']
+    meta = load_train_state(str(snap))['meta']
+    assert meta['epoch_done'] == 2 and meta['history'] == r.history
 
 
 # ----------------------------------------------------------------------
@@ -552,11 +580,24 @@ def test_cli_train_bf16(tmp_path, corpus, cpu_platform):
     ('--mesh', '2', 'Queue 1 #16'), ('--resume-dir', 'snap', 'Queue 1 #12')])
 def test_cli_train_unported_options_raise(tmp_path, corpus, cpu_platform,
                                           option, value, item):
-    res = CliRunner().invoke(cli, ['train', '-m', str(tmp_path / 'm.h5'),
-                                   option, value] + corpus)
-    assert isinstance(res.exception, NotImplementedError)
-    assert item in str(res.exception)
-    assert not (tmp_path / 'm.h5').exists()
+    """``--mesh`` (Queue 1 #16) still raises and writes no model;
+    ``--resume-dir`` (Queue 1 #12) is ported: the model is written and
+    the directory holds the last epoch's snapshot."""
+    if option == '--resume-dir':
+        value = str(tmp_path / value)
+    with _global_rngs_kept():
+        res = CliRunner().invoke(cli, [
+            '-l', 'WARNING', 'train', '-m', str(tmp_path / 'm.h5'), '-w',
+            '16', '-d', '1', '-l', '16', '-e', '1', '-b', '8', option,
+            value] + corpus)
+    if option == '--mesh':
+        assert isinstance(res.exception, NotImplementedError)
+        assert item in str(res.exception)
+        assert not (tmp_path / 'm.h5').exists()
+        return
+    assert res.exit_code == 0, (res.output, res.exception)
+    assert (tmp_path / 'm.h5').exists()
+    assert os.listdir(value) == ['ep_0001']
 
 
 def test_cli_lists_train_and_print_history_as_ported():
@@ -568,4 +609,4 @@ def test_cli_lists_train_and_print_history_as_ported():
     assert 'not ported' not in lines['train']
     assert 'not ported' not in lines['print-history']
     assert 'not ported' not in lines['generate']
-    assert 'not ported' in lines['prune-charset']
+    assert 'not ported' not in lines['prune-charset']
