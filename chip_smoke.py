@@ -3354,10 +3354,11 @@ def stream_batches(files, vocab, train=False, rng=None, length=TRAIN_T):
         train=train, rng=rng)
 
 
-def run_train_cli(work, model, files, epochs, seed, extra=()):
+def run_train_cli(work, model, files, epochs, seed, extra=(), ckpt=None):
     """``keraslm-rate train`` at the main path's width on the card, in
-    this process, counts zeroed before; returns (wall s, counts, the
-    chars/s the trainer logged per epoch)."""
+    this process, counts zeroed before, checkpoints into ``ckpt``
+    (default WORK/ckpt); returns (wall s, counts, the chars/s the
+    trainer logged per epoch)."""
     import logging
 
     import torch
@@ -3383,7 +3384,7 @@ def run_train_cli(work, model, files, epochs, seed, extra=()):
             str(TRAIN_D), '-l', str(TRAIN_T), '-b', str(TRAIN_B), '-e',
             str(epochs)] + list(extra) + list(files),
             env={'KERASLM_PLATFORM': 'cuda',
-                 'KERASLM_CKPT_DIR': os.path.join(work, 'ckpt')})
+                 'KERASLM_CKPT_DIR': ckpt or os.path.join(work, 'ckpt')})
         torch.cuda.synchronize()
     finally:
         logger.removeHandler(handler)
@@ -3486,7 +3487,8 @@ def training_path(work, card):
              float(np.log(vocab16.size)), hist16['val_loss'][0],
              os.path.basename(model16)))
     return dict(wall=wall, steps=steps, val_steps=epochs * n_val,
-                epochs=epochs, rates=rates, launches=counts,
+                epochs=epochs, rates=rates, launches=counts, files=files,
+                seed=seed,
                 launches_bf16=counts16, plan=plan, vocab=vocab,
                 n_chars=n_chars)
 
@@ -5650,6 +5652,453 @@ def trace_path(rater, work, decode, card):
     return dict(wall=wall, kernels=len(kernels))
 
 
+# ---------------------------------------------------------------------
+# the distributed phase (parallel/): ranks on the one card
+# ---------------------------------------------------------------------
+
+DIST_RANKS = 2
+DIST_STEPS = 3             # steps of the vocabulary and pipeline meshes
+DIST_TIMEOUT = 300         # seconds a rank may take before the phase fails
+DIST_DROPOUT_SEED = 7
+
+
+def aligned_seed(seed):
+    """The seed that ``parallel.multihost.align_seed`` gives every rank
+    of a world whose rank 0 was seeded with :func:`seed_host` (seed): the
+    one-process reference of a mesh run draws from it."""
+    seed_host(seed)
+    return int(np.random.randint(0, 2 ** 31 - 1))
+
+
+def dist_batches(V, seed=41):
+    """``DIST_STEPS`` seeded full-width batches (B=128, T=256): ids in
+    [1, V), context 0, the last stream's last 100 targets masked."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(DIST_STEPS):
+        mask = np.ones((TRAIN_B, TRAIN_T), np.float32)
+        mask[-1, -100:] = 0.0
+        out.append(dict(
+            x=rng.integers(1, V, (TRAIN_B, TRAIN_T)).astype(np.int64),
+            y=rng.integers(1, V, (TRAIN_B, TRAIN_T)).astype(np.int64),
+            z=np.zeros((TRAIN_B,), np.int64), mask=mask))
+    return out
+
+
+def dist_cfg(kind):
+    """The german model's configuration for the step checks: dropout 0.1
+    on the data and vocabulary meshes (their masks are the one-process
+    run's), 0 on the pipeline (its masks differ in bits by design)."""
+    from ocrd_keraslm_torch.utils import h5io
+    cfg = h5io.load_config(MODEL)[0]
+    return cfg.replace(length=TRAIN_T,
+                       dropout=0.0 if kind == 'pipe' else 0.1)
+
+
+def dist_steps(kind, dev, mesh=None):
+    """``DIST_STEPS`` steps from the german model's weights on the seeded
+    batches: one process (``mesh`` None, ``training.train_step``), the
+    2-rank data mesh (``kind`` 'dp', each rank its half of the rows), the
+    1x2 vocabulary mesh ('tp') or the 2-stage pipeline with 2
+    microbatches ('pipe').  Returns (losses, seconds a step (synchronised
+    host clock), the canonical weights after the last step as numpy
+    leaves, launch counts, the steps' collective counters)."""
+    import torch
+    from ocrd_keraslm_torch import training
+    from ocrd_keraslm_torch.models import lstm_lm as tlm
+    from ocrd_keraslm_torch.utils import h5io
+    cfg = dist_cfg(kind)
+    tree = h5io.load_weights(MODEL, cfg)
+    if mesh is None:
+        params = training.copy_params(tlm.params_from_numpy(tree, dev),
+                                      requires_grad=True)
+        opt = training.make_optimizer(params)
+
+        def step(*args):
+            return training.train_step(params, opt, cfg, *args)
+    else:
+        from ocrd_keraslm_torch.parallel.mesh import gather_params
+        from ocrd_keraslm_torch.parallel.pipeline import \
+            make_pipeline_train_step_canonical
+        from ocrd_keraslm_torch.parallel.train import make_sharded_train_step
+        make = (make_pipeline_train_step_canonical(mesh, cfg, 2)
+                if kind == 'pipe' else make_sharded_train_step(mesh, cfg))
+        fn, shard_fn = make
+        params, opt = shard_fn(tlm.params_from_numpy(tree, dev))
+
+        def step(*args):
+            return fn(params, opt, *args)
+    rng = torch.Generator().manual_seed(DIST_DROPOUT_SEED) \
+        if cfg.dropout > 0 else None
+    n_data = 1 if mesh is None else mesh.shape['data']
+    carry = tlm.zero_carry(cfg, TRAIN_B // n_data, dev)
+    from ocrd_keraslm_torch.parallel import comm
+    losses, walls = [], []
+    zero_counts()
+    comm.reset_counters()
+    for b in dist_batches(cfg.voc_size):
+        if n_data > 1:
+            from ocrd_keraslm_torch.parallel.mesh import local_rows
+            b = {k: local_rows(mesh, a) for k, a in b.items()}
+        args = [torch.from_numpy(b[k]).to(dev) for k in ('x', 'z', 'y',
+                                                        'mask')]
+        torch.cuda.synchronize()
+        t0 = time.time()
+        carry, loss, _, _ = step(args[0], [args[1]], args[2], args[3],
+                                 carry, rng)
+        losses.append(float(loss))
+        walls.append(time.time() - t0)
+    counts = read_counts()
+    stats = dict(staged_bytes=comm.staged_bytes,
+                 staged_seconds=comm.staged_seconds, seconds=comm.seconds,
+                 calls=comm.calls)
+    if mesh is not None:
+        params = gather_params(mesh, params)
+    leaves = [t.detach().cpu().numpy() for t in tlm.param_leaves(params)]
+    return losses, walls, leaves, counts, stats
+
+
+def dist_decode_json(results):
+    return [[[te.Unicode for _, te, _ in path],
+             [float(x) for _, _, x in path], float(ent)]
+            for path, ent in results]
+
+
+def dist_serving(rater, spec, counts_of):
+    """(d) scoring, (e) the batch decode and (f) generation with
+    ``rater``'s mesh (or none): their results, launches and the seconds
+    of a second call (the first in a fresh process loads libraries and
+    chooses layouts)."""
+    import torch
+    out = {}
+    docs = workspace_graphs(spec['ws_batch'])
+    prompts = gen_prompts(rater, np.random.default_rng(21), GEN_BATCH)
+    calls = (
+        ('score', lambda: [np.asarray(p, np.float64).tolist() for p in
+                           rater.rate_batch(spec['texts'],
+                                            [[179]] * len(spec['texts']))]),
+        ('decode', lambda: dist_decode_json(rater.rate_best_batch(docs))),
+        ('generate', lambda: rater.generate_batch(prompts, GEN_BATCH_N)))
+    for name, call in calls:
+        zero_counts()
+        got = call()
+        launches = counts_of()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        assert call() == got, name
+        torch.cuda.synchronize()
+        out[name] = dict(result=got, wall=time.time() - t0,
+                         launches=launches)
+    return out
+
+
+def rank_main(task, work, out):
+    """One rank of the distributed phase (``chip_smoke.py --rank TASK
+    WORK OUT``, started by :func:`distributed_path` with the
+    ``KERASLM_*`` variables): joins the world, runs its part, writes its
+    results as JSON to OUT."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from ocrd_keraslm_torch.models import lstm_lm as tlm
+    from ocrd_keraslm_torch.parallel import comm, multihost
+    from ocrd_keraslm_torch.parallel.mesh import make_mesh
+    from ocrd_keraslm_torch.parallel.pipeline import make_pipe_mesh
+    from ocrd_keraslm_torch.parallel.train import make_sharded_train_step
+    from ocrd_keraslm_torch.utils import h5io
+    dev = torch.device('cuda')
+    res = {}
+
+    def comm_stats():
+        stats = dict(staged_bytes=comm.staged_bytes,
+                     staged_seconds=comm.staged_seconds,
+                     seconds=comm.seconds, calls=comm.calls)
+        comm.reset_counters()
+        return stats
+    if task == 'nccl':
+        # one rank over NCCL: one data-parallel step of the german model
+        multihost.join_from_env()
+        mesh = make_mesh(1)
+        cfg = dist_cfg('dp')
+        step, shard_fn = make_sharded_train_step(mesh, cfg)
+        params, opt = shard_fn(tlm.params_from_numpy(
+            h5io.load_weights(MODEL, cfg), dev))
+        comm.reset_counters()
+        zero_counts()
+        carry = tlm.zero_carry(cfg, TRAIN_B, dev)
+        losses, walls = [], []
+        for b in dist_batches(cfg.voc_size)[:2]:
+            torch.cuda.synchronize()
+            t0 = time.time()
+            carry, loss, _, _ = step(
+                params, opt, torch.from_numpy(b['x']).to(dev),
+                [torch.from_numpy(b['z']).to(dev)],
+                torch.from_numpy(b['y']).to(dev),
+                torch.from_numpy(b['mask']).to(dev), carry, None)
+            losses.append(float(loss))
+            walls.append(time.time() - t0)
+        res.update(backend=mesh.backend, losses=losses, walls=walls,
+                   launches=read_counts(), comm=comm_stats())
+    else:
+        with open(os.path.join(work, 'dist_spec.json')) as fh:
+            spec = json.load(fh)
+        # (a) keraslm-rate train --mesh 2: the command joins the world
+        wall, counts, rates = run_train_cli(
+            work, spec['model'], spec['files'], 1, spec['seed'],
+            extra=('--mesh', str(DIST_RANKS)), ckpt=os.path.join(
+                work, 'dist_ckpt' + os.environ['KERASLM_PROCESS_ID']))
+        res['train'] = dict(wall=wall, launches=counts, rates=rates,
+                            comm=comm_stats(), rank=multihost.rank())
+        torch.distributed.barrier()     # rank 0 has written the model
+        res['train']['history'] = h5io.load_config(spec['model'])[2]
+        # the data mesh's steps, (b) the vocabulary over 2 ranks, (c) 2
+        # pipeline stages
+        for kind, mesh in (('dp', make_mesh(DIST_RANKS)),
+                           ('tp', make_mesh(DIST_RANKS, DIST_RANKS)),
+                           ('pipe', make_pipe_mesh(DIST_RANKS, DIST_RANKS))):
+            losses, walls, leaves, counts, stats = dist_steps(kind, dev,
+                                                              mesh)
+            res[kind] = dict(losses=losses, walls=walls, launches=counts,
+                             backend=mesh.backend, comm=stats)
+            if mesh.rank == 0:
+                np.savez(os.path.join(work, 'dist_%s.npz' % kind), *leaves)
+        # (d)-(f): the rows, documents and streams over 2 ranks
+        rater = german_rater(dev)
+        rater.mesh = make_mesh(DIST_RANKS)
+        comm_stats()
+        res['serving'] = dist_serving(rater, spec, read_counts)
+        res['serving_comm'] = comm_stats()
+        res['backend'] = rater.mesh.backend
+    multihost.shutdown()
+    with open(out, 'w') as fh:
+        json.dump(res, fh)
+    return 0
+
+
+def dist_world(task, n, work):
+    """Run ``n`` ranks of :func:`rank_main` on the card, joined through
+    ``KERASLM_COORDINATOR`` on a free local port (tried once more with a
+    fresh port where the port was taken); returns each rank's results.
+    A rank that fails or outlives ``DIST_TIMEOUT`` fails the phase."""
+    import socket
+    for attempt in range(2):
+        sock = socket.socket()
+        sock.bind(('127.0.0.1', 0))
+        port = sock.getsockname()[1]
+        sock.close()
+        outs = [os.path.join(work, 'dist_%s_%d.json' % (task, r))
+                for r in range(n)]
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), '--rank', task, work,
+             outs[r]], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True, cwd=HERE, env=dict(
+                os.environ, KERASLM_COORDINATOR='127.0.0.1:%d' % port,
+                KERASLM_NUM_PROCESSES=str(n), KERASLM_PROCESS_ID=str(r),
+                KERASLM_PLATFORM='cuda')) for r in range(n)]
+        logs, failed = [], []
+        deadline = time.time() + DIST_TIMEOUT
+        for r, p in enumerate(procs):
+            try:
+                log, _ = p.communicate(timeout=max(1, deadline - time.time()))
+            except subprocess.TimeoutExpired:
+                for q in procs:
+                    q.kill()
+                log, _ = p.communicate()
+                failed.append('rank %d timed out after %d s' % (
+                    r, DIST_TIMEOUT))
+            logs.append(log)
+            if p.returncode != 0 and not failed:
+                failed.append('rank %d exited %d' % (r, p.returncode))
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        if not failed:
+            results = []
+            for path in outs:
+                with open(path) as fh:
+                    results.append(json.load(fh))
+            return results
+        if attempt == 0 and any('Address already in use' in log
+                                for log in logs):
+            continue
+        for r, log in enumerate(logs):
+            print('rank %d of the %s world:\n%s' % (r, task, log[-4000:]))
+        raise AssertionError('the %s world failed: %s' % (task, failed))
+    raise AssertionError('no free port for the %s world' % task)
+
+
+def distributed_path(rater, work, train, scoring, card):
+    """Phase 6, distributed (``parallel/``): 2 ranks on the one card
+    (gloo, the CUDA tensors staged through pinned host buffers) and one
+    rank over NCCL, each against one process on the card; returns the
+    phase's numbers."""
+    import torch
+    from ocrd_keraslm_torch.utils import h5io
+    dev = torch.device('cuda')
+    spec = dict(files=train['files'], seed=train['seed'],
+                model=os.path.join(work, 'dist_model.h5'),
+                texts=scoring['texts'],
+                ws_batch=os.path.join(work, 'ws_batch'))
+    with open(os.path.join(work, 'dist_spec.json'), 'w') as fh:
+        json.dump(spec, fh)
+    # the one-process references on the card
+    single = os.path.join(work, 'dist_single.h5')
+    wall1, counts1, rates1 = run_train_cli(work, single, spec['files'], 1,
+                                           aligned_seed(spec['seed']))
+    hist1 = h5io.load_config(single)[2]
+    steps = {kind: dist_steps(kind, dev) for kind in ('dp', 'tp', 'pipe')}
+    serving1 = dist_serving(rater, spec, read_counts)
+    t0 = time.time()
+    ranks = dist_world('mesh', DIST_RANKS, work)
+    world_wall = time.time() - t0
+    t0 = time.time()
+    nccl, = dist_world('nccl', 1, work)
+    nccl_wall = time.time() - t0
+    # (a) keraslm-rate train --mesh 2
+    loss1 = hist1['loss'][0]
+    assert os.path.isfile(spec['model'])
+    assert glob_files(os.path.join(work, 'dist_ckpt0'), 'ckpt.*.h5')
+    assert not glob_files(os.path.join(work, 'dist_ckpt1'), '*'), \
+        'rank 1 wrote a checkpoint'
+    for r, got in enumerate(ranks):
+        t = got['train']
+        assert t['history'] == ranks[0]['train']['history']
+        np.testing.assert_allclose(t['history']['loss'][0], loss1,
+                                   rtol=1e-5, err_msg='rank %d' % r)
+        assert t['launches'] == dict(
+            NO_LAUNCHES, lstm_scan=counts1['lstm_scan'],
+            lstm_bwd=counts1['lstm_bwd']), (r, t['launches'], counts1)
+        assert t['launches']['lstm_bwd'] % TRAIN_D == 0
+    n_steps = counts1['lstm_bwd'] // TRAIN_D
+    from click.testing import CliRunner
+    from ocrd_keraslm_torch.scripts.run import cli as keraslm_rate
+    excerpt = os.path.join(work, 'excerpt_smoke_1790.txt')
+    res = CliRunner().invoke(keraslm_rate, ['-l', 'WARNING', 'test', '-m',
+                                            spec['model'], excerpt],
+                             env={'KERASLM_PLATFORM': 'cuda'})
+    assert res.exit_code == 0, (res.output, res.exception)
+    ppl = float(res.output.strip().splitlines()[-1])
+    assert np.isfinite(ppl) and ppl > 1
+    tr = [got['train'] for got in ranks]
+    print('distributed (a): keraslm-rate train -w %d -d %d -l %d -b %d -e 1 '
+          '--mesh %d, %d ranks on the one card (backend %s): epoch loss %s '
+          'on the ranks, %.8f in one process (rtol 1e-5); launches a rank %s '
+          '(%d steps: lstm_bwd = steps x depth, lstm_scan = (steps + '
+          'validation steps) x depth, as the one process); rank 0 alone '
+          'wrote the model and the checkpoint; keraslm-rate test of it: ppl '
+          '%.6f; wall %s s a rank against %.3f s in one process (CLI call, '
+          'host clock; a rank\'s is its process\'s first work on the card: '
+          'the group, the libraries and the layouts), the trainer\'s epoch '
+          'chars/s %s on the ranks, %s in one process; collectives %s s in '
+          '%s calls (of it the staging copies %s s), %s bytes staged '
+          'through pinned host memory a rank [%s]'
+          % (TRAIN_W, TRAIN_D, TRAIN_T, TRAIN_B, DIST_RANKS, DIST_RANKS,
+             ranks[0]['backend'],
+             ['%.8f' % t['history']['loss'][0] for t in tr], loss1,
+             tr[0]['launches'], n_steps, ppl,
+             ['%.3f' % t['wall'] for t in tr], wall1,
+             [['%.0f' % r for r in t['rates']] for t in tr],
+             ['%.0f' % r for r in rates1],
+             ['%.3f' % t['comm']['seconds'] for t in tr],
+             [t['comm']['calls'] for t in tr],
+             ['%.3f' % t['comm']['staged_seconds'] for t in tr],
+             [t['comm']['staged_bytes'] for t in tr], card))
+    # the data mesh, (b) the vocabulary, (c) the pipeline: 3 steps
+    # against one process
+    out = dict(train=dict(wall=[t['wall'] for t in tr], wall1=wall1,
+                          steps=n_steps, comm=[t['comm'] for t in tr]))
+    for kind, what in (('dp', '(a) --mesh 2 (the rows over 2 ranks, '
+                        'dropout 0.1 from one generator)'),
+                       ('tp', '(b) --mesh 1x2 (the vocabulary over 2 ranks, '
+                        'dropout 0.1 from one generator)'),
+                       ('pipe', '(c) --mesh 2p (2 stages of one layer, 2 '
+                        'microbatches, dropout 0)')):
+        losses1, walls1, leaves1 = steps[kind][:3]
+        leaves = np.load(os.path.join(work, 'dist_%s.npz' % kind))
+        err = max(float(np.max(np.abs(leaves['arr_%d' % i] - a)))
+                  for i, a in enumerate(leaves1))
+        for r, got in enumerate(ranks):
+            np.testing.assert_allclose(got[kind]['losses'], losses1,
+                                       rtol=1e-5, err_msg='%s %d' % (kind, r))
+            assert got[kind]['launches'] == dict(
+                NO_LAUNCHES, lstm_scan=DIST_STEPS * TRAIN_D,
+                lstm_bwd=DIST_STEPS * TRAIN_D), (kind, r, got[kind])
+        assert err <= 1e-5, (kind, err)
+        g = [got[kind] for got in ranks]
+        print('distributed %s: %d steps of the german model (W=%d, '
+              'D=%d, B=%d, T=%d), losses %s on rank 0, %s in one process '
+              '(rtol 1e-5); weights after the steps within %.3g of one '
+              'process\'s (tolerance 1e-5); launches a rank %s; seconds a '
+              'step %s on the ranks, %s in one process; in the steps a '
+              'rank\'s collectives %s s (of it the staging copies %s s), '
+              '%s bytes staged (backend %s) [%s]'
+              % (what, DIST_STEPS, TRAIN_W,
+                 TRAIN_D, TRAIN_B, TRAIN_T,
+                 ['%.7f' % v for v in g[0]['losses']],
+                 ['%.7f' % v for v in losses1], err, g[0]['launches'],
+                 [['%.4f' % w for w in x['walls']] for x in g],
+                 ['%.4f' % w for w in walls1],
+                 ['%.4f' % x['comm']['seconds'] for x in g],
+                 ['%.4f' % x['comm']['staged_seconds'] for x in g],
+                 [x['comm']['staged_bytes'] for x in g], g[0]['backend'],
+                 card))
+        out[kind] = dict(walls=[x['walls'] for x in g], walls1=walls1,
+                         err=err, comm=[x['comm'] for x in g])
+    # (d)-(f): bit for bit equal to one process
+    for name, what in (('score', '(d) phase 5\'s 4 pages scored, rows over '
+                        '2 ranks'),
+                       ('decode', '(e) rate_best_batch of the %d one-page '
+                        'documents over 2 ranks' % BATCH_DOCS),
+                       ('generate', '(f) generate_batch of %d prompts at -n '
+                        '%d over 2 ranks' % (GEN_BATCH, GEN_BATCH_N))):
+        want = serving1[name]
+        for r, got in enumerate(ranks):
+            assert got['serving'][name]['result'] == want['result'], \
+                (name, r)
+            assert any(got['serving'][name]['launches'].values()), (name, r)
+        g = [got['serving'][name] for got in ranks]
+        print('distributed %s: equal bit for bit to one process on every '
+              'rank; launches a rank %s, in one process %s; seconds a call '
+              '%s on the ranks, %.4f in one process [%s]'
+              % (what, [x['launches'] for x in g], want['launches'],
+                 ['%.4f' % x['wall'] for x in g], want['wall'], card))
+        out[name] = dict(walls=[x['wall'] for x in g], wall1=want['wall'],
+                         launches=[x['launches'] for x in g])
+    sc = [got['serving_comm'] for got in ranks]
+    print('distributed (d)-(f) collectives: %s s in %s calls (the gathers '
+          'wait for the slower rank), %s bytes staged a rank [%s]'
+          % (['%.3f' % c['seconds'] for c in sc], [c['calls'] for c in sc],
+             [c['staged_bytes'] for c in sc], card))
+    # (g) NCCL
+    # without dropout the data step is the one process's pipeline
+    # reference step (dropout 0) on the same batches
+    assert nccl['backend'] == 'nccl' and nccl['comm']['calls'] > 0
+    assert nccl['comm']['staged_bytes'] == 0
+    assert nccl['launches']['lstm_bwd'] == 2 * TRAIN_D, nccl['launches']
+    np.testing.assert_allclose(nccl['losses'], steps['pipe'][0][:2],
+                               rtol=1e-5)
+    print('distributed (g): one rank over NCCL (world of 1): backend %s, '
+          'two data-parallel steps of the german model without dropout, '
+          'losses %s (one process: %s, rtol 1e-5), %d collectives in %.4f s, '
+          'nothing staged, launches %s, %s s a step (host clock, the first '
+          'the process\'s first work on the card) [%s]'
+          % (nccl['backend'], ['%.7f' % v for v in nccl['losses']],
+             ['%.7f' % v for v in steps['pipe'][0][:2]],
+             nccl['comm']['calls'], nccl['comm']['seconds'],
+             nccl['launches'], ['%.4f' % w for w in nccl['walls']], card))
+    print('distributed phase: the 2-rank world %.1f s and the NCCL world '
+          '%.1f s of wall (process start, CUDA and the group included)'
+          % (world_wall, nccl_wall))
+    out.update(world_wall=world_wall, nccl_wall=nccl_wall, nccl=nccl)
+    return out
+
+
+def glob_files(directory, pattern):
+    import glob
+    return glob.glob(os.path.join(directory, pattern))
+
+
 def main() -> int:
     sys.path.insert(0, HERE)
     import torch
@@ -5849,6 +6298,9 @@ def main() -> int:
         trace_path(rater, work, decode, card)
         print('serving, resume, pruning and trace phases: %.1f s'
               % (time.time() - t0))
+        t0 = time.time()
+        distributed_path(rater, work, train, scoring, card)
+        print('distributed phase: %.1f s' % (time.time() - t0))
 
         # ---- 7. numbers ----
         print('decode path wall: %.3f s for 4 pages = %.3f s/page, %.0f '
@@ -6030,4 +6482,7 @@ def main() -> int:
 
 
 if __name__ == '__main__':
+    if sys.argv[1:2] == ['--rank']:
+        sys.path.insert(0, HERE)
+        sys.exit(rank_main(*sys.argv[2:5]))
     sys.exit(main())

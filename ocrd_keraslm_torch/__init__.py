@@ -13,7 +13,8 @@ as a processing server, a spool-queue worker, through a METS server or
 on a genuine OCR-D core; batched serving decode of documents; and every
 command of ``keraslm-rate`` (training with resumable train-state
 snapshots, rating, generation, the charset tools and the embedding
-plots), with ``--jax-trace`` device traces.  On
+plots), with ``--jax-trace`` device traces; training and serving over a
+mesh of ranks (``parallel/``, ``torch.distributed``).  On
 CUDA they run through hand-written kernels (``csrc/decode_lattice.cu``,
 ``csrc/decode_lattice_batch.cu``, ``csrc/score_scan.cu``,
 ``csrc/lstm_scan.cu``, ``csrc/lstm_bwd.cu``, ``csrc/gen_beam.cu``,

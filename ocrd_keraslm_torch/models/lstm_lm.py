@@ -174,13 +174,21 @@ def embed_inputs(params: Params, x: torch.Tensor,
     CUDA backward of ``embedding`` sums the rows that share a table row
     in an order that changes from run to run (so that a resumed
     training run could not replay an uninterrupted one)."""
-    feats = [_lookup(x, params['char_embedding'])]
+    return torch.cat([_lookup(x, params['char_embedding'])]
+                     + context_inputs(params, x.shape, zs), dim=-1)
+
+
+def context_inputs(params: Params, shape, zs: Sequence[torch.Tensor]
+                   ) -> list:
+    """The context features of :func:`embed_inputs`, each broadcast to
+    ``shape`` (B, T) + (dim,)."""
+    feats = []
     for z, table in zip(zs, params['context_embeddings']):
         rows = _lookup(z.clamp(max=table.shape[0] - 1), table)
         if z.dim() == 1:                        # time-constant context
-            rows = rows[:, None, :].expand(x.shape + rows.shape[-1:])
+            rows = rows[:, None, :].expand(tuple(shape) + rows.shape[-1:])
         feats.append(rows)
-    return torch.cat(feats, dim=-1)
+    return feats
 
 
 def _lookup(idx: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
@@ -266,7 +274,8 @@ def forward_seq(params: Params, cfg: LMConfig, x: torch.Tensor,
                 zs: Sequence[torch.Tensor], carry: Optional[Carry] = None,
                 *, train: bool = False,
                 rng: Optional[torch.Generator] = None,
-                x_mask: Optional[torch.Tensor] = None
+                x_mask: Optional[torch.Tensor] = None,
+                rows: Optional[Tuple[int, int]] = None
                 ) -> Tuple[torch.Tensor, Carry]:
     """Full-sequence forward.
 
@@ -278,28 +287,67 @@ def forward_seq(params: Params, cfg: LMConfig, x: torch.Tensor,
     leave the recurrent state untouched (variable-length windows; a
     plain loop in full f32 with the unrounded weights).  With ``train``
     and an ``rng`` (a CPU ``torch.Generator``) the output of every
-    layer above the first is multiplied by a time-constant dropout mask.
-    Under ``cfg.compute_dtype == 'bfloat16'`` the operands of the input
+    layer above the first is multiplied by a time-constant dropout mask;
+    ``rows`` = (full batch, first row) marks x as a data shard's rows of
+    a larger batch: each mask is drawn for the full batch and sliced, so
+    the shard sees the rows of the unsharded run's masks.  Under
+    ``cfg.compute_dtype == 'bfloat16'`` the operands of the input
     projections and of ``h @ U`` are rounded to bfloat16; sums, gates,
     carry and logits stay f32.  Returns (logits (B, T, V), final
     carry)."""
+    inp, carry = hidden_seq(params, cfg, x, zs, carry, train=train,
+                            rng=rng, x_mask=x_mask, rows=rows)
+    return inp @ params['char_embedding'].T, carry
+
+
+def hidden_seq(params: Params, cfg: LMConfig, x: torch.Tensor,
+               zs: Sequence[torch.Tensor], carry: Optional[Carry] = None,
+               *, train: bool = False,
+               rng: Optional[torch.Generator] = None,
+               x_mask: Optional[torch.Tensor] = None,
+               rows: Optional[Tuple[int, int]] = None,
+               embedded: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, Carry]:
+    """:func:`forward_seq` up to the last layer's output (B, T, W), the
+    tied softmax left to the caller.  ``embedded``: the embedded inputs
+    where the caller looked them up itself (a vocabulary shard's
+    lookup)."""
+    B = x.shape[0]
+    if carry is None:
+        carry = zero_carry(cfg, B, x.device)
+    inp = embed_inputs(params, x, zs) if embedded is None else embedded
+    keep = None
+    if train and cfg.dropout > 0 and rng is not None:
+        full, lo = rows if rows is not None else (B, 0)
+
+        def keep(layer):
+            return dropout_keep(cfg, full, rng, x.device)[lo:lo + B]
+    return lstm_stack(params, cfg, inp, carry, range(cfg.depth), keep=keep,
+                      x_mask=x_mask)
+
+
+def lstm_stack(params: Params, cfg: LMConfig, inp: torch.Tensor,
+               carry: Carry, layers: Sequence[int], *, keep=None,
+               x_mask: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, Carry]:
+    """Run ``layers`` (consecutive global indices) of the LSTM stack over
+    ``inp`` (B, T, in) from ``carry`` (h, c), each (len(layers), B, W).
+    ``keep(layer)`` gives the dropout mask (B, 1, W) of a layer above
+    the first (None: no dropout).  Returns (output (B, T, W), final
+    carry of these layers)."""
     if cfg.compute_dtype not in ('float32', 'bfloat16'):
         raise ValueError('compute_dtype %r: expected float32 or bfloat16'
                          % cfg.compute_dtype)
     bf16 = cfg.compute_dtype == 'bfloat16'
-    B = x.shape[0]
-    if carry is None:
-        carry = zero_carry(cfg, B, x.device)
     h0, c0 = carry
-    inp = embed_inputs(params, x, zs)
     if bf16:
         inp = _bf16_values(inp)
     hs, cs = [], []
-    for layer in range(cfg.depth):
+    for i, layer in enumerate(layers):
         lp = params['lstm'][layer]
         kernel = _bf16_values(lp['kernel']) if bf16 else lp['kernel']
         x_proj = (inp @ kernel + lp['bias']).contiguous()
-        h0l, c0l = h0[layer].contiguous(), c0[layer].contiguous()
+        h0l, c0l = h0[i].contiguous(), c0[i].contiguous()
         if x_mask is not None:
             inp, hT, cT = _layer_scan_masked(x_proj, h0l, c0l,
                                              lp['recurrent'], x_mask)
@@ -314,12 +362,11 @@ def forward_seq(params: Params, cfg: LMConfig, x: torch.Tensor,
             inp = h_all.transpose(0, 1)
         hs.append(hT)
         cs.append(cT)
-        if layer > 0 and train and cfg.dropout > 0 and rng is not None:
-            inp = inp * dropout_keep(cfg, B, rng, x.device)
+        if layer > 0 and keep is not None:
+            inp = inp * keep(layer)
         if bf16:
             inp = _bf16_values(inp)
-    logits = inp @ params['char_embedding'].T
-    return logits, (torch.stack(hs), torch.stack(cs))
+    return inp, (torch.stack(hs), torch.stack(cs))
 
 
 # ----------------------------------------------------------------------

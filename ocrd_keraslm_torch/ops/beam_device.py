@@ -355,11 +355,11 @@ def generate_streams_begin(rater, prefixes: List[str], length: int,
     launch (one block cluster per stream), or where the kernel does not
     take the model the engine (:func:`generate_device_best`); then start
     the fetch.  :func:`generate_streams_finish` builds the strings.  Each
-    stream returns what ``generate(prefix, length)`` returns."""
-    if getattr(rater, 'mesh', None) is not None:
-        raise NotImplementedError(
-            'generation over a device mesh is not ported yet (ROADMAP.md '
-            'Queue 1 #16, "Distributed")')
+    stream returns what ``generate(prefix, length)`` returns.  With
+    ``rater.mesh`` set, the streams are split over the mesh's ``data``
+    axis (``parallel/generate.py``; collective: every rank of the mesh
+    calls it with the same prompts)."""
+    mesh = getattr(rater, 'mesh', None)
     if not context:
         context = rater.underspecify_contexts()
     length = int(length)
@@ -368,12 +368,17 @@ def generate_streams_begin(rater, prefixes: List[str], length: int,
         return ('gen-streams-empty', meta)
     if length < 1:
         raise ValueError('generate needs a length >= 1, got %d' % length)
-    prefix_ids, prefix_mask = _prefix_arrays(
-        [rater.vocab.encode(p) for p in prefixes])
+    enc = [rater.vocab.encode(p) for p in prefixes]
     weights = _gen_weights(rater, context)
     emb, embT, wcat, bias, v_real = weights
     best = generate_best if use_gen_kernel(rater, weights) \
         else generate_device_best
+    if mesh is not None:
+        from ..parallel.generate import make_stream_generate, padded_streams
+        # pad rows repeat stream 0 and are dropped at the fetch
+        enc = enc + [enc[0]] * (padded_streams(mesh, len(enc)) - len(enc))
+        best = make_stream_generate(mesh, best)
+    prefix_ids, prefix_mask = _prefix_arrays(enc)
     seqs, costs = best(
         emb, embT, wcat, bias, prefix_ids, prefix_mask,
         bucket_unbounded(length, LENGTH_BUCKETS), length, int(v_real),

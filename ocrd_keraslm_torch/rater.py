@@ -37,6 +37,11 @@ saves it (:meth:`Rater.save`), and
   on the device, the carry ``(h, c, x, cost)``); a document may mix the
   two engines from page to page.
 
+With ``rater.mesh`` set (``ocrd_keraslm_torch.parallel``), training
+shards its step over the mesh, and ``rate_batch``, ``rate_best_batch``
+and ``generate_batch`` split their rows, documents and streams over its
+``data`` axis, every rank of the mesh making the same calls.
+
 The device follows ``KERASLM_PLATFORM`` unless the caller names one:
 ``cpu`` runs on the CPU (the kernels' plain PyTorch versions), unset,
 ``gpu`` or ``cuda`` runs on CUDA and raises when there is none.
@@ -412,7 +417,11 @@ class Rater:
         # where training writes its best-only checkpoints (also
         # KERASLM_CKPT_DIR; default: the working directory)
         self.ckpt_dir = None
-        # training over a device mesh: not ported yet, raises when set
+        # a rank mesh (parallel.make_mesh, or the pipeline's
+        # make_pipe_mesh): training shards its step over it, and scoring,
+        # batch decoding and batch generation split their rows,
+        # documents and streams over its data axis (every rank of the
+        # mesh makes the same calls)
         self.mesh = None
         # train-state snapshots of every epoch, and the resume from the
         # newest (also KERASLM_RESUME_DIR)
@@ -712,7 +721,14 @@ class Rater:
         # choice too
         fused = (self.fused_score and self.cfg.compute_dtype == 'float32'
                  and self.cfg.width <= 384)
-        probs_d, nll_d, carry = _score_stream(
+        score = _score_stream
+        mesh = self.mesh
+        if mesh is not None and mesh.shape.get('data', 1) > 1 \
+                and Bp % mesh.shape['data'] == 0:
+            # the rows split over the mesh's data axis, then gathered
+            from .parallel.score import make_sharded_score_step
+            score = make_sharded_score_step(mesh)
+        probs_d, nll_d, carry = score(
             self.params, self.cfg, torch.from_numpy(x).to(dev),
             [torch.from_numpy(z).to(dev) for z in zs],
             torch.from_numpy(lens_a).to(dev),
@@ -1829,16 +1845,50 @@ class Rater:
         kind = pending[0]
         if kind == 'done':
             return pending[1]
+        if kind == 'sharded':
+            from .parallel.decode import finish
+            return finish(self, pending)
         if kind == 'xlab':
-            _, edges_list, live, packed, K, results = pending
-            packed = _host(packed)
-            for row, i in enumerate(live):
-                results[i] = self.rate_best_device_finish(
-                    ('single', edges_list[i], [packed[row]], K))
-            return results
-        _, gpending, prepared, results = pending
-        self._rate_best_batch_fused_finish(gpending, prepared, results)
+            edges, live, results = pending[1], pending[2], pending[5]
+        else:
+            edges, live, results = pending[2], pending[1][0], pending[3]
+        for i, walk in zip(live, self._batch_walks(pending)):
+            results[i] = self._emit_path(edges[i], *walk)
         return results
+
+    def _batch_walks(self, pending):
+        """Wait for a launched batch (pending ``'xlab'`` or ``'fusedb'``)
+        and return each of its documents' walk, in launch order:
+        (choices, cumulative costs, start cost), what
+        :meth:`_emit_path` takes."""
+        if pending[0] == 'xlab':
+            _, edges_list, live, packed, _K, _ = pending
+            packed = _host(packed)
+            out = []
+            for row, i in enumerate(live):
+                nE = len(edges_list[i])
+                out.append((packed[row, 1:nE + 1, 0].astype(np.int32),
+                            packed[row, 1:nE + 1, 1],
+                            float(packed[row, 0, 0])))
+            return out
+        _, (live, E_blk, block_edges, fetch), prepared, _ = pending
+        flat = _fetch(*fetch)
+        N = len(live)
+        walks, off = [], 0
+        for E in block_edges:
+            walks.append(flat[off:off + N * E * 2].reshape(N, E, 2))
+            off += N * E * 2
+        out = []
+        for di, i in enumerate(live):
+            n = len(prepared[i])
+            choices: List[int] = []
+            costs: List[float] = []
+            for bi, walk in enumerate(walks):
+                real = min(max(n - bi * E_blk, 0), E_blk)
+                choices.extend(walk[di, :real, 0].astype(np.int64))
+                costs.extend(walk[di, :real, 1])
+            out.append((choices, costs, 0.0))
+        return out
 
     @_gc_paused
     def rate_best_batch_begin(self, graphs, context=None, lm_weight=0.5,
@@ -1881,9 +1931,17 @@ class Rater:
                 results[i] = (path, ent)
             return ('done', results)
         if self.mesh is not None:
-            raise NotImplementedError(
-                'a batch decode sharded over a mesh is not ported yet '
-                '(ROADMAP.md Queue 1, "Distributed")')
+            # the documents split over the mesh's data axis; the walks
+            # are gathered at the finish
+            from .parallel.decode import (make_batch_decode,
+                                          make_fused_batch_decode)
+            if not kernel:
+                return make_batch_decode(self.mesh)(
+                    self, raw_list, live, results, context, lm_weight,
+                    beam_width)
+            return make_fused_batch_decode(self.mesh)(
+                self, raw_list, merge, sizes, live, maxlen, results,
+                context, lm_weight, beam_width)
         if not kernel:
             return self._rate_best_batch_engine(
                 raw_list, live, results, context, lm_weight, beam_width)
@@ -2036,26 +2094,6 @@ class Rater:
         flat = torch.cat([w.reshape(-1) for w in walks])
         return (live, E_blk, [w.shape[1] for w in walks],
                 _copy_to_host(flat))
-
-    def _rate_best_batch_fused_finish(self, pending, prepared, results):
-        """Wait for the walks' copy and fill ``results[i] = (path,
-        entropy)`` for each live document."""
-        live, E_blk, block_edges, fetch = pending
-        flat = _fetch(*fetch)
-        N = len(live)
-        walks, off = [], 0
-        for E in block_edges:
-            walks.append(flat[off:off + N * E * 2].reshape(N, E, 2))
-            off += N * E * 2
-        for di, i in enumerate(live):
-            edges = prepared[i]
-            choices: List[int] = []
-            costs: List[float] = []
-            for bi, walk in enumerate(walks):
-                real = min(max(len(edges) - bi * E_blk, 0), E_blk)
-                choices.extend(walk[di, :real, 0].astype(np.int64))
-                costs.extend(walk[di, :real, 1])
-            results[i] = self._emit_path(edges, choices, costs, 0.0)
 
     # -- embedding analysis and plots ------------------------------------
 

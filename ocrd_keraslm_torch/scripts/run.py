@@ -23,8 +23,20 @@ base-2 perplexity), ``test`` (corpus perplexity), ``generate``
 row) and the three embedding plots (matplotlib and scikit-learn, the
 ``plotting`` extra, imported by the plot) run on CUDA, or on the CPU
 with ``KERASLM_PLATFORM=cpu``.  ``--jax-trace DIR`` writes a
-``torch.profiler`` trace of the command into DIR.  ``train``'s
-``--mesh`` raises ``NotImplementedError`` (ROADMAP.md Queue 1 #16).
+``torch.profiler`` trace of the command into DIR.
+
+``train --mesh DP`` (data parallel), ``DPxMP`` (and the vocabulary
+over MP ranks) or ``DPxPPp`` (PP pipeline stages) shards the training
+over a mesh of that many ranks, one process each, every rank running
+the same command::
+
+    torchrun --standalone --nproc-per-node 4 \
+        -m ocrd_keraslm_torch.scripts.run train --mesh 2x2 ...
+
+or with ``KERASLM_COORDINATOR=host:port``, ``KERASLM_NUM_PROCESSES``
+and ``KERASLM_PROCESS_ID`` set for each rank (the JAX package's
+multihost variables).  The group is joined when the command starts;
+rank 0 writes the model.
 """
 from __future__ import annotations
 
@@ -37,6 +49,7 @@ from math import ceil
 
 import click
 
+from ..parallel.mesh import make_mesh
 from ..rater import Rater
 
 
@@ -90,6 +103,19 @@ def cli(ctx, log_level, profile, profile_file, jax_trace):
         # written when the command ends
         from ..utils.devtrace import start_trace
         ctx.call_on_close(start_trace(jax_trace))
+    # several ranks: join the group before any device work (a partial
+    # KERASLM_* configuration is refused here, not trained per process)
+    from ..parallel import multihost
+    try:
+        multihost.join_from_env()
+    except ValueError as err:  # partial KERASLM_* configuration
+        raise click.UsageError(str(err))
+    except RuntimeError as err:  # no cluster environment
+        raise click.UsageError(
+            'multihost initialization failed: %s (KERASLM_MULTIHOST=1 '
+            'relies on the torchrun variables; set KERASLM_COORDINATOR/'
+            'KERASLM_NUM_PROCESSES/KERASLM_PROCESS_ID explicitly '
+            'otherwise)' % err)
 
 
 def _expand_paths(items):
@@ -156,8 +182,13 @@ def _load_rater(model, incremental=False):
                    'epoch is snapshotted and an interrupted run resumes '
                    'from the last completed epoch')
 @click.option('--mesh', 'mesh_spec', default=None, metavar='DPxMP',
-              help='shard the train step over a device mesh '
-                   '(not ported yet)')
+              help='shard the train step over a mesh of ranks, e.g. "4" '
+                   '(4-way data parallel), "4x2" (4-way data x 2-way '
+                   'model parallel), or "2x4p" (2-way data x 4-stage '
+                   'GPipe pipeline over the layer stack; depth must '
+                   'divide by the stage count); needs that many ranks '
+                   '(torchrun, or the KERASLM_* variables) and a '
+                   'batch_size divisible by DP')
 @click.argument('data', nargs=-1,
                 type=click.Path(exists=True, dir_okay=True,
                                 file_okay=True))
@@ -168,10 +199,6 @@ def train(model, ckpt, width, depth, length, val_data, epochs,
 
     Without VAL_DATA, a random train/validation split is made.
     """
-    if mesh_spec:
-        raise NotImplementedError(
-            '--mesh is not ported yet (ROADMAP.md Queue 1 #16, '
-            '"Distributed")')
     from .. import training
     training.EPOCHS = epochs
 
@@ -198,6 +225,8 @@ def train(model, ckpt, width, depth, length, val_data, epochs,
         rater.resume_dir = resume_dir
     if bf16:
         rater.compute_dtype = 'bfloat16'
+    if mesh_spec:
+        rater.mesh = _train_mesh(mesh_spec)
     rater.configure()
     if continuation:
         continuation()
@@ -205,7 +234,49 @@ def train(model, ckpt, width, depth, length, val_data, epochs,
     rater.train(_expand_paths(data), val_data=val_files)
     if rater.status != 2:
         raise click.ClickException('training failed: no model saved')
+    # every rank calls save: rank 0 alone writes the (shared) path
     rater.save(model)
+
+
+def _train_mesh(mesh_spec):
+    """The mesh of ``--mesh DP``, ``DPxMP`` or ``DPxPPp`` over the ranks
+    of the world, with the JAX package's refusals."""
+    from ..parallel import multihost
+    from ..parallel.pipeline import make_pipe_mesh
+    try:
+        parts = mesh_spec.lower().split('x')
+        pipe = parts[-1].endswith('p')
+        if pipe:
+            pp = int(parts[-1][:-1])
+            dp = int(parts[0]) if len(parts) > 1 else 1
+            n = dp * pp
+        else:
+            dp = int(parts[0])
+            mp = int(parts[1]) if len(parts) > 1 else 1
+            n = dp * mp
+    except ValueError:
+        raise click.UsageError(
+            '--mesh expects DP, DPxMP or DPxPPp (e.g. "4", "4x2", '
+            '"2x4p"), got %r' % mesh_spec)
+    world = multihost.world_size()
+    if n != world:
+        raise click.UsageError(
+            '--mesh %s has %d ranks but the world has %d processes: '
+            'launch %d (torchrun --nproc-per-node %d, or the KERASLM_* '
+            'variables)' % (mesh_spec, n, world, n, n))
+    try:
+        if pipe:
+            if multihost.is_multihost():
+                raise click.UsageError(
+                    'pipeline meshes (--mesh %s) are single-host; unset '
+                    'KERASLM_COORDINATOR/KERASLM_NUM_PROCESSES or use a '
+                    'DPxMP mesh (multi-host dp/tp)' % mesh_spec)
+            return make_pipe_mesh(n, pipe_parallel=pp)
+        if multihost.is_multihost():
+            return multihost.make_global_mesh(model_parallel=mp)
+        return make_mesh(n, model_parallel=mp)
+    except ValueError as err:
+        raise click.UsageError(str(err))
 
 
 @cli.command(short_help='get individual probabilities from language model')

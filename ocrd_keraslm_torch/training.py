@@ -21,8 +21,15 @@ generator, history, early-stopping counters, data seed and split), and
 a killed run resumes from the last completed epoch with the trajectory
 of an uninterrupted run.
 
-Not ported yet, raising ``NotImplementedError``: training over a device
-mesh (``rater.mesh``; ROADMAP.md Queue 1 #16, "Distributed").
+Over a rank mesh (``rater.mesh``, ``parallel/``): every rank runs this
+loop on the same full batches (rank 0's seed is broadcast before any
+draw) and feeds its own rows to the sharded step, ``parallel/train.py``
+(data and vocabulary parallel) or ``parallel/pipeline.py`` (pipeline
+stages); validation runs through the sharded evaluation step.
+Checkpoints and snapshots hold the canonical state, gathered on every
+rank and written by rank 0; a resumed mesh run takes its shard of the
+snapshot.  A world over several hosts refuses pipeline meshes and
+snapshots, as the JAX package's multihost training does.
 """
 from __future__ import annotations
 
@@ -42,6 +49,9 @@ from .data import (Batch, Prefetcher, SplitPlan, gen_stateful_parity,
 from .models.lstm_lm import (Carry, LMConfig, Params, forward_seq,
                              host_to_device, param_leaves,
                              regularization_loss, sequence_xent, zero_carry)
+from .parallel import multihost
+from .parallel.mesh import (gather_adam_state, gather_params, shard_adam_state,
+                            shard_batch, shard_params)
 from .utils import h5io, orbaxio
 from .utils.vocab import Vocab
 
@@ -161,10 +171,10 @@ def train_rater(rater, data, val_data=None) -> None:
         raise RuntimeError('train needs configure() first')
     if rater.incremental:
         raise RuntimeError('an incremental Rater cannot be trained')
-    if rater.mesh is not None:
-        raise NotImplementedError(
-            'training over a device mesh is not ported yet (ROADMAP.md '
-            'Queue 1 #16, "Distributed")')
+    # several ranks: the file split, the window split, the data seeds
+    # and the dropout seed all flow from numpy's global generator, and
+    # every rank must draw alike (each then feeds only its own rows)
+    multihost.align_seed()
 
     # handles without a re-openable path (StringIO, pipes, stdin)
     # spool to temp files: the generators re-read inputs by name every
@@ -226,9 +236,17 @@ def _load_resume(rater, resume_dir):
 def _train_rater(rater, files, val_files) -> None:
     resume_dir = rater.resume_dir or os.environ.get('KERASLM_RESUME_DIR')
     resume = ckpt_mgr = None
+    if resume_dir and multihost.is_multihost():
+        # every rank would write the same snapshot directory
+        raise ValueError(
+            'resume_dir under multihost training is not supported: '
+            'snapshot/restore is single-controller.  Run without '
+            '--resume-dir (epoch h5 checkpoints still write from '
+            'process 0) or train single-host.')
     if resume_dir:
         resume = _load_resume(rater, resume_dir)
-        ckpt_mgr = orbaxio.TrainCheckpointer(resume_dir)
+        if h5io._is_writer():
+            ckpt_mgr = orbaxio.TrainCheckpointer(resume_dir)
     if resume is not None:
         # the snapshot pins the split and the vocabulary: no corpus read
         meta = resume['meta']
@@ -261,12 +279,26 @@ def _train_rater(rater, files, val_files) -> None:
     rater.reconfigure_for_mapping()
     cfg = rater.cfg
     device = rater.device
+    mesh = rater.mesh
+    batch_dim = (1 if (rater.stateful and not rater.train_streams)
+                 else rater.batch_size)
     # the trained tensors are fresh leaves: rater.params stays as it is
     # until training ends
-    params = copy_params(rater.params if resume is None else
-                         _on_device(resume['state']['params'], device),
-                         requires_grad=True)
-    optimizer = make_optimizer(params)
+    canonical = rater.params if resume is None else \
+        _on_device(resume['state']['params'], device)
+    if mesh is None:
+        params = copy_params(canonical, requires_grad=True)
+        optimizer = make_optimizer(params)
+
+        def step_fn(p, opt, x, zs, y, mask, carry, rng, x_mask):
+            return train_step(p, opt, cfg, x, zs, y, mask, carry, rng,
+                              x_mask)
+
+        def eval_fn(p, x, zs, y, mask, carry, x_mask):
+            return eval_step(p, cfg, x, zs, y, mask, carry, x_mask)
+    else:
+        step_fn, eval_fn, params, optimizer = _mesh_steps(
+            rater, mesh, cfg, canonical, batch_dim)
     # dropout masks come from a CPU generator, so a seed gives the same
     # run on any device; the data-stream generator is seeded per epoch.
     # A resumed run draws both too, as JAX's does, then takes the
@@ -277,12 +309,18 @@ def _train_rater(rater, files, val_files) -> None:
         int(np.random.randint(0, 2 ** 31 - 1)))
     data_seed = int(np.random.randint(0, 2 ** 31 - 1))
     if resume is not None:
-        optimizer.load_state_dict(resume['state']['opt'])
+        opt_state = resume['state']['opt']
+        optimizer.load_state_dict(opt_state if mesh is None else
+                                  shard_adam_state(mesh, opt_state))
         rng.set_state(torch.tensor(meta['rng'], dtype=torch.uint8))
         data_seed = int(meta['data_seed'])
     stopper = StopSignal(logger=rater.logger)
-    batch_dim = (1 if (rater.stateful and not rater.train_streams)
-                 else rater.batch_size)
+    n_data = 1 if mesh is None else mesh.shape['data']
+
+    def canonical_of(p):
+        """The canonical tree of this rank's ``p`` (collective over the
+        model axis of a mesh)."""
+        return p if mesh is None else gather_params(mesh, p)
 
     def make_gen(file_list, train, data_rng=None):
         n_ctx = len(rater.contexts)
@@ -315,7 +353,7 @@ def _train_rater(rater, files, val_files) -> None:
         last step's loss or None, whether SIGINT cut the pass).  The
         sums stay on the device: one fetch per pass, not per step."""
         nonlocal steps_done, first_step_logged
-        carry = zero_carry(cfg, batch_dim, device)
+        carry = zero_carry(cfg, batch_dim // n_data, device)
         acc_nll = torch.zeros((), device=device)
         acc_acc = torch.zeros((), device=device)
         acc_n = 0.0
@@ -324,13 +362,13 @@ def _train_rater(rater, files, val_files) -> None:
             if batch.reset_carry or not rater.stateful:
                 # stateless windows are independent: each batch starts
                 # from zero state, as inference scores them
-                carry = zero_carry(cfg, batch_dim, device)
-            x, zs, y, mask, x_mask = batch_tensors(batch, device)
+                carry = zero_carry(cfg, batch_dim // n_data, device)
+            x, zs, y, mask, x_mask = batch_tensors(
+                batch if mesh is None else shard_batch(mesh, batch), device)
             if train:
                 step_t0 = time.perf_counter()
-                carry, last_loss, nll, acc = train_step(
-                    params, optimizer, cfg, x, zs, y, mask, carry, rng,
-                    x_mask)
+                carry, last_loss, nll, acc = step_fn(
+                    params, optimizer, x, zs, y, mask, carry, rng, x_mask)
                 if not first_step_logged:
                     float(last_loss)
                     rater.logger.info(
@@ -339,8 +377,8 @@ def _train_rater(rater, files, val_files) -> None:
                     first_step_logged = True
                 steps_done += 1
             else:
-                nll, acc, carry = eval_step(params, cfg, x, zs, y, mask,
-                                            carry, x_mask)
+                nll, acc, carry = eval_fn(params, x, zs, y, mask, carry,
+                                          x_mask)
             w = float(np.sum(batch.mask))
             acc_nll = acc_nll + nll * w
             acc_acc = acc_acc + acc * w
@@ -364,6 +402,8 @@ def _train_rater(rater, files, val_files) -> None:
         best_val = (float(meta['best_val'])
                     if meta['best_val'] is not None else np.inf)
         best_params = _on_device(resume['state']['best_params'], device)
+        if mesh is not None:
+            best_params = shard_params(mesh, best_params)
         best_epoch = int(meta['best_epoch'])
         bad_epochs = int(meta['bad_epochs'])
         steps_done = int(meta['steps_done'])
@@ -371,14 +411,20 @@ def _train_rater(rater, files, val_files) -> None:
 
     def snapshot(epoch_done):
         """The state after ``epoch_done`` completed epochs, committed in
-        the background (the tensors are copied before this returns)."""
+        the background (the tensors are copied before this returns).
+        Over a mesh every rank gathers the canonical state and rank 0
+        writes it."""
+        if not resume_dir:
+            return
+        state = {
+            'params': canonical_of(params),
+            'best_params': canonical_of(best_params if best_params
+                                        is not None else params),
+            'opt': optimizer.state_dict() if mesh is None
+            else gather_adam_state(mesh, optimizer)}
         if ckpt_mgr is None:
             return
-        ckpt_mgr.save(epoch_done, {
-            'params': params,
-            'best_params': best_params if best_params is not None
-            else params,
-            'opt': optimizer.state_dict()}, {
+        ckpt_mgr.save(epoch_done, state, {
             'epoch_done': epoch_done,
             'steps_done': steps_done,
             'history': history,
@@ -454,9 +500,11 @@ def _train_rater(rater, files, val_files) -> None:
                 os.makedirs(ckpt_dir, exist_ok=True)
                 ckpt = os.path.join(
                     ckpt_dir, 'ckpt.%02d-%.2f.h5' % (epoch + 1, ep_vloss))
+                # every rank gathers (collective); rank 0 writes
                 try:
-                    h5io.save_weights(ckpt, params, cfg)
-                    rater.logger.info('saved checkpoint %s', ckpt)
+                    h5io.save_weights(ckpt, params, cfg, mesh=mesh)
+                    if h5io._is_writer():
+                        rater.logger.info('saved checkpoint %s', ckpt)
                 except OSError as err:
                     rater.logger.warning(
                         'cannot save checkpoint: %s', err)
@@ -484,9 +532,9 @@ def _train_rater(rater, files, val_files) -> None:
         if ckpt_mgr is not None:
             ckpt_mgr.close()  # wait for and commit the last snapshot
 
-    rater.params = best_params if (
-        best_epoch >= 0 and best_params is not None) \
-        else copy_params(params)
+    rater.params = copy_params(canonical_of(
+        best_params if (best_epoch >= 0 and best_params is not None)
+        else params))
     rater._params_changed()  # drop the device weight caches
     rater.history = history
     if best_epoch >= 0:
@@ -498,6 +546,47 @@ def _train_rater(rater, files, val_files) -> None:
         # caller would save a NaN/garbage model)
         rater.logger.critical('training failed (no usable epoch)')
         rater.status = 1
+
+
+def _mesh_steps(rater, mesh, cfg: LMConfig, canonical: Params,
+                batch_dim: int):
+    """(step, eval step, this rank's parameters, their optimizer) over
+    ``mesh``, with the JAX package's refusals."""
+    from .parallel.train import (make_sharded_eval_step,
+                                 make_sharded_train_step)
+    n_data = mesh.shape.get('data', 1)
+    if batch_dim % n_data != 0:
+        raise ValueError('batch_size %d not divisible by mesh data axis %d'
+                         % (batch_dim, n_data))
+    if 'pipe' in mesh.axis_names:
+        from .parallel.pipeline import make_pipeline_train_step_canonical
+        if mesh.multihost:
+            raise ValueError(
+                'multihost pipeline training is not wired into the '
+                'training loop (the (data, pipe) step itself composes '
+                'across processes); use a dp/tp mesh for multihost '
+                'training')
+        if not (rater.stateful and rater.train_streams):
+            raise ValueError(
+                'pipeline training requires the stateful parallel-streams '
+                'layout (stateful=True, train_streams=True); stateless '
+                'windowed and parity layouts use a dp/tp mesh')
+        n_stages = int(mesh.shape['pipe'])
+        b_loc = batch_dim // n_data
+        n_micro = int(getattr(rater, 'pipe_microbatches', 0) or n_stages)
+        if b_loc % n_micro != 0:
+            raise ValueError(
+                'per-device batch %d not divisible by %d pipeline '
+                'microbatches (set rater.pipe_microbatches or adjust '
+                'batch_size)' % (b_loc, n_micro))
+        step, shard_fn = make_pipeline_train_step_canonical(
+            mesh, cfg, n_micro=n_micro)
+    else:
+        step, shard_fn = make_sharded_train_step(mesh, cfg)
+    params, optimizer = shard_fn(canonical)
+    rater.logger.info('training over mesh %s (%s)', dict(mesh.shape),
+                      mesh.backend)
+    return step, make_sharded_eval_step(mesh, cfg), params, optimizer
 
 
 def copy_params(params: Params, requires_grad: bool = False) -> Params:

@@ -106,9 +106,37 @@ def _weights_tree(params: Params, cfg: LMConfig) -> dict:
             'items': items}
 
 
-def save_weights(filename: str, params: Params, cfg: LMConfig) -> None:
-    """Write weights in the Keras 2.3 ``save_weights`` HDF5 layout."""
-    hdf5.write_file(filename, _weights_tree(params, cfg))
+def _is_writer() -> bool:
+    """One writer per shared path in a job of several ranks (every rank
+    runs the same command with the same paths): rank 0, or a process in
+    no group."""
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def gather_params(params: Params, mesh=None) -> Params:
+    """The canonical tree as numpy arrays on the host.  With ``mesh``,
+    ``params`` are a rank's shard (``parallel.mesh.shard_params``) and
+    the embedding rows are gathered over the mesh's ``model`` axis: a
+    COLLECTIVE that every rank must enter, so :func:`save_weights` and
+    :func:`save_model` run it on every rank and write on rank 0 only;
+    call them from every rank, never from behind a rank test."""
+    if mesh is not None:
+        from ..parallel.mesh import gather_params as gather
+        params = gather(mesh, params)
+    if torch.is_tensor(params['char_embedding']):
+        params = params_to_numpy(params)
+    return params
+
+
+def save_weights(filename: str, params: Params, cfg: LMConfig,
+                 mesh=None) -> None:
+    """Write weights in the Keras 2.3 ``save_weights`` HDF5 layout (the
+    gather on every rank, the write on rank 0; see
+    :func:`gather_params`)."""
+    params = gather_params(params, mesh)
+    if _is_writer():
+        hdf5.write_file(filename, _weights_tree(params, cfg))
 
 
 def save_config(filename: str, cfg: LMConfig, vocab: Vocab,
@@ -122,8 +150,13 @@ def save_config(filename: str, cfg: LMConfig, vocab: Vocab,
 
 
 def save_model(filename: str, params: Params, cfg: LMConfig, vocab: Vocab,
-               history: Optional[Dict[str, Any]] = None) -> None:
-    """Weights and config in one file, written in one pass."""
+               history: Optional[Dict[str, Any]] = None,
+               mesh=None) -> None:
+    """Weights and config in one file, written in one pass (on rank 0;
+    see :func:`gather_params`)."""
+    params = gather_params(params, mesh)
+    if not _is_writer():
+        return
     tree = _weights_tree(params, cfg)
     tree['items']['config'] = _config_group(cfg, vocab, history)
     hdf5.write_file(filename, tree)

@@ -50,7 +50,7 @@ import numpy as np
 import torch
 
 from ..models.lstm_lm import LMConfig, Params
-from .h5io import NumpyJSONEncoder
+from .h5io import NumpyJSONEncoder, _is_writer
 from .vocab import Vocab
 
 PARAMS_FILE = 'params.pt'
@@ -78,6 +78,9 @@ def to_host(tree):
 
 def save_model(path: str, params: Params, cfg: LMConfig, vocab: Vocab,
                history: Optional[Dict[str, Any]] = None) -> None:
+    """Write a model directory (rank 0 of a job of several ranks)."""
+    if not _is_writer():
+        return
     path = os.path.abspath(path)
     os.makedirs(path, exist_ok=True)
     torch.save(to_host(params), os.path.join(path, PARAMS_FILE))

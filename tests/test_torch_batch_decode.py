@@ -29,6 +29,7 @@ from test_decode_exhaustive import (brute_force, make_rater,
                                     random_lattice,
                                     random_multichar_lattice)
 from test_decode_kernel import _toy_graph
+from test_torch_parallel import one_rank_mesh
 from test_torch_rater import port_of
 
 # Small shapes: one intra-op thread, so that test workers running side
@@ -260,8 +261,10 @@ def test_unported_and_invalid_batches_raise(raters, monkeypatch):
     """A branching lattice raises ``NonLinearLatticeError`` (no host
     fallback in the batch API, as in JAX); a beam wider than 32 or an
     alternative longer than 64 chars takes the unbounded engine (pending
-    ``'xlab'``), each document as it decodes alone; a mesh names the
-    distributed item."""
+    ``'xlab'``), each document as it decodes alone; over a mesh of one
+    rank the documents go through the sharded path (``parallel/
+    decode.py``: padded, walked, gathered) and decode bit for bit as
+    without one."""
     _, tr = raters
     g = _toy_graph(['ab'])[0]
     branching = g.copy()
@@ -278,9 +281,12 @@ def test_unported_and_invalid_batches_raise(raters, monkeypatch):
         _same(tr.rate_best_batch_finish(pending),
               [tr.rate_best_device(d, 0, 0, beam_width=beam)[:2]
                for d in docs])
-    monkeypatch.setattr(tr, 'mesh', object())
-    with pytest.raises(NotImplementedError, match='Distributed'):
-        tr.rate_best_batch([g, g], beam_width=4)
+    want = tr.rate_best_batch([g, long_alt], beam_width=4)
+    with one_rank_mesh() as mesh:
+        monkeypatch.setattr(tr, 'mesh', mesh)
+        pending = tr.rate_best_batch_begin([g, long_alt], beam_width=4)
+        assert pending[0] == 'sharded'
+        _same(tr.rate_best_batch_finish(pending), want, tol=0.0)
 
 
 def test_gc_paused_restores_collector_state(raters):

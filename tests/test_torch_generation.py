@@ -23,6 +23,7 @@ from ocrd_keraslm_torch.ops import beam_device as tbd
 from ocrd_keraslm_torch.rater import Rater
 from ocrd_keraslm_torch.scripts.run import cli as tcli
 
+from test_torch_parallel import one_rank_mesh
 from test_torch_scoring import GERMAN
 
 # Small shapes: one intra-op thread, so that test workers running side
@@ -142,13 +143,20 @@ def test_dead_device_fringe_falls_back_to_the_host(raters, monkeypatch):
 
 
 def test_mesh_generation_raises(raters):
+    """Generation over a mesh of one rank (the id is the one it had
+    while the mesh raised): the streams go through the sharded path
+    (``parallel/generate.py``: padded to the data axis, gathered) and
+    come back as without one, stream for stream."""
     _, tr = raters
-    tr.mesh = object()
-    try:
-        with pytest.raises(NotImplementedError, match='Queue 1 #16'):
-            tr.generate_batch(['Die '], 4)
-    finally:
-        tr.mesh = None
+    prompts = ['Die ', 'Der Mensch ', 'Kant']
+    want = tr.generate_batch(prompts, 4)
+    with one_rank_mesh() as mesh:
+        tr.mesh = mesh
+        try:
+            got = tr.generate_batch(prompts, 4)
+        finally:
+            tr.mesh = None
+    assert got == want and all(got)
 
 
 def test_keraslm_rate_generate_matches_jax(monkeypatch):

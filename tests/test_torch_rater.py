@@ -19,6 +19,7 @@ from test_decode_exhaustive import (brute_force, make_rater,
                                     random_lattice,
                                     random_multichar_lattice)
 from test_decode_kernel import _toy_graph
+from test_torch_parallel import one_rank_mesh
 
 # Small shapes: one intra-op thread, so that test workers running side
 # by side do not oversubscribe the cores.
@@ -183,11 +184,11 @@ def test_port_matches_exhaustive_multichar(seed):
 
 
 def test_unported_paths_raise(raters, monkeypatch):
-    """A batch decode sharded over a mesh, still unported, raises naming
-    its item (a beam wider than 32 decodes through the unbounded engine:
-    two chars, two path entries); a branching lattice raises the
-    package's ``NonLinearLatticeError`` (the processor bails into the
-    host engine on it, as JAX's does)."""
+    """A batch decode over a mesh of one rank takes the sharded path and
+    returns the unsharded paths bit for bit (a beam wider than 32
+    decodes through the unbounded engine: two chars, two path entries);
+    a branching lattice raises the package's ``NonLinearLatticeError``
+    (the processor bails into the host engine on it, as JAX's does)."""
     _, tr = raters
     graph = _toy_graph(['ab'])[0]
     path, entropy, tb = tr.rate_best_device(graph, 0, 0, beam_width=40)
@@ -197,7 +198,11 @@ def test_unported_paths_raise(raters, monkeypatch):
     branching.add_edge(u, 'detour', element=None, alternatives=[])
     with pytest.raises(NonLinearLatticeError, match='rate_best'):
         tr.rate_best_device(branching, 0, 0)
-    monkeypatch.setattr(tr, 'mesh', object())
-    with pytest.raises(NotImplementedError, match='Distributed'):
-        tr.rate_best_batch([graph, graph])
+    want = tr.rate_best_batch([graph, graph])
+    with one_rank_mesh() as mesh:
+        monkeypatch.setattr(tr, 'mesh', mesh)
+        got = tr.rate_best_batch([graph, graph])
+    assert [(el, te, s) for p, _ in got for el, te, s in p] == \
+        [(el, te, s) for p, _ in want for el, te, s in p]
+    assert [e for _, e in got] == [e for _, e in want]
     assert torch.is_tensor(tr._decode_weights(None)['wcat'])

@@ -330,9 +330,10 @@ def test_keraslm_rate_apply_and_test_match_jax(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize('args, item', [
-    (['train', '--mesh', '2'], 'Distributed'),
-    # generate, then prune-charset, print-charset and --jax-trace were
-    # ported since; each case keeps the id it had
+    # train --mesh, generate, then prune-charset, print-charset and
+    # --jax-trace were ported since; each case keeps the id it had
+    pytest.param(['train', '--mesh', '1'], 'Distributed',
+                 id='args0-Distributed'),
     pytest.param(['prune-charset', '-m', 'MODEL', 'J'], 'CLI and tooling',
                  id='args1-Generation'),
     (['print-charset', '-m', GERMAN], 'CLI and tooling'),
@@ -340,17 +341,43 @@ def test_keraslm_rate_apply_and_test_match_jax(tmp_path, monkeypatch):
      'Device trace')])
 def test_keraslm_rate_unported_commands_raise(args, item, tmp_path,
                                               monkeypatch):
-    """``train --mesh`` still raises, naming its ROADMAP.md item
-    ("Distributed"); the other three commands are ported and run as
+    """``train --mesh`` (over a mesh of one rank here; two and four
+    ranks in ``tests/test_torch_{parallel,pipeline,multihost}.py``)
+    trains as without a mesh; the other three commands are ported and
+    run as
     JAX's do (``tests/test_torch_cli_tooling.py`` holds them against
     JAX in full)."""
     monkeypatch.setenv('KERASLM_PLATFORM', 'cpu')
     assert tcli.list_commands(None)[:3] == ['train', 'test', 'apply']
     if item == 'Distributed':
-        res = CliRunner().invoke(tcli, args)
-        assert isinstance(res.exception, NotImplementedError), res.output
-        assert item in str(res.exception) and 'ROADMAP.md' in str(
-            res.exception)
+        # a mesh of one rank (the command joins a world of one): the
+        # sharded step trains as the unsharded one, from the same seeds
+        import random
+        from ocrd_keraslm_torch.parallel import multihost
+        from ocrd_keraslm_torch.utils import h5io
+        monkeypatch.setenv('KERASLM_CKPT_DIR', str(tmp_path / 'ck'))
+        (tmp_path / 'data').mkdir()
+        for i, body in enumerate(('die vernunft ist kant ' * 20,
+                                  'der mensch denkt und ist ' * 20)):
+            (tmp_path / 'data' / ('kant_werk%d_178%d.txt' % (i, i))
+             ).write_text(body, encoding='utf-8')
+        hists = []
+        for extra in ([], args[1:]):
+            random.seed(3)
+            np.random.seed(4)
+            model = str(tmp_path / ('m%d.h5' % len(extra)))
+            try:
+                res = CliRunner().invoke(tcli, [
+                    '-l', 'WARNING', 'train', '-m', model, '-w', '16', '-d',
+                    '1', '-l', '16', '-b', '4', '-e', '1'] + extra + [
+                    str(tmp_path / 'data')])
+            finally:
+                multihost.shutdown()
+            assert res.exit_code == 0, (res.output, res.exception)
+            hists.append(h5io.load_config(model)[2])
+        for key in hists[0]:
+            np.testing.assert_allclose(hists[1][key], hists[0][key],
+                                       rtol=1e-5, err_msg=key)
         return
     model = str(tmp_path / 'm.h5')
     data = tmp_path / 'kant_werk_1784.txt'

@@ -36,6 +36,7 @@ from ocrd_keraslm_torch.rater import Rater
 from ocrd_keraslm_torch.scripts.run import cli
 
 from test_torch_model_core import both_cfgs, jax_params, seeded_params
+from test_torch_parallel import one_rank_mesh
 
 # Small shapes: one intra-op thread, so that test workers running side
 # by side do not oversubscribe the cores.
@@ -480,19 +481,28 @@ def test_train_from_handles_and_no_data(tmp_path):
     ('KERASLM_RESUME_DIR', 'Queue 1 #12')])
 def test_unported_training_modes_name_their_roadmap_item(
         corpus, tmp_path, monkeypatch, how, item):
-    """Training over a mesh (Queue 1 #16) still raises, naming its item;
-    the train-state snapshots of Queue 1 #12 (``resume_dir`` or
-    ``KERASLM_RESUME_DIR``) are ported: the run snapshots every epoch
-    (``tests/test_torch_resume.py`` holds the resume itself)."""
+    """Training over a mesh (Queue 1 #16) and the train-state snapshots
+    of Queue 1 #12 (``resume_dir`` or ``KERASLM_RESUME_DIR``) are
+    ported (each case keeps the id it had while it raised): over a mesh
+    of one rank the run goes through the sharded step and ends with the
+    unsharded run's history; the snapshotting run snapshots every epoch
+    (``tests/test_torch_resume.py`` holds the resume itself, and
+    ``tests/test_torch_{parallel,pipeline,multihost}.py`` meshes of two
+    and four ranks)."""
     snap = tmp_path / 'snap'
     if how == 'mesh':
-        r = Rater(device='cpu')
-        r.width, r.depth, r.length = 16, 1, 16
-        r.configure()
-        r.mesh = str(tmp_path)
-        with pytest.raises(NotImplementedError, match=item):
-            r.train(corpus)
-        assert r.params is None      # nothing was touched
+        with _global_rngs_kept():
+            random.seed(3)
+            np.random.seed(3)
+            want = _train(corpus, tmp_path, batch_size=8)
+            random.seed(3)
+            np.random.seed(3)
+            with one_rank_mesh() as mesh:
+                got = _train(corpus, tmp_path, batch_size=8, mesh=mesh)
+        assert got.status == want.status == 2
+        for key in want.history:
+            np.testing.assert_allclose(got.history[key], want.history[key],
+                                       rtol=1e-5, err_msg=key)
         return
     from ocrd_keraslm_torch.utils.orbaxio import load_train_state
     if how == 'KERASLM_RESUME_DIR':
@@ -580,9 +590,12 @@ def test_cli_train_bf16(tmp_path, corpus, cpu_platform):
     ('--mesh', '2', 'Queue 1 #16'), ('--resume-dir', 'snap', 'Queue 1 #12')])
 def test_cli_train_unported_options_raise(tmp_path, corpus, cpu_platform,
                                           option, value, item):
-    """``--mesh`` (Queue 1 #16) still raises and writes no model;
-    ``--resume-dir`` (Queue 1 #12) is ported: the model is written and
-    the directory holds the last epoch's snapshot."""
+    """Both options are ported (each case keeps the id it had while it
+    raised). ``--mesh 2`` (Queue 1 #16) in one process is a usage error
+    naming the mesh's ranks and the world's processes, and writes no
+    model (``tests/test_torch_{parallel,pipeline,multihost}.py`` run
+    meshes of several ranks); ``--resume-dir`` (Queue 1 #12): the model
+    is written and the directory holds the last epoch's snapshot."""
     if option == '--resume-dir':
         value = str(tmp_path / value)
     with _global_rngs_kept():
@@ -591,8 +604,9 @@ def test_cli_train_unported_options_raise(tmp_path, corpus, cpu_platform,
             '16', '-d', '1', '-l', '16', '-e', '1', '-b', '8', option,
             value] + corpus)
     if option == '--mesh':
-        assert isinstance(res.exception, NotImplementedError)
-        assert item in str(res.exception)
+        assert res.exit_code == 2, (res.output, res.exception)
+        assert '--mesh 2 has 2 ranks but the world has 1 processes' in \
+            ' '.join(res.output.split())
         assert not (tmp_path / 'm.h5').exists()
         return
     assert res.exit_code == 0, (res.output, res.exception)
