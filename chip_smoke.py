@@ -5612,44 +5612,76 @@ def _load_pruned(path, device):
     return r
 
 
-def trace_path(rater, work, decode, card):
-    """Part (d): the decoding processor's CLI with ``--jax-trace``; its
-    Chrome trace must name the ``decode_lattice`` kernel among the CUDA
-    events."""
-    import glob
+TRACE_RUNS = 3      # traced CLI runs of part (d): the loss varied by run
 
-    from ocrd_keraslm_torch.wrapper.cli import ocrd_keraslm_rate
-    d = os.path.join(work, 'ws_jax_trace')
-    build_workspace(d, np.random.default_rng(7), 4, 40, rater.vocab)
-    tdir = os.path.join(work, 'jax_trace')
-    zero_counts()
-    t0 = time.time()
-    with platform_env('cuda'):
-        ocrd_keraslm_rate.main(args=[
-            '-m', os.path.join(d, 'mets.xml'), '-I', 'OCR-D-OCR', '-O',
-            'OCR-D-LM', '-l', 'WARNING', '--jax-trace', tdir, '-P',
-            'model_file', MODEL, '-P', 'textequiv_level', 'glyph', '-P',
-            'beam_width', '10'], standalone_mode=False)
-    wall = time.time() - t0
-    counts = read_counts()
-    files = glob.glob(os.path.join(tdir, '*.pt.trace.json'))
-    assert len(files) == 1, files
-    with open(files[0], encoding='utf-8') as fh:
+
+def trace_events(path):
+    """``(events, kernel events, names of the decode_lattice kernel
+    events, kernel events of the clock warm-up)`` of a Chrome trace."""
+    with open(path, encoding='utf-8') as fh:
         events = json.load(fh)['traceEvents']
     kernels = [e for e in events if e.get('cat') == 'kernel']
-    named = sorted({e['name'] for e in kernels
-                    if 'decode_lattice' in e.get('name', '')})
-    assert named, 'the trace names no decode_lattice kernel'
-    assert counts == decode['launches'], (counts, decode['launches'])
-    assert output_files(d) == output_files(decode['workspace'])
-    print('trace: the decoding CLI with --jax-trace: %.3f s (host clock, '
-          'tracing on), %d bytes of Chrome trace, %d events, %d of them CUDA '
-          'kernels; decode_lattice kernel events %d (%s); launches %s; the '
+    named = [e['name'] for e in kernels
+             if 'decode_lattice' in e.get('name', '')]
+    warm = [e for e in events if e.get('cat') == 'user_annotation'
+            and e.get('name') == 'keraslm_clock_warmup']
+    launched = {e.get('args', {}).get('correlation') for e in events
+                for w in warm if e.get('cat') == 'cuda_runtime'
+                and w['ts'] <= e['ts'] <= w['ts'] + w.get('dur', 0)}
+    warmed = [e for e in kernels
+              if e.get('args', {}).get('correlation') in launched]
+    return events, kernels, named, warmed
+
+
+def trace_path(rater, work, decode, card):
+    """Part (d): the decoding processor's CLI with ``--jax-trace``,
+    ``TRACE_RUNS`` times: each Chrome trace must hold one
+    ``decode_lattice`` kernel event for each launch the wrapper counted,
+    and the pages must equal phase 4's."""
+    import glob
+
+    from ocrd_keraslm_torch.utils import devtrace
+    from ocrd_keraslm_torch.wrapper.cli import ocrd_keraslm_rate
+    runs = []
+    for i in range(TRACE_RUNS):
+        d = os.path.join(work, 'ws_jax_trace%d' % i)
+        build_workspace(d, np.random.default_rng(7), 4, 40, rater.vocab)
+        tdir = os.path.join(work, 'jax_trace%d' % i)
+        zero_counts()
+        t0 = time.time()
+        with platform_env('cuda'):
+            ocrd_keraslm_rate.main(args=[
+                '-m', os.path.join(d, 'mets.xml'), '-I', 'OCR-D-OCR', '-O',
+                'OCR-D-LM', '-l', 'WARNING', '--jax-trace', tdir, '-P',
+                'model_file', MODEL, '-P', 'textequiv_level', 'glyph', '-P',
+                'beam_width', '10'], standalone_mode=False)
+        wall = time.time() - t0
+        counts = read_counts()
+        files = glob.glob(os.path.join(tdir, '*.pt.trace.json'))
+        assert len(files) == 1, files
+        events, kernels, named, warmed = trace_events(files[0])
+        assert counts == decode['launches'], (counts, decode['launches'])
+        assert output_files(d) == output_files(decode['workspace'])
+        runs.append(dict(wall=wall, bytes=os.path.getsize(files[0]),
+                         events=len(events), kernels=len(kernels),
+                         decode_events=len(named),
+                         launches=counts['decode_lattice'],
+                         names=sorted(set(named)), warmed=len(warmed)))
+    print('trace: the decoding CLI with --jax-trace, %d runs: decode_lattice '
+          'kernel events %s against counted launches %s (%s); the clock '
+          'warm-up kept %s of its %d kernels; %s s (host clock, tracing on), '
+          '%s bytes of Chrome trace, %s events, %s of them CUDA kernels; the '
           'pages equal to phase 4\'s [%s]'
-          % (wall, os.path.getsize(files[0]), len(events), len(kernels),
-             sum(1 for e in kernels if e['name'] in named),
-             '; '.join(n[:60] for n in named), counts, card))
-    return dict(wall=wall, kernels=len(kernels))
+          % (TRACE_RUNS, [r['decode_events'] for r in runs],
+             [r['launches'] for r in runs],
+             '; '.join(n[:60] for n in runs[0]['names']),
+             [r['warmed'] for r in runs], devtrace.WARMUP_KERNELS,
+             ['%.3f' % r['wall'] for r in runs], [r['bytes'] for r in runs],
+             [r['events'] for r in runs], [r['kernels'] for r in runs],
+             card))
+    assert all(r['decode_events'] == r['launches'] > 0 for r in runs), \
+        ('the trace lost decode_lattice kernel events', runs)
+    return runs
 
 
 # ---------------------------------------------------------------------
@@ -5688,21 +5720,32 @@ def dist_batches(V, seed=41):
 def dist_cfg(kind):
     """The german model's configuration for the step checks: dropout 0.1
     on the data and vocabulary meshes (their masks are the one-process
-    run's), 0 on the pipeline (its masks differ in bits by design)."""
+    run's), 0 on the pipeline steps (their masks differ in bits by
+    design)."""
     from ocrd_keraslm_torch.utils import h5io
     cfg = h5io.load_config(MODEL)[0]
     return cfg.replace(length=TRAIN_T,
-                       dropout=0.0 if kind == 'pipe' else 0.1)
+                       dropout=0.0 if kind in ('pipe', 'packed') else 0.1)
+
+
+def held_bytes(leaves, opt):
+    """Bytes of ``leaves`` and of their Adam moments in ``opt``."""
+    return sum(t.numel() * t.element_size() * (1 + sum(
+        1 for k in ('exp_avg', 'exp_avg_sq') if k in opt.state.get(t, {})))
+        for t in leaves)
 
 
 def dist_steps(kind, dev, mesh=None):
     """``DIST_STEPS`` steps from the german model's weights on the seeded
     batches: one process (``mesh`` None, ``training.train_step``), the
     2-rank data mesh (``kind`` 'dp', each rank its half of the rows), the
-    1x2 vocabulary mesh ('tp') or the 2-stage pipeline with 2
-    microbatches ('pipe').  Returns (losses, seconds a step (synchronised
-    host clock), the canonical weights after the last step as numpy
-    leaves, launch counts, the steps' collective counters)."""
+    1x2 vocabulary mesh ('tp'), the 2-stage pipeline with 2 microbatches
+    ('pipe') or the same on the packed layout ('packed', each rank its
+    stage's layers and their moments).  Returns (losses, seconds a step
+    (synchronised host clock), the canonical weights after the last step
+    as numpy leaves, launch counts, the steps' collective counters, and
+    after the steps the bytes this rank holds of parameters and moments,
+    all and of the LSTM layers)."""
     import torch
     from ocrd_keraslm_torch import training
     from ocrd_keraslm_torch.models import lstm_lm as tlm
@@ -5717,21 +5760,31 @@ def dist_steps(kind, dev, mesh=None):
         def step(*args):
             return training.train_step(params, opt, cfg, *args)
     else:
+        from ocrd_keraslm_torch.parallel import pipeline as tp
         from ocrd_keraslm_torch.parallel.mesh import gather_params
-        from ocrd_keraslm_torch.parallel.pipeline import \
-            make_pipeline_train_step_canonical
         from ocrd_keraslm_torch.parallel.train import make_sharded_train_step
-        make = (make_pipeline_train_step_canonical(mesh, cfg, 2)
-                if kind == 'pipe' else make_sharded_train_step(mesh, cfg))
-        fn, shard_fn = make
-        params, opt = shard_fn(tlm.params_from_numpy(tree, dev))
+        if kind == 'packed':
+            fn, shard_fn = tp.make_pipeline_train_step(mesh, cfg, 2)
+            n_stages = mesh.shape['pipe']
+            params, opt, carry = shard_fn(
+                tp.pack_pipeline_params(tree, cfg, n_stages),
+                tp.pack_carry(tuple(np.zeros((cfg.depth, TRAIN_B, cfg.width),
+                                             np.float32) for _ in 'hc'),
+                              n_stages))
+        else:
+            fn, shard_fn = (tp.make_pipeline_train_step_canonical(mesh, cfg,
+                                                                   2)
+                            if kind == 'pipe' else
+                            make_sharded_train_step(mesh, cfg))
+            params, opt = shard_fn(tlm.params_from_numpy(tree, dev))
 
         def step(*args):
             return fn(params, opt, *args)
     rng = torch.Generator().manual_seed(DIST_DROPOUT_SEED) \
         if cfg.dropout > 0 else None
     n_data = 1 if mesh is None else mesh.shape['data']
-    carry = tlm.zero_carry(cfg, TRAIN_B // n_data, dev)
+    if kind != 'packed':
+        carry = tlm.zero_carry(cfg, TRAIN_B // n_data, dev)
     from ocrd_keraslm_torch.parallel import comm
     losses, walls = [], []
     zero_counts()
@@ -5752,10 +5805,17 @@ def dist_steps(kind, dev, mesh=None):
     stats = dict(staged_bytes=comm.staged_bytes,
                  staged_seconds=comm.staged_seconds, seconds=comm.seconds,
                  calls=comm.calls)
-    if mesh is not None:
+    own = tlm.param_leaves(params)
+    held = (held_bytes(own, opt), held_bytes(own[1 + len(cfg.contexts):],
+                                             opt))
+    if kind == 'packed':
+        params = tp.unpack_pipeline_params(
+            tp.gather_pipeline_params(mesh, params), cfg)
+    elif mesh is not None:
         params = gather_params(mesh, params)
-    leaves = [t.detach().cpu().numpy() for t in tlm.param_leaves(params)]
-    return losses, walls, leaves, counts, stats
+    leaves = [np.asarray(t.detach().cpu().numpy() if torch.is_tensor(t)
+                         else t) for t in tlm.param_leaves(params)]
+    return losses, walls, leaves, counts, stats, held
 
 
 def dist_decode_json(results):
@@ -5853,13 +5913,15 @@ def rank_main(task, work, out):
         res['train']['history'] = h5io.load_config(spec['model'])[2]
         # the data mesh's steps, (b) the vocabulary over 2 ranks, (c) 2
         # pipeline stages
+        # pipeline stages, then the same on the packed layout
+        pipe = make_pipe_mesh(DIST_RANKS, DIST_RANKS)
         for kind, mesh in (('dp', make_mesh(DIST_RANKS)),
                            ('tp', make_mesh(DIST_RANKS, DIST_RANKS)),
-                           ('pipe', make_pipe_mesh(DIST_RANKS, DIST_RANKS))):
-            losses, walls, leaves, counts, stats = dist_steps(kind, dev,
-                                                              mesh)
+                           ('pipe', pipe), ('packed', pipe)):
+            losses, walls, leaves, counts, stats, held = dist_steps(
+                kind, dev, mesh)
             res[kind] = dict(losses=losses, walls=walls, launches=counts,
-                             backend=mesh.backend, comm=stats)
+                             backend=mesh.backend, comm=stats, held=held)
             if mesh.rank == 0:
                 np.savez(os.path.join(work, 'dist_%s.npz' % kind), *leaves)
         # (d)-(f): the rows, documents and streams over 2 ranks
@@ -6045,6 +6107,44 @@ def distributed_path(rater, work, train, scoring, card):
                  card))
         out[kind] = dict(walls=[x['walls'] for x in g], walls1=walls1,
                          err=err, comm=[x['comm'] for x in g])
+    # (c) on the packed layout, in the same rank processes: equal bit for
+    # bit to the canonical step (a data group of one rank: the canonical
+    # step's sums over pipe add exact zeros), each rank its stage's layers
+    packed = np.load(os.path.join(work, 'dist_packed.npz'))
+    canon = np.load(os.path.join(work, 'dist_pipe.npz'))
+    assert sorted(packed.files) == sorted(canon.files)
+    diff = max(float(np.max(np.abs(packed[k] - canon[k])))
+               for k in canon.files)
+    g = [got['packed'] for got in ranks]
+    for r, got in enumerate(ranks):
+        assert got['packed']['losses'] == got['pipe']['losses'], r
+        assert got['packed']['launches'] == got['pipe']['launches'] == dict(
+            NO_LAUNCHES, lstm_scan=DIST_STEPS * TRAIN_D,
+            lstm_bwd=DIST_STEPS * TRAIN_D), (r, got['packed']['launches'])
+    assert diff == 0, diff
+    print('distributed (c) on the packed layout (make_pipeline_train_step: '
+          'a rank holds its stage\'s kernel, recurrent and bias stacks and '
+          'their moments, the embeddings whole), same ranks, mesh, batches '
+          'and weights: losses %s on rank 0, equal to the canonical step\'s '
+          'on every rank; weights after %d steps max |diff| %g against the '
+          'canonical step\'s (unpacked); launches a rank %s (summed over the '
+          'ranks lstm_scan %d, lstm_bwd %d); bytes of parameters and Adam '
+          'moments a rank %s (of them the LSTM layers %s), the canonical '
+          'step %s (%s); seconds a step %s on the ranks, the canonical step '
+          '%s [%s]'
+          % (['%.7f' % v for v in g[0]['losses']], DIST_STEPS, diff,
+             g[0]['launches'],
+             sum(x['launches']['lstm_scan'] for x in g),
+             sum(x['launches']['lstm_bwd'] for x in g),
+             [x['held'][0] for x in g], [x['held'][1] for x in g],
+             [got['pipe']['held'][0] for got in ranks],
+             [got['pipe']['held'][1] for got in ranks],
+             [['%.4f' % w for w in x['walls']] for x in g],
+             [['%.4f' % w for w in got['pipe']['walls']] for got in ranks],
+             card))
+    out['packed'] = dict(walls=[x['walls'] for x in g], held=[
+        x['held'] for x in g], canonical_held=[got['pipe']['held']
+                                               for got in ranks])
     # (d)-(f): bit for bit equal to one process
     for name, what in (('score', '(d) phase 5\'s 4 pages scored, rows over '
                         '2 ranks'),

@@ -98,10 +98,13 @@ def params_to_numpy(params: Params) -> Params:
 
 def param_leaves(params: Params) -> list:
     """The tree's tensors in a fixed order (embedding, context tables,
-    then kernel, recurrent, bias of each layer)."""
-    return ([params['char_embedding']] + list(params['context_embeddings'])
-            + [lp[name] for lp in params['lstm']
-               for name in ('kernel', 'recurrent', 'bias')])
+    then kernel, recurrent, bias of each layer; of a packed tree of
+    ``parallel/pipeline.py``, its three stacks)."""
+    head = [params['char_embedding']] + list(params['context_embeddings'])
+    if 'lstm' not in params:
+        return head + [params[k] for k in ('kernel', 'recurrent', 'bias')]
+    return head + [lp[name] for lp in params['lstm']
+                   for name in ('kernel', 'recurrent', 'bias')]
 
 
 def init_params(cfg: LMConfig, generator: torch.Generator,

@@ -50,6 +50,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from . import comm
 from .mesh import DATA_AXIS, MODEL_AXIS, Mesh, local_rows, make_mesh
 
 LOG = logging.getLogger(__name__)
@@ -241,6 +242,42 @@ def make_global_mesh(model_parallel: int = 1) -> Mesh:
     return make_mesh(world_size(), model_parallel)
 
 
+def global_batch(mesh: Mesh, x_local, zs_local, y_local, mask_local,
+                 carry_local):
+    """This rank's ``(x, zs, y, mask, carry)`` for the sharded steps,
+    from its local rows (numpy or torch): JAX's ``global_batch``, which
+    assembles the globally sharded arrays from every process's rows.  A
+    rank holds its ``data`` share already, so its rows stay its own,
+    moved to its device (inputs, contexts and targets as int64, the mask
+    and the carry as float32); ``carry_local`` is its ``(depth, B_loc,
+    W)`` rows, those :func:`mesh.shard_carry` gives it from the whole
+    carry.  The ranks along the second axis share a data row and take
+    the rows of its first rank.  Raises unless every rank passes rows of
+    the same shapes (JAX builds the global shape as the local one times
+    the process count).  Collective."""
+    arrays = [x_local] + list(zs_local) + [y_local, mask_local] \
+        + list(carry_local)
+    shapes = [tuple(a.shape) if torch.is_tensor(a) else np.shape(a)
+              for a in arrays]
+    if world_size() > 1:
+        every = [None] * world_size()
+        dist.all_gather_object(every, shapes)
+        if any(s != shapes for s in every):
+            raise ValueError('every process passes local rows of the same '
+                             'shapes; got %s' % every)
+
+    def put(a, dtype):
+        t = torch.as_tensor(np.asarray(a)) if not torch.is_tensor(a) else a
+        t = t.to(device=mesh.device, dtype=dtype).contiguous()
+        return comm.broadcast(t, 0, mesh.second)
+    n = len(zs_local)
+    x, *zs = [put(a, torch.int64) for a in arrays[:n + 1]]
+    y = put(y_local, torch.int64)
+    mask = put(mask_local, torch.float32)
+    carry = tuple(put(c, torch.float32) for c in carry_local)
+    return x, zs, y, mask, carry
+
+
 def align_seed() -> None:
     """Seed numpy's and Python's global generators with rank 0's draw on
     every rank: the file order (``random.shuffle``), the window split,
@@ -270,7 +307,7 @@ def local_store(tag: str = 'keraslm') -> str:
     return path
 
 
-__all__ = ['DATA_AXIS', 'MODEL_AXIS', 'Layout', 'align_seed', 'init_file',
-           'init_multihost', 'is_multihost', 'join_from_env', 'layout',
-           'local_rows', 'local_store', 'make_global_mesh', 'rank',
+__all__ = ['DATA_AXIS', 'MODEL_AXIS', 'Layout', 'align_seed', 'global_batch',
+           'init_file', 'init_multihost', 'is_multihost', 'join_from_env',
+           'layout', 'local_rows', 'local_store', 'make_global_mesh', 'rank',
            'rank_device', 'shutdown', 'world_size']

@@ -16,15 +16,36 @@ stages GPipe-style:
   not differentiable), and sends its input's gradient back (``lstm_bwd``
   on the card);
 * the tied embedding is replicated on the stages (stage 0 embeds, the
-  last stage projects), the context tables and all layers too: every
-  gradient is summed over the whole mesh (a stage's layers have a
-  gradient on that stage only, so the sum over ``pipe`` hands each
-  stage's gradient to the others, and the sum over ``data`` is data
-  parallelism), and every rank then takes the same Adam step.  The
-  canonical parameters, Adam's moments and (gathered over ``pipe`` at
-  the end of the step) the carry stay whole and equal on every rank of
-  a data row, so validation, checkpoints and resume are those of one
-  rank.
+  last stage projects) and so are the context tables.
+
+The two step factories run that one staged forward and backward
+(:func:`_make_staged`, as JAX's two share its ``_make_staged``) and
+differ in what a rank holds and over which ranks each gradient is
+summed:
+
+* :func:`make_pipeline_train_step_canonical` keeps the canonical tree
+  whole on every rank: every gradient is summed over the whole mesh (a
+  stage's layers have a gradient on that stage only, so the sum over
+  ``pipe`` hands each stage's gradient to the others, and the sum over
+  ``data`` is data parallelism), and every rank then takes the same
+  Adam step.  The canonical parameters, Adam's moments and (gathered
+  over ``pipe`` at the end of the step) the carry stay whole and equal
+  on every rank of a data row, so validation, checkpoints and resume
+  are those of one rank.  The training loop takes this one.
+* :func:`make_pipeline_train_step` works on the packed layout: a rank
+  at pipe position ``s`` holds stage ``s``'s stacked ``kernel``,
+  ``recurrent`` and ``bias`` and their moments (JAX's
+  ``_packed_shardings``: the stacks sharded on ``pipe``, the embeddings
+  replicated) and its data rows of the stage's carry (JAX's
+  ``P(pipe, None, data, None)``).  A stage's layer gradients are summed
+  over its ``data`` group only, the embeddings' over the whole mesh,
+  and each rank takes Adam on what it holds: the canonical step's
+  update with 1/``pp`` of the layers' parameters and moments a rank.
+
+Both sum a gradient over ``pipe`` first, then over ``data``: the sum
+over ``pipe`` has at most two terms that are not zero (the embedding's
+on the first and the last stage), so the two steps give equal bits
+wherever a ``data`` group has at most two ranks.
 
 Dropout follows the JAX package's rule in spirit, not in bits: a
 layer's mask comes from a generator seeded by one draw of the shared
@@ -48,7 +69,7 @@ from ..models.lstm_lm import (LMConfig, Params, dropout_keep,
                               embed_inputs, lstm_stack, param_leaves,
                               regularization_loss)
 from . import comm
-from .mesh import DATA_AXIS, PIPE_AXIS, Mesh, make_mesh
+from .mesh import DATA_AXIS, PIPE_AXIS, Mesh, local_rows, make_mesh
 from .train import all_reduce_grads, broadcast_params, xent_sums
 
 
@@ -69,9 +90,7 @@ def pack_pipeline_params(params, cfg: LMConfig, n_stages: int) -> dict:
     layers_per_stage, ...)`` numpy arrays; the kernels of the layers
     above 0 are zero-padded to layer 0's input width."""
     D, W, I = cfg.depth, cfg.width, cfg.input_dim
-    if D % n_stages:
-        raise ValueError('depth %d not divisible by %d pipeline stages'
-                         % (D, n_stages))
+    _divides(D, n_stages)
     ls = D // n_stages
     kernels = []
     for layer in range(D):
@@ -121,41 +140,36 @@ def unpack_carry(pcarry):
     return h.reshape(shp), c.reshape(shp)
 
 
-def _check(mesh: Mesh, cfg: LMConfig) -> int:
+def _divides(depth: int, n_stages: int) -> None:
+    # an AssertionError, as the JAX package's assert raises
+    if depth % n_stages:
+        raise AssertionError('depth %d not divisible by %d pipeline stages'
+                             % (depth, n_stages))
+
+
+def _make_staged(mesh: Mesh, cfg: LMConfig, n_micro: int):
+    """The GPipe forward and backward of one step on this rank's stage,
+    shared by both step factories.  Refuses a depth the stages do not
+    divide and variable-length windows, as JAX's ``_make_staged`` does.
+    Returns ``(staged, layers)``: this stage's global layer indices, and
+    ``staged(params, x, zs, y, mask, carry, rng, x_mask=None)``, where
+    ``params['lstm'][layer]`` holds each of those layers and ``carry``
+    their ``(ls, B_loc, W)`` pair.  It backpropagates this rank's share
+    of the loss into the leaves' ``.grad`` (the regularizers on rank 0),
+    summed over no rank, and returns ``(the stage's new carry, (loss,
+    nll, acc) of the global batch)``."""
     n_stages = int(mesh.shape[PIPE_AXIS])
-    if cfg.depth % n_stages:
-        raise ValueError('depth %d not divisible by %d pipeline stages'
-                         % (cfg.depth, n_stages))
+    _divides(cfg.depth, n_stages)
     if cfg.variable_length:
         raise NotImplementedError(
             'pipeline training covers the stateful-streams layout; '
             'variable-length masked windows use the dp/tp step '
             '(parallel/train.py)')
-    return n_stages
-
-
-def make_pipeline_train_step_canonical(mesh: Mesh, cfg: LMConfig,
-                                       n_micro: int, optimizer=None):
-    """Return ``(step, shard_fn)`` on canonical parameters, as
-    :func:`parallel.train.make_sharded_train_step` does: ``shard_fn``
-    makes rank 0's weights every rank's and returns leaves that require
-    grad with their Adam; ``step(params, opt, x, zs, y, mask, carry,
-    rng)`` takes this rank's data rows and its ``(depth, B_loc, W)``
-    carry, runs one GPipe step and returns ``(carry, loss, nll, acc)``
-    of the global batch."""
-    from ..training import copy_params, make_optimizer
-    n_stages = _check(mesh, cfg)
-    make_opt = optimizer or make_optimizer
     ls = cfg.depth // n_stages
     p = mesh.second_index
     layers = range(p * ls, (p + 1) * ls)
     last = p == n_stages - 1
     pipe = mesh.second
-
-    def shard_fn(params: Params):
-        local = copy_params(broadcast_params(mesh, params),
-                            requires_grad=True)
-        return local, make_opt(local)
 
     def keeps(rng, B, device):
         """The dropout masks (B, 1, W) of this stage's layers above 0."""
@@ -171,7 +185,7 @@ def make_pipeline_train_step_canonical(mesh: Mesh, cfg: LMConfig,
                 out[layer] = dropout_keep(cfg, B, gen, device)
         return out
 
-    def step(params, opt, x, zs, y, mask, carry, rng, x_mask=None):
+    def staged(params, x, zs, y, mask, carry, rng, x_mask=None):
         if x_mask is not None:
             raise ValueError('pipeline training takes no x_mask')
         B, T = x.shape
@@ -180,12 +194,10 @@ def make_pipeline_train_step_canonical(mesh: Mesh, cfg: LMConfig,
                              'microbatches' % (B, n_micro))
         mb = B // n_micro
         dev = x.device
-        opt.zero_grad(set_to_none=True)
         denom = comm.all_reduce(mask.float().sum(), mesh.data) \
             .clamp(min=1.0)
         masks = keeps(rng, B, dev)
-        h = carry[0][p * ls:(p + 1) * ls]
-        c = carry[1][p * ls:(p + 1) * ls]
+        h, c = carry
         # the new carry goes elsewhere: the scans keep their inputs
         h2, c2 = torch.empty_like(h), torch.empty_like(c)
         block = torch.empty((mb, T, cfg.width), device=dev)
@@ -224,19 +236,140 @@ def make_pipeline_train_step_canonical(mesh: Mesh, cfg: LMConfig,
         reg = regularization_loss(params)
         if mesh.rank == 0:
             reg.backward()
-        leaves = param_leaves(params)
-        all_reduce_grads(mesh.world, leaves)
-        torch.nn.utils.clip_grad_value_(leaves, 1.0)
-        opt.step()
         totals = comm.all_reduce(sums, mesh.world)
         nll = totals[0] / denom
-        carry = (comm.all_gather_rows(h2, pipe),
-                 comm.all_gather_rows(c2, pipe))
-        return carry, nll + reg.detach(), nll, totals[1] / denom
+        return (h2, c2), (nll + reg.detach(), nll, totals[1] / denom)
+
+    return staged, layers
+
+
+def _update(mesh: Mesh, optimizer, replicated, stage=()) -> None:
+    """Sum the gradients of the ``replicated`` leaves over the whole mesh
+    and those of the ``stage`` leaves over ``data``, clip them
+    elementwise at 1.0 and take the optimizer's step."""
+    replicated, stage = list(replicated), list(stage)
+    all_reduce_grads(mesh.second, replicated)
+    all_reduce_grads(mesh.data, replicated + stage)
+    torch.nn.utils.clip_grad_value_(replicated + stage, 1.0)
+    optimizer.step()
+
+
+def make_pipeline_train_step_canonical(mesh: Mesh, cfg: LMConfig,
+                                       n_micro: int, optimizer=None):
+    """Return ``(step, shard_fn)`` on canonical parameters, as
+    :func:`parallel.train.make_sharded_train_step` does: ``shard_fn``
+    makes rank 0's weights every rank's and returns leaves that require
+    grad with their Adam; ``step(params, opt, x, zs, y, mask, carry,
+    rng)`` takes this rank's data rows and its ``(depth, B_loc, W)``
+    carry, runs one GPipe step and returns ``(carry, loss, nll, acc)``
+    of the global batch."""
+    from ..training import copy_params, make_optimizer
+    staged, layers = _make_staged(mesh, cfg, n_micro)
+    make_opt = optimizer or make_optimizer
+    own = slice(layers.start, layers.stop)
+
+    def shard_fn(params: Params):
+        local = copy_params(broadcast_params(mesh, params),
+                            requires_grad=True)
+        return local, make_opt(local)
+
+    def step(params, opt, x, zs, y, mask, carry, rng, x_mask=None):
+        opt.zero_grad(set_to_none=True)
+        stage, sums = staged(params, x, zs, y, mask,
+                             (carry[0][own], carry[1][own]), rng, x_mask)
+        _update(mesh, opt, param_leaves(params))
+        carry = tuple(comm.all_gather_rows(t, mesh.second) for t in stage)
+        return (carry,) + sums
 
     return step, shard_fn
 
 
-__all__ = ['DATA_AXIS', 'PIPE_AXIS', 'make_pipe_mesh',
-           'make_pipeline_train_step_canonical', 'pack_carry',
-           'pack_pipeline_params', 'unpack_carry', 'unpack_pipeline_params']
+_STACKS = ('kernel', 'recurrent', 'bias')
+
+
+def make_pipeline_train_step(mesh: Mesh, cfg: LMConfig, n_micro: int,
+                             optimizer=None):
+    """Return ``(step, shard_fn)`` on the packed layout of
+    :func:`pack_pipeline_params` and :func:`pack_carry` (see the module
+    docstring).
+
+    ``shard_fn(packed, pcarry)`` takes the whole packed tree and carry
+    (numpy or torch) and returns ``(local, opt, carry)``: this rank's
+    tree on its device, rank 0's values, as leaves that require grad
+    (``char_embedding``, ``context_embeddings`` whole; ``kernel (ls, I,
+    4W)``, ``recurrent (ls, W, 4W)``, ``bias (ls, 4W)`` of its stage),
+    Adam over those leaves only (``optimizer(local)``, default
+    :func:`training.make_optimizer`), and its data rows of its stage's
+    carry, a ``(ls, B_loc, W)`` pair.  ``step(local, opt, x, zs, y, mask,
+    carry, rng)`` takes this rank's data rows, runs one GPipe step and
+    returns ``(carry, loss, nll, acc)`` of the global batch.
+    :func:`gather_pipeline_params` and :func:`gather_pipeline_carry`
+    bring the whole packed tree and carry back."""
+    from ..training import make_optimizer
+    staged, layers = _make_staged(mesh, cfg, n_micro)
+    make_opt = optimizer or make_optimizer
+    p = mesh.second_index
+
+    def shard_fn(packed, pcarry):
+        def put(a, group):
+            t = torch.as_tensor(_np(a)).to(mesh.device)
+            return comm.broadcast(t.contiguous(), 0, group).clone() \
+                .requires_grad_()
+        local = {'char_embedding': put(packed['char_embedding'],
+                                       mesh.world),
+                 'context_embeddings': [put(e, mesh.world) for e in
+                                        packed['context_embeddings']]}
+        for k in _STACKS:
+            local[k] = put(_np(packed[k])[p], mesh.data)
+        carry = tuple(torch.as_tensor(local_rows(mesh, _np(a)[p], axis=1))
+                      .to(mesh.device) for a in pcarry)
+        return local, make_opt(local), carry
+
+    def step(local, opt, x, zs, y, mask, carry, rng):
+        opt.zero_grad(set_to_none=True)
+        # the stage's layers as views of the stacks (layer 0's kernel
+        # takes all input rows, the others the first W)
+        view = dict(local, lstm={layer: {
+            'kernel': local['kernel'][i, :cfg.input_dim if layer == 0
+                                      else cfg.width],
+            'recurrent': local['recurrent'][i], 'bias': local['bias'][i]}
+            for i, layer in enumerate(layers)})
+        carry, sums = staged(view, x, zs, y, mask, carry, rng)
+        leaves = param_leaves(local)
+        _update(mesh, opt, leaves[:-len(_STACKS)], leaves[-len(_STACKS):])
+        return (carry,) + sums
+
+    return step, shard_fn
+
+
+def gather_pipeline_params(mesh: Mesh, local) -> dict:
+    """The whole packed numpy tree from every rank's ``local`` tree of
+    :func:`make_pipeline_train_step` (collective over ``pipe``)."""
+    def whole(t):
+        t = comm.all_gather_rows(t.detach(), mesh.second)
+        return _np(t.reshape((mesh.shape[PIPE_AXIS], -1)
+                             + tuple(t.shape[1:])))
+    out = {'char_embedding': _np(local['char_embedding']),
+           'context_embeddings': [_np(e) for e in
+                                  local['context_embeddings']]}
+    out.update({k: whole(local[k]) for k in _STACKS})
+    return out
+
+
+def gather_pipeline_carry(mesh: Mesh, carry):
+    """The whole packed ``(n_stages, ls, B, W)`` numpy carry pair from
+    every rank's block (collective over the mesh)."""
+    out = []
+    for t in carry:
+        t = comm.all_gather_rows(comm.all_gather_rows(t, mesh.data, dim=1),
+                                 mesh.second)
+        out.append(_np(t.reshape((mesh.shape[PIPE_AXIS], -1)
+                                 + tuple(t.shape[1:]))))
+    return tuple(out)
+
+
+__all__ = ['DATA_AXIS', 'PIPE_AXIS', 'gather_pipeline_carry',
+           'gather_pipeline_params', 'make_pipe_mesh',
+           'make_pipeline_train_step', 'make_pipeline_train_step_canonical',
+           'pack_carry', 'pack_pipeline_params', 'unpack_carry',
+           'unpack_pipeline_params']

@@ -136,6 +136,19 @@ def load_weights(path: str, cfg: LMConfig) -> Params:
                      for lp in tree['lstm']]}
 
 
+def load_model(path: str
+               ) -> Tuple[Params, LMConfig, Vocab, Dict[str, Any]]:
+    """``(params, cfg, vocab, history)`` of a model directory
+    (:func:`load_config`, then :func:`load_weights`); ``cfg.voc_size``
+    follows the embedding's rows."""
+    cfg, vocab, history = load_config(path)
+    params = load_weights(path, cfg)
+    rows = params['char_embedding'].shape[0]
+    if rows != cfg.voc_size:
+        cfg = cfg.replace(voc_size=rows)
+    return params, cfg, vocab, history
+
+
 def _snapshots(path: str):
     return sorted(e for e in os.listdir(path)
                   if e.startswith('ep_') and not e.endswith('.tmp')

@@ -441,12 +441,34 @@ def xml_parser():
                                                     insert_pis=True))
 
 
+def _indent(elem, level=0):
+    """Indent as libxml2's formatted output (lxml's ``pretty_print``)
+    does: an element whose children include a text node (its text or a
+    child's tail, whitespace too) keeps all it holds as it is; the
+    children of any other element go on lines of their own, two spaces
+    a level."""
+    children = list(elem)
+    if not children or elem.text or any(c.tail for c in children):
+        return
+    pad = '\n' + '  ' * (level + 1)
+    elem.text = pad
+    for child in children:
+        child.tail = pad
+        _indent(child, level + 1)
+    children[-1].tail = pad[:-2]
+
+
 def tostring(root) -> str:
-    """Indented UTF-8 serialization with an XML declaration (new nodes
-    get indented; existing non-whitespace text is kept)."""
-    etree.indent(root)
-    return etree.tostring(root, encoding='UTF-8',
-                          xml_declaration=True).decode('utf-8')
+    """UTF-8 serialization with an XML declaration, in the bytes lxml's
+    ``pretty_print`` writes (the JAX package's writer): new elements
+    indented where their parent holds no text (:func:`_indent`), an
+    empty element as ``<a/>``, a newline at the end.  ElementTree writes
+    ``<a />``; it escapes every ``>`` in text and attribute values, so
+    ``' />'`` closes a tag (a comment that holds it loses the space
+    too)."""
+    _indent(root)
+    return etree.tostring(root, encoding='UTF-8', xml_declaration=True) \
+        .decode('utf-8').replace(' />', '/>') + '\n'
 
 
 def parse_page_root(source):

@@ -130,11 +130,13 @@ class KerasRate:
                  output_file_grp: str = 'OCR-D-LM',
                  parameter: Optional[Dict[str, Any]] = None,
                  logger: Optional[logging.Logger] = None,
-                 device=None):
+                 download: bool = False, device=None):
         self.workspace = workspace
         self.input_file_grp = input_file_grp
         self.output_file_grp = output_file_grp
         self.logger = logger or LOG
+        # pass every input through workspace.download_file first
+        self.download = download
         self.device = device
         self._ws_lock = threading.Lock()
         self.parameter = dict(parameter or {})
@@ -482,10 +484,12 @@ class KerasRate:
 
         # one-ahead page load: the file read and native scan of page i+1
         # overlap page i's launch work (one worker thread; an error
-        # surfaces at .result() inside the consuming page's policy guard)
+        # surfaces at .result() inside the consuming page's policy
+        # guard); off while downloading: download_file changes the
+        # workspace, so the pages load in order
         prefetcher = None
         futures: List[Any] = [None] * len(input_files)
-        if device_mode and len(input_files) > 1:
+        if device_mode and not self.download and len(input_files) > 1:
             from concurrent.futures import ThreadPoolExecutor
             prefetcher = ThreadPoolExecutor(max_workers=1)
 
@@ -767,6 +771,15 @@ class KerasRate:
             defer_walk=bool(self.parameter['lookahead_writeback']))
         return (pending, pcgts, file_id, page_id), device_tb
 
+    def process_page_pcgts_device(self, pcgts: PcGts, device_tb,
+                                  file_id: str, page_id: str):
+        """Decode and write one page on the device from ``device_tb`` (the
+        previous page's traceback, or None); returns this page's."""
+        rec, device_tb = self.process_page_pcgts_device_begin(
+            pcgts, device_tb, file_id, page_id)
+        self._finish_device_page(rec)
+        return device_tb
+
     def process_page_pcgts_stateful(self, pcgts: PcGts,
                                     prev: Optional[RateState],
                                     file_id: str, page_id: str
@@ -833,9 +846,22 @@ class KerasRate:
         page_update_higher_textequiv_levels(level, pcgts)
         self._write_page(pcgts, file_id, page_id)
 
+    def process_page_pcgts(self, pcgts: PcGts) -> PcGts:
+        """Score one page (no alternatives) and add this processor's
+        metadata; returns the page (not written)."""
+        level = self._level
+        self.rater.logger.info("Scoring text in page '%s' at the %s level",
+                               pcgts.get_pcGtsId(), level)
+        score_page_pcgts(self.rater, pcgts, level, self._page_context(),
+                         self._lm_weight, logger=self.logger)
+        self.add_metadata(pcgts)
+        return pcgts
+
     # -- helpers -------------------------------------------------------
 
     def _load_page(self, input_file, page_id) -> Optional[PcGts]:
+        if self.download:
+            input_file = self.workspace.download_file(input_file)
         if input_file.local_filename is None:
             self.logger.debug('ignoring missing file for page %s',
                               page_id)

@@ -1476,3 +1476,31 @@ def test_resume_matches_uninterrupted_on_the_card(cuda, tmp_path,
     monkeypatch.setattr(training, 'Prefetcher', real)
     assert load_train_state(snap)['meta']['epoch_done'] == 1
     assert run(snap, 'c').history == want
+
+
+def test_trace_holds_one_event_per_decode_launch(cuda, tmp_path):
+    """The decoding CLI with ``--jax-trace`` over a seeded 4-page
+    workspace, three times in this process (which has run CUDA work and
+    traces before): each Chrome trace holds one ``decode_lattice``
+    kernel event for each launch the wrapper counted."""
+    import glob
+
+    from chip_smoke import platform_env, read_counts, trace_events, zero_counts
+    from ocrd_keraslm_torch.wrapper.cli import ocrd_keraslm_rate
+    vocab = german_rater(cuda).vocab
+    for i in range(3):
+        d = str(tmp_path / ('ws%d' % i))
+        build_workspace(d, np.random.default_rng(7), 4, 40, vocab)
+        tdir = str(tmp_path / ('trace%d' % i))
+        zero_counts()
+        with platform_env('cuda'):
+            ocrd_keraslm_rate.main(args=[
+                '-m', os.path.join(d, 'mets.xml'), '-I', 'OCR-D-OCR', '-O',
+                'OCR-D-LM', '-l', 'WARNING', '--jax-trace', tdir, '-P',
+                'model_file', MODEL, '-P', 'textequiv_level', 'glyph', '-P',
+                'beam_width', '10'], standalone_mode=False)
+        launches = read_counts()['decode_lattice']
+        path, = glob.glob(os.path.join(tdir, '*.pt.trace.json'))
+        named = trace_events(path)[2]
+        assert launches > 0 and len(named) == launches, (i, len(named),
+                                                         launches)

@@ -347,6 +347,48 @@ def _rank_serving(mesh, model, out):
         json.dump(res, fh)
 
 
+def _rank_global_batch(mesh, inp, out):
+    """``multihost.global_batch`` from this rank's rows (the ranks after
+    the first of a data row pass other inputs) against ``shard_batch``
+    and ``shard_carry`` of the whole batch; then rows of unequal shapes
+    (rank 3 passes one row fewer)."""
+    from ocrd_keraslm_torch.data import Batch
+    from ocrd_keraslm_torch.parallel import multihost
+    from ocrd_keraslm_torch.parallel.mesh import (local_rows, shard_batch,
+                                                  shard_carry)
+    rng = np.random.default_rng(9)
+    carry = tuple(rng.normal(size=(D, B, W)).astype(np.float32)
+                  for _ in range(2))
+    want = shard_batch(mesh, Batch(x=inp['x'], zs=[inp['z']], y=inp['y'],
+                                   mask=inp['mask']))
+    want_carry = shard_carry(mesh, carry)
+
+    def args(cut=0):
+        def rows(a, axis=0):
+            return local_rows(mesh, a, axis)[
+                (slice(None),) * axis + (slice(0, B // 2 - cut),)]
+        return (rows(inp['x']) + mesh.second_index, [rows(inp['z'])],
+                rows(inp['y']), rows(inp['mask']),
+                tuple(rows(c, 1) for c in carry))
+    x, zs, y, mask, got_carry = multihost.global_batch(mesh, *args())
+    res = {'equal': [np.array_equal(x.numpy(), want.x),
+                     np.array_equal(zs[0].numpy(), want.zs[0]),
+                     np.array_equal(y.numpy(), want.y),
+                     np.array_equal(mask.numpy(), want.mask)]
+           + [np.array_equal(a.numpy(), b)
+              for a, b in zip(got_carry, want_carry)],
+           'dtypes': [str(t.dtype) for t in (x, zs[0], y, mask)
+                      + got_carry]}
+    try:
+        multihost.global_batch(mesh, *args(int(mesh.rank == 3)))
+        res['refused'] = None
+    except ValueError as err:
+        res['refused'] = str(err)
+    with open(os.path.join(out, 'global_batch%d.json' % mesh.rank),
+              'w') as fh:
+        json.dump(res, fh)
+
+
 def _task_all(rank, out, model):
     from ocrd_keraslm_torch.parallel import comm
     from ocrd_keraslm_torch.parallel.mesh import make_mesh
@@ -356,6 +398,7 @@ def _task_all(rank, out, model):
     inp = dict(np.load(os.path.join(out, '..', 'inputs.npz')))
     tree = load_tree(os.path.join(out, '..', 'params.npz'))
     _rank_steps(mesh, inp, tree, out)
+    _rank_global_batch(mesh, inp, out)
     files = sorted(str(p) for p in pathlib.Path(out, '..', 'corpus')
                    .glob('*.txt'))
     r = train_rater_run(files, os.path.join(out, 'ck%d' % rank), mesh)
@@ -409,6 +452,18 @@ def _steps(world, rank=0):
 def _serving(world, rank=0):
     with open(world['dir'] / ('serving%d.json' % rank)) as fh:
         return json.load(fh)
+
+
+def test_global_batch_gives_the_sharded_rows(world):
+    """Every rank's ``global_batch`` equals its ``shard_batch`` and
+    ``shard_carry`` rows, the ranks of a data row its first rank's; rows
+    of unequal shapes are refused on every rank."""
+    for rank in range(4):
+        with open(world['dir'] / ('global_batch%d.json' % rank)) as fh:
+            got = json.load(fh)
+        assert got['equal'] == [True] * 6, (rank, got)
+        assert got['dtypes'] == ['torch.int64'] * 3 + ['torch.float32'] * 3
+        assert 'same shapes' in got['refused'], got
 
 
 def _one_rank_step(world, dropout=0.0, layout='stateful', rng=None):

@@ -3,18 +3,28 @@ rank processes on the CPU against the JAX package's
 ``make_pipeline_train_step_canonical`` over its virtual CPU devices,
 and against the port's one-rank step.
 
+The packed-layout step (``make_pipeline_train_step``) runs 3 steps on
+every mesh against JAX's over its virtual CPU devices, and against the
+port's canonical step from the same weights, with dropout 0 and 0.3.
+
 Two worlds run every check once (this file is also the rank's script):
 two ranks for the ``(dp, pp, n_micro)`` meshes ``(1, 2, 2)`` and
 ``(1, 2, 4)``, the bf16 step and ``keraslm-rate train --mesh 2p``; four
-ranks for ``(2, 2, 2)``.  Dropout 0, as the JAX package's own pipeline
-tests hold parity (its dropout masks differ in bits by design).
+ranks for ``(2, 2, 2)``.  Dropout 0 against JAX, as the JAX package's
+own pipeline tests hold parity (its dropout masks differ in bits by
+design).
 
 Tolerances: loss, NLL, accuracy and the carry within rtol 1e-5 / atol
 1e-6 of the port's one-rank step and rtol 1e-4 / atol 2e-5 of JAX's
 pipeline step; parameters within atol 1e-5 of one rank's and 2.5e-3 of
 JAX's (Adam's first step, see ``tests/test_torch_parallel.py``); bf16
 within rtol 1e-4 of one rank's bf16 step (the operands round alike, the
-microbatch products sum in another order)."""
+microbatch products sum in another order).  The packed step after 3
+steps: loss, NLL and accuracy within rtol 1e-5 / atol 1e-6 of JAX's
+packed step, the parameters too after unpacking, the carry within rtol
+1e-4 / atol 1e-6 (the tolerances of JAX's own pipeline test); against
+the port's canonical step equal bit for bit (the same arithmetic on the
+same ranks; see ``parallel/pipeline.py``)."""
 import json
 import os
 
@@ -32,6 +42,8 @@ torch.set_num_threads(1)
 W, D, V, T, B = 16, 2, 32, 8, 8
 CONTEXTS = ((20, 4),)
 MESHES = [(1, 2, 2), (2, 2, 2), (1, 2, 4)]
+STEPS = 3                   # steps of the packed and canonical runs
+DROPOUTS = (0.0, 0.3)
 
 
 def _inputs(seed=1):
@@ -83,6 +95,68 @@ def _rank_step(out, tag, dp, pp, n_micro, dtype='float32'):
     np.savez(os.path.join(out, '%s_%d.npz' % (tag, mesh.rank)), **res)
 
 
+def _rank_steps(out, dp, pp, n_micro):
+    """``STEPS`` steps of the packed and of the canonical step from the
+    same weights, with every dropout of ``DROPOUTS`` (one generator of
+    one seed for each run); writes the losses, the whole carry, the
+    canonical leaves (the packed run's unpacked) and the packed run's
+    optimizer state to ``pk<mesh>_<dropout>_<rank>.npz`` and
+    ``cn...``."""
+    from ocrd_keraslm_torch.models import lstm_lm as tlm
+    from ocrd_keraslm_torch.parallel import comm
+    from ocrd_keraslm_torch.parallel import pipeline as tp
+    from ocrd_keraslm_torch.parallel.mesh import local_rows, shard_carry
+    inp = dict(np.load(os.path.join(out, '..', 'inputs.npz')))
+    tree = load_tree(os.path.join(out, '..', 'params.npz'))
+    mesh = tp.make_pipe_mesh(dp * pp, pipe_parallel=pp)
+
+    def rows(a):
+        return torch.from_numpy(local_rows(mesh, a))
+    args = (rows(inp['x']).long(), [rows(inp['z']).long()],
+            rows(inp['y']).long(), rows(inp['mask']))
+    for dropout in DROPOUTS:
+        cfg = _cfg(tlm).replace(dropout=dropout)
+        step, shard_fn = tp.make_pipeline_train_step(mesh, cfg, n_micro)
+        local, opt, carry = shard_fn(
+            tp.pack_pipeline_params(tree, cfg, pp),
+            tp.pack_carry((inp['h'], inp['c']), pp))
+        rng = torch.Generator().manual_seed(5)
+        sums = []
+        for _ in range(STEPS):
+            carry, loss, nll, acc = step(local, opt, *args, carry, rng)
+            sums.append([loss.item(), nll.item(), acc.item()])
+        res = {'sums': np.array(sums)}
+        res['h'], res['c'] = tp.unpack_carry(
+            tp.gather_pipeline_carry(mesh, carry))
+        whole = tp.unpack_pipeline_params(
+            tp.gather_pipeline_params(mesh, local), cfg)
+        for i, a in enumerate(leaves(whole)):
+            res['p%d' % i] = a
+        for i, t in enumerate(tlm.param_leaves(local)):
+            res['leaf%d' % i] = np.array(t.shape)
+            for key in ('exp_avg', 'exp_avg_sq'):
+                res['%s%d' % (key, i)] = np.array(opt.state[t][key].shape)
+        tag = '%d%d%d_%s_%d' % (dp, pp, n_micro, dropout, mesh.rank)
+        np.savez(os.path.join(out, 'pk%s.npz' % tag), **res)
+
+        step, shard_fn = tp.make_pipeline_train_step_canonical(mesh, cfg,
+                                                               n_micro)
+        params, opt = shard_fn(tlm.params_from_numpy(tree, 'cpu'))
+        carry = tuple(torch.from_numpy(a) for a in shard_carry(
+            mesh, (inp['h'], inp['c'])))
+        rng = torch.Generator().manual_seed(5)
+        sums = []
+        for _ in range(STEPS):
+            carry, loss, nll, acc = step(params, opt, *args, carry, rng)
+            sums.append([loss.item(), nll.item(), acc.item()])
+        res = {'sums': np.array(sums)}
+        for name, t in zip('hc', carry):
+            res[name] = comm.all_gather_rows(t, mesh.data, dim=1).numpy()
+        for i, a in enumerate(leaves(tlm.params_to_numpy(params))):
+            res['p%d' % i] = a
+        np.savez(os.path.join(out, 'cn%s.npz' % tag), **res)
+
+
 def _task_two(rank, out):
     from click.testing import CliRunner
     from ocrd_keraslm_torch.scripts.run import cli
@@ -90,6 +164,7 @@ def _task_two(rank, out):
     for dp, pp, n_micro in MESHES:
         if dp == 1:
             _rank_step(out, 'm%d%d%d' % (dp, pp, n_micro), dp, pp, n_micro)
+            _rank_steps(out, dp, pp, n_micro)
     _rank_step(out, 'bf16', 1, 2, 2, 'bfloat16')
     corpus = os.path.join(out, '..', 'corpus')
     model = os.path.join(out, 'model.h5')
@@ -107,6 +182,7 @@ def _task_two(rank, out):
 
 def _task_four(rank, out):
     _rank_step(out, 'm222', 2, 2, 2)
+    _rank_steps(out, 2, 2, 2)
 
 
 # ----------------------------------------------------------------------
@@ -202,6 +278,115 @@ def test_pipeline_step_matches_jax(worlds, dp, pp, n_micro):
     for i, w in enumerate(want):
         np.testing.assert_allclose(got['p%d' % i], w, rtol=0, atol=2.5e-3,
                                    err_msg='leaf %d' % i)
+
+
+def _jax_packed(worlds, dp, pp, n_micro):
+    """``STEPS`` steps of JAX's packed-layout step (as
+    ``tests/test_pipeline.py`` runs it); returns the losses, the
+    canonical carry and the unpacked leaves."""
+    import jax
+    import jax.numpy as jnp
+    from ocrd_keraslm_tpu.models import lstm_lm as jlm
+    from ocrd_keraslm_tpu.parallel import pipeline as jp
+    from ocrd_keraslm_tpu.training import make_optimizer
+    from test_torch_model_core import jax_params
+    inp = worlds['inputs']
+    cfg = _cfg(jlm)
+    mesh = jp.make_pipe_mesh(dp * pp, pipe_parallel=pp,
+                             devices=jax.devices('cpu'))
+    opt = make_optimizer()
+    packed = jp.pack_pipeline_params(jax_params(worlds['tree']), cfg, pp)
+    o = opt.init(packed)
+    pc = jp.pack_carry((jnp.asarray(inp['h']), jnp.asarray(inp['c'])), pp)
+    jit_step, shard_fn = jp.make_pipeline_train_step(mesh, cfg, n_micro,
+                                                     optimizer=opt)
+    packed, o, pc = shard_fn(packed, o, pc)
+    fn = jit_step(packed, o)
+    sums = []
+    for _ in range(STEPS):
+        packed, o, pc, loss, nll, acc = fn(
+            packed, o, jnp.asarray(inp['x']), (jnp.asarray(inp['z']),),
+            jnp.asarray(inp['y']), jnp.asarray(inp['mask']), pc,
+            jax.random.PRNGKey(3))
+        sums.append([float(loss), float(nll), float(acc)])
+    return (np.array(sums), [np.asarray(t) for t in jp.unpack_carry(pc)],
+            leaves(jax.tree_util.tree_map(
+                np.asarray, jp.unpack_pipeline_params(packed, cfg))))
+
+
+def _steps(worlds, kind, dp, pp, n_micro, dropout, rank):
+    key = 'two' if dp * pp == 2 else 'four'
+    return np.load(worlds[key] / ('%s%d%d%d_%s_%d.npz' % (
+        kind, dp, pp, n_micro, dropout, rank)))
+
+
+@pytest.mark.parametrize('dp, pp, n_micro', MESHES)
+def test_packed_step_matches_jax(worlds, dp, pp, n_micro):
+    sums, carry, want = _jax_packed(worlds, dp, pp, n_micro)
+    for rank in range(dp * pp):
+        got = _steps(worlds, 'pk', dp, pp, n_micro, 0.0, rank)
+        np.testing.assert_allclose(got['sums'], sums, rtol=1e-5, atol=1e-6)
+        for name, t in zip('hc', carry):
+            np.testing.assert_allclose(got[name], t, rtol=1e-4, atol=1e-6)
+        for i, w in enumerate(want):
+            np.testing.assert_allclose(got['p%d' % i], w, rtol=1e-5,
+                                       atol=1e-6, err_msg='leaf %d' % i)
+
+
+@pytest.mark.parametrize('dropout', DROPOUTS)
+@pytest.mark.parametrize('dp, pp, n_micro', MESHES)
+def test_packed_step_equals_canonical(worlds, dp, pp, n_micro, dropout):
+    for rank in range(dp * pp):
+        got = _steps(worlds, 'pk', dp, pp, n_micro, dropout, rank)
+        want = _steps(worlds, 'cn', dp, pp, n_micro, dropout, rank)
+        for key in want.files:
+            np.testing.assert_array_equal(got[key], want[key],
+                                          err_msg=key)
+        if dropout:                     # the masks did drop units
+            off = _steps(worlds, 'cn', dp, pp, n_micro, 0.0, rank)
+            assert not np.array_equal(want['sums'], off['sums'])
+
+
+@pytest.mark.parametrize('dp, pp, n_micro', MESHES)
+def test_packed_step_holds_its_stage_only(worlds, dp, pp, n_micro):
+    """A rank's parameters and Adam's moments: the embeddings whole, its
+    stage's ``D/pp`` layers of the stacks, no more."""
+    I = W + CONTEXTS[0][1]
+    want = [(V, W), CONTEXTS[0], (D // pp, I, 4 * W), (D // pp, W, 4 * W),
+            (D // pp, 4 * W)]
+    for rank in range(dp * pp):
+        got = _steps(worlds, 'pk', dp, pp, n_micro, 0.0, rank)
+        for i, shape in enumerate(want):
+            for key in ('leaf', 'exp_avg', 'exp_avg_sq'):
+                assert tuple(got['%s%d' % (key, i)]) == shape, (key, i)
+        assert 'leaf%d' % len(want) not in got.files
+
+
+@pytest.mark.parametrize('case', ['varlen', 'depth'])
+def test_packed_step_refusals_carry_jax_messages(case, one_rank_world):
+    import jax
+    from ocrd_keraslm_tpu.models import lstm_lm as jlm
+    from ocrd_keraslm_tpu.parallel import pipeline as jp
+    from ocrd_keraslm_torch.models import lstm_lm as tlm
+    from ocrd_keraslm_torch.parallel import pipeline as tp
+    cfg = dict(width=W, depth=3 if case == 'depth' else D, length=T,
+               voc_size=V, variable_length=case == 'varlen')
+    want = NotImplementedError if case == 'varlen' else AssertionError
+    mesh = tp.make_pipe_mesh(1, pipe_parallel=1)
+    if case == 'depth':
+        mesh.shape['pipe'] = 2          # two stages over three layers
+    errors = []
+    for make, m, module in (
+            (tp.make_pipeline_train_step, mesh, tlm),
+            (jp.make_pipeline_train_step,
+             jp.make_pipe_mesh(2, pipe_parallel=2,
+                               devices=jax.devices('cpu')), jlm)):
+        with pytest.raises(want) as info:
+            make(m, module.LMConfig(**cfg), 2)
+        errors.append(str(info.value))
+    assert errors[0] == errors[1]
+    assert ('variable-length' if case == 'varlen' else 'divisible') \
+        in errors[0]
 
 
 def test_pipeline_honours_bf16(worlds):

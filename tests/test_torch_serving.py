@@ -38,8 +38,6 @@ from ocrd_keraslm_torch.wrapper.mets import Workspace as TWorkspace
 from ocrd_keraslm_torch.wrapper.page import TextEquivType
 from ocrd_keraslm_torch.wrapper.page import parse_page as tparse_page
 from ocrd_keraslm_torch.wrapper.rate import KerasRate as TKerasRate
-from ocrd_keraslm_torch.wrapper.rate import \
-    score_page_pcgts as tscore_page_pcgts
 
 # Small shapes: one intra-op thread, so that test workers running side
 # by side do not oversubscribe the cores.
@@ -347,12 +345,23 @@ def test_download_file_returns_the_local_file(tmp_path):
         server.stop()
 
 
+def _written(directory, grp):
+    """{file name: the written page} of ``grp``, its Created and
+    LastChange times blanked."""
+    d = os.path.join(directory, grp)
+    out = {}
+    for name in sorted(os.listdir(d)):
+        with open(os.path.join(d, name), encoding='utf-8') as fh:
+            out[name] = re.sub(r'<(pc:)?(Created|LastChange)>[^<]*</',
+                               r'<\1\2></', fh.read())
+    return out
+
+
 def test_per_page_api_matches_jax(tmp_path, cpu, model):
-    """One page at a time against JAX's ``process_page_pcgts``
+    """One page at a time through both packages' ``process_page_pcgts``
     (scoring) and ``process_page_pcgts_device`` (decoding with the
-    carry): the port scores through ``score_page_pcgts`` and decodes
-    through ``process_page_pcgts_device_begin`` and
-    ``_finish_device_page``, as its page loop does."""
+    carry): the written pages equal JAX's byte for byte (times
+    blanked)."""
     outs = {}
     for name, proc_cls, parse in (('jax', JKerasRate, jparse_page),
                                   ('port', TKerasRate, tparse_page)):
@@ -372,18 +381,9 @@ def test_per_page_api_matches_jax(tmp_path, cpu, model):
         for f in files:
             pcgts = parse(os.path.join(d, f.local_filename))
             page = parse(os.path.join(d, f.local_filename))
-            if name == 'jax':
-                assert scorer.process_page_pcgts(pcgts) is pcgts
-                tb = decoder.process_page_pcgts_device(
-                    page, tb, 'D_' + f.pageId, f.pageId)
-            else:
-                tscore_page_pcgts(scorer.rater, pcgts, scorer._level,
-                                  scorer._page_context(), scorer._lm_weight,
-                                  logger=scorer.logger)
-                scorer.add_metadata(pcgts)
-                rec, tb = decoder.process_page_pcgts_device_begin(
-                    page, tb, 'D_' + f.pageId, f.pageId)
-                decoder._finish_device_page(rec)
+            assert scorer.process_page_pcgts(pcgts) is pcgts
+            tb = decoder.process_page_pcgts_device(
+                page, tb, 'D_' + f.pageId, f.pageId)
             assert pcgts.get_Metadata().items[-1].value == \
                 'ocrd-keraslm-rate'
             scorer._write_page(pcgts, 'S_' + f.pageId, f.pageId)
@@ -399,6 +399,47 @@ def test_per_page_api_matches_jax(tmp_path, cpu, model):
                 for (_, a), (_, b) in zip(got[fid][eid], tes):
                     assert a is None and b is None or \
                         abs(a - b) <= CONF_TOL, (eid, a, b)
+        assert _written(outs['port'], grp) == _written(outs['jax'], grp)
+
+
+@pytest.mark.parametrize('mode', ['decode', 'score'])
+def test_download_passes_every_input_through_download_file(
+        tmp_path, cpu, model, mode):
+    """``KerasRate(download=True)`` hands each input to the workspace's
+    ``download_file`` once, in page order on the calling thread (the page
+    prefetch is off), and writes what ``download=False`` writes and what
+    JAX's processor writes with ``download=True`` (decoding: both in the
+    native page lane, JAX's kernel in interpret mode)."""
+    params = dict(DECODE if mode == 'decode' else SCORE, model_file=model)
+    outs = {}
+    for name, download in (('jax', True), ('port', False), ('port', True)):
+        d = _workspace(tmp_path / ('%s%d' % (name, download)))
+        ws = (JWorkspace if name == 'jax' else TWorkspace)(d)
+        calls = []
+        plain = ws.download_file
+
+        def counted(f, plain=plain, calls=calls):
+            calls.append((f.ID, threading.current_thread().name))
+            return plain(f)
+        ws.download_file = counted
+        proc = (JKerasRate if name == 'jax' else TKerasRate)(
+            workspace=ws, parameter=params, download=download)
+        assert proc.download is download
+        proc.setup()
+        if name == 'jax':
+            proc.rater.fused_decode = True
+        proc.process_workspace(ws)
+        files = sorted(f.ID for f in ws.mets.find_files(
+            fileGrp='OCR-D-OCR'))
+        if download:
+            assert [c[0] for c in calls] == files
+            assert {c[1] for c in calls} == {
+                threading.current_thread().name}
+        else:
+            assert calls == []
+        outs[name, download] = _written(d, 'OCR-D-LM')
+    assert len(outs['jax', True]) == len(PAGES)
+    assert outs['port', True] == outs['port', False] == outs['jax', True]
 
 
 # ----------------------------------------------------------------------
