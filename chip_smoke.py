@@ -56,6 +56,13 @@ Phases, each printing its own lines (any failure exits non-zero):
    edge by edge from the kernel's beam (``parity_stepwise``: two bf16
    runs part from the first h that rounds to the other bf16 value), with
    both versions' state error against float64;
+   at K=32 (``beam_width`` 17-32, the cluster layout's sharded plan at
+   the german model's width, ``k32_parity``): ``decode_lattice``'s
+   digests in the 16-block cluster and the one-block layout, pinned by
+   ``DECODE_K32_DIGESTS`` (the parent commit's one-block kernel), the
+   kernel and the batched kernel against their plain versions over the
+   seeded blocks above, and under bf16 weights every edge of a seeded
+   block per L against the plain version from the kernel's beam;
 4. decode path: a seeded synthetic METS/PAGE workspace (4 pages of ~1800
    glyphs, 2-4 alternatives on ~15% of them) through
    ``ocrd_keraslm_torch.wrapper.cli`` at glyph level, beam_width 10, in
@@ -115,7 +122,8 @@ Phases, each printing its own lines (any failure exits non-zero):
    CLI, no kernel launched, card against CPU (a near-tie passes where
    both documents' path costs, decoded on the CPU, lie within
    ``HOST_TIE_BITS``), beside the same pages at beam 32 through
-   ``decode_lattice``, and the engine alone on page 1 (seconds per edge
+   ``decode_lattice`` (the blocks a document each launch took, seconds a
+   page), and the engine alone on page 1 (seconds per edge
    and char step, CUDA launches per edge from ``torch.profiler``); (b)
    ``-P textequiv_level line`` over 3 pages whose page 2 has lines over
    64 chars: two ``decode_lattice`` launches (pages 1 and 3), page 2
@@ -141,6 +149,11 @@ Phases, each printing its own lines (any failure exits non-zero):
    card against CPU, the 32 one-page documents through
    ``rate_best_batch``, each equal to its own bf16 ``rate_best_device``,
    and ``generate -n 64`` equal with the flag set and unset;
+   K=32 paths (``k32_path``): the 32 one-page documents through
+   ``rate_best_batch`` at ``beam_width`` 32, each equal to its own
+   ``rate_best_device`` decode, the first edges of the first block held
+   against the plain version, and phase 4's pages in the bf16 decode
+   mode at beam 32;
    serving roles (``serving_path``): the HTTP processing server
    (``wrapper/cli.make_processing_server`` in a thread on an ephemeral
    port): ``GET /health``, then 3 ``POST /process`` jobs on fresh copies
@@ -187,7 +200,10 @@ Phases, each printing its own lines (any failure exits non-zero):
    seeded D=2, W=512 model on the scoring chunk, timing only), 4w
    (``lstm_scan``) and 5w (``lstm_bwd``) at part (d)'s training shape,
    4w and 5w in the chosen grid layout and the one-block layout side by
-   side, each beside its plain version, its bound and cuDNN.
+   side, each beside its plain version, its bound and cuDNN; the K=32
+   rows ``decode_lattice_k32`` (page 1 at beam 32), ``_bf16_k32`` and
+   ``decode_lattice_batch_k32`` (block 1 of the 32-document batch at
+   beam 32) beside the one-block layout.
 
 Every kernel count is set to 0 just before a path runs and read just
 after.  The last two lines are the kernel table and
@@ -1235,11 +1251,12 @@ def build_native():
     return lines
 
 
-def decode_parity(rater, dev):
-    """Phase 3, decode kernel; returns its max abs error."""
+def decode_parity(rater, dev, K=16):
+    """Phase 3, decode kernel at K (16, or 32: the sharded plan; the
+    float64 accuracy lines at K=16 only); returns its max abs error."""
     from ocrd_keraslm_torch.ops import decode_kernel as dk
     wts = rater._decode_weights(None)
-    W, K, A = rater.width, 16, 4
+    W, A = rater.width, 4
     weights = (wts['emb'], wts['embT'], wts['wcat'], wts['bias'])
 
     def run(fn, arrays, n_real, state, cost, walk):
@@ -1261,7 +1278,7 @@ def decode_parity(rater, dev):
         for b, (E, n) in enumerate(((1024, 1024), (256, 200))):
             arr = random_lattice(rng, E, n, A, L, wts['v_real'])
             t0 = time.time()
-            if b == 0:
+            if b == 0 and K == 16:
                 print('accuracy L=%d: max |h - h_float64| of the beam '
                       'state after the first %d edges (all runs chose '
                       'alike there): kernel %.3g, plain version %.3g'
@@ -1272,13 +1289,15 @@ def decode_parity(rater, dev):
                 run, dk.decode_lattice, dk.decode_lattice_ref, arr, n,
                 state, cost, K, W)
             max_err = max(max_err, err)
-            print('parity L=%d block %d (E=%d, n_real=%d, K=%d, A=%d): '
-                  'every edge compared, max |kernel - plain| %.3g, '
-                  'near-ties at the K-th rank resumed from the kernel\'s '
-                  'state at edges %s; device walk = host walk of the '
-                  'records (tolerances: costs rtol 1e-5 atol 1e-4, stateF '
-                  'atol 1e-5, c also rtol 2e-5) in %.1f s'
-                  % (L, b, E, n, K, A, err, ties or 'none',
+            print('parity L=%d block %d (E=%d, n_real=%d, K=%d, A=%d, %d '
+                  'blocks a document): every edge compared, max |kernel - '
+                  'plain| %.3g, near-ties at the K-th rank resumed from the '
+                  'kernel\'s state at edges %s; device walk = host walk of '
+                  'the records (tolerances: costs rtol 1e-5 atol 1e-4, '
+                  'stateF atol 1e-5, c also rtol 2e-5) in %.1f s'
+                  % (L, b, E, n, K, A, dk.cluster_blocks(
+                      dev, False, 1, K, A, L, rater.depth, W, wts['v_pad'],
+                      wts['v_real']), err, ties or 'none',
                      time.time() - t0))
     return max_err
 
@@ -1293,11 +1312,11 @@ DECODE_DIGESTS = {
     8: 'bce90cb8e310cd156fdf66ac599e81f291945e8f555904581d883363d1d274d7'}
 
 
-def decode_digests(rater, dev, bf16=False):
+def decode_digests(rater, dev, bf16=False, K=16):
     """{L: sha256 of ``decode_lattice``'s records, stateF and costF and
     of its device walk} over a seeded 1024-edge block of the german model
-    at K=16, A=4, from a fresh beam; with ``bf16`` the model's bf16
-    decode weights."""
+    at K (16 or 32), A=4, from a fresh beam; with ``bf16`` the model's
+    bf16 decode weights."""
     import hashlib
     import torch
     from ocrd_keraslm_torch.ops import decode_kernel as dk
@@ -1307,7 +1326,7 @@ def decode_digests(rater, dev, bf16=False):
         arrays = random_lattice(np.random.default_rng(20261018 + L), 1024,
                                 1024, 4, L, wts['v_real'])
         ins = [torch.from_numpy(a).to(dev) for a in arrays]
-        state, cost = rater._fused_traceback(None, 16, wts['emb'])
+        state, cost = rater._fused_traceback(None, K, wts['emb'])
         digest = hashlib.sha256()
         for walk in (False, True):
             res = dk.decode_lattice(
@@ -1444,17 +1463,18 @@ def batch_error_vs_f64(run, kernel, plain, arrays, n_real, state, cost, N,
         for out in outs[:2])
 
 
-def batch_parity(rater, dev):
-    """Phase 3, the batched decode kernel and its walk at full width:
-    kernel against plain version over a 64-edge block of 8 documents
-    (L in {1, 8}), every document's records and final beam equal to a
-    single-document ``decode_lattice`` launch bit for bit, the walk
-    kernel equal to its plain version.  Returns (max abs error, the
-    kernel's and the plain version's ms on the L=8 block)."""
+def batch_parity(rater, dev, K=16):
+    """Phase 3, the batched decode kernel and its walk at full width and
+    K (16, or 32: the sharded plan): kernel against plain version over a
+    64-edge block of 8 documents (L in {1, 8}), every document's records
+    and final beam equal to a single-document ``decode_lattice`` launch
+    bit for bit, the walk kernel equal to its plain version.  Returns
+    (max abs error, the kernel's and the plain version's ms on the L=8
+    block)."""
     import torch
     from ocrd_keraslm_torch.ops import decode_kernel as dk
     wts = rater._decode_weights(None)
-    W, K, A = rater.width, 16, 4
+    W, A = rater.width, 4
     N, E = BATCH_PARITY_N, BATCH_PARITY_E
     weights = (wts['emb'], wts['embT'], wts['wcat'], wts['bias'])
 
@@ -1474,12 +1494,14 @@ def batch_parity(rater, dev):
         arrays = batch_lattice(rng, N, n_reals, E, A, L, wts['v_real'])
         state, cost = rater._batch_beam_init(wts['emb'], N, K)
         t0 = time.time()
-        print('accuracy decode_lattice_batch L=%d: max |h - h_float64| of '
-              'the final beams of the %d of %d documents whose three runs '
-              'chose alike: kernel %.3g, plain version %.3g'
-              % ((L,) + batch_error_vs_f64(
-                  run, dk.decode_lattice_batch, dk.decode_lattice_batch_ref,
-                  arrays, E, state, cost, N, K, W)))
+        if K == 16:
+            print('accuracy decode_lattice_batch L=%d: max |h - h_float64| '
+                  'of the final beams of the %d of %d documents whose three '
+                  'runs chose alike: kernel %.3g, plain version %.3g'
+                  % ((L,) + batch_error_vs_f64(
+                      run, dk.decode_lattice_batch,
+                      dk.decode_lattice_batch_ref, arrays, E, state, cost,
+                      N, K, W)))
         err, ties, _, _ = parity_batch(
             run, dk.decode_lattice_batch, dk.decode_lattice_batch_ref,
             arrays, E, state, cost, N, K, W)
@@ -1733,6 +1755,100 @@ def decode_parity_bf16(rater, dev):
                              BF16_EDGE_TOL['c_rtol'], time.time() - t0))
                     state, cost = state_k, cost_k
     return max_err
+
+
+# sha256 of decode_lattice's outputs in decode_digests at K=32, as the
+# parent commit's kernels gave them (d0c0205, the one-block layout, the
+# only one K=32 took there; NVIDIA H100 80GB HBM3): the cluster layout's
+# sharded plan must keep them bit for bit
+DECODE_K32_DIGESTS = {
+    1: '2526cc75bed17a6ba959d2aaf86bf5c451b929949a54748c8717988a39d200ff',
+    8: 'eeedec42989d130713937a78a54b22daf7d5bb64238465177eab03272f40f0e9'}
+# edges of each seeded block of the bf16 K=32 check (edge by edge: two
+# launches an edge)
+K32_BF16_E = 256
+
+
+def k32_parity(rater, dev):
+    """Phase 3 at K=32 (beam_width 17-32: the cluster layout's sharded
+    plan at the german model's width): ``decode_lattice``'s digests in the
+    16-block cluster and in the one-block layout against
+    ``DECODE_K32_DIGESTS``; the kernel against its plain version over the
+    seeded blocks of :func:`decode_parity` (f32) and of
+    :func:`batch_parity`; under the bf16 decode weights every edge of a
+    seeded block per L against the plain version from the kernel's beam
+    (:func:`parity_stepwise`, ``BF16_EDGE_TOL``), the one-edge launches
+    bit-equal to the block's.  Returns (f32 error, batch error, the
+    batch's parity-block times, bf16 error)."""
+    import torch
+    from ocrd_keraslm_torch.ops import decode_kernel as dk
+    D, W, K, A = rater.depth, rater.width, 32, 4
+    t0 = time.time()
+    for cl in (16, 1):
+        with decode_cluster(cl):
+            digests = decode_digests(rater, dev, K=K)
+        print('decode_lattice output digests at K=32, %s (sha256 of '
+              'records, stateF, costF and the device walk over the seeded '
+              '1024-edge blocks of K=16\'s digests): %s; the parent\'s '
+              'one-block kernel: %s'
+              % ('%d blocks a document, the sharded plan' % cl if cl > 1
+                 else 'the one-block layout', digests, DECODE_K32_DIGESTS))
+        assert digests == DECODE_K32_DIGESTS, ('K=32 outputs changed', cl)
+    print('K=32 digests in %.1f s' % (time.time() - t0))
+    err = decode_parity(rater, dev, K)
+    batch_err, batch_times = batch_parity(rater, dev, K)
+    wts = rater._decode_weights(None, bf16=True)
+    weights = (wts['emb'], wts['embT'], wts['wcat'], wts['bias'])
+
+    def run(fn, arrays, n_real, state, cost, walk):
+        chars, mask, conf, valid, steps = (torch.from_numpy(
+            np.ascontiguousarray(a)).to(dev) for a in arrays)
+        out = fn(*weights, chars, mask, conf, valid, state, cost,
+                 lm_weight=0.5, v_real=wts['v_real'], device_walk=walk,
+                 alt_steps=steps, n_real=n_real)
+        torch.cuda.synchronize()
+        return out
+
+    def step(part, n, state, cost):
+        return (run(dk.decode_lattice, part, n, state, cost, False),
+                run(dk.decode_lattice_ref, part, n, state, cost, False))
+
+    stats = {}
+
+    def compare(got, want):
+        e, _, div = compare_decode(got, want, K, W, stats=stats,
+                                   **BF16_EDGE_TOL)
+        return e, div
+
+    rng = np.random.default_rng(20261117)
+    bf16_err = 0.0
+    for L in (1, 8):
+        t0 = time.time()
+        state, cost = rater._fused_traceback(None, K, wts['emb'])
+        E = n = K32_BF16_E
+        arr = random_lattice(rng, E, n, A, L, wts['v_real'])
+        block = run(dk.decode_lattice, arr, n, state, cost, False)
+        stats.clear()
+        e, ties, recs, state_k, cost_k = parity_stepwise(
+            step, compare, arr, n, state, cost)
+        assert torch.equal(torch.cat([r[1:] for r in recs]),
+                           block[0][1:]), 'records'
+        assert torch.equal(state_k, block[1]) and \
+            torch.equal(cost_k, block[2]), 'final beam'
+        bf16_err = max(bf16_err, e)
+        print('parity bf16 at K=32, L=%d (E=%d, A=%d, %d blocks a '
+              'document): every edge compared from the kernel\'s beam, max '
+              '|kernel - plain| %.3g (costs %.3g, xemb and h %.3g, c '
+              'relative to max(1, |c|) %.3g), near-ties at the K-th rank at '
+              'edges %s; the %d one-edge launches equal the block launch '
+              'bit for bit (tolerances: BF16_EDGE_TOL %s) in %.1f s'
+              % (L, E, A, dk.cluster_blocks(dev, False, 1, K, A, L, D, W,
+                                            wts['v_pad'], wts['v_real'],
+                                            True),
+                 e, stats.get('cost', 0.0), stats.get('h', 0.0),
+                 stats.get('c_rel', 0.0), ties or 'none', E, BF16_EDGE_TOL,
+                 time.time() - t0))
+    return err, batch_err, batch_times, bf16_err
 
 
 def batch_parity_bf16(rater, dev):
@@ -2833,16 +2949,128 @@ def batch_path(rater, work, card):
     return out
 
 
-def first_batch_launch(rater, docs):
+# -P beam_width of the K=32 paths (17-32 take K=32: the cluster layout's
+# sharded plan at the german model's width)
+BEAM32 = 32
+# edges of the 32-document batch's first block at beam 32 held against
+# the plain version (its first edges: the plain version decodes the 32
+# documents edge by edge)
+K32_BATCH_PARITY_E = 256
+
+
+def k32_path(rater, work, decode, card):
+    """Beam 32 (K=32) on its serving paths: (a) ``rate_best_batch`` of the
+    32 one-page documents of the batched path at ``beam_width`` 32 (one
+    ``decode_lattice_batch`` and one walk a block), every path equal to
+    the document's own ``rate_best_device`` decode at beam 32 on the card;
+    the first block's launch, its first ``K32_BATCH_PARITY_E`` edges, held
+    against the plain version (:func:`parity_batch`); (b) the bf16 decode
+    mode's processor over phase 4's pages at beam 32: every page written,
+    one bf16 ``decode_lattice`` launch a page group and no f32 one.
+    Returns the paths' numbers."""
+    import torch
+    from ocrd_keraslm_torch.ops import decode_kernel as dk
+    wts = rater._decode_weights(None)
+    docs = workspace_graphs(os.path.join(work, 'ws_batch'))
+    merge, sizes, blocks = batch_prep(rater, docs)
+    zero_counts()
+    t0 = time.time()
+    got = rater.rate_best_batch(docs, beam_width=BEAM32)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = read_counts()
+    n_blk = max(blocks)
+    assert counts == dict(NO_LAUNCHES, decode_lattice_batch=n_blk,
+                          walk_records_batch=n_blk), (counts, n_blk)
+    keep = rater.merge_runs
+    rater.merge_runs = merge
+    try:
+        seq = [rater.rate_best_device(g, 0, 0, beam_width=BEAM32)[:2]
+               for g in docs]
+    finally:
+        rater.merge_runs = keep
+    diff = same_results(got, seq)
+    args, kw = first_batch_launch(rater, docs, BEAM32)
+    N = kw['n_docs']
+    K, A, L = args[8].shape[0] // N, args[4].shape[1] // N, args[4].shape[2]
+    cl = dk.cluster_blocks(rater.device, True, N, K, A, L, rater.depth,
+                           rater.width, wts['v_pad'], wts['v_real'])
+    print('K=32 batched serving path: Rater.rate_best_batch of %d one-page '
+          'documents at -P beam_width %d (K=%d, decode edges per document '
+          '%d-%d, %d block(s)): %.3f s (host clock, ended by the fetch); '
+          'launches %s; decode_lattice_batch takes %d block(s) a document; '
+          'every path equals the document\'s own rate_best_device decode '
+          'at beam %d on the card (max score or entropy difference %.3g, '
+          'tolerance 1e-4) [%s]'
+          % (N, BEAM32, K, min(sizes), max(sizes), n_blk, wall, counts, cl,
+             BEAM32, diff, card))
+    E = min(K32_BATCH_PARITY_E, args[4].shape[0])
+    n_real = min(kw['n_real'], E)
+    steps = kw['alt_steps']
+    if steps is None:  # the wrapper's default: L steps every edge
+        steps = torch.full((args[4].shape[0], 1), L, dtype=torch.int32,
+                           device=args[4].device)
+    arrays = tuple(a[:E] for a in args[4:8]) + (steps[:E],)
+
+    def run(fn, part, n, state, cost):
+        out = fn(*args[:4], *part[:4], state, cost, n_docs=N,
+                 lm_weight=kw['lm_weight'], v_real=kw['v_real'],
+                 alt_steps=part[4], n_real=n)
+        torch.cuda.synchronize()
+        return out
+    t0 = time.time()
+    err, ties, _, _ = parity_batch(run, dk.decode_lattice_batch,
+                                   dk.decode_lattice_batch_ref, arrays,
+                                   n_real, args[8], args[9], N, K,
+                                   rater.width)
+    plain_ms = cuda_ms(lambda: run(dk.decode_lattice_batch_ref, arrays,
+                                   n_real, args[8], args[9]), 1)
+    kernel_ms = cuda_ms(lambda: run(dk.decode_lattice_batch, arrays, n_real,
+                                    args[8], args[9]), 3)
+    print('parity decode_lattice_batch at beam %d: the first %d edges of '
+          'the batch\'s first block (%d documents, K=%d, A=%d, L=%d, %d '
+          'blocks a document) against the plain version, every edge of '
+          'every document compared, max |kernel - plain| %.3g, near-ties at '
+          'the K-th rank resumed from the kernel\'s state at edges %s '
+          '(tolerances: costs rtol 1e-5 atol 1e-4, stateF atol %g, c also '
+          'rtol %g) in %.1f s; there the kernel %.3f ms, the plain version '
+          '%.3f ms (CUDA events) [%s]'
+          % (BEAM32, E, N, K, A, L, cl, err, ties or 'none',
+             BATCH_STATE_ATOL, BATCH_C_RTOL, time.time() - t0, kernel_ms,
+             plain_ms, card))
+    # (b) the bf16 decode mode at beam 32 over phase 4's pages
+    d = os.path.join(work, 'ws_bf16_k32')
+    n_glyphs = build_workspace(d, np.random.default_rng(7), 4, 40,
+                               rater.vocab)
+    groups = page_groups(d, rater, BEAM32)[1]
+    zero_counts()
+    t0 = time.time()
+    run_processor(d, 'cuda', True, beam_width=BEAM32)
+    wall_bf16 = time.time() - t0
+    bf16_counts = read_counts()
+    check_glyphs(d, n_glyphs)
+    assert bf16_counts == dict(NO_LAUNCHES,
+                               decode_lattice_bf16=len(groups)), \
+        (bf16_counts, groups)
+    print('K=32 bf16 decode path: 4 pages, %d glyphs written through the '
+          'processor at -P beam_width %d with rater.decode_bf16 = True: '
+          '%.3f s (model load included); launches %s (one bf16 '
+          'decode_lattice a page group %s, no f32 launch) [%s]'
+          % (n_glyphs, BEAM32, wall_bf16, bf16_counts, groups, card))
+    return dict(first=(args, kw), launches=counts, wall=wall,
+                bf16_launches=bf16_counts)
+
+
+def first_batch_launch(rater, docs, beam_width=10):
     """``(args, kwargs)`` of the first ``decode_lattice_batch`` launch of
-    ``rater.rate_best_batch(docs)``."""
+    ``rater.rate_best_batch(docs, beam_width=beam_width)``."""
     import ocrd_keraslm_torch.rater as rater_module
     first = []
     real = rater_module.decode_lattice_batch
     rater_module.decode_lattice_batch = \
         lambda *a, **k: first.append((a, k)) or real(*a, **k)
     try:
-        rater.rate_best_batch(docs)
+        rater.rate_best_batch(docs, beam_width=beam_width)
     finally:
         rater_module.decode_lattice_batch = real
     return first[0]
@@ -2947,20 +3175,19 @@ def batch_numbers(rater, batch, parity_times, card):
         bound_by=walk_bound[1], library_ms=None)}
 
 
-def page_block(rater, directory, bf16=False):
+def page_block(rater, directory, bf16=False, K=16):
     """``decode_lattice``'s arguments for page 1 of the workspace in
     ``directory`` as the processor launches them (the native lane's
     arrays of its page group, page 1 alone at the main path's 40-line
-    pages; K=16, A=4, records walked on the host; with ``bf16`` the bf16
-    decode weights), and the page's mask and per-edge steps as numpy
-    arrays."""
+    pages; K=16 (``beam_width`` 10, or K=32: 17-32), A=4, records walked
+    on the host; with ``bf16`` the bf16 decode weights), and the page's
+    mask and per-edge steps as numpy arrays."""
     import torch
     from ocrd_keraslm_torch.rater import DECODE_MERGE_MAX, _alt_steps
     doc = native_docs(directory)[0]
     _, n, maxlen = doc.lattice('glyph', rater.merge_runs, DECODE_MERGE_MAX)
-    E, L = rater.fused_gate_arrays(n, maxlen, 10)
+    E, L = rater.fused_gate_arrays(n, maxlen, 10 if K <= 16 else K)
     wts = rater._decode_weights(None, bf16=bf16)
-    K = 16
     chars, mask, conf, valid = doc.fill(rater.vocab._table(), E, 4, L)
     steps = _alt_steps(mask)[:, 0]
     ins = [torch.from_numpy(a).to(rater.device)
@@ -2973,13 +3200,14 @@ def page_block(rater, directory, bf16=False):
     return args, kw, mask, steps
 
 
-def decode_numbers(rater, decode, card):
-    """Phase 6, decode kernel at the main path's shape (page 1)."""
+def decode_numbers(rater, decode, card, K=16):
+    """Phase 7, decode kernel at the main path's shape (page 1) at K (16;
+    32: row 1k, the processor's beam_width 17-32)."""
     from ocrd_keraslm_torch.ops import decode_kernel as dk
     wts = rater._decode_weights(None)
-    D, W, K, A = rater.depth, rater.width, 16, 4
+    D, W, A = rater.depth, rater.width, 4
     S = (2 * D + 1) * W
-    args, kw, mask, steps = page_block(rater, decode['workspace'])
+    args, kw, mask, steps = page_block(rater, decode['workspace'], K=K)
     n = kw['n_real']
     E, _, L = args[4].shape
     ins = [kw['alt_steps']]
@@ -2990,6 +3218,9 @@ def decode_numbers(rater, decode, card):
     ms2 = cuda_ms(lambda: dk.decode_lattice(*args, **kw), 3)
     cl = dk.cluster_blocks(rater.device, False, 1, K, A, L, D, W,
                            wts['v_pad'], wts['v_real'])
+    plan = '' if cl == 1 else ', the %s plan' % (
+        'sharded' if dk.cluster_shard(K, A, L, D, W, wts['v_pad'],
+                                      wts['v_real'], cl) else 'rows')
     out_bytes = ((E + 1) * 3 * K + K * S + 128) * 4
     # emb and embT are read at their v_real real rows/columns only
     nbytes = (tensor_bytes(*args, ins[0]) + out_bytes
@@ -3001,9 +3232,10 @@ def decode_numbers(rater, decode, card):
           'events, mean of 3 warm launches), %.2f us/edge [%s]'
           % (E, n, L, K, A, ms, ms2, 1e3 * ms2 / n, card))
     print('decode_lattice at the same shape in the one-block layout (the '
-          'parent\'s kernel, its code unchanged): %.3f ms (CUDA events, one '
-          'warm launch); the cluster layout (%d blocks, %d units a block) '
-          '%.1fx faster [%s]' % (one_ms, cl, W // cl, one_ms / ms2, card))
+          'first port\'s kernel, its code unchanged): %.3f ms (CUDA events, '
+          'one warm launch); the cluster layout (%d blocks, %d units a '
+          'block%s) %.1fx faster [%s]' % (one_ms, cl, W // cl, plan,
+                                          one_ms / ms2, card))
     print('decode_lattice plain version at the same shape: %.3f ms (CUDA '
           'events, one warm run) [%s]' % (plain_ms, card))
     print('decode_lattice bound: %.3f ms by %s (%.3g f32 FLOP at 67 '
@@ -3015,16 +3247,17 @@ def decode_numbers(rater, decode, card):
                 bound_by=bound_by, library_ms=None)
 
 
-def decode_numbers_bf16(rater, decode, card):
-    """Phase 7, row 1b: ``decode_lattice`` with the bf16 decode weights at
-    the main path's shape (page 1), its plain version, its one-block
-    layout, and the f32 kernel on the same page in the same call."""
+def decode_numbers_bf16(rater, decode, card, K=16):
+    """Phase 7, row 1b (1bk at K=32): ``decode_lattice`` with the bf16
+    decode weights at the main path's shape (page 1), its plain version,
+    its one-block layout, and the f32 kernel on the same page in the same
+    call."""
     from ocrd_keraslm_torch.ops import decode_kernel as dk
     wts = rater._decode_weights(None, bf16=True)
-    D, W, K, A = rater.depth, rater.width, 16, 4
+    D, W, A = rater.depth, rater.width, 4
     S = (2 * D + 1) * W
-    args, kw, mask, steps = page_block(rater, decode['workspace'], True)
-    args32 = page_block(rater, decode['workspace'])[0]
+    args, kw, mask, steps = page_block(rater, decode['workspace'], True, K)
+    args32 = page_block(rater, decode['workspace'], K=K)[0]
     n = kw['n_real']
     E, _, L = args[4].shape
     times = {'bf16': [], 'f32': []}
@@ -3874,20 +4107,28 @@ def gen_layout(lay):
 
 
 @contextlib.contextmanager
-def decode_cluster(cl):
+def decode_cluster(cl, shard=None):
     """``decode_lattice`` and ``decode_lattice_batch`` run a document on
     ``cl`` blocks (1: the one-block kernel of the first port) inside the
-    block, whatever the card's occupancy would choose.  The wrappers'
-    cached choices are dropped on entry and on exit."""
+    block, whatever the card's occupancy would choose; with ``shard``
+    true or false the cluster layout in its sharded or its rows plan,
+    whatever the shape would take (``decode_kernel.cluster_shard``).
+    The wrappers' cached choices are dropped on entry and on exit."""
     from ocrd_keraslm_torch.ops import decode_kernel as dk
-    choose = dk.choose_cluster
+    choose, plan = dk.choose_cluster, getattr(dk, 'cluster_shard', None)
     dk.choose_cluster = lambda *args: cl
+    if shard is not None:
+        dk.cluster_shard = lambda *args: shard
     dk._cluster_choice.cache_clear()
+    dk._clusters_that_fit.cache_clear()
     try:
         yield
     finally:
         dk.choose_cluster = choose
+        if plan is not None:
+            dk.cluster_shard = plan
         dk._cluster_choice.cache_clear()
+        dk._clusters_that_fit.cache_clear()
 
 
 # scan_layout's and scan_layouts' third field for the grid layout
@@ -4695,13 +4936,21 @@ def engine_glyph_pages(rater, work, card):
     assert run['edges'] > 0 and run['steps'] >= run['edges'], run
     d32 = base + '_beam32'
     build(d32)
+    # the blocks a document each decode_lattice launch takes
+    from ocrd_keraslm_torch.ops import decode_kernel as dk
+    taken, chooser = [], dk.cluster_blocks
+    dk.cluster_blocks = lambda *a, **k: taken.append(chooser(*a, **k)) or \
+        taken[-1]
     zero_counts()
     t0 = time.time()
-    run_cli(d32, 'cuda', beam_width=32)
-    torch.cuda.synchronize()
+    try:
+        run_cli(d32, 'cuda', beam_width=32)
+        torch.cuda.synchronize()
+    finally:
+        dk.cluster_blocks = chooser
     wall32 = time.time() - t0
     launches32 = read_counts()['decode_lattice']
-    assert launches32 > 0
+    assert launches32 > 0 and len(taken) == launches32, (launches32, taken)
     graph = workspace_graphs(run['dir'])[0]
     rater.rate_best_device(graph, 0, 0, beam_width=ENGINE_BEAM)  # warm
     e0 = engine_counters()
@@ -4737,9 +4986,10 @@ def engine_glyph_pages(rater, work, card):
                 'path costs %.3g bits apart (tolerance %g)'
                 % (res['gap'], HOST_TIE_BITS)), card))
     print('unbounded engines (a) for scale: the same 2 pages at -P '
-          'beam_width 32 (K=32) through decode_lattice, %d launch(es): '
-          '%.3f s = %.3f s/page (CLI call incl. model load) [%s]'
-          % (launches32, wall32, wall32 / 2, card))
+          'beam_width 32 (K=32) through decode_lattice, %d launch(es) on '
+          '%s block(s) a document: %.3f s = %.3f s/page (CLI call incl. '
+          'model load) [%s]'
+          % (launches32, taken, wall32, wall32 / 2, card))
     print('unbounded engines (a), the engine alone on page 1 '
           '(Rater.rate_best_device, beam %d, K=64; %d edges, %d char '
           'steps): %.3f s (host clock, synchronised) = %.3f ms/edge, %.3f '
@@ -4753,6 +5003,7 @@ def engine_glyph_pages(rater, work, card):
              100 * (1 - dev_ms / 1e3 / traced), card))
     return dict(wall=run['wall'], wall_cpu=res['cpu']['wall'],
                 edges=run['edges'], steps=run['steps'], wall32=wall32,
+                launches32=launches32, blocks32=taken,
                 alone=alone, alone_edges=edges, alone_steps=steps,
                 launches_per_edge=launches / t_edges)
 
@@ -6237,29 +6488,39 @@ def main() -> int:
     print('model: %s  D=%d W=%d V=%d (padded %d), wcat %s'
           % (os.path.relpath(MODEL, HERE), D, W, wts['v_real'],
              wts['v_pad'], tuple(wts['wcat'].shape)))
-    for L in (1, 8):
-        for what, batch, N in (('decode_lattice', False, 1),
-                               ('decode_lattice_batch', True, BATCH_DOCS)):
-            cl = dk.cluster_blocks(dev, batch, N, 16, 4, L, D, W,
-                                   wts['v_pad'], wts['v_real'])
-            lib = dk._batch_library() if batch else dk._library()
-            smem = getattr(lib, what + '_smem_bytes')(
-                4, L, 16, D, W, wts['v_pad'], wts['v_real'], cl)
-            print('layout %s at K=16, A=4, L=%d, %d document(s): %s; %d '
-                  'bytes of shared memory a block'
-                  % (what, L, N, 'a thread-block cluster of %d blocks of 512 '
-                     'threads a document, %d units a block, their gate '
-                     'columns of both layers in registers' % (cl, W // cl)
-                     if cl > 1 else 'the one-block layout, one block of 512 '
-                     'threads a document', smem))
-    for L in (1, 8):
-        for what, batch, N in (('decode_lattice', False, 1),
-                               ('decode_lattice_batch', True, BATCH_DOCS)):
-            print('layout %s with bf16 weights at K=16, A=4, L=%d, %d '
-                  'document(s): %d blocks a document (the f32 plan of shared '
-                  'memory)' % (what, L, N, dk.cluster_blocks(
-                      dev, batch, N, 16, 4, L, D, W, wts['v_pad'],
-                      wts['v_real'], True)))
+    for K in (16, 32):
+        for L in (1, 8):
+            for what, batch, N in (('decode_lattice', False, 1),
+                                   ('decode_lattice_batch', True,
+                                    BATCH_DOCS)):
+                cl = dk.cluster_blocks(dev, batch, N, K, 4, L, D, W,
+                                       wts['v_pad'], wts['v_real'])
+                shard = cl > 1 and dk.cluster_shard(
+                    K, 4, L, D, W, wts['v_pad'], wts['v_real'], cl)
+                lib = dk._batch_library() if batch else dk._library()
+                smem = getattr(lib, what + '_smem_bytes')(
+                    4, L, K, D, W, wts['v_pad'], wts['v_real'], cl,
+                    int(shard))
+                assert cl == 1 or smem == dk.cluster_smem_bytes(
+                    4, L, K, D, W, wts['v_pad'], wts['v_real'], cl), smem
+                print('layout %s at K=%d, A=4, L=%d, %d document(s): %s; %d '
+                      'bytes of shared memory a block'
+                      % (what, K, L, N, 'a thread-block cluster of %d blocks '
+                         'of 256 threads a document, %d units a block, their '
+                         'gate columns of both layers in registers, the %s '
+                         'plan' % (cl, W // cl, 'sharded' if shard else
+                                   'rows') if cl > 1 else
+                         'the one-block layout, one block of 512 threads a '
+                         'document', smem))
+        for L in (1, 8):
+            for what, batch, N in (('decode_lattice', False, 1),
+                                   ('decode_lattice_batch', True,
+                                    BATCH_DOCS)):
+                print('layout %s with bf16 weights at K=%d, A=4, L=%d, %d '
+                      'document(s): %d blocks a document (the f32 plan of '
+                      'shared memory)' % (what, K, L, N, dk.cluster_blocks(
+                          dev, batch, N, K, 4, L, D, W, wts['v_pad'],
+                          wts['v_real'], True)))
     hmma = sass_hmma()
     bf16_fns = {f: n for f, n in hmma.items()
                 if 'cluster_kernel' in f and 'bfloat16' in f}
@@ -6368,6 +6629,10 @@ def main() -> int:
     decode_bf16_err = decode_parity_bf16(rater, dev)
     batch_bf16_err, batch_bf16_times = batch_parity_bf16(rater, dev)
     print('bf16 decode parity in %.1f s' % (time.time() - t0))
+    t0 = time.time()
+    k32_err, k32_batch_err, k32_batch_times, k32_bf16_err = k32_parity(
+        rater, dev)
+    print('K=32 decode parity in %.1f s' % (time.time() - t0))
     score_err, lstm_err = score_parity(rater, dev)
     train_errs = train_parity(dev)
     gen_err = gen_parity_phase(rater)
@@ -6385,6 +6650,9 @@ def main() -> int:
         host = host_engine_path(rater, work, card)
         lanes = lane_path(rater, work, card)
         batch = batch_path(rater, work, card)
+        t0 = time.time()
+        k32 = k32_path(rater, work, decode, card)
+        print('K=32 paths: %.1f s' % (time.time() - t0))
         t0 = time.time()
         bf16 = bf16_path(rater, work, decode, batch, card)
         print('bf16 decode paths: %.1f s' % (time.time() - t0))
@@ -6511,7 +6779,14 @@ def main() -> int:
                        decode_lattice_bf16=decode_numbers_bf16(rater, decode,
                                                                card),
                        decode_lattice_batch_bf16=batch_numbers_bf16(
-                           rater, batch, bf16, batch_bf16_times, card))
+                           rater, batch, bf16, batch_bf16_times, card),
+                       decode_lattice_k32=decode_numbers(rater, decode,
+                                                         card, K=32),
+                       decode_lattice_bf16_k32=decode_numbers_bf16(
+                           rater, decode, card, K=32),
+                       decode_lattice_batch_k32=batch_numbers(
+                           rater, k32, k32_batch_times,
+                           card)['decode_lattice_batch'])
     rows = []
     # lstm_scan is on two paths: 'lstm_scan' is the layered scoring
     # path's row (B=4, T=4096), 'lstm_scan_train' and 'lstm_scan_bf16'
@@ -6557,7 +6832,16 @@ def main() -> int:
              bf16['launches']['decode_lattice_bf16'], decode_bf16_err),
             ('decode_lattice_batch_bf16', 'decode_lattice_batch',
              bf16['batch_launches']['decode_lattice_batch_bf16'],
-             batch_bf16_err)):
+             batch_bf16_err),
+            # beam_width 17-32 (K=32): the cluster layout's sharded plan;
+            # the beam-32 CLI pages of part (a), the 32-document batch at
+            # beam 32 and the bf16 decode mode's pages at beam 32
+            ('decode_lattice_k32', 'decode_lattice',
+             engines['glyph']['launches32'], k32_err),
+            ('decode_lattice_batch_k32', 'decode_lattice_batch',
+             k32['launches']['decode_lattice_batch'], k32_batch_err),
+            ('decode_lattice_bf16_k32', 'decode_lattice',
+             k32['bf16_launches']['decode_lattice_bf16'], k32_bf16_err)):
         assert launches > 0, (name, 'was not launched on its path')
         module = {'decode_lattice': 'decode_kernel.py:318',
                   'score_scan': 'score_kernel.py:132',

@@ -9,6 +9,7 @@ recurrences, goes, on one GPU.
     python3 gen_beam_phases.py wide     # lstm_scan and lstm_bwd at W=512
     python3 gen_beam_phases.py wide-rows [--root DIR]   # rows 4w, 5w alone
     python3 gen_beam_phases.py decode   # decode_lattice and _batch
+    python3 gen_beam_phases.py decode-rows [--root DIR]   # rows 1-2k alone
     python3 gen_beam_phases.py walk     # walk_records_batch
     python3 gen_beam_phases.py tb       # gen_traceback
 
@@ -71,11 +72,19 @@ change, change, parent in one call to compare two versions.
 ``decode`` builds ``decode_lattice.cu`` and ``decode_lattice_batch.cu``
 with ``-DSCAN_PHASES`` (the marks of ``decode_edges_cluster``) and runs
 them at rows 1 and 2 of ``PERF.md`` (page 1 of ``chip_smoke.py``'s
-seeded 4-page workspace; block 1 of its 32-document batch) in the
-cluster size the wrapper chooses: cycles per edge and phase of block 0,
-then each cluster size the layout takes and the one-block layout, for
-one document and for the batch (the times ``decode_kernel.CL_COST`` is
-fitted to).
+seeded 4-page workspace; block 1 of its 32-document batch) at the
+processor's default ``beam_width`` 10 (K=16) and at rows 1k and 2k, the
+same at ``beam_width`` 32 (K=32), in the largest cluster the layout
+takes: cycles per edge and phase of block 0, then each cluster size and
+shared-memory plan (rows, sharded) the layout takes and the one-block
+layout, for one document and for the batch (the times
+``decode_kernel.CL_COST`` and ``CL_COST_SHARD`` are fitted to).
+
+``decode-rows`` times rows 1, 2, 1k, 1bk (bf16 weights) and 2k alone in
+the layout the wrapper chooses and in the others the shape takes, and
+prints the sha256 digests of ``decode_lattice``'s outputs at K=32, with
+the kernels of the package under ``--root DIR`` or of this checkout, as
+``wide-rows`` does: run parent, change, change, parent in one call.
 
 ``walk`` times ``walk_records_batch`` at row 2w of ``PERF.md`` (block 1
 of ``chip_smoke.py``'s 32-document serving batch) against the parent's
@@ -104,6 +113,7 @@ import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+SCAN_NPHASE = 10  # csrc/cluster_common.cuh: the phase counters
 # (mark index, phase) in step order of the register layout (the
 # one-block kernels carry no marks)
 SCAN_PHASES = {
@@ -153,6 +163,8 @@ SCAN_PHASES = {
     # decode_edges_cluster: per edge, summed over its chunks and steps
     'decode': (
         (0, 'edge arrays, top K, beam reorder'),
+        (8, 'own rows, rows of the chunks sent (st.async; sharded plan)'),
+        (9, 'wait for the chunk\'s rows (mbarrier; sharded plan)'),
         (2, 'layer products, block sums (shuffles)'),
         (1, 'gate updates'),
         (3, 'h sent to every block (st.async)'),
@@ -428,7 +440,7 @@ def marked_run(lib, call, marks):
     call()
     end.record()
     torch.cuda.synchronize()
-    cycles = (ctypes.c_ulonglong * 8)()
+    cycles = (ctypes.c_ulonglong * SCAN_NPHASE)()
     assert lib.scan_phase_read(ctypes.cast(cycles, ctypes.c_void_p)) == 0
     return start.elapsed_time(end), cycles, sum(cycles[k] for k, _ in marks)
 
@@ -713,66 +725,193 @@ def wide_sweeps(dev, card):
                                       card))
 
 
-def decode_main(card) -> int:
-    """Phases and cluster sizes of the two decode kernels."""
-    import tempfile
+# (row, beam_width, K) of decode_main and decode_rows_main: the
+# processor's default beam and beam 32, whose K=32 the cluster layout
+# runs in its sharded plan at the german model's width
+DECODE_BEAMS = (('', 10, 16), ('k', 32, 32))
 
+
+def decode_inputs(rater, work):
+    """``decode_lattice``'s arguments for page 1 of ``chip_smoke.py``'s
+    seeded 4-page workspace and ``decode_lattice_batch``'s for block 1 of
+    its 32-document batch, by K of :data:`DECODE_BEAMS`: {K: (args, kw,
+    bargs, bkw, args_bf16)}."""
     import numpy as np
-    import torch
-    from chip_smoke import (BATCH_DOCS, build_workspace, cuda_ms,
-                            decode_cluster, first_batch_launch, german_rater,
+    from chip_smoke import (BATCH_DOCS, build_workspace, first_batch_launch,
                             page_block, workspace_graphs)
+    ws = os.path.join(work, 'ws')
+    build_workspace(ws, np.random.default_rng(7), 4, 40, rater.vocab)
+    ws_b = os.path.join(work, 'ws_batch')
+    build_workspace(ws_b, np.random.default_rng(11), BATCH_DOCS, 40,
+                    rater.vocab)
+    out = {}
+    for _, beam, K in DECODE_BEAMS:
+        args, kw, _, _ = page_block(rater, ws, K=K)
+        bargs, bkw = first_batch_launch(rater, workspace_graphs(ws_b), beam)
+        out[K] = (args, kw, bargs, bkw,
+                  page_block(rater, ws, bf16=True, K=K)[0])
+    return out
+
+
+def decode_main(card) -> int:
+    """Phases and cluster sizes of the two decode kernels at K=16 and
+    K=32 (rows 1, 2, 1k and 2k of PERF.md), each plan that fits at 16
+    blocks (rows; sharded)."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+    from chip_smoke import cuda_ms, decode_cluster, german_rater
     from ocrd_keraslm_torch.ops import decode_kernel as dk
     dev = torch.device('cuda')
     rater = german_rater(dev)
     D, W = rater.depth, rater.width
     marks = SCAN_PHASES['decode']
+    with ThreadPoolExecutor(2) as pool:  # both marked sources at once
+        built = dict(zip((dk.SOURCE, dk.BATCH_SOURCE), pool.map(
+            lambda src: build_variant(src, ('-DSCAN_PHASES',), ''),
+            (dk.SOURCE, dk.BATCH_SOURCE))))
     with tempfile.TemporaryDirectory(prefix='phases_') as work:
-        ws = os.path.join(work, 'ws')
-        build_workspace(ws, np.random.default_rng(7), 4, 40, rater.vocab)
-        args, kw, _, _ = page_block(rater, ws)
-        ws_b = os.path.join(work, 'ws_batch')
-        build_workspace(ws_b, np.random.default_rng(11), BATCH_DOCS, 40,
-                        rater.vocab)
-        bargs, bkw = first_batch_launch(rater, workspace_graphs(ws_b))
-    E, A, L = args[4].shape
-    N = bkw['n_docs']
-    bL = bargs[4].shape[2]
-    rows = (('row 1', 'decode_lattice', False, 1, L, kw['n_real'],
-             lambda: dk.decode_lattice(*args, **kw)),
-            ('row 2', 'decode_lattice_batch', True, N, bL, bkw['n_real'],
-             lambda: dk.decode_lattice_batch(*bargs, **bkw)))
-    for row, name, batch, n_docs, l_, n_real, call in rows:
-        source = dk.BATCH_SOURCE if batch else dk.SOURCE
-        loader = '_batch_library' if batch else '_library'
-        cl = dk.cluster_blocks(dev, batch, n_docs, 16, A, l_, D, W,
-                               args[0].shape[0], kw['v_real'])
-        what = '%s (%d document(s), E=%d, n_real=%d, L=%d, K=16, A=%d)' % (
-            row, n_docs, E, n_real, l_, A)
-        unmarked_ms = cuda_ms(call, 1)
-        if cl > 1:
-            lib = marked_library(dk, source, loader)[0]
-            plain_lib = getattr(dk, loader)
-            setattr(dk, loader, lambda lib=lib: lib)
-            try:
-                ms, cycles, total = marked_run(lib, call, marks)
-            finally:
-                setattr(dk, loader, plain_lib)
-            print('%s phases, %s, %d blocks a document: %.3f ms a launch '
-                  'with the marks, %.3f ms without (CUDA events), %.0f '
-                  'cycles an edge in block 0 [%s]'
-                  % (name, what, cl, ms, unmarked_ms, total / n_real, card))
-            print_marks(marks, cycles, total, 'n edge', n_real)
-        times = []
-        for c in sorted(dk.cluster_sizes(16, A, l_, D, W, args[0].shape[0],
-                                         kw['v_real']), reverse=True) + [1]:
-            with decode_cluster(c):
-                times.append((c, cuda_ms(call, 1)))
-        print('%s at %s by blocks a document (1: the one-block layout, the '
-              'first port\'s kernel): %s; the chooser takes %d [%s]'
-              % (name, what, ', '.join('%d: %.3f ms' % ct for ct in times),
-                 cl, card))
+        inputs = decode_inputs(rater, work)
+    for tag, beam, K in DECODE_BEAMS:
+        args, kw, bargs, bkw, _ = inputs[K]
+        E, A, L = args[4].shape
+        N = bkw['n_docs']
+        bL = bargs[4].shape[2]
+        Vp, vr = args[0].shape[0], kw['v_real']
+        rows = (('row 1' + tag, 'decode_lattice', False, 1, L, kw['n_real'],
+                 lambda: dk.decode_lattice(*args, **kw)),
+                ('row 2' + tag, 'decode_lattice_batch', True, N, bL,
+                 bkw['n_real'],
+                 lambda: dk.decode_lattice_batch(*bargs, **bkw)))
+        for row, name, batch, n_docs, l_, n_real, call in rows:
+            source = dk.BATCH_SOURCE if batch else dk.SOURCE
+            loader = '_batch_library' if batch else '_library'
+            cl = dk.cluster_blocks(dev, batch, n_docs, K, A, l_, D, W, Vp, vr)
+            what = ('%s (%d document(s), E=%d, n_real=%d, L=%d, K=%d, A=%d, '
+                    'beam_width %d)' % (row, n_docs, E, n_real, l_, K, A,
+                                        beam))
+            # the marks in the largest cluster, whatever the chooser takes
+            big = max(dk.cluster_sizes(K, A, l_, D, W, Vp, vr), default=1)
+            if big > 1:
+                shard = dk.cluster_shard(K, A, l_, D, W, Vp, vr, big)
+                with decode_cluster(big):
+                    unmarked_ms = cuda_ms(call, 1)
+                    lib = marked_library(dk, source, loader,
+                                         built=built[source])[0]
+                    plain_lib = getattr(dk, loader)
+                    setattr(dk, loader, lambda lib=lib: lib)
+                    try:
+                        ms, cycles, total = marked_run(lib, call, marks)
+                    finally:
+                        setattr(dk, loader, plain_lib)
+                print('%s phases, %s, %d blocks a document, the %s plan: '
+                      '%.3f ms a launch with the marks, %.3f ms without '
+                      '(CUDA events), %.0f cycles an edge in block 0 [%s]'
+                      % (name, what, big, 'sharded' if shard else 'rows',
+                         ms, unmarked_ms, total / n_real, card))
+                print_marks(marks, cycles, total, 'n edge', n_real)
+            times = []
+            for c in sorted(dk.cluster_sizes(K, A, l_, D, W, Vp, vr),
+                            reverse=True):
+                for shard in (False, True):
+                    if dk.cluster_ok(W, D, c, K, shard) and \
+                            dk.cluster_smem_bytes(A, l_, K, D, W, Vp, vr, c,
+                                                  shard) <= dk.SMEM_MAX:
+                        with decode_cluster(c, shard):
+                            times.append(('%d %s' % (c, 'sharded' if shard
+                                                     else 'rows'),
+                                          cuda_ms(call, 1)))
+            with decode_cluster(1):
+                times.append(('1', cuda_ms(call, 1)))
+            print('%s at %s by blocks a document and plan (1: the one-block '
+                  'layout, the first port\'s kernel): %s; the chooser takes '
+                  '%d [%s]'
+                  % (name, what, ', '.join('%s: %.3f ms' % ct for ct in times),
+                     cl, card))
     decode_widths(dev, card)
+    return 0
+
+
+def decode_rows_main(card) -> int:
+    """Rows 1k, 1bk and 2k (K=32) and rows 1 and 2 (K=16) of PERF.md
+    alone, with the kernels of the ``ocrd_keraslm_torch`` package under
+    ``--root DIR`` (another checkout, e.g. a ``git archive`` of the
+    parent) where given, else this one's: each in the layout the wrapper
+    chooses and in the one-block layout (CUDA events), and the sha256
+    digests of ``decode_lattice``'s outputs at K=32
+    (``chip_smoke.decode_digests``) in both, which every version must
+    share."""
+    import tempfile
+
+    import torch
+    import chip_smoke as cs
+    if '--root' in sys.argv:
+        sys.path.insert(0, os.path.abspath(
+            sys.argv[sys.argv.index('--root') + 1]))
+    from ocrd_keraslm_torch.ops import _build
+    from ocrd_keraslm_torch.ops import decode_kernel as dk
+    dev = torch.device('cuda')
+    pkg = os.path.dirname(os.path.dirname(dk.__file__))
+    for src in (dk.SOURCE, dk.BATCH_SOURCE):
+        # registers and spills of the german model's 16-block kernels
+        # (W=128: NKB 8, D=2), where this call builds the source
+        lines = _build.build(src)[1].splitlines()
+        for i, line in enumerate(lines):
+            if 'Compiling entry' in line and 'ILi8ELi2ELi16E' in line:
+                print('ptxas, package %s: %s: %s' % (
+                    pkg, line.split("'")[1], '; '.join(
+                        x.split(':', 1)[-1].strip()
+                        for x in lines[i + 1:i + 3])))
+    rater = cs.german_rater(dev)
+    D, W = rater.depth, rater.width
+    with tempfile.TemporaryDirectory(prefix='rows_') as work:
+        inputs = decode_inputs(rater, work)
+    wts = rater._decode_weights(None)
+    for L in (1, 8):
+        cl = dk.cluster_blocks(dev, False, 1, 32, 4, L, D, W, wts['v_pad'],
+                               wts['v_real'])
+        for c in sorted({cl, 1}, reverse=True):
+            with cs.decode_cluster(c):
+                digest = cs.decode_digests(rater, dev, K=32)[L]
+            print('decode_lattice output digest at K=32, L=%d (sha256 of '
+                  'records, stateF, costF and the device walk over '
+                  'chip_smoke.decode_digests\'s seeded 1024-edge block), %d '
+                  'block(s) a document, package %s: %s [%s]'
+                  % (L, c, pkg, digest, card))
+    for tag, beam, K in DECODE_BEAMS:
+        args, kw, bargs, bkw, args16 = inputs[K]
+        E, A, L = args[4].shape
+        N, bL = bkw['n_docs'], bargs[4].shape[2]
+        Vp, vr = args[0].shape[0], kw['v_real']
+        for row, batch, call, bf16 in (
+                ('row 1' + tag, False,
+                 lambda: dk.decode_lattice(*args, **kw), False),
+                ('row 1b' + tag, False,
+                 lambda: dk.decode_lattice(*args16, **kw), True),
+                ('row 2' + tag, True,
+                 lambda: dk.decode_lattice_batch(*bargs, **bkw), False)):
+            if bf16 and K == 16:
+                continue
+            n_docs, l_ = (N, bL) if batch else (1, L)
+            cl = dk.cluster_blocks(dev, batch, n_docs, K, A, l_, D, W, Vp,
+                                   vr, bf16)
+            times = [('chosen %d' % cl, cs.cuda_ms(call, 3))]
+            sizes = [c for c in dk.cluster_sizes(K, A, l_, D, W, Vp, vr)
+                     if c != cl]
+            for c in sorted(set(sizes) | ({1} if cl > 1 else set()),
+                            reverse=True):
+                with cs.decode_cluster(c):
+                    times.append(('%d' % c, cs.cuda_ms(call, 1)))
+            print('%s (%s, beam_width %d: K=%d, A=%d, L=%d, %d document(s), '
+                  'E=%d, n_real=%d%s), package %s, ms a launch by blocks a '
+                  'document (CUDA events; the chosen: mean of 3 warm '
+                  'launches): %s [%s]'
+                  % (row, 'decode_lattice_batch' if batch else
+                     'decode_lattice', beam, K, A, l_, n_docs, E,
+                     bkw['n_real'] if batch else kw['n_real'],
+                     ', bf16 weights' if bf16 else '', pkg,
+                     ', '.join('%s: %.3f' % t for t in times), card))
     return 0
 
 
@@ -840,8 +979,9 @@ def main() -> int:
                           text=True, check=True).stdout.strip()
     print(card)
     modes = {'scan': scan_main, 'host': host_main, 'bwd': bwd_main,
-             'decode': decode_main, 'walk': walk_main, 'tb': tb_main,
-             'wide': wide_main, 'wide-rows': wide_rows_main}
+             'decode': decode_main, 'decode-rows': decode_rows_main,
+             'walk': walk_main, 'tb': tb_main, 'wide': wide_main,
+             'wide-rows': wide_rows_main}
     if sys.argv[1:2] and sys.argv[1] in modes:
         return modes[sys.argv[1]](card)
     return gen_main(card)

@@ -15,13 +15,14 @@
 namespace cg = cooperative_groups;
 
 #ifdef SCAN_PHASES
-// clock64() cycles per phase, summed over the steps of block 0's thread
-// 0 in registers and added to g_scan_phase at the end (built only by
-// gen_beam_phases.py)
-__device__ unsigned long long g_scan_phase[8];
+// clock64() cycles per phase (SCAN_NPHASE marks), summed over the steps
+// of block 0's thread 0 in registers and added to g_scan_phase at the
+// end (built only by gen_beam_phases.py)
+#define SCAN_NPHASE 10
+__device__ unsigned long long g_scan_phase[SCAN_NPHASE];
 #define PHASE_INIT                                       \
   const bool pon_ = blockIdx.x == 0 && threadIdx.x == 0; \
-  unsigned long long ph_[8] = {0, 0, 0, 0, 0, 0, 0, 0};  \
+  unsigned long long ph_[SCAN_NPHASE] = {};              \
   unsigned long long tp_ = clock64();
 #define PHASE(k)                                \
   {                                             \
@@ -29,14 +30,15 @@ __device__ unsigned long long g_scan_phase[8];
     ph_[k] += tn_ - tp_;                        \
     tp_ = tn_;                                  \
   }
-#define PHASE_FLUSH \
-  if (pon_)         \
-    for (int k_ = 0; k_ < 8; ++k_) atomicAdd(g_scan_phase + k_, ph_[k_]);
+#define PHASE_FLUSH                      \
+  if (pon_)                              \
+    for (int k_ = 0; k_ < SCAN_NPHASE; ++k_) \
+      atomicAdd(g_scan_phase + k_, ph_[k_]);
 extern "C" int scan_phase_read(unsigned long long* out) {
   return (int)cudaMemcpyFromSymbol(out, g_scan_phase, sizeof(g_scan_phase));
 }
 extern "C" int scan_phase_reset() {
-  unsigned long long zero[8] = {0};
+  unsigned long long zero[SCAN_NPHASE] = {0};
   return (int)cudaMemcpyToSymbol(g_scan_phase, zero, sizeof(zero));
 }
 #else

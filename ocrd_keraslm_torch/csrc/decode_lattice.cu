@@ -24,7 +24,11 @@
 // layer in registers for the whole launch and computes only their gates,
 // the new h goes to every block over distributed shared memory, the tied
 // softmax splits the rows over the blocks, and the top K runs in every
-// block alike.  Shapes the cluster layout does not take (and cl = 1 from
+// block alike; each block holds every row of the beam and of the K*A
+// candidates where that fits its shared memory (the rows plan), else
+// (K=32 at W=128) only its own units of them, the chunk's rows sent to
+// every block before its products (the sharded plan; shard from the
+// wrapper).  Shapes the cluster layout does not take (and cl = 1 from
 // the wrapper) run the first port's one-block kernel, decode_edges: one
 // block of 512 threads loops over the edges (beam in shared memory,
 // candidate rows in a global scratch buffer that the wrapper allocates,
@@ -134,30 +138,57 @@ __global__ void __launch_bounds__(CNT, 1)
   cluster.sync();  // no block leaves while another may still read it
 }
 
+// The same in the sharded plan (a kernel of its own, so that the rows
+// plan's kernel stays as it was: see decode_edges_sharded).
+template <int NKB, int D, int CL, typename WT>
+__global__ void __launch_bounds__(CNT, 1)
+    decode_lattice_sharded_kernel(Params q) {
+  extern __shared__ float4 smem4[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const CSmem sm = carve_sharded_smem(q.p, smem4, CL);
+  decode_edges_sharded<NKB, D, CL, WT>(q.p, single_doc(q), sm, rank);
+  cluster_write_units(q.p, sm, q.stateF, CL, rank);
+  if (rank == 0) single_tail(q, sm.costf, CNT);
+  cluster.sync();  // no block leaves while another may still read it
+}
+
 // bytes of dynamic shared memory a block asks: the one-block kernel's
-// plan (cl 1) or the cluster layout's
+// plan (cl 1) or the cluster layout's (its sharded plan with shard)
 extern "C" size_t decode_lattice_smem_bytes(int A, int L, int K, int D,
-                                            int W, int Vp, int vr, int cl) {
-  if (cl > 1) return decode_cluster_smem_bytes(A, L, K, D, W, Vp, vr, cl);
+                                            int W, int Vp, int vr, int cl,
+                                            int shard) {
+  if (cl > 1)
+    return decode_cluster_smem_bytes(A, L, K, D, W, Vp, vr, cl, shard != 0);
   return decode_smem_floats(A, L, K, D, W, Vp,
                             decode_chunk_rows(A, L, K, D, W, Vp)) * 4;
 }
 
-// the cluster launch of one document (or, with fits, how many such
-// clusters the card holds at once; refuses a layout decode_cluster_ok
-// does not take), with f32 or bf16 weights
-static int cluster_run(const Params& q, int cl, bool bf16,
+// the cluster launch of one document in the rows plan or the sharded
+// one (or, with fits, how many such clusters the card holds at once;
+// refuses a layout decode_cluster_ok does not take), with f32 or bf16
+// weights
+static int cluster_run(const Params& q, int cl, bool shard, bool bf16,
                        cudaStream_t stream, int* fits) {
   const Decode& p = q.p;
   if (!decode_cluster_ok(p.W, p.D, cl, p.A * p.L) || p.K > RBMAX)
     return (int)cudaErrorInvalidValue;
   const size_t smem =
       decode_cluster_smem_bytes(p.A, p.L, p.K, p.D, p.W, p.Vp, p.v_real,
-                                cl);
-  return dispatch_cluster(p.W, p.D, cl, [&](auto nkbc, auto dc,
-                                            auto clc) {
+                                cl, shard);
+  return dispatch_cluster(p.W, p.D, cl, shard, [&](auto nkbc, auto dc,
+                                                   auto clc, auto shc) {
     constexpr int NKB = decltype(nkbc)::value, D = decltype(dc)::value;
     constexpr int C = decltype(clc)::value;
+    if constexpr (decltype(shc)::value) {
+      if (bf16)
+        return decode_cluster_launch(
+            decode_lattice_sharded_kernel<NKB, D, C, __nv_bfloat16>, cl, 1,
+            smem, stream, fits, q);
+      return decode_cluster_launch(
+          decode_lattice_sharded_kernel<NKB, D, C, float>, cl, 1, smem,
+          stream, fits, q);
+    }
     if (bf16)
       return decode_cluster_launch(
           decode_lattice_cluster_kernel<NKB, D, C, __nv_bfloat16>, cl, 1,
@@ -172,12 +203,13 @@ static int cluster_run(const Params& q, int cl, bool bf16,
 // once (0 where the layout does not take the shape or it does not fit).
 extern "C" int decode_lattice_max_clusters(int A, int L, int K, int D,
                                            int W, int Vp, int vr, int cl,
-                                           int bf16) {
+                                           int shard, int bf16) {
   Params q{};
   q.p.A = A, q.p.L = L, q.p.K = K, q.p.D = D, q.p.W = W, q.p.Vp = Vp;
   q.p.v_real = vr;
   int fits = 0;
-  return cluster_run(q, cl, bf16 != 0, 0, &fits) == 0 ? fits : 0;
+  return cluster_run(q, cl, shard != 0, bf16 != 0, 0, &fits) == 0 ? fits
+                                                                  : 0;
 }
 
 // The one-block launch of the kernel of weight type WT.
@@ -199,7 +231,7 @@ extern "C" int decode_lattice_launch(
     const float* state0, const float* cost0, float* records, float* walk,
     float* stateF, float* costF, float* stateE, int E, int n_real, int A,
     int L, int K, int D, int W, int Vp, int v_real, float lw, float lw1,
-    int cl, int bf16, void* stream) {
+    int cl, int shard, int bf16, void* stream) {
   const int rb = decode_chunk_rows(A, L, K, D, W, Vp);
   const float* f32[3] = {nullptr, nullptr, nullptr};
   const __nv_bfloat16* b16[3] = {nullptr, nullptr, nullptr};
@@ -217,7 +249,8 @@ extern "C" int decode_lattice_launch(
            chars, mask, conf, valid, state0, cost0, records, walk, stateF,
            costF, stateE};
   if (cl > 1)
-    return cluster_run(q, cl, bf16 != 0, (cudaStream_t)stream, nullptr);
+    return cluster_run(q, cl, shard != 0, bf16 != 0, (cudaStream_t)stream,
+                       nullptr);
   const size_t smem = decode_smem_floats(A, L, K, D, W, Vp, rb) * 4;
   return bf16 ? one_block_run<__nv_bfloat16>(q, smem, (cudaStream_t)stream)
               : one_block_run<float>(q, smem, (cudaStream_t)stream);

@@ -15,8 +15,9 @@
 // SMs.
 //
 // What the design does about it: one thread-block cluster of CL blocks
-// per document (decode_edges_cluster of decode_common.cuh; the wrapper
-// chooses CL from N and from the clusters the card holds at once), or,
+// per document (decode_edges_cluster of decode_common.cuh, in its rows
+// or its sharded plan; the wrapper chooses CL from N and from the
+// clusters the card holds at once), or,
 // where the cluster layout does not take the shape or the wrapper asks
 // cl = 1, one block of 512 threads per document (decode_edges, the first
 // port's code, candidate rows in the document's slice of a global
@@ -119,6 +120,26 @@ __global__ void __launch_bounds__(CNT, 1)
   cluster.sync();  // no block leaves while another may still read it
 }
 
+// The same in the sharded plan (a kernel of its own, so that the rows
+// plan's kernel stays as it was: see decode_edges_sharded).
+template <int NKB, int D, int CL, typename WT>
+__global__ void __launch_bounds__(CNT, 1)
+    decode_lattice_batch_sharded_kernel(Decode p, BatchIO io) {
+  extern __shared__ float4 smem4[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int n = (int)blockIdx.x / CL, N = (int)gridDim.x / CL;
+  const int K = p.K, S = (2 * D + 1) * p.W;
+  const CSmem sm = carve_sharded_smem(p, smem4, CL);
+  const Doc d = batch_doc(p, io, n, N);
+  decode_edges_sharded<NKB, D, CL, WT>(p, d, sm, rank);
+  cluster_write_units(p, sm, io.stateF + (size_t)n * K * S, CL, rank);
+  if (rank == 0)
+    for (int k = threadIdx.x; k < K; k += CNT)
+      io.costF[(size_t)n * K + k] = sm.costf[k];
+  cluster.sync();  // no block leaves while another may still read it
+}
+
 #define WALK_NT 512     // threads a document
 #define WALK_UNROLL 8   // backpointer loads in flight a thread
 #define WALK_SEGS 64    // segments of the chain, at most
@@ -197,30 +218,40 @@ __global__ void __launch_bounds__(WALK_NT)
 }
 
 // bytes of dynamic shared memory a block asks: the one-block kernel's
-// plan (cl 1) or the cluster layout's
+// plan (cl 1) or the cluster layout's (its sharded plan with shard)
 extern "C" size_t decode_lattice_batch_smem_bytes(int A, int L, int K, int D,
                                                   int W, int Vp, int vr,
-                                                  int cl) {
-  if (cl > 1) return decode_cluster_smem_bytes(A, L, K, D, W, Vp, vr, cl);
+                                                  int cl, int shard) {
+  if (cl > 1)
+    return decode_cluster_smem_bytes(A, L, K, D, W, Vp, vr, cl, shard != 0);
   return decode_smem_floats(A, L, K, D, W, Vp,
                             decode_chunk_rows(A, L, K, D, W, Vp)) * 4;
 }
 
-// the cluster launch of N documents (or, with fits, how many such
-// clusters the card holds at once; refuses a layout decode_cluster_ok
-// does not take), with f32 or bf16 weights
+// the cluster launch of N documents in the rows plan or the sharded one
+// (or, with fits, how many such clusters the card holds at once; refuses
+// a layout decode_cluster_ok does not take), with f32 or bf16 weights
 static int batch_cluster_run(const Decode& p, const BatchIO& io, int N,
-                             int cl, bool bf16, cudaStream_t stream,
-                             int* fits) {
+                             int cl, bool shard, bool bf16,
+                             cudaStream_t stream, int* fits) {
   if (!decode_cluster_ok(p.W, p.D, cl, p.A * p.L) || p.K > RBMAX)
     return (int)cudaErrorInvalidValue;
   const size_t smem =
       decode_cluster_smem_bytes(p.A, p.L, p.K, p.D, p.W, p.Vp, p.v_real,
-                                cl);
-  return dispatch_cluster(p.W, p.D, cl, [&](auto nkbc, auto dc,
-                                            auto clc) {
+                                cl, shard);
+  return dispatch_cluster(p.W, p.D, cl, shard, [&](auto nkbc, auto dc,
+                                                   auto clc, auto shc) {
     constexpr int NKB = decltype(nkbc)::value, D = decltype(dc)::value;
     constexpr int C = decltype(clc)::value;
+    if constexpr (decltype(shc)::value) {
+      if (bf16)
+        return decode_cluster_launch(
+            decode_lattice_batch_sharded_kernel<NKB, D, C, __nv_bfloat16>,
+            cl, N, smem, stream, fits, p, io);
+      return decode_cluster_launch(
+          decode_lattice_batch_sharded_kernel<NKB, D, C, float>, cl, N,
+          smem, stream, fits, p, io);
+    }
     if (bf16)
       return decode_cluster_launch(
           decode_lattice_batch_cluster_kernel<NKB, D, C, __nv_bfloat16>, cl,
@@ -235,13 +266,16 @@ static int batch_cluster_run(const Decode& p, const BatchIO& io, int N,
 // once (0 where the layout does not take the shape or it does not fit).
 extern "C" int decode_lattice_batch_max_clusters(int A, int L, int K, int D,
                                                  int W, int Vp, int vr,
-                                                 int cl, int bf16) {
+                                                 int cl, int shard,
+                                                 int bf16) {
   Decode p{};
   p.A = A, p.L = L, p.K = K, p.D = D, p.W = W, p.Vp = Vp, p.v_real = vr;
   const BatchIO io{};
   int fits = 0;
-  return batch_cluster_run(p, io, 1, cl, bf16 != 0, 0, &fits) == 0 ? fits
-                                                                     : 0;
+  return batch_cluster_run(p, io, 1, cl, shard != 0, bf16 != 0, 0,
+                           &fits) == 0
+             ? fits
+             : 0;
 }
 
 // The one-block launch of N documents with the kernel of weight type WT.
@@ -264,7 +298,7 @@ extern "C" int decode_lattice_batch_launch(
     const float* state0, const float* cost0, float* records, float* stateF,
     float* costF, float* stateE, int N, int E, int n_real, int A, int L,
     int K, int D, int W, int Vp, int v_real, float lw, float lw1, int cl,
-    int bf16, void* stream) {
+    int shard, int bf16, void* stream) {
   const int rb = decode_chunk_rows(A, L, K, D, W, Vp);
   const float* f32[3] = {nullptr, nullptr, nullptr};
   const __nv_bfloat16* b16[3] = {nullptr, nullptr, nullptr};
@@ -282,8 +316,8 @@ extern "C" int decode_lattice_batch_launch(
   const BatchIO io{chars, mask, conf, valid, state0, cost0, records,
                    stateF, costF, stateE};
   if (cl > 1)
-    return batch_cluster_run(p, io, N, cl, bf16 != 0, (cudaStream_t)stream,
-                             nullptr);
+    return batch_cluster_run(p, io, N, cl, shard != 0, bf16 != 0,
+                             (cudaStream_t)stream, nullptr);
   const size_t smem = decode_smem_floats(A, L, K, D, W, Vp, rb) * 4;
   return bf16 ? batch_one_block_run<__nv_bfloat16>(p, io, N, smem,
                                                    (cudaStream_t)stream)

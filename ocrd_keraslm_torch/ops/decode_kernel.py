@@ -12,8 +12,10 @@ do the same with ``csrc/decode_lattice_batch.cu`` and
 kernels run the device code of ``csrc/decode_common.cuh``: a document
 on a thread-block cluster of CL blocks where the cluster layout takes
 the shape (:func:`cluster_blocks` chooses CL from the number of
-documents and the clusters the card holds at once), else on one block
-(the first port's code); both layouts give the same bits.  Nothing
+documents and the clusters the card holds at once; the shared-memory
+plan, rows or sharded, from the shape: :func:`cluster_shard`), else on
+one block (the first port's code); both layouts and both plans give the
+same bits.  Nothing
 falls back: a CUDA tensor either goes through the kernel or the call
 raises.
 
@@ -64,7 +66,9 @@ SMEM_MAX = 232448        # dynamic shared memory a block may ask (Hopper)
 # Time of one document by blocks a document, relative to one block (the
 # first port's code): the cost model of choose_cluster, fitted to
 # gen_beam_phases.py decode on an H100 (rows 1 and 2 of PERF.md at W=128:
-# 16 blocks 0.19-0.21; W=64, D=2: 4 blocks 0.36, 8 blocks 0.26)
+# 16 blocks 0.19-0.21; W=64, D=2: 4 blocks 0.36, 8 blocks 0.26).  The
+# sharded plan at K=32 fits the same: 16 blocks 0.206 at row 1k, 0.193 a
+# wave of 7 clusters at row 2k (five waves against one of 132 blocks)
 CL_COST = {1: 1.0, 4: 0.36, 8: 0.26, 16: 0.19}
 
 
@@ -78,46 +82,72 @@ def padded_width(W: int) -> int:
     return W + 4 * _ceil(W, KCH)
 
 
-def cluster_ok(W: int, D: int, cl: int, K: int = 1) -> bool:
+def cluster_ok(W: int, D: int, cl: int, K: int = 1,
+               shard: bool = False) -> bool:
     """Whether the cluster layout takes width W, depth D and cl blocks
     (``decode_cluster_ok``): W in 32, 64, 128 (2, 4 or 8 blocks of 32
     terms in a gate column of [input | h]), D <= 2 (a lane's 32 weights
     a layer in registers), cl in :data:`CLUSTERS`, a row group (4 x 2W/32
-    lanes per unit) in a block of CNT threads, and K <= 32."""
+    lanes per unit) in a block of CNT threads, and K <= 32; the sharded
+    plan is built at W=128 only (``dispatch_cluster``: with A=4 the rows
+    plan fits a block at every smaller width)."""
     if W not in (32, 64, 128) or not 1 <= D <= 2 or cl not in CLUSTERS \
-            or not 1 <= K <= KMAX:
+            or not 1 <= K <= KMAX or (shard and W != 128):
         return False
     return W // cl * 4 * (2 * W // KCH) <= CNT
 
 
+def cluster_shard(K: int, A: int, L: int, D: int, W: int, Vp: int,
+                  v_real: int, cl: int) -> bool:
+    """Whether the cluster layout runs the shape in its sharded plan:
+    where the rows plan (every block holds every row of the beam and of
+    the K*A candidates) asks more than a block's :data:`SMEM_MAX` (K=32
+    at W=128: 388,596 bytes at A=4, L=8, D=2 on 16 blocks).  Both weight
+    dtypes share the plan."""
+    return cluster_smem_bytes(A, L, K, D, W, Vp, v_real, cl, False) \
+        > SMEM_MAX
+
+
 def cluster_smem_bytes(A: int, L: int, K: int, D: int, W: int, Vp: int,
-                       v_real: int, cl: int) -> int:
+                       v_real: int, cl: int,
+                       shard: Optional[bool] = None) -> int:
     """A block's dynamic shared memory in the cluster layout
-    (``decode_cluster_smem_bytes``): two mbarriers, the ring of two h
-    buffers, the padded [xemb | h] rows of the beam and of the K*A
-    candidates and the parents' new h, the c of their own units, the
-    chunk's gate sums, new h and c of the own units, the logits' 32-term
-    blocks and logsumexp of the block's rows, the own bias, the per-edge
-    arrays and embT's ``v_real`` real columns."""
+    (``decode_cluster_smem_bytes``) in the plan :func:`cluster_shard`
+    takes for the shape, or in the rows plan (``shard`` false) or the
+    sharded one (true): the mbarriers (2; 4 sharded), the ring of two h
+    buffers, in the rows plan the padded [xemb | h] rows of the beam and
+    of the K*A candidates and the parents' new h, in the sharded plan
+    two chunks' padded rows and the own units of those rows and of the
+    parents' new h, then the c of their own units, the chunk's gate
+    sums, new h and c of the own units, the logits' 32-term blocks and
+    logsumexp of the block's rows, the own bias, the per-edge arrays and
+    embT's ``v_real`` real columns."""
+    if shard is None:
+        shard = cluster_shard(K, A, L, D, W, Vp, v_real, cl)
     WP = padded_width(W)
     XP, upb, KA, RL = (D + 1) * WP, W // cl, K * A, _ceil(DC_RC, cl)
-    floats = (16 + 2 * DC_RC * WP + (K + KA) * XP + K * D * WP
+    rows = (2 * DC_RC * XP + (K + KA) * (D + 1) * upb + K * D * upb
+            if shard else (K + KA) * XP + K * D * WP)
+    floats = (16 + 2 * DC_RC * WP + rows
               + (2 * K + KA) * D * upb
               + DC_RC * 4 * upb + DC_RC * upb + D * DC_RC * upb
               + RL * (W // KCH) * Vp + RL + D * 4 * upb
               + K + 2 * KA + 2 * A * L + A + W * v_real
               + K + 2 * KA + A * L + 4)
-    return 16 + 4 * floats
+    return (32 if shard else 16) + 4 * floats
 
 
 def cluster_sizes(K: int, A: int, L: int, D: int, W: int, Vp: int,
                   v_real: int) -> list:
     """The cluster sizes the layout takes for the shape: those of
-    :func:`cluster_ok` whose shared memory fits a block's, where an
-    edge's A x L chars fit a block's threads."""
+    :func:`cluster_ok` whose shared memory, in the plan
+    :func:`cluster_shard` takes, fits a block's, where an edge's A x L
+    chars fit a block's threads."""
     if A * L > CNT:
         return []
-    return [cl for cl in CLUSTERS if cluster_ok(W, D, cl, K)
+    return [cl for cl in CLUSTERS
+            if cluster_ok(W, D, cl, K,
+                          cluster_shard(K, A, L, D, W, Vp, v_real, cl))
             and cluster_smem_bytes(A, L, K, D, W, Vp, v_real, cl)
             <= SMEM_MAX]
 
@@ -149,7 +179,8 @@ def choose_cluster(N: int, K: int, A: int, L: int, D: int, W: int, Vp: int,
     (``fits(cl)``: how many such clusters it holds at once), the lowest
     ``CL_COST[cl]`` times the waves of clusters wins, ties to more
     blocks; 1 (one block a document, the first port's code, ``n_sm`` at
-    once) where none does or it costs no more."""
+    once) where none does or it costs no more.  Both plans share the
+    model."""
     best = (CL_COST[1] * _ceil(N, n_sm), 1)
     for cl in cluster_sizes(K, A, L, D, W, Vp, v_real):
         at_once = fits(cl)
@@ -162,12 +193,13 @@ def choose_cluster(N: int, K: int, A: int, L: int, D: int, W: int, Vp: int,
 def _clusters_that_fit(index: int, batch: bool, cl: int, A: int, L: int,
                        K: int, D: int, W: int, Vp: int, v_real: int,
                        bf16: bool) -> int:
+    shard = int(cluster_shard(K, A, L, D, W, Vp, v_real, cl))
     with torch.cuda.device(index):
         if batch:
             return _batch_library().decode_lattice_batch_max_clusters(
-                A, L, K, D, W, Vp, v_real, cl, int(bf16))
-        return _library().decode_lattice_max_clusters(A, L, K, D, W, Vp,
-                                                      v_real, cl, int(bf16))
+                A, L, K, D, W, Vp, v_real, cl, shard, int(bf16))
+        return _library().decode_lattice_max_clusters(
+            A, L, K, D, W, Vp, v_real, cl, shard, int(bf16))
 
 
 @functools.lru_cache(maxsize=None)
@@ -202,11 +234,11 @@ def _library() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.decode_lattice_launch.argtypes = \
-        [P] * 16 + [I] * 9 + [F, F, I, I, P]
+        [P] * 16 + [I] * 9 + [F, F, I, I, I, P]
     lib.decode_lattice_launch.restype = ctypes.c_int
-    lib.decode_lattice_smem_bytes.argtypes = [I] * 8
+    lib.decode_lattice_smem_bytes.argtypes = [I] * 9
     lib.decode_lattice_smem_bytes.restype = ctypes.c_size_t
-    lib.decode_lattice_max_clusters.argtypes = [I] * 9
+    lib.decode_lattice_max_clusters.argtypes = [I] * 10
     lib.decode_lattice_max_clusters.restype = ctypes.c_int
     return lib
 
@@ -303,6 +335,7 @@ def decode_lattice(emb, embT, wcat, bias, alt_chars, alt_mask, alt_conf,
     lib = _library()
     bf16 = wdt == torch.bfloat16
     cl = cluster_blocks(device, False, 1, K, A, L, D, W, Vp, v_real, bf16)
+    shard = cl > 1 and cluster_shard(K, A, L, D, W, Vp, v_real, cl)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         status = lib.decode_lattice_launch(
@@ -313,14 +346,17 @@ def decode_lattice(emb, embT, wcat, bias, alt_chars, alt_mask, alt_conf,
             records.data_ptr(), walk.data_ptr() if device_walk else None,
             stateF.data_ptr(), costF.data_ptr(), stateE.data_ptr(),
             E, n_real, A, L, K, D, W, Vp, int(v_real),
-            float(lm_weight), float(1.0 - lm_weight), cl, int(bf16), stream)
+            float(lm_weight), float(1.0 - lm_weight), cl, int(shard),
+            int(bf16), stream)
     if status != 0:
         raise RuntimeError('decode_lattice kernel launch failed: CUDA '
-                           'error %d (%s weights, %d blocks, %d bytes of '
+                           'error %d (%s weights, %d blocks%s, %d bytes of '
                            'shared memory asked)'
                            % (status, 'bf16' if bf16 else 'f32', cl,
+                              ', sharded plan' if shard else '',
                               lib.decode_lattice_smem_bytes(
-                                  A, L, K, D, W, Vp, v_real, cl)))
+                                  A, L, K, D, W, Vp, v_real, cl,
+                                  int(shard))))
     if bf16:
         _build.count(decode_lattice, 'launches_bf16')
     else:
@@ -463,11 +499,11 @@ def _batch_library() -> ctypes.CDLL:
     lib = _build.load(BATCH_SOURCE)
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.decode_lattice_batch_launch.argtypes = \
-        [P] * 15 + [I] * 10 + [F, F, I, I, P]
+        [P] * 15 + [I] * 10 + [F, F, I, I, I, P]
     lib.decode_lattice_batch_launch.restype = ctypes.c_int
-    lib.decode_lattice_batch_smem_bytes.argtypes = [I] * 8
+    lib.decode_lattice_batch_smem_bytes.argtypes = [I] * 9
     lib.decode_lattice_batch_smem_bytes.restype = ctypes.c_size_t
-    lib.decode_lattice_batch_max_clusters.argtypes = [I] * 9
+    lib.decode_lattice_batch_max_clusters.argtypes = [I] * 10
     lib.decode_lattice_batch_max_clusters.restype = ctypes.c_int
     lib.walk_records_batch_launch.argtypes = [P] * 4 + [I] * 3 + [P]
     lib.walk_records_batch_launch.restype = ctypes.c_int
@@ -562,6 +598,7 @@ def decode_lattice_batch(emb, embT, wcat, bias, alt_chars, alt_mask,
     lib = _batch_library()
     bf16 = wdt == torch.bfloat16
     cl = cluster_blocks(device, True, N, K, A, L, D, W, Vp, v_real, bf16)
+    shard = cl > 1 and cluster_shard(K, A, L, D, W, Vp, v_real, cl)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         status = lib.decode_lattice_batch_launch(
@@ -572,14 +609,16 @@ def decode_lattice_batch(emb, embT, wcat, bias, alt_chars, alt_mask,
             records.data_ptr(), stateF.data_ptr(), costF.data_ptr(),
             stateE.data_ptr(), N, E, n_real, A, L, K, D, W, Vp,
             int(v_real), float(lm_weight), float(1.0 - lm_weight), cl,
-            int(bf16), stream)
+            int(shard), int(bf16), stream)
     if status != 0:
         raise RuntimeError('decode_lattice_batch kernel launch failed: '
-                           'CUDA error %d (%s weights, %d blocks a document, '
-                           '%d bytes of shared memory asked)'
+                           'CUDA error %d (%s weights, %d blocks a document'
+                           '%s, %d bytes of shared memory asked)'
                            % (status, 'bf16' if bf16 else 'f32', cl,
+                              ', sharded plan' if shard else '',
                               lib.decode_lattice_batch_smem_bytes(
-                                  A, L, K, D, W, Vp, v_real, cl)))
+                                  A, L, K, D, W, Vp, v_real, cl,
+                                  int(shard))))
     if bf16:
         _build.count(decode_lattice_batch, 'launches_bf16')
     else:

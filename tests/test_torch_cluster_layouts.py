@@ -153,6 +153,18 @@ def test_decode_cluster_choice(N, want, L):
                              132) == want
 
 
+@pytest.mark.parametrize('L', [1, 8])
+@pytest.mark.parametrize('N, want', [
+    # beam_width 17-32: the sharded plan's clusters, one cost model with
+    # the rows plan (rows 1k and 2k of PERF.md: 16 blocks 0.19-0.21 of
+    # one block's time), so the same sizes by number of documents
+    (1, 16), (7, 16), (32, 16), (35, 16), (36, 1), (300, 1)])
+def test_decode_cluster_choice_at_k32(N, want, L):
+    """Blocks a document at K=32, W=128, D=2 (the sharded plan)."""
+    assert dk.choose_cluster(N, 32, 4, L, 2, 128, 128, 70, _cl_fits,
+                             132) == want
+
+
 @pytest.mark.parametrize('N, want', [(1, 16), (7, 16), (8, 8), (15, 8),
                                      (16, 4), (32, 4), (300, 1)])
 def test_decode_cluster_choice_at_w64(N, want):
@@ -168,13 +180,35 @@ def test_decode_cluster_choice_at_w64(N, want):
     (96, 1, 16, 4, 8),     # 6 blocks
     (128, 3, 16, 4, 8),    # three layers' weights exceed a lane's share
     (128, 2, 64, 4, 8),    # more beam rows than the kernels take
-    (128, 2, 32, 4, 8),    # K=32: the candidates' rows exceed a block
     (128, 2, 16, 8, 64),   # more chars an edge than a block's threads
     (16, 2, 16, 4, 8)])    # one block of 32 terms
 def test_decode_shapes_the_cluster_layout_does_not_take(W, D, K, A, L):
     """These take the one-block path, whatever the card holds."""
     assert dk.choose_cluster(1, K, A, L, D, W, 128, 70, lambda cl: 1 << 20,
                              132) == 1
+
+
+@pytest.mark.parametrize('W, D, K, A, L, shard', [
+    # K=32 at the german model's width: the candidates' rows exceed a
+    # block in the rows plan, so the sharded plan
+    (128, 2, 32, 4, 8, True),
+    (128, 2, 32, 4, 1, True),
+    (128, 2, 32, 4, 64, True),
+    (128, 1, 32, 4, 8, True),
+    # the rows plan wherever it fits
+    (128, 2, 16, 4, 8, False),
+    (128, 2, 16, 4, 64, False),
+    (128, 2, 8, 4, 8, False),
+    (64, 2, 32, 4, 8, False),
+    (32, 1, 32, 4, 64, False)])
+def test_decode_shapes_the_cluster_layout_takes(W, D, K, A, L, shard):
+    """One document takes 16 blocks in the plan the shape needs, and that
+    plan fits a block's shared memory."""
+    assert dk.choose_cluster(1, K, A, L, D, W, 128, 70, lambda cl: 1 << 20,
+                             132) == 16
+    assert dk.cluster_shard(K, A, L, D, W, 128, 70, 16) == shard
+    assert dk.cluster_smem_bytes(A, L, K, D, W, 128, 70, 16) <= dk.SMEM_MAX
+    assert dk.cluster_ok(W, D, 16, K, shard)
 
 
 def test_decode_without_clusters_is_one_block():
@@ -184,22 +218,55 @@ def test_decode_without_clusters_is_one_block():
 
 
 def test_decode_cluster_layout_bytes_and_sizes():
-    """A block's shared memory in the cluster layout (the beam's and the
-    K*A candidates' padded rows take most of it, then embT's real
-    columns) and the sizes the layout takes (a row group of 4 x 2W/32
-    lanes a unit in 256 threads, within a block's shared memory): K=16
-    fits at the german model's width up to L=64 on 16 blocks, K=32 does
-    not (at W=64 it does)."""
+    """A block's shared memory in the cluster layout (in the rows plan
+    the beam's and the K*A candidates' padded rows take most of it, then
+    embT's real columns) and the sizes the layout takes (a row group of
+    4 x 2W/32 lanes a unit in 256 threads, within a block's shared
+    memory): K=16 fits at the german model's width up to L=64 on 16
+    blocks in the rows plan; K=32 there takes 16 blocks in the sharded
+    plan (at W=64 the rows plan fits)."""
     assert dk.padded_width(128) == 144
     assert dk.cluster_smem_bytes(4, 8, 16, 2, 128, 128, 70, 16) == 224628
     assert dk.cluster_smem_bytes(4, 64, 16, 2, 128, 128, 70, 16) == 227316
     assert dk.cluster_sizes(16, 4, 64, 2, 128, 128, 70) == [16]
-    assert dk.cluster_sizes(32, 4, 8, 2, 128, 128, 70) == []
+    assert dk.cluster_sizes(32, 4, 8, 2, 128, 128, 70) == [16]
     assert dk.cluster_sizes(32, 4, 8, 2, 64, 128, 70) == [4, 8, 16]
     assert [c for c in dk.CLUSTERS if dk.cluster_ok(128, 2, c)] == [16]
     assert [c for c in dk.CLUSTERS if dk.cluster_ok(64, 1, c)] == [4, 8, 16]
     assert not dk.cluster_ok(128, 2, 8)   # 512 threads a row group
     assert not dk.cluster_ok(128, 2, 16, K=33)
+    assert not dk.cluster_ok(64, 2, 16, shard=True)  # built at W=128 only
+
+
+def test_decode_sharded_plan_bytes():
+    """K=32 at the german model's width (A=4, L=8, D=2, 16 blocks): the
+    rows plan asks 388,596 bytes, over a block's 232,448, so the plan is
+    the sharded one: four mbarriers, the ring of h, two chunks' padded
+    rows, the own 8 units of every row (beam, candidates, the parents'
+    new h), then what the rows plan holds besides the rows."""
+    assert dk.SMEM_MAX == 232448
+    assert dk.cluster_smem_bytes(4, 8, 32, 2, 128, 128, 70, 16,
+                                 False) == 388596
+    assert dk.cluster_shard(32, 4, 8, 2, 128, 128, 70, 16)
+    assert not dk.cluster_shard(16, 4, 8, 2, 128, 128, 70, 16)
+    WP, upb, K, KA, D = 144, 8, 32, 128, 2
+    rows = (2 * 16 * 3 * WP + (K + KA) * (D + 1) * upb + K * D * upb)
+    rows_plan = (K + KA) * 3 * WP + K * D * WP
+    sharded = dk.cluster_smem_bytes(4, 8, 32, 2, 128, 128, 70, 16)
+    assert sharded == 388596 + 16 + 4 * (rows - rows_plan) == 147972
+    assert sharded <= dk.SMEM_MAX
+    # the same plan at K=16 fits too; the shape keeps its rows plan
+    assert dk.cluster_smem_bytes(4, 8, 16, 2, 128, 128, 70, 16,
+                                 True) == 131972
+    assert dk.cluster_smem_bytes(4, 8, 16, 2, 128, 128, 70, 16) == 224628
+
+
+def test_decode_k32_one_document_takes_16_blocks():
+    """The processor's pages at beam_width 17-32 (K=32): one document a
+    launch on a 16-block cluster in the sharded plan."""
+    for L in (1, 8, 64):
+        assert dk.choose_cluster(1, 32, 4, L, 2, 128, 128, 70, _cl_fits,
+                                 132) == 16
 
 
 def test_decode_cost_model_prefers_fewer_waves():

@@ -2,7 +2,7 @@
 what ``decode_lattice_batch`` runs for CPU tensors) with the JAX Pallas
 kernel ``decode_lattice_pallas_batch`` in interpret mode, and of
 ``walk_records_batch_ref`` with JAX's ``walk_records_batch``, at D=2,
-W=16, V_pad=128.
+W=16, V_pad=128, K in {8, 16, 32} (32: ``beam_width`` 17-32).
 
 Each case chains two launches (state and cost carried, each side its
 own carry): a full block and one with pad edges (n_real < E).  The
@@ -48,7 +48,7 @@ def fresh_beam(emb, N, K):
 
 
 @pytest.mark.parametrize('L', [1, 4])
-@pytest.mark.parametrize('K', [8, 16])
+@pytest.mark.parametrize('K', [8, 16, 32])
 @pytest.mark.parametrize('N', [2, 3])
 def test_batch_ref_matches_pallas(N, K, L):
     rng = np.random.default_rng(100 * N + 10 * K + L)

@@ -1,6 +1,7 @@
 """Parity of the port's plain decode (``decode_lattice_ref``, what
 ``decode_lattice`` runs for CPU tensors) with the JAX Pallas kernel
-``decode_lattice_pallas`` in interpret mode, at D=2, W=16, V_pad=128.
+``decode_lattice_pallas`` in interpret mode, at D=2, W=16, V_pad=128,
+K in {8, 16, 32} (32: ``beam_width`` 17-32, K*A = 128 candidates).
 
 Each case chains two launches (state and cost carried, each side its
 own carry): a full block and one with pad edges (n_real < E).  The
@@ -35,7 +36,7 @@ def _weights(rng):
 
 @pytest.mark.parametrize('walk', [True, False])
 @pytest.mark.parametrize('L', [1, 4])
-@pytest.mark.parametrize('K', [8, 16])
+@pytest.mark.parametrize('K', [8, 16, 32])
 def test_ref_matches_pallas(K, L, walk):
     rng = np.random.default_rng(1000 * K + 10 * L + walk)
     weights = _weights(rng)

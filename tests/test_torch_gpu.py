@@ -125,29 +125,36 @@ def test_kernel_matches_plain(cuda, model, L, K):
 
 
 def test_kernel_matches_plain_long_alternatives(cuda):
-    """Alternatives of up to 64 chars (line level) at K=32: the 32-row
-    chunk no longer fits in shared memory and the launcher takes
-    16-row chunks (the cluster layout does not take K=32: its candidates'
-    rows exceed a block's shared memory)."""
+    """Alternatives of up to 64 chars (line level) at K=32: in the
+    one-block layout the 32-row chunk no longer fits in shared memory and
+    the launcher takes 16-row chunks; the wrapper takes the cluster layout
+    in its sharded plan (16 blocks).  Both against the plain version."""
+    from chip_smoke import decode_cluster
     from ocrd_keraslm_torch.ops import decode_kernel as dk
     K, L = 32, 64
     rng = np.random.default_rng([K, L])
     weights, v_real = _german(cuda)
     D, W = weights[2].shape[0], weights[0].shape[1]
     lib = dk._library()
-    assert lib.decode_lattice_smem_bytes(4, L, K, D, W, 128, v_real, 1) \
-        < lib.decode_lattice_smem_bytes(4, 8, K, D, W, 128, v_real, 1)
-    assert dk.cluster_blocks(cuda, False, 1, K, 4, L, D, W, 128, v_real) == 1
+    assert lib.decode_lattice_smem_bytes(4, L, K, D, W, 128, v_real, 1, 0) \
+        < lib.decode_lattice_smem_bytes(4, 8, K, D, W, 128, v_real, 1, 0)
+    assert dk.cluster_blocks(cuda, False, 1, K, 4, L, D, W, 128,
+                             v_real) == 16
+    assert dk.cluster_shard(K, 4, L, D, W, 128, v_real, 16)
+    assert lib.decode_lattice_smem_bytes(4, L, K, D, W, 128, v_real, 16, 1) \
+        == dk.cluster_smem_bytes(4, L, K, D, W, 128, v_real, 16)
     run = _runner(weights, v_real, cuda)
-    state = torch.zeros((K, (2 * D + 1) * W), device=cuda)
-    state[:, :W] = weights[0][1]
-    cost = torch.full((1, 128), 1e30, device=cuda)
-    cost[0, 0] = 0.0
-    for E, n_real in ((64, 64), (64, 41)):
-        _, _, state, cost = parity_block(
-            run, dk.decode_lattice, dk.decode_lattice_ref,
-            random_lattice(rng, E, n_real, 4, L, v_real), n_real, state,
-            cost, K, W)
+    for cl in (16, 1):
+        state = torch.zeros((K, (2 * D + 1) * W), device=cuda)
+        state[:, :W] = weights[0][1]
+        cost = torch.full((1, 128), 1e30, device=cuda)
+        cost[0, 0] = 0.0
+        with decode_cluster(cl):
+            for E, n_real in ((64, 64), (64, 41)):
+                _, _, state, cost = parity_block(
+                    run, dk.decode_lattice, dk.decode_lattice_ref,
+                    random_lattice(rng, E, n_real, 4, L, v_real), n_real,
+                    state, cost, K, W)
 
 
 @pytest.mark.parametrize('K', [8, 16])
@@ -178,9 +185,9 @@ def test_decode_cluster_sizes_agree(cuda, model, L, K):
     """Every cluster size the layout takes and the one-block layout give
     ``decode_lattice`` the same bits (records, device walk, final beam
     and costs) over two chained blocks (one with pad edges); the chosen
-    size is one of them (the one-block layout where none is: K=32 at
-    W=128).  (The plain version holds the kernel in
-    ``test_kernel_matches_plain*``, which run the chosen layout.)"""
+    size is one of them (at K=32, W=128: 16 blocks in the sharded plan).
+    (The plain version holds the kernel in ``test_kernel_matches_plain*``,
+    which run the chosen layout.)"""
     from chip_smoke import decode_cluster
     from ocrd_keraslm_torch.ops import decode_kernel as dk
     rng = np.random.default_rng([('german', 'd1w32', 'd2w64').index(model),
@@ -857,6 +864,83 @@ def test_batch_sizes_equal_single_document_launches(cuda, N):
         assert torch.equal(single[1], stateF[n * K:(n + 1) * K]), n
         assert torch.equal(single[2][0, :K], costF[n * K:(n + 1) * K, 0]), n
     assert dk.cluster_blocks(cuda, True, N, K, A, L, D, W, 128, v_real) >= 1
+
+
+@pytest.mark.parametrize('L', [1, 8])
+def test_k32_sharded_plan_equals_one_block(cuda, L):
+    """K=32 at the german model's width (beam_width 17-32): the cluster
+    layout in its sharded plan (16 blocks) gives ``decode_lattice`` the
+    one-block layout's bits (records, device walk, final beam and costs)
+    over two chained blocks, one with pad edges; and forced at K=16 the
+    sharded plan gives the rows plan's bits, under f32 and bf16
+    weights."""
+    from chip_smoke import decode_cluster
+    from ocrd_keraslm_torch.ops import decode_kernel as dk
+    rng = np.random.default_rng([32, L, 17])
+    weights, v_real = _german(cuda)
+    D, W = weights[2].shape[0], weights[0].shape[1]
+    assert dk.cluster_sizes(32, 4, L, D, W, 128, v_real) == [16]
+    assert dk.cluster_shard(32, 4, L, D, W, 128, v_real, 16)
+    for K, wts, layouts in (
+            (32, weights, ((16, None), (1, None))),
+            (16, weights, ((16, False), (16, True), (1, None))),
+            (16, _bf16(weights), ((16, False), (16, True)))):
+        run = _runner(wts, v_real, cuda)
+        state = torch.zeros((K, (2 * D + 1) * W), device=cuda)
+        state[:, :W] = weights[0][1]
+        cost = torch.full((1, 128), 1e30, device=cuda)
+        cost[0, 0] = 0.0
+        for E, n_real in ((64, 64), (48, 29)):
+            arrays = random_lattice(rng, E, n_real, 4, L, v_real)
+            outs = []
+            for cl, shard in layouts:
+                with decode_cluster(cl, shard):
+                    outs.append([run(dk.decode_lattice, arrays, n_real,
+                                     state, cost, walk)
+                                 for walk in (False, True)])
+            for out, lay in zip(outs[1:], layouts[1:]):
+                for got, want in zip(out, outs[0]):
+                    assert all(torch.equal(g, w)
+                               for g, w in zip(got, want)), (K, lay)
+            state, cost = outs[0][0][1:]
+
+
+@pytest.mark.parametrize('N', [1, 32])
+def test_k32_batch_equals_single_document_launches(cuda, N):
+    """The batched kernel at K=32 (the serving batch at beam_width 32),
+    in the 16-block cluster layout (the sharded plan) and in the one-block
+    layout, equals its single-document ``decode_lattice`` launches
+    document by document and bit for bit."""
+    from chip_smoke import decode_cluster
+    from ocrd_keraslm_torch.ops import decode_kernel as dk
+    rng = np.random.default_rng([32, N])
+    weights, v_real = _german(cuda)
+    K, A, E, L = 32, 4, 48, 8
+    n_reals = [E] + [int(rng.integers(1, E + 1)) for _ in range(N - 1)]
+    arrays = batch_lattice(rng, N, n_reals, E, A, L, v_real)
+    state, cost = _fresh_beams(weights, N, K)
+    run = _batch_runner(weights, v_real, cuda, N)
+    with decode_cluster(16):
+        got = run(dk.decode_lattice_batch, arrays, E, state, cost)
+    with decode_cluster(1):
+        one_block = run(dk.decode_lattice_batch, arrays, E, state, cost)
+    assert all(torch.equal(a, b) for a, b in zip(got, one_block))
+    rec, stateF, costF = got
+    for n in range(N):
+        one = [np.ascontiguousarray(a[:, n * A:(n + 1) * A])
+               for a in arrays[:4]]
+        cost_n = torch.full((1, 128), 1e30, device=cuda)
+        cost_n[0, :K] = cost[n * K:(n + 1) * K, 0]
+        single = dk.decode_lattice(
+            *weights, *(torch.from_numpy(a).to(cuda)
+                        for a in one[:3] + [one[3][..., 0].copy()]),
+            state[n * K:(n + 1) * K].contiguous(), cost_n, lm_weight=0.5,
+            v_real=v_real, n_real=E,
+            alt_steps=torch.from_numpy(arrays[4][:, 0].copy()).to(cuda))
+        assert torch.equal(single[0][1:].reshape(E, 3, K),
+                           rec[:, :, n * K:(n + 1) * K]), n
+        assert torch.equal(single[1], stateF[n * K:(n + 1) * K]), n
+        assert torch.equal(single[2][0, :K], costF[n * K:(n + 1) * K, 0]), n
 
 
 @pytest.mark.parametrize('N, K', [(1, 8), (33, 16), (200, 32)])

@@ -222,6 +222,20 @@ LONG_PAGES = {
 }
 
 
+def test_beam_32_german_pages_match_jax(tmp_path, monkeypatch):
+    """``-P beam_width 32`` (K=32: JAX's Pallas kernel at its 128-lane
+    design point, K*A = 128 candidates) over 2 glyph pages at full width
+    (model_german.h5): the same choices and texts, confs within 1e-5."""
+    alternatives = {**ALTERNATIVES,
+                    (1, 1, 0): [('M', 0.9), ('W', 0.88), ('N', 0.87),
+                                ('H', 0.85)],
+                    (0, 2, 4): [('ä', 0.9), ('a', 0.89), ('o', 0.84)]}
+    want, got = _run_both(tmp_path, monkeypatch, PAGES, alternatives,
+                          GERMAN, {'textequiv_level': 'glyph',
+                                   'beam_width': 32})
+    _assert_same(want, got, 1e-5)
+
+
 def _level_confs(directory, level):
     """{id: [(Unicode, conf)]} of the output's lines or regions."""
     ws = Workspace(directory)
