@@ -28,6 +28,7 @@ from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
+from .utils.devtrace import span
 from .utils.vocab import Vocab, read_normalized
 
 LOG = logging.getLogger(__name__)
@@ -481,7 +482,12 @@ class Prefetcher:
 
         def worker():
             try:
-                for item in iterator:
+                items = iter(iterator)
+                while True:
+                    with span('data.batch'):
+                        item = next(items, self._SENTINEL)
+                    if item is self._SENTINEL:
+                        break
                     while not self._closed:
                         try:
                             self._queue.put(item, timeout=0.2)
@@ -515,7 +521,8 @@ class Prefetcher:
     def __iter__(self):
         try:
             while True:
-                item = self._queue.get()
+                with span('data.wait'):
+                    item = self._queue.get()
                 if item is self._SENTINEL:
                     if self._error is not None:
                         raise self._error

@@ -37,6 +37,7 @@ import torch
 
 from ..models.lstm_lm import forward_step, host_to_device
 from ..utils.buckets import bucket_unbounded
+from ..utils.devtrace import span
 from .gen_kernel import (BIG, gen_layouts, generate_best, generate_variants,
                          log_threshold)
 
@@ -94,26 +95,28 @@ def _prefix_state(emb, embT, wcat, bias, prefix, prefix_mask, v_real):
     both).  Each masked position is one batch-N step of the LSTM stack;
     a stream whose prefix has ended keeps its state (the last prefix
     char becomes the first beam input, as in the host engine)."""
-    device = emb.device
-    W = emb.shape[1]
-    D = wcat.shape[0]
-    N = prefix.shape[0]
-    steps = int(prefix_mask.sum(axis=1).max()) if prefix_mask.size else 0
-    ids = host_to_device(torch.from_numpy(
-        np.ascontiguousarray(prefix, np.int64)), device)
-    mask = host_to_device(torch.from_numpy(
-        np.ascontiguousarray(prefix_mask, np.float32)), device)
-    state = torch.zeros((N, (2 * D + 1) * W), dtype=torch.float32,
-                        device=device)
-    for t in range(steps):
-        xemb = emb[ids[:, t]]
-        hs, _ = _gen_layers(emb, embT, wcat, bias, v_real,
-                            torch.cat([xemb, state[:, W:]], 1))
-        state = torch.where(mask[:, t, None] > 0,
-                            torch.cat([xemb, hs], 1), state)
-    n_prefix = torch.from_numpy(prefix_mask.sum(axis=1).astype(np.int64))
-    last = ids.gather(1, n_prefix.to(device)[:, None])[:, 0]
-    return torch.cat([emb[last], state[:, W:]], 1)
+    with span('gen.prompt'):
+        device = emb.device
+        W = emb.shape[1]
+        D = wcat.shape[0]
+        N = prefix.shape[0]
+        steps = int(prefix_mask.sum(axis=1).max()) if prefix_mask.size \
+            else 0
+        ids = host_to_device(torch.from_numpy(
+            np.ascontiguousarray(prefix, np.int64)), device)
+        mask = host_to_device(torch.from_numpy(
+            np.ascontiguousarray(prefix_mask, np.float32)), device)
+        state = torch.zeros((N, (2 * D + 1) * W), dtype=torch.float32,
+                            device=device)
+        for t in range(steps):
+            xemb = emb[ids[:, t]]
+            hs, _ = _gen_layers(emb, embT, wcat, bias, v_real,
+                                torch.cat([xemb, state[:, W:]], 1))
+            state = torch.where(mask[:, t, None] > 0,
+                                torch.cat([xemb, hs], 1), state)
+        n_prefix = torch.from_numpy(prefix_mask.sum(axis=1).astype(np.int64))
+        last = ids.gather(1, n_prefix.to(device)[:, None])[:, 0]
+        return torch.cat([emb[last], state[:, W:]], 1)
 
 
 def _prefix_arrays(enc):
@@ -142,8 +145,11 @@ def _copy_to_host(t):
 
 
 def _fetch(host, event):
+    """The host copy of :func:`_copy_to_host`, once its event completed:
+    where decode and generation wait for the card's results."""
     if event is not None:
-        event.synchronize()
+        with span('fetch'):
+            event.synchronize()
     return host.numpy()
 
 
@@ -315,29 +321,31 @@ def generate_beam_finish(pending) -> List[str]:
     if kind == 'gen-empty':
         return []
     packed = _fetch(pending[1], pending[2])
-    if kind == 'gen-fusedv':
-        # seqs span the whole bucket; positions >= length are not walked
-        return [prefix[-1:] + _decode(rater, packed[v, :length])
-                for v in range(pending[3]) if packed[v, -1] < 1e38]
-    if kind == 'gen-best':
-        if packed[-1] >= 1e38:
-            return []
-        return [prefix[-1:] + _decode(rater, packed[:length])]
-    chars = packed[0].astype(np.int64)          # (run_length, K)
-    backs = packed[1].astype(np.int64)
-    final = packed[2][length - 1]
-    # stable: equal costs order by slot, as the kernels' variants do
-    results = []
-    for k in np.argsort(final, kind='stable')[:variants]:
-        if final[k] >= 1e38:
-            continue
-        seq = []
-        idx = int(k)
-        for t in range(length - 1, -1, -1):
-            seq.append(int(chars[t, idx]))
-            idx = int(backs[t, idx])
-        results.append(prefix[-1:] + _decode(rater, seq[::-1]))
-    return results
+    with span('gen.strings'):
+        if kind == 'gen-fusedv':
+            # seqs span the whole bucket; positions >= length are not
+            # walked
+            return [prefix[-1:] + _decode(rater, packed[v, :length])
+                    for v in range(pending[3]) if packed[v, -1] < 1e38]
+        if kind == 'gen-best':
+            if packed[-1] >= 1e38:
+                return []
+            return [prefix[-1:] + _decode(rater, packed[:length])]
+        chars = packed[0].astype(np.int64)          # (run_length, K)
+        backs = packed[1].astype(np.int64)
+        final = packed[2][length - 1]
+        # stable: equal costs order by slot, as the kernels' variants do
+        results = []
+        for k in np.argsort(final, kind='stable')[:variants]:
+            if final[k] >= 1e38:
+                continue
+            seq = []
+            idx = int(k)
+            for t in range(length - 1, -1, -1):
+                seq.append(int(chars[t, idx]))
+                idx = int(backs[t, idx])
+            results.append(prefix[-1:] + _decode(rater, seq[::-1]))
+        return results
 
 
 def generate_beam(rater, prefix: str, length: int, context=None,

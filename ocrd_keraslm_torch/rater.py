@@ -49,6 +49,7 @@ The device follows ``KERASLM_PLATFORM`` unless the caller names one:
 from __future__ import annotations
 
 import gc
+import itertools
 import logging
 import os
 import threading
@@ -73,6 +74,7 @@ from .ops.score_kernel import pack_score_weights, score_scan
 from .utils import h5io, orbaxio
 from .utils.buckets import bucket as _bucket
 from .utils.buckets import bucket_unbounded as _bucket_unbounded
+from .utils.devtrace import span
 from .utils.vocab import Vocab, nfc, read_normalized
 
 LOG = logging.getLogger(__name__)
@@ -111,6 +113,8 @@ K_BUCKETS = (8, 16, 32)
 _DECODE_WCACHE: 'OrderedDict[tuple, dict]' = OrderedDict()
 _DECODE_WCACHE_LOCK = threading.Lock()
 DECODE_WCACHE_SIZE = 4
+# generation requests of the process, numbered for their trace spans
+_REQUESTS = itertools.count(1)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -912,12 +916,14 @@ class Rater:
         prefix is empty; a dead device fringe retries on the host."""
         if self.status < 2:
             raise RuntimeError('generate needs loaded weights')
-        if self.device_beam and prefix:
-            from .ops.beam_device import generate_beam
-            result = generate_beam(self, prefix, length, context, variants)
-            if result:
-                return result
-        return self._generate_host(prefix, length, context, variants)
+        with span('gen.request', 'request=%d' % next(_REQUESTS)):
+            if self.device_beam and prefix:
+                from .ops.beam_device import generate_beam
+                result = generate_beam(self, prefix, length, context,
+                                       variants)
+                if result:
+                    return result
+            return self._generate_host(prefix, length, context, variants)
 
     def generate_begin(self, prefix: str, length: int, context=None,
                        variants: int = 1):

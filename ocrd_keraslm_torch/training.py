@@ -53,6 +53,7 @@ from .parallel import multihost
 from .parallel.mesh import (gather_adam_state, gather_params, shard_adam_state,
                             shard_batch, shard_params)
 from .utils import h5io, orbaxio
+from .utils.devtrace import span
 from .utils.vocab import Vocab
 
 LOG = logging.getLogger(__name__)
@@ -367,8 +368,10 @@ def _train_rater(rater, files, val_files) -> None:
                 batch if mesh is None else shard_batch(mesh, batch), device)
             if train:
                 step_t0 = time.perf_counter()
-                carry, last_loss, nll, acc = step_fn(
-                    params, optimizer, x, zs, y, mask, carry, rng, x_mask)
+                with span('train.step', 'step=%d' % (steps_done + 1)):
+                    carry, last_loss, nll, acc = step_fn(
+                        params, optimizer, x, zs, y, mask, carry, rng,
+                        x_mask)
                 if not first_step_logged:
                     float(last_loss)
                     rater.logger.info(
@@ -416,30 +419,31 @@ def _train_rater(rater, files, val_files) -> None:
         writes it."""
         if not resume_dir:
             return
-        state = {
-            'params': canonical_of(params),
-            'best_params': canonical_of(best_params if best_params
-                                        is not None else params),
-            'opt': optimizer.state_dict() if mesh is None
-            else gather_adam_state(mesh, optimizer)}
-        if ckpt_mgr is None:
-            return
-        ckpt_mgr.save(epoch_done, state, {
-            'epoch_done': epoch_done,
-            'steps_done': steps_done,
-            'history': history,
-            'best_val': None if not np.isfinite(best_val)
-            else float(best_val),
-            'best_epoch': best_epoch,
-            'bad_epochs': bad_epochs,
-            'rng': rng.get_state().tolist(),
-            'data_seed': data_seed,
-            'training_files': plan.training_files,
-            'validation_files': plan.validation_files,
-            'window_split': (plan.window_split.tolist()
-                             if plan.window_split is not None else None),
-            'mapping': rater.vocab.to_codepoints().tolist(),
-            'topology': _topology(rater)})
+        with span('train.checkpoint', 'epoch=%d' % epoch_done):
+            state = {
+                'params': canonical_of(params),
+                'best_params': canonical_of(best_params if best_params
+                                            is not None else params),
+                'opt': optimizer.state_dict() if mesh is None
+                else gather_adam_state(mesh, optimizer)}
+            if ckpt_mgr is None:
+                return
+            ckpt_mgr.save(epoch_done, state, {
+                'epoch_done': epoch_done,
+                'steps_done': steps_done,
+                'history': history,
+                'best_val': None if not np.isfinite(best_val)
+                else float(best_val),
+                'best_epoch': best_epoch,
+                'bad_epochs': bad_epochs,
+                'rng': rng.get_state().tolist(),
+                'data_seed': data_seed,
+                'training_files': plan.training_files,
+                'validation_files': plan.validation_files,
+                'window_split': (plan.window_split.tolist()
+                                 if plan.window_split is not None else None),
+                'mapping': rater.vocab.to_codepoints().tolist(),
+                'topology': _topology(rater)})
 
     try:
         for epoch in range(start_epoch, EPOCHS):
@@ -463,8 +467,9 @@ def _train_rater(rater, files, val_files) -> None:
                 rater.status = 1
                 return
             # ---- validation pass (carry reset before) ----
-            va_nll, va_acc, va_n, _, _ = run_epoch(plan.validation_files,
-                                                   False)
+            with span('train.validate', 'epoch=%d' % (epoch + 1)):
+                va_nll, va_acc, va_n, _, _ = run_epoch(
+                    plan.validation_files, False)
             va_loss, va_acc = float(va_nll), float(va_acc)
             if va_n <= 0:
                 # an empty validation pass would otherwise score 0.0
@@ -502,7 +507,8 @@ def _train_rater(rater, files, val_files) -> None:
                     ckpt_dir, 'ckpt.%02d-%.2f.h5' % (epoch + 1, ep_vloss))
                 # every rank gathers (collective); rank 0 writes
                 try:
-                    h5io.save_weights(ckpt, params, cfg, mesh=mesh)
+                    with span('train.checkpoint', 'epoch=%d' % (epoch + 1)):
+                        h5io.save_weights(ckpt, params, cfg, mesh=mesh)
                     if h5io._is_writer():
                         rater.logger.info('saved checkpoint %s', ckpt)
                 except OSError as err:

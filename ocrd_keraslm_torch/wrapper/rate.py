@@ -47,6 +47,7 @@ from math import ceil, log
 from typing import Any, Dict, List, Optional, Tuple
 
 from .. import native
+from ..utils.devtrace import span
 from ..rater import (DECODE_MERGE_MAX, NonLinearLatticeError, Rater,
                      _gc_paused)
 from .mets import MIMETYPE_PAGE, Mets, Workspace
@@ -232,34 +233,35 @@ class KerasRate:
         The METS is saved at the end of the run (and every
         ``KERASLM_METS_FLUSH_PAGES`` pages), not per page; an abort
         persists what was registered before it re-raises."""
-        if self.rater is None:
-            self.workspace = workspace
-            self.setup()
-        self._defer_mets = True
-        self._mets_dirty = False
-        self._mets_unsaved = 0
-        try:
-            if self.parameter['alternative_decoding']:
-                self.process_workspace_stateful(workspace)
-            else:
-                self.process_workspace_stateless(workspace)
-        except BaseException:
-            # persist what was registered so far, but never mask the
-            # in-flight error with a failing save
-            self._defer_mets = False
+        with span('rate.workspace'):
+            if self.rater is None:
+                self.workspace = workspace
+                self.setup()
+            self._defer_mets = True
+            self._mets_dirty = False
+            self._mets_unsaved = 0
             try:
-                if self._mets_dirty:
-                    with self._ws_lock:
-                        self.workspace.save_mets()
-            except Exception as save_err:
-                self.logger.error(
-                    'deferred METS save failed during abort: %s',
-                    save_err)
-            raise
-        self._defer_mets = False
-        if self._mets_dirty:
-            with self._ws_lock:
-                self.workspace.save_mets()
+                if self.parameter['alternative_decoding']:
+                    self.process_workspace_stateful(workspace)
+                else:
+                    self.process_workspace_stateless(workspace)
+            except BaseException:
+                # persist what was registered so far, but never mask the
+                # in-flight error with a failing save
+                self._defer_mets = False
+                try:
+                    if self._mets_dirty:
+                        with self._ws_lock:
+                            self.workspace.save_mets()
+                except Exception as save_err:
+                    self.logger.error(
+                        'deferred METS save failed during abort: %s',
+                        save_err)
+                raise
+            self._defer_mets = False
+            if self._mets_dirty:
+                with self._ws_lock, span('rate.mets_save'):
+                    self.workspace.save_mets()
 
     def process_workspace_stateless(self, workspace: Workspace) -> None:
         """Plain scoring: pages are independent.  All pages of the
@@ -447,17 +449,20 @@ class KerasRate:
             its page to the write loop's error policy."""
             results = [None] * len(device_pending)
             if lookahead and device_pending:
-                fetched = self.rater.fetch_pendings(
-                    [rec[0] for rec in device_pending], prefetched=True)
+                with span('rate.finish'):
+                    fetched = self.rater.fetch_pendings(
+                        [rec[0] for rec in device_pending], prefetched=True)
                 device_pending[:] = [(p,) + rec[1:] for p, rec in
                                      zip(fetched, device_pending)]
                 slot = 0
                 for pi in range(len(device_pending) - 1, -1, -1):
                     try:
-                        results[pi], slot = \
-                            self.rater.rate_best_device_finish(
-                                device_pending[pi][0], start_slot=slot,
-                                return_entry=True)
+                        with span('rate.finish',
+                                  'page=%s' % device_pending[pi][3]):
+                            results[pi], slot = \
+                                self.rater.rate_best_device_finish(
+                                    device_pending[pi][0], start_slot=slot,
+                                    return_entry=True)
                     except KeyboardInterrupt:
                         raise
                     except Exception:
@@ -494,15 +499,17 @@ class KerasRate:
             prefetcher = ThreadPoolExecutor(max_workers=1)
 
         def load_page_at(i):
+            page_id = input_files[i].pageId
             if prefetcher is None:
-                return self._load_page(input_files[i],
-                                       input_files[i].pageId)
+                with span('rate.load_wait', 'page=%s' % page_id):
+                    return self._load_page(input_files[i], page_id)
             for j in (i, i + 1):
                 if j < len(input_files) and futures[j] is None:
                     futures[j] = prefetcher.submit(
                         self._load_page, input_files[j],
                         input_files[j].pageId)
-            return futures[i].result()
+            with span('rate.load_wait', 'page=%s' % page_id):
+                return futures[i].result()
 
         try:
             for page_i, input_file in enumerate(input_files):
@@ -673,39 +680,43 @@ class KerasRate:
         beam_width = self._beam_width
         pages = list(gbuf)
         gbuf.clear()
-        try:
-            gate = self.rater.fused_gate_arrays(
-                sum(g[3] for g in pages), max(g[4] for g in pages),
-                beam_width)
-            if gate is None:
-                raise RuntimeError('page group no longer fits one launch')
-            table = self.rater.vocab._table()
-            segs = [(n_prep,) + doc.fill(table, n_prep, 4, gate[1])
-                    for doc, _, _, n_prep, _, _, _ in pages]
-        except KeyboardInterrupt:
-            raise
-        except Exception:
-            self.logger.exception('page-group prep failed; launching its '
-                                  'pages one by one')
-            for doc, fid, pid, _, _, _, inf in pages:
-                try:
-                    rec, device_tb = self.process_page_pcgts_device_begin(
-                        doc, device_tb, fid, pid)
-                except KeyboardInterrupt:
-                    raise
-                except Exception as err:
-                    on_failure(inf, pid, err)
-                    continue
-                device_pending.append(rec + (inf,))
+        with span('rate.launch', 'page=%s' % pages[0][2]):
+            try:
+                gate = self.rater.fused_gate_arrays(
+                    sum(g[3] for g in pages), max(g[4] for g in pages),
+                    beam_width)
+                if gate is None:
+                    raise RuntimeError('page group no longer fits one launch')
+                table = self.rater.vocab._table()
+                segs = [(n_prep,) + doc.fill(table, n_prep, 4, gate[1])
+                        for doc, _, _, n_prep, _, _, _ in pages]
+            except KeyboardInterrupt:
+                raise
+            except Exception:
+                self.logger.exception('page-group prep failed; launching its '
+                                      'pages one by one')
+                for doc, fid, pid, _, _, _, inf in pages:
+                    try:
+                        rec, device_tb = self.process_page_pcgts_device_begin(
+                            doc, device_tb, fid, pid)
+                    except KeyboardInterrupt:
+                        raise
+                    except Exception as err:
+                        on_failure(inf, pid, err)
+                        continue
+                    device_pending.append(rec + (inf,))
+                return device_tb
+            pending, device_tb = \
+                self.rater.rate_best_device_begin_arrays_group(
+                    segs, device_traceback=device_tb,
+                    context=self._page_context(),
+                    lm_weight=self._lm_weight, beam_width=beam_width)
+            page_native.groups += 1
+            page_native.pages += len(pages)
+            for i, (doc, fid, pid, _, _, _, inf) in enumerate(pages):
+                device_pending.append((('gseg', pending, i), doc, fid, pid,
+                                       inf))
             return device_tb
-        pending, device_tb = self.rater.rate_best_device_begin_arrays_group(
-            segs, device_traceback=device_tb, context=self._page_context(),
-            lm_weight=self._lm_weight, beam_width=beam_width)
-        page_native.groups += 1
-        page_native.pages += len(pages)
-        for i, (doc, fid, pid, _, _, _, inf) in enumerate(pages):
-            device_pending.append((('gseg', pending, i), doc, fid, pid, inf))
-        return device_tb
 
     def _device_begin_native(self, doc: NativePageDoc, device_tb,
                              file_id: str, page_id: str):
@@ -746,30 +757,31 @@ class KerasRate:
         """Build the page lattice and LAUNCH its decode; returns
         (pending record, new device traceback).  A native doc takes the
         array lattice where its gates pass, else the record lane."""
-        if isinstance(pcgts, NativePageDoc):
-            rec = self._device_begin_native(pcgts, device_tb, file_id,
-                                            page_id)
-            if rec is not None:
-                return rec
-            self.logger.debug('native page lane ineligible (%s): record '
-                              'lane', pcgts.bail)
-            pcgts = pcgts.to_fast()
-        level = self._level
-        self.rater.logger.info("Scoring text in page '%s' at the %s "
-                               'level (device beam)',
-                               pcgts.get_pcGtsId(), level)
-        edges = page_get_linear_lattice_at(level, pcgts,
-                                           logger=self.logger)
-        self.rater.logger.info('Rating %d elements including its '
-                               'alternatives', len(edges))
-        pending, device_tb = self.rater.rate_best_device_begin(
-            edges, 0, len(edges),
-            device_traceback=device_tb,
-            context=self._page_context(),
-            lm_weight=self._lm_weight,
-            beam_width=self._beam_width,
-            defer_walk=bool(self.parameter['lookahead_writeback']))
-        return (pending, pcgts, file_id, page_id), device_tb
+        with span('rate.launch', 'page=%s' % page_id):
+            if isinstance(pcgts, NativePageDoc):
+                rec = self._device_begin_native(pcgts, device_tb, file_id,
+                                                page_id)
+                if rec is not None:
+                    return rec
+                self.logger.debug('native page lane ineligible (%s): record '
+                                  'lane', pcgts.bail)
+                pcgts = pcgts.to_fast()
+            level = self._level
+            self.rater.logger.info("Scoring text in page '%s' at the %s "
+                                   'level (device beam)',
+                                   pcgts.get_pcGtsId(), level)
+            edges = page_get_linear_lattice_at(level, pcgts,
+                                               logger=self.logger)
+            self.rater.logger.info('Rating %d elements including its '
+                                   'alternatives', len(edges))
+            pending, device_tb = self.rater.rate_best_device_begin(
+                edges, 0, len(edges),
+                device_traceback=device_tb,
+                context=self._page_context(),
+                lm_weight=self._lm_weight,
+                beam_width=self._beam_width,
+                defer_walk=bool(self.parameter['lookahead_writeback']))
+            return (pending, pcgts, file_id, page_id), device_tb
 
     def process_page_pcgts_device(self, pcgts: PcGts, device_tb,
                                   file_id: str, page_id: str):
@@ -825,26 +837,27 @@ class KerasRate:
         or a native doc by splice edits inside the doc, a record-lane
         page by its path (``result``: the path a lookahead walk
         found)."""
-        pending, pcgts, file_id, page_id = rec
-        level = self._level
-        if pending[0] == 'gseg' or isinstance(pcgts, NativePageDoc):
-            if pending[0] == 'gseg':
-                _, group_pending, seg_i = pending
-                choices, costs, start_cost = \
-                    self.rater.rate_best_device_finish_group(group_pending,
-                                                             seg_i)
-            else:
-                choices, costs, start_cost = \
-                    self.rater.rate_best_device_finish_arrays(pending)
-            pcgts.apply_decode(level, choices, costs, start_cost,
-                               logger=self.logger)
+        with span('rate.finish', 'page=%s' % rec[3]):
+            pending, pcgts, file_id, page_id = rec
+            level = self._level
+            if pending[0] == 'gseg' or isinstance(pcgts, NativePageDoc):
+                if pending[0] == 'gseg':
+                    _, group_pending, seg_i = pending
+                    choices, costs, start_cost = \
+                        self.rater.rate_best_device_finish_group(
+                            group_pending, seg_i)
+                else:
+                    choices, costs, start_cost = \
+                        self.rater.rate_best_device_finish_arrays(pending)
+                pcgts.apply_decode(level, choices, costs, start_cost,
+                                   logger=self.logger)
+                self._write_page(pcgts, file_id, page_id)
+                return
+            path, entropy = (result if result is not None
+                             else self.rater.rate_best_device_finish(pending))
+            _page_update_from_path(level, path, entropy, logger=self.logger)
+            page_update_higher_textequiv_levels(level, pcgts)
             self._write_page(pcgts, file_id, page_id)
-            return
-        path, entropy = (result if result is not None
-                         else self.rater.rate_best_device_finish(pending))
-        _page_update_from_path(level, path, entropy, logger=self.logger)
-        page_update_higher_textequiv_levels(level, pcgts)
-        self._write_page(pcgts, file_id, page_id)
 
     def process_page_pcgts(self, pcgts: PcGts) -> PcGts:
         """Score one page (no alternatives) and add this processor's
@@ -860,36 +873,38 @@ class KerasRate:
     # -- helpers -------------------------------------------------------
 
     def _load_page(self, input_file, page_id) -> Optional[PcGts]:
-        if self.download:
-            input_file = self.workspace.download_file(input_file)
-        if input_file.local_filename is None:
-            self.logger.debug('ignoring missing file for page %s',
-                              page_id)
-            return None
-        path = os.path.join(self.workspace.directory,
-                            input_file.local_filename)
-        self.logger.info('processing page %s', page_id)
-        # outside the page guard: a failed build of the scanner raises
-        native_lane = os.environ.get('KERASLM_FAST_PAGE', '1') != '0' and \
-            self._native_page_eligible()
-        try:
-            # three lanes: the native byte lane (C++ scan and splice
-            # write-back, device decoding only), the ElementTree records
-            # (page_fast), the object model (KERASLM_FAST_PAGE=0)
-            if native_lane:
-                doc = NativePageDoc(path)
-                if doc.bail is None:
-                    return doc
-                self.logger.debug('native page lane bailed (%s): record '
-                                  'lane', doc.bail)
-            if os.environ.get('KERASLM_FAST_PAGE', '1') != '0':
-                return parse_page_fast(path)
-            return parse_page(path)
-        except Exception as err:
-            # surface as a page FAILURE so the caller's
-            # OCRD_MISSING_OUTPUT policy applies
-            raise ValueError('non-PAGE input for page %s: %s'
-                             % (page_id, err)) from err
+        with span('rate.load', 'page=%s' % page_id):
+            if self.download:
+                input_file = self.workspace.download_file(input_file)
+            if input_file.local_filename is None:
+                self.logger.debug('ignoring missing file for page %s',
+                                  page_id)
+                return None
+            path = os.path.join(self.workspace.directory,
+                                input_file.local_filename)
+            self.logger.info('processing page %s', page_id)
+            # outside the page guard: a failed build of the scanner raises
+            native_lane = os.environ.get('KERASLM_FAST_PAGE',
+                                         '1') != '0' and \
+                self._native_page_eligible()
+            try:
+                # three lanes: the native byte lane (C++ scan and splice
+                # write-back, device decoding only), the ElementTree records
+                # (page_fast), the object model (KERASLM_FAST_PAGE=0)
+                if native_lane:
+                    doc = NativePageDoc(path)
+                    if doc.bail is None:
+                        return doc
+                    self.logger.debug('native page lane bailed (%s): record '
+                                      'lane', doc.bail)
+                if os.environ.get('KERASLM_FAST_PAGE', '1') != '0':
+                    return parse_page_fast(path)
+                return parse_page(path)
+            except Exception as err:
+                # surface as a page FAILURE so the caller's
+                # OCRD_MISSING_OUTPUT policy applies
+                raise ValueError('non-PAGE input for page %s: %s'
+                                 % (page_id, err)) from err
 
     def _make_file_id(self, input_file) -> str:
         if input_file.fileGrp == self.output_file_grp:
@@ -931,14 +946,16 @@ class KerasRate:
         ``KERASLM_METS_FLUSH_PAGES`` pages (default 64, 0 = end of run
         only), so a hard kill loses at most one window."""
         if not self._defer_mets:
-            self.workspace.save_mets()
+            with span('rate.mets_save'):
+                self.workspace.save_mets()
             return
         self._mets_dirty = True
         self._mets_unsaved += 1
         window = int(os.environ.get('KERASLM_METS_FLUSH_PAGES',
                                     '64') or 0)
         if window > 0 and self._mets_unsaved >= window:
-            self.workspace.save_mets()
+            with span('rate.mets_save'):
+                self.workspace.save_mets()
             self._mets_unsaved = 0
             self._mets_dirty = False
 

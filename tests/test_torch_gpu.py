@@ -1588,3 +1588,40 @@ def test_trace_holds_one_event_per_decode_launch(cuda, tmp_path):
         named = trace_events(path)[2]
         assert launches > 0 and len(named) == launches, (i, len(named),
                                                          launches)
+
+
+def test_fetch_span_holds_its_kernels_end(cuda, tmp_path):
+    """Under ``devtrace.start_trace`` (the CLI's ``--jax-trace``) a
+    one-page workspace: the ``keraslm.fetch`` span in which the page
+    loop waits for the page's result starts before its
+    ``decode_lattice`` kernel ends and ends at or after it, so spans and
+    kernels share one clock."""
+    import json
+
+    from ocrd_keraslm_torch.utils import devtrace
+    from ocrd_keraslm_torch.wrapper import KerasRate
+    from ocrd_keraslm_torch.wrapper.mets import Workspace
+    rater = german_rater(cuda)
+    d = str(tmp_path / 'ws')
+    build_workspace(d, np.random.default_rng(11), 1, 40, rater.vocab)
+    proc = KerasRate(parameter={'model_file': MODEL}, device='cuda')
+    proc.setup()
+    stop = devtrace.start_trace(str(tmp_path / 'trace'))
+    try:
+        proc.process_workspace(Workspace(d))
+    finally:
+        path = stop()
+    with open(path, encoding='utf-8') as fh:
+        events = json.load(fh)['traceEvents']
+    kernel, = [e for e in events if e.get('cat') == 'kernel'
+               and 'decode_lattice' in e.get('name', '')]
+    end = kernel['ts'] + kernel['dur']
+    fetches = [e for e in events if e.get('name') == 'keraslm.fetch']
+    assert fetches
+    assert any(f['ts'] < end <= f['ts'] + f['dur'] for f in fetches), (
+        end, [(f['ts'], f['ts'] + f['dur']) for f in fetches])
+    # spans are host ranges: none is mirrored among the card's events
+    assert not [e for e in events if e.get('name', '').startswith(
+        devtrace.PREFIX) and e.get('cat') in ('kernel', 'gpu_memcpy',
+                                              'gpu_memset',
+                                              'gpu_user_annotation')]
