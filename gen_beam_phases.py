@@ -12,6 +12,7 @@ recurrences, goes, on one GPU.
     python3 gen_beam_phases.py decode-rows [--root DIR]   # rows 1-2k alone
     python3 gen_beam_phases.py walk     # walk_records_batch
     python3 gen_beam_phases.py tb       # gen_traceback
+    python3 gen_beam_phases.py prompt   # generation's prompt steps
 
 Builds ``ocrd_keraslm_torch/csrc/gen_beam.cu`` with ``-DSCAN_PHASES``,
 which turns on the ``PHASE`` marks of its unit layout
@@ -101,6 +102,17 @@ copy in ``TB_PARENT``), and every segment length at the first two; both
 designs are checked equal to the plain version and to each other.
 Kernel times are device times (``chip_smoke.device_ms``: launches
 queued behind a sleep kernel).
+
+``prompt`` times generation's prompt steps (``ops/beam_device.py``
+``_prefix_state``) as plain PyTorch steps and as replays of the
+captured step, in turns (plain, graph, graph, plain), for one stream of
+a 36-char prompt (35 steps, the generation cell's longest) and the 16
+prompts of row 6b: a call's host time (issue) and wall time (to the
+device's end; host clock, the device idle before each call), its device
+time (``device_ms``), and from ``torch.profiler`` its launches (the
+CUDA API calls that queue work), its device operations and
+their summed time; the root rows of the two are checked equal bit for
+bit.
 
 Without a CUDA device it exits non-zero.
 """
@@ -981,7 +993,7 @@ def main() -> int:
     modes = {'scan': scan_main, 'host': host_main, 'bwd': bwd_main,
              'decode': decode_main, 'decode-rows': decode_rows_main,
              'walk': walk_main, 'tb': tb_main, 'wide': wide_main,
-             'wide-rows': wide_rows_main}
+             'wide-rows': wide_rows_main, 'prompt': prompt_main}
     if sys.argv[1:2] and sys.argv[1] in modes:
         return modes[sys.argv[1]](card)
     return gen_main(card)
@@ -1284,6 +1296,93 @@ def tb_main(card) -> int:
               'takes %d [%s]'
               % (what, ', '.join('%d: %.4f ms' % lt for lt in sweep), lay.L,
                  card))
+    return 0
+
+
+def _call_launches(fn):
+    """(launches, device operations, their summed ms) of one ``fn()``
+    call, from a ``torch.profiler`` trace opened by 64 waited-for
+    kernels (a later trace's first device records can carry a stale
+    clock): the CUDA API calls inside the call's range that queue
+    work, and the device events they correlate with."""
+    import json
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    x = torch.zeros(1, device='cuda')
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(64):
+            x.add_(1.0)
+            torch.cuda.synchronize()
+        with record_function('prompt_call'):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, 'trace.json')
+        prof.export_chrome_trace(path)
+        with open(path, encoding='utf-8') as fh:
+            events = json.load(fh)['traceEvents']
+    mark, = [e for e in events if e.get('name') == 'prompt_call'
+             and e.get('cat') == 'user_annotation']
+    queued = [e for e in events
+              if e.get('cat') in ('cuda_runtime', 'cuda_driver')
+              and mark['ts'] <= e['ts'] <= mark['ts'] + mark['dur']
+              and any(k in e['name'] for k in ('Launch', 'Memcpy',
+                                               'Memset'))]
+    corr = {e['args']['correlation'] for e in queued}
+    ops = [e for e in events
+           if e.get('cat') in ('kernel', 'gpu_memcpy', 'gpu_memset')
+           and e.get('args', {}).get('correlation') in corr]
+    return len(queued), len(ops), sum(e['dur'] for e in ops) / 1e3
+
+
+def prompt_main(card) -> int:
+    """Generation's prompt steps, plain against the captured graph."""
+    import time
+
+    import numpy as np
+    import torch
+    from chip_smoke import GEN_BATCH, device_ms, gen_prompts, german_rater
+    from ocrd_keraslm_torch.ops import beam_device as bd
+    dev = torch.device('cuda')
+    rater = german_rater(dev)
+    w = rater._decode_weights(None)
+    weights = (w['emb'], w['wcat'], w['bias'])
+    for what, prompts in (
+            ('one stream of 36 chars', [('Die Vernunft ' * 3)[:36]]),
+            ('row 6b, %d streams' % GEN_BATCH,
+             gen_prompts(rater, np.random.default_rng(21), GEN_BATCH))):
+        ids, mask = bd._prefix_arrays([rater.vocab.encode(p)
+                                       for p in prompts])
+        ways = {'plain': lambda: bd._prefix_eager(*weights, ids, mask),
+                'graph': lambda: bd._prefix_graph(*weights, ids, mask)}
+        roots = {k: fn() for k, fn in ways.items()}
+        torch.cuda.synchronize()
+        assert torch.equal(roots['plain'], roots['graph']), what
+        for name in ('plain', 'graph', 'graph', 'plain'):
+            fn = ways[name]
+            issue, wall = [], []
+            for _ in range(20):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                t1 = time.perf_counter()
+                torch.cuda.synchronize()
+                issue.append(t1 - t0)
+                wall.append(time.perf_counter() - t0)
+            devs = [device_ms(fn, 1) for _ in range(5)]
+            launches, ops, busy = _call_launches(fn)
+            print('prompt steps, %s (%d steps, N=%d), %s: host %.3f ms '
+                  '(median of 20 issues), wall %.3f ms, device %.3f-%.3f '
+                  'ms (5 calls queued behind a sleep), %d launches, %d '
+                  'device operations summing %.3f ms (torch.profiler); '
+                  'root rows equal bit for bit [%s]'
+                  % (what, bd._prompt_steps(mask), ids.shape[0], name,
+                     1e3 * float(np.median(issue)),
+                     1e3 * float(np.median(wall)), min(devs), max(devs),
+                     launches, ops, busy, card))
     return 0
 
 

@@ -96,11 +96,11 @@ def load(src: str) -> ctypes.CDLL:
     return lib
 
 
-def count(fn, attr: str = 'launches') -> None:
-    """Add one to the launch counter ``fn.<attr>`` (under a lock: a
+def count(fn, attr: str = 'launches', n: int = 1) -> None:
+    """Add ``n`` to the launch counter ``fn.<attr>`` (under a lock: a
     plain ``+= 1`` from several threads can lose counts)."""
     with _COUNT_LOCK:
-        setattr(fn, attr, getattr(fn, attr) + 1)
+        setattr(fn, attr, getattr(fn, attr) + n)
 
 
 def check(name, t, shape, dtype, device):

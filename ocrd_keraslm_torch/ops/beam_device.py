@@ -3,7 +3,8 @@
 Counterpart of ``ocrd_keraslm_tpu/ops/beam_device.py``.  Two engines
 serve each search:
 
-* the kernels: generation runs its prefix steps in plain PyTorch, then
+* the kernels: generation runs its prefix steps as replays of one
+  captured CUDA graph of a step (plain PyTorch steps on the CPU), then
   one :func:`gen_kernel.gen_beam` launch for the whole search and one
   :func:`gen_kernel.traceback` launch that walks the chosen end slots
   back (the JAX package's fused TPU kernel); lattice decoding launches
@@ -30,11 +31,15 @@ can so queue the next prompt before it finishes the last.
 """
 from __future__ import annotations
 
+import threading
+import weakref
+from collections import OrderedDict
 from typing import List
 
 import numpy as np
 import torch
 
+from . import _build
 from ..models.lstm_lm import forward_step, host_to_device
 from ..utils.buckets import bucket_unbounded
 from ..utils.devtrace import span
@@ -62,14 +67,14 @@ def _gen_weights(rater, context):
             wts['v_real'])
 
 
-def _gen_layers(emb, embT, wcat, bias, v_real, state):
-    """One LSTM stack step over packed rows ``[xemb | h_0.. | c_0..]``:
-    returns (new ``[h.. | c..]`` rows, logits with the vocabulary's
-    padding columns at ``-NEG_INF``)."""
-    W = emb.shape[1]
+def _gen_stack(wcat, bias, inp, state):
+    """One LSTM stack step of the input rows ``inp`` (N, W) over the
+    packed rows ``state`` ``[.. | h_0.. | c_0..]`` (its first W columns
+    are not read): returns (new ``[h.. | c..]`` rows, the top layer's
+    h)."""
+    W = inp.shape[1]
     D = wcat.shape[0]
     new_h, new_c = [], []
-    inp = state[:, :W]
     for d in range(D):
         operand = torch.cat([inp, state[:, (1 + d) * W:(2 + d) * W]], 1)
         z = operand @ wcat[d] + bias[d]
@@ -82,41 +87,205 @@ def _gen_layers(emb, embT, wcat, bias, v_real, state):
         new_h.append(h2)
         new_c.append(c2)
         inp = h2
-    logits = inp @ embT
+    return torch.cat(new_h + new_c, 1), inp
+
+
+def _gen_layers(emb, embT, wcat, bias, v_real, state):
+    """One LSTM stack step over packed rows ``[xemb | h_0.. | c_0..]``:
+    returns (new ``[h.. | c..]`` rows, logits with the vocabulary's
+    padding columns at ``-NEG_INF``)."""
+    hs, top = _gen_stack(wcat, bias, state[:, :emb.shape[1]], state)
+    logits = top @ embT
     col = torch.arange(logits.shape[1], device=logits.device)
     logits = torch.where(col[None, :] < v_real, logits, -NEG_INF)
-    return torch.cat(new_h + new_c, 1), logits
+    return hs, logits
 
 
-def _prefix_state(emb, embT, wcat, bias, prefix, prefix_mask, v_real):
+def _prompt_steps(prefix_mask) -> int:
+    """The batch-N steps of a prompt: its longest stream's masked
+    positions."""
+    return int(prefix_mask.sum(axis=1).max()) if prefix_mask.size else 0
+
+
+def _last_chars(prefix, prefix_mask):
+    """(N,) int64: each stream's last prompt char (the first beam
+    input), read on the host."""
+    n_prefix = prefix_mask.sum(axis=1).astype(np.int64)
+    return prefix[np.arange(prefix.shape[0]), n_prefix].astype(np.int64)
+
+
+def _prefix_state(emb, wcat, bias, prefix, prefix_mask):
     """The (N, S) packed root states ``[xemb(last prefix char) | h.. |
     c..]`` of N streams.  prefix: (N, P) int32 ids, 0-padded right;
     prefix_mask: (N, P) float32, 1 over each stream's prefix[:-1] (numpy
     both).  Each masked position is one batch-N step of the LSTM stack;
     a stream whose prefix has ended keeps its state (the last prefix
-    char becomes the first beam input, as in the host engine)."""
+    char becomes the first beam input, as in the host engine).  On a
+    CUDA device the steps are replays of one captured step
+    (:class:`_PromptSteps`), else plain PyTorch steps
+    (:func:`_prefix_eager`); both give the same bits."""
     with span('gen.prompt'):
-        device = emb.device
-        W = emb.shape[1]
-        D = wcat.shape[0]
-        N = prefix.shape[0]
-        steps = int(prefix_mask.sum(axis=1).max()) if prefix_mask.size \
-            else 0
-        ids = host_to_device(torch.from_numpy(
-            np.ascontiguousarray(prefix, np.int64)), device)
-        mask = host_to_device(torch.from_numpy(
-            np.ascontiguousarray(prefix_mask, np.float32)), device)
-        state = torch.zeros((N, (2 * D + 1) * W), dtype=torch.float32,
-                            device=device)
-        for t in range(steps):
-            xemb = emb[ids[:, t]]
-            hs, _ = _gen_layers(emb, embT, wcat, bias, v_real,
-                                torch.cat([xemb, state[:, W:]], 1))
-            state = torch.where(mask[:, t, None] > 0,
-                                torch.cat([xemb, hs], 1), state)
-        n_prefix = torch.from_numpy(prefix_mask.sum(axis=1).astype(np.int64))
-        last = ids.gather(1, n_prefix.to(device)[:, None])[:, 0]
-        return torch.cat([emb[last], state[:, W:]], 1)
+        if emb.device.type == 'cuda':
+            return _prefix_graph(emb, wcat, bias, prefix, prefix_mask)
+        return _prefix_eager(emb, wcat, bias, prefix, prefix_mask)
+
+
+_prefix_state.captures = 0
+_prefix_state.replays = 0
+
+
+def _prefix_eager(emb, wcat, bias, prefix, prefix_mask):
+    """:func:`_prefix_state` as plain PyTorch steps."""
+    device = emb.device
+    W = emb.shape[1]
+    D = wcat.shape[0]
+    N = prefix.shape[0]
+    ids = host_to_device(torch.from_numpy(
+        np.ascontiguousarray(prefix, np.int64)), device)
+    mask = host_to_device(torch.from_numpy(
+        np.ascontiguousarray(prefix_mask, np.float32)), device)
+    state = torch.zeros((N, (2 * D + 1) * W), dtype=torch.float32,
+                        device=device)
+    for t in range(_prompt_steps(prefix_mask)):
+        xemb = emb[ids[:, t]]
+        hs, _ = _gen_stack(wcat, bias, xemb, state)
+        state = torch.where(mask[:, t, None] > 0,
+                            torch.cat([xemb, hs], 1), state)
+    last = host_to_device(torch.from_numpy(
+        _last_chars(prefix, prefix_mask)), device)
+    return torch.cat([emb[last], state[:, W:]], 1)
+
+
+class _PromptSteps:
+    """The prompt steps of N streams over static buffers, for one step
+    captured as a CUDA graph and replayed once per step.
+
+    ``staged`` (int64) holds ``[t | each stream's last prompt char (N) |
+    each step's ids and mask (capacity, 2, N)]``, copied in once per
+    request from pinned memory; ``state`` the packed ``[xemb | h.. |
+    c..]`` rows.  A step reads its ids and mask at the device's ``t``,
+    takes the products and elementwise ops of :func:`_prefix_eager` in
+    its order (so the same bits), keeps the state of the streams whose
+    prompt has ended and advances ``t``: per step the host issues one
+    replay and nothing else."""
+
+    def __init__(self, emb, wcat, n: int, capacity: int):
+        self.n, self.capacity = n, capacity
+        self.staged = torch.zeros((1 + n + 2 * n * capacity,),
+                                  dtype=torch.int64, device=emb.device)
+        self.t = self.staged[:1]
+        self.last = self.staged[1:1 + n]
+        self.by_step = self.staged[1 + n:].view(capacity, 2, n)
+        self.state = torch.zeros(
+            (n, (2 * wcat.shape[0] + 1) * emb.shape[1]),
+            dtype=torch.float32, device=emb.device)
+        self.graph = None
+        self.weights = ()
+
+    def step(self, emb, wcat, bias):
+        ids, mask = self.by_step.index_select(0, self.t)[0]
+        xemb = emb[ids]
+        hs, _ = _gen_stack(wcat, bias, xemb, self.state)
+        torch.where(mask[:, None] > 0, torch.cat([xemb, hs], 1),
+                    self.state, out=self.state)
+        self.t.add_(1)
+
+    def capture(self, emb, wcat, bias):
+        """Capture one :meth:`step` (raises where CUDA refuses it).  The
+        graph reads the weights where they lie: it is replayed only
+        while :meth:`holds` them."""
+        device = self.state.device
+        side = _CAPTURE_STREAMS.get(device)
+        if side is None:
+            side = _CAPTURE_STREAMS[device] = torch.cuda.Stream(device)
+        with torch.cuda.device(device):
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                # the kernels loaded, cuBLAS set up on the capture stream
+                self.step(emb, wcat, bias)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=side):
+                self.step(emb, wcat, bias)
+            torch.cuda.current_stream().wait_stream(side)
+        self.graph = graph
+        self.weights = tuple(weakref.ref(w) for w in (emb, wcat, bias))
+
+    def holds(self, emb, wcat, bias) -> bool:
+        return all(r() is w for r, w in zip(self.weights,
+                                            (emb, wcat, bias)))
+
+    def alive(self) -> bool:
+        return all(r() is not None for r in self.weights)
+
+    def stage(self, prefix, prefix_mask, steps: int):
+        """A request's ids, masks and last chars into ``staged`` (one
+        copy, from pinned memory on the card), ``t`` and the state
+        zeroed."""
+        n = self.n
+        host = torch.empty((1 + n + 2 * n * steps,), dtype=torch.int64,
+                           pin_memory=self.staged.is_cuda)
+        h = host.numpy()
+        h[0] = 0
+        h[1:1 + n] = _last_chars(prefix, prefix_mask)
+        by_step = h[1 + n:].reshape(steps, 2, n)
+        by_step[:, 0] = prefix[:, :steps].T
+        by_step[:, 1] = prefix_mask[:, :steps].T > 0
+        self.staged[:host.shape[0]].copy_(host, non_blocking=True)
+        self.state.zero_()
+
+    def root(self, emb):
+        return torch.cat([emb[self.last], self.state[:, emb.shape[1]:]], 1)
+
+
+# captured prompt steps by (weight tensors, stream count): at most
+# PROMPT_GRAPHS, the least recently used out first; the lock keeps one
+# request at a time on a graph and its buffers
+PROMPT_GRAPHS = 8
+_PROMPT_GRAPHS: 'OrderedDict[tuple, _PromptSteps]' = OrderedDict()
+_PROMPT_LOCK = threading.Lock()
+# the stream every capture on a device takes: cuBLAS keeps a workspace
+# (32 MiB on Hopper) for each stream it has run on
+_CAPTURE_STREAMS = {}
+
+
+def _prompt_graph(emb, wcat, bias, n: int, steps: int) -> _PromptSteps:
+    """The captured step of ``n`` streams over these weights that takes
+    ``steps`` steps; captures one where none is kept (a new weight set
+    or stream count, a longer prompt).  Under ``_PROMPT_LOCK``."""
+    key = (id(emb), id(wcat), id(bias), n)
+    run = _PROMPT_GRAPHS.get(key)
+    if run is not None and run.holds(emb, wcat, bias) \
+            and steps <= run.capacity:
+        _PROMPT_GRAPHS.move_to_end(key)
+        return run
+    run = _PromptSteps(emb, wcat, n, bucket_unbounded(steps, PREFIX_BUCKETS))
+    run.capture(emb, wcat, bias)
+    _build.count(_prefix_state, 'captures')
+    for k in [k for k, r in _PROMPT_GRAPHS.items()
+              if k == key or not r.alive()]:
+        _drop_prompt_graph(k)
+    while len(_PROMPT_GRAPHS) >= PROMPT_GRAPHS:
+        _drop_prompt_graph(next(iter(_PROMPT_GRAPHS)))
+    _PROMPT_GRAPHS[key] = run
+    return run
+
+
+def _drop_prompt_graph(key):
+    # no replay of a graph may be pending when it is destroyed
+    torch.cuda.synchronize(_PROMPT_GRAPHS.pop(key).state.device)
+
+
+def _prefix_graph(emb, wcat, bias, prefix, prefix_mask):
+    """:func:`_prefix_state` on the card: the request staged into the
+    captured step's buffers, one replay per step, the root rows."""
+    steps = _prompt_steps(prefix_mask)
+    with _PROMPT_LOCK:
+        run = _prompt_graph(emb, wcat, bias, prefix.shape[0], steps)
+        run.stage(prefix, prefix_mask, steps)
+        for _ in range(steps):
+            run.graph.replay()
+        _build.count(_prefix_state, 'replays', steps)
+        return run.root(emb)
 
 
 def _prefix_arrays(enc):
@@ -193,7 +362,7 @@ def generate_device(emb, embT, wcat, bias, prefix, prefix_mask,
     parent, then the K cheapest of the K*topk in cost order (a stable
     sort: ties to the smaller flat index); the next rows are gathered by
     index.  Returns (chars, backptrs, costs), each (N, length, K)."""
-    root = _prefix_state(emb, embT, wcat, bias, prefix, prefix_mask, v_real)
+    root = _prefix_state(emb, wcat, bias, prefix, prefix_mask)
     N, S = root.shape
     K = fringe
     topk = min(int(topk), int(v_real))

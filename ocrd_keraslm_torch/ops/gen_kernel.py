@@ -579,7 +579,7 @@ def _prefix_fringe(emb, embT, wcat, bias, prefix, prefix_mask, v_real,
     prefix, prefix_mask: (N, P) numpy (see ``beam_device._prefix_state``).
     Returns (state0 (N, K, S), cost0 (N, K))."""
     from .beam_device import _prefix_state
-    root = _prefix_state(emb, embT, wcat, bias, prefix, prefix_mask, v_real)
+    root = _prefix_state(emb, wcat, bias, prefix, prefix_mask)
     N, S = root.shape
     state0 = root[:, None, :].expand(N, fringe, S).contiguous()
     cost0 = torch.full((N, fringe), BIG, dtype=torch.float32,

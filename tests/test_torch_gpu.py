@@ -1625,3 +1625,150 @@ def test_fetch_span_holds_its_kernels_end(cuda, tmp_path):
         devtrace.PREFIX) and e.get('cat') in ('kernel', 'gpu_memcpy',
                                               'gpu_memset',
                                               'gpu_user_annotation')]
+
+
+# generation's prompt steps: one captured CUDA graph of a step, replayed
+
+PROMPT_TEXT = ('Was ist Aufklärung? Aufklärung ist der Ausgang des Menschen '
+               'aus seiner selbstverschuldeten Unmündigkeit.')
+PROMPT_LENGTHS = (1, 2, 6, 36, 64, 65)
+
+
+def _prompt_arrays(rater, lengths):
+    from ocrd_keraslm_torch.ops.beam_device import _prefix_arrays
+    return _prefix_arrays([rater.vocab.encode(PROMPT_TEXT[:n])
+                           for n in lengths])
+
+
+def _prompt_weights(rater):
+    w = rater._decode_weights(None)
+    return w['emb'], w['wcat'], w['bias']
+
+
+@pytest.mark.parametrize('N', [1, 16])
+def test_prompt_graph_roots_equal_plain_steps(cuda, N):
+    """For each prompt length (N=16: 16 streams ending at that length,
+    one char shorter each): the root rows of the captured step's replays
+    equal the plain steps' on the card bit for bit, with one replay a
+    step and at most one capture, at the first request."""
+    from ocrd_keraslm_torch.ops import beam_device as bd
+    rater = german_rater(cuda)
+    weights = _prompt_weights(rater)
+    captures = []
+    for n_chars in PROMPT_LENGTHS:
+        ids, mask = _prompt_arrays(
+            rater, [max(n_chars - s, 1) for s in range(N)])
+        r0 = bd._prefix_state.replays
+        got = bd._prefix_state(*weights, ids, mask)
+        assert bd._prefix_state.replays - r0 == max(n_chars - 1, 0)
+        captures.append(bd._prefix_state.captures)
+        assert torch.equal(got, bd._prefix_eager(*weights, ids, mask)), \
+            (N, n_chars)
+    assert len(set(captures)) == 1, captures
+
+
+def test_second_request_replays_without_capture(cuda):
+    """``generate`` and ``generate_batch``: a second request with the
+    same stream count adds one replay a prompt step and no capture."""
+    from ocrd_keraslm_torch.ops import beam_device as bd
+    rater = german_rater(cuda)
+    for call, prompts in (
+            (lambda p: rater.generate(p[0], 20, variants=3),
+             (['Die Vernunft '], ['Was ist der Mensch? '])),
+            (lambda p: rater.generate_batch(p, 20),
+             (['Die ', 'Natur ', 'x', 'Was ist '],
+              ['Der Mensch ', 'Vernunft ', 'ab', 'Die Natur ']))):
+        call(prompts[0])
+        c0, r0 = bd._prefix_state.captures, bd._prefix_state.replays
+        call(prompts[1])
+        assert bd._prefix_state.captures == c0
+        assert bd._prefix_state.replays - r0 == max(
+            len(rater.vocab.encode(p)) for p in prompts[1]) - 1
+
+
+def test_captures_share_one_stream(cuda):
+    """A capture for a new stream count takes the stream of the
+    captures before it, so cuBLAS sets up no further workspace: the
+    card's allocated memory grows by less than 1 MiB."""
+    from ocrd_keraslm_torch.ops import beam_device as bd
+    rater = german_rater(cuda)
+    weights = _prompt_weights(rater)
+    bd._prefix_state(*weights, *_prompt_arrays(rater, [6]))
+    torch.cuda.synchronize()
+    m0, c0 = torch.cuda.memory_allocated(), bd._prefix_state.captures
+    root = bd._prefix_state(*weights, *_prompt_arrays(rater, [6] * 7))
+    torch.cuda.synchronize()
+    assert bd._prefix_state.captures == c0 + 1 and root.shape[0] == 7
+    assert torch.cuda.memory_allocated() - m0 < 1 << 20
+
+
+def test_prompt_graph_captures_anew_for_reloaded_weights(cuda, tmp_path):
+    """Weights reloaded by ``load_weights`` (the german model's, scaled
+    by 0.9, through an h5 file) capture a new graph, whose root rows are
+    the new weights' (equal to the plain steps over them)."""
+    from ocrd_keraslm_torch.models.lstm_lm import param_leaves
+    from ocrd_keraslm_torch.ops import beam_device as bd
+    rater = german_rater(cuda)
+    ids, mask = _prompt_arrays(rater, [36])
+    old = bd._prefix_state(*_prompt_weights(rater), ids, mask)
+    with torch.no_grad():
+        for p in param_leaves(rater.params):
+            p.mul_(0.9)
+    path = str(tmp_path / 'scaled.h5')
+    rater.save(path)
+    rater.load_weights(path)
+    weights = _prompt_weights(rater)
+    c0 = bd._prefix_state.captures
+    new = bd._prefix_state(*weights, ids, mask)
+    assert bd._prefix_state.captures == c0 + 1
+    assert torch.equal(new, bd._prefix_eager(*weights, ids, mask))
+    assert not torch.equal(new, old)
+
+
+def test_trace_holds_the_prompt_graph_kernels(cuda, tmp_path):
+    """A ``generate`` request under ``devtrace.start_trace`` (its graph
+    captured before): the Chrome trace holds one ``cudaGraphLaunch`` a
+    prompt step and the kernels each replay ran, as many a replay, so
+    that the device's busy time and the ``gen.*`` spans read the
+    prompt's work."""
+    import json
+
+    from ocrd_keraslm_torch.ops import beam_device as bd
+    from ocrd_keraslm_torch.utils import devtrace
+    rater = german_rater(cuda)
+    prompt = PROMPT_TEXT[:36]
+    rater.generate(prompt, 16)
+    r0 = bd._prefix_state.replays
+    stop = devtrace.start_trace(str(tmp_path / 'trace'))
+    try:
+        rater.generate(prompt, 16)
+    finally:
+        path = stop()
+    steps = bd._prefix_state.replays - r0
+    assert steps == 35
+    with open(path, encoding='utf-8') as fh:
+        events = json.load(fh)['traceEvents']
+    launches = {e['args']['correlation'] for e in events
+                if e.get('cat') == 'cuda_runtime'
+                and e.get('name') == 'cudaGraphLaunch'}
+    assert len(launches) == steps
+    kernels = [e for e in events if e.get('cat') == 'kernel'
+               and e.get('args', {}).get('correlation') in launches]
+    per = len(kernels) // steps
+    assert per >= 2 * rater.depth and len(kernels) == per * steps, (
+        len(kernels), steps)
+    assert [e for e in events if e.get('name') == 'keraslm.gen.prompt']
+
+
+def test_gen_digests_hold_with_the_prompt_graph(cuda):
+    """``chip_smoke.GEN_DIGESTS`` (``gen_beam``'s records and final
+    fringe from prompts conditioned on the card) hold with the prompt
+    steps replayed from a captured graph."""
+    from chip_smoke import GEN_DIGESTS, gen_digests
+    from ocrd_keraslm_torch.ops import beam_device as bd
+    r0 = bd._prefix_state.replays
+    got = gen_digests(german_rater(cuda), cuda)
+    assert bd._prefix_state.replays > r0
+    bad = sorted((k, tuple(lay)) for (k, lay), v in got.items()
+                 if v != GEN_DIGESTS[k])
+    assert not bad, bad
