@@ -37,6 +37,13 @@ Phases, each printing its own lines (any failure exits non-zero):
    T=4096, with and without ``c_all``; at the training shape (B=128,
    T=256, W=128) the LSTM-scan kernel with f32 and bf16 U and the
    LSTM backward kernel with both, ``dU`` equal from launch to launch;
+   at AWD-LSTM's enwik8 width (``wide1840_phase``: W=1840, B=128,
+   T=200, layers 1 and 2 of the benchmark cell ``awd1840.train``) the
+   LSTM-scan kernel with ``c_all`` and the LSTM backward kernel in the
+   wide layout, bit for bit equal to the one-block layout and held to
+   their plain versions, their wide launches counted from zero, their
+   times beside the one-block layout's, the plain versions', cuDNN's
+   and the bound (rows ``lstm_scan_w1840`` and ``lstm_bwd_w1840``);
    the generation beam-step kernel over 64 steps from a seeded prompt
    (K=256, TOPK=10) in every unit layout the card takes, every step
    against the plain version (near-ties resumed from the kernel's
@@ -5368,8 +5375,114 @@ def wide_numbers(dev, card, texts):
     return out
 
 
+# AWD-LSTM's enwik8 layers 1 and 2 at the cell's window (B=128, T=200)
+AWD_W, AWD_T = 1840, 200
+# the plain versions sum each column of 1840 terms in cuBLAS's order,
+# the kernels in 32-term blocks (tests/test_torch_wide_layout.py); dU
+# is held to a share of its largest entry
+AWD_RTOL, AWD_ATOL, AWD_DU_OF_MAX = 1e-4, 2e-5, 1e-4
+
+
+def wide1840_phase(dev, card):
+    """Phase 3 at AWD-LSTM's enwik8 width: ``lstm_scan`` (c_all on) and
+    ``lstm_bwd`` from its saved states at W=1840, B=128, T=200 (f32 U),
+    which the chooser gives the wide layout; each bit for bit equal to
+    the one-block layout and held to its plain version (``AWD_RTOL``,
+    ``AWD_ATOL``; dU within ``AWD_DU_OF_MAX`` of its largest entry).
+    The wide counters (``lstm_scan.wide``, ``lstm_bwd.wide``) are set to
+    0 on entry and read at the end.  Times (CUDA events): the wide
+    layout, the one-block layout, the plain versions and cuDNN's f32
+    LSTM (TF32 off), beside the bound.  Returns the launches, the
+    errors and {row name: numbers}."""
+    import torch
+    from gen_beam_phases import wide_inputs
+    from ocrd_keraslm_torch.ops import lstm_cell as lc
+    B, T, W = TRAIN_B, AWD_T, AWD_W
+    lay_f = lc.scan_layout_on(dev, B, W, False)
+    lay_b = lc.bwd_layout_on(dev, B, W)
+    assert lay_f.wide and lay_b.wide, (lay_f, lay_b)
+    lc.lstm_scan.wide = lc.lstm_bwd.wide = 0
+    fwd, cot = wide_inputs(dev, B, T, W)
+    saved = lc.lstm_scan(*fwd, want_c_all=True)
+    bwd = lstm_bwd_args(fwd, cot, saved[:2])
+    grads = lc.lstm_bwd(*bwd)
+    with scan_layout(reg=False):
+        one_saved = lc.lstm_scan(*fwd, want_c_all=True)
+        one_grads = lc.lstm_bwd(*bwd)
+    same = [torch.equal(x, y) for x, y in zip(
+        list(saved) + list(grads), list(one_saved) + list(one_grads))]
+    del one_saved, one_grads
+    want = lc.lstm_scan_ref(*fwd, want_c_all=True)
+    scan_err = 0.0
+    for x, y in zip(saved, want):
+        torch.testing.assert_close(x, y, rtol=AWD_RTOL, atol=AWD_ATOL)
+        scan_err = max(scan_err, float((x - y).abs().max()))
+    # the plain backward from the kernel's saved states, so that the
+    # two differ by the backward alone
+    want = lc.lstm_bwd_ref(*bwd)
+    err = 0.0
+    for i in (0, 2, 3):
+        torch.testing.assert_close(grads[i], want[i], rtol=AWD_RTOL,
+                                   atol=AWD_ATOL)
+        err = max(err, float((grads[i] - want[i]).abs().max()))
+    du_err = float((grads[1] - want[1]).abs().max()) / float(
+        want[1].abs().max())
+    del want
+    print('lstm_scan and lstm_bwd at W=%d (B=%d, T=%d, f32 U; AWD-LSTM\'s '
+          'enwik8 layers 1-2) in %s (forward) and %s (backward\'s chain): '
+          'every output equal bit for bit to the one-block layout\'s: %s; '
+          'against the plain versions: forward max abs error %.3g, '
+          'backward %.3g, dU %.3g of its max (limits rtol %g, atol %g, dU '
+          '%g of its max)'
+          % (W, B, T, describe_scan_layout(lay_f),
+             describe_scan_layout(lay_b), same, scan_err, err, du_err,
+             AWD_RTOL, AWD_ATOL, AWD_DU_OF_MAX))
+    assert all(same), ('the wide layout differs from the one-block layout',
+                       same)
+    assert du_err <= AWD_DU_OF_MAX, ('dU', du_err)
+    inp = torch.randn((B, T, W), generator=torch.Generator(
+        device=dev).manual_seed(20261107), device=dev)
+    cudnn_fwd, cudnn_fwd_bwd = cudnn_layer(inp, W)
+    out = {}
+    for name, kernel, plain, library, bnd in (
+            ('lstm_scan_w1840', lambda: lc.lstm_scan(*fwd, want_c_all=True),
+             lambda: lc.lstm_scan_ref(*fwd, want_c_all=True), cudnn_fwd,
+             lstm_train_bound(fwd, False)),
+            ('lstm_bwd_w1840', lambda: lc.lstm_bwd(*bwd),
+             lambda: lc.lstm_bwd_ref(*bwd), cudnn_fwd_bwd,
+             lstm_bwd_bound(bwd, False))):
+        ms = cuda_ms(kernel, 3)
+        with scan_layout(reg=False):
+            one_ms = cuda_ms(kernel, 1)
+        plain_ms = cuda_ms(plain, 1)
+        library_ms = cuda_ms(library, 3)
+        bound_ms, bound_by, flops = bnd
+        print('%s (row %s) at W=%d (B=%d, T=%d, f32 U): %.3f ms/launch '
+              '(CUDA events, mean of 3) in the wide layout, %.2f%% of the '
+              'bound %.2f ms by %s (%.3g FLOP); the one-block layout %.3f '
+              'ms (%.1fx); plain version %.3f ms; cuDNN torch.nn.LSTM %s, '
+              '1 layer, f32: %.3f ms [%s]'
+              % (name, '4x' if 'scan' in name else '5x', W, B, T, ms,
+                 100 * bound_ms / ms, bound_ms, bound_by, flops, one_ms,
+                 one_ms / ms, plain_ms, 'forward' if 'scan' in name else
+                 'forward+backward', library_ms, card))
+        out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=library_ms,
+                         one_block_ms=one_ms)
+    launches = {'lstm_scan': lc.lstm_scan.wide, 'lstm_bwd': lc.lstm_bwd.wide}
+    print('wide layout launches in this phase (lstm_scan.wide, '
+          'lstm_bwd.wide, set to 0 at its start): %s' % json.dumps(launches))
+    # one each for the parity, then a warm-up and 3 timed launches each
+    assert launches == {'lstm_scan': 5, 'lstm_bwd': 5}, launches
+    return dict(launches=launches, scan_err=scan_err, err=err,
+                numbers=out)
+
+
 def describe_scan_layout(lay):
     """A layout of ``ops/scan_layout.py`` in words."""
+    if getattr(lay, 'wide', False):
+        return ('the wide layout (%d blocks, one an SM, %d streams, U '
+                'streamed in 32-term chunks)' % (lay.cl, lay.rb))
     if getattr(lay, 'grid', False):
         return ('the grid layout (%d streams a group of %d blocks, %d '
                 'streams a staged chunk)' % (lay.rb, lay.cl, lay.rt))
@@ -6635,6 +6748,9 @@ def main() -> int:
     print('K=32 decode parity in %.1f s' % (time.time() - t0))
     score_err, lstm_err = score_parity(rater, dev)
     train_errs = train_parity(dev)
+    t0 = time.time()
+    wide1840 = wide1840_phase(dev, card)
+    print('W=1840 wide layout phase in %.1f s' % (time.time() - t0))
     gen_err = gen_parity_phase(rater)
     tb_parity_phase()
     print('kernels held against their plain versions: %s'
@@ -6776,6 +6892,7 @@ def main() -> int:
                        **generation_numbers(rater, gen, card),
                        **batch_numbers(rater, batch, batch_times, card),
                        **wide_numbers(dev, card, scoring['texts']),
+                       **wide1840['numbers'],
                        decode_lattice_bf16=decode_numbers_bf16(rater, decode,
                                                                card),
                        decode_lattice_batch_bf16=batch_numbers_bf16(
@@ -6815,6 +6932,12 @@ def main() -> int:
             ('lstm_bwd_w512', 'lstm_bwd',
              engines['wide']['launches']['lstm_bwd'],
              engines['wide']['err']),
+            # AWD-LSTM's enwik8 layers 1-2 (W=1840): the wide layout's
+            # launches of phase 3
+            ('lstm_scan_w1840', 'lstm_scan',
+             wide1840['launches']['lstm_scan'], wide1840['scan_err']),
+            ('lstm_bwd_w1840', 'lstm_bwd',
+             wide1840['launches']['lstm_bwd'], wide1840['err']),
             ('gen_beam', 'gen_beam', gen['launches']['gen_beam'], gen_err),
             ('gen_beam_batch', 'gen_beam',
              gen['batch_launches']['gen_beam'], gen_err),

@@ -8,6 +8,7 @@ recurrences, goes, on one GPU.
     python3 gen_beam_phases.py bwd      # lstm_bwd
     python3 gen_beam_phases.py wide     # lstm_scan and lstm_bwd at W=512
     python3 gen_beam_phases.py wide-rows [--root DIR]   # rows 4w, 5w alone
+    python3 gen_beam_phases.py wide1840 # rows 4x, 5x: W=1840, wide layout
     python3 gen_beam_phases.py decode   # decode_lattice and _batch
     python3 gen_beam_phases.py decode-rows [--root DIR]   # rows 1-2k alone
     python3 gen_beam_phases.py walk     # walk_records_batch
@@ -69,6 +70,17 @@ and ``GRID_PER_ROW`` are fitted to), and prints rows 3w, 4w and 5w of
 kernels of the package under ``--root DIR`` (another checkout, such as a
 ``git archive`` of the parent commit) or of this checkout; run parent,
 change, change, parent in one call to compare two versions.
+
+``wide1840`` runs ``lstm_scan`` (with ``c_all``) and ``lstm_bwd`` at
+W=1840 (the AWD-LSTM enwik8 model's wide layers: B=128, T=200, f32 U;
+rows 4x and 5x of ``PERF.md``) in the wide layout and in the one-block
+layout, holds the two layouts' outputs equal bit for bit and each to
+the plain version (float64 on the card) within its bounds, prints the
+device time of each kernel of a launch (``torch.profiler``), and times
+forward and forward+backward of both layouts beside cuDNN's f32 layer
+(TF32 off; CUDA events), in one call; then the wide layout at B = 1, 8
+and 32 (the cost model's fit, ``scan_layout.WIDE_STEP`` and
+``WIDE_PER_CHUNK``) and at W = 1024.
 
 ``decode`` builds ``decode_lattice.cu`` and ``decode_lattice_batch.cu``
 with ``-DSCAN_PHASES`` (the marks of ``decode_edges_cluster``) and runs
@@ -653,6 +665,137 @@ def wide_rows_main(card) -> int:
     return 0
 
 
+# rows 4x and 5x of PERF.md: the AWD-LSTM enwik8 model's 1840-wide
+# layers at its training shape
+AWD_B, AWD_T, AWD_W = 128, 200, 1840
+
+
+def wide_inputs(dev, B, T, W, seed=20261018):
+    """Seeded ``lstm_scan`` arguments (x_proj, h0, c0, U with entries of
+    AWD's init scale 1/sqrt(W)) and cotangents (dh_all, dhT, dcT) on
+    ``dev``."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def n(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=g, device=dev)
+    fwd = (n(B, T, 4 * W), n(B, W, scale=0.5), n(B, W, scale=0.5),
+           n(W, 4 * W, scale=W ** -0.5))
+    return fwd, (n(T, B, W), n(B, W), n(B, W))
+
+
+def wide_check(lc, fwd, cot, card, what, ref=True):
+    """The wide layout's ``lstm_scan`` and ``lstm_bwd`` against the
+    one-block layout's (equal bit for bit) and, with ``ref``, the plain
+    versions in float64 (max abs error printed); returns the wide
+    outputs."""
+    import torch
+    import chip_smoke as cs
+    outs = {}
+    for forced in (False, True):
+        with cs.scan_layout(reg=False) if forced else \
+                contextlib.nullcontext():
+            B, W = fwd[1].shape
+            lays = (lc.scan_layout_on(fwd[0].device, B, W, False),
+                    lc.bwd_layout_on(fwd[0].device, B, W))
+            f = lc.lstm_scan(*fwd, want_c_all=True)
+            b = lc.lstm_bwd(*cs.lstm_bwd_args(fwd, cot, f[:2]))
+            torch.cuda.synchronize()
+            outs[forced] = (lays, f, b)
+    (wl, wf, wb), (ol, of, ob) = outs[False], outs[True]
+    assert wl[0].wide and wl[1].wide and not ol[0].wide, (wl, ol)
+    same = all(torch.equal(x, y) for x, y in zip(
+        [t for t in wf if t is not None] + list(wb),
+        [t for t in of if t is not None] + list(ob)))
+    print('%s: wide layouts %s / %s, one-block %s / %s; wide equals '
+          'one-block bit for bit: %s [%s]' % (what, tuple(wl[0]), tuple(wl[1]),
+                                             tuple(ol[0]), tuple(ol[1]), same,
+                                             card))
+    assert same, what
+    if not ref:
+        return wf, wb
+    d = tuple(t.double() for t in fwd)
+    rf = lc.lstm_scan_ref(*d, want_c_all=True)
+    rb = lc.lstm_bwd_ref(*[t.double() for t in cs.lstm_bwd_args(
+        d, tuple(t.double() for t in cot), rf[:2])])
+    ef = max(float((x - y).abs().max()) for x, y in zip(
+        [wf[0], wf[1], wf[2], wf[3]], [rf[0], rf[1], rf[2], rf[3]]))
+    eb = [float((x - y).abs().max()) for x, y in zip(wb, rb)]
+    du_rel = eb[1] / float(rb[1].abs().max())
+    print('%s: max abs error of the wide layout against float64: forward '
+          '%.3g, dxp %.3g, dU %.3g (%.3g of max |dU|), dh0 %.3g, dc0 %.3g '
+          '[%s]' % (what, ef, eb[0], eb[1], du_rel, eb[2], eb[3], card))
+    return wf, wb
+
+
+def wide1840_main(card) -> int:
+    """Rows 4x and 5x of PERF.md (W=1840, B=128, T=200, f32 U): the wide
+    layout and the one-block layout checked (:func:`wide_check`) and
+    timed, forward and forward+backward, beside cuDNN (TF32 off); the
+    kernels of a launch by device time; the wide layout at other batches
+    and W=1024 beside its cost model."""
+    import torch
+    import chip_smoke as cs
+    from ocrd_keraslm_torch.ops import lstm_cell as lc
+    from ocrd_keraslm_torch.ops import scan_layout as sl
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device('cuda')
+    B, T, W = AWD_B, AWD_T, AWD_W
+    for b in (1, 8):
+        wide_check(lc, *wide_inputs(dev, b, 16, W), card,
+                   'W=%d, B=%d, T=16' % (W, b))
+    fwd, cot = wide_inputs(dev, B, T, W)
+    wf, _ = wide_check(lc, fwd, cot, card, 'W=%d, B=%d, T=%d' % (W, B, T),
+                       ref=False)
+    bargs = cs.lstm_bwd_args(fwd, cot, wf[:2])
+    times = {}
+    for name, forced in (('wide', False), ('one-block', True)):
+        with cs.scan_layout(reg=False) if forced else \
+                contextlib.nullcontext():
+            reps = 3 if forced else 5
+            f_ms = cs.cuda_ms(lambda: lc.lstm_scan(*fwd, want_c_all=True),
+                              reps)
+            b_ms = cs.cuda_ms(lambda: lc.lstm_bwd(*bargs), reps)
+            times[name] = (f_ms, b_ms)
+            print('%s layout at W=%d, B=%d, T=%d: forward %.3f ms, backward '
+                  '%.3f ms, forward+backward %.3f ms (CUDA events, mean of '
+                  '%d) [%s]' % (name, W, B, T, f_ms, b_ms, f_ms + b_ms, reps,
+                                card))
+            split = [', '.join('%s %.3f ms' % kv for kv in cs.kernel_split(
+                call)) for call in (
+                    lambda: lc.lstm_scan(*fwd, want_c_all=True),
+                    lambda: lc.lstm_bwd(*bargs))]
+            print('%s layout, device time by kernel: forward %s; backward %s '
+                  '[%s]' % (name, split[0], split[1], card))
+    inp = torch.randn((B, T, W), generator=torch.Generator(
+        device=dev).manual_seed(7), device=dev)
+    cudnn_fwd, cudnn_fwd_bwd = cs.cudnn_layer(inp, W)
+    c_f, c_fb = cs.cuda_ms(cudnn_fwd, 5), cs.cuda_ms(cudnn_fwd_bwd, 5)
+    w, o = times['wide'], times['one-block']
+    print('rows 4x/5x at W=%d, B=%d, T=%d: wide forward %.3f ms, '
+          'forward+backward %.3f ms; one-block %.3f / %.3f ms (wide %.2fx / '
+          '%.2fx faster); cuDNN f32 (TF32 off, one layer of %d inputs) '
+          'forward %.3f ms, forward+backward %.3f ms [%s]'
+          % (W, B, T, w[0], w[0] + w[1], o[0], o[0] + o[1], o[0] / w[0],
+             (o[0] + o[1]) / (w[0] + w[1]), W, c_f, c_fb, card))
+    for b, width in ((1, W), (8, W), (32, W), (128, 1024)):
+        fwd, cot = wide_inputs(dev, b, 64, width)
+        f = lc.lstm_scan(*fwd, want_c_all=True)
+        bargs = cs.lstm_bwd_args(fwd, cot, f[:2])
+        f_ms = cs.cuda_ms(lambda: lc.lstm_scan(*fwd, want_c_all=True), 3)
+        b_ms = cs.cuda_ms(lambda: lc.lstm_bwd(*bargs), 3)
+        lay_f = lc.scan_layout_on(dev, b, width, False)
+        lay_b = lc.bwd_layout_on(dev, b, width)
+        print('wide layout at W=%d, B=%d, T=64: %.2f us a forward step '
+              '(model %.2f), %.2f us a backward launch a step (model of '
+              'its chain %.2f) [%s]'
+              % (width, b, 1e3 * f_ms / 64,
+                 sl.step_cost('lstm', width, 1, lay_f), 1e3 * b_ms / 64,
+                 sl.step_cost('bwd', width, 1, lay_b), card))
+    return 0
+
+
 # the grid layout's streams a staged chunk timed by wide_sweeps (at most
 # 16: one thread a stream and unit; a plan of 10 or fewer fits a block of
 # the backward at B=128), the rows whose chains a thread runs at once, and the
@@ -993,7 +1136,8 @@ def main() -> int:
     modes = {'scan': scan_main, 'host': host_main, 'bwd': bwd_main,
              'decode': decode_main, 'decode-rows': decode_rows_main,
              'walk': walk_main, 'tb': tb_main, 'wide': wide_main,
-             'wide-rows': wide_rows_main, 'prompt': prompt_main}
+             'wide-rows': wide_rows_main, 'prompt': prompt_main,
+             'wide1840': wide1840_main}
     if sys.argv[1:2] and sys.argv[1] in modes:
         return modes[sys.argv[1]](card)
     return gen_main(card)

@@ -61,6 +61,12 @@
 //    and quarter order: the one-block kernel's float.  Each step moves
 //    the group's dz rows from L2 once a block (32 MiB at B=128) instead
 //    of U^T and U from L2 once a block and step (256 MiB);
+//  * at W > 512 the chain runs in the wide layout of wide_common.cuh
+//    (lstm_bwd_wide_kernel, at the end of this file): every step the
+//    quarters' sums of dh over the whole card, then the gate
+//    derivatives, each phase ended by one counter over all blocks; its
+//    z and dU products are the kernels below under lstm_bwd_wide_*
+//    names;
 //  * other widths, and batches whose clusters would run in many waves
 //    (ops/scan_layout.py chooses), run the first port's one-block
 //    kernel, lstm_bwd_kernel: one block per RB <= 8 streams, the z of
@@ -83,6 +89,7 @@
 // cores: no TF32, no tensor cores.
 
 #include "scan_common.cuh"
+#include "wide_common.cuh"
 
 #define NT 512    // threads of the sequential kernel
 #define DT 256    // threads of the dU reduction
@@ -344,9 +351,10 @@ __device__ __forceinline__ int tile_col(int b) {
 // tile of Z, its sums in blocked_tile's order (dot_cols' float), then
 // x_proj + the sum.
 template <typename WT>
-__global__ void __launch_bounds__(GTH)
-    lstm_bwd_z(const float* __restrict__ xp, const float* __restrict__ A,
-               const WT* __restrict__ U, float* Z, int N, int W, int G) {
+__device__ __forceinline__ void z_tile(const float* __restrict__ xp,
+                                       const float* __restrict__ A,
+                                       const WT* __restrict__ U, float* Z,
+                                       int N, int W, int G) {
   const Blocked<false, is_bf16<WT>::value, WT> g{A, W, U, G, N, G};
   const int m0 = blockIdx.x * GT, j0 = blockIdx.y * GT;
   float tot[8][8];
@@ -365,6 +373,20 @@ __global__ void __launch_bounds__(GTH)
       }
     }
   }
+}
+template <typename WT>
+__global__ void __launch_bounds__(GTH)
+    lstm_bwd_z(const float* __restrict__ xp, const float* __restrict__ A,
+               const WT* __restrict__ U, float* Z, int N, int W, int G) {
+  z_tile<WT>(xp, A, U, Z, N, W, G);
+}
+// the same product for a layer of the wide layout (its own name, so that
+// a trace tells the wide layers' backward from the others')
+template <typename WT>
+__global__ void __launch_bounds__(GTH)
+    lstm_bwd_wide_z(const float* __restrict__ xp, const float* __restrict__ A,
+                    const WT* __restrict__ U, float* Z, int N, int W, int G) {
+  z_tile<WT>(xp, A, U, Z, N, W, G);
 }
 
 // A quarter of a dz row in shared memory: the padded width, rounded so
@@ -819,9 +841,10 @@ __global__ void __launch_bounds__(GRID_NT, 1)
 // per (128 x 128 tile of dU, split), its sums over the split's rows in
 // blocked_tile's order.
 template <bool QUANT>
-__global__ void __launch_bounds__(GTH)
-    lstm_du_partial(const float* __restrict__ A, const float* __restrict__ Dz,
-                    float* part, int N, int W, int G, int split_rows) {
+__device__ __forceinline__ void du_tile(const float* __restrict__ A,
+                                        const float* __restrict__ Dz,
+                                        float* part, int N, int W, int G,
+                                        int split_rows) {
   const Blocked<true, QUANT, float> g{A, W, Dz, G, W, G};
   const int i0 = blockIdx.x * GT, j0 = blockIdx.y * GT;
   const int n0 = blockIdx.z * split_rows;
@@ -840,16 +863,38 @@ __global__ void __launch_bounds__(GTH)
     }
   }
 }
+template <bool QUANT>
+__global__ void __launch_bounds__(GTH)
+    lstm_du_partial(const float* __restrict__ A, const float* __restrict__ Dz,
+                    float* part, int N, int W, int G, int split_rows) {
+  du_tile<QUANT>(A, Dz, part, N, W, G, split_rows);
+}
+template <bool QUANT>
+__global__ void __launch_bounds__(GTH)
+    lstm_bwd_wide_du_partial(const float* __restrict__ A,
+                             const float* __restrict__ Dz, float* part, int N,
+                             int W, int G, int split_rows) {
+  du_tile<QUANT>(A, Dz, part, N, W, G, split_rows);
+}
 
 // dU = part[0] + part[1] + ... in that order
-__global__ void __launch_bounds__(DT)
-    lstm_du_reduce(const float* __restrict__ part, float* dU, int n,
-                   int splits) {
+__device__ __forceinline__ void du_sum(const float* __restrict__ part,
+                                       float* dU, int n, int splits) {
   const int idx = blockIdx.x * DT + threadIdx.x;
   if (idx >= n) return;
   float s = part[idx];
   for (int k = 1; k < splits; ++k) s = __fadd_rn(s, part[(size_t)k * n + idx]);
   dU[idx] = s;
+}
+__global__ void __launch_bounds__(DT)
+    lstm_du_reduce(const float* __restrict__ part, float* dU, int n,
+                   int splits) {
+  du_sum(part, dU, n, splits);
+}
+__global__ void __launch_bounds__(DT)
+    lstm_bwd_wide_du_reduce(const float* __restrict__ part, float* dU, int n,
+                            int splits) {
+  du_sum(part, dU, n, splits);
 }
 
 // splits of the T*B rows of the dU product (the scratch tensor holds
@@ -912,8 +957,9 @@ extern "C" size_t lstm_bwd_smem_bytes(int W, int rb, int rt, int mode) {
   return (size_t)rb * (3 * W + 2 * 4 * W + 4 * W) * sizeof(float);
 }
 
+// dU's two kernels; `wide`: those of the wide layout's name
 static int du_product(const BwdArgs& a, int u_bf16, float* dU, float* part,
-                      cudaStream_t stream) {
+                      cudaStream_t stream, bool wide = false) {
   const int G = 4 * a.W, N = a.B * a.T;
   const int splits = lstm_bwd_splits(a.B, a.T);
   const int split_rows = (N + splits - 1) / splits;
@@ -921,16 +967,37 @@ static int du_product(const BwdArgs& a, int u_bf16, float* dU, float* part,
   // depend on where the splits fall
   const int rows = (split_rows + KCH - 1) / KCH * KCH;
   const dim3 grid((a.W + GT - 1) / GT, (G + GT - 1) / GT, splits);
-  if (u_bf16)
-    lstm_du_partial<true><<<grid, GTH, 0, stream>>>(a.hprev, a.dxp, part, N,
-                                                    a.W, G, rows);
-  else
-    lstm_du_partial<false><<<grid, GTH, 0, stream>>>(a.hprev, a.dxp, part,
-                                                     N, a.W, G, rows);
+  auto partial = u_bf16 ? (wide ? lstm_bwd_wide_du_partial<true>
+                                : lstm_du_partial<true>)
+                        : (wide ? lstm_bwd_wide_du_partial<false>
+                                : lstm_du_partial<false>);
+  partial<<<grid, GTH, 0, stream>>>(a.hprev, a.dxp, part, N, a.W, G, rows);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  lstm_du_reduce<<<(a.W * G + DT - 1) / DT, DT, 0, stream>>>(part, dU,
-                                                             a.W * G, splits);
+  auto reduce = wide ? lstm_bwd_wide_du_reduce : lstm_du_reduce;
+  reduce<<<(a.W * G + DT - 1) / DT, DT, 0, stream>>>(part, dU, a.W * G,
+                                                     splits);
+  return (int)cudaGetLastError();
+}
+
+// z for all T*B rows into dx_proj, before every layout's chain; `wide`:
+// the kernel of the wide layout's name
+static int z_product(const BwdArgs& a, int u_bf16, cudaStream_t s,
+                     bool wide = false) {
+  const int G = 4 * a.W, N = a.B * a.T;
+  if (N == 0) return 0;
+  const dim3 grid((N + GT - 1) / GT, (G + GT - 1) / GT);
+  if (u_bf16) {
+    auto kern = wide ? lstm_bwd_wide_z<__nv_bfloat16>
+                     : lstm_bwd_z<__nv_bfloat16>;
+    kern<<<grid, GTH, 0, s>>>(a.xp, a.hprev,
+                              static_cast<const __nv_bfloat16*>(a.U), a.dxp,
+                              N, a.W, G);
+  } else {
+    auto kern = wide ? lstm_bwd_wide_z<float> : lstm_bwd_z<float>;
+    kern<<<grid, GTH, 0, s>>>(a.xp, a.hprev, static_cast<const float*>(a.U),
+                              a.dxp, N, a.W, G);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -1059,19 +1126,8 @@ extern "C" int lstm_bwd_launch(const float* xp, const float* hprev,
                   dxp, dh0,   dc0,   flags, B,    T, W,    rb,  rt};
   if (!checked(a, cl, rt, mode, smem, false))
     return (int)cudaErrorInvalidValue;
-  int err;
-  const int G = 4 * W, N = B * T;
-  if (N > 0) {
-    const dim3 grid((N + GT - 1) / GT, (G + GT - 1) / GT);
-    if (u_bf16)
-      lstm_bwd_z<__nv_bfloat16><<<grid, GTH, 0, s>>>(
-          xp, hprev, static_cast<const __nv_bfloat16*>(U), dxp, N, W, G);
-    else
-      lstm_bwd_z<float><<<grid, GTH, 0, s>>>(
-          xp, hprev, static_cast<const float*>(U), dxp, N, W, G);
-    err = (int)cudaGetLastError();
-    if (err != 0) return err;
-  }
+  int err = z_product(a, u_bf16, s);
+  if (err != 0) return err;
   if (mode == MODE_ONE)
     err = one_block(a, smem, s);
   else if (mode == MODE_GRID)
@@ -1080,4 +1136,191 @@ extern "C" int lstm_bwd_launch(const float* xp, const float* hprev,
     err = reg_chain_launch(a, cl, rt, smem, s, nullptr);
   if (err != 0) return err;
   return du_product(a, u_bf16, dU, part, s);
+}
+
+// ---- the wide layout of the chain (wide_common.cuh; W > 512) ----
+//
+// dh = dz @ U^T sums 4W terms a unit: too long a sum for the product of
+// wide_common.cuh to keep a block's sums local.  So an iteration has two
+// phases, each ended by the launch's counter.  Phase A: block (q, s)
+// (q = blockIdx.x / nq, s = blockIdx.x % nq, nq = ceil(W / 64)) sums
+// quarter q of dh for units [64 s, 64 s + 64): P_q[b, u] = the W-term
+// sum of dz[b, qW + i] U[u, qW + i], from U^T's columns packed by
+// lstm_bwd_wide_pack as vp[block][i][unit], into the scratch pq (4, B,
+// W).  Phase B: each thread takes (stream, unit) elements b W + u =
+// its global index + k x the launch's threads (8 at most, dc in its
+// registers), adds dh = ((P_0 + P_1) + P_2) + P_3 (dh_T at the first
+// iteration) and runs the gate derivatives from z (lstm_bwd_z's, in
+// dx_proj) and the saved states: dz into dx_proj, the rows the next
+// iteration's phase A reads.  Iteration T's phase B writes dh0 and dc0.
+// The quarters' sums and their order are the one-block kernel's.
+__global__ void __launch_bounds__(WIDE_NT, 1)
+    lstm_bwd_wide_kernel(BwdArgs p, const float* __restrict__ vp, float* pq,
+                         const __grid_constant__ CUtensorMap tdz) {
+  extern __shared__ float4 smem4[];
+  const int W = p.W, G = 4 * W, B = p.B, T = p.T, nkb = wide_chunks(W);
+  const int nq = (W + WIDE_NC - 1) / WIDE_NC;
+  const int q = blockIdx.x / nq;
+  const int u = (blockIdx.x % nq) * WIDE_NC + 4 * (threadIdx.x & 15);
+  const int rg = threadIdx.x >> 4;
+  const float* bp = vp + (size_t)blockIdx.x * nkb * KCH * WIDE_NC;
+  const WideRing w = wide_ring(smem4, B);
+  const int nthr = gridDim.x * WIDE_NT;
+  const int gid = blockIdx.x * WIDE_NT + threadIdx.x, ne = B * W;
+  float dc[WIDE_RPT];
+#pragma unroll
+  for (int k = 0; k < WIDE_RPT; ++k) {
+    const int e = gid + k * nthr;
+    dc[k] = e < ne ? p.dcT[e] : 0.0f;
+  }
+  unsigned it = 0, syncs = 0;
+  for (int n = 0; n <= T; ++n) {
+    const int t = T - 1 - n;  // the step whose derivatives run, n < T
+    if (t >= 0)  // phase B's loads into L2 while phase A runs
+#pragma unroll
+      for (int k = 0; k < WIDE_RPT; ++k) {
+        const int e = gid + k * nthr;
+        if (e >= ne) continue;
+        const int r = e / W, uu = e - r * W;
+        const size_t o = (size_t)t * B * W + e;
+        const float* z = p.dxp + ((size_t)t * B + r) * G + uu;
+        asm volatile(
+            "prefetch.global.L2 [%0];\n"
+            "prefetch.global.L2 [%1];\n"
+            "prefetch.global.L2 [%2];\n"
+            "prefetch.global.L2 [%3];\n"
+            "prefetch.global.L2 [%4];\n"
+            "prefetch.global.L2 [%5];\n"
+            "prefetch.global.L2 [%6];\n" ::"l"(z),
+            "l"(z + W), "l"(z + 2 * W), "l"(z + 3 * W), "l"(p.cprev + o),
+            "l"(p.ccur + o), "l"(p.dhout + o));
+      }
+    if (n > 0) {  // phase A: the quarter sums of dz of step t + 1
+      float tot[WIDE_RPT][4];
+      wide_product<false>(w, &tdz, q, (t + 1) * B, bp, nkb, it, tot);
+      if (u < W)
+#pragma unroll
+        for (int i = 0; i < WIDE_RPT; ++i) {
+          const int r = rg + 16 * i;
+          if (r < B)
+            *reinterpret_cast<float4*>(pq + ((size_t)q * B + r) * W + u) =
+                make_float4(tot[i][0], tot[i][1], tot[i][2], tot[i][3]);
+        }
+      group_arrive(p.flags);
+      group_wait(p.flags, (unsigned)gridDim.x * ++syncs);
+    }
+#pragma unroll
+    for (int k = 0; k < WIDE_RPT; ++k) {  // phase B
+      const int e = gid + k * nthr;
+      if (e >= ne) continue;
+      const int r = e / W, uu = e - r * W;
+      float dh;
+      if (n == 0) {
+        dh = p.dhT[e];
+      } else {
+        const float* pr = pq + (size_t)r * W + uu;
+        const size_t qs = (size_t)B * W;
+        dh = __fadd_rn(__fadd_rn(__fadd_rn(__ldcg(pr), __ldcg(pr + qs)),
+                                 __ldcg(pr + 2 * qs)),
+                       __ldcg(pr + 3 * qs));
+      }
+      if (n == T) {
+        p.dh0[e] = dh;
+        p.dc0[e] = dc[k];
+        continue;
+      }
+      float* zr = p.dxp + ((size_t)t * B + r) * G + uu;
+      const size_t o = (size_t)t * B * W + e;
+      const float ig = sigm(zr[0]);
+      const float fg = sigm(zr[W]);
+      const float gg = tanhf(zr[2 * W]);
+      const float og = sigm(zr[3 * W]);
+      const float cp = p.cprev[o];
+      const float tc = tanhf(p.ccur[o]);
+      const float dht = __fadd_rn(p.dhout[o], dh);
+      const float d_o = __fmul_rn(dht, tc);
+      const float dct = __fadd_rn(
+          dc[k], __fmul_rn(__fmul_rn(dht, og),
+                           __fsub_rn(1.0f, __fmul_rn(tc, tc))));
+      const float d_i = __fmul_rn(dct, gg);
+      const float d_f = __fmul_rn(dct, cp);
+      const float d_g = __fmul_rn(dct, ig);
+      zr[0] = __fmul_rn(__fmul_rn(d_i, ig), __fsub_rn(1.0f, ig));
+      zr[W] = __fmul_rn(__fmul_rn(d_f, fg), __fsub_rn(1.0f, fg));
+      zr[2 * W] = __fmul_rn(d_g, __fsub_rn(1.0f, __fmul_rn(gg, gg)));
+      zr[3 * W] = __fmul_rn(__fmul_rn(d_o, og), __fsub_rn(1.0f, og));
+      dc[k] = __fmul_rn(dct, fg);
+    }
+    if (n < T) {
+      group_arrive(p.flags);
+      group_wait(p.flags, (unsigned)gridDim.x * ++syncs);
+    }
+  }
+}
+
+// vp[q nq + s][i][c] = U^T[q W + i, 64 s + c] (recT, f32) for the wide
+// chain's blocks, terms i < 32 * wide_chunks(W), 0 past W
+__global__ void __launch_bounds__(256)
+    lstm_bwd_wide_pack(const float* __restrict__ recT, float* vp, int W,
+                       size_t n) {
+  const size_t idx = (size_t)blockIdx.x * 256 + threadIdx.x;
+  if (idx >= n) return;
+  const int nq = (W + WIDE_NC - 1) / WIDE_NC, kp = wide_chunks(W) * KCH;
+  const int c = (int)(idx % WIDE_NC);
+  const size_t rest = idx / WIDE_NC;
+  const int i = (int)(rest % kp), b = (int)(rest / kp);
+  const int q = b / nq, u = (b % nq) * WIDE_NC + c;
+  vp[idx] = i < W && u < W ? __ldg(recT + (size_t)(q * W + i) * W + u) : 0.0f;
+}
+
+// Whether the wide chain takes B streams of width W: W > 512 and W % 4
+// == 0, 1 <= B <= WIDE_RB, and its 4 ceil(W / 64) blocks at most `n_sm`.
+static inline bool lstm_bwd_wide_ok(int B, int W, int n_sm) {
+  return W > GRID_NKB * KCH && W % 4 == 0 && B >= 1 && B <= WIDE_RB &&
+         4 * ((W + WIDE_NC - 1) / WIDE_NC) <= n_sm;
+}
+
+// lstm_bwd_launch in the wide layout: the z product, the pack of recT,
+// the chain (vp: scratch of 4 ceil(W / 64) * 32 * wide_chunks(W) * 64
+// floats; pq: scratch of 4 * B * W floats; flags one counter, zeroed
+// here; smem WIDE_SMEM_BYTES) and dU, each kernel named
+// lstm_bwd_wide_*; refuses (invalid value) a shape lstm_bwd_wide_ok
+// does not take or another smem.
+extern "C" int lstm_bwd_wide_launch(
+    const float* xp, const float* hprev, const float* cprev,
+    const float* ccur, const float* dhout, const void* U, const float* recT,
+    const float* dhT, const float* dcT, float* dxp, float* dU, float* dh0,
+    float* dc0, float* part, unsigned* flags, float* vp, float* pq, int B,
+    int T, int W, int u_bf16, size_t smem, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  int dev = 0, n_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  if (!lstm_bwd_wide_ok(B, W, n_sm) || flags == nullptr || vp == nullptr ||
+      pq == nullptr || smem != WIDE_SMEM_BYTES)
+    return (int)cudaErrorInvalidValue;
+  const BwdArgs a{xp,  hprev, cprev, ccur, dhout, U, recT, dhT, dcT,
+                  dxp, dh0,   dc0,   flags, B,    T, W,    B,   1};
+  int e = z_product(a, u_bf16, s, true);
+  if (e != 0) return e;
+  const int blocks = 4 * ((W + WIDE_NC - 1) / WIDE_NC);
+  const size_t n = (size_t)blocks * wide_chunks(W) * KCH * WIDE_NC;
+  lstm_bwd_wide_pack<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(recT, vp, W,
+                                                                   n);
+  err = cudaGetLastError();
+  if (err == cudaSuccess) err = cudaMemsetAsync(flags, 0, sizeof(unsigned), s);
+  if (err != cudaSuccess) return (int)err;
+  // the dz rows the phases A read: dx_proj as (T B, 4, W) (none without
+  // steps)
+  CUtensorMap tdz = {};
+  if (T > 0) {
+    e = encode_wide(&tdz, dxp, (size_t)T * B, 4, W, B);
+    if (e != 0) return e;
+  }
+  e = grid_launch(lstm_bwd_wide_kernel, blocks, smem, s, a,
+                  (const float*)vp, pq, tdz);
+  if (e != 0) return e;
+  return du_product(a, u_bf16, dU, part, s, true);
 }

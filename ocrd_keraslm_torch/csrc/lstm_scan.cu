@@ -46,6 +46,12 @@
 //    thread a (stream, unit) adds in block order before its gate
 //    update.  A step moves the group's h rows from L2 once a block (8
 //    MiB at B=128) instead of U once a block (64 MiB);
+//  * at W > 512 (AWD-LSTM enwik8's 1840), where U (54 MB) fits neither
+//    the card's registers and shared memory nor L2, the wide layout of
+//    wide_common.cuh (lstm_scan_wide_kernel): one block an SM, each step
+//    a product of every stream's h row with the block's 64 packed gate
+//    columns, both streamed by TMA in 32-term chunks, and one counter
+//    over all blocks a step;
 //  * every other width, and a launch whose clusters the card cannot
 //    hold at once, runs the one-block kernel of the first port,
 //    unchanged;
@@ -56,6 +62,7 @@
 // no tensor cores.
 
 #include "scan_common.cuh"
+#include "wide_common.cuh"
 
 struct LstmArgs {
   const float* xp;  // (B, T, 4W)
@@ -380,6 +387,93 @@ __global__ void __launch_bounds__(GRID_NT, 1)
   PHASE_FLUSH
 }
 
+// The wide layout (wide_common.cuh; W > 512): block k owns the units
+// [16k, 16k + 16) and their four gate columns, packed by
+// lstm_scan_wide_pack as up[k][term][4 unit + gate]; thread (rg, cq)
+// runs unit 16k + cq of the rows rg, rg + 16, ..., so the four sums of
+// its unit's gates and the gate update stay in its registers (c too).
+// Step t's rows are h_all[t-1] (h0 at t = 0), read through the tensor
+// maps th (h_all) and th0 (h0); every block arrives on the launch's
+// counter once its units of h_all[t] are written.
+#define WIDE_UPB 16  // units a block: 64 columns
+
+template <bool Q>
+__global__ void __launch_bounds__(WIDE_NT, 1)
+    lstm_scan_wide_kernel(LstmArgs p, const float* __restrict__ up,
+                          const __grid_constant__ CUtensorMap th0,
+                          const __grid_constant__ CUtensorMap th) {
+  extern __shared__ float4 smem4[];
+  const int W = p.W, G = 4 * W, B = p.B, T = p.T, nkb = wide_chunks(W);
+  const int cq = threadIdx.x & 15, rg = threadIdx.x >> 4;
+  const int u = blockIdx.x * WIDE_UPB + cq;
+  const bool unit = u < W;
+  const float* bp = up + (size_t)blockIdx.x * nkb * KCH * WIDE_NC;
+  const WideRing w = wide_ring(smem4, B);
+  float c[WIDE_RPT];
+#pragma unroll
+  for (int i = 0; i < WIDE_RPT; ++i) {
+    const int r = rg + 16 * i;
+    c[i] = unit && r < B ? p.c0[(size_t)r * W + u] : 0.0f;
+    if (T == 0 && unit && r < B) {
+      p.hT[(size_t)r * W + u] = p.h0[(size_t)r * W + u];
+      p.cT[(size_t)r * W + u] = c[i];
+    }
+  }
+  unsigned it = 0;
+  for (int t = 0; t < T; ++t) {
+    // this step's x_proj into L2 while the product runs
+    if (unit)
+#pragma unroll
+      for (int i = 0; i < WIDE_RPT; ++i) {
+        const int r = rg + 16 * i;
+        if (r < B)
+#pragma unroll
+          for (int g = 0; g < 4; ++g)
+            asm volatile("prefetch.global.L2 [%0];\n" ::"l"(
+                p.xp + ((size_t)r * T + t) * G + g * W + u));
+      }
+    if (t > 0) group_wait(p.flags, (unsigned)(gridDim.x * t));
+    float tot[WIDE_RPT][4];
+    wide_product<Q>(w, t == 0 ? &th0 : &th, 0, t == 0 ? 0 : (t - 1) * B, bp,
+                    nkb, it, tot);
+    if (unit)
+#pragma unroll
+      for (int i = 0; i < WIDE_RPT; ++i) {
+        const int r = rg + 16 * i;
+        if (r >= B) continue;
+        const float* x = p.xp + ((size_t)r * T + t) * G + u;
+        const float2 hc = lstm_gate(x[0] + tot[i][0], x[W] + tot[i][1],
+                                    x[2 * W] + tot[i][2],
+                                    x[3 * W] + tot[i][3], c[i]);
+        c[i] = hc.y;
+        const size_t o = ((size_t)t * B + r) * W + u;
+        p.h_all[o] = hc.x;
+        if (p.c_all != nullptr) p.c_all[o] = hc.y;
+        if (t == T - 1) {
+          p.hT[(size_t)r * W + u] = hc.x;
+          p.cT[(size_t)r * W + u] = hc.y;
+        }
+      }
+    group_arrive(p.flags);
+  }
+}
+
+// up[k][i][4 ul + g] = U[i, g W + 16k + ul] as f32 for the wide layout's
+// blocks k, terms i < 32 * wide_chunks(W) and units 16k + ul, 0 past W
+template <typename WT>
+__global__ void __launch_bounds__(256)
+    lstm_scan_wide_pack(const WT* __restrict__ U, float* up, int W,
+                        size_t n) {
+  const size_t idx = (size_t)blockIdx.x * 256 + threadIdx.x;
+  if (idx >= n) return;
+  const int col = (int)(idx % WIDE_NC);
+  const size_t rest = idx / WIDE_NC;
+  const int kp = wide_chunks(W) * KCH;
+  const int i = (int)(rest % kp), k = (int)(rest / kp);
+  const int u = k * WIDE_UPB + col / 4, g = col % 4;
+  up[idx] = i < W && u < W ? ldw(U + (size_t)i * 4 * W + g * W + u) : 0.0f;
+}
+
 // bytes of dynamic shared memory a block of the layout asks: the
 // register layout's padded rows (2, rb, WP) and two mbarriers, or the
 // one-block layout's rows (h, c, z and, under a bf16 U, the rounded h)
@@ -499,4 +593,58 @@ extern "C" int lstm_scan_launch(const float* xp, const float* h0,
   LstmArgs a{xp, h0, c0, U, h_all, c_all, hT, cT, flags, B, T, W, rb, rt};
   return checked_run(a, u_bf16, cl, rt, mode, smem, (cudaStream_t)stream,
                      nullptr);
+}
+
+// Whether the wide layout takes B streams of width W: W > 512 (wider
+// than every other layout) and W % 4 == 0, 1 <= B <= WIDE_RB, and its
+// ceil(W / 16) blocks at most `n_sm` (one block an SM, all at once).
+static inline bool lstm_scan_wide_ok(int B, int W, int n_sm) {
+  return W > GRID_NKB * KCH && W % 4 == 0 && B >= 1 && B <= WIDE_RB &&
+         (W + WIDE_UPB - 1) / WIDE_UPB <= n_sm;
+}
+
+// The wide layout's launch (wide_common.cuh): up is scratch of
+// ceil(W / 16) * 32 * wide_chunks(W) * 64 floats (the packed U, written
+// here), flags one counter (zeroed here), smem WIDE_SMEM_BYTES;
+// refuses (invalid value) a shape that lstm_scan_wide_ok does not take or
+// another smem.
+extern "C" int lstm_scan_wide_launch(const float* xp, const float* h0,
+                                     const float* c0, const void* U,
+                                     float* h_all, float* c_all, float* hT,
+                                     float* cT, unsigned* flags, float* up,
+                                     int B, int T, int W, int u_bf16,
+                                     size_t smem, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  int dev = 0, n_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  if (!lstm_scan_wide_ok(B, W, n_sm) || flags == nullptr || up == nullptr ||
+      smem != WIDE_SMEM_BYTES)
+    return (int)cudaErrorInvalidValue;
+  const int blocks = (W + WIDE_UPB - 1) / WIDE_UPB;
+  const size_t n = (size_t)blocks * wide_chunks(W) * KCH * WIDE_NC;
+  const unsigned grid = (unsigned)((n + 255) / 256);
+  if (u_bf16)
+    lstm_scan_wide_pack<__nv_bfloat16><<<grid, 256, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(U), up, W, n);
+  else
+    lstm_scan_wide_pack<float>
+        <<<grid, 256, 0, s>>>(static_cast<const float*>(U), up, W, n);
+  err = cudaGetLastError();
+  if (err == cudaSuccess) err = cudaMemsetAsync(flags, 0, sizeof(unsigned), s);
+  if (err != cudaSuccess) return (int)err;
+  // the rows the steps read: h0, then h_all (none without steps)
+  CUtensorMap th0 = {}, th = {};
+  if (T > 0) {
+    int e = encode_wide(&th0, h0, B, 1, W, B);
+    if (e == 0) e = encode_wide(&th, h_all, (size_t)T * B, 1, W, B);
+    if (e != 0) return e;
+  }
+  const LstmArgs a{xp, h0, c0, U, h_all, c_all, hT, cT, flags, B, T, W, B, 1};
+  return u_bf16 ? grid_launch(lstm_scan_wide_kernel<true>, blocks, smem, s, a,
+                              (const float*)up, th0, th)
+                : grid_launch(lstm_scan_wide_kernel<false>, blocks, smem, s,
+                              a, (const float*)up, th0, th);
 }

@@ -394,10 +394,11 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
                                 const cuuint32_t*, CUtensorMapInterleave,
                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
                                 CUtensorMapFloatOOBfill);
-static inline int encode_rows(CUtensorMap* tm, const float* base,
-                              size_t n_blocks, int per) {
-  static EncodeTiled encode = nullptr;
-  if (encode == nullptr) {
+// The driver's cuTensorMapEncodeTiled in *encode; returns a CUDA error
+// code.
+static inline int encode_tiled(EncodeTiled* encode) {
+  static EncodeTiled found_fn = nullptr;
+  if (found_fn == nullptr) {
     void* fn = nullptr;
     cudaDriverEntryPointQueryResult found;
     const cudaError_t err = cudaGetDriverEntryPoint(
@@ -405,8 +406,16 @@ static inline int encode_rows(CUtensorMap* tm, const float* base,
     if (err != cudaSuccess) return (int)err;
     if (found != cudaDriverEntryPointSuccess || fn == nullptr)
       return (int)cudaErrorNotSupported;
-    encode = reinterpret_cast<EncodeTiled>(fn);
+    found_fn = reinterpret_cast<EncodeTiled>(fn);
   }
+  *encode = found_fn;
+  return 0;
+}
+static inline int encode_rows(CUtensorMap* tm, const float* base,
+                              size_t n_blocks, int per) {
+  EncodeTiled encode;
+  const int e = encode_tiled(&encode);
+  if (e != 0) return e;
   const cuuint64_t dims[2] = {KCH, n_blocks > 0 ? n_blocks : 1};
   const cuuint64_t strides[1] = {KCH * sizeof(float)};
   const cuuint32_t box[2] = {KCH, (cuuint32_t)per};

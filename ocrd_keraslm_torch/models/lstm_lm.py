@@ -5,6 +5,17 @@ Counterpart of ``ocrd_keraslm_tpu/models/lstm_lm.py``: char embedding
 ``depth`` LSTM layers and a weight-tied softmax (softmax(h @ E^T), no
 extra projection or bias).
 
+Beyond the JAX package's model, :class:`LMConfig` takes AWD-LSTM's
+shape (Merity et al., 2018): a width for each layer (``widths``; the
+last one is the char embedding's ``width``, so that the softmax stays
+tied), a bias on the tied logits (``head_bias``, the tree's
+``head_bias`` leaf), DropConnect on each layer's recurrent matrix
+(``weight_drop``) and locked dropout at AWD's three places
+(``dropout_input``, ``dropout_hidden``, ``dropout_output``).  A model
+of unequal widths carries one (B, W_l) pair a layer (lists) where a
+model of one width carries (depth, B, W) tensors.  Every key defaults
+to the model above, whose code path and bits do not change.
+
 ``forward_seq`` runs each layer's recurrence through
 :func:`ocrd_keraslm_torch.ops.lstm_cell.lstm_scan` (the CUDA kernel on
 the card), after one large product for the layer's input projection;
@@ -30,11 +41,14 @@ import numpy as np
 import torch
 
 from ..ops.lstm_cell import LSTMScan, lstm_gates, lstm_scan
+from ..utils.devtrace import span
 
 DEFAULT_CONTEXTS: Tuple[Tuple[int, int], ...] = ((200, 10),)
 
 Params = Dict[str, Any]
-Carry = Tuple[torch.Tensor, torch.Tensor]  # (h, c) each (depth, B, W)
+# (h, c): each (depth, B, W), or a list of (B, W_l) a layer where the
+# layers' widths differ
+Carry = Tuple[Any, Any]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,10 +66,54 @@ class LMConfig:
     dropout: float = 0.1
     # compute dtype for the recurrent core ('float32' or 'bfloat16'):
     compute_dtype: str = 'float32'
+    # each layer's width where they differ (AWD-LSTM enwik8: (1840, 1840,
+    # 400)); () for ``depth`` layers of ``width``.  ``width`` stays the
+    # char embedding's, and the softmax is tied, so the last width must
+    # equal it
+    widths: Tuple[int, ...] = ()
+    # a bias (voc_size,) on the tied softmax's logits
+    head_bias: bool = False
+    # DropConnect on each layer's recurrent matrix while training: U * m /
+    # (1 - p), one Bernoulli mask a layer and step, drawn on the device
+    weight_drop: float = 0.0
+    # locked dropout at AWD's places while training (masks constant over
+    # time), which replace ``dropout`` where any is set: the layer-0 input,
+    # the output of every layer below the last, the last layer's output
+    dropout_input: float = 0.0
+    dropout_hidden: float = 0.0
+    dropout_output: float = 0.0
+
+    def __post_init__(self):
+        if self.widths and len(self.widths) != self.depth:
+            raise ValueError('widths %s: one width for each of the %d layers'
+                             % (tuple(self.widths), self.depth))
+        if self.widths and self.widths[-1] != self.width:
+            raise ValueError(
+                'the tied softmax needs the last layer\'s width (%d) to '
+                'equal the char embedding\'s (%d)'
+                % (self.widths[-1], self.width))
 
     @property
     def n_contexts(self) -> int:
         return len(self.contexts)
+
+    @property
+    def layer_widths(self) -> Tuple[int, ...]:
+        return tuple(self.widths) or (self.width,) * self.depth
+
+    @property
+    def uniform(self) -> bool:
+        """One width for the char embedding and every layer, and no head
+        bias: the model whose (2D+1)W state the decode, scoring and
+        generation kernels pack."""
+        return not self.head_bias and all(
+            w == self.width for w in self.layer_widths)
+
+    @property
+    def locked_dropout(self) -> bool:
+        """Whether AWD's three dropout places replace ``dropout``."""
+        return (self.dropout_input > 0 or self.dropout_hidden > 0
+                or self.dropout_output > 0)
 
     @property
     def input_dim(self) -> int:
@@ -65,20 +123,26 @@ class LMConfig:
         return dataclasses.replace(self, **kw)
 
 
+def require_uniform(cfg: LMConfig, what: str) -> None:
+    """Raise ValueError unless ``cfg`` has the shape ``what`` packs: one
+    width for the char embedding and every layer and no head bias (the
+    (2D+1)W state of the decode, scoring and generation kernels)."""
+    if not cfg.uniform:
+        raise ValueError(
+            '%s packs one width for the char embedding and every layer (a '
+            '(2D+1)W state) and no head bias; this model has layer widths '
+            '%s, embedding width %d%s' % (
+                what, cfg.layer_widths, cfg.width,
+                ', a head bias' if cfg.head_bias else ''))
+
+
 def params_from_numpy(tree: Params, device) -> Params:
     """Carry a parameter tree of numpy arrays (as the h5 reader or the
     JAX package holds them) onto ``device`` as float32 tensors, in the
     same layout and nesting."""
     def conv(a):
         return torch.tensor(np.asarray(a, np.float32), device=device)
-    return {
-        'char_embedding': conv(tree['char_embedding']),
-        'context_embeddings': [conv(e)
-                               for e in tree['context_embeddings']],
-        'lstm': [{name: conv(lp[name])
-                  for name in ('kernel', 'recurrent', 'bias')}
-                 for lp in tree['lstm']],
-    }
+    return map_params(tree, conv)
 
 
 def params_to_numpy(params: Params) -> Params:
@@ -86,25 +150,34 @@ def params_to_numpy(params: Params) -> Params:
     h5 writer takes), in the same layout and nesting."""
     def conv(t):
         return t.detach().to('cpu', torch.float32).numpy()
-    return {
-        'char_embedding': conv(params['char_embedding']),
-        'context_embeddings': [conv(e)
-                               for e in params['context_embeddings']],
-        'lstm': [{name: conv(lp[name])
-                  for name in ('kernel', 'recurrent', 'bias')}
-                 for lp in params['lstm']],
-    }
+    return map_params(params, conv)
+
+
+def map_params(params: Params, fn) -> Params:
+    """The tree of ``fn`` of each leaf, in the same layout and nesting
+    (the head bias where the tree has one)."""
+    out = {'char_embedding': fn(params['char_embedding']),
+           'context_embeddings': [fn(e)
+                                  for e in params['context_embeddings']],
+           'lstm': [{name: fn(lp[name])
+                     for name in ('kernel', 'recurrent', 'bias')}
+                    for lp in params['lstm']]}
+    if 'head_bias' in params:
+        out['head_bias'] = fn(params['head_bias'])
+    return out
 
 
 def param_leaves(params: Params) -> list:
     """The tree's tensors in a fixed order (embedding, context tables,
-    then kernel, recurrent, bias of each layer; of a packed tree of
-    ``parallel/pipeline.py``, its three stacks)."""
+    then kernel, recurrent, bias of each layer, then the head bias where
+    the tree has one; of a packed tree of ``parallel/pipeline.py``, its
+    three stacks)."""
     head = [params['char_embedding']] + list(params['context_embeddings'])
     if 'lstm' not in params:
         return head + [params[k] for k in ('kernel', 'recurrent', 'bias')]
+    tail = [params['head_bias']] if 'head_bias' in params else []
     return head + [lp[name] for lp in params['lstm']
-                   for name in ('kernel', 'recurrent', 'bias')]
+                   for name in ('kernel', 'recurrent', 'bias')] + tail
 
 
 def init_params(cfg: LMConfig, generator: torch.Generator,
@@ -113,19 +186,20 @@ def init_params(cfg: LMConfig, generator: torch.Generator,
     N(0, 0.001), LSTM kernel glorot-uniform, recurrent kernel
     orthogonal, bias zero with the forget gate's at 1.  Drawn on the CPU
     from ``generator`` (so a seed gives the same weights on any device),
-    then moved to ``device``."""
-    W = cfg.width
+    then moved to ``device``.  A head bias starts at zero."""
+    widths = cfg.layer_widths
 
     def normal(shape):
         return torch.randn(shape, generator=generator, dtype=torch.float32)
     params: Params = {
-        'char_embedding': 0.001 * normal((cfg.voc_size, W)),
+        'char_embedding': 0.001 * normal((cfg.voc_size, cfg.width)),
         'context_embeddings': [0.001 * normal((n, d))
                                for n, d in cfg.contexts],
         'lstm': [],
     }
     for layer in range(cfg.depth):
-        in_dim = cfg.input_dim if layer == 0 else W
+        W = widths[layer]
+        in_dim = cfg.input_dim if layer == 0 else widths[layer - 1]
         limit = sqrt(6.0 / (in_dim + 4 * W))
         kernel = (torch.rand((in_dim, 4 * W), generator=generator,
                              dtype=torch.float32) * 2 - 1) * limit
@@ -135,11 +209,10 @@ def init_params(cfg: LMConfig, generator: torch.Generator,
             'kernel': kernel,
             'recurrent': _orthogonal(normal((4 * W, 4 * W)), W),
             'bias': bias})
-    return {'char_embedding': params['char_embedding'].to(device),
-            'context_embeddings': [e.to(device) for e in
-                                   params['context_embeddings']],
-            'lstm': [{k: v.to(device) for k, v in lp.items()}
-                     for lp in params['lstm']]}
+    if cfg.head_bias:
+        params['head_bias'] = torch.zeros((cfg.voc_size,),
+                                          dtype=torch.float32)
+    return map_params(params, lambda t: t.to(device))
 
 
 def _orthogonal(a: torch.Tensor, n_rows: int) -> torch.Tensor:
@@ -151,9 +224,41 @@ def _orthogonal(a: torch.Tensor, n_rows: int) -> torch.Tensor:
 
 
 def zero_carry(cfg: LMConfig, batch: int, device) -> Carry:
+    """The zero state: (h, c) each (depth, B, W), or a list of (B, W_l) a
+    layer where the layers' widths differ."""
+    widths = cfg.layer_widths
+    if len(set(widths)) > 1:
+        return ([torch.zeros((batch, w), dtype=torch.float32, device=device)
+                 for w in widths],
+                [torch.zeros((batch, w), dtype=torch.float32, device=device)
+                 for w in widths])
     h = torch.zeros((cfg.depth, batch, cfg.width), dtype=torch.float32,
                     device=device)
     return h, torch.zeros_like(h)
+
+
+def _stacked(cfg: LMConfig, hs: list, cs: list) -> Carry:
+    """The per-layer states ``hs``, ``cs`` as a carry of ``cfg``."""
+    if len(set(cfg.layer_widths)) > 1:
+        return list(hs), list(cs)
+    return torch.stack(hs), torch.stack(cs)
+
+
+def detach_carry(carry: Carry) -> Carry:
+    """The carry cut from the graph (either form)."""
+    h, c = carry
+    if isinstance(h, torch.Tensor):
+        return h.detach(), c.detach()
+    return [t.detach() for t in h], [t.detach() for t in c]
+
+
+def logits_of(params: Params, h: torch.Tensor) -> torch.Tensor:
+    """The tied softmax's logits of the last layer's output ``h``: h @
+    E^T, plus the head bias where the tree has one."""
+    logits = h @ params['char_embedding'].T
+    if 'head_bias' in params:
+        logits = logits + params['head_bias']
+    return logits
 
 
 def embed_inputs(params: Params, x: torch.Tensor,
@@ -231,9 +336,8 @@ def forward_step(params: Params, cfg: LMConfig, x: torch.Tensor,
         hs.append(h2)
         cs.append(c2)
         inp = h2
-    logits = inp @ params['char_embedding'].T
-    return torch.softmax(logits, dim=-1), (torch.stack(hs),
-                                           torch.stack(cs))
+    return torch.softmax(logits_of(params, inp), dim=-1), \
+        _stacked(cfg, hs, cs)
 
 
 def _layer_scan_masked(x_proj, h0, c0, recurrent, mask):
@@ -267,10 +371,36 @@ def dropout_keep(cfg: LMConfig, batch: int, generator: torch.Generator,
     time: 1/(1-p) where a unit is kept, 0 where it is dropped.  Drawn on
     the CPU from ``generator`` and moved, so a seed gives the same mask
     on any device."""
-    keep = torch.bernoulli(
-        torch.full((batch, 1, cfg.width), 1.0 - cfg.dropout),
-        generator=generator)
-    return host_to_device(keep / (1.0 - cfg.dropout), device)
+    return locked_mask(cfg.dropout, batch, cfg.width, generator, device)
+
+
+def locked_mask(rate: float, batch: int, width: int,
+                generator: torch.Generator, device) -> torch.Tensor:
+    """A locked dropout mask (B, 1, width) of ``rate`` (see
+    :func:`dropout_keep`)."""
+    keep = torch.bernoulli(torch.full((batch, 1, width), 1.0 - rate),
+                           generator=generator)
+    return host_to_device(keep / (1.0 - rate), device)
+
+
+def weight_dropped(params: Params, cfg: LMConfig, generator: torch.Generator,
+                   device) -> list:
+    """Each layer's recurrent matrix under DropConnect, U * m / (1 - p)
+    (autograd reaches U through the mask): one seed drawn from the CPU
+    ``generator`` (``torch.randint`` below 2**62), then a device
+    generator seeded with it draws layer by layer the Bernoulli(1 - p)
+    mask of U's shape (``Tensor.bernoulli_``), divided by 1 - p.  On
+    the device: a step's masks are tens of millions of draws."""
+    p = cfg.weight_drop
+    seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator))
+    gen = torch.Generator(device=device).manual_seed(seed)
+    out = []
+    for lp in params['lstm']:
+        rec = lp['recurrent']
+        keep = torch.empty(rec.shape, dtype=torch.float32,
+                           device=device).bernoulli_(1.0 - p, generator=gen)
+        out.append(rec * keep.div_(1.0 - p))
+    return out
 
 
 def forward_seq(params: Params, cfg: LMConfig, x: torch.Tensor,
@@ -300,7 +430,7 @@ def forward_seq(params: Params, cfg: LMConfig, x: torch.Tensor,
     carry)."""
     inp, carry = hidden_seq(params, cfg, x, zs, carry, train=train,
                             rng=rng, x_mask=x_mask, rows=rows)
-    return inp @ params['char_embedding'].T, carry
+    return logits_of(params, inp), carry
 
 
 def hidden_seq(params: Params, cfg: LMConfig, x: torch.Tensor,
@@ -314,30 +444,59 @@ def hidden_seq(params: Params, cfg: LMConfig, x: torch.Tensor,
     """:func:`forward_seq` up to the last layer's output (B, T, W), the
     tied softmax left to the caller.  ``embedded``: the embedded inputs
     where the caller looked them up itself (a vocabulary shard's
-    lookup)."""
+    lookup).
+
+    Under AWD's dropout and weight drop (``cfg.locked_dropout``,
+    ``cfg.weight_drop``) a training step draws, in this order, from
+    ``rng``: the weight drop's seed (:func:`weight_dropped`), the input's
+    mask (B, 1, input_dim) and, layer by layer, the mask of its output
+    (B, 1, W_l; ``dropout_hidden`` below the last layer, else
+    ``dropout_output``), each by :func:`locked_mask` where its rate is
+    above 0."""
     B = x.shape[0]
     if carry is None:
         carry = zero_carry(cfg, B, x.device)
     inp = embed_inputs(params, x, zs) if embedded is None else embedded
-    keep = None
-    if train and cfg.dropout > 0 and rng is not None:
+    keep = recurrent = None
+    if train and rng is not None:
         full, lo = rows if rows is not None else (B, 0)
+        if cfg.weight_drop > 0:
+            with span('train.weight_drop'):
+                recurrent = weight_dropped(params, cfg, rng, x.device)
+        if cfg.locked_dropout:
+            if cfg.dropout_input > 0:
+                inp = inp * locked_mask(cfg.dropout_input, full,
+                                        inp.shape[-1], rng,
+                                        x.device)[lo:lo + B]
+            widths, last = cfg.layer_widths, cfg.depth - 1
 
-        def keep(layer):
-            return dropout_keep(cfg, full, rng, x.device)[lo:lo + B]
+            def keep(layer):
+                rate = cfg.dropout_output if layer == last \
+                    else cfg.dropout_hidden
+                if rate <= 0:
+                    return None
+                return locked_mask(rate, full, widths[layer], rng,
+                                   x.device)[lo:lo + B]
+        elif cfg.dropout > 0:
+            def keep(layer):
+                return locked_mask(cfg.dropout, full, cfg.layer_widths[layer],
+                                   rng, x.device)[lo:lo + B]
     return lstm_stack(params, cfg, inp, carry, range(cfg.depth), keep=keep,
-                      x_mask=x_mask)
+                      x_mask=x_mask, recurrent=recurrent)
 
 
 def lstm_stack(params: Params, cfg: LMConfig, inp: torch.Tensor,
                carry: Carry, layers: Sequence[int], *, keep=None,
-               x_mask: Optional[torch.Tensor] = None
+               x_mask: Optional[torch.Tensor] = None,
+               recurrent: Optional[list] = None
                ) -> Tuple[torch.Tensor, Carry]:
     """Run ``layers`` (consecutive global indices) of the LSTM stack over
-    ``inp`` (B, T, in) from ``carry`` (h, c), each (len(layers), B, W).
-    ``keep(layer)`` gives the dropout mask (B, 1, W) of a layer above
-    the first (None: no dropout).  Returns (output (B, T, W), final
-    carry of these layers)."""
+    ``inp`` (B, T, in) from ``carry`` (h, c), each (len(layers), B, W)
+    or a list of (B, W_l).  ``keep(layer)`` gives the dropout mask (B, 1,
+    W) of a layer above the first, or under ``cfg.locked_dropout`` of
+    every layer (None: none); ``recurrent``: each layer's recurrent
+    matrix in place of the tree's (the weight drop's).  Returns (output
+    (B, T, W), final carry of these layers)."""
     if cfg.compute_dtype not in ('float32', 'bfloat16'):
         raise ValueError('compute_dtype %r: expected float32 or bfloat16'
                          % cfg.compute_dtype)
@@ -348,15 +507,15 @@ def lstm_stack(params: Params, cfg: LMConfig, inp: torch.Tensor,
     hs, cs = [], []
     for i, layer in enumerate(layers):
         lp = params['lstm'][layer]
+        rec_l = lp['recurrent'] if recurrent is None else recurrent[layer]
         kernel = _bf16_values(lp['kernel']) if bf16 else lp['kernel']
         x_proj = (inp @ kernel + lp['bias']).contiguous()
         h0l, c0l = h0[i].contiguous(), c0[i].contiguous()
         if x_mask is not None:
-            inp, hT, cT = _layer_scan_masked(x_proj, h0l, c0l,
-                                             lp['recurrent'], x_mask)
+            inp, hT, cT = _layer_scan_masked(x_proj, h0l, c0l, rec_l,
+                                             x_mask)
         else:
-            rec = lp['recurrent'].to(torch.bfloat16) if bf16 \
-                else lp['recurrent']
+            rec = rec_l.to(torch.bfloat16) if bf16 else rec_l
             if torch.is_grad_enabled() and any(
                     t.requires_grad for t in (x_proj, h0l, c0l, rec)):
                 h_all, hT, cT = LSTMScan.apply(x_proj, h0l, c0l, rec)
@@ -365,11 +524,13 @@ def lstm_stack(params: Params, cfg: LMConfig, inp: torch.Tensor,
             inp = h_all.transpose(0, 1)
         hs.append(hT)
         cs.append(cT)
-        if layer > 0 and keep is not None:
-            inp = inp * keep(layer)
+        if keep is not None and (layer > 0 or cfg.locked_dropout):
+            mask = keep(layer)
+            if mask is not None:
+                inp = inp * mask
         if bf16:
             inp = _bf16_values(inp)
-    return inp, (torch.stack(hs), torch.stack(cs))
+    return inp, _stacked(cfg, hs, cs)
 
 
 # ----------------------------------------------------------------------

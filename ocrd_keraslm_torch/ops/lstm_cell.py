@@ -5,7 +5,8 @@ Counterpart of ``ocrd_keraslm_tpu/ops/lstm_cell.py``:
 
 * :func:`lstm_scan` (``_lstm_scan_pallas_raw``) launches the
   hand-written kernel ``csrc/lstm_scan.cu`` for CUDA tensors (on
-  thread-block clusters laid out by :mod:`.scan_layout`) and runs
+  thread-block clusters, a grid or the whole card, laid out by
+  :mod:`.scan_layout`) and runs
   :func:`lstm_scan_ref`, a Python loop over :func:`lstm_gates`, for CPU
   tensors;
 * :func:`lstm_bwd` (``_lstm_bwd_pallas``) launches ``csrc/lstm_bwd.cu``
@@ -82,6 +83,8 @@ def _library() -> ctypes.CDLL:
     lib.lstm_scan_launch.restype = ctypes.c_int
     lib.lstm_scan_max_clusters.argtypes = [I] * 5 + [S]
     lib.lstm_scan_max_clusters.restype = ctypes.c_int
+    lib.lstm_scan_wide_launch.argtypes = [P] * 10 + [I] * 4 + [S, P]
+    lib.lstm_scan_wide_launch.restype = ctypes.c_int
     return lib
 
 
@@ -127,6 +130,8 @@ def _bwd_library() -> ctypes.CDLL:
     lib.lstm_bwd_smem_bytes.restype = ctypes.c_size_t
     lib.lstm_bwd_max_clusters.argtypes = [I] * 4 + [S]
     lib.lstm_bwd_max_clusters.restype = ctypes.c_int
+    lib.lstm_bwd_wide_launch.argtypes = [P] * 17 + [I] * 4 + [S, P]
+    lib.lstm_bwd_wide_launch.restype = ctypes.c_int
     return lib
 
 
@@ -168,9 +173,19 @@ def _mode(layout: scan_layout.Layout) -> int:
 def _group_flags(layout: scan_layout.Layout, B: int,
                  device: torch.device) -> torch.Tensor:
     """The grid layout's scratch: one counter a group of streams (the
-    launch zeroes them); empty for the other layouts."""
-    n = -(-B // layout.rb) if layout.grid else 0
+    launch zeroes them); the wide layout's one counter; empty for the
+    other layouts."""
+    n = -(-B // layout.rb) if layout.grid or layout.wide else 0
     return torch.empty((n,), dtype=torch.int32, device=device)
+
+
+def _wide_pack(layout: scan_layout.Layout, W: int,
+               device: torch.device) -> torch.Tensor:
+    """The wide layout's scratch of U packed by block: each block's
+    32-term chunks of its ``WIDE_NC`` columns, zero past W."""
+    kp = -(-W // scan_layout.KCH) * scan_layout.KCH
+    return torch.empty((layout.cl, kp, scan_layout.WIDE_NC),
+                       dtype=torch.float32, device=device)
 
 
 def _weight_dtype(name: str, recurrent: torch.Tensor) -> bool:
@@ -216,6 +231,22 @@ def lstm_scan(x_proj: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor,
     lib = _library()
     lay = scan_layout_on(device, B, W, bf16)
     flags = _group_flags(lay, B, device)
+    if lay.wide:
+        up = _wide_pack(lay, W, device)
+        with torch.cuda.device(device):
+            status = lib.lstm_scan_wide_launch(
+                x_proj.data_ptr(), h0.data_ptr(), c0.data_ptr(),
+                recurrent.data_ptr(), h_all.data_ptr(),
+                c_all.data_ptr() if want_c_all else None, hT.data_ptr(),
+                cT.data_ptr(), flags.data_ptr(), up.data_ptr(), B, T, W,
+                int(bf16), lay.smem,
+                torch.cuda.current_stream(device).cuda_stream)
+        if status != 0:
+            raise RuntimeError('lstm_scan kernel launch failed: CUDA error '
+                               '%d (layout %s)' % (status, lay))
+        _build.count(lstm_scan)
+        _build.count(lstm_scan, 'wide')
+        return h_all, c_all, hT, cT
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         status = lib.lstm_scan_launch(
@@ -232,6 +263,7 @@ def lstm_scan(x_proj: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor,
 
 
 lstm_scan.launches = 0
+lstm_scan.wide = 0   # of them in the wide layout
 
 
 def lstm_scan_ref(x_proj: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor,
@@ -306,6 +338,25 @@ def lstm_bwd(xp_tm: torch.Tensor, hprev_tm: torch.Tensor,
                        device=device)
     lay = bwd_layout_on(device, B, W)
     flags = _group_flags(lay, B, device)
+    if lay.wide:
+        vp = _wide_pack(lay, W, device)
+        pq = torch.empty((4, B, W), dtype=f32, device=device)
+        with torch.cuda.device(device):
+            status = lib.lstm_bwd_wide_launch(
+                xp_tm.data_ptr(), hprev_tm.data_ptr(), cprev_tm.data_ptr(),
+                call_tm.data_ptr(), dhout_tm.data_ptr(),
+                recurrent.data_ptr(), recT.data_ptr(), dhT.data_ptr(),
+                dcT.data_ptr(), dxp.data_ptr(), dU.data_ptr(),
+                dh0.data_ptr(), dc0.data_ptr(), part.data_ptr(),
+                flags.data_ptr(), vp.data_ptr(), pq.data_ptr(), B, T, W,
+                int(bf16), lay.smem,
+                torch.cuda.current_stream(device).cuda_stream)
+        if status != 0:
+            raise RuntimeError('lstm_bwd kernel launch failed: CUDA error '
+                               '%d (layout %s)' % (status, lay))
+        _build.count(lstm_bwd)
+        _build.count(lstm_bwd, 'wide')
+        return dxp, dU, dh0, dc0
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         status = lib.lstm_bwd_launch(
@@ -323,6 +374,7 @@ def lstm_bwd(xp_tm: torch.Tensor, hprev_tm: torch.Tensor,
 
 
 lstm_bwd.launches = 0
+lstm_bwd.wide = 0   # of them in the wide layout
 
 
 def lstm_bwd_ref(xp_tm: torch.Tensor, hprev_tm: torch.Tensor,

@@ -42,6 +42,18 @@ Two layouts:
   after writing its units, and are staged into shared memory in chunks
   of ``rt`` streams.
 
+* the wide layout (``wide``) of the forward and the backward's chain at
+  widths no other layout takes (W > 512; ``csrc/wide_common.cuh``): one
+  block an SM, every block resident at once (a cooperative launch), each
+  step a product of all B <= 128 streams' rows with the block's 64
+  packed columns of U (forward: the four gate columns of 16 units;
+  backward: one quarter of U^T for 64 units), the rows and the columns
+  streamed into shared memory by TMA in 32-term chunks, since U (54 MB
+  at W = 1840) fits neither a block nor L2; the rows a step writes cross
+  the blocks through device memory behind the launch's one counter (the
+  backward's chain: two a step, the quarters' sums then the gate
+  derivatives).
+
 All give the same bits: each column's dot product is summed in blocks
 of 32 terms, the blocks added to 0 in order.
 """
@@ -85,20 +97,47 @@ GRID_PS = {'lstm': 4 * GRID_UNITS + 4, 'bwd': GRID_UNITS + 4}
 GRID_GV = 8          # bwd: a (stream, unit)'s gate values, padded
 GRID_STEP = {'lstm': 2.56, 'bwd': 4.31}
 GRID_PER_ROW = {'lstm': 0.3039, 'bwd': 0.805}
+# the wide layout (WIDE_* in csrc/wide_common.cuh): widths it takes
+# (above the grid layout's), streams at most, columns a block, units a
+# forward block, stages of a block's ring; its cost model a step in
+# microseconds, WIDE_STEP (the counter's waits, the ring's first chunks,
+# the gate update; the chain's two waits and its gate derivatives) and
+# WIDE_PER_CHUNK per 32-term chunk of a W-term sum (every block runs
+# all 128 rows, so B does not enter), fitted to gen_beam_phases.py
+# wide1840 on an H100 (forward: 104.7-109.4 us a step at W=1840 and
+# 63.8 at W=1024; the chain: 126.6 at W=1840)
+WIDE_MIN_W = GRID_NKB * KCH
+WIDE_RB, WIDE_NC, WIDE_UPB, WIDE_ST = 128, 64, 16, 8
+# dynamic shared memory of a block of the wide layout, whatever B: 1024
+# bytes to align the ring, WIDE_ST stages of a chunk's rows (room for
+# WIDE_RB rows of 32 floats: a thread reads its rows past B too) and
+# its 32 x WIDE_NC packed columns, an mbarrier a stage
+# (WIDE_SMEM_BYTES in csrc/wide_common.cuh)
+WIDE_SMEM = 1024 + WIDE_ST * (WIDE_RB + WIDE_NC) * KCH * 4 + WIDE_ST * 8
+WIDE_STEP = {'lstm': 13.1, 'bwd': 34.7}
+WIDE_PER_CHUNK = {'lstm': 1.585, 'bwd': 1.585}
 
 
 class Layout(NamedTuple):
     rb: int      # streams per block, cluster or group
     cl: int      # blocks per cluster or group
-    rt: int      # streams per thread chain, or a staged chunk's (grid)
+    rt: int      # streams per thread chain, or a staged chunk's (grid);
+    #              0 in the wide layout
     smem: int    # dynamic shared memory per block, bytes
     reg: bool    # the register layout
 
     @property
     def grid(self) -> bool:
         """The grid layout: not the register layout, and a group of more
-        blocks than a cluster holds (the one-block layout has one)."""
-        return not self.reg and self.cl > CLUSTERS[-1]
+        blocks than a cluster holds (the one-block layout has one) that
+        stages its rows in chunks (rt > 0: not the wide layout)."""
+        return not self.reg and self.rt > 0 and self.cl > CLUSTERS[-1]
+
+    @property
+    def wide(self) -> bool:
+        """The wide layout: not the register layout, and no stream split
+        of a thread or a chunk (rt = 0; every block runs all B rows)."""
+        return not self.reg and self.rt == 0
 
 
 def rows_per_block(B: int) -> int:
@@ -220,6 +259,27 @@ def grid_layout_for(kind: str, B: int, W: int,
     return Layout(rb, W // GRID_UNITS, rt, smem, False)
 
 
+def wide_blocks(kind: str, W: int) -> int:
+    """Blocks of the wide layout: ``lstm`` one a ``WIDE_UPB`` units
+    (their four gate columns), ``bwd`` one a ``WIDE_NC`` units of each
+    quarter of U^T."""
+    if kind == 'lstm':
+        return _ceil(W, WIDE_UPB)
+    return 4 * _ceil(W, WIDE_NC)
+
+
+def wide_layout_for(kind: str, B: int, W: int,
+                    n_sm: int) -> Optional[Layout]:
+    """The wide layout of B streams, or None where it does not take
+    them: kinds ``lstm`` and ``bwd``, W > ``WIDE_MIN_W`` (wider than the
+    grid layout) and a multiple of 4, 1 <= B <= ``WIDE_RB``, and
+    :func:`wide_blocks` at most ``n_sm`` (one block an SM)."""
+    if kind not in GRID_RT or W <= WIDE_MIN_W or W % 4 or \
+            not 1 <= B <= WIDE_RB or wide_blocks(kind, W) > n_sm:
+        return None
+    return Layout(B, wide_blocks(kind, W), 0, WIDE_SMEM, False)
+
+
 def one_block_rows(kind: str, B: int, W: int, D: int, bf16: bool = False,
                    Vp: int = 0) -> int:
     """Streams a block of the one-block layout: the largest power of two
@@ -269,6 +329,8 @@ def step_cost(kind: str, W: int, D: int, layout: Layout,
     constants above), for one wave of blocks."""
     if layout.grid:
         return GRID_STEP[kind] + GRID_PER_ROW[kind] * layout.rb
+    if layout.wide:
+        return WIDE_STEP[kind] + WIDE_PER_CHUNK[kind] * _ceil(W, KCH)
     if layout.reg:
         return REG_STEP + layer_groups(kind, D) * (
             REG_PER_ROW * layout.rt + REG_PER_BLOCK * reg_group_threads(
@@ -286,7 +348,10 @@ def waves(B: int, layout: Layout, fits: Callable[[Layout], int],
     """Waves of clusters (or blocks) the card runs one after another:
     ``fits(layout)`` clusters of the register layout at once, ``n_sm``
     blocks of the one-block layout; the grid layout's groups all at once
-    (1) or not at all (0); 0 where none fits."""
+    (1) or not at all (0), and so the wide layout's blocks; 0 where none
+    fits."""
+    if layout.wide:
+        return int(layout.cl <= n_sm)
     if layout.grid:
         return int(_ceil(B, layout.rb) * layout.cl <= n_sm)
     at_once = fits(layout) if layout.reg else n_sm
@@ -302,10 +367,11 @@ def choose(kind: str, B: int, W: int, D: int,
     cluster (``fits(layout)``: how many clusters of that layout the card
     holds at once), and of the grid layout in as few groups as the card
     holds at once (:func:`grid_layout_for` with ``rb = ceil(B /
-    groups)``, ``groups = min(B, grid_groups(W, n_sm))``), the lowest
-    :func:`step_cost` times :func:`waves` wins, ties to fewer blocks a
-    cluster (at three tied shapes the smaller cluster took 10-13% less
-    time), then to more streams a cluster; where none does or
+    groups)``, ``groups = min(B, grid_groups(W, n_sm))``), and of the wide
+    layout (:func:`wide_layout_for`), the lowest :func:`step_cost` times
+    :func:`waves` wins, ties to fewer blocks a cluster (at three tied
+    shapes the smaller cluster took 10-13% less time), then to more
+    streams a cluster; where none does or
     :func:`one_block_layout` costs no more (on ``n_sm`` SMs), the
     one-block layout."""
     one = one_block_layout(kind, B, W, D, bf16, Vp)
@@ -319,6 +385,11 @@ def choose(kind: str, B: int, W: int, D: int,
                grid.cl, -grid.rb)
         if key < best[0]:
             best = (key, grid)
+    wide = wide_layout_for(kind, B, W, n_sm)
+    if wide is not None:
+        key = (step_cost(kind, W, D, wide), wide.cl, -wide.rb)
+        if key < best[0]:
+            best = (key, wide)
     for cl in CLUSTERS:
         if W < MIN_UNITS * cl:
             continue
@@ -342,6 +413,13 @@ def check(kind: str, B: int, W: int, D: int, layout: Layout,
     problems = []
     if B < 1 or W < 4 or W % 4:
         problems.append('B >= 1 and W a positive multiple of 4')
+    elif layout.wide:
+        if layout != wide_layout_for(kind, B, W, layout.cl):
+            problems.append('the wide layout (kind lstm or bwd, W > %d, 1 '
+                            '<= B <= %d streams, %d blocks, rt 0, smem '
+                            '%d)'
+                            % (WIDE_MIN_W, WIDE_RB, wide_blocks(kind, W),
+                               WIDE_SMEM))
     elif layout.grid:
         if layout != grid_layout_for(kind, B, W, layout.rb):
             problems.append('the grid layout (kind lstm or bwd, W = %d, %d '
@@ -368,7 +446,8 @@ def check(kind: str, B: int, W: int, D: int, layout: Layout,
         if (layout.rb, layout.cl, layout.rt) != (rb, 1, rb):
             problems.append('the one-block layout (rb = rt = %d, cl 1)'
                             % rb)
-    if not problems and not layout.grid and layout.smem != plan_bytes(
+    if not problems and not (layout.grid or layout.wide) and \
+            layout.smem != plan_bytes(
             kind, W, D, layout.rb, layout.reg, bf16, Vp):
         problems.append('smem equal to plan_bytes')
     if not problems and layout.smem > SMEM_MAX:

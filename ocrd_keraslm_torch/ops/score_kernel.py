@@ -79,7 +79,10 @@ def pack_score_weights(params, cfg):
     the stacked input and recurrent kernels (max(D-1, 1), W, 4W) and
     biases (max(D-1, 1), 1, 4W) of layers >= 1 (zeros at D=1, which
     keep the signature); the vocab-padded transposed tied embedding
-    (W, Vp), Vp a multiple of 128; and ``v_real``."""
+    (W, Vp), Vp a multiple of 128; and ``v_real``.  Raises ValueError
+    for a model of several widths or a head bias."""
+    from ..models.lstm_lm import require_uniform
+    require_uniform(cfg, 'the scoring kernel')
     W = cfg.width
     lstm = params['lstm']
     emb = params['char_embedding']

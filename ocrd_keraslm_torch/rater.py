@@ -63,7 +63,8 @@ import torch
 
 from .models.lstm_lm import (DEFAULT_CONTEXTS, LMConfig, embed_inputs,
                              forward_seq, forward_step, host_to_device,
-                             init_params, params_from_numpy, zero_carry)
+                             init_params, params_from_numpy,
+                             require_uniform, zero_carry)
 from .ops.beam_device import NEG_INF as ENGINE_BIG
 from .ops.beam_device import _copy_to_host, _fetch
 from . import native
@@ -404,6 +405,15 @@ class Rater:
         self.width = 0
         self.depth = 0
         self.length = 0
+        # AWD-LSTM's keys of LMConfig (models/lstm_lm.py): each layer's
+        # width where they differ (then ``width`` is the embedding's),
+        # the head bias, the weight drop and the three locked dropouts
+        self.widths: Tuple[int, ...] = ()
+        self.head_bias = False
+        self.weight_drop = 0.0
+        self.dropout_input = 0.0
+        self.dropout_hidden = 0.0
+        self.dropout_output = 0.0
         self.variable_length = True
         self.first_window = 0.1
         self.char_degradation = 0.01
@@ -485,7 +495,12 @@ class Rater:
             width=self.width, depth=self.depth, length=self.length,
             voc_size=max(self.voc_size, 1), contexts=self.contexts,
             stateful=self.stateful, variable_length=self.variable_length,
-            compute_dtype=self.compute_dtype)
+            compute_dtype=self.compute_dtype, widths=tuple(self.widths),
+            head_bias=bool(self.head_bias),
+            weight_drop=float(self.weight_drop),
+            dropout_input=float(self.dropout_input),
+            dropout_hidden=float(self.dropout_hidden),
+            dropout_output=float(self.dropout_output))
         if self.params is None and self.voc_size > 0:
             self.params = init_params(
                 self.cfg, torch.Generator().manual_seed(42), self.device)
@@ -512,7 +527,18 @@ class Rater:
             emb = self.params['char_embedding'].clone()
             emb[:old_voc] = old_params['char_embedding']
             self.params = dict(old_params, char_embedding=emb)
+            if 'head_bias' in old_params:
+                bias = torch.zeros_like(self.params['char_embedding'][:, 0])
+                bias[:old_voc] = old_params['head_bias']
+                self.params['head_bias'] = bias
         self._params_changed()
+
+    def _one_width(self, what: str) -> None:
+        """Raise ValueError unless the model has the shape ``what`` packs:
+        one width for the char embedding and every layer and no head bias
+        (the (2D+1)W state of decoding and generation)."""
+        if self.cfg is not None:
+            require_uniform(self.cfg, what)
 
     def _params_changed(self):
         """Drop the device-resident weight sets derived from
@@ -541,6 +567,12 @@ class Rater:
         self.stateful = cfg.stateful
         self.variable_length = cfg.variable_length
         self.contexts = cfg.contexts
+        self.widths = cfg.widths
+        self.head_bias = cfg.head_bias
+        self.weight_drop = cfg.weight_drop
+        self.dropout_input = cfg.dropout_input
+        self.dropout_hidden = cfg.dropout_hidden
+        self.dropout_output = cfg.dropout_output
         self.vocab = vocab
         self.voc_size = vocab.size
         self.history = history
@@ -604,6 +636,10 @@ class Rater:
         self.voc_size -= 1
         self.params = dict(self.params, char_embedding=torch.cat(
             [emb[:removed], emb[removed + 1:]]).contiguous())
+        if 'head_bias' in self.params:
+            bias = self.params['head_bias']
+            self.params['head_bias'] = torch.cat(
+                [bias[:removed], bias[removed + 1:]]).contiguous()
         self.cfg = self.cfg.replace(voc_size=self.voc_size)
         self._params_changed()
         return True
@@ -724,7 +760,7 @@ class Rater:
         # (hoisted whole-chunk products per layer) is the JAX package's
         # choice too
         fused = (self.fused_score and self.cfg.compute_dtype == 'float32'
-                 and self.cfg.width <= 384)
+                 and self.cfg.width <= 384 and self.cfg.uniform)
         score = _score_stream
         mesh = self.mesh
         if mesh is not None and mesh.shape.get('data', 1) > 1 \
@@ -914,6 +950,7 @@ class Rater:
         absolute probability threshold 0.004, fringe capped at 256.  On
         the device in one launch unless ``device_beam`` is off or the
         prefix is empty; a dead device fringe retries on the host."""
+        self._one_width('generation')
         if self.status < 2:
             raise RuntimeError('generate needs loaded weights')
         with span('gen.request', 'request=%d' % next(_REQUESTS)):
@@ -930,6 +967,7 @@ class Rater:
         """Queue a generation; :meth:`generate_finish` later waits for
         it and builds the strings, so a serving loop can queue the next
         prompt first.  begin + finish = :meth:`generate`."""
+        self._one_width('generation')
         if self.status < 2:
             raise RuntimeError('generate needs loaded weights')
         if self.device_beam and prefix:
@@ -963,6 +1001,7 @@ class Rater:
                              context=None):
         """Queue a prompt batch; :meth:`generate_batch_finish` later
         waits for it and builds the strings."""
+        self._one_width('generation')
         if self.status < 2:
             raise RuntimeError('generate needs loaded weights')
         if self.device_beam and all(prefixes):
@@ -994,6 +1033,7 @@ class Rater:
     def _generate_host(self, prefix: str, length: int, context=None,
                        variants: int = 1) -> List[str]:
         """Generation on the host (:func:`host_beam.generate_host`)."""
+        self._one_width('generation')
         if self.status < 2:
             raise RuntimeError('generate needs loaded weights')
         from .host_beam import generate_host
@@ -1009,6 +1049,7 @@ class Rater:
         :func:`_predict_step` on the rater's device, the batch padded to
         a ``STEP_BUCKETS`` bucket (unbounded: more than 512 hypotheses
         are not cut)."""
+        self._one_width('the decode step')
         if self.status < 2:
             raise RuntimeError('predict needs loaded weights')
         if len(candidates) != len(initial_states):
@@ -1054,6 +1095,7 @@ class Rater:
         branching pages.  Returns ``([(element, textequiv, score), ...],
         entropy, traceback)``: the path locked in by this call (one page
         behind, see :meth:`next_path`)."""
+        self._one_width('lattice decoding')
         if self.status < 2:
             raise RuntimeError('rate_best needs loaded weights')
         from .host_beam import decode_lattice_host
@@ -1227,6 +1269,7 @@ class Rater:
         per-slot records (pending kind ``'blocks'``) instead of the
         kernel's own rank-0 walk: lookahead write-back walks the pages
         later, in reverse, from chained entry slots."""
+        self._one_width('lattice decoding')
         edges_raw = graph if isinstance(graph, list) \
             else _linear_edges(graph)
         if not edges_raw:
@@ -1521,6 +1564,7 @@ class Rater:
         the device; same carry and pending protocol as
         :meth:`rate_best_device_begin`.  The caller reads choices and
         costs with :meth:`rate_best_device_finish_arrays`."""
+        self._one_width('lattice decoding')
         K = _bucket(min(beam_width, FUSED_MAX_BEAM), K_BUCKETS)
         wts = self._decode_weights(context, bf16=self._decode_bf16())
         state, cost = self._fused_traceback(device_traceback, K,
@@ -1561,6 +1605,7 @@ class Rater:
         across per-page launches, and each page is walked from its own
         last edge's rank-0 slot, anchored at its entry slot's carried
         cost."""
+        self._one_width('lattice decoding')
         A = 4
         bounds = np.cumsum([0] + [s[0] for s in segs])
         n_group = int(bounds[-1])
@@ -1912,6 +1957,7 @@ class Rater:
         (:func:`ops.beam_device.decode_lattice_device` with a leading
         document axis, pending ``'xlab'``), and documents over 1024
         prepared edges decode one by one (:meth:`rate_best_device`)."""
+        self._one_width('lattice decoding')
         if self.status < 2:
             raise RuntimeError('rate_best_batch needs loaded weights')
         raw_list = [_linear_edges(g) for g in graphs]

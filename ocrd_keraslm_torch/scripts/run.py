@@ -181,6 +181,29 @@ def _load_rater(model, incremental=False):
                    'Adam moments, dropout generator, history): every '
                    'epoch is snapshotted and an interrupted run resumes '
                    'from the last completed epoch')
+@click.option('--widths', default=None, metavar='W1,W2,...',
+              help='each layer\'s width (AWD-LSTM enwik8: 1840,1840,400); '
+                   'sets the depth, and the last width is the char '
+                   'embedding\'s (the softmax is tied)')
+@click.option('--head-bias', is_flag=True,
+              help='a bias on the tied softmax\'s logits')
+@click.option('--weight-drop', default=0.0, show_default=True,
+              type=click.FloatRange(0.0, 1.0, max_open=True),
+              help='DropConnect rate on each layer\'s recurrent matrix')
+@click.option('--dropout-input', default=0.0, show_default=True,
+              type=click.FloatRange(0.0, 1.0, max_open=True),
+              help='locked dropout on the embedded input (any of the three '
+                   '--dropout-* options replaces the default dropout '
+                   'between layers)')
+@click.option('--dropout-hidden', default=0.0, show_default=True,
+              type=click.FloatRange(0.0, 1.0, max_open=True),
+              help='locked dropout on the output of every layer below the '
+                   'last')
+@click.option('--dropout-output', default=0.0, show_default=True,
+              type=click.FloatRange(0.0, 1.0, max_open=True),
+              help='locked dropout on the last layer\'s output')
+@click.option('--no-contexts', is_flag=True,
+              help='no context input (the year-decade embedding)')
 @click.option('--mesh', 'mesh_spec', default=None, metavar='DPxMP',
               help='shard the train step over a mesh of ranks, e.g. "4" '
                    '(4-way data parallel), "4x2" (4-way data x 2-way '
@@ -193,7 +216,9 @@ def _load_rater(model, incremental=False):
                 type=click.Path(exists=True, dir_okay=True,
                                 file_okay=True))
 def train(model, ckpt, width, depth, length, val_data, epochs,
-          batch_size, bf16, resume_dir, mesh_spec, data):
+          batch_size, bf16, widths, head_bias, weight_drop,
+          dropout_input, dropout_hidden, dropout_output, no_contexts,
+          resume_dir, mesh_spec, data):
     """Fit a char-LM of the given WIDTH/DEPTH/LENGTH on the DATA
     text files.
 
@@ -201,12 +226,21 @@ def train(model, ckpt, width, depth, length, val_data, epochs,
     """
     from .. import training
     training.EPOCHS = epochs
+    layer_widths = ()
+    if widths:
+        try:
+            layer_widths = tuple(int(w) for w in widths.split(','))
+        except ValueError:
+            raise click.UsageError('--widths expects widths separated by '
+                                   'commas, e.g. 1840,1840,400')
+        depth, width = len(layer_widths), layer_widths[-1]
 
     rater = Rater()
     continuation = None
     if os.path.isfile(model):
         rater.load_config(model)
-        if rater.width == width and rater.depth == depth:
+        if rater.width == width and rater.depth == depth and \
+                tuple(rater.widths) == layer_widths:
             continuation = partial(rater.load_weights, model)
             print('continuing training from saved model %s' % model)
         else:
@@ -219,6 +253,14 @@ def train(model, ckpt, width, depth, length, val_data, epochs,
         print('continuing training from checkpoint %s' % ckpt)
     rater.width = width
     rater.depth = depth
+    rater.widths = layer_widths
+    rater.head_bias = head_bias
+    rater.weight_drop = weight_drop
+    rater.dropout_input = dropout_input
+    rater.dropout_hidden = dropout_hidden
+    rater.dropout_output = dropout_output
+    if no_contexts:
+        rater.contexts = ()
     rater.length = length
     rater.batch_size = batch_size
     if resume_dir:
@@ -227,7 +269,10 @@ def train(model, ckpt, width, depth, length, val_data, epochs,
         rater.compute_dtype = 'bfloat16'
     if mesh_spec:
         rater.mesh = _train_mesh(mesh_spec)
-    rater.configure()
+    try:
+        rater.configure()
+    except ValueError as err:  # widths the tied softmax refuses
+        raise click.UsageError(str(err))
     if continuation:
         continuation()
     val_files = _expand_paths([val_data]) if val_data else None

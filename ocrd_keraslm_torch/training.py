@@ -46,9 +46,10 @@ import torch
 
 from .data import (Batch, Prefetcher, SplitPlan, gen_stateful_parity,
                    gen_stateful_streams, gen_stateless, split_data)
-from .models.lstm_lm import (Carry, LMConfig, Params, forward_seq,
-                             host_to_device, param_leaves,
-                             regularization_loss, sequence_xent, zero_carry)
+from .models.lstm_lm import (Carry, LMConfig, Params, detach_carry,
+                             forward_seq, host_to_device, map_params,
+                             param_leaves, regularization_loss,
+                             sequence_xent, zero_carry)
 from .parallel import multihost
 from .parallel.mesh import (gather_adam_state, gather_params, shard_adam_state,
                             shard_batch, shard_params)
@@ -120,17 +121,18 @@ def train_step(params: Params, optimizer: torch.optim.Optimizer,
                rng: Optional[torch.Generator], x_mask=None
                ) -> Tuple[Carry, torch.Tensor, torch.Tensor, torch.Tensor]:
     """One update of ``params`` (leaf tensors that require grad) in
-    place.  ``rng`` is the dropout generator (on the CPU).  Returns
-    (carry, loss, nll, acc), all detached: the carry is an output, not
-    differentiated through from the next step."""
+    place.  ``rng`` is the dropout generator (on the CPU; the weight
+    drop's device generator is seeded from it).  Returns (carry, loss,
+    nll, acc), all detached: the carry is an output, not differentiated
+    through from the next step."""
     optimizer.zero_grad(set_to_none=True)
     loss, (nll, acc, carry) = _loss_fn(params, cfg, x, zs, y, mask, carry,
                                        rng, True, x_mask)
     loss.backward()
     torch.nn.utils.clip_grad_value_(param_leaves(params), 1.0)
     optimizer.step()
-    return ((carry[0].detach(), carry[1].detach()), loss.detach(),
-            nll.detach(), acc.detach())
+    return (detach_carry(carry), loss.detach(), nll.detach(),
+            acc.detach())
 
 
 def eval_step(params: Params, cfg: LMConfig, x, zs, y, mask, carry: Carry,
@@ -209,13 +211,19 @@ def train_rater(rater, data, val_data=None) -> None:
 
 def _topology(rater) -> dict:
     """What a snapshot must share with the run that resumes it: the
-    parameter shapes and the data layout."""
-    return {'width': rater.width, 'depth': rater.depth,
+    parameter shapes and the data layout (the layer widths and the head
+    bias where the model has them)."""
+    topo = {'width': rater.width, 'depth': rater.depth,
             'length': rater.length, 'stateful': bool(rater.stateful),
             'train_streams': bool(rater.train_streams),
             'batch_size': rater.batch_size,
             'contexts': [list(c) for c in rater.contexts],
             'variable_length': bool(rater.variable_length)}
+    if rater.widths:
+        topo['widths'] = list(rater.widths)
+    if rater.head_bias:
+        topo['head_bias'] = True
+    return topo
 
 
 def _load_resume(rater, resume_dir):
@@ -287,6 +295,11 @@ def _train_rater(rater, files, val_files) -> None:
     # until training ends
     canonical = rater.params if resume is None else \
         _on_device(resume['state']['params'], device)
+    if mesh is not None and not (cfg.uniform and cfg.weight_drop == 0
+                                 and not cfg.locked_dropout):
+        raise ValueError(
+            'a rank mesh trains models of one width, without a head bias, '
+            'weight drop or locked dropout; train this model on one device')
     if mesh is None:
         params = copy_params(canonical, requires_grad=True)
         optimizer = make_optimizer(params)
@@ -598,19 +611,10 @@ def _mesh_steps(rater, mesh, cfg: LMConfig, canonical: Params,
 def copy_params(params: Params, requires_grad: bool = False) -> Params:
     """A detached copy of the tree (leaves that require grad when
     asked)."""
-    def copy(t):
-        return t.detach().clone().requires_grad_(requires_grad)
-    return {'char_embedding': copy(params['char_embedding']),
-            'context_embeddings': [copy(e) for e in
-                                   params['context_embeddings']],
-            'lstm': [{k: copy(v) for k, v in lp.items()}
-                     for lp in params['lstm']]}
+    return map_params(params, lambda t: t.detach().clone().requires_grad_(
+        requires_grad))
 
 
 def _on_device(params: Params, device) -> Params:
     """A parameter tree of CPU tensors (a snapshot's) on ``device``."""
-    return {'char_embedding': params['char_embedding'].to(device),
-            'context_embeddings': [e.to(device) for e in
-                                   params['context_embeddings']],
-            'lstm': [{k: v.to(device) for k, v in lp.items()}
-                     for lp in params['lstm']]}
+    return map_params(params, lambda t: t.to(device))

@@ -17,6 +17,11 @@ one ``.h5`` file:
    ``config/{history,width,depth,length,stateful,variable_length,mapping}``
    where ``mapping`` is a positional uint32 codepoint array (0 = gap).
 
+A model of AWD-LSTM's keys (``models/lstm_lm.LMConfig``) adds, where
+they differ from the defaults, ``config/{widths,head_bias,weight_drop,dropout_input,dropout_hidden,dropout_output}``,
+and its head bias as ``char_output/bias:0`` (V,); a Keras LSTM layer
+carries its own units, so the weights' layout does not change.
+
 The file is read and written by the port's own HDF5 code
 (``utils/hdf5.py``), so neither needs h5py, and files go both ways
 between the two packages.  Weights load as numpy arrays;
@@ -52,11 +57,25 @@ class NumpyJSONEncoder(json.JSONEncoder):
 # writing
 # ----------------------------------------------------------------------
 
+# LMConfig's keys beyond the reference schema, written where they differ
+# from their defaults (so a model of the reference's shape writes the
+# reference's group)
+_AWD_KEYS = ('widths', 'head_bias', 'weight_drop',
+             'dropout_input', 'dropout_hidden', 'dropout_output')
+
+
 def _config_group(cfg: LMConfig, vocab: Vocab,
                   history: Optional[Dict[str, Any]]) -> dict:
-    """The reference-schema ``config/`` group (``contexts`` is this
-    tool's extension, which the reference ignores)."""
-    return {'items': {
+    """The reference-schema ``config/`` group (``contexts`` and
+    :data:`_AWD_KEYS` are this tool's extensions, which the reference
+    ignores)."""
+    extra = {}
+    for key in _AWD_KEYS:
+        value = getattr(cfg, key)
+        if value != getattr(LMConfig, key):
+            extra[key] = np.array(value, dtype=np.int64) if key == 'widths' \
+                else np.array(value)
+    return {'items': dict(extra, **{
         'history': json.dumps(history or {}, cls=NumpyJSONEncoder),
         'width': np.array(cfg.width),
         'depth': np.array(cfg.depth),
@@ -65,7 +84,7 @@ def _config_group(cfg: LMConfig, vocab: Vocab,
         'variable_length': np.array(bool(cfg.variable_length)),
         'mapping': vocab.to_codepoints(),
         'contexts': np.array(cfg.contexts, dtype=np.int64).reshape(-1, 2),
-    }}
+    })}
 
 
 def _weights_tree(params: Params, cfg: LMConfig) -> dict:
@@ -93,6 +112,8 @@ def _weights_tree(params: Params, cfg: LMConfig) -> dict:
         weights['lstm_%d' % (i + 1)] = {
             'kernel:0': lp['kernel'],
             'recurrent_kernel:0': lp['recurrent'], 'bias:0': lp['bias']}
+    if 'head_bias' in params:
+        weights['char_output'] = {'bias:0': params['head_bias']}
     items = {}
     for name in layer_names:
         own = weights.get(name, {})
@@ -247,6 +268,13 @@ def load_config(filename: str
                              for row in group['contexts'][()])
         else:
             contexts = ((200, 10),)
+        extra = {}
+        for key in _AWD_KEYS:
+            if key in group:
+                value = group[key][()]
+                kind = type(getattr(LMConfig, key))
+                extra[key] = tuple(int(v) for v in np.asarray(value)) \
+                    if key == 'widths' else kind(value)
         cfg = LMConfig(
             width=int(group['width'][()]),
             depth=int(group['depth'][()]),
@@ -255,7 +283,7 @@ def load_config(filename: str
             contexts=contexts,
             stateful=bool(group['stateful'][()]),
             variable_length=bool(group['variable_length'][()]),
-        )
+            **extra)
     return cfg, vocab, history
 
 
@@ -339,6 +367,12 @@ def load_weights(filename: str, cfg: LMConfig) -> Params:
                 bias = bias[:4 * W] + bias[4 * W:]
             params['lstm'].append({
                 'kernel': kernel, 'recurrent': rec, 'bias': bias})
+        if cfg.head_bias:
+            head = _layer(layers, 'char_output')
+            if head is None or 'bias' not in head:
+                raise ValueError('%s: the model has a head bias, the file '
+                                 'no char_output/bias' % filename)
+            params['head_bias'] = head['bias']
     return params
 
 

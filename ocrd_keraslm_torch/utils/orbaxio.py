@@ -49,8 +49,8 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from ..models.lstm_lm import LMConfig, Params
-from .h5io import NumpyJSONEncoder, _is_writer
+from ..models.lstm_lm import LMConfig, Params, map_params
+from .h5io import _AWD_KEYS, NumpyJSONEncoder, _is_writer
 from .vocab import Vocab
 
 PARAMS_FILE = 'params.pt'
@@ -93,6 +93,9 @@ def save_model(path: str, params: Params, cfg: LMConfig, vocab: Vocab,
         'mapping': vocab.to_codepoints().tolist(),
         'history': history or {},
     }
+    for key in _AWD_KEYS:  # where they differ from the defaults
+        if getattr(cfg, key) != getattr(LMConfig, key):
+            meta[key] = getattr(cfg, key)
     with open(os.path.join(path, 'config.json'), 'w',
               encoding='utf-8') as fh:
         json.dump(meta, fh, cls=NumpyJSONEncoder)
@@ -111,7 +114,9 @@ def load_config(path: str) -> Tuple[LMConfig, Vocab, Dict[str, Any]]:
         voc_size=max(int(meta.get('voc_size', 0)), vocab.size),
         contexts=tuple(tuple(c) for c in meta['contexts']),
         stateful=bool(meta['stateful']),
-        variable_length=bool(meta['variable_length']))
+        variable_length=bool(meta['variable_length']),
+        **{key: tuple(meta[key]) if key == 'widths' else meta[key]
+           for key in _AWD_KEYS if key in meta})
     return cfg, vocab, meta.get('history', {})
 
 
@@ -129,11 +134,7 @@ def load_weights(path: str, cfg: LMConfig) -> Params:
         raise FileNotFoundError('no %s in the model directory %s'
                                 % (PARAMS_FILE, path))
     tree = torch.load(weights, map_location='cpu', weights_only=True)
-    return {'char_embedding': tree['char_embedding'],
-            'context_embeddings': list(tree['context_embeddings']),
-            'lstm': [{name: lp[name]
-                      for name in ('kernel', 'recurrent', 'bias')}
-                     for lp in tree['lstm']]}
+    return map_params(tree, lambda t: t)
 
 
 def load_model(path: str

@@ -36,7 +36,16 @@ def test_h5_loads_bit_equal(name):
     path = os.path.join(PRETRAINED, name)
     jcfg, jvocab, jhist = jh5.load_config(path)
     tcfg, tvocab, thist = th5.load_config(path)
-    assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
+    # the JAX package's keys equal; the port's AWD-LSTM keys at their
+    # defaults (one width, no head bias, no weight drop or locked dropout)
+    tdict = dataclasses.asdict(tcfg)
+    assert dataclasses.asdict(jcfg) == {k: tdict[k]
+                                        for k in dataclasses.asdict(jcfg)}
+    assert {k: v for k, v in tdict.items()
+            if k not in dataclasses.asdict(jcfg)} == {
+        'widths': (), 'head_bias': False,
+        'weight_drop': 0.0, 'dropout_input': 0.0, 'dropout_hidden': 0.0,
+        'dropout_output': 0.0}
     np.testing.assert_array_equal(jvocab.to_codepoints(),
                                   tvocab.to_codepoints())
     assert jvocab.c2i == tvocab.c2i and jhist == thist

@@ -255,13 +255,16 @@ def test_scan_layout_without_clusters_is_the_one_block_layout(B):
     (256, True), (288, False), (384, False), (1024, False)])
 def test_scan_layout_holds_the_weights_in_registers_where_they_fit(W, reg):
     """The register layout takes a width whose columns have 2, 4 or 8
-    blocks of 32 terms (W in (32, 64], (96, 128], (224, 256]); every
-    other width runs the one-block layout, its weights read from L2."""
+    blocks of 32 terms (W in (32, 64], (96, 128], (224, 256]); widths
+    over 512 run the wide layout, every other width the one-block
+    layout, its weights read from L2."""
     from ocrd_keraslm_torch.ops import scan_layout as sl
     lay = sl.choose('lstm', 4, W, 1, lambda lay: 1 << 20, 132)
     assert lay.reg == reg
     if reg:
         assert lay.smem == 2 * lay.rb * sl.padded_width(W) * 4 + 16
+    elif W > 512:
+        assert lay == sl.wide_layout_for('lstm', 4, W, 132)
     else:
         assert lay == sl.one_block_layout('lstm', 4, W, 1)
 
