@@ -4067,14 +4067,15 @@ def gen_digests(rater, dev):
     """{(case + ' rec' or ' final', layout): sha256} of ``gen_beam``'s
     records (N, T, 3, K) and final fringe (N, K, S) on
     :func:`gen_digest_cases`, in every layout the chooser can take for
-    the case's shape (:func:`gen_layouts_on`)."""
+    the case's shape and streams (:func:`gen_layouts_on`; row groups
+    where the case's few streams leave the card room)."""
     from ocrd_keraslm_torch.ops import gen_kernel as gk
     out = {}
     for case, (weights, v_real, state0, cost0, T) in gen_digest_cases(
             rater, dev).items():
         Vp, W = weights[0].shape
         for lay in gen_layouts_on(dev, state0.shape[1], weights[2].shape[0],
-                                  W, Vp, 10, v_real):
+                                  W, Vp, 10, v_real, state0.shape[0]):
             with gen_layout(lay):
                 rec, final = gk.gen_beam(*weights, state0, cost0, length=T,
                                          v_real=v_real, final_state=True)
@@ -4083,17 +4084,18 @@ def gen_digests(rater, dev):
     return out
 
 
-def gen_layouts_on(dev, K, D, W, Vp, topk, v_real):
+def gen_layouts_on(dev, K, D, W, Vp, topk, v_real, N=1):
     """Every ``gen_beam`` layout the chooser can take for the shape on
-    the card: those of ``gen_kernel.gen_layouts`` the card holds a
-    cluster of."""
+    the card, for a launch of N streams: those of
+    ``gen_kernel.gen_layouts`` the card holds a cluster of, in row groups
+    only where it holds all N*g clusters at once."""
     import torch
     from ocrd_keraslm_torch.ops import gen_kernel as gk
     index = dev.index if dev.index is not None else \
         torch.cuda.current_device()
     return [lay for lay in gk.gen_layouts(K, D, W, Vp, topk, v_real)
             if gk.clusters_that_fit(index, K, D, W, Vp, topk, v_real,
-                                    lay) > 0]
+                                    lay) >= (N * lay.g if lay.g > 1 else 1)]
 
 
 @contextlib.contextmanager
@@ -4283,6 +4285,11 @@ def tb_parity_phase():
 
 def describe_gen_layout(lay):
     """A ``gen_kernel.GenLayout`` in words."""
+    if lay.units and lay.g > 1:
+        return ('the unit layout in %d row groups a stream, each on a '
+                'cluster of %d blocks (%d row half(s) by %d unit groups), '
+                'tiles of %d rows'
+                % (lay.g, lay.cl, lay.rh, lay.cl // lay.rh, lay.tr))
     if lay.units:
         return ('the unit layout on %d blocks a stream (%d row half(s) by '
                 '%d unit groups), tiles of %d rows'
@@ -4316,31 +4323,36 @@ def run_generate(number, variants, platform):
 def generation_path(rater, card):
     """Phase 6, generation; returns the path's numbers."""
     import torch
+    from ocrd_keraslm_torch.ops import gen_kernel as gk
+    gk.gen_beam.row_groups = 0
     lines, wall_cli, counts = run_generate(GEN_N, GEN_VARIANTS, 'cuda')
     assert counts == dict(NO_LAUNCHES, gen_beam=1, gen_traceback=1), counts
     print('generation path: keraslm-rate generate -n %d -v %d %r: %d '
           'lines of %d chars; launches %s (expected one gen_beam and one '
-          'gen_traceback); first line ends %r'
+          'gen_traceback), its row groups (gen_beam.row_groups) %d; first '
+          'line ends %r'
           % (GEN_N, GEN_VARIANTS, GEN_PROMPT, len(lines), len(lines[0]),
-             counts, lines[0][-60:]))
+             counts, gk.gen_beam.row_groups, lines[0][-60:]))
     small = {p: run_generate(64, GEN_VARIANTS, p)[0] for p in ('cuda', 'cpu')}
     assert small['cuda'] == small['cpu'], small
     print('generation path -n 64 -v %d: the same %d lines on the card and '
           'on the CPU: %r' % (GEN_VARIANTS, GEN_VARIANTS, small['cuda']))
     prompts = gen_prompts(rater, np.random.default_rng(21), GEN_BATCH)
     zero_counts()
+    gk.gen_beam.row_groups = 0
     t0 = time.time()
     batch = rater.generate_batch(prompts, GEN_BATCH_N)
     wall_batch = time.time() - t0
     batch_counts = read_counts()
     assert batch_counts == dict(NO_LAUNCHES, gen_beam=1, gen_traceback=1), \
         batch_counts
+    batch_groups = gk.gen_beam.row_groups
     singles = [rater.generate(p, GEN_BATCH_N)[0] for p in prompts]
     assert batch == singles
     print('generation path: Rater.generate_batch of %d prompts at -n %d: '
-          'launches %s (one of each for all prompts); every string equals '
-          'its single generate call' % (GEN_BATCH, GEN_BATCH_N,
-                                        batch_counts))
+          'launches %s (one of each for all prompts), row groups %d; every '
+          'string equals its single generate call'
+          % (GEN_BATCH, GEN_BATCH_N, batch_counts, batch_groups))
     walls = []
     for _ in range(3):
         t0 = time.time()
@@ -4392,9 +4404,20 @@ def generation_numbers(rater, gen, card):
                  N * T / (ms2 / 1e3), card))
         print('%s plain version at the same shape: %.3f ms (CUDA events, '
               'one warm run) [%s]' % (name, plain_ms, card))
-        # a stream's steps run on one cluster of at most 16 SMs (128
-        # f32 FMA a clock each, 1.98 GHz boost), one cluster a stream
+        # the floor of one cluster of 16 SMs a stream (128 f32 FMA a
+        # clock each, 1.98 GHz boost), and of the SMs the launch holds at
+        # once (its clusters up to as many as fit the card)
         floor_ms = 1e3 * flops / min(N, 132 // 16) / (16 * 256 * 1.98e9)
+        at_once = min(N * lay.g, gk.clusters_that_fit(
+            torch.cuda.current_device(), 256, rater.depth, rater.width,
+            weights[0].shape[0], 10, v_real, lay))
+        sms = at_once * lay.cl
+        print('%s launch holds %d SMs at once (%d of its %d cluster(s) of '
+              '%d blocks, %d row group(s) a stream, one block an SM): their '
+              'floor %.3f ms, kernel at %.1f%% of it [%s]'
+              % (name, sms, at_once, N * lay.g, lay.cl, lay.g,
+                 1e3 * flops / (sms * 256 * 1.98e9),
+                 100 * 1e3 * flops / (sms * 256 * 1.98e9) / ms2, card))
         print('%s bound: %.4f ms by %s (%.4g f32 FLOP at 67 TFLOP/s, %.4g '
               'a step and stream); kernel at %.3f%% of it; the floor of '
               'one 16-SM cluster a stream (at most %d at once; 16 x 128 '

@@ -3,6 +3,7 @@
 recurrences, goes, on one GPU.
 
     python3 gen_beam_phases.py          # gen_beam
+    python3 gen_beam_phases.py gen-rows [--root DIR]    # rows 6, 6b alone
     python3 gen_beam_phases.py scan     # lstm_scan and score_scan
     python3 gen_beam_phases.py host     # their host time per call
     python3 gen_beam_phases.py bwd      # lstm_bwd
@@ -21,12 +22,22 @@ which turns on the ``PHASE`` marks of its unit layout
 previous mark, barriers and waits included), into
 ``ocrd_keraslm_torch/_build/phases/``, runs ``gen_beam`` on the german
 model (K=256, TOPK=10) at rows 6 and 6b of ``PERF.md`` (one stream of
-1024 steps, 16 streams of 256 steps) in every unit layout the card takes,
-and prints each phase's cycles a step and share, beside the launch's
-time with the marks and without; then it times every layout the chooser
-could take at both rows (the sweep the cost model of
-``ops/gen_kernel.py`` is fitted to), each beside the model's time, with
-the card's name and power limit.
+1024 steps, 16 streams of 256 steps) in every unit layout the card takes
+for the row's streams (one cluster a stream, and row groups: g clusters
+a stream, where all N*g fit at once), and prints each phase's cycles a
+step and share (in row groups the exchange through L2 has marks of its
+own), beside the launch's time with the marks and without; then it times
+every layout the chooser could take at both rows (the sweep the cost
+model of ``ops/gen_kernel.py`` is fitted to, its row groups' exchange
+term included), each beside the model's time, with the card's name and
+power limit.
+
+``gen-rows`` times rows 6 and 6b alone in the layout the wrapper
+chooses (CUDA events) and prints the sha256 digests of their records,
+which every version must share, with the kernels of the package under
+``--root DIR`` (another checkout, such as a ``git archive`` of the
+parent commit) or of this checkout: run parent, change, change, parent
+in one call to compare two versions.
 
 ``scan`` builds ``lstm_scan.cu`` and ``score_scan.cu`` with
 ``-DSCAN_PHASES``, which turns on the ``PHASE`` marks of the register
@@ -183,6 +194,18 @@ SCAN_PHASES = {
         (4, 'own rows\' top-layer h, logits'),
         (5, 'row candidates (a warp a row)'),
         (6, 'cluster barrier, candidates copied (DSMEM)'),
+        (7, 'radix select, counts, compaction, records')),
+    # the same in row groups: the step's candidates cross the stream's
+    # clusters through L2
+    'gen_beam_groups': (
+        (0, 'wait for the staged tile, barrier, next copies'),
+        (1, 'gate products'),
+        (2, 'block sums, gate updates of the tile before'),
+        (3, 'cluster barrier after each layer'),
+        (4, 'own rows\' top-layer h, logits'),
+        (5, 'row candidates (a warp a row)'),
+        (8, 'candidates to L2, arrival, wait for the stream (counter)'),
+        (6, 'every candidate read from L2'),
         (7, 'radix select, counts, compaction, records')),
     # decode_edges_cluster: per edge, summed over its chunks and steps
     'decode': (
@@ -1137,7 +1160,7 @@ def main() -> int:
              'decode': decode_main, 'decode-rows': decode_rows_main,
              'walk': walk_main, 'tb': tb_main, 'wide': wide_main,
              'wide-rows': wide_rows_main, 'prompt': prompt_main,
-             'wide1840': wide1840_main}
+             'wide1840': wide1840_main, 'gen-rows': gen_rows_main}
     if sys.argv[1:2] and sys.argv[1] in modes:
         return modes[sys.argv[1]](card)
     return gen_main(card)
@@ -1145,7 +1168,7 @@ def main() -> int:
 
 def gen_main(card) -> int:
     """Phases of ``gen_beam``'s unit layout and every layout's time at
-    rows 6 and 6b."""
+    rows 6 and 6b, one cluster a stream and in row groups."""
     import numpy as np
     import torch
     from chip_smoke import (GEN_BATCH, GEN_BATCH_N, GEN_PROMPT, cuda_ms,
@@ -1156,7 +1179,6 @@ def gen_main(card) -> int:
     index = torch.cuda.current_device()
     rater = german_rater(dev)
     lib = marked_library(gk, gk.SOURCE)[0]
-    marks = SCAN_PHASES['gen_beam']
     prompts = gen_prompts(rater, np.random.default_rng(21), GEN_BATCH)
     for row, ps, T in (('row 6', [GEN_PROMPT], 1024),
                        ('row 6b', prompts, GEN_BATCH_N)):
@@ -1169,7 +1191,7 @@ def gen_main(card) -> int:
             return gk.gen_beam(*weights, state0, cost0, length=T,
                                v_real=v_real)
         chosen = gk.layout_on(dev, N, K, D, W, Vp, 10, v_real)
-        lays = gen_layouts_on(dev, K, D, W, Vp, 10, v_real)
+        lays = gen_layouts_on(dev, K, D, W, Vp, 10, v_real, N)
         what = '%s (N=%d streams, T=%d steps, K=%d, TOPK=10, D=%d, W=%d)' \
             % (row, N, T, K, D, W)
         times = []
@@ -1179,6 +1201,8 @@ def gen_main(card) -> int:
                 times.append((lay, ms))
                 if not lay.units:
                     continue
+                marks = SCAN_PHASES['gen_beam_groups' if lay.g > 1
+                                    else 'gen_beam']
                 plain_lib = gk._library
                 gk._library = lambda: lib
                 try:
@@ -1193,14 +1217,54 @@ def gen_main(card) -> int:
         for lay, ms in times:
             fits = gk.clusters_that_fit(index, K, D, W, Vp, 10, v_real,
                                         lay)
+            waves = 1 if lay.g > 1 else -(-N // fits)
             print('gen_beam at %s, %s: %.3f ms a launch (CUDA events, mean '
                   'of 3), %.2f us a step a wave; %d clusters at once, %d '
                   'wave(s); the model\'s step %.2f us%s [%s]'
                   % (what, describe_gen_layout(lay), ms,
-                     1e3 * ms / T / -(-N // fits), fits, -(-N // fits),
+                     1e3 * ms / T / waves, fits, waves,
                      gk.step_cost(lay, K, D, W, v_real),
                      '; the chooser takes it' if lay == chosen else '',
                      card))
+    return 0
+
+
+def gen_rows_main(card) -> int:
+    """Rows 6 and 6b of PERF.md alone (``gen_beam`` of one stream x 1024
+    steps and of 16 streams x 256 on the german model; CUDA events, mean
+    of 5 after a warm-up) in the layout the wrapper chooses, with the
+    kernels of the ``ocrd_keraslm_torch`` package under ``--root DIR``
+    (another checkout, e.g. a ``git archive`` of the parent) where given,
+    else this one's; prints the layout taken and the records' sha256
+    digests, which every version must share."""
+    import numpy as np
+    import torch
+    if '--root' in sys.argv:
+        sys.path.insert(0, os.path.abspath(
+            sys.argv[sys.argv.index('--root') + 1]))
+    import chip_smoke as cs
+    from ocrd_keraslm_torch.ops import gen_kernel as gk
+    dev = torch.device('cuda')
+    pkg = os.path.dirname(os.path.dirname(gk.__file__))
+    rater = cs.german_rater(dev)
+    prompts = cs.gen_prompts(rater, np.random.default_rng(21), cs.GEN_BATCH)
+    for row, ps, T in (('row 6', [cs.GEN_PROMPT], 1024),
+                       ('row 6b', prompts, cs.GEN_BATCH_N)):
+        weights, v_real, state0, cost0 = cs.gen_inputs(rater, ps)
+        N, K = state0.shape[:2]
+        Vp, W = weights[0].shape
+
+        def call():
+            return gk.gen_beam(*weights, state0, cost0, length=T,
+                               v_real=v_real)
+        ms = cs.cuda_ms(call, 5)
+        lay = gk.layout_on(dev, N, K, weights[2].shape[0], W, Vp, 10,
+                           v_real)
+        print('gen_beam %s (N=%d streams, T=%d steps, K=%d), package %s: '
+              '%.3f ms a launch (CUDA events, mean of 5 warm launches), '
+              '%.2f us a step; layout %s; records digest %s [%s]'
+              % (row, N, T, K, pkg, ms, 1e3 * ms / T, tuple(lay),
+                 cs._digest((call(),))[:16], card))
     return 0
 
 

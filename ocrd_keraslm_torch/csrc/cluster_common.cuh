@@ -1,10 +1,12 @@
 // Thread-block cluster primitives shared by the cluster kernels
 // (scan_common.cuh's register layout of the LSTM recurrences, the LSTM
-// backward of lstm_bwd.cu and the lattice decode of decode_common.cuh):
-// the clock64() phase marks of gen_beam_phases.py, the in-order sum of a
-// column's 32-term blocks over warp lanes, and the exchange of values
-// between the blocks of a cluster by st.async onto the receiver's
-// mbarrier.
+// backward of lstm_bwd.cu, the lattice decode of decode_common.cuh and
+// the generation beam step of gen_beam.cu): the clock64() phase marks of
+// gen_beam_phases.py, the in-order sum of a column's 32-term blocks over
+// warp lanes, the exchange of values between the blocks of a cluster by
+// st.async onto the receiver's mbarrier, and a counter in device memory
+// that blocks of several clusters arrive on and wait for (the grid and
+// wide layouts, gen_beam's row groups).
 #pragma once
 
 #include <cooperative_groups.h>
@@ -150,4 +152,43 @@ __device__ __forceinline__ void st_async4(unsigned addr, float4 v,
       "r"(__float_as_uint(v.x)), "r"(__float_as_uint(v.y)),
       "r"(__float_as_uint(v.z)), "r"(__float_as_uint(v.w)), "r"(bar)
       : "memory");
+}
+
+// the group's counter: a block arrives once a step, after its writes of
+// the step (every thread of the block calls these)
+__device__ __forceinline__ void group_arrive(unsigned* flag) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(flag, 1u);
+  }
+}
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+// Wait until the counter reaches target.  A wait that has not ended
+// after MBAR_TIMEOUT_NS traps, as mbar_wait does: a fault of the
+// exchange fails the process instead of hanging the card.
+__device__ __forceinline__ void group_wait(const unsigned* flag,
+                                           unsigned target) {
+  if (threadIdx.x == 0) {
+    unsigned polls = 0;
+    unsigned long long t0 = 0;
+    while (ld_acquire(flag) < target) {
+      if ((++polls & 1023u) == 0) {
+        const unsigned long long now = global_ns();
+        if (t0 == 0)
+          t0 = now;
+        else if (now - t0 > MBAR_TIMEOUT_NS)
+          __trap();
+      }
+    }
+    __threadfence();
+  }
+  __syncthreads();
 }

@@ -15,18 +15,26 @@
 // What bounds it on this card: the f32 gate products of a step, and the
 // steps are sequential.  A step of the german model (D=2, W=128, K=256,
 // v_real=70) is K*(D*2W*4W + W*v_real) = 6.94e7 FMAs: 2.1 us at the whole
-// card's 67 TFLOP/s, but a step is too small to spread over all 132 SMs
-// with a grid-wide barrier, and one cluster holds at most 16 SMs.  On 16
-// SMs of 128 FMA/clk it is >= 33.9k cycles, 17-20 us a step: the floor of
-// this design, 18-20 ms for a 1024-step request.
+// card's 67 TFLOP/s.  One thread-block cluster holds at most 16 SMs; on 16
+// SMs of 128 FMA/clk a step is >= 33.9k cycles, 17-20 us.  So a launch of
+// few streams spreads a stream's rows over G clusters (row groups), and
+// the step's candidates cross the clusters through L2 behind a counter.
+// A block's gate products then shrink with G, and what bounds a step is
+// what they leave: the part every block repeats whatever G (the selection
+// of the K best of all K*TOPK candidates, the counter's round trip) and
+// the clusters the card holds at once (an H100 SXM holds 15 of 8 blocks,
+// 7 of 16: one german stream takes 8 groups of 8 blocks, 64 SMs, ~27 us a
+// step, its gate products ~29% of it and the selection ~22%).
 //
-// Two layouts, one thread-block cluster per stream, persistent over the
-// T steps, N streams as N clusters of one launch; the wrapper chooses
-// (ops/gen_kernel.choose: a cost model of a step times the waves of
-// clusters):
+// Two layouts, persistent over the T steps, N streams in one launch; the
+// wrapper chooses (ops/gen_kernel.choose: a cost model of a step times the
+// waves of clusters):
 //
-//  * the unit layout (gen_beam_units_kernel), for D <= 2: the cluster is RH
-//    row halves by CL/RH unit groups; block (rh, ug) owns W/(CL/RH)
+//  * the unit layout (gen_beam_units_kernel), for D <= 2: a stream's K
+//    rows in G row groups of K/G rows, one cluster each (G = 1: one
+//    cluster a stream; G > 1 only where all N*G clusters are resident at
+//    once, a cooperative launch).  The cluster is RH row halves of its
+//    group by CL/RH unit groups; block (rh, ug) owns W/(CL/RH)
 //    units and their gate columns of every layer, whose weights stay in
 //    registers for all T steps: no weight is read from L2 inside the step
 //    loop.  The rows' activations stream instead: each layer runs over the
@@ -34,14 +42,18 @@
 //    (every block writes its units' new h and c there; a cluster barrier
 //    after each layer), 2W + W/(CL/RH) floats a row against the first
 //    design's whole wcat a block and tile pass.  The beam's reorder is the
-//    tiles' gather by source row.  Each block computes its own K/CL rows'
-//    logits (embT's real columns in shared memory) and candidates, copies
-//    every block's candidates through distributed shared memory and finds
+//    tiles' gather by source row, from any group.  Each block computes its
+//    own K/(G*CL) rows' logits (embT's real columns in shared memory) and
+//    candidates; every block then holds every candidate of the stream
+//    (G = 1: copied through distributed shared memory after a cluster
+//    barrier; G > 1: written to an L2 buffer by step parity, one arrival a
+//    block on the stream's counter, read back after the wait) and finds
 //    the K-th smallest with the whole block (a radix select of 8 bits a
 //    pass on shared-memory histograms), then the slots of every row.
-//    D + 1 cluster barriers a step;
-//  * the rows layout (gen_beam_kernel, the first design, for shapes the
-//    unit layout does not take and where the cost model rates it faster):
+//    D + 1 cluster barriers a step (G > 1: D and the counter);
+//  * the rows layout (gen_beam_kernel, the first design, one cluster a
+//    stream, for shapes the unit layout does not take and where the cost
+//    model rates it faster):
 //    block c owns fringe rows [c*R, (c+1)*R) in shared memory; a thread
 //    computes a tile of 8 rows x 4 gate columns (16-byte weight loads from
 //    L2 feed 32 FMAs), a row's top TOPK by rank counting within one warp;
@@ -441,18 +453,22 @@ __global__ void __launch_bounds__(NT, 1) gen_beam_kernel(Params p) {
 
 // ---- the unit layout ----
 //
-// A stream's cluster of CL blocks is RH row halves (1 or 2) by CU = CL/RH
-// unit groups.  Block (rh, ug) owns the units [ug*upb, (ug+1)*upb) (upb =
-// W/CU) and their four gate columns of every layer (NC = 4*upb columns),
-// for the KH = K/RH rows of its half.  Roles: thread q < NROLE = NC/2*NKB2
-// of a row group takes the column pair (q % (NC/2), q % (NC/2) + NC/2)
-// and the 32-term block kb = q / (NC/2) of the columns' 2W terms [x | h];
+// A stream's K rows split into G row groups of KG = K/G rows, one cluster
+// of CL blocks each (template GROUPS: G > 1; the G = 1 kernel is the
+// one-cluster design unchanged).  A cluster is RH row halves (1 or 2) of
+// its group by CU = CL/RH unit groups.  Block (rh, ug) owns the units
+// [ug*upb, (ug+1)*upb) (upb = W/CU) and their four gate columns of every
+// layer (NC = 4*upb columns), for the KH = KG/RH rows of its half.
+// Roles: thread q < NROLE = NC/2*NKB2 of each thread group takes the
+// column pair (q % (NC/2), q % (NC/2) + NC/2) and the 32-term block
+// kb = q / (NC/2) of the columns' 2W terms [x | h];
 // its 64 weights of that block, of every layer, sit in its registers for
 // the whole search (read from wcat once, before the first step; 256
 // threads a block leave 255 registers a thread).  A warp's lanes hold
 // column pairs of one 32-term block (of two where NC/2 < 32), so one
 // float4 of x, the same for the lanes of a block, feeds eight FMAs in
-// every lane.  The NRG = UNT/NROLE row groups split the rows of a tile.
+// every lane.  The NRG = UNT/NROLE thread groups split the rows of a
+// tile.
 //
 // A layer runs over the block's rows in tiles of TR: the tile's [x | h]
 // rows (2W floats each, 32-term blocks padded by 4 floats) and the own
@@ -496,7 +512,7 @@ __host__ __device__ inline UGeo make_ugeo(int W, int CL, int RH,
   return g;
 }
 
-// the own rows a block computes logits and candidates of: R = K/CL,
+// the own rows a block computes logits and candidates of: R = K/(G*CL),
 // rounded up to 8, 16 or 32 in the plan (the first design's row caps)
 __host__ __device__ inline int own_rows_cap(int R) {
   return R <= 8 ? 8 : (R <= 16 ? 16 : 32);
@@ -515,9 +531,9 @@ __host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
 
 __host__ __device__ inline UPlan make_uplan(int K, int D, int W, int Vp,
                                             int v_real, int topk, int CL,
-                                            int RH, int TR) {
+                                            int RH, int TR, int G) {
   const UGeo g = make_ugeo(W, CL, RH, v_real);
-  const int RB = own_rows_cap(K / CL);
+  const int RB = own_rows_cap(K / G / CL);
   UPlan p;
   int o = 0;
   p.xin = o;   o += align4(imax(2 * TR * g.XP, RB * W));
@@ -543,19 +559,22 @@ __host__ __device__ inline UPlan make_uplan(int K, int D, int W, int Vp,
   return p;
 }
 
-// Whether the unit layout takes the shape: CL in 4, 8, 16 blocks of RH
-// (1, 2) row halves by CL/RH unit groups, each W/(CL/RH) units, a
-// multiple of 4 (16-byte copies of c), D <= 2 (a thread's weights of every
-// layer in registers), 2W in 32-term blocks, the roles in UNT threads,
-// tiles of TR rows (16 or 32) that split into URT-row chains, K/RH a
-// multiple of TR, K a multiple of CL with at most 32 own rows a block,
-// v_real <= 128 (a row's logits in UMAX_VCH registers a lane).
+// Whether the unit layout takes the shape: K in G (1-16) row groups of
+// KG = K/G rows, CL in 4, 8, 16 blocks of RH (1, 2) row halves by CL/RH
+// unit groups, each W/(CL/RH) units, a multiple of 4 (16-byte copies of
+// c), D <= 2 (a thread's weights of every layer in registers), 2W in
+// 32-term blocks, the roles in UNT threads, tiles of TR rows (16 or 32)
+// that split into URT-row chains, KG/RH a multiple of TR, KG a multiple
+// of CL with at most 32 own rows a block, v_real <= 128 (a row's logits
+// in UMAX_VCH registers a lane).
 __host__ __device__ inline bool units_ok(int K, int D, int W, int CL, int RH,
-                                         int TR, int v_real) {
+                                         int TR, int v_real, int G) {
+  if (G < 1 || G > 16 || K % G) return false;
+  const int KG = K / G;
   if (!(CL == 4 || CL == 8 || CL == 16) || !(RH == 1 || RH == 2) ||
       D < 1 || D > 2 || W < CL / RH || W % (CL / RH) ||
       (W / (CL / RH)) % 4 || W % 16 || !(TR == 16 || TR == 32) ||
-      K % (RH * TR) || K % CL || K / CL > 32 || v_real > 32 * UMAX_VCH)
+      KG % (RH * TR) || KG % CL || KG / CL > 32 || v_real > 32 * UMAX_VCH)
     return false;
   const UGeo g = make_ugeo(W, CL, RH, v_real);
   return g.NROLE <= UNT && g.NRG * (TR / g.NRG) == TR &&
@@ -582,6 +601,12 @@ struct UParams {
   int TR;        // rows per staged tile
   UGeo g;        // the block's geometry and plan, from the host
   UPlan pl;
+  // row groups (GROUPS only): clusters a stream, the candidates' L2
+  // buffers (2, N, K*topk) by step parity, one counter a stream (zeroed)
+  int G;
+  float* xcost;
+  int* xchar;
+  unsigned* flags;
 };
 
 // Stage rows [s0, s0 + TR) of layer d's [x | h] into the padded tile xt
@@ -792,7 +817,7 @@ __device__ __forceinline__ void own_candidates(const Params& p, int R,
                             cchar + r * p.topk);
 }
 
-template <int D>
+template <int D, bool GROUPS>
 __global__ void __launch_bounds__(UNT, 1)
     gen_beam_units_kernel(Params p, const __grid_constant__ UParams up) {
   extern __shared__ float4 smem4[];
@@ -802,11 +827,15 @@ __global__ void __launch_bounds__(UNT, 1)
   const int K = p.K, TOPK = p.topk, KT = K * TOPK, W = p.W;
   const int S = (2 * D + 1) * W, G4 = 4 * W, TR = up.TR;
   const int CLn = (int)cluster.num_blocks(), kc = (int)cluster.block_rank();
-  const int n = blockIdx.x / CLn;
+  // stream n, its row group's first row g0 (GROUPS: cluster blockIdx.x/CLn
+  // is row group g0/KG of stream n)
+  const int n = GROUPS ? blockIdx.x / CLn / up.G : blockIdx.x / CLn;
+  const int KG = GROUPS ? K / up.G : K;
+  const int g0 = GROUPS ? (blockIdx.x / CLn - n * up.G) * KG : 0;
   // block (rh, ug): the units of group ug, the rows of half rh
   const int upb = up.g.upb, NC = up.g.NC, u0 = (kc % up.g.CU) * upb;
-  const int KH = K / up.g.RH, h0 = (kc / up.g.CU) * KH;
-  const int R = K / CLn, r0 = kc * R;
+  const int KH = KG / up.g.RH, h0 = g0 + (kc / up.g.CU) * KH;
+  const int R = KG / CLn, r0 = g0 + kc * R;
 #define USM(f) (sm + up.pl.f)
 #define USMI(f) reinterpret_cast<int*>(sm + up.pl.f)
   float* hbase = up.hbuf + (size_t)n * 2 * D * K * W;
@@ -944,32 +973,55 @@ __global__ void __launch_bounds__(UNT, 1)
                           USMI(cchar));
     }
     PHASE(5)
-    cluster.sync();  // every block's candidates are ready
-
-    // ---- all K*TOPK candidates, from the cluster's shared memory ----
-    {
-      // four remote loads of each array in flight a thread
-      float* allc = USM(allc);
-      int* allch = USMI(allch);
-      for (int i0 = tid; i0 < KT; i0 += 4 * UNT) {
-        float c4[4];
-        int h4[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int i = min(i0 + j * UNT, KT - 1);
-          const int b = i / (R * TOPK), o = i - b * R * TOPK;
-          c4[j] = cluster.map_shared_rank(USM(ccost), b)[o];
-          h4[j] = cluster.map_shared_rank(USMI(cchar), b)[o];
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (i0 + j * UNT < KT) {
-            allc[i0 + j * UNT] = c4[j];
-            allch[i0 + j * UNT] = h4[j];
-          }
+    if constexpr (GROUPS) {
+      // ---- the own rows' candidates to L2 (by step parity), one arrival
+      // a block on the stream's counter, then all K*TOPK from L2 ----
+      const size_t xo = ((size_t)(t & 1) * p.N + n) * KT;
+      float* xc = up.xcost + xo;
+      int* xh = up.xchar + xo;
+      __syncthreads();
+      for (int i = tid; i < R * TOPK; i += UNT) {
+        xc[r0 * TOPK + i] = USM(ccost)[i];
+        xh[r0 * TOPK + i] = USMI(cchar)[i];
       }
+      group_arrive(up.flags + n);
+      group_wait(up.flags + n, (unsigned)(up.G * CLn) * (unsigned)(t + 1));
+      PHASE(8)
+      float4* allc4 = reinterpret_cast<float4*>(USM(allc));
+      int4* allch4 = reinterpret_cast<int4*>(USMI(allch));
+      for (int i = tid; i < KT / 4; i += UNT) {
+        allc4[i] = __ldcg(reinterpret_cast<const float4*>(xc) + i);
+        allch4[i] = __ldcg(reinterpret_cast<const int4*>(xh) + i);
+      }
+      __syncthreads();
+    } else {
+      cluster.sync();  // every block's candidates are ready
+
+      // ---- all K*TOPK candidates, from the cluster's shared memory ----
+      {
+        // four remote loads of each array in flight a thread
+        float* allc = USM(allc);
+        int* allch = USMI(allch);
+        for (int i0 = tid; i0 < KT; i0 += 4 * UNT) {
+          float c4[4];
+          int h4[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int i = min(i0 + j * UNT, KT - 1);
+            const int b = i / (R * TOPK), o = i - b * R * TOPK;
+            c4[j] = cluster.map_shared_rank(USM(ccost), b)[o];
+            h4[j] = cluster.map_shared_rank(USMI(cchar), b)[o];
+          }
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (i0 + j * UNT < KT) {
+              allc[i0 + j * UNT] = c4[j];
+              allch[i0 + j * UNT] = h4[j];
+            }
+        }
+      }
+      __syncthreads();
     }
-    __syncthreads();
     PHASE(6)
 
     // ---- the K-th smallest cost: a radix select on the float bits
@@ -1214,73 +1266,101 @@ extern "C" int gen_beam_launch(const float* emb, const float* embT,
 
 // ---- the unit layout's host side ----
 
-template <int D>
-static int ulaunch_t(int cl, const Params& p, const UParams& u, size_t smem,
-                     cudaStream_t stream, int* fits) {
-  auto kern = gen_beam_units_kernel<D>;
+template <int D, bool GROUPS>
+static int ulaunch_t(int cl, int g, const Params& p, const UParams& u,
+                     size_t smem, cudaStream_t stream, int* fits) {
+  auto kern = gen_beam_units_kernel<D, GROUPS>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err == cudaSuccess && cl > 8)  // 16 blocks exceed the portable 8
     err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err != cudaSuccess) return (int)err;
-  cudaLaunchAttribute attr;
-  cudaLaunchConfig_t cfg = config(cl, p.N, smem, stream, &attr);
+  cudaLaunchAttribute attr[2];
+  cudaLaunchConfig_t cfg = config(cl, p.N * g, smem, stream, attr);
   cfg.blockDim = dim3(UNT);
-  if (fits) return (int)cudaOccupancyMaxActiveClusters(fits, kern, &cfg);
+  if (fits) {
+    if (GROUPS) {  // the row groups need a cooperative launch
+      int dev = 0, coop = 0;
+      err = cudaGetDevice(&dev);
+      if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch,
+                                     dev);
+      if (err != cudaSuccess) return (int)err;
+      if (!coop) return (int)cudaErrorNotSupported;
+    }
+    return (int)cudaOccupancyMaxActiveClusters(fits, kern, &cfg);
+  }
+  if (GROUPS) {  // every cluster of every stream resident at once
+    attr[1].id = cudaLaunchAttributeCooperative;
+    attr[1].val.cooperative = 1;
+    cfg.numAttrs = 2;
+  }
   err = cudaLaunchKernelEx(&cfg, kern, p, u);
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
 // Launch (or, with `fits`, count how many clusters of cl blocks the card
-// holds at once into *fits) in the unit layout with tiles of tr rows;
-// refuses a shape units_ok does not take.
-static int ulaunch(int cl, int rh, int tr, const Params& p, UParams u,
-                   cudaStream_t stream, int* fits) {
-  if (!units_ok(p.K, p.D, p.W, cl, rh, tr, p.v_real) || p.topk < 1 ||
+// holds at once into *fits) in the unit layout with tiles of tr rows, a
+// stream's rows in g row groups; refuses a shape units_ok does not take.
+static int ulaunch(int cl, int rh, int tr, int g, const Params& p,
+                   UParams u, cudaStream_t stream, int* fits) {
+  if (!units_ok(p.K, p.D, p.W, cl, rh, tr, p.v_real, g) || p.topk < 1 ||
       p.topk > MAX_TOPK || p.v_real > p.Vp || p.Vp % 4)
     return (int)cudaErrorInvalidValue;
   u.TR = tr;
   u.g = make_ugeo(p.W, cl, rh, p.v_real);
-  u.pl = make_uplan(p.K, p.D, p.W, p.Vp, p.v_real, p.topk, cl, rh, tr);
+  u.pl = make_uplan(p.K, p.D, p.W, p.Vp, p.v_real, p.topk, cl, rh, tr, g);
+  u.G = g;
   const size_t smem = (size_t)u.pl.total * 4;
-  if (p.D == 1) return ulaunch_t<1>(cl, p, u, smem, stream, fits);
-  return ulaunch_t<2>(cl, p, u, smem, stream, fits);
+  if (g > 1) {
+    if (p.D == 1) return ulaunch_t<1, true>(cl, g, p, u, smem, stream, fits);
+    return ulaunch_t<2, true>(cl, g, p, u, smem, stream, fits);
+  }
+  if (p.D == 1) return ulaunch_t<1, false>(cl, 1, p, u, smem, stream, fits);
+  return ulaunch_t<2, false>(cl, 1, p, u, smem, stream, fits);
 }
 
 extern "C" size_t gen_beam_units_smem_bytes(int K, int cl, int rh, int tr,
-                                            int D, int W, int Vp, int v_real,
-                                            int topk) {
-  return (size_t)make_uplan(K, D, W, Vp, v_real, topk, cl, rh, tr).total * 4;
+                                            int g, int D, int W, int Vp,
+                                            int v_real, int topk) {
+  return (size_t)make_uplan(K, D, W, Vp, v_real, topk, cl, rh, tr, g).total *
+         4;
 }
 
 // How many clusters of cl blocks of the unit layout the card holds at
-// once (0 where the layout does not take the shape or it does not fit).
-extern "C" int gen_beam_units_max_clusters(int cl, int rh, int tr, int K,
-                                           int D, int W, int Vp, int v_real,
-                                           int topk) {
+// once (0 where the layout does not take the shape or it does not fit;
+// with g > 1 row groups also where the card takes no cooperative launch).
+extern "C" int gen_beam_units_max_clusters(int cl, int rh, int tr, int g,
+                                           int K, int D, int W, int Vp,
+                                           int v_real, int topk) {
   Params p{};
   p.N = 1, p.K = K, p.D = D, p.W = W, p.Vp = Vp, p.v_real = v_real;
   p.topk = topk;
   int fits = 0;
-  return ulaunch(cl, rh, tr, p, UParams{}, 0, &fits) == 0 ? fits : 0;
+  return ulaunch(cl, rh, tr, g, p, UParams{}, 0, &fits) == 0 ? fits : 0;
 }
 
-// hbuf, cbuf: (N, 2, D, K, W) scratch; fin: (N, K, S) or null
+// hbuf, cbuf: (N, 2, D, K, W) scratch; fin: (N, K, S) or null; with g > 1
+// row groups xcost, xchar: (2, N, K*topk) scratch and flags: N counters,
+// zeroed (unused at g = 1)
 extern "C" int gen_beam_units_launch(const float* emb, const float* embT,
                                      const float* wcat, const float* bias,
                                      const float* state0, const float* cost0,
                                      float* rec, float* hbuf, float* cbuf,
-                                     float* fin, int cl, int rh, int tr,
-                                     int N, int T, int K,
-                                     int D, int W, int Vp, int v_real,
-                                     int topk, float log_thresh,
-                                     void* stream) {
+                                     float* fin, float* xcost, int* xchar,
+                                     unsigned* flags, int cl, int rh, int tr,
+                                     int g, int N, int T, int K, int D, int W,
+                                     int Vp, int v_real, int topk,
+                                     float log_thresh, void* stream) {
   Params p{emb, embT, wcat, bias, state0, cost0, rec, nullptr, N, T,
            K,   D,    W,    Vp,   v_real, topk,  log_thresh};
   UParams u{};
   u.hbuf = hbuf;
   u.cbuf = cbuf;
   u.fin = fin;
-  return ulaunch(cl, rh, tr, p, u, (cudaStream_t)stream, nullptr);
+  u.xcost = xcost;
+  u.xchar = xchar;
+  u.flags = flags;
+  return ulaunch(cl, rh, tr, g, p, u, (cudaStream_t)stream, nullptr);
 }

@@ -428,45 +428,6 @@ static inline int encode_rows(CUtensorMap* tm, const float* base,
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-// the group's counter: a block arrives once a step, after its writes of
-// the step (every thread of the block calls these)
-__device__ __forceinline__ void group_arrive(unsigned* flag) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    atomicAdd(flag, 1u);
-  }
-}
-__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
-  unsigned v;
-  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
-               : "=r"(v)
-               : "l"(p)
-               : "memory");
-  return v;
-}
-// Wait until the counter reaches target.  A wait that has not ended
-// after MBAR_TIMEOUT_NS traps, as mbar_wait does: a fault of the
-// exchange fails the process instead of hanging the card.
-__device__ __forceinline__ void group_wait(const unsigned* flag,
-                                           unsigned target) {
-  if (threadIdx.x == 0) {
-    unsigned polls = 0;
-    unsigned long long t0 = 0;
-    while (ld_acquire(flag) < target) {
-      if ((++polls & 1023u) == 0) {
-        const unsigned long long now = global_ns();
-        if (t0 == 0)
-          t0 = now;
-        else if (now - t0 > MBAR_TIMEOUT_NS)
-          __trap();
-      }
-    }
-    __threadfence();
-  }
-  __syncthreads();
-}
-
 // The cooperative launch of kern(args...) over `blocks` blocks of
 // GRID_NT threads (every block resident at once, or the launch fails).
 template <typename Kern, typename... Args>

@@ -23,7 +23,7 @@
 // 32-term chunk is a fresh FMA chain per sum, added to the sum's total
 // in chunk order: dot_cols' float (lstm_common.cuh).  The rows a step
 // writes cross the blocks through device memory, behind the launch's
-// one counter (scan_common.cuh group_arrive / group_wait over all
+// one counter (cluster_common.cuh group_arrive / group_wait over all
 // blocks).  U is packed once a launch by a kernel of its own, so that a
 // block's columns of a 32-term chunk are one contiguous copy.
 #pragma once

@@ -33,15 +33,19 @@ h_0..h_{D-1} | c_0..c_{D-1}]``, ``cost0`` (N, K); the records are
 (N, T, 3, K) float32 rows ``[char | backptr | cost]`` (the TPU's
 (T, 8, K) minus its five padding rows; ids are exact in float32).
 
-On the card each stream runs on one thread-block cluster, in one of two
-layouts of ``csrc/gen_beam.cu`` (:class:`GenLayout`): the unit layout
-(each block owns some units' gate columns of every layer, their weights
-in registers for all steps, for all rows or one of two row halves; the
-rows' h and c pass through L2 buffers) and the rows layout of the first
-design (each block owns some fringe rows and reads every weight from L2
-at each step).  :func:`choose` picks one from a cost model of a step
-times the waves of clusters the card holds, cached per device and shape
-(:func:`layout_on`).  Both give the same records bit for bit.
+On the card a stream runs in one of two layouts of ``csrc/gen_beam.cu``
+(:class:`GenLayout`): the unit layout (each block owns some units' gate
+columns of every layer, their weights in registers for all steps, for
+all rows or one of two row halves; the rows' h and c pass through L2
+buffers), on one thread-block cluster a stream or, where few streams
+leave the card idle, on ``g`` clusters a stream, each over its row group
+of K/g rows (the step's candidates cross them through L2 behind a
+counter; every cluster of the launch resident at once), and the rows
+layout of the first design (one cluster a stream; each block owns some
+fringe rows and reads every weight from L2 at each step).  :func:`choose`
+picks one from a cost model of a step times the waves of clusters the
+card holds, cached per device and shape (:func:`layout_on`).  All give
+the same records bit for bit.
 
 The traceback cuts the walked steps into segments (:func:`tb_layout`):
 one launch stages each segment's backpointers in shared memory as bytes
@@ -72,6 +76,9 @@ SMEM_MAX = 232448    # dynamic shared memory a block may ask (Hopper)
 # first design (a block owns K/cl fringe rows)
 UNIT_CLUSTERS = (4, 8, 16)
 ROW_HALVES = (1, 2)
+# clusters a stream of the unit layout, each over a row group of K/g rows
+# (g > 1: a cooperative launch, every cluster resident at once)
+ROW_GROUPS = (1, 2, 4, 8, 16)
 ROWS_CLUSTERS = (8, 16)
 TILES = (32, 16)     # rows per staged tile of the unit layout, first fit
 MAX_ROWS = 32        # fringe rows (own rows) a block
@@ -105,6 +112,13 @@ TB_SEG_MIN = 16
 # ROWS_STEP plus ROWS_PER_MFMA per million FMAs of its rows (the first
 # design reads every weight from L2 at each step)
 UNIT_STEP, UNIT_PER_MFMA, UNIT_PER_KWORD = 12.5, 11.62, 0.057
+# In g > 1 row groups a step's candidates cross the clusters through L2
+# in place of the cluster barrier and distributed shared memory that
+# UNIT_STEP holds: UNIT_XCHG (the difference of the two exchanges' fixed
+# parts: the L2 one's is smaller) plus UNIT_XCHG_PER_BLOCK a block of the
+# stream (its arrivals on the one counter); fitted to the same sweep at
+# row 6 (g = 2, 4, 8 on clusters of 8 and 16 blocks; rms 0.56 us)
+UNIT_XCHG, UNIT_XCHG_PER_BLOCK = -3.02, 0.0772
 ROWS_STEP, ROWS_PER_MFMA = 46.3, 7.92
 
 SOURCE = _build.source('gen_beam.cu')
@@ -112,11 +126,12 @@ TB_SOURCE = _build.source('gen_traceback.cu')
 
 
 class GenLayout(NamedTuple):
-    cl: int       # blocks a stream (one thread-block cluster a stream)
+    cl: int       # blocks a cluster (a stream's row group)
     units: bool   # the unit layout (else the rows layout)
     rh: int       # row halves of the unit layout (0: rows layout)
     tr: int       # rows per staged tile of the unit layout (0: rows)
     smem: int     # dynamic shared memory a block, bytes
+    g: int = 1    # row groups a stream, one cluster each (unit layout)
 
 
 def _ceil(a: int, b: int) -> int:
@@ -143,51 +158,66 @@ def rows_plan_bytes(K, cl, D, W, Vp, topk) -> int:
                 + 2 * _a4(K * topk) + 4 * _a4(K) + 2 * _a4(RB) + 4)
 
 
-def unit_geometry(W: int, cl: int, rh: int = 1) -> dict:
+def unit_geometry(W: int, cl: int, rh: int = 1, K: int = 0,
+                  g: int = 1) -> dict:
     """The unit layout's block (``make_ugeo``): units a block ``upb`` (W
     over the cl/rh unit groups), its gate columns ``nc``, 32-term blocks of
     a column's 2W terms ``nkb``, thread roles ``nrole`` (a column pair's
-    block each), row groups ``nrg``, the padded staged row ``xp`` and a
-    block-sum row ``ps`` (floats)."""
+    block each), row groups of its threads ``nrg``, the padded staged row
+    ``xp`` and a block-sum row ``ps`` (floats); with K, the rows a block's
+    layers run over ``kh`` (its half of its stream's row group of K/g) and
+    its own rows ``own`` (logits and candidates): the block is the same
+    whatever g, its rows are not."""
     upb = W // (cl // rh)
     nc, nkb = 4 * upb, 2 * W // KCH
     nrole = nc // 2 * nkb
-    return dict(upb=upb, nc=nc, nkb=nkb, nrole=nrole,
-                nrg=UNT // nrole if nrole else 0, xp=2 * W + 4 * nkb + 4,
-                ps=nc + upb)
+    out = dict(upb=upb, nc=nc, nkb=nkb, nrole=nrole,
+               nrg=UNT // nrole if nrole else 0, xp=2 * W + 4 * nkb + 4,
+               ps=nc + upb)
+    if K:
+        out.update(kh=K // g // rh, own=K // g // cl)
+    return out
 
 
-def units_plan_bytes(K, cl, rh, tr, D, W, Vp, topk, v_real=None) -> int:
+def units_plan_bytes(K, cl, rh, tr, D, W, Vp, topk, v_real=None,
+                     g=1) -> int:
     """A block's dynamic shared memory in the unit layout
     (``make_uplan``): two staged tiles of ``tr`` padded ``[x | h]`` rows
     (then the own rows' top-layer h), three of the own units' old c, two
     tiles' block sums (then the own rows' logits), the own bias, embT's
     ``v_real`` real columns (rounded up to 4), the own rows' costs and
-    candidates, every row's candidates, the per-row counts and prefixes,
-    every slot's source and char, the radix select's 256 counts."""
-    g = unit_geometry(W, cl, rh)
-    RB = own_rows_cap(K // cl)
-    return 4 * (_a4(max(2 * tr * g['xp'], RB * W)) + _a4(3 * tr * g['upb'])
-                + _a4(max(2 * g['nkb'] * tr * g['ps'], RB * Vp))
-                + _a4(D * g['nc']) + W * _a4(Vp if v_real is None
-                                             else v_real)
+    candidates (K/(g*cl) rows), every row's candidates, the per-row counts
+    and prefixes, every slot's source and char, the radix select's 256
+    counts."""
+    geo = unit_geometry(W, cl, rh)
+    RB = own_rows_cap(K // g // cl)
+    return 4 * (_a4(max(2 * tr * geo['xp'], RB * W))
+                + _a4(3 * tr * geo['upb'])
+                + _a4(max(2 * geo['nkb'] * tr * geo['ps'], RB * Vp))
+                + _a4(D * geo['nc']) + W * _a4(Vp if v_real is None
+                                               else v_real)
                 + _a4(RB) + 2 * _a4(RB * topk)
                 + 2 * _a4(K * topk) + 7 * _a4(K) + 256 + 4)
 
 
-def units_ok(K, D, W, cl, rh, tr, v_real=0) -> bool:
-    """Whether the unit layout takes the shape (``units_ok``): cl in
-    :data:`UNIT_CLUSTERS` blocks of ``rh`` in :data:`ROW_HALVES` row
-    halves by cl/rh unit groups of W/(cl/rh) units, a multiple of 4 (the
-    copies of c), D <= 2 (a thread's weights of every layer in
+def units_ok(K, D, W, cl, rh, tr, v_real=0, g=1) -> bool:
+    """Whether the unit layout takes the shape (``units_ok``): K in ``g``
+    row groups of :data:`ROW_GROUPS` of KG = K/g rows, one cluster each,
+    of cl in :data:`UNIT_CLUSTERS` blocks of ``rh`` in :data:`ROW_HALVES`
+    row halves by cl/rh unit groups of W/(cl/rh) units, a multiple of 4
+    (the copies of c), D <= 2 (a thread's weights of every layer in
     registers), W a multiple of 16, the roles in UNT threads, tiles of
-    ``tr`` in :data:`TILES` rows that split evenly into the row groups and
-    into chains of URT rows, K/rh a multiple of ``tr``, K a multiple of cl
-    with at most MAX_ROWS own rows a block, v_real <= UNIT_MAX_VREAL."""
+    ``tr`` in :data:`TILES` rows that split evenly into the row groups
+    of the threads and into chains of URT rows, KG/rh a multiple of
+    ``tr``, KG a multiple of cl with at most MAX_ROWS own rows a block,
+    v_real <= UNIT_MAX_VREAL."""
+    if g not in ROW_GROUPS or K % g:
+        return False
+    KG = K // g
     if cl not in UNIT_CLUSTERS or rh not in ROW_HALVES or not 1 <= D <= 2 \
             or W < cl // rh or W % (cl // rh) or (W // (cl // rh)) % 4 \
-            or W % 16 or tr not in TILES or K % (rh * tr) or K % cl \
-            or K // cl > MAX_ROWS or v_real > UNIT_MAX_VREAL:
+            or W % 16 or tr not in TILES or KG % (rh * tr) or KG % cl \
+            or KG // cl > MAX_ROWS or v_real > UNIT_MAX_VREAL:
         return False
     g = unit_geometry(W, cl, rh)
     if not 1 <= g['nrole'] <= UNT or tr % g['nrg']:
@@ -201,18 +231,18 @@ def _common_ok(topk, v_real, Vp, W) -> bool:
         and W % 4 == 0
 
 
-def units_layout_for(K, D, W, Vp, topk, cl, rh=1,
-                     v_real=None) -> Optional[GenLayout]:
-    """The unit layout on cl blocks a stream in ``rh`` row halves with
-    the largest tile of :data:`TILES` whose plan fits a block's shared
-    memory, or None."""
+def units_layout_for(K, D, W, Vp, topk, cl, rh=1, v_real=None,
+                     g=1) -> Optional[GenLayout]:
+    """The unit layout on ``g`` clusters of cl blocks a stream in ``rh``
+    row halves with the largest tile of :data:`TILES` whose plan fits a
+    block's shared memory, or None."""
     v_real = Vp if v_real is None else v_real
     if not _common_ok(topk, v_real, Vp, W):
         return None
     for tr in TILES:
-        smem = units_plan_bytes(K, cl, rh, tr, D, W, Vp, topk, v_real)
-        if units_ok(K, D, W, cl, rh, tr, v_real) and smem <= SMEM_MAX:
-            return GenLayout(cl, True, rh, tr, smem)
+        smem = units_plan_bytes(K, cl, rh, tr, D, W, Vp, topk, v_real, g)
+        if units_ok(K, D, W, cl, rh, tr, v_real, g) and smem <= SMEM_MAX:
+            return GenLayout(cl, True, rh, tr, smem, g)
     return None
 
 
@@ -231,24 +261,32 @@ def rows_layout_for(K, D, W, Vp, topk, cl,
 
 def gen_layouts(K, D, W, Vp, topk, v_real=None) -> list:
     """Every layout that takes the shape: the unit layout at each size of
-    :data:`UNIT_CLUSTERS` and of :data:`ROW_HALVES`, then the rows layout
-    at each of :data:`ROWS_CLUSTERS`."""
+    :data:`UNIT_CLUSTERS` and of :data:`ROW_HALVES` on one cluster a
+    stream, the rows layout at each of :data:`ROWS_CLUSTERS`, then the
+    unit layout in each number of :data:`ROW_GROUPS` above one."""
     out = [units_layout_for(K, D, W, Vp, topk, cl, rh, v_real)
            for cl in UNIT_CLUSTERS for rh in ROW_HALVES]
     out += [rows_layout_for(K, D, W, Vp, topk, cl, v_real)
             for cl in ROWS_CLUSTERS]
+    out += [units_layout_for(K, D, W, Vp, topk, cl, rh, v_real, g)
+            for g in ROW_GROUPS[1:] for cl in UNIT_CLUSTERS
+            for rh in ROW_HALVES]
     return [lay for lay in out if lay is not None]
 
 
 def step_cost(lay: GenLayout, K, D, W, v_real) -> float:
     """The cost model of one step of one cluster in microseconds (the
-    constants above)."""
-    own = K // lay.cl * W * v_real
+    constants above); in row groups a cluster computes K/g rows and the
+    step adds the exchange through L2."""
+    rows = K // lay.g
+    own = rows // lay.cl * W * v_real
     if lay.units:
-        fmas = K * D * 2 * W * 4 * W // lay.cl + own
-        words = K // lay.rh * D * 2 * W   # x words a block loads a step
+        fmas = rows * D * 2 * W * 4 * W // lay.cl + own
+        words = rows // lay.rh * D * 2 * W   # x words a block loads a step
         return UNIT_STEP + UNIT_PER_MFMA * fmas / 1e6 \
-            + UNIT_PER_KWORD * words / 1e3
+            + UNIT_PER_KWORD * words / 1e3 \
+            + (UNIT_XCHG + UNIT_XCHG_PER_BLOCK * lay.g * lay.cl
+               if lay.g > 1 else 0.0)
     return ROWS_STEP + ROWS_PER_MFMA * (
         K // lay.cl * D * 2 * W * 4 * W + own) / 1e6
 
@@ -256,16 +294,21 @@ def step_cost(lay: GenLayout, K, D, W, v_real) -> float:
 def choose(N, K, D, W, Vp, topk, v_real, fits: Callable[[GenLayout], int]
            ) -> GenLayout:
     """The layout of a launch of N streams: of :func:`gen_layouts` that
-    the card holds (``fits(layout)``: how many clusters of it at once),
-    the lowest :func:`step_cost` times the waves of clusters wins, ties
-    to the unit layout, then to more blocks.  Raises ValueError where no
-    layout takes the shape or none fits the card."""
+    the card holds (``fits(layout)``: how many clusters of it at once;
+    row groups only where all N*g clusters fit at once), the lowest
+    :func:`step_cost` times the waves of clusters wins, ties to the unit
+    layout, then to more row groups (the model rates g groups of cl
+    blocks as g/2 groups of 2cl; the smaller clusters measured faster:
+    27.2 against 27.7 us a step at row 6), then to more blocks.  Raises
+    ValueError where no layout takes the shape or none fits the card."""
     best = None
     for lay in gen_layouts(K, D, W, Vp, topk, v_real):
         at_once = fits(lay)
+        if lay.g > 1 and at_once < N * lay.g:
+            continue
         if at_once > 0:
             key = (step_cost(lay, K, D, W, v_real) * _ceil(N, at_once),
-                   not lay.units, -lay.cl)
+                   not lay.units, -lay.g, -lay.cl)
             if best is None or key < best[0]:
                 best = (key, lay)
     if best is None:
@@ -289,11 +332,11 @@ def _library() -> ctypes.CDLL:
     lib.gen_beam_smem_bytes.restype = ctypes.c_size_t
     lib.gen_beam_max_clusters.argtypes = [I] * 6
     lib.gen_beam_max_clusters.restype = ctypes.c_int
-    lib.gen_beam_units_launch.argtypes = [P] * 10 + [I] * 11 + [F, P]
+    lib.gen_beam_units_launch.argtypes = [P] * 13 + [I] * 12 + [F, P]
     lib.gen_beam_units_launch.restype = ctypes.c_int
-    lib.gen_beam_units_smem_bytes.argtypes = [I] * 9
+    lib.gen_beam_units_smem_bytes.argtypes = [I] * 10
     lib.gen_beam_units_smem_bytes.restype = ctypes.c_size_t
-    lib.gen_beam_units_max_clusters.argtypes = [I] * 9
+    lib.gen_beam_units_max_clusters.argtypes = [I] * 10
     lib.gen_beam_units_max_clusters.restype = ctypes.c_int
     return lib
 
@@ -301,24 +344,33 @@ def _library() -> ctypes.CDLL:
 def clusters_that_fit(index, K, D, W, Vp, topk, v_real,
                       lay: GenLayout) -> int:
     """How many clusters of ``lay`` CUDA device ``index`` holds at once
-    (``cudaOccupancyMaxActiveClusters``; 0 where none)."""
-    return _fits(index, lay.cl, lay.units, lay.rh, lay.tr, K, D, W, Vp,
-                 topk, v_real)
+    (``cudaOccupancyMaxActiveClusters``; 0 where none, and for row groups
+    where the card takes no cooperative launch)."""
+    return _fits(index, lay.cl, lay.units, lay.rh, lay.tr, lay.g, K, D, W,
+                 Vp, topk, v_real)
 
 
 @functools.lru_cache(maxsize=None)
-def _fits(index, cl, units, rh, tr, K, D, W, Vp, topk, v_real) -> int:
+def _fits(index, cl, units, rh, tr, g, K, D, W, Vp, topk, v_real) -> int:
     with torch.cuda.device(index):
         if units:
             return _library().gen_beam_units_max_clusters(
-                cl, rh, tr, K, D, W, Vp, v_real, topk)
+                cl, rh, tr, g, K, D, W, Vp, v_real, topk)
         return _library().gen_beam_max_clusters(cl, K, D, W, Vp, topk)
+
+
+# CUDA devices that refused a launch in row groups (a cooperative
+# launch of clusters): they take one cluster a stream from then on
+_GROUPS_REFUSED: set = set()
 
 
 @functools.lru_cache(maxsize=None)
 def _layout(index, N, K, D, W, Vp, topk, v_real) -> GenLayout:
-    return choose(N, K, D, W, Vp, topk, v_real, lambda lay: clusters_that_fit(
-        index, K, D, W, Vp, topk, v_real, lay))
+    def fits(lay):
+        if lay.g > 1 and index in _GROUPS_REFUSED:
+            return 0
+        return clusters_that_fit(index, K, D, W, Vp, topk, v_real, lay)
+    return choose(N, K, D, W, Vp, topk, v_real, fits)
 
 
 def layout_on(device, N, K, D, W, Vp, topk, v_real) -> GenLayout:
@@ -428,13 +480,21 @@ def gen_beam(emb, embT, wcat, bias, state0, cost0, *, length: int,
             hc = torch.empty((2, N, 2, D, K, W), dtype=f32, device=device)
             fin = torch.empty((N, K, S), dtype=f32, device=device) \
                 if final_state else None
+            xc = xh = flags = None
+            if lay.g > 1:
+                # the step's candidates by parity, one counter a stream
+                xc = torch.empty((2, N, K * TOPK), dtype=f32, device=device)
+                xh = torch.empty((2, N, K * TOPK), dtype=torch.int32,
+                                 device=device)
+                flags = torch.zeros((N,), dtype=torch.int32, device=device)
             status = lib.gen_beam_units_launch(
                 emb.data_ptr(), embT.data_ptr(), wcat.data_ptr(),
                 bias.data_ptr(), state0.data_ptr(), cost0.data_ptr(),
                 rec.data_ptr(), hc[0].data_ptr(), hc[1].data_ptr(),
-                fin.data_ptr() if fin is not None else None, lay.cl,
-                lay.rh, lay.tr, N, length, K, D, W, Vp, int(v_real), TOPK,
-                log_threshold(threshold), stream)
+                *(t.data_ptr() if t is not None else None
+                  for t in (fin, xc, xh, flags)),
+                lay.cl, lay.rh, lay.tr, lay.g, N, length, K, D, W, Vp,
+                int(v_real), TOPK, log_threshold(threshold), stream)
         else:
             # the fringe state, double-buffered in device memory
             scratch = torch.empty((2, N, K, S), dtype=f32, device=device)
@@ -445,17 +505,31 @@ def gen_beam(emb, embT, wcat, bias, state0, cost0, *, length: int,
                 rec.data_ptr(), scratch.data_ptr(), lay.cl, N, length, K,
                 D, W, Vp, int(v_real), TOPK, log_threshold(threshold),
                 stream)
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if status != 0 and lay.g > 1 and index not in _GROUPS_REFUSED:
+        # CUDA refused the cooperative launch of the row groups:
+        # the device takes one cluster a stream from now on
+        _GROUPS_REFUSED.add(index)
+        _layout.cache_clear()
+        return gen_beam(emb, embT, wcat, bias, state0, cost0,
+                        length=length, v_real=v_real, topk=topk,
+                        threshold=threshold, final_state=final_state)
     if status != 0:
         raise RuntimeError(
             'gen_beam kernel launch failed: CUDA error %d (%d bytes of '
-            'shared memory asked a block, %d blocks a stream, the %s '
-            'layout)' % (status, lay.smem, lay.cl,
-                         'unit' if lay.units else 'rows'))
+            'shared memory asked a block, %d blocks a cluster, %d '
+            'cluster(s) a stream, the %s layout)'
+            % (status, lay.smem, lay.cl, lay.g,
+               'unit' if lay.units else 'rows'))
     _build.count(gen_beam)
+    if lay.g > 1:
+        _build.count(gen_beam, 'row_groups', lay.g)
     return (rec, fin) if final_state else rec
 
 
 gen_beam.launches = 0
+gen_beam.row_groups = 0   # the row groups of its launches in row groups
 
 
 def traceback(rec, best, out_length: int, segment: Optional[int] = None):

@@ -3,10 +3,12 @@ no card needed.
 
 ``gen_kernel.choose`` picks the layout of a launch of N streams
 (``csrc/gen_beam.cu``): the unit layout (a cluster of 4, 8 or 16 blocks
-a stream in 1 or 2 row halves by unit groups; a block owns its group's
-units, their weights in registers for all steps) or the rows layout of
-the first design (a block owns K/cl fringe rows) on 8 or 16, by a cost
-model of a step times the waves of clusters.  The card's
+in 1 or 2 row halves by unit groups; a block owns its group's units,
+their weights in registers for all steps), on one cluster a stream or
+in g row groups of K/g rows, one cluster each, where all N*g clusters
+fit at once, or the rows layout of the first design (a block owns K/cl
+fringe rows) on 8 or 16, by a cost model of a step times the waves of
+clusters.  The card's
 cluster occupancy is fed as a table, as ``test_torch_cluster_layouts.py``
 does for the decode and the LSTM backward."""
 import re
@@ -45,11 +47,27 @@ def test_german_layouts_and_plans():
     layout on 8 and 16, with the first design's plan."""
     K, D, W, Vp, topk, v_real = _shape()
     lays = gk.gen_layouts(K, D, W, Vp, topk, v_real)
-    assert lays == [gk.GenLayout(8, True, 1, 16, 191120),
-                    gk.GenLayout(16, True, 1, 32, 226896),
-                    gk.GenLayout(16, True, 2, 16, 189776),
-                    gk.GenLayout(8, False, 0, 0, 174992),
-                    gk.GenLayout(16, False, 0, 0, 99792)]
+    assert lays[:5] == [gk.GenLayout(8, True, 1, 16, 191120),
+                        gk.GenLayout(16, True, 1, 32, 226896),
+                        gk.GenLayout(16, True, 2, 16, 189776),
+                        gk.GenLayout(8, False, 0, 0, 174992),
+                        gk.GenLayout(16, False, 0, 0, 99792)]
+    # then the unit layout in row groups: the same blocks over K/g rows
+    # (the own rows' arrays shrink: 8 rows a block from g = 2 on); 16
+    # groups of 16 blocks in two halves would leave 8 rows a half, less
+    # than a tile
+    assert lays[5:] == [
+        gk.GenLayout(8, True, 1, 16, 189776, 2),
+        gk.GenLayout(16, True, 1, 32, 226224, 2),
+        gk.GenLayout(16, True, 2, 16, 189104, 2),
+        gk.GenLayout(8, True, 1, 16, 189104, 4),
+        gk.GenLayout(16, True, 1, 32, 226224, 4),
+        gk.GenLayout(16, True, 2, 16, 189104, 4),
+        gk.GenLayout(8, True, 1, 16, 189104, 8),
+        gk.GenLayout(16, True, 1, 32, 226224, 8),
+        gk.GenLayout(16, True, 2, 16, 189104, 8),
+        gk.GenLayout(8, True, 1, 16, 189104, 16),
+        gk.GenLayout(16, True, 1, 16, 146352, 16)]
     assert gk.units_plan_bytes(K, 16, 2, 32, D, W, Vp, topk, v_real) > \
         gk.SMEM_MAX
     assert gk.units_layout_for(K, D, W, Vp, topk, 4, 1, v_real) is None
@@ -74,20 +92,27 @@ def test_german_layouts_and_plans():
 
 
 @pytest.mark.parametrize('N, want', [
-    # one wave of 16-block clusters: the unit layout in two row halves
-    (1, (16, True, 2)), (7, (16, True, 2)),
+    # few streams leave clusters idle: a stream in row groups of 8-block
+    # clusters, as many as fit for all streams (the model rates them as
+    # half as many groups of 16 blocks in two row halves; ties go to
+    # more groups)
+    (1, (8, True, 1, 8)), (2, (8, True, 1, 4)), (3, (8, True, 1, 4)),
+    # up to seven streams: two groups of 8 blocks a stream (the same SMs
+    # as one cluster of 16, a cheaper exchange than the cluster's)
+    (4, (8, True, 1, 2)), (7, (8, True, 1, 2)),
     # two waves of 7 against one of 15 clusters of the rows layout on 8
     # blocks: the rows layout
-    (8, (8, False, 0)), (15, (8, False, 0)),
+    (8, (8, False, 0, 1)), (15, (8, False, 0, 1)),
     # the batch row: three waves of 7 against two of 15
-    (16, (16, True, 2)), (21, (16, True, 2)),
-    (22, (8, False, 0)), (64, (8, False, 0))])
+    (16, (16, True, 2, 1)), (21, (16, True, 2, 1)),
+    (22, (8, False, 0, 1)), (64, (8, False, 0, 1))])
 def test_german_choice(N, want):
     """The german model's layout by number of streams, from the cost
     model fitted to an H100 (66.6 us a step of the unit layout in two row
-    halves, 115 of the rows layout on 8 blocks) times the waves."""
+    halves, 115 of the rows layout on 8 blocks; row groups cut a
+    cluster's rows and add the exchange) times the waves."""
     lay = gk.choose(N, *_shape(), _fits)
-    assert (lay.cl, lay.units, lay.rh) == want
+    assert (lay.cl, lay.units, lay.rh, lay.g) == want
     assert lay in gk.gen_layouts(*_shape())
 
 
@@ -109,11 +134,17 @@ def test_every_choice_is_a_layout_that_exists(N, kw):
         lay = gk.choose(N, K, D, W, Vp, topk, v_real, fits)
         assert lay in lays and lay.smem <= gk.SMEM_MAX
         if lay.units:
-            assert gk.units_ok(K, D, W, lay.cl, lay.rh, lay.tr, v_real)
+            assert gk.units_ok(K, D, W, lay.cl, lay.rh, lay.tr, v_real,
+                               lay.g)
             assert lay.smem == gk.units_plan_bytes(K, lay.cl, lay.rh, lay.tr,
-                                                   D, W, Vp, topk, v_real)
+                                                   D, W, Vp, topk, v_real,
+                                                   lay.g)
+            # row groups only where every cluster of the launch is
+            # resident at once
+            assert lay.g == 1 or N * lay.g <= fits(lay)
         else:
             assert lay.smem == gk.rows_plan_bytes(K, lay.cl, D, W, Vp, topk)
+            assert lay.g == 1
 
 
 @pytest.mark.parametrize('kw, units', [
@@ -169,6 +200,105 @@ def test_cost_model_counts_waves_and_fmas():
                      lambda lay: 0 if lay.units else 7) == r16
 
 
+@pytest.mark.parametrize('g', [2, 4, 8, 16])
+def test_row_groups_geometry_plans_and_shapes(g):
+    """In g row groups a block keeps the geometry of one cluster a
+    stream (its units, roles and staged rows), its layers run over its
+    half of K/g rows and it owns K/(g*cl) rows' logits; its plan is the
+    one-cluster plan with those own rows; ``units_ok`` asks of K/g what
+    it asks of K at g = 1."""
+    K, D, W, Vp, topk, v_real = _shape()
+    for cl, rh in ((16, 2), (16, 1), (8, 1)):
+        one = gk.unit_geometry(W, cl, rh)
+        grouped = gk.unit_geometry(W, cl, rh, K, g)
+        assert {k: v for k, v in grouped.items()
+                if k not in ('kh', 'own')} == one
+        assert (grouped['kh'], grouped['own']) == (K // g // rh,
+                                                   K // g // cl)
+        assert gk.unit_geometry(W, cl, rh, K)['kh'] == K // rh
+        for tr in gk.TILES:
+            # the own rows' costs and candidates shrink; their top-layer
+            # h and logits share the staged tiles' room, which is larger
+            assert gk.units_plan_bytes(K, cl, rh, tr, D, W, Vp, topk,
+                                       v_real, g) == \
+                gk.units_plan_bytes(K, cl, rh, tr, D, W, Vp, topk, v_real) \
+                - 4 * (gk.own_rows_cap(K // cl) - gk.own_rows_cap(
+                    K // g // cl)) * (1 + 2 * topk)
+            assert gk.units_ok(K, D, W, cl, rh, tr, v_real, g) == \
+                gk.units_ok(K // g, D, W, cl, rh, tr, v_real)
+    # g divides K, at most 16 groups
+    assert not gk.units_ok(K, D, W, 8, 1, 16, v_real, 3)
+    assert not gk.units_ok(512, D, W, 8, 1, 16, v_real, 32)
+    assert gk.units_ok(512, D, W, 8, 1, 16, v_real, 16)
+
+
+def test_one_stream_spreads_over_clusters_sixteen_do_not():
+    """One stream (``generate``) takes row groups: the largest number the
+    cost model rates fastest among those whose clusters all fit; 16
+    streams (``generate_batch``, row 6b) already fill the card and take
+    one cluster a stream."""
+    shape = _shape()
+    one = gk.choose(1, *shape, _fits)
+    assert one.units and one.g > 1 and one.g * one.cl <= 132
+    assert one.g <= H100_FITS[one.cl]
+    batch = gk.choose(16, *shape, _fits)
+    assert batch.g == 1
+    # the card's own count decides: with room for 16 clusters of 16
+    # blocks 16 streams still take one each, one stream more groups
+    more = gk.choose(1, *shape, lambda lay: 16)
+    assert gk.choose(16, *shape, lambda lay: 16).g == 1
+    assert more.g >= one.g
+
+
+@pytest.mark.parametrize('how', ['occupancy', 'launch'])
+def test_a_refused_cooperative_launch_leaves_one_cluster_a_stream(
+        monkeypatch, how):
+    """Where the card takes no cooperative launch (its occupancy query of
+    a grouped layout reads 0) or CUDA refused one (the device in
+    ``_GROUPS_REFUSED``), one stream takes one cluster."""
+    shape = _shape()
+
+    def fits(index, K, D, W, Vp, topk, v_real, lay):
+        if how == 'occupancy' and lay.g > 1:
+            return 0
+        return H100_FITS[lay.cl]
+    monkeypatch.setattr(gk, 'clusters_that_fit', fits)
+    if how == 'launch':
+        monkeypatch.setattr(gk, '_GROUPS_REFUSED', {0})
+    gk._layout.cache_clear()
+    try:
+        lay = gk.layout_on(torch.device('cuda', 0), 1, *shape)
+        assert lay.g == 1 and lay == gk.choose(16, *shape, _fits)
+        # another device is not refused
+        if how == 'launch':
+            assert gk.layout_on(torch.device('cuda', 1), 1, *shape).g > 1
+    finally:
+        gk._layout.cache_clear()
+
+
+@pytest.mark.parametrize('cl, rh', [(16, 2), (16, 1), (8, 1)])
+def test_cost_model_exchange_term(cl, rh):
+    """A step in g row groups costs the one-cluster step of K/g rows
+    with the exchange through L2 in place of the cluster's: UNIT_XCHG
+    and UNIT_XCHG_PER_BLOCK a block of the stream; one cluster a stream
+    pays no exchange term; more groups cost less while the exchange
+    grows slower than the block's rows shrink."""
+    K, D, W, Vp, topk, v_real = _shape()
+    costs = []
+    for g in (1, 2, 4, 8):
+        lay = gk.units_layout_for(K, D, W, Vp, topk, cl, rh, v_real, g)
+        alone = gk.units_layout_for(K // g, D, W, Vp, topk, cl, rh, v_real)
+        xchg = gk.UNIT_XCHG + gk.UNIT_XCHG_PER_BLOCK * g * cl if g > 1 \
+            else 0.0
+        assert gk.step_cost(lay, K, D, W, v_real) == pytest.approx(
+            gk.step_cost(alone, K // g, D, W, v_real) + xchg)
+        costs.append(gk.step_cost(lay, K, D, W, v_real))
+    assert costs == sorted(costs, reverse=True)
+    # the fit: the L2 exchange's fixed part is below the cluster's, and
+    # each arriving block adds to it
+    assert gk.UNIT_XCHG < 0 < gk.UNIT_XCHG_PER_BLOCK
+
+
 def test_layout_cache_is_keyed_by_device_and_shape(monkeypatch):
     """``layout_on`` asks the card's occupancy once per device and
     shape: the same shape again is served from the cache, another N or
@@ -210,7 +340,9 @@ def test_forcing_a_layout(monkeypatch):
     K, D, W, Vp, topk, v_real = shape
     try:
         chosen = gk.layout_on(dev, 1, *shape)
-        for lay in gk.gen_layouts(*shape):
+        lays = gk.gen_layouts(*shape)
+        assert any(lay.g > 1 for lay in lays)
+        for lay in lays:
             with chip_smoke.gen_layout(lay):
                 assert gk._layout.cache_info().currsize == 0
                 assert gk.layout_on(dev, 1, *shape) == lay
@@ -219,6 +351,32 @@ def test_forcing_a_layout(monkeypatch):
             assert gk.layout_on(dev, 1, *shape) == chosen
     finally:
         gk._layout.cache_clear()
+
+
+def test_gen_layouts_on_takes_row_groups_that_fit_the_streams(
+        monkeypatch):
+    """``chip_smoke.gen_layouts_on`` lists row groups only where the
+    card holds every cluster of a launch of N streams."""
+    monkeypatch.setattr(gk, 'clusters_that_fit',
+                        lambda index, *shape: H100_FITS[shape[-1].cl])
+    dev = torch.device('cuda', 0)
+    shape = _shape()
+    for N in (1, 3, 9, 16):
+        lays = chip_smoke.gen_layouts_on(dev, *shape, N)
+        assert [lay for lay in lays if lay.g == 1] == [
+            lay for lay in gk.gen_layouts(*shape) if lay.g == 1]
+        assert all(N * lay.g <= H100_FITS[lay.cl] for lay in lays
+                   if lay.g > 1)
+        assert any(lay.g > 1 for lay in lays) == (N <= 7)
+    assert chip_smoke.gen_layouts_on(dev, *shape) == \
+        chip_smoke.gen_layouts_on(dev, *shape, 1)
+
+
+def test_describe_gen_layout_names_the_row_groups():
+    lay = gk.units_layout_for(*_shape()[:5], 16, 2, 70, 4)
+    assert '4 row groups' in chip_smoke.describe_gen_layout(lay)
+    assert 'row groups' not in chip_smoke.describe_gen_layout(
+        gk.units_layout_for(*_shape()[:5], 16, 2, 70))
 
 
 def test_source_constants_agree():
@@ -235,6 +393,11 @@ def test_source_constants_agree():
     assert '(TR == 16 || TR == 32)' in src and sorted(gk.TILES) == [16, 32]
     assert '(CL == 4 || CL == 8 || CL == 16)' in src
     assert gk.UNIT_CLUSTERS == (4, 8, 16)
+    assert 'G < 1 || G > 16 || K % G' in src
+    assert gk.ROW_GROUPS == (1, 2, 4, 8, 16)
+    # the G = 1 kernel is its own instantiation, the row groups another
+    assert 'template <int D, bool GROUPS>' in src
+    assert 'ulaunch_t<2, false>' in src and 'ulaunch_t<2, true>' in src
 
 
 def test_cpu_tensors_take_the_plain_version_whatever_the_layout(

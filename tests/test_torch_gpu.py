@@ -506,13 +506,16 @@ def test_gen_beam_matches_plain(cuda, fringe, topk):
 
 def test_gen_beam_streams_are_independent(cuda):
     """Three streams in one launch give each stream's records of its own
-    launch, bit for bit (one block cluster per stream), in every layout
-    the chooser can take."""
+    launch, bit for bit (one block cluster a stream, or g clusters a
+    stream in row groups), in every layout the chooser can take for
+    three streams."""
     from chip_smoke import gen_layout, gen_layouts_on
     from ocrd_keraslm_torch.ops import gen_kernel as gk
     _, weights, v_real, state0, cost0 = _gen_inputs(
         cuda, ['Die Vernunft ', 'Was ist ', 'Der Mensch '])
-    for lay in gen_layouts_on(cuda, 256, 2, 128, 128, 10, v_real):
+    lays = gen_layouts_on(cuda, 256, 2, 128, 128, 10, v_real, 3)
+    assert any(lay.g > 1 for lay in lays)
+    for lay in lays:
         with gen_layout(lay):
             together = gk.gen_beam(*weights, state0, cost0, length=20,
                                    v_real=v_real)
@@ -541,7 +544,8 @@ def _small_gen_inputs(device, D, W, K, N, seed):
                                      (1, 96, 256), (2, 128, 32)])
 def test_gen_beam_cluster_sizes_agree(cuda, D, W, K):
     """Every layout the chooser can take (the unit layout on 4, 8 or 16
-    blocks a stream, the rows layout of the first design on 8 or 16)
+    blocks a cluster, one cluster a stream or g in row groups where all
+    N*g fit at once, the rows layout of the first design on 8 or 16)
     gives the same records and final fringe, bit for bit, for one stream
     and for nine streams a launch (more clusters of 16 blocks than the
     card holds at once: they run in waves): the rows or units a block
@@ -549,21 +553,24 @@ def test_gen_beam_cluster_sizes_agree(cuda, D, W, K):
     from chip_smoke import gen_layout, gen_layouts_on
     from ocrd_keraslm_torch.ops import gen_kernel as gk
     weights, state0, cost0 = _small_gen_inputs(cuda, D, W, K, 9, [D, W, K])
-    lays = gen_layouts_on(cuda, K, D, W, 128, 10, 70)
-    assert any(lay.units for lay in lays) and any(not lay.units
-                                                 for lay in lays)
+    one = gen_layouts_on(cuda, K, D, W, 128, 10, 70)
+    assert any(lay.units for lay in one) and any(not lay.units
+                                                for lay in one)
+    assert any(lay.g > 1 for lay in one)
     for N in (1, 9):
+        lays = gen_layouts_on(cuda, K, D, W, 128, 10, 70, N)
         outs = {}
         for lay in lays:
             with gen_layout(lay):
                 outs[lay] = gk.gen_beam(*weights, state0[:N].contiguous(),
                                         cost0[:N].contiguous(), length=24,
                                         v_real=70, final_state=True)
-        want = outs[lays[-1]]
+        want = outs[[lay for lay in lays if lay.g == 1][-1]]
         for lay, got in outs.items():
             assert torch.equal(got[0], want[0]), lay
             assert torch.equal(got[1], want[1]), lay
-    assert gk.layout_on(cuda, 1, K, D, W, 128, 10, 70) in lays
+    assert gk.layout_on(cuda, 1, K, D, W, 128, 10, 70) in one
+    assert gk.layout_on(cuda, 9, K, D, W, 128, 10, 70) in lays
 
 
 @pytest.mark.parametrize('K, D, W, Vp, v_real', [
@@ -581,12 +588,39 @@ def test_gen_layout_plans_match_the_source(cuda, K, D, W, Vp, v_real):
     for lay in lays:
         if lay.units:
             assert lay.smem == lib.gen_beam_units_smem_bytes(
-                K, lay.cl, lay.rh, lay.tr, D, W, Vp, v_real, 10), lay
+                K, lay.cl, lay.rh, lay.tr, lay.g, D, W, Vp, v_real, 10), lay
         else:
             assert lay.smem == lib.gen_beam_smem_bytes(K, lay.cl, D, W, Vp,
                                                        10), lay
     chosen = gk.layout_on(cuda, 1, K, D, W, Vp, 10, v_real)
     assert gk.clusters_that_fit(index, K, D, W, Vp, 10, v_real, chosen) > 0
+
+
+def test_gen_beam_row_groups_counter(cuda):
+    """``gen_beam.row_groups`` counts the row groups of launches in row
+    groups: a one-stream ``generate`` request takes one such launch of
+    the chooser's g clusters, a 16-stream ``generate_batch`` none; the
+    strings equal the CPU's."""
+    from chip_smoke import german_rater
+    from ocrd_keraslm_torch.ops import gen_kernel as gk
+    rater = german_rater(cuda)
+    w = rater._decode_weights(None)
+    lay = gk.layout_on(cuda, 1, 256, rater.depth, rater.width,
+                       w['emb'].shape[0], 10, w['v_real'])
+    assert lay.units and lay.g > 1
+    for n in (1, 2):
+        launches, groups = gk.gen_beam.launches, gk.gen_beam.row_groups
+        for _ in range(n):
+            got = rater.generate('Die Vernunft ', 40, variants=2)
+        assert gk.gen_beam.launches - launches == n
+        assert gk.gen_beam.row_groups - groups == n * lay.g
+    cpu = german_rater(torch.device('cpu'))
+    assert got == cpu.generate('Die Vernunft ', 40, variants=2)
+    prompts = ['Die ', 'Was ist ', 'Der Mensch ', 'Aber '] * 4
+    launches, groups = gk.gen_beam.launches, gk.gen_beam.row_groups
+    rater.generate_batch(prompts, 16)
+    assert gk.gen_beam.launches - launches == 1
+    assert gk.gen_beam.row_groups == groups
 
 
 def test_gen_beam_final_state_resumes(cuda):
@@ -597,7 +631,7 @@ def test_gen_beam_final_state_resumes(cuda):
     from ocrd_keraslm_torch.ops import gen_kernel as gk
     _, weights, v_real, state0, cost0 = _gen_inputs(
         cuda, ['Die Vernunft ', 'Was ist '])
-    for lay in gen_layouts_on(cuda, 256, 2, 128, 128, 10, v_real):
+    for lay in gen_layouts_on(cuda, 256, 2, 128, 128, 10, v_real, 2):
         with gen_layout(lay):
             full = gk.gen_beam(*weights, state0, cost0, length=24,
                                v_real=v_real)
