@@ -476,14 +476,14 @@ __device__ void decode_edges(const Decode& p, const Doc& d, const Smem& sm) {
 //    them);
 //    lane kb=0 adds the blocks in order (shuffles), then the bias: the
 //    one-block kernel's float;
-//  * state, in one of two plans of shared memory (both keep the c of
-//    the own units only; nothing of the state goes through device
-//    memory):
-//    - rows: every block holds the [xemb | h_0 .. h_{D-1}] rows of the
-//      beam and of the K*A candidates in full (padded rows); the plan
-//      wherever it fits a block (K <= 16 at W=128);
-//    - sharded (decode_edges_sharded; K=32 at W=128, where the rows plan
-//      asks 388,596 bytes a block): every block holds only its own units
+//  * state, in one of two plans of shared memory, the template parameter
+//    SH of the functions below (both keep the c of the own units only;
+//    nothing of the state goes through device memory):
+//    - rows (SH false): every block holds the [xemb | h_0 .. h_{D-1}]
+//      rows of the beam and of the K*A candidates in full (padded rows);
+//      the plan wherever it fits a block (K <= 16 at W=128);
+//    - sharded (SH true; K=32 at W=128, where the rows plan asks
+//      388,596 bytes a block): every block holds only its own units
 //      of every row, as of c.  At the start of each chunk every block sends
 //      its units of the chunk's rows into a buffer of every block
 //      (st.async onto the receiver's mbarrier, two buffers, the next
@@ -592,56 +592,26 @@ __device__ __forceinline__ float* dc_chunks(const CSmem& sm, int W) {
   return sm.hn + 2 * DC_RC * padded_width(W);
 }
 
+// The carve of plan SH: the mbarriers (2, and the chunks' rows' 2 in the
+// sharded plan), the ring of h, then the rows of the beam, of the K*A
+// candidates and of the parents' new h in beamx, candx and pnx: padded
+// (rows plan), or after the two chunks' padded rows (dc_chunks) only the
+// own units of them (sharded plan).
+template <bool SH>
 __device__ CSmem carve_cluster_smem(const Decode& p, void* base, int CL) {
   const int W = p.W, D = p.D, K = p.K, A = p.A, L = p.L, KA = K * A;
   const int WP = padded_width(W), XP = (D + 1) * WP, upb = W / CL;
   const int RL = (DC_RC + CL - 1) / CL;
+  const int XR = SH ? (D + 1) * upb : XP;  // a row of beamx and candx
   CSmem s;
   s.bar = reinterpret_cast<uint64_t*>(base);
-  // the ring 16 floats on, so that a lane's input (ring) and recurrent
-  // (row) blocks of layer 1 tend to fall into distinct banks
-  s.hn = reinterpret_cast<float*>(s.bar + 2) + 16;  // (2, DC_RC, WP)
-  s.beamx = s.hn + 2 * DC_RC * WP;                   // (K, XP)
-  s.candx = s.beamx + K * XP;                        // (KA, XP)
-  s.pnx = s.candx + KA * XP;                         // (K, D, WP)
-  s.beamc = s.pnx + K * D * WP;                      // (K, D, upb)
-  s.pnc = s.beamc + K * D * upb;                     // (K, D, upb)
-  s.candc = s.pnc + K * D * upb;                     // (KA, D, upb)
-  s.zs = s.candc + KA * D * upb;                     // (DC_RC, 4, upb)
-  s.hloc = s.zs + DC_RC * 4 * upb;                   // (DC_RC, upb)
-  s.cn = s.hloc + DC_RC * upb;                       // (D, DC_RC, upb)
-  s.lgt = s.cn + D * DC_RC * upb;                    // (RL, W/32, Vp)
-  s.lse = s.lgt + RL * (W / KCH) * p.Vp;
-  s.bias = s.lse + RL;                               // (D, 4, upb)
-  s.costf = s.bias + D * 4 * upb;
-  s.acc = s.costf + K;
-  s.total = s.acc + KA;
-  s.emask = s.total + KA;
-  s.econf = s.emask + A * L;
-  s.evalid = s.econf + A * L;
-  s.embt = s.evalid + A;  // (W, v_real)
-  s.sel = reinterpret_cast<int*>(s.embt + W * p.v_real);
-  s.live = s.sel + K;
-  s.csrc = s.live + KA;
-  s.echar = s.csrc + KA;
-  s.nlive = s.echar + A * L;
-  return s;
-}
-
-// The same in the sharded plan: four mbarriers, the ring, the two chunks'
-// padded rows (dc_chunks), then the own units of the rows of the beam, of
-// the K*A candidates and of the parents' new h in beamx, candx and pnx.
-__device__ CSmem carve_sharded_smem(const Decode& p, void* base, int CL) {
-  const int W = p.W, D = p.D, K = p.K, A = p.A, L = p.L, KA = K * A;
-  const int WP = padded_width(W), XP = (D + 1) * WP, upb = W / CL;
-  const int RL = (DC_RC + CL - 1) / CL;
-  CSmem s;
-  s.bar = reinterpret_cast<uint64_t*>(base);
-  s.hn = reinterpret_cast<float*>(s.bar + 4) + 16;   // (2, DC_RC, WP)
-  s.beamx = s.hn + 2 * DC_RC * WP + 2 * DC_RC * XP;  // (K, D + 1, upb)
-  s.candx = s.beamx + K * (D + 1) * upb;             // (KA, D + 1, upb)
-  s.pnx = s.candx + KA * (D + 1) * upb;              // (K, D, upb)
-  s.beamc = s.pnx + K * D * upb;                     // (K, D, upb)
+  // the ring (2, DC_RC, WP) 16 floats on, so that a lane's input (ring)
+  // and recurrent (row) blocks of layer 1 tend to fall into distinct banks
+  s.hn = reinterpret_cast<float*>(s.bar + (SH ? 4 : 2)) + 16;
+  s.beamx = s.hn + 2 * DC_RC * WP + (SH ? 2 * DC_RC * XP : 0);  // (K, XR)
+  s.candx = s.beamx + K * XR;                        // (KA, XR)
+  s.pnx = s.candx + KA * XR;                         // (K, D, WP or upb)
+  s.beamc = s.pnx + K * D * (SH ? upb : WP);         // (K, D, upb)
   s.pnc = s.beamc + K * D * upb;                     // (K, D, upb)
   s.candc = s.pnc + K * D * upb;                     // (KA, D, upb)
   s.zs = s.candc + KA * D * upb;                     // (DC_RC, 4, upb)
@@ -815,10 +785,19 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
 }
 
 // Decode every edge of document d on the calling cluster of CL blocks
-// (rank: this block's); W = 16 NKB.  The final beam stays in sm.beamx
-// (full) and sm.beamc (own units), its costs in sm.costf (every block
-// alike).
-template <int NKB, int D, int CL, typename WT>
+// (rank: this block's) in the plan SH of shared memory (false: rows,
+// true: sharded); W = 16 NKB.  The final beam stays in sm.beamx (full
+// rows, or the own units of them in the sharded plan) and sm.beamc (own
+// units), its costs in sm.costf (every block alike).
+//
+// The sharded plan's differences are compile-time branches (if constexpr
+// on SH), so that with SH false the compiler sees the rows plan's
+// statements alone, in their order: sharing its code in other ways
+// changed the rows plan's register allocation and measured it 2-3% slower
+// at K=16 on an H100 (gen_beam_phases.py decode-rows).  After an edit
+// here, compare the SASS of the SH=false kernels with the parent's
+// (cuobjdump -sass, addresses and names aside), which must not move.
+template <int NKB, int D, int CL, bool SH, typename WT>
 __device__ void decode_edges_cluster(const Decode& p, const Doc& d,
                                      const CSmem& sm, int rank) {
   cg::cluster_group cluster = cg::this_cluster();
@@ -828,6 +807,7 @@ __device__ void decode_edges_cluster(const Decode& p, const Doc& d,
   constexpr int WP = W + 4 * (W / KCH), XP = (D + 1) * WP, NB = W / KCH;
   constexpr int NRG = CNT / (UPB * GS);  // row groups
   constexpr int NT8 = UPB / 2;           // n8 tiles of the block (bf16)
+  constexpr int XU = (D + 1) * UPB;      // own units of a row (sharded)
   const int tid = threadIdx.x, u0 = rank * UPB;
   const int A = p.A, L = p.L, K = p.K, KA = K * A, Vp = p.Vp;
   const size_t F = d.rec_field;
@@ -868,14 +848,23 @@ __device__ void decode_edges_cluster(const Decode& p, const Doc& d,
         wr[l][k] = __ldg(p.wcat + ((size_t)l * 2 * W + kb * KCH + k) * G +
                          g_ * W + u0 + ul_);
   }
-  // the ring and the rows, pads included, start at 0
-  for (int i = tid; i < 2 * DC_RC * WP + (K + KA) * XP; i += CNT)
+  // the ring and the rows (sharded: the chunks' rows), pads included,
+  // start at 0
+  for (int i = tid; i < 2 * DC_RC * WP + (SH ? 2 * DC_RC : K + KA) * XP;
+       i += CNT)
     sm.hn[i] = 0.0f;
   __syncthreads();
-  for (int i = tid; i < K * (D + 1) * W; i += CNT) {
-    const int k = i / ((D + 1) * W), e = i - k * (D + 1) * W;
-    const int seg = e / W;
-    sm.beamx[k * XP + seg * WP + hpad(e - seg * W)] = d.state0[k * S + e];
+  if constexpr (SH) {
+    for (int i = tid; i < K * XU; i += CNT) {
+      const int k = i / XU, e = i - k * XU;
+      sm.beamx[i] = d.state0[k * S + e / UPB * W + u0 + e % UPB];
+    }
+  } else {
+    for (int i = tid; i < K * (D + 1) * W; i += CNT) {
+      const int k = i / ((D + 1) * W), e = i - k * (D + 1) * W;
+      const int seg = e / W;
+      sm.beamx[k * XP + seg * WP + hpad(e - seg * W)] = d.state0[k * S + e];
+    }
   }
   for (int i = tid; i < K * D * UPB; i += CNT) {
     const int k = i / (D * UPB), j = i - k * D * UPB;
@@ -893,9 +882,13 @@ __device__ void decode_edges_cluster(const Decode& p, const Doc& d,
   if (tid == 0) {
     mbar_init(sm.bar);
     mbar_init(sm.bar + 1);
+    if constexpr (SH) {  // the chunks' rows
+      mbar_init(sm.bar + 2);
+      mbar_init(sm.bar + 3);
+    }
     mbar_init_fence();
   }
-  int ex = 0;
+  int ex = 0, ax = 0;  // exchanges of h, chunks of rows (sharded) so far
   // an edge's arrays (A*L <= CNT), loaded into registers an edge ahead
   int nchar = 0, nsteps_next = 0;
   float nmask = 0.0f, nconf = 0.0f, nvalid = 0.0f;
@@ -947,14 +940,33 @@ __device__ void decode_edges_cluster(const Decode& p, const Doc& d,
         live_rows(p, sm, s);
         __syncthreads();
         n = sm.nlive[0];
-        own_rows<W, D, UPB, WT>(p, sm, sm.live, n);
+        if constexpr (SH)
+          own_units<W, D, UPB, WT>(p, sm, sm.live, n, u0);
+        else
+          own_rows<W, D, UPB, WT>(p, sm, sm.live, n);
       }
+      if constexpr (SH)
+        if (n > 0) send_rows<W, D, CL>(sm, s, 0, min(n, DC_RC), ax & 1, u0);
       for (int first = 0; first < n; first += DC_RC) {
         const int nrows = min(n - first, DC_RC);
-        // the chunk's rows: the beam's parents first.. (step 0) or the
-        // live candidates' own rows
+        // the chunk: the beam's parents first.. (step 0) or the live
+        // candidates idx; their rows are their own (rows plan: at ridx in
+        // rows) or, in order, the chunk's buffer once every block's units
+        // are in (sharded plan: the next chunk's sent first)
         const int* idx = s == 0 ? nullptr : sm.live + first;
         const float* rows = s == 0 ? sm.beamx + first * XP : sm.candx;
+        if constexpr (SH) {
+          if (first + DC_RC < n)
+            send_rows<W, D, CL>(sm, s, first + DC_RC,
+                                min(n - first - DC_RC, DC_RC), (ax + 1) & 1,
+                                u0);
+          PHASE(8)
+          mbar_wait(sm.bar + 2 + (ax & 1), (ax >> 1) & 1);
+          PHASE(9)
+          rows = dc_chunks(sm, W) + (ax & 1) * DC_RC * XP;
+          ++ax;
+        }
+        const int* ridx = SH ? nullptr : idx;
         const float* crows = s == 0 ? sm.beamc + first * D * UPB : sm.candc;
         if (tid == 0)
           for (int l = 0; l < D; ++l)
@@ -973,8 +985,8 @@ __device__ void decode_edges_cluster(const Decode& p, const Doc& d,
               // the fragment rows gq and gq + 8 (pad rows read the
               // chunk's last row; their sums are not stored)
               const int r0 = min(gq, nrows - 1), r1 = min(gq + 8, nrows - 1);
-              const float* x0 = rows + (idx ? idx[r0] : r0) * XP;
-              const float* x1 = rows + (idx ? idx[r1] : r1) * XP;
+              const float* x0 = rows + (ridx ? ridx[r0] : r0) * XP;
+              const float* x1 = rows + (ridx ? ridx[r1] : r1) * XP;
               const float* h0 = sm.hn + (buf ^ 1) * DC_RC * WP + r0 * WP;
               const float* h1 = sm.hn + (buf ^ 1) * DC_RC * WP + r1 * WP;
               float tot[4] = {0.0f, 0.0f, 0.0f, 0.0f};
@@ -1022,7 +1034,7 @@ __device__ void decode_edges_cluster(const Decode& p, const Doc& d,
               for (int r = 0; r < DC_RT; ++r) {
                 const int row = min(base + r, nrows - 1);
                 xr[r] = in_ring ? ring + row * WP
-                                : rows + (idx ? idx[row] : row) * XP + off;
+                                : rows + (ridx ? ridx[row] : row) * XP + off;
               }
               float acc[DC_RT];
 #pragma unroll
@@ -1067,6 +1079,10 @@ __device__ void decode_edges_cluster(const Decode& p, const Doc& d,
             const float c2 = fg * cold[l * UPB + ul] + ig * gg;
             sm.cn[(l * DC_RC + row) * UPB + ul] = c2;
             sm.hloc[row * UPB + ul] = og * tanhf(c2);
+            if constexpr (SH)  // the own unit of the row's new h
+              (s == 0 ? sm.pnx + ((first + row) * D + l) * UPB
+                      : sm.candx + idx[row] * XU + (l + 1) * UPB)[ul] =
+                  sm.hloc[row * UPB + ul];
           }
           __syncthreads();
           PHASE(1)
@@ -1096,9 +1112,9 @@ __device__ void decode_edges_cluster(const Decode& p, const Doc& d,
           ++ex;
           PHASE(4)
           // the layer's new h into the chunk's rows (the parents' new
-          // rows at step 0): before this block's next send, after which
-          // the ring's buffer may change
-          {
+          // rows at step 0; rows plan): before this block's next send,
+          // after which the ring's buffer may change
+          if constexpr (!SH) {
             const float4* hb =
                 reinterpret_cast<const float4*>(sm.hn + buf * DC_RC * WP);
             for (int i = tid; i < nrows * (WP / 4); i += CNT) {
@@ -1189,454 +1205,21 @@ __device__ void decode_edges_cluster(const Decode& p, const Doc& d,
           else
             sm.candc[idx[row] * D * UPB + e] = v;
         }
-        if (s > 0)
-          for (int i = tid; i < nrows * W; i += CNT) {
-            const int row = i / W, e = i % W, r = idx[row];
-            sm.candx[r * XP + hpad(e)] =
-                ldw(wt.emb + (size_t)sm.echar[(r % A) * L + s] * W + e);
-          }
-        __syncthreads();
-        PHASE(6)
-      }
-      if (s == 0)  // the candidates with a char at step 0 take it
-        for (int r = tid; r < KA; r += CNT)
-          if (sm.emask[(r % A) * L] > 0.0f) sm.csrc[r] = SRC_NEW;
-      cluster.sync();  // the step's costs, from every block
-      PHASE(7)
-    }
-
-    // ---- exact top-K by (total, candidate index), in every block ----
-    for (int r = tid; r < KA; r += CNT)
-      sm.total[r] = sm.evalid[r % A] > 0.5f ? sm.costf[r / A] + sm.acc[r]
-                                            : BIGF;
-    __syncthreads();
-    for (int r = tid; r < KA; r += CNT) {
-      const float tr = sm.total[r];
-      int rank_r = 0;
-      for (int j = 0; j < KA; ++j) {
-        const float tj = sm.total[j];
-        rank_r += (tj < tr) || (tj == tr && j < r);
-      }
-      if (rank_r < K) sm.sel[rank_r] = r;
-    }
-    __syncthreads();
-    for (int k = tid; k < K; k += CNT) {
-      const int r = sm.sel[k];
-      if (rank == 0) {
-        rec[k] = (float)(r / A);
-        rec[F + k] = (float)(r % A);
-        rec[2 * F + k] = sm.total[r];
-      }
-      sm.costf[k] = sm.total[r];
-    }
-    // the chosen candidates' rows, then the new beam
-    own_rows<W, D, UPB, WT>(p, sm, sm.sel, K);
-    __syncthreads();
-    for (int i = tid; i < K * XP / 4; i += CNT) {
-      const int k = i / (XP / 4), e = i % (XP / 4);
-      reinterpret_cast<float4*>(sm.beamx + k * XP)[e] =
-          reinterpret_cast<const float4*>(sm.candx + sm.sel[k] * XP)[e];
-    }
-    for (int i = tid; i < K * D * UPB; i += CNT) {
-      const int k = i / (D * UPB);
-      sm.beamc[i] = sm.candc[sm.sel[k] * D * UPB + i % (D * UPB)];
-    }
-    __syncthreads();
-    PHASE(0)
-  }
-  PHASE_FLUSH
-  __syncthreads();
-}
-
-// decode_edges_cluster in the sharded plan (K=32 at W=128): the same
-// products, sums and order, so the same bits, with every row of the beam,
-// the parents' new h and the candidates held as this block's own units
-// (sm.beamx, sm.pnx, sm.candx: (K, D+1, UPB), (K, D, UPB), (KA, D+1, UPB))
-// and each chunk's rows sent to every block before its products
-// (send_rows).  A function (and kernels, and a carve) of its own, not a
-// branch of decode_edges_cluster: sharing that function's code changed
-// the rows plan's register allocation and measured it 2-3% slower at
-// K=16 on an H100 (gen_beam_phases.py decode-rows).  The final beam's own
-// units stay in sm.beamx and sm.beamc, its costs in sm.costf.
-template <int NKB, int D, int CL, typename WT>
-__device__ void decode_edges_sharded(const Decode& p, const Doc& d,
-                                     const CSmem& sm, int rank) {
-  cg::cluster_group cluster = cg::this_cluster();
-  constexpr bool BF = !std::is_same<WT, float>::value;
-  constexpr int W = NKB * KCH / 2, G = 4 * W, S = (2 * D + 1) * W;
-  constexpr int GS = 4 * NKB, HB = NKB / 2, UPB = W / CL;
-  constexpr int WP = W + 4 * (W / KCH), XP = (D + 1) * WP, NB = W / KCH;
-  constexpr int NRG = CNT / (UPB * GS);  // row groups
-  constexpr int NT8 = UPB / 2;           // n8 tiles of the block (bf16)
-  constexpr int XU = (D + 1) * UPB;      // own units of a row
-  const int tid = threadIdx.x, u0 = rank * UPB;
-  const int A = p.A, L = p.L, K = p.K, KA = K * A, Vp = p.Vp;
-  const size_t F = d.rec_field;
-  const Weights<WT> wt = weights_of<WT>(p);
-  // the lane: row group rg, unit ul (u), gate g, 32-term block kb
-  const int rg = tid / (UPB * GS), ul_ = tid / GS % UPB, q_ = tid % GS;
-  const int g_ = q_ / NKB, kb = q_ % NKB;
-  // under bf16: the warp's n8 tile, the lane's fragment row gq and
-  // column pair tq
-  const int warp = tid >> 5, gq = (tid & 31) >> 2, tq = tid & 3;
-  PHASE_INIT
-
-  // f32: the lane's weights of every layer, wcat[l][32kb + k][gW + u];
-  // bf16: the warp's B fragments of every layer and 32-term block
-  // (k16 step j >> 1, rows 2tq (j even) or 2tq + 8 (j odd), column gq of
-  // the tile)
-  std::conditional_t<BF, uint32_t[D][NKB][4], float[D][KCH]> wr;
-  if constexpr (BF) {
-    if (warp < NT8) {
-      const int n = warp * 8 + gq;  // the block's column
-      const size_t col = (size_t)(n / UPB) * W + u0 + n % UPB;
-#pragma unroll
-      for (int l = 0; l < D; ++l)
-#pragma unroll
-        for (int b = 0; b < NKB; ++b)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int k = b * KCH + (j >> 1) * 16 + (j & 1) * 8 + 2 * tq;
-            const __nv_bfloat16* w = wt.wcat + ((size_t)l * 2 * W + k) * G;
-            wr[l][b][j] = bf16_bits(w + col, w + G + col);
-          }
-    }
-  } else {
-#pragma unroll
-    for (int l = 0; l < D; ++l)
-#pragma unroll
-      for (int k = 0; k < KCH; ++k)
-        wr[l][k] = __ldg(p.wcat + ((size_t)l * 2 * W + kb * KCH + k) * G +
-                         g_ * W + u0 + ul_);
-  }
-  // the ring and the chunks' rows, pads included, start at 0
-  for (int i = tid; i < 2 * DC_RC * WP + 2 * DC_RC * XP; i += CNT)
-    sm.hn[i] = 0.0f;
-  __syncthreads();
-  for (int i = tid; i < K * XU; i += CNT) {
-    const int k = i / XU, e = i - k * XU;
-    sm.beamx[i] = d.state0[k * S + e / UPB * W + u0 + e % UPB];
-  }
-  for (int i = tid; i < K * D * UPB; i += CNT) {
-    const int k = i / (D * UPB), j = i - k * D * UPB;
-    const int l = j / UPB, ul = j - l * UPB;
-    sm.beamc[i] = d.state0[k * S + (1 + D + l) * W + u0 + ul];
-  }
-  for (int i = tid; i < D * 4 * UPB; i += CNT) {
-    const int l = i / (4 * UPB), j = i - l * 4 * UPB;
-    const int g = j / UPB, ul = j - g * UPB;
-    sm.bias[i] = __ldg(p.bias + l * G + g * W + u0 + ul);
-  }
-  for (int k = tid; k < K; k += CNT) sm.costf[k] = d.cost0[k];
-  for (int i = tid; i < W * p.v_real; i += CNT)
-    sm.embt[i] = ldw(wt.embT + (size_t)(i / p.v_real) * Vp + i % p.v_real);
-  if (tid == 0) {
-    mbar_init(sm.bar);
-    mbar_init(sm.bar + 1);
-    mbar_init(sm.bar + 2);  // the chunks' rows
-    mbar_init(sm.bar + 3);
-    mbar_init_fence();
-  }
-  int ex = 0, ax = 0;  // exchanges of h, chunks of rows so far
-  // an edge's arrays (A*L <= CNT), loaded into registers an edge ahead
-  int nchar = 0, nsteps_next = 0;
-  float nmask = 0.0f, nconf = 0.0f, nvalid = 0.0f;
-  auto fetch = [&](int t) {
-    if (t >= p.n_real) return;
-    const size_t eo = (size_t)t * d.alt_stride + tid;
-    if (tid < A * L) {
-      nchar = d.chars[eo];
-      nmask = d.mask[eo];
-      nconf = d.conf[eo];
-    }
-    if (tid < A) nvalid = d.valid[(size_t)t * d.valid_stride + tid];
-    nsteps_next = p.steps[t];
-  };
-  fetch(0);
-  cluster.sync();  // every block of the cluster runs, its barriers ready
-
-  for (int t = 0; t < p.E; ++t) {
-    float* rec = d.rec + (size_t)t * d.rec_stride;
-    if (t >= p.n_real) {
-      if (rank == 0)
-        for (int k = tid; k < K; k += CNT) {
-          rec[k] = (float)k;
-          rec[F + k] = 0.0f;
-          rec[2 * F + k] = sm.costf[k];
-        }
-      continue;
-    }
-    if (tid < A * L) {
-      sm.echar[tid] = nchar;
-      sm.emask[tid] = nmask;
-      sm.econf[tid] = nconf;
-    }
-    if (tid < A) sm.evalid[tid] = nvalid;
-    const int nsteps = nsteps_next;
-    fetch(t + 1);
-    for (int r = tid; r < KA; r += CNT) {
-      sm.acc[r] = 0.0f;
-      sm.csrc[r] = SRC_OLD;  // a masked candidate keeps its parent's
-    }
-    __syncthreads();
-    PHASE(0)
-
-    // ---- the char steps: step 0 on the K parent rows, steps 1.. on
-    // the candidate rows that still have chars, in chunks of DC_RC ----
-    for (int s = 0; s < nsteps; ++s) {
-      int n = K;
-      if (s > 0) {
-        live_rows(p, sm, s);
-        __syncthreads();
-        n = sm.nlive[0];
-        own_units<W, D, UPB, WT>(p, sm, sm.live, n, u0);
-      }
-      if (n > 0) send_rows<W, D, CL>(sm, s, 0, min(n, DC_RC), ax & 1, u0);
-      for (int first = 0; first < n; first += DC_RC) {
-        const int nrows = min(n - first, DC_RC);
-        // the chunk: the beam's parents first.. (step 0) or the live
-        // candidates cidx; its rows in the chunk's buffer, once every
-        // block's units are in (the next chunk's sent first)
-        const int* cidx = s == 0 ? nullptr : sm.live + first;
-        if (first + DC_RC < n)
-          send_rows<W, D, CL>(sm, s, first + DC_RC,
-                              min(n - first - DC_RC, DC_RC), (ax + 1) & 1,
-                              u0);
-        PHASE(8)
-        mbar_wait(sm.bar + 2 + (ax & 1), (ax >> 1) & 1);
-        PHASE(9)
-        const float* rows = dc_chunks(sm, W) + (ax & 1) * DC_RC * XP;
-        ++ax;
-        const float* crows = s == 0 ? sm.beamc + first * D * UPB : sm.candc;
-        if (tid == 0)
-          for (int l = 0; l < D; ++l)
-            mbar_expect(sm.bar + ((ex + l) & 1), 4u * nrows * W);
-#pragma unroll
-        for (int l = 0; l < D; ++l) {
-          const int buf = ex & 1;
-          // the lane's x: block kb of [input | h_l]; input = xemb (layer
-          // 0) or the new h of layer l-1 (the other buffer of the ring)
-          const bool in_ring = kb < HB && l > 0;
-          const int off = kb < HB ? kb * (KCH + 4)
-                                  : (l + 1) * WP + (kb - HB) * (KCH + 4);
-          const float* ring = sm.hn + (buf ^ 1) * DC_RC * WP + off;
-          if constexpr (BF) {
-            if (warp < NT8) {
-              // the fragment rows gq and gq + 8 (pad rows read the
-              // chunk's last row; their sums are not stored)
-              const int r0 = min(gq, nrows - 1), r1 = min(gq + 8, nrows - 1);
-              const float* x0 = rows + r0 * XP;
-              const float* x1 = rows + r1 * XP;
-              const float* h0 = sm.hn + (buf ^ 1) * DC_RC * WP + r0 * WP;
-              const float* h1 = sm.hn + (buf ^ 1) * DC_RC * WP + r1 * WP;
-              float tot[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-              for (int b = 0; b < NKB; ++b) {
-                // block b of [input | h_l]: as the f32 lane's `off`
-                const bool ring_b = b < HB && l > 0;
-                const int off_b = b < HB ? b * (KCH + 4)
-                                         : (l + 1) * WP + (b - HB) * (KCH + 4);
-                const float* y0 = (ring_b ? h0 : x0) + off_b;
-                const float* y1 = (ring_b ? h1 : x1) + off_b;
-                float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-                for (int ks = 0; ks < 2; ++ks) {
-                  const int k = ks * 16 + 2 * tq;
-                  const float2 v00 = *reinterpret_cast<const float2*>(y0 + k);
-                  const float2 v10 = *reinterpret_cast<const float2*>(y1 + k);
-                  const float2 v01 =
-                      *reinterpret_cast<const float2*>(y0 + k + 8);
-                  const float2 v11 =
-                      *reinterpret_cast<const float2*>(y1 + k + 8);
-                  const uint32_t a[4] = {
-                      bf16_pair(v00.x, v00.y), bf16_pair(v10.x, v10.y),
-                      bf16_pair(v01.x, v01.y), bf16_pair(v11.x, v11.y)};
-                  mma_bf16(c, a, wr[l][b][2 * ks], wr[l][b][2 * ks + 1]);
-                }
-#pragma unroll
-                for (int i = 0; i < 4; ++i) tot[i] += c[i];
-              }
-              const int col = warp * 8 + 2 * tq;
-              if (gq < nrows) {
-                sm.zs[gq * 4 * UPB + col] = tot[0];
-                sm.zs[gq * 4 * UPB + col + 1] = tot[1];
-              }
-              if (gq + 8 < nrows) {
-                sm.zs[(gq + 8) * 4 * UPB + col] = tot[2];
-                sm.zs[(gq + 8) * 4 * UPB + col + 1] = tot[3];
-              }
+        if (s > 0) {
+          if constexpr (SH) {
+            for (int i = tid; i < nrows * UPB; i += CNT) {
+              const int row = i / UPB, ul = i % UPB, r = idx[row];
+              sm.candx[r * XU + ul] = ldw(
+                  wt.emb + (size_t)sm.echar[(r % A) * L + s] * W + u0 + ul);
             }
           } else {
-            for (int pass = 0; pass * NRG * DC_RT < nrows; ++pass) {
-              const int base = (pass * NRG + rg) * DC_RT;
-              const float* xr[DC_RT];
-#pragma unroll
-              for (int r = 0; r < DC_RT; ++r) {
-                const int row = min(base + r, nrows - 1);
-                xr[r] = in_ring ? ring + row * WP : rows + row * XP + off;
-              }
-              float acc[DC_RT];
-#pragma unroll
-              for (int r = 0; r < DC_RT; ++r) acc[r] = 0.0f;
-#pragma unroll
-              for (int k = 0; k < KCH; k += 4) {
-#pragma unroll
-                for (int r = 0; r < DC_RT; ++r) {
-                  const float4 xv = *reinterpret_cast<const float4*>(xr[r] + k);
-                  float a = acc[r];
-                  a = fmaf(xv.x, wr[l][k], a);
-                  a = fmaf(xv.y, wr[l][k + 1], a);
-                  a = fmaf(xv.z, wr[l][k + 2], a);
-                  a = fmaf(xv.w, wr[l][k + 3], a);
-                  acc[r] = a;
-                }
-              }
-              kb_sum<NKB, DC_RT, GS>(acc);
-              if (kb == 0)
-#pragma unroll
-                for (int r = 0; r < DC_RT; ++r)
-                  if (base + r < nrows)
-                    sm.zs[(base + r) * 4 * UPB + g_ * UPB + ul_] = acc[r];
+            for (int i = tid; i < nrows * W; i += CNT) {
+              const int row = i / W, e = i % W, r = idx[row];
+              sm.candx[r * XP + hpad(e)] =
+                  ldw(wt.emb + (size_t)sm.echar[(r % A) * L + s] * W + e);
             }
           }
-          __syncthreads();
-          PHASE(2)
-          // the own units' gate updates
-          for (int i = tid; i < nrows * UPB; i += CNT) {
-            const int row = i / UPB, ul = i % UPB;
-            const float* z = sm.zs + row * 4 * UPB + ul;
-            const float* bl = sm.bias + l * 4 * UPB + ul;
-            const float zi = z[0] + bl[0];
-            const float zf = z[UPB] + bl[UPB];
-            const float zg = z[2 * UPB] + bl[2 * UPB];
-            const float zo = z[3 * UPB] + bl[3 * UPB];
-            const float* cold = crows + (cidx ? cidx[row] : row) * D * UPB;
-            const float ig = sigm(zi);
-            const float fg = sigm(zf);
-            const float gg = tanhf(zg);
-            const float og = sigm(zo);
-            const float c2 = fg * cold[l * UPB + ul] + ig * gg;
-            sm.cn[(l * DC_RC + row) * UPB + ul] = c2;
-            const float h2 = og * tanhf(c2);
-            sm.hloc[row * UPB + ul] = h2;
-            // the own unit of the row's new h
-            (s == 0 ? sm.pnx + ((first + row) * D + l) * UPB
-                    : sm.candx + cidx[row] * XU + (l + 1) * UPB)[ul] = h2;
-          }
-          __syncthreads();
-          PHASE(1)
-          // the new h of the own units into every block, four units a
-          // store where a block owns a multiple of 4
-          {
-            const unsigned hb = smem_addr(sm.hn + buf * DC_RC * WP);
-            const unsigned bb = smem_addr(sm.bar + buf);
-            constexpr int V = UPB % 4 == 0 ? 4 : 1, UV = UPB / V;
-            const int per = nrows * UV;
-            for (int i = tid; i < per * CL; i += CNT) {
-              const int k = i / per, j = i - k * per;
-              const int row = j / UV, ul = j % UV * V;
-              const unsigned a = mapa(
-                  hb + 4u * (unsigned)(row * WP + hpad(u0 + ul)), k);
-              if constexpr (V == 4)
-                st_async4(a,
-                          *reinterpret_cast<const float4*>(
-                              sm.hloc + row * UPB + ul),
-                          mapa(bb, k));
-              else
-                st_async(a, sm.hloc[row * UPB + ul], mapa(bb, k));
-            }
-          }
-          PHASE(3)
-          mbar_wait(sm.bar + buf, (ex >> 1) & 1);  // every unit's h
-          ++ex;
-          PHASE(4)
         }
-        // the tied softmax of this block's rows (row = rank + CL*ri): a
-        // logit's 32-term blocks on threads of their own, then added in
-        // block order
-        const float* htop = sm.hn + ((ex - 1) & 1) * DC_RC * WP;
-        const int nmine = rank < nrows ? (nrows - rank + CL - 1) / CL : 0;
-        const int vr = p.v_real;
-        for (int i = tid; i < nmine * NB * vr; i += CNT) {
-          const int ri = i / (NB * vr), j = i - ri * NB * vr;
-          const int blk = j / vr, v = j - blk * vr;
-          const float* h = htop + (rank + CL * ri) * WP + blk * (KCH + 4);
-          const float* e = sm.embt + blk * KCH * vr + v;
-          float a = 0.0f;
-#pragma unroll
-          for (int k = 0; k < KCH; ++k) a = fmaf(opnd<WT>(h[k]), e[k * vr], a);
-          sm.lgt[(ri * NB + blk) * Vp + v] = a;
-        }
-        __syncthreads();
-        for (int i = tid; i < nmine * vr; i += CNT) {
-          const int ri = i / vr, v = i - ri * vr;
-          float* lg = sm.lgt + ri * NB * Vp + v;
-          float tot = lg[0];
-#pragma unroll
-          for (int blk = 1; blk < NB; ++blk) tot = tot + lg[blk * Vp];
-          lg[0] = tot;
-        }
-        __syncthreads();
-        const int lane = tid & 31, warp = tid >> 5;
-        for (int ri = warp; ri < nmine; ri += CNT / 32) {
-          const float* lg = sm.lgt + ri * NB * Vp;
-          float mx = -INFINITY;
-          for (int v = lane; v < vr; v += 32) mx = fmaxf(mx, lg[v]);
-          for (int o = 16; o > 0; o >>= 1)
-            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-          float sum = 0.0f;
-          for (int v = lane; v < vr; v += 32) sum += expf(lg[v] - mx);
-          for (int o = 16; o > 0; o >>= 1)
-            sum += __shfl_xor_sync(0xffffffffu, sum, o);
-          if (lane == 0) sm.lse[ri] = mx + logf(sum);
-        }
-        __syncthreads();
-        PHASE(5)
-        // the owner's cost terms, into every block's copy of the costs
-        if (s == 0) {
-          for (int i = tid; i < nmine * A; i += CNT) {
-            const int ri = i / A, a = i - ri * A;
-            const int r = (first + rank + CL * ri) * A + a;
-            const float m = sm.emask[a * L];
-            if (m > 0.0f) {
-              const float nll2 =
-                  (sm.lse[ri] - sm.lgt[ri * NB * Vp + sm.echar[a * L]]) *
-                  INV_LN2F;
-              const float v =
-                  sm.acc[r] + m * (p.lw * nll2 + p.lw1 * sm.econf[a * L]);
-              for (int k = 0; k < CL; ++k)
-                cluster.map_shared_rank(sm.acc, k)[r] = v;
-            }
-          }
-        } else {
-          for (int ri = tid; ri < nmine; ri += CNT) {
-            const int r = cidx[rank + CL * ri], a = r % A;
-            const float m = sm.emask[a * L + s];
-            const float nll2 =
-                (sm.lse[ri] - sm.lgt[ri * NB * Vp + sm.echar[a * L + s]]) *
-                INV_LN2F;
-            const float v =
-                sm.acc[r] + m * (p.lw * nll2 + p.lw1 * sm.econf[a * L + s]);
-            for (int k = 0; k < CL; ++k)
-              cluster.map_shared_rank(sm.acc, k)[r] = v;
-          }
-        }
-        // the rest of the chunk's new state: c of the own units (of the
-        // parents at step 0), xemb of the char taken (steps 1..)
-        for (int i = tid; i < nrows * D * UPB; i += CNT) {
-          const int row = i / (D * UPB), e = i % (D * UPB);
-          const float v = sm.cn[(e / UPB * DC_RC + row) * UPB + e % UPB];
-          if (s == 0)
-            sm.pnc[(first + row) * D * UPB + e] = v;
-          else
-            sm.candc[cidx[row] * D * UPB + e] = v;
-        }
-        if (s > 0)
-          for (int i = tid; i < nrows * UPB; i += CNT) {
-            const int row = i / UPB, ul = i % UPB, r = cidx[row];
-            sm.candx[r * XU + ul] = ldw(
-                wt.emb + (size_t)sm.echar[(r % A) * L + s] * W + u0 + ul);
-          }
         __syncthreads();
         PHASE(6)
       }
@@ -1672,11 +1255,21 @@ __device__ void decode_edges_sharded(const Decode& p, const Doc& d,
       sm.costf[k] = sm.total[r];
     }
     // the chosen candidates' rows, then the new beam
-    own_units<W, D, UPB, WT>(p, sm, sm.sel, K, u0);
-    __syncthreads();
-    for (int i = tid; i < K * XU; i += CNT) {
-      const int k = i / XU;
-      sm.beamx[i] = sm.candx[sm.sel[k] * XU + i % XU];
+    if constexpr (SH) {
+      own_units<W, D, UPB, WT>(p, sm, sm.sel, K, u0);
+      __syncthreads();
+      for (int i = tid; i < K * XU; i += CNT) {
+        const int k = i / XU;
+        sm.beamx[i] = sm.candx[sm.sel[k] * XU + i % XU];
+      }
+    } else {
+      own_rows<W, D, UPB, WT>(p, sm, sm.sel, K);
+      __syncthreads();
+      for (int i = tid; i < K * XP / 4; i += CNT) {
+        const int k = i / (XP / 4), e = i % (XP / 4);
+        reinterpret_cast<float4*>(sm.beamx + k * XP)[e] =
+            reinterpret_cast<const float4*>(sm.candx + sm.sel[k] * XP)[e];
+      }
     }
     for (int i = tid; i < K * D * UPB; i += CNT) {
       const int k = i / (D * UPB);
@@ -1690,7 +1283,8 @@ __device__ void decode_edges_sharded(const Decode& p, const Doc& d,
 }
 
 // The final beam's rows into state (K, S): this block's units of xemb, h
-// and c.
+// and c, from the rows of plan SH.
+template <bool SH>
 __device__ void cluster_write_state(const Decode& p, const CSmem& sm,
                                     float* state, int CL, int rank) {
   const int K = p.K, D = p.D, W = p.W, S = (2 * D + 1) * W;
@@ -1701,21 +1295,8 @@ __device__ void cluster_write_state(const Decode& p, const CSmem& sm,
     const int seg = rest % (2 * D + 1), k = rest / (2 * D + 1);
     const int u = u0 + ul;
     state[(size_t)k * S + seg * W + u] =
-        seg <= D ? sm.beamx[k * XP + seg * WP + hpad(u)]
-                 : sm.beamc[(k * D + seg - 1 - D) * upb + ul];
-  }
-}
-
-// The same in the sharded plan: from this block's units of the rows.
-__device__ void cluster_write_units(const Decode& p, const CSmem& sm,
-                                    float* state, int CL, int rank) {
-  const int K = p.K, D = p.D, W = p.W, S = (2 * D + 1) * W;
-  const int upb = W / CL, u0 = rank * upb;
-  for (int i = threadIdx.x; i < K * (2 * D + 1) * upb; i += CNT) {
-    const int ul = i % upb, rest = i / upb;
-    const int seg = rest % (2 * D + 1), k = rest / (2 * D + 1);
-    state[(size_t)k * S + seg * W + u0 + ul] =
-        seg <= D ? sm.beamx[(k * (D + 1) + seg) * upb + ul]
+        seg <= D ? sm.beamx[SH ? (k * (D + 1) + seg) * upb + ul
+                               : k * XP + seg * WP + hpad(u)]
                  : sm.beamc[(k * D + seg - 1 - D) * upb + ul];
   }
 }

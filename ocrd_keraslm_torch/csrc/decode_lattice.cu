@@ -27,10 +27,11 @@
 // block alike; each block holds every row of the beam and of the K*A
 // candidates where that fits its shared memory (the rows plan), else
 // (K=32 at W=128) only its own units of them, the chunk's rows sent to
-// every block before its products (the sharded plan; shard from the
-// wrapper).  Shapes the cluster layout does not take (and cl = 1 from
-// the wrapper) run the first port's one-block kernel, decode_edges: one
-// block of 512 threads loops over the edges (beam in shared memory,
+// every block before its products (the sharded plan: shard from the
+// wrapper, the template parameter SH of the one cluster kernel and
+// device function).  Shapes the cluster layout does not take (and cl = 1
+// from the wrapper) run the first port's one-block kernel, decode_edges:
+// one block of 512 threads loops over the edges (beam in shared memory,
 // candidate rows in a global scratch buffer that the wrapper allocates,
 // step 0 on the parent rows, blocked 32-term sums, rank-count top K).
 // decode_lattice_batch.cu runs the same device code one cluster (or
@@ -124,31 +125,17 @@ __global__ void __launch_bounds__(NT, 1) decode_lattice_kernel(Params q) {
   single_tail(q, sm.costf, NT);
 }
 
-// The document on one cluster of CL blocks.
-template <int NKB, int D, int CL, typename WT>
+// The document on one cluster of CL blocks, in the plan SH of shared
+// memory (false: rows, true: sharded; see decode_edges_cluster).
+template <int NKB, int D, int CL, bool SH, typename WT>
 __global__ void __launch_bounds__(CNT, 1)
     decode_lattice_cluster_kernel(Params q) {
   extern __shared__ float4 smem4[];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
-  const CSmem sm = carve_cluster_smem(q.p, smem4, CL);
-  decode_edges_cluster<NKB, D, CL, WT>(q.p, single_doc(q), sm, rank);
-  cluster_write_state(q.p, sm, q.stateF, CL, rank);
-  if (rank == 0) single_tail(q, sm.costf, CNT);
-  cluster.sync();  // no block leaves while another may still read it
-}
-
-// The same in the sharded plan (a kernel of its own, so that the rows
-// plan's kernel stays as it was: see decode_edges_sharded).
-template <int NKB, int D, int CL, typename WT>
-__global__ void __launch_bounds__(CNT, 1)
-    decode_lattice_sharded_kernel(Params q) {
-  extern __shared__ float4 smem4[];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = (int)cluster.block_rank();
-  const CSmem sm = carve_sharded_smem(q.p, smem4, CL);
-  decode_edges_sharded<NKB, D, CL, WT>(q.p, single_doc(q), sm, rank);
-  cluster_write_units(q.p, sm, q.stateF, CL, rank);
+  const CSmem sm = carve_cluster_smem<SH>(q.p, smem4, CL);
+  decode_edges_cluster<NKB, D, CL, SH, WT>(q.p, single_doc(q), sm, rank);
+  cluster_write_state<SH>(q.p, sm, q.stateF, CL, rank);
   if (rank == 0) single_tail(q, sm.costf, CNT);
   cluster.sync();  // no block leaves while another may still read it
 }
@@ -180,22 +167,14 @@ static int cluster_run(const Params& q, int cl, bool shard, bool bf16,
                                                    auto clc, auto shc) {
     constexpr int NKB = decltype(nkbc)::value, D = decltype(dc)::value;
     constexpr int C = decltype(clc)::value;
-    if constexpr (decltype(shc)::value) {
-      if (bf16)
-        return decode_cluster_launch(
-            decode_lattice_sharded_kernel<NKB, D, C, __nv_bfloat16>, cl, 1,
-            smem, stream, fits, q);
-      return decode_cluster_launch(
-          decode_lattice_sharded_kernel<NKB, D, C, float>, cl, 1, smem,
-          stream, fits, q);
-    }
+    constexpr bool SH = decltype(shc)::value;
     if (bf16)
       return decode_cluster_launch(
-          decode_lattice_cluster_kernel<NKB, D, C, __nv_bfloat16>, cl, 1,
+          decode_lattice_cluster_kernel<NKB, D, C, SH, __nv_bfloat16>, cl, 1,
           smem, stream, fits, q);
     return decode_cluster_launch(
-        decode_lattice_cluster_kernel<NKB, D, C, float>, cl, 1, smem, stream,
-        fits, q);
+        decode_lattice_cluster_kernel<NKB, D, C, SH, float>, cl, 1, smem,
+        stream, fits, q);
   });
 }
 

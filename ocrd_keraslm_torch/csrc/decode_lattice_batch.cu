@@ -16,8 +16,8 @@
 //
 // What the design does about it: one thread-block cluster of CL blocks
 // per document (decode_edges_cluster of decode_common.cuh, in its rows
-// or its sharded plan; the wrapper chooses CL from N and from the
-// clusters the card holds at once), or,
+// or its sharded plan, the kernel's template parameter SH; the wrapper
+// chooses CL from N and from the clusters the card holds at once), or,
 // where the cluster layout does not take the shape or the wrapper asks
 // cl = 1, one block of 512 threads per document (decode_edges, the first
 // port's code, candidate rows in the document's slice of a global
@@ -101,8 +101,9 @@ __global__ void __launch_bounds__(NT, 1)
   for (int k = tid; k < K; k += NT) io.costF[(size_t)n * K + k] = sm.costf[k];
 }
 
-// Document n on cluster n of CL blocks.
-template <int NKB, int D, int CL, typename WT>
+// Document n on cluster n of CL blocks, in the plan SH of shared memory
+// (false: rows, true: sharded; see decode_edges_cluster).
+template <int NKB, int D, int CL, bool SH, typename WT>
 __global__ void __launch_bounds__(CNT, 1)
     decode_lattice_batch_cluster_kernel(Decode p, BatchIO io) {
   extern __shared__ float4 smem4[];
@@ -110,30 +111,10 @@ __global__ void __launch_bounds__(CNT, 1)
   const int rank = (int)cluster.block_rank();
   const int n = (int)blockIdx.x / CL, N = (int)gridDim.x / CL;
   const int K = p.K, S = (2 * D + 1) * p.W;
-  const CSmem sm = carve_cluster_smem(p, smem4, CL);
+  const CSmem sm = carve_cluster_smem<SH>(p, smem4, CL);
   const Doc d = batch_doc(p, io, n, N);
-  decode_edges_cluster<NKB, D, CL, WT>(p, d, sm, rank);
-  cluster_write_state(p, sm, io.stateF + (size_t)n * K * S, CL, rank);
-  if (rank == 0)
-    for (int k = threadIdx.x; k < K; k += CNT)
-      io.costF[(size_t)n * K + k] = sm.costf[k];
-  cluster.sync();  // no block leaves while another may still read it
-}
-
-// The same in the sharded plan (a kernel of its own, so that the rows
-// plan's kernel stays as it was: see decode_edges_sharded).
-template <int NKB, int D, int CL, typename WT>
-__global__ void __launch_bounds__(CNT, 1)
-    decode_lattice_batch_sharded_kernel(Decode p, BatchIO io) {
-  extern __shared__ float4 smem4[];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = (int)cluster.block_rank();
-  const int n = (int)blockIdx.x / CL, N = (int)gridDim.x / CL;
-  const int K = p.K, S = (2 * D + 1) * p.W;
-  const CSmem sm = carve_sharded_smem(p, smem4, CL);
-  const Doc d = batch_doc(p, io, n, N);
-  decode_edges_sharded<NKB, D, CL, WT>(p, d, sm, rank);
-  cluster_write_units(p, sm, io.stateF + (size_t)n * K * S, CL, rank);
+  decode_edges_cluster<NKB, D, CL, SH, WT>(p, d, sm, rank);
+  cluster_write_state<SH>(p, sm, io.stateF + (size_t)n * K * S, CL, rank);
   if (rank == 0)
     for (int k = threadIdx.x; k < K; k += CNT)
       io.costF[(size_t)n * K + k] = sm.costf[k];
@@ -243,22 +224,14 @@ static int batch_cluster_run(const Decode& p, const BatchIO& io, int N,
                                                    auto clc, auto shc) {
     constexpr int NKB = decltype(nkbc)::value, D = decltype(dc)::value;
     constexpr int C = decltype(clc)::value;
-    if constexpr (decltype(shc)::value) {
-      if (bf16)
-        return decode_cluster_launch(
-            decode_lattice_batch_sharded_kernel<NKB, D, C, __nv_bfloat16>,
-            cl, N, smem, stream, fits, p, io);
-      return decode_cluster_launch(
-          decode_lattice_batch_sharded_kernel<NKB, D, C, float>, cl, N,
-          smem, stream, fits, p, io);
-    }
+    constexpr bool SH = decltype(shc)::value;
     if (bf16)
       return decode_cluster_launch(
-          decode_lattice_batch_cluster_kernel<NKB, D, C, __nv_bfloat16>, cl,
-          N, smem, stream, fits, p, io);
+          decode_lattice_batch_cluster_kernel<NKB, D, C, SH, __nv_bfloat16>,
+          cl, N, smem, stream, fits, p, io);
     return decode_cluster_launch(
-        decode_lattice_batch_cluster_kernel<NKB, D, C, float>, cl, N, smem,
-        stream, fits, p, io);
+        decode_lattice_batch_cluster_kernel<NKB, D, C, SH, float>, cl, N,
+        smem, stream, fits, p, io);
   });
 }
 
